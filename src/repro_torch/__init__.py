@@ -1,0 +1,16 @@
+"""repro_torch: the hosting engine of ``repro`` ported to PyTorch and CUDA.
+
+The JAX package ``repro`` stays the reference; this package mirrors its
+module paths (``core/costs.py``, ``core/fleet.py``, ``kernels/hosting.py``,
+...) so each port module sits where its counterpart does.  It imports
+``torch`` and numpy, never ``jax`` and nothing of ``repro``.
+
+Entry points (``run_fleet``, ``offline_opt_fleet``, the stream and grid
+constructors) run on the CUDA card unless the caller passes
+``device="cpu"``; on the card the hot loops go through the hand-written
+kernels of ``kernels/csrc/hosting.cu``, on the CPU through their plain
+PyTorch versions.  Everything is float32 (the x64 path is not ported).
+"""
+from repro_torch._device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,14 @@
+"""Online and offline hosting policies (the port of ``repro.core.policies``)."""
+from repro_torch.core.policies.alpha_rr import (AlphaRR, RetroRenting,
+                                                alpha_rr_grid_params,
+                                                alpha_rr_init,
+                                                alpha_rr_literal,
+                                                alpha_rr_step)
+from repro_torch.core.policies.base import PolicyFns, SlotObs, freeze_invalid
+from repro_torch.core.policies.baselines import StaticPolicy
+
+__all__ = [
+    "AlphaRR", "RetroRenting", "alpha_rr_grid_params", "alpha_rr_init",
+    "alpha_rr_literal", "alpha_rr_step", "PolicyFns", "SlotObs",
+    "freeze_invalid", "StaticPolicy",
+]

@@ -1,0 +1,49 @@
+"""Policy interface for the slotted hosting simulator (the port of
+``repro/core/policies/base.py``).
+
+An online policy is a pair of plain functions over a dict of [R]-leading
+tensors (one row per fleet instance; the reference vmapped a per-instance
+pair):
+
+    state0 = init_fn(params)
+    state' = step_fn(params, state, obs)
+
+``obs = SlotObs(x, c, svc, side)`` carries this slot's arrivals [R], rent
+[R], per-level service cost [R, K] and side channel [R].  ``state["r"]`` is
+the [R] int32 index of the level each row holds during the next slot.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple, Optional
+
+import torch
+
+
+class SlotObs(NamedTuple):
+    x: torch.Tensor                       # [R] int32 arrivals this slot
+    c: torch.Tensor                       # [R] float32 rent this slot
+    svc: torch.Tensor                     # [R, K] service cost per level
+    side: Optional[torch.Tensor] = None   # [R] int32 side info
+
+
+State = Dict[str, Any]
+
+
+def freeze_invalid(valid, new_state: State, old_state: State) -> State:
+    """The mixed-horizon masking rule: ``new_state`` on rows whose slot is
+    valid, the unchanged ``old_state`` past the row's own horizon.  On valid
+    rows ``torch.where`` selects, so a uniform-horizon run is unchanged."""
+    out = {}
+    for k, n in new_state.items():
+        v = valid.reshape(valid.shape + (1,) * (n.dim() - 1))
+        out[k] = torch.where(v, n, old_state[k])
+    return out
+
+
+class PolicyFns(NamedTuple):
+    """A policy in pure-function form: ``params`` carry a leading [R] axis."""
+
+    name: str
+    init_fn: Callable[[Any], State]
+    step_fn: Callable[[Any, State, SlotObs], State]
+    params: Any

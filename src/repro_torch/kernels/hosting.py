@@ -1,0 +1,324 @@
+"""The hosting engine's three CUDA kernels, their wrappers and their plain
+PyTorch versions.
+
+* ``slot_uniform`` (kernel **P**) — counter-keyed U(0,1) draws; the port
+  of the Pallas kernel ``repro/kernels/hosting.py:slot_uniform_tc``.
+* ``dp_minplus`` (kernel **D**) — one chunk of the offline-OPT min-plus
+  recursion; the port of ``repro/kernels/hosting.py:dp_minplus_kc``.
+* ``sim_chunk_alpha_rr`` (kernel **S**) — one chunk of the per-slot
+  alpha-RR simulation, the reference's ``lax.scan`` of
+  ``simulator.sim_chunk_core`` over ``alpha_rr_step`` fused into one pass.
+
+Every wrapper follows the same rules: it takes the plain version *only*
+for tensors on the CPU; for CUDA tensors it checks device, dtype, shape and
+contiguity, allocates its outputs with ``torch.empty``, launches on
+``torch.cuda.current_stream()``, raises if the launch was refused, and adds
+one to its ``launches`` counter.  There is no fallback from a CUDA tensor
+to the plain version.  The kernels (``csrc/hosting.cu``) are built at the
+first CUDA call (``_build.py``).
+
+threefry2x32 here works on int64 tensors holding 32-bit words masked with
+``& 0xFFFFFFFF`` (torch on the CPU has no uint32 ``+``, ``<<`` or ``>>``).
+jax has two layouts for turning a key into random bits, selected by its
+``jax_threefry_partitionable`` flag; the port implements both behind
+``threefry_partitionable(flag)`` and defaults to jax 0.9's default
+(partitionable).
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+MASK32 = 0xFFFFFFFF
+_ROTS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+#: the largest level count the kernels take (S: registers; D: one warp)
+SIM_MAX_K = 16
+DP_MAX_K = 32
+
+
+# ----------------------------------------------------------------------
+# threefry2x32 (plain, int64 words) and the layout flag.
+# ----------------------------------------------------------------------
+
+# layout stack; the top is current.  Mirrors jax's context manager of the
+# same name, which the tests open beside this one.
+_PARTITIONABLE = [True]
+
+
+@contextlib.contextmanager
+def threefry_partitionable(flag: bool):
+    """Draw random bits (and split keys) in jax's partitionable layout
+    (``True``, jax 0.9's default) or its original one (``False``)."""
+    _PARTITIONABLE.append(bool(flag))
+    try:
+        yield
+    finally:
+        _PARTITIONABLE.pop()
+
+
+def is_partitionable() -> bool:
+    """The threefry layout currently in force."""
+    return _PARTITIONABLE[-1]
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """One threefry2x32 block: hash counter words ``(x0, x1)`` under key
+    ``(k0, k1)``.  Broadcastable int64 tensors of 32-bit words; returns the
+    pair of output words.  jax's hash: 20 rounds, 5 key injections."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + k0) & MASK32
+    x1 = (x1 + k1) & MASK32
+    for r in range(5):
+        for rot in _ROTS[r % 2]:
+            x0 = (x0 + x1) & MASK32
+            x1 = ((x1 << rot) & MASK32) | (x1 >> (32 - rot))
+            x1 = x0 ^ x1
+        x0 = (x0 + ks[(r + 1) % 3]) & MASK32
+        x1 = (x1 + ks[(r + 2) % 3] + (r + 1)) & MASK32
+    return x0, x1
+
+
+def threefry_fold(k0, k1, d):
+    """``jax.random.fold_in((k0, k1), d)`` on int64 words: the fold data is
+    the counter ``(0, d)``; the output pair is the folded key."""
+    return threefry2x32(k0, k1, torch.zeros_like(d), d)
+
+
+def uniform_from_bits(bits):
+    """jax's uint32 -> U(0,1) float32 mapping: the top 23 bits spliced into
+    a float in [1, 2), minus 1, clamped at 0 as ``jax.random.uniform``
+    does (a no-op on these values, kept op for op)."""
+    fb = ((bits >> 9) | 0x3F800000).to(torch.int32)   # < 2**31: exact
+    u = fb.view(torch.float32) - 1.0
+    return torch.clamp_min(u, 0.0)
+
+
+def fma32(a, b, c):
+    """float32 ``a * b + c`` rounded once (a fused multiply-add), exactly,
+    on any device: the float64 product of two float32s is exact, the
+    float64 sum is fixed up to round-to-odd (TwoSum error term), and one
+    rounding to float32 then gives the correctly rounded result.  The
+    reference's XLA:CPU build contracts ``a * b + c`` into an FMA where a
+    product feeds an add (see the call sites); the kernels use
+    ``__fmaf_rn`` at the same places."""
+    a, b, c = (t.to(torch.float64) for t in torch.broadcast_tensors(
+        torch.as_tensor(a), torch.as_tensor(b), torch.as_tensor(c)))
+    p = a * b
+    s = p + c
+    bp = s - c
+    e = (p - bp) + (c - (s - bp))                    # s + e == p + c
+    even = (s.view(torch.int64) & 1) == 0
+    inexact = (e != 0) & torch.isfinite(e)           # inf operands: exact
+    s = torch.where(inexact & even, torch.nextafter(s, s + e), s)
+    return s.to(torch.float32)
+
+
+# ----------------------------------------------------------------------
+# Shared wrapper checks.
+# ----------------------------------------------------------------------
+
+def _check(name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _raise_on(err: int, kernel: str):
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
+                           f"cudaError {err}")
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ----------------------------------------------------------------------
+# P: slot_uniform.
+# ----------------------------------------------------------------------
+
+def slot_uniform_plain(keys, tids, salt: Optional[int] = None,
+                       partitionable: Optional[bool] = None):
+    """Plain version of kernel P: ``[R, chunk]`` float32 U(0,1) draws,
+    ``u[i, j]`` from ``fold_in(keys[i], tids[j])`` (then ``fold_in(.,
+    salt)`` when a salt is given) and jax's scalar 32-bit draw under the
+    current (or the given) threefry layout."""
+    part = is_partitionable() if partitionable is None else partitionable
+    k0, k1 = keys[:, 0:1], keys[:, 1:2]
+    t = (tids.to(torch.int64) & MASK32)[None, :]
+    a0, a1 = threefry_fold(k0, k1, t)
+    if salt is not None:
+        a0, a1 = threefry_fold(a0, a1, torch.full_like(a0, int(salt) & MASK32))
+    z = torch.zeros_like(a0)
+    b0, b1 = threefry2x32(a0, a1, z, z)
+    return uniform_from_bits(b0 ^ b1 if part else b0)
+
+
+def slot_uniform(keys, tids, salt: Optional[int] = None,
+                 partitionable: Optional[bool] = None):
+    """Kernel P: ``keys`` [R, 2] int64 key words, ``tids`` [chunk] int32
+    global slot counters, ``salt`` an optional static sub-stream fold
+    (``0 <= salt < 2**31``) -> [R, chunk] float32, bitwise
+    ``slot_uniform_plain``."""
+    if keys.device.type == "cpu":
+        return slot_uniform_plain(keys, tids, salt, partitionable)
+    part = is_partitionable() if partitionable is None else partitionable
+    R, chunk = keys.shape[0], tids.shape[0]
+    _check("keys", keys, torch.int64, (R, 2), keys.device)
+    _check("tids", tids, torch.int32, (chunk,), keys.device)
+    if salt is not None and not 0 <= int(salt) < 2 ** 31:
+        raise ValueError(f"salt must lie in [0, 2**31), got {salt}")
+    out = torch.empty((R, chunk), dtype=torch.float32, device=keys.device)
+    err = _build.library().launch_slot_uniform(
+        keys.data_ptr(), tids.data_ptr(), out.data_ptr(), R, chunk,
+        -1 if salt is None else int(salt), int(part), _stream(keys.device))
+    _raise_on(err, "slot_uniform")
+    slot_uniform.launches += 1
+    return out
+
+
+slot_uniform.launches = 0
+
+
+# ----------------------------------------------------------------------
+# D: dp_minplus.
+# ----------------------------------------------------------------------
+
+def dp_minplus_plain(J, wck, fetch, valid):
+    """Plain version of kernel D, one chunk of the OPT forward recursion
+    for R rows: ``J`` [R, K], ``wck`` [R, chunk, K] (``+inf`` on padded
+    levels), ``fetch`` [R, K, K], ``valid`` [R, chunk] bool ->
+    ``(J' [R, K], args [R, chunk, K] int32)``.  Per slot
+    ``trans = J[:, :, None] + fetch``; ``args`` is the first minimising
+    predecessor (an all-``+inf`` column gives 0), ``J = min + w``; invalid
+    slots freeze ``J`` and write the identity."""
+    R, chunk, K = wck.shape
+    iota = torch.arange(K, dtype=torch.int32, device=wck.device)
+    args = torch.empty((R, chunk, K), dtype=torch.int32, device=wck.device)
+    for t in range(chunk):
+        trans = J[:, :, None] + fetch
+        arg = torch.argmin(trans, dim=1).to(torch.int32)
+        Jn = torch.amin(trans, dim=1) + wck[:, t]
+        v = valid[:, t, None]
+        J = torch.where(v, Jn, J)
+        args[:, t] = torch.where(v, arg, iota)
+    return J, args
+
+
+def dp_minplus(J, wck, fetch, valid):
+    """Kernel D (shapes as ``dp_minplus_plain``; K <= 32), bitwise
+    ``dp_minplus_plain``."""
+    if J.device.type == "cpu":
+        return dp_minplus_plain(J, wck, fetch, valid)
+    R, chunk, K = wck.shape
+    dev = J.device
+    if not 1 <= K <= DP_MAX_K:
+        raise ValueError(f"dp_minplus takes 1 <= K <= {DP_MAX_K}, got {K}")
+    _check("J", J, torch.float32, (R, K), dev)
+    _check("wck", wck, torch.float32, (R, chunk, K), dev)
+    _check("fetch", fetch, torch.float32, (R, K, K), dev)
+    _check("valid", valid, torch.bool, (R, chunk), dev)
+    Jout = torch.empty((R, K), dtype=torch.float32, device=dev)
+    args = torch.empty((R, chunk, K), dtype=torch.int32, device=dev)
+    err = _build.library().launch_dp_minplus(
+        J.data_ptr(), wck.data_ptr(), fetch.data_ptr(), valid.data_ptr(),
+        Jout.data_ptr(), args.data_ptr(), R, chunk, K, _stream(dev))
+    _raise_on(err, "dp_minplus")
+    dp_minplus.launches += 1
+    return Jout, args
+
+
+dp_minplus.launches = 0
+
+
+# ----------------------------------------------------------------------
+# S: sim_chunk_alpha_rr.
+# ----------------------------------------------------------------------
+
+def sim_chunk_alpha_rr_plain(params, lv, g, M, T_len, t0: int, carry, x, c,
+                             include_final_fetch: bool = True,
+                             collect_trace: bool = True):
+    """Plain version of kernel S: ``simulator.sim_chunk_core`` stepping
+    ``alpha_rr_step`` over slots ``[t0, t0 + chunk)`` of R rows under
+    Model-1 service ``x * g``.  ``params`` are the alpha-RR params
+    (``levels``, ``mask``, ``M``); ``lv``/``g``/``M`` the accounting grid;
+    ``carry = (state, acc)``.  Returns ``(carry', r_hist [R, chunk] int32
+    or None)``."""
+    # the plain version IS the simulator's slot loop (imported here: the
+    # simulator dispatches to this module, so a top-level import would cycle)
+    from repro_torch.core.policies.alpha_rr import alpha_rr_step
+    from repro_torch.core.simulator import model1_svc, sim_chunk_core
+    carry, r = sim_chunk_core(alpha_rr_step, include_final_fetch, params, lv,
+                              M, T_len, t0, carry, x, c, model1_svc(x, g))
+    return carry, (r if collect_trace else None)
+
+
+def sim_chunk_alpha_rr(params, lv, g, M, T_len, t0: int, carry, x, c,
+                       include_final_fetch: bool = True,
+                       collect_trace: bool = True):
+    """Kernel S (arguments as ``sim_chunk_alpha_rr_plain``; 2 <= K <= 16),
+    bitwise ``sim_chunk_alpha_rr_plain``."""
+    if x.device.type == "cpu":
+        return sim_chunk_alpha_rr_plain(params, lv, g, M, T_len, t0, carry,
+                                        x, c, include_final_fetch,
+                                        collect_trace)
+    state, acc = carry
+    R, K = lv.shape
+    chunk = x.shape[1]
+    dev = x.device
+    if not 2 <= K <= SIM_MAX_K:
+        raise ValueError(f"sim_chunk_alpha_rr takes 2 <= K <= {SIM_MAX_K}, "
+                         f"got {K}")
+    f32, i32 = torch.float32, torch.int32
+    ins = (("levels", params["levels"], f32, (R, K)),
+           ("mask", params["mask"], torch.bool, (R, K)),
+           ("policy M", params["M"], f32, (R,)),
+           ("lv", lv, f32, (R, K)), ("g", g, f32, (R, K)),
+           ("M", M, f32, (R,)), ("T_len", T_len, i32, (R,)),
+           ("r", state["r"], i32, (R,)), ("S", state["S"], f32, (R, K)),
+           ("age", state["age"], i32, (R,)),
+           ("sums", acc["sums"], f32, (R, 3)),
+           ("counts", acc["counts"], i32, (R, K)),
+           ("x", x, i32, (R, chunk)), ("c", c, f32, (R, chunk)))
+    for name, t, dtype, shape in ins:
+        _check(name, t, dtype, shape, dev)
+    new_state = {"r": torch.empty_like(state["r"]),
+                 "S": torch.empty_like(state["S"]),
+                 "age": torch.empty_like(state["age"])}
+    new_acc = {"sums": torch.empty_like(acc["sums"]),
+               "counts": torch.empty_like(acc["counts"])}
+    r_hist = (torch.empty((R, chunk), dtype=i32, device=dev)
+              if collect_trace else None)
+    outs = (new_state["r"], new_state["S"], new_state["age"],
+            new_acc["sums"], new_acc["counts"])
+    err = _build.library().launch_sim_alpha_rr(
+        *(t.data_ptr() for _, t, _, _ in ins), int(t0), chunk, R, K,
+        int(include_final_fetch), *(t.data_ptr() for t in outs),
+        None if r_hist is None else r_hist.data_ptr(), _stream(dev))
+    _raise_on(err, "sim_chunk_alpha_rr")
+    sim_chunk_alpha_rr.launches += 1
+    return (new_state, new_acc), r_hist
+
+
+sim_chunk_alpha_rr.launches = 0
+
+
+#: every kernel wrapper, for the launch counts a run reads
+KERNELS = (slot_uniform, dp_minplus, sim_chunk_alpha_rr)
+
+
+def reset_launches():
+    """Set every kernel's launch counter to 0."""
+    for k in KERNELS:
+        k.launches = 0

@@ -31,3 +31,5 @@ except ImportError:
 def pytest_configure(config):
     config.addinivalue_line(
         "filterwarnings", "ignore:Some donated buffers were not usable")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one")
