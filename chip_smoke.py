@@ -1,27 +1,46 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one CUDA card and check it.
+"""Drive the PyTorch/CUDA port's two main paths on one CUDA card and check
+them.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, and no result line is printed):
 
-1. Device: the card's name and power limit; build the CUDA kernels of
-   ``src/repro_torch/kernels/csrc/hosting.cu`` with nvcc (build seconds).
-2. Kernels against their plain PyTorch versions on the card, at the main
-   path's shapes, bit for bit (``torch.equal``): P (both threefry layouts,
-   with and without a salt), D (+inf-padded levels, frozen slots), S
-   (alpha-RR on K = 3 and on a mixed K = 5 grid, RR on K = 2).  Kernel times
-   are CUDA-event medians after a warm-up.
-3. The main path at full width: 1,024 instances (32 M x 32 (alpha, g)) x 4
+1. Device: the card's name and power limit; build every kernel library
+   (``src/repro_torch/kernels/csrc/*.cu``), one nvcc each, all started
+   together (build seconds).  TF32 is switched off for matmuls and cuDNN.
+2. Hosting kernels against their plain PyTorch versions on the card, at the
+   fleet path's shapes, bit for bit (``torch.equal``): P (both threefry
+   layouts, with and without a salt), D (+inf-padded levels, frozen slots),
+   S (alpha-RR on K = 3 and on a mixed K = 5 grid, RR on K = 2).
+3. The fleet path at full width: 1,024 instances (32 M x 32 (alpha, g)) x 4
    seeds = 4,096 rows, T = 65,536, chunks of 4,096: alpha-RR and RR through
    ``run_fleet``, alpha-OPT and OPT through ``offline_opt_fleet``
    (checkpointed, cost only), ``mc_summary`` of each.  Launch counters are
-   zeroed just before and read just after; every kernel must have run.
-4. A second leg with Gilbert-Elliot arrivals and NA rents, antithetic seeds.
+   zeroed just before and read just after; P, D and S must have run.
+4. A second fleet leg with Gilbert-Elliot arrivals and NA rents,
+   antithetic seeds.
 5. Card == CPU: legs 3 and 4 rerun at 64 rows and T = 4,096 on the card and
    on the CPU (the plain versions), compared exactly.
+6. Kernels F (flash attention) and M (SSD scan) against their plain
+   versions on the card, at the serving path's shapes (batch 8, 2,048
+   tokens, zamba2-1.2b's heads and widths, bf16), plus F in fp32, F
+   decoding one query over a 2,048-key cache at offset 1,500, F
+   non-causal over a ragged key length, M with an initial state and a
+   ragged length; each within a stated tolerance.
+7. The LM serving path at full width and depth: zamba2-1.2b in bf16 from
+   a seeded generator (38 Mamba2 layers, 6 shared-attention
+   applications), ``ServingEngine.serve_slot`` under each plan (none,
+   layer prefix at alpha 0.4 = 5 segments, full) on 8 prompts of 2,048
+   tokens, then ``EdgeServingScheduler`` for 60 slots.  Counters are zeroed
+   just before and read just after; per full forward F runs 6 times and M
+   38 times, per prefix forward 3 and 12.
+8. Card == CPU for the serving path at zamba2's tiny fp32 config with the
+   same weights: logits within 1e-4, argmax tokens equal where the CPU's
+   top-2 margin is wider.
 
-The last three lines are the kernels' JSON record, the nvidia-smi line and
+Kernel times are CUDA-event medians after a warm-up.  The last three lines
+are the kernels' JSON record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero.
 """
 from __future__ import annotations
@@ -45,9 +64,17 @@ from repro_torch.core.policies.alpha_rr import alpha_rr_init  # noqa: E402
 from repro_torch.core.policies.offline_opt import (dp_fetch_matrix,  # noqa: E402
                                                    dp_frontier0)
 from repro_torch.core.simulator import sim_acc0  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import hosting as H  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels.hosting import fma32  # noqa: E402
+from repro_torch.models.transformer import init_params  # noqa: E402
+from repro_torch.serve.engine import ServingEngine  # noqa: E402
+from repro_torch.serve.partial import make_plans  # noqa: E402
+from repro_torch.serve.scheduler import EdgeServingScheduler  # noqa: E402
 
 N_M, N_ALPHA, N_SEEDS = 32, 32, 4
 T_MAIN, T_GE, T_SMALL, CHUNK = 65536, 8192, 4096, 4096
@@ -58,7 +85,12 @@ SMALL_INSTANCES = 16
 # their bound is a lower bound
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
-SOURCE = "src/repro_torch/kernels/csrc/hosting.cu"
+# dense bf16 tensor-core rate (data sheet): the least time for the bf16
+# products of F and M, whatever units the kernels use
+PEAK_BF16 = 989e12
+CSRC = "src/repro_torch/kernels/csrc/"
+# the serving path: batch, prompt length, the scheduler's slots
+SERVE_B, SERVE_S, SERVE_SLOTS = 8, 2048, 60
 
 
 def require(cond, msg):
@@ -316,6 +348,314 @@ def kernel_checks(dev):
 
 
 # ----------------------------------------------------------------------
+# Phase 6: kernels F and M against their plain versions.
+# ----------------------------------------------------------------------
+
+# Tolerances.  fp32 outputs, normwise: max |kernel - plain| <= tol *
+# max(1, max |plain|), where tol is TOL_F32 for F (the same sums in another
+# order, 64-key tiles and per-thread partial dot products, and the card's
+# expf against torch.exp) and TOL_STATE for M's fp32 state (128-term sums
+# per chunk, compounded over 16 chunks).  bf16 outputs, element by element:
+# both versions round an fp32 value to bf16, and fp32 values that differ in
+# their last bits can round to neighbouring bf16 values, one ulp apart, at
+# most 2**-7 of the element itself; so |kernel - plain| <= 2**-7 * |plain|
+# + TOL_F32 * max(1, max |plain|), the second term bounding the fp32
+# difference before the rounding (about 4e-5 for F, 3e-3 for M's y, whose
+# largest |y| is about 300 against a typical 4).
+TOL_F32 = 1e-5
+TOL_STATE = 1e-4
+RTOL_BF16 = 2.0 ** -7
+
+
+def normwise_errors(k, p):
+    """(max_abs_err, that over max(1, max |plain|))."""
+    d = float((k.double() - p.double()).abs().max())
+    return d, d / max(1.0, float(p.double().abs().max()))
+
+
+def check_close(label, k, p, tol, errs):
+    """Hold ``k`` to ``p`` by the rule above (bf16 outputs element by
+    element); ``errs`` gains (max_abs_err, max_rel_err), the relative error
+    taken per element over |plain| + the absolute term."""
+    kd, pd = k.double(), p.double()
+    d, mag = (kd - pd).abs(), pd.abs()
+    atol = tol * max(1.0, float(mag.max()))
+    rtol = RTOL_BF16 if k.dtype == torch.bfloat16 else 0.0
+    share = float((d / (rtol * mag + atol)).max())
+    a, r = float(d.max()), float((d / (mag + atol)).max())
+    log(f"  {label}: max_abs_err {a:.3e} max_rel_err {r:.3e} (limit "
+        f"{rtol:.2e} * |plain| + {atol:.2e}; worst element at {share:.3f} "
+        f"of it)")
+    require(share <= 1.0, f"{label}: kernel differs from its plain version "
+                          f"({share:.3f} of the limit)")
+    errs.append((a, r))
+
+
+def ssd_ops(b, s, nh, dh, ds, Q):
+    """FLOP of the SSD over this input: per (batch, head) and chunk of n
+    rows, the causal half of C B^T and of the decay matrix times u, the
+    inter-chunk C h^T and the state update (a multiply-add is 2)."""
+    total = 0
+    for c0 in range(0, s, Q):
+        n = min(Q, s - c0)
+        pairs = n * (n + 1) // 2
+        total += 2 * (pairs * ds + pairs * dh + 2 * n * dh * ds)
+    return b * nh * total
+
+
+def lm_kernel_checks(dev):
+    """F and M at the serving path's shapes and the variants; returns
+    {kernel name: record}."""
+    cfg = get_arch("zamba2-1.2b").model
+    B, S = SERVE_B, SERVE_S
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    nh, dh, ds, ng = (cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                      cfg.ssm_n_groups)
+    Q = cfg.ssm_chunk
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    rec = {}
+    # F: the main shape in bf16, timed; fp32; decode over a cache; a GQA
+    # head dim 128; non-causal over a ragged key length
+    log("F against its plain version:")
+    errs = []
+    q, k, v = (randn(B, S, Hq, hd) for _ in range(3))
+    out = FA.flash_attention(q, k, v, True, 0)
+    check_close(f"bf16 causal B={B} S={S}", out,
+                FA.flash_attention_plain(q, k, v, True, 0), TOL_F32, errs)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    check_close(f"fp32 causal B={B} S={S}", FA.flash_attention(qf, kf, vf),
+                FA.flash_attention_plain(qf, kf, vf), TOL_F32, errs)
+    del qf, kf, vf
+    q1 = randn(B, 1, Hq, hd)
+    check_close(f"bf16 decode Sq=1 q_offset={S - 548} Skv={S}",
+                FA.flash_attention(q1, k, v, True, S - 548),
+                FA.flash_attention_plain(q1, k, v, True, S - 548), TOL_F32,
+                errs)
+    qg, kg, vg = randn(2, 300, 8, 128), randn(2, 300, 2, 128), \
+        randn(2, 300, 2, 128)
+    check_close("bf16 causal GQA 8/2 heads hd=128 S=300",
+                FA.flash_attention(qg, kg, vg),
+                FA.flash_attention_plain(qg, kg, vg), TOL_F32, errs)
+    qn, kn, vn = (randn(2, 100, 4, 64, dtype=torch.float32),
+                  randn(2, 1000, 4, 64, dtype=torch.float32),
+                  randn(2, 1000, 4, 64, dtype=torch.float32))
+    check_close("fp32 non-causal Sq=100 Skv=1000",
+                FA.flash_attention(qn, kn, vn, False),
+                FA.flash_attention_plain(qn, kn, vn, False), TOL_F32, errs)
+    torch.cuda.synchronize()
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    rec["flash_attention"] = dict(
+        source=CSRC + "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:71",
+        ms=cuda_ms(lambda: FA.flash_attention(q, k, v, True, 0)),
+        plain_ms=cuda_ms(lambda: FA.flash_attention_plain(q, k, v, True, 0),
+                         reps=3),
+        library_ms=cuda_ms(lambda: torch.nn.functional
+                           .scaled_dot_product_attention(
+                               qt, kt, vt, is_causal=True, enable_gqa=True)),
+        max_abs_err=max(e[0] for e in errs),
+        max_rel_err=max(e[1] for e in errs),
+        nbytes=nbytes(q, k, v, out),
+        ops=4 * B * Hq * hd * (S * (S + 1) // 2), peak_ops=PEAK_BF16,
+        shape=f"q/k/v [{B}, {S}, {Hq}, {hd}] bf16 causal (5 variants "
+              f"compared)")
+    log(f"F timed: {rec['flash_attention']['ms']:.3f} ms, plain "
+        f"{rec['flash_attention']['plain_ms']:.3f} ms, SDPA "
+        f"{rec['flash_attention']['library_ms']:.3f} ms")
+    del q, k, v, qt, kt, vt, out
+
+    # M: the main shape in bf16 (timed), then h0 with a ragged length
+    log("M against its plain version:")
+    errs = []
+
+    def ssd_inputs(s):
+        x = randn(B, s, nh, dh)
+        dt = torch.nn.functional.softplus(
+            randn(B, s, nh, dtype=torch.float32))
+        A = -torch.exp(randn(nh, dtype=torch.float32) * 0.5)
+        return x, dt, A, randn(B, s, ng, ds), randn(B, s, ng, ds)
+
+    x, dt, A, Bm, Cm = ssd_inputs(S)
+    y, hT = SSD.ssd_scan(x, dt, A, Bm, Cm, chunk=Q)
+    yp, hp = SSD.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=Q)
+    check_close(f"bf16 y, S={S}", y, yp, TOL_F32, errs)
+    check_close(f"fp32 hT, S={S}", hT, hp, TOL_STATE, errs)
+    xr, dtr, Ar, Br, Cr = ssd_inputs(S - 45)
+    h0 = torch.randn((B, nh, dh, ds), generator=g, device=dev)
+    y2, h2 = SSD.ssd_scan(xr, dtr, Ar, Br, Cr, h0, Q)
+    yp2, hp2 = SSD.ssd_scan_plain(xr, dtr, Ar, Br, Cr, h0, Q)
+    check_close(f"bf16 y, h0 given, ragged S={S - 45}", y2, yp2,
+                TOL_F32, errs)
+    check_close(f"fp32 hT, h0 given, ragged S={S - 45}", h2, hp2,
+                TOL_STATE, errs)
+    torch.cuda.synchronize()
+    rec["ssd_scan"] = dict(
+        source=CSRC + "ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:68",
+        ms=cuda_ms(lambda: SSD.ssd_scan(x, dt, A, Bm, Cm, chunk=Q)),
+        plain_ms=cuda_ms(
+            lambda: SSD.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=Q), reps=3),
+        library_ms=None,
+        max_abs_err=max(e[0] for e in errs),
+        max_rel_err=max(e[1] for e in errs),
+        nbytes=nbytes(x, dt, A, Bm, Cm, y, hT),
+        ops=ssd_ops(B, S, nh, dh, ds, Q), peak_ops=PEAK_BF16,
+        shape=f"x [{B}, {S}, {nh}, {dh}] bf16, B/C [{B}, {S}, {ng}, {ds}], "
+              f"chunk {Q} (4 outputs compared)")
+    log(f"M timed: {rec['ssd_scan']['ms']:.3f} ms, plain "
+        f"{rec['ssd_scan']['plain_ms']:.3f} ms")
+    return rec
+
+
+# ----------------------------------------------------------------------
+# Phases 7 and 8: the LM serving path.
+# ----------------------------------------------------------------------
+
+def launch_counts():
+    return {k.__name__: k.launches for k in ops.KERNELS}
+
+
+def serving_path(dev, timings):
+    """zamba2-1.2b at full width and depth in bf16: serve_slot under each
+    plan, then the scheduler.  Returns the launch counts of the run."""
+    spec = get_arch("zamba2-1.2b")
+    t0 = time.perf_counter()
+    eng = ServingEngine(spec, generator=torch.Generator(dev).manual_seed(0),
+                        use_tiny=False, device=dev)
+    torch.cuda.synchronize()
+    leaves = _leaves(eng.params)
+    n_params = sum(t.numel() for t in leaves)
+    require(n_params == spec.param_count(), "parameter count differs")
+    require(all(t.dtype in (torch.bfloat16, torch.float32) for t in leaves)
+            and eng.params["embed"].dtype == torch.bfloat16,
+            "the full config must hold bf16 weights")
+    cfg = eng.cfg
+    require(sum(n for k, n in cfg.segments if k == "ssm") == 38
+            and sum(1 for k, _ in cfg.segments if k == "shared_ref") == 6,
+            "zamba2-1.2b must run all 38 Mamba2 layers and 6 shared blocks")
+    log(f"zamba2-1.2b: {n_params:,} parameters, init "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    plans, _ = make_plans(spec, model_cfg=cfg)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                (SERVE_B, SERVE_S))
+    rng = np.random.default_rng(1)
+    eng.serve_slot(prompts, plans[1.0], rng)        # warm-up, not counted
+    eng.serve_slot(prompts, plans[0.4], rng)
+    torch.cuda.synchronize()
+
+    expect = {0.0: (0, 0), 0.4: (3, 12), 1.0: (6, 38)}
+    ops.reset_launches()                            # the serving path
+    torch.cuda.reset_peak_memory_stats()
+    for level, plan in sorted(plans.items()):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = eng.serve_slot(prompts, plan, rng)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        after = launch_counts()
+        got = (after["flash_attention"] - before["flash_attention"],
+               after["ssd_scan"] - before["ssd_scan"])
+        require(got == expect[level], f"plan {plan.kind}: F and M launched "
+                                      f"{got} times, expected "
+                                      f"{expect[level]}")
+        n = SERVE_B
+        acct = {"none": (0, 0, n, float(n)),
+                "layer_prefix": (0, n, 0, plan.g_value * n),
+                "full": (n, 0, 0, 0.0)}[plan.kind]
+        require((res.served_edge, res.served_partial, res.forwarded,
+                 res.service_cost) == acct and res.n_requests == n,
+                f"plan {plan.kind}: accounting {res}")
+        if plan.kind != "none":
+            lg = eng.last_logits
+            require(lg.shape == (n, cfg.vocab_size)
+                    and bool(torch.isfinite(lg).all())
+                    and res.edge_tokens.shape == (n,),
+                    f"plan {plan.kind}: logits not finite / wrong shape")
+            timings[f"serve/{plan.kind}"] = wall
+            log(f"serve_slot {plan.kind} ({plan.n_segments or 13} "
+                f"segments): {wall:.3f} s, {n * SERVE_S / wall:,.0f} prefill "
+                f"tokens/s; F {got[0]}, M {got[1]} launches; tokens "
+                f"{res.edge_tokens.tolist()}")
+    log(f"peak device memory while serving: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    data = np.random.default_rng(2)
+    arrivals = data.integers(0, 5, SERVE_SLOTS)
+    rents = data.uniform(0.5, 2.5, SERVE_SLOTS)
+    before = launch_counts()
+    t = time.perf_counter()
+    rep = EdgeServingScheduler(spec, M=5.0, engine=eng, seed=0).run(
+        arrivals, rents)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    after = launch_counts()
+    require(rep.served_edge + rep.served_partial + rep.forwarded
+            == rep.n_requests == int(arrivals.sum()),
+            f"scheduler accounting: {rep.summary()}")
+    require(np.isfinite(rep.total_cost) and rep.n_slots == SERVE_SLOTS,
+            "scheduler cost not finite")
+    for name in ("flash_attention", "ssd_scan"):
+        require(after[name] > before[name],
+                f"the scheduler never launched {name}")
+    timings["scheduler"] = wall
+    log(f"scheduler, {SERVE_SLOTS} slots: {rep.summary()}")
+    log(f"scheduler wall {wall:.2f} s, {wall / SERVE_SLOTS * 1e3:.1f} ms per "
+        f"slot (8-token prompts, as the reference draws them)")
+    return launch_counts()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def serving_card_vs_cpu(dev):
+    """zamba2's tiny fp32 config, one set of weights on both: logits
+    within 1e-4 (normwise; fp32 sums in another order through 4 segments),
+    argmax tokens equal where the CPU's top-2 margin is wider."""
+    spec = get_arch("zamba2-1.2b")
+    params = init_params(spec.tiny, torch.Generator().manual_seed(1), "cpu")
+    engines = {"cpu": ServingEngine(spec, params=params, device="cpu"),
+               dev: ServingEngine(spec, params=_to(params, dev), device=dev)}
+    plans, _ = make_plans(spec, model_cfg=spec.tiny)
+    # 45 tokens: ragged against the SSD chunk (8) and the key tile (64)
+    prompts = np.random.default_rng(3).integers(0, spec.tiny.vocab_size,
+                                                (4, 45))
+    tol = 1e-4
+    for level in (0.4, 1.0):
+        out = {d: (e.serve_slot(prompts, plans[level],
+                                np.random.default_rng(0)),
+                   e.last_logits.cpu()) for d, e in engines.items()}
+        (rc, lc), (rd, ld) = out["cpu"], out[dev]
+        a, r = normwise_errors(ld, lc)
+        require(r <= tol, f"card != CPU logits (plan {level}): {r:.3e}")
+        top2 = torch.topk(lc, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]).numpy() > 2 * tol * max(
+            1.0, float(lc.abs().max()))
+        require(np.array_equal(rd.edge_tokens[clear], rc.edge_tokens[clear]),
+                f"card != CPU tokens (plan {level})")
+        log(f"card == CPU, tiny serving plan {level}: logits max_abs_err "
+            f"{a:.3e}, tokens equal on {int(clear.sum())}/4 clear rows")
+
+
+# ----------------------------------------------------------------------
 
 DEVICE = "cuda"
 
@@ -333,27 +673,32 @@ def main() -> int:
     log(f"device: {kind} | nvidia-smi: {smi}")
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
+        f"cudnn {torch.backends.cudnn.allow_tf32}")
     t = time.perf_counter()
-    _build.library()
-    log(f"kernel build: {time.perf_counter() - t:.1f} s "
-        f"(nvcc {_build.BUILD_SECONDS.get('hosting')})")
+    _build.build_all()
+    log(f"kernel build: {time.perf_counter() - t:.1f} s (nvcc seconds per "
+        f"library, run together: {_build.BUILD_SECONDS})")
 
     # phase 2
     rec = kernel_checks(dev)
     log("kernels == plain versions on the card")
 
-    # phase 3: the main path at full width; counters read around it only
+    # phase 3: the fleet path at full width; counters read around it only
     timings = {}
     B = N_M * N_ALPHA
     grid = fleet_grid(N_M, N_ALPHA, dev)
-    H.reset_launches()
+    ops.reset_launches()
     main_res = run_leg(grid, bernoulli_uniform(B, dev), T_MAIN, False, dev,
                        "main", timings)
     torch.cuda.synchronize()
-    launches = {k.__name__: k.launches for k in H.KERNELS}
-    log(f"main path launches: {launches}")
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} never launched on the main path")
+    launches = launch_counts()
+    log(f"fleet path launches: {launches}")
+    for k in (H.slot_uniform, H.dp_minplus, H.sim_chunk_alpha_rr):
+        require(launches[k.__name__] > 0,
+                f"kernel {k.__name__} never launched on the fleet path")
     summ = check_leg(main_res, T_MAIN, "main")
     for name, s in summ.items():
         key = "total_mean" if "total_mean" in s else "cost_mean"
@@ -387,20 +732,36 @@ def main() -> int:
         log(f"card == CPU: {label} leg, {N_SEEDS * SMALL_INSTANCES} rows, "
             f"T={T_SMALL} ({timings[f'small-{label}-cpu/alpha-RR']:.1f} s "
             f"alpha-RR on the CPU)")
+
+    # phase 6: F and M against their plain versions
+    rec.update(lm_kernel_checks(dev))
+
+    # phase 7: the LM serving path at full width and depth
+    serve_launches = serving_path(dev, timings)
+    log(f"serving path launches: {serve_launches}")
+    for k in (FA.flash_attention, SSD.ssd_scan):
+        launches[k.__name__] = serve_launches[k.__name__]
+
+    # phase 8: card == CPU for the serving path
+    serving_card_vs_cpu(dev)
     log("timings (s): " + json.dumps({k: round(v, 3)
                                       for k, v in timings.items()}))
 
     kernels = []
     for name, r in rec.items():
         t_bytes = r["nbytes"] / PEAK_BYTES * 1e3
-        t_ops = r["ops"] / PEAK_OPS * 1e3
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+        t_ops = r["ops"] / r.get("peak_ops", PEAK_OPS) * 1e3
+        entry = {
+            "name": name, "route": "cuda",
+            "source": r.get("source", CSRC + "hosting.cu"),
             "replaces": r["replaces"], "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "shape": r["shape"]})
+            "library_ms": r.get("library_ms"), "shape": r["shape"]}
+        if "max_rel_err" in r:
+            entry["max_rel_err"] = r["max_rel_err"]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

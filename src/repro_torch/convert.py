@@ -1,4 +1,6 @@
-"""Carry the reference's numpy parameters across to the port's tensors."""
+"""Carry the reference's numpy parameters across to the port's tensors:
+``tree_from_numpy`` for the hosting engine's nests, ``params_from_jax``
+for a model's parameter tree."""
 from __future__ import annotations
 
 import numpy as np
@@ -26,3 +28,25 @@ def tree_from_numpy(tree, device):
             a = a.astype(np.int64)
         return torch.from_numpy(a).to(device)
     return tree
+
+
+def _leaf_to_tensor(a, device):
+    a = np.array(a)                       # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":        # ml_dtypes.bfloat16: same bits
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_jax(tree, device="cpu"):
+    """The reference's model parameter tree (``repro.models.init_params``)
+    as the port's: the same nest of dicts and lists (stacked segment
+    parameters stay stacked ``[n, ...]``, a ``shared_ref`` segment's empty
+    ``{}`` stays empty), every leaf a tensor on ``device`` with the same
+    values and dtype.  Leaves are numpy arrays (``ml_dtypes.bfloat16`` ones
+    included, carried bit for bit) or anything ``np.asarray`` takes."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_jax(v, device) for v in tree)
+    return _leaf_to_tensor(tree, device)

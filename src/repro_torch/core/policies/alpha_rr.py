@@ -13,6 +13,11 @@ card the slot loop runs as kernel S (``kernels.hosting.sim_chunk_alpha_rr``);
 this step is its plain version's body, op for op the reference's as
 XLA:CPU compiles it (two multiply-adds contracted into FMAs).
 
+ONE instance is a one-row grid (``alpha_rr_params``).
+``alpha_rr_step_eager`` is the same step with the two multiply-adds
+rounded twice: the reference's ``HostingController`` calls the step outside
+any ``jit``, so each ``jnp`` op rounds on its own there.
+
 ``alpha_rr_literal`` is the reference's numpy transliteration of
 Algorithm 1, copied as the test oracle.
 """
@@ -22,11 +27,19 @@ import numpy as np
 import torch
 
 from repro_torch.core.costs import HostingCosts, HostingGrid
-from repro_torch.core.policies.base import PolicyFns, SlotObs, State
+from repro_torch.core.policies.base import (OnlinePolicy, PolicyFns, SlotObs,
+                                            State)
 from repro_torch.kernels.hosting import fma32
 
 _BIG = float(np.float32(3.4e38))   # acts as +inf for min(0, .) gating
 _TIE_EPS = float(np.float32(1e-6))  # ties break toward staying
+
+
+def alpha_rr_params(costs: HostingCosts, device=None) -> dict:
+    """One instance's params, a one-row grid: ``M`` [1], ``levels`` and
+    ``mask`` [1, K]."""
+    return alpha_rr_grid_params(HostingGrid.from_costs(
+        [costs], device="cpu" if device is None else device))
 
 
 def alpha_rr_grid_params(grid: HostingGrid) -> dict:
@@ -44,7 +57,24 @@ def alpha_rr_init(params) -> State:
             "age": torch.zeros((R,), dtype=torch.int32, device=dev)}
 
 
+def _mul_add_rounded(a, b, c):
+    return a * b + c                                # two roundings
+
+
 def alpha_rr_step(params, state: State, obs: SlotObs) -> State:
+    """One slot for every row, the multiply-adds fused (the fleet scan and
+    kernel S)."""
+    return _step(params, state, obs, fma32)
+
+
+def alpha_rr_step_eager(params, state: State, obs: SlotObs) -> State:
+    """``alpha_rr_step`` with ``c * lv + svc`` and the margins rounded
+    twice, as the reference's eager ``HostingController`` computes them;
+    on a near tie the two roundings can pick another level."""
+    return _step(params, state, obs, _mul_add_rounded)
+
+
+def _step(params, state: State, obs: SlotObs, mul_add) -> State:
     # index-r selections are one-hot sums, as in the reference (exact: one
     # nonzero term)
     lv, mask = params["levels"], params["mask"]
@@ -55,8 +85,8 @@ def alpha_rr_step(params, state: State, obs: SlotObs) -> State:
     gate = (age >= 2)[:, None]
 
     # XLA:CPU contracts the reference's c * lv + svc and M * |.| + S into
-    # FMAs (one rounding each); fma32 does the same on any device
-    w = fma32(obs.c[:, None], lv, obs.svc)          # [R, K]
+    # FMAs (one rounding each) inside a jit; mul_add is fma32 there
+    w = mul_add(obs.c[:, None], lv, obs.svc)        # [R, K]
     d = w - torch.where(onehot_r, w, 0.0).sum(dim=1, keepdim=True)
 
     S_prev = state["S"]
@@ -64,8 +94,8 @@ def alpha_rr_step(params, state: State, obs: SlotObs) -> State:
     S = torch.where(gate, S_new, S_prev)
 
     lv_r = torch.where(onehot_r, lv, 0.0).sum(dim=1, keepdim=True)
-    margins = fma32(params["M"][:, None], torch.abs(lv - lv_r),
-                    torch.where(gate, S, _BIG))
+    margins = mul_add(params["M"][:, None], torch.abs(lv - lv_r),
+                      torch.where(gate, S, _BIG))
     margins = torch.where(mask, margins, _BIG)      # padded levels never win
     margins = torch.where(onehot_r, 0.0, margins)
     j_star = torch.argmin(margins + torch.where(onehot_r, 0.0, _TIE_EPS),
@@ -78,9 +108,18 @@ def alpha_rr_step(params, state: State, obs: SlotObs) -> State:
             "age": torch.where(switch, 0, age).to(torch.int32)}
 
 
-class AlphaRR:
+class AlphaRR(OnlinePolicy):
     """O(1)-per-slot alpha-RetroRenting over an arbitrary level grid (K=2
-    is RetroRenting, K=3 the paper's alpha-RR, K>3 multiple-RR)."""
+    is RetroRenting, K=3 the paper's alpha-RR, K>3 multiple-RR).
+    ``AlphaRR(costs)`` is one instance; ``batch`` / ``fleet`` build the
+    [R]-row policy of a grid."""
+
+    init_fn = staticmethod(alpha_rr_init)
+    step_fn = staticmethod(alpha_rr_step)
+
+    @property
+    def params(self):
+        return alpha_rr_params(self.costs)
 
     @classmethod
     def batch(cls, grid: HostingGrid) -> PolicyFns:
@@ -95,8 +134,12 @@ class AlphaRR:
 
 
 class RetroRenting(AlphaRR):
-    """RR of [22]: AlphaRR on the endpoint levels (0, 1); run it on
-    ``fleet.restrict_to_endpoints()``."""
+    """RR of [22]: AlphaRR on the endpoint levels (0, 1); run a fleet of it
+    on ``fleet.restrict_to_endpoints()``."""
+
+    def __init__(self, costs: HostingCosts):
+        super().__init__(HostingCosts.two_level(costs.M, costs.c_min,
+                                                costs.c_max))
 
     @classmethod
     def batch(cls, grid: HostingGrid) -> PolicyFns:

@@ -47,3 +47,32 @@ class PolicyFns(NamedTuple):
     init_fn: Callable[[Any], State]
     step_fn: Callable[[Any, State, SlotObs], State]
     params: Any
+
+
+class OnlinePolicy:
+    """Thin class wrapper over a pure ``(init_fn, step_fn)`` pair for ONE
+    instance (the port of ``repro/core/policies/base.py:OnlinePolicy``).
+
+    Subclasses set ``init_fn`` / ``step_fn`` as staticmethods and define a
+    ``params`` property built from ``self.costs``: in the port one instance
+    is a one-row grid, so params and state carry a leading [1] axis."""
+
+    init_fn: Optional[Callable[[Any], State]] = None
+    step_fn: Optional[Callable[[Any, State, SlotObs], State]] = None
+
+    def __init__(self, costs):
+        self.costs = costs
+
+    @property
+    def name(self) -> str:
+        return type(self).__name__
+
+    @property
+    def params(self) -> Any:
+        """Tensors parameterising the pure pair for ``self.costs``."""
+        raise NotImplementedError
+
+    def fns(self) -> PolicyFns:
+        """This policy as a ``PolicyFns``."""
+        cls = type(self)
+        return PolicyFns(self.name, cls.init_fn, cls.step_fn, self.params)

@@ -1,7 +1,4 @@
 """Hand-written CUDA kernels of the port (``csrc/``), their ctypes build
-(``_build``), the wrappers with their plain PyTorch versions
-(``hosting``) and the batched entry points the engine calls (``ops``).
-
-Kernels of the JAX package not ported yet (flash attention, the Mamba2
-SSD scan) are listed in ROADMAP.md, Queue 2.
-"""
+(``_build``), the wrappers with their plain PyTorch versions (``hosting``:
+P, D, S; ``flash_attention``: F; ``ssd_scan``: M), the plain oracles
+(``ref``) and the public entry points (``ops``)."""

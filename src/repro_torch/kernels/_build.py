@@ -1,10 +1,22 @@
 """Build the CUDA kernels at first use and load them through ctypes.
 
-``nvcc`` compiles ``csrc/hosting.cu`` (plain C entry points, no PyTorch
-headers, so the build takes seconds) into ``build/kernels/`` at the root of
-the checkout, under a name keyed by a hash of the source and the flags: a
-changed source builds anew, an unchanged one loads the library already
-there.  Nothing here runs at import time; the CPU tests never build.
+Each library is one source ``csrc/<name>.cu`` with plain C entry points (no
+PyTorch headers, so a build takes seconds), compiled by ``nvcc`` into
+``build/kernels/`` at the root of the checkout under a name keyed by a
+hash of the source and its flags: a changed source builds anew, an
+unchanged one loads the library already there.  Every library has its own
+flags and its own table of entry points (``LIBRARIES``).  Nothing here runs
+at import time; the CPU tests never build.  The checks every wrapper runs
+before a launch (``check_tensor``, ``raise_on``, ``stream``) live here too.
+
+Flags per library:
+
+* ``hosting`` (kernels P, D, S): ``--fmad=false``, because those kernels
+  are held bit for bit against the reference, which fixes which
+  multiply-adds are one FMA (written as ``__fmaf_rn``) and which are two
+  rounded operations.
+* ``flash_attention`` (F) and ``ssd_scan`` (M): nvcc's default
+  contraction; they are held to a stated tolerance, not to bits.
 """
 from __future__ import annotations
 
@@ -16,22 +28,37 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+_COMMON = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+           "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# argtypes of every C entry point in hosting.cu (pointers and the stream
-# are c_void_p: ctypes would otherwise pass them as 32-bit ints)
-_SIGNATURES = {
-    "launch_slot_uniform": (_P, _P, _P, _I, _I, _L, _I, _P),
-    "launch_dp_minplus": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "launch_sim_alpha_rr": (_P,) * 14 + (_I,) * 5 + (_P,) * 7,
+# per library: its nvcc flags and the argtypes of every C entry point
+# (pointers and the stream are c_void_p: ctypes would otherwise pass them
+# as 32-bit ints)
+LIBRARIES = {
+    "hosting": (_COMMON + ("--fmad=false",), {
+        "launch_slot_uniform": (_P, _P, _P, _I, _I, _L, _I, _P),
+        "launch_dp_minplus": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+        "launch_sim_alpha_rr": (_P,) * 14 + (_I,) * 5 + (_P,) * 7,
+    }),
+    "flash_attention": (_COMMON, {
+        # q, k, v, out, B, Sq, Skv, Hq, Hkv, hd, causal, q_offset, is_bf16,
+        # stream
+        "launch_flash_attention": (_P,) * 4 + (_I,) * 9 + (_P,),
+    }),
+    "ssd_scan": (_COMMON, {
+        # x, dt, A, B, C, h0 (or NULL), y, hT, b, s, nh, dh, ng, ds, chunk,
+        # is_bf16, stream
+        "launch_ssd_scan": (_P,) * 8 + (_I,) * 8 + (_P,),
+    }),
 }
 
 _LIBS: dict = {}
-#: seconds the last ``nvcc`` call took (None when the library was cached)
+#: seconds each library's ``nvcc`` call took (None when it was cached)
 BUILD_SECONDS: dict = {}
 
 
@@ -46,38 +73,86 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def library_path(name: str = "hosting") -> Path:
+def library_path(name: str) -> Path:
+    flags = LIBRARIES[name][0]
     src = _CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            + " ".join(flags).encode()).hexdigest()[:16]
     return _BUILD_DIR / f"{name}_{digest}.so"
 
 
-def build(name: str = "hosting") -> Path:
+def build_all(names=None) -> dict:
+    """Compile every named library (all by default) whose hashed file is
+    missing, one ``nvcc`` each, all started together; returns their paths."""
+    names = list(LIBRARIES) if names is None else list(names)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            BUILD_SECONDS[name] = None
+            continue
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *LIBRARIES[name][0], "-o", str(tmp),
+               str(_CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True),
+                       tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{err}")
+            continue
+        os.replace(tmp, out)             # atomic: no half-written library
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: library_path(name) for name in names}
+
+
+def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its hashed library exists."""
-    out = library_path(name)
-    if out.exists():
-        BUILD_SECONDS[name] = None
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)                 # atomic: no half-written library
-    BUILD_SECONDS[name] = time.perf_counter() - t0
-    return out
+    return build_all([name])[name]
 
 
-def library(name: str = "hosting") -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build(name)))
-        for fn, argtypes in _SIGNATURES.items():
+        for fn, argtypes in LIBRARIES[name][1].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+# ----------------------------------------------------------------------
+# What every wrapper checks around a launch.
+# ----------------------------------------------------------------------
+
+def check_tensor(name, t, dtype, shape, device):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on ``device`` of
+    ``shape`` (None: any shape)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def raise_on(err: int, kernel: str):
+    """Raise if a C entry point returned a CUDA error (a refused launch)."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
+                           f"cudaError {err}")
+
+
+def stream(device) -> int:
+    """The handle of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -119,32 +119,6 @@ def fma32(a, b, c):
 
 
 # ----------------------------------------------------------------------
-# Shared wrapper checks.
-# ----------------------------------------------------------------------
-
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _raise_on(err: int, kernel: str):
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
-                           f"cudaError {err}")
-
-
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-# ----------------------------------------------------------------------
 # P: slot_uniform.
 # ----------------------------------------------------------------------
 
@@ -175,15 +149,16 @@ def slot_uniform(keys, tids, salt: Optional[int] = None,
         return slot_uniform_plain(keys, tids, salt, partitionable)
     part = is_partitionable() if partitionable is None else partitionable
     R, chunk = keys.shape[0], tids.shape[0]
-    _check("keys", keys, torch.int64, (R, 2), keys.device)
-    _check("tids", tids, torch.int32, (chunk,), keys.device)
+    _build.check_tensor("keys", keys, torch.int64, (R, 2), keys.device)
+    _build.check_tensor("tids", tids, torch.int32, (chunk,), keys.device)
     if salt is not None and not 0 <= int(salt) < 2 ** 31:
         raise ValueError(f"salt must lie in [0, 2**31), got {salt}")
     out = torch.empty((R, chunk), dtype=torch.float32, device=keys.device)
-    err = _build.library().launch_slot_uniform(
+    err = _build.library("hosting").launch_slot_uniform(
         keys.data_ptr(), tids.data_ptr(), out.data_ptr(), R, chunk,
-        -1 if salt is None else int(salt), int(part), _stream(keys.device))
-    _raise_on(err, "slot_uniform")
+        -1 if salt is None else int(salt), int(part),
+        _build.stream(keys.device))
+    _build.raise_on(err, "slot_uniform")
     slot_uniform.launches += 1
     return out
 
@@ -225,16 +200,16 @@ def dp_minplus(J, wck, fetch, valid):
     dev = J.device
     if not 1 <= K <= DP_MAX_K:
         raise ValueError(f"dp_minplus takes 1 <= K <= {DP_MAX_K}, got {K}")
-    _check("J", J, torch.float32, (R, K), dev)
-    _check("wck", wck, torch.float32, (R, chunk, K), dev)
-    _check("fetch", fetch, torch.float32, (R, K, K), dev)
-    _check("valid", valid, torch.bool, (R, chunk), dev)
+    _build.check_tensor("J", J, torch.float32, (R, K), dev)
+    _build.check_tensor("wck", wck, torch.float32, (R, chunk, K), dev)
+    _build.check_tensor("fetch", fetch, torch.float32, (R, K, K), dev)
+    _build.check_tensor("valid", valid, torch.bool, (R, chunk), dev)
     Jout = torch.empty((R, K), dtype=torch.float32, device=dev)
     args = torch.empty((R, chunk, K), dtype=torch.int32, device=dev)
-    err = _build.library().launch_dp_minplus(
+    err = _build.library("hosting").launch_dp_minplus(
         J.data_ptr(), wck.data_ptr(), fetch.data_ptr(), valid.data_ptr(),
-        Jout.data_ptr(), args.data_ptr(), R, chunk, K, _stream(dev))
-    _raise_on(err, "dp_minplus")
+        Jout.data_ptr(), args.data_ptr(), R, chunk, K, _build.stream(dev))
+    _build.raise_on(err, "dp_minplus")
     dp_minplus.launches += 1
     return Jout, args
 
@@ -292,7 +267,7 @@ def sim_chunk_alpha_rr(params, lv, g, M, T_len, t0: int, carry, x, c,
            ("counts", acc["counts"], i32, (R, K)),
            ("x", x, i32, (R, chunk)), ("c", c, f32, (R, chunk)))
     for name, t, dtype, shape in ins:
-        _check(name, t, dtype, shape, dev)
+        _build.check_tensor(name, t, dtype, shape, dev)
     new_state = {"r": torch.empty_like(state["r"]),
                  "S": torch.empty_like(state["S"]),
                  "age": torch.empty_like(state["age"])}
@@ -302,23 +277,13 @@ def sim_chunk_alpha_rr(params, lv, g, M, T_len, t0: int, carry, x, c,
               if collect_trace else None)
     outs = (new_state["r"], new_state["S"], new_state["age"],
             new_acc["sums"], new_acc["counts"])
-    err = _build.library().launch_sim_alpha_rr(
+    err = _build.library("hosting").launch_sim_alpha_rr(
         *(t.data_ptr() for _, t, _, _ in ins), int(t0), chunk, R, K,
         int(include_final_fetch), *(t.data_ptr() for t in outs),
-        None if r_hist is None else r_hist.data_ptr(), _stream(dev))
-    _raise_on(err, "sim_chunk_alpha_rr")
+        None if r_hist is None else r_hist.data_ptr(), _build.stream(dev))
+    _build.raise_on(err, "sim_chunk_alpha_rr")
     sim_chunk_alpha_rr.launches += 1
     return (new_state, new_acc), r_hist
 
 
 sim_chunk_alpha_rr.launches = 0
-
-
-#: every kernel wrapper, for the launch counts a run reads
-KERNELS = (slot_uniform, dp_minplus, sim_chunk_alpha_rr)
-
-
-def reset_launches():
-    """Set every kernel's launch counter to 0."""
-    for k in KERNELS:
-        k.launches = 0

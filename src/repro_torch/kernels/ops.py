@@ -1,12 +1,24 @@
-"""Batched entry points over a leading [R] row axis, as the engine calls
-them (the counterparts of ``repro/kernels/ops.py:dp_minplus`` and
-``counter_uniforms``, which vmapped one-instance Pallas kernels; here the
-row axis is the kernels' own)."""
+"""Public entry points over the kernels, in the reference's layouts (the
+counterparts of ``repro/kernels/ops.py``).  The Pallas wrappers there pad
+to block multiples; the CUDA kernels mask their own ragged edges, so
+nothing is padded here.
+
+* ``dp_minplus``, ``counter_uniforms``: batched over a leading [R] row
+  axis, the kernels' own (the reference vmapped one-instance kernels).
+* ``flash_attention``: q [B,S,Hq,hd], k/v [B,Skv,Hkv,hd] (kernel F).
+* ``ssd_scan``: x [b,s,nh,dh], dt [b,s,nh], A [nh], B/C [b,s,ng,ds]
+  (kernel M).
+
+``KERNELS`` lists every kernel wrapper, whose ``launches`` counters a run
+reads (``reset_launches`` sets them to 0).
+"""
 from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import hosting
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def dp_minplus(J, wck, fetch, valid):
@@ -21,3 +33,27 @@ def counter_uniforms(keys, tids, salt: Optional[int] = None):
     int32 -> [R, chunk] float32 (kernel P on the card), under the current
     threefry layout."""
     return hosting.slot_uniform(keys, tids, salt)
+
+
+def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0):
+    """q [B,S,Hq,hd]; k/v [B,Skv,Hkv,hd] -> [B,S,Hq,hd] (kernel F on the
+    card, its plain version on the CPU)."""
+    return _fa.flash_attention(q, k, v, causal, q_offset)
+
+
+def ssd_scan(x, dt, A, B, C, h0=None, chunk: int = 128):
+    """Mamba2 SSD: x [b,s,nh,dh]; dt [b,s,nh]; A [nh]; B/C [b,s,ng,ds];
+    h0 [b,nh,dh,ds] or None -> (y [b,s,nh,dh], hT) (kernel M on the card,
+    its plain version on the CPU)."""
+    return _ssd.ssd_scan(x, dt, A, B, C, h0, chunk)
+
+
+#: every kernel wrapper: P, D, S, F, M
+KERNELS = (hosting.slot_uniform, hosting.dp_minplus,
+           hosting.sim_chunk_alpha_rr, _fa.flash_attention, _ssd.ssd_scan)
+
+
+def reset_launches():
+    """Set every kernel's launch counter to 0."""
+    for k in KERNELS:
+        k.launches = 0

@@ -1,24 +1,32 @@
 #!/usr/bin/env python3
-"""Where the time of the port's main path goes on one CUDA card.
+"""Where the time of the port's main paths goes on one CUDA card.
 
-    python3 tools/profile_main_path.py [--T 16384]
+    python3 tools/profile_main_path.py [--T 16384] [--path fleet|serving|both]
 
-Runs the ``chip_smoke.py`` workload at full width (4,096 rows, K = 3,
+Fleet path: the ``chip_smoke.py`` workload at full width (4,096 rows, K = 3,
 chunks of 4,096) for a shorter horizon under ``torch.profiler``: alpha-RR
 and alpha-OPT on Bernoulli arrivals + uniform rents, and alpha-RR on
-Gilbert-Elliot arrivals + NA rents.  For each run it prints the wall time,
-the summed device time of all kernels (their busy share of the wall time;
-overlapping kernels would count twice, and these runs use one stream) and
-the ten costliest device operations.  The profiler's own overhead is in
-the wall time; compare shares, not absolute seconds, with chip_smoke.py.
+Gilbert-Elliot arrivals + NA rents.
+
+Serving path: zamba2-1.2b at full width and depth in bf16 (seeded random
+weights), one ``serve_slot`` of 8 prompts of 2,048 tokens under the full
+plan and under the layer-prefix plan, each after a warm-up; the device time
+is also grouped into kernel F, kernel M, matrix products and the rest.
+
+For each run it prints the wall time, the summed device time of all kernels
+(their busy share of the wall time; these runs use one stream) and the
+costliest device operations.  The profiler's own overhead is in the wall
+time; compare shares, not absolute seconds, with chip_smoke.py.
 """
 from __future__ import annotations
 
 import argparse
+import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -26,6 +34,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 import chip_smoke as cs  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import (FleetBatch, offline_opt_fleet,  # noqa: E402
                               run_fleet)
 from repro_torch.core.policies import AlphaRR  # noqa: E402
@@ -38,7 +47,13 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profiled(label, fn):
+# device kernels by group, for the serving path: name fragments
+GROUPS = (("kernel F", ("flash_fwd_kernel",)),
+          ("kernel M", ("ssd_scan_kernel",)),
+          ("matrix products", ("gemm", "xmma", "cutlass", "nvjet", "cublas")))
+
+
+def profiled(label, fn, top=10, groups=False):
     fn()                                      # warm-up (kernel build, caches)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -54,21 +69,25 @@ def profiled(label, fn):
     busy_us = sum(_device_us(e) for e in kernels)
     print(f"\n== {label}: wall {wall:.3f} s, device busy "
           f"{busy_us / 1e6:.3f} s ({100 * busy_us / 1e6 / wall:.1f}% of wall)")
-    for e in sorted(kernels, key=_device_us, reverse=True)[:10]:
+    for e in sorted(kernels, key=_device_us, reverse=True)[:top]:
         print(f"   {_device_us(e) / 1e3:10.2f} ms  {e.count:7d} calls  "
               f"{e.key[:90]}")
+    if groups:
+        left = list(kernels)
+        for name, frags in GROUPS:
+            mine = [e for e in left
+                    if any(f in e.key.lower() for f in frags)]
+            left = [e for e in left if e not in mine]
+            us = sum(_device_us(e) for e in mine)
+            print(f"   group {name}: {us / 1e3:.2f} ms "
+                  f"({100 * us / max(busy_us, 1):.1f}% of device time)")
+        us = sum(_device_us(e) for e in left)
+        print(f"   group the rest (elementwise, norms, copies): "
+              f"{us / 1e3:.2f} ms ({100 * us / max(busy_us, 1):.1f}%)")
     sys.stdout.flush()
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--T", type=int, default=16384)
-    T = ap.parse_args().T
-    if not torch.cuda.is_available():
-        print("profile_main_path: no CUDA card available", file=sys.stderr)
-        return 2
-    dev = "cuda"
-    print(torch.cuda.get_device_name(0), torch.__version__, flush=True)
+def profile_fleet(T, dev):
     B = cs.N_M * cs.N_ALPHA
     grid = cs.fleet_grid(cs.N_M, cs.N_ALPHA, dev)
     fleet = FleetBatch.for_scenario(grid, T)
@@ -85,6 +104,45 @@ def main() -> int:
     profiled(f"alpha-RR, GE + NA, T={T}",
              lambda: run_fleet(AlphaRR.fleet(fleet), fleet, scenario=ge,
                                collect_trace=False, **kw))
+
+
+def profile_serving(dev):
+    spec = get_arch("zamba2-1.2b")
+    eng = cs.ServingEngine(spec, generator=torch.Generator(dev).manual_seed(0),
+                           use_tiny=False, device=dev)
+    plans, _ = cs.make_plans(spec, model_cfg=eng.cfg)
+    prompts = np.random.default_rng(0).integers(
+        0, eng.cfg.vocab_size, (cs.SERVE_B, cs.SERVE_S))
+    rng = np.random.default_rng(1)
+    for level in (1.0, 0.4):
+        plan = plans[level]
+        profiled(f"zamba2-1.2b serve_slot {plan.kind}, {cs.SERVE_B} x "
+                 f"{cs.SERVE_S} tokens, bf16",
+                 lambda: eng.serve_slot(prompts, plan, rng), top=15,
+                 groups=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
+    ap.add_argument("--T", type=int, default=16384)
+    ap.add_argument("--path", choices=("fleet", "serving", "both"),
+                    default="both")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_main_path: no CUDA card available", file=sys.stderr)
+        return 2
+    dev = "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(torch.cuda.get_device_name(0), "|", smi, "| torch",
+          torch.__version__, flush=True)
+    if args.path in ("fleet", "both"):
+        profile_fleet(args.T, dev)
+    if args.path in ("serving", "both"):
+        profile_serving(dev)
     return 0
 
 
