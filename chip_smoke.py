@@ -23,18 +23,26 @@ Phases (any failure exits non-zero, and no result line is printed):
 5. Card == CPU: legs 3 and 4 rerun at 64 rows and T = 4,096 on the card and
    on the CPU (the plain versions), compared exactly.
 6. Kernels F (flash attention) and M (SSD scan) against their plain
-   versions on the card, at the serving path's shapes (batch 8, 2,048
-   tokens, zamba2-1.2b's heads and widths, bf16), plus F in fp32, F
-   decoding one query over a 2,048-key cache at offset 1,500, F
-   non-causal over a ragged key length, M with an initial state and a
-   ragged length; each within a stated tolerance.
+   versions on the card, each within a stated tolerance.  Each has two
+   kernels, chosen by an explicit dispatch: F's wgmma kernel (bf16, hd 64 /
+   128) and its fp32-FMA kernel (the rest), M's mma.sync kernel (bf16, dh /
+   ds multiples of 16 up to 128, chunk <= 128) and its fp32-FMA kernel (the
+   rest).  At the serving path's shapes (batch 8, 2,048 tokens,
+   zamba2-1.2b's heads and widths, bf16, timed) and at variants on both
+   sides of each dispatch edge: F in fp32, decoding one query over a
+   2,048-key cache, a ragged q tile, a ragged key tile, non-causal over a
+   ragged key length, GQA at hd 128, bf16 at hd 32; M with an initial state
+   and a ragged length, the scheduler's 8-token chunk, ds = 128, a chunk of
+   256, fp32.  Each variant requires that the dispatch launched the kernel
+   it names.  The FMA kernels are also timed on the main bf16 input.
 7. The LM serving path at full width and depth: zamba2-1.2b in bf16 from
    a seeded generator (38 Mamba2 layers, 6 shared-attention
    applications), ``ServingEngine.serve_slot`` under each plan (none,
    layer prefix at alpha 0.4 = 5 segments, full) on 8 prompts of 2,048
    tokens, then ``EdgeServingScheduler`` for 60 slots.  Counters are zeroed
-   just before and read just after; per full forward F runs 6 times and M
-   38 times, per prefix forward 3 and 12.
+   just before and read just after; per full forward F's wgmma kernel runs
+   6 times and M's mma kernel 38 times, per prefix forward 3 and 12; the
+   FMA kernels never run there.
 8. Card == CPU for the serving path at zamba2's tiny fp32 config with the
    same weights: logits within 1e-4, argmax tokens equal where the CPU's
    top-2 margin is wider.
@@ -91,6 +99,16 @@ PEAK_BF16 = 989e12
 CSRC = "src/repro_torch/kernels/csrc/"
 # the serving path: batch, prompt length, the scheduler's slots
 SERVE_B, SERVE_S, SERVE_SLOTS = 8, 2048, 60
+# each launcher's CUDA kernel (the symbol in its source)
+KERNEL_SYMBOLS = {
+    "slot_uniform": "slot_uniform_kernel",
+    "dp_minplus": "dp_minplus_kernel",
+    "sim_chunk_alpha_rr": "sim_alpha_rr_kernel",
+    "flash_attention_wgmma": "flash_fwd_wgmma_kernel",
+    "flash_attention_fma": "flash_fwd_fma_kernel",
+    "ssd_scan_mma": "ssd_scan_mma_kernel",
+    "ssd_scan_fma": "ssd_scan_fma_kernel",
+}
 
 
 def require(cond, msg):
@@ -404,8 +422,9 @@ def ssd_ops(b, s, nh, dh, ds, Q):
 
 
 def lm_kernel_checks(dev):
-    """F and M at the serving path's shapes and the variants; returns
-    {kernel name: record}."""
+    """F's and M's kernels at the serving path's shapes and the variants
+    that reach the edges of the dispatch; returns {kernel name: record}.
+    Each variant asserts which kernel the dispatch launched."""
     cfg = get_arch("zamba2-1.2b").model
     B, S = SERVE_B, SERVE_S
     Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -417,97 +436,158 @@ def lm_kernel_checks(dev):
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
+    def dispatched(fn, kernels, want):
+        """``fn()`` through the public wrapper, requiring that exactly the
+        kernel ``want`` of ``kernels`` launched."""
+        before = {k.__name__: k.launches for k in kernels}
+        out = fn()
+        got = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+        require(got == {k.__name__: int(k.__name__ == want)
+                        for k in kernels},
+                f"dispatch launched {got}, expected {want}")
+        return out
+
     rec = {}
-    # F: the main shape in bf16, timed; fp32; decode over a cache; a GQA
-    # head dim 128; non-causal over a ragged key length
+    # F: (label, q, k, v, causal, q_offset, kernel)
     log("F against its plain version:")
-    errs = []
+    f_kernels = (FA.flash_attention_wgmma, FA.flash_attention_fma)
+    errs = {k.__name__: [] for k in f_kernels}
     q, k, v = (randn(B, S, Hq, hd) for _ in range(3))
-    out = FA.flash_attention(q, k, v, True, 0)
-    check_close(f"bf16 causal B={B} S={S}", out,
-                FA.flash_attention_plain(q, k, v, True, 0), TOL_F32, errs)
     qf, kf, vf = (t.float() for t in (q, k, v))
-    check_close(f"fp32 causal B={B} S={S}", FA.flash_attention(qf, kf, vf),
-                FA.flash_attention_plain(qf, kf, vf), TOL_F32, errs)
-    del qf, kf, vf
-    q1 = randn(B, 1, Hq, hd)
-    check_close(f"bf16 decode Sq=1 q_offset={S - 548} Skv={S}",
-                FA.flash_attention(q1, k, v, True, S - 548),
-                FA.flash_attention_plain(q1, k, v, True, S - 548), TOL_F32,
-                errs)
-    qg, kg, vg = randn(2, 300, 8, 128), randn(2, 300, 2, 128), \
-        randn(2, 300, 2, 128)
-    check_close("bf16 causal GQA 8/2 heads hd=128 S=300",
-                FA.flash_attention(qg, kg, vg),
-                FA.flash_attention_plain(qg, kg, vg), TOL_F32, errs)
-    qn, kn, vn = (randn(2, 100, 4, 64, dtype=torch.float32),
-                  randn(2, 1000, 4, 64, dtype=torch.float32),
-                  randn(2, 1000, 4, 64, dtype=torch.float32))
-    check_close("fp32 non-causal Sq=100 Skv=1000",
-                FA.flash_attention(qn, kn, vn, False),
-                FA.flash_attention_plain(qn, kn, vn, False), TOL_F32, errs)
+    cases = [
+        (f"bf16 causal B={B} S={S}", q, k, v, True, 0, "wgmma"),
+        (f"fp32 causal B={B} S={S}", qf, kf, vf, True, 0, "fma"),
+        (f"bf16 decode Sq=1 q_offset={S - 548} Skv={S}", randn(B, 1, Hq, hd),
+         k, v, True, S - 548, "wgmma"),
+        (f"bf16 decode Sq=1 q_offset={S - 1} Skv={S}", randn(B, 1, Hq, hd),
+         k, v, True, S - 1, "wgmma"),
+        ("bf16 causal Sq=200 (a ragged 128-row q tile)",
+         randn(2, 200, 4, 64), randn(2, 200, 4, 64), randn(2, 200, 4, 64),
+         True, 0, "wgmma"),
+        ("bf16 causal Sq=100 Skv=333 q_offset=233 (a ragged key tile)",
+         randn(1, 100, 2, 64), randn(1, 333, 2, 64), randn(1, 333, 2, 64),
+         True, 233, "wgmma"),
+        ("bf16 non-causal Sq=77 Skv=1000", randn(2, 77, 4, 64),
+         randn(2, 1000, 4, 64), randn(2, 1000, 4, 64), False, 0, "wgmma"),
+        ("bf16 causal GQA 8/2 heads hd=128 S=300", randn(2, 300, 8, 128),
+         randn(2, 300, 2, 128), randn(2, 300, 2, 128), True, 0, "wgmma"),
+        ("bf16 causal hd=32 S=130", randn(2, 130, 4, 32),
+         randn(2, 130, 4, 32), randn(2, 130, 4, 32), True, 0, "fma"),
+        ("fp32 non-causal Sq=100 Skv=1000",
+         randn(2, 100, 4, 64, dtype=torch.float32),
+         randn(2, 1000, 4, 64, dtype=torch.float32),
+         randn(2, 1000, 4, 64, dtype=torch.float32), False, 0, "fma"),
+    ]
+    for label, qq, kk, vv, causal, off, kern in cases:
+        name = f"flash_attention_{kern}"
+        out = dispatched(lambda: FA.flash_attention(qq, kk, vv, causal, off),
+                         f_kernels, name)
+        check_close(f"{label} [{kern}]", out,
+                    FA.flash_attention_plain(qq, kk, vv, causal, off),
+                    TOL_F32, errs[name])
+    # the fma kernel on the main bf16 input too: its time is taken there
+    out_fma = FA.flash_attention_fma(q, k, v, True, 0)
+    check_close(f"bf16 causal B={B} S={S} [fma]", out_fma,
+                FA.flash_attention_plain(q, k, v, True, 0), TOL_F32,
+                errs["flash_attention_fma"])
+    del qf, kf, vf, cases, out_fma
     torch.cuda.synchronize()
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    rec["flash_attention"] = dict(
-        source=CSRC + "flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:71",
-        ms=cuda_ms(lambda: FA.flash_attention(q, k, v, True, 0)),
-        plain_ms=cuda_ms(lambda: FA.flash_attention_plain(q, k, v, True, 0),
-                         reps=3),
-        library_ms=cuda_ms(lambda: torch.nn.functional
-                           .scaled_dot_product_attention(
-                               qt, kt, vt, is_causal=True, enable_gqa=True)),
-        max_abs_err=max(e[0] for e in errs),
-        max_rel_err=max(e[1] for e in errs),
-        nbytes=nbytes(q, k, v, out),
-        ops=4 * B * Hq * hd * (S * (S + 1) // 2), peak_ops=PEAK_BF16,
-        shape=f"q/k/v [{B}, {S}, {Hq}, {hd}] bf16 causal (5 variants "
-              f"compared)")
-    log(f"F timed: {rec['flash_attention']['ms']:.3f} ms, plain "
-        f"{rec['flash_attention']['plain_ms']:.3f} ms, SDPA "
-        f"{rec['flash_attention']['library_ms']:.3f} ms")
-    del q, k, v, qt, kt, vt, out
+    plain_ms = cuda_ms(lambda: FA.flash_attention_plain(q, k, v, True, 0),
+                       reps=3)
+    sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    f_ops = 4 * B * Hq * hd * (S * (S + 1) // 2)
+    shape = f"q/k/v [{B}, {S}, {Hq}, {hd}] bf16 causal"
+    for fn, note in (
+            (FA.flash_attention_wgmma, "bf16 at hd 64 / 128"),
+            (FA.flash_attention_fma, "fp32, and bf16 at hd 16 / 32; off the "
+                                     "serving path")):
+        name = fn.__name__
+        rec[name] = dict(
+            source=CSRC + "flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:71",
+            ms=cuda_ms(lambda: fn(q, k, v, True, 0),
+                       reps=10 if fn is FA.flash_attention_wgmma else 3),
+            plain_ms=plain_ms, library_ms=sdpa_ms,
+            max_abs_err=max(e[0] for e in errs[name]),
+            max_rel_err=max(e[1] for e in errs[name]),
+            nbytes=nbytes(q, k, v, q), ops=f_ops, peak_ops=PEAK_BF16,
+            shape=f"{shape}; takes {note} ({len(errs[name])} variants "
+                  f"compared)")
+        log(f"F {name} timed: {rec[name]['ms']:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, SDPA {sdpa_ms:.4f} ms")
+    del q, k, v, qt, kt, vt
 
-    # M: the main shape in bf16 (timed), then h0 with a ragged length
+    # M: (label, s, chunk, h0, dtype, ds, kernel)
     log("M against its plain version:")
-    errs = []
+    m_kernels = (SSD.ssd_scan_mma, SSD.ssd_scan_fma)
+    errs = {k.__name__: [] for k in m_kernels}
 
-    def ssd_inputs(s):
-        x = randn(B, s, nh, dh)
+    def ssd_inputs(b, s, ds_=ds, dtype=torch.bfloat16, nh_=nh):
+        x = randn(b, s, nh_, dh, dtype=dtype)
         dt = torch.nn.functional.softplus(
-            randn(B, s, nh, dtype=torch.float32))
-        A = -torch.exp(randn(nh, dtype=torch.float32) * 0.5)
-        return x, dt, A, randn(B, s, ng, ds), randn(B, s, ng, ds)
+            randn(b, s, nh_, dtype=torch.float32))
+        A = -torch.exp(randn(nh_, dtype=torch.float32) * 0.5)
+        return (x, dt, A, randn(b, s, ng, ds_, dtype=dtype),
+                randn(b, s, ng, ds_, dtype=dtype))
 
-    x, dt, A, Bm, Cm = ssd_inputs(S)
-    y, hT = SSD.ssd_scan(x, dt, A, Bm, Cm, chunk=Q)
-    yp, hp = SSD.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=Q)
-    check_close(f"bf16 y, S={S}", y, yp, TOL_F32, errs)
-    check_close(f"fp32 hT, S={S}", hT, hp, TOL_STATE, errs)
-    xr, dtr, Ar, Br, Cr = ssd_inputs(S - 45)
-    h0 = torch.randn((B, nh, dh, ds), generator=g, device=dev)
-    y2, h2 = SSD.ssd_scan(xr, dtr, Ar, Br, Cr, h0, Q)
-    yp2, hp2 = SSD.ssd_scan_plain(xr, dtr, Ar, Br, Cr, h0, Q)
-    check_close(f"bf16 y, h0 given, ragged S={S - 45}", y2, yp2,
-                TOL_F32, errs)
-    check_close(f"fp32 hT, h0 given, ragged S={S - 45}", h2, hp2,
-                TOL_STATE, errs)
+    main = ssd_inputs(B, S)
+    cases = [
+        (f"bf16 S={S}", main, None, Q, "mma"),
+        (f"bf16 h0 given, ragged S={S - 45}", ssd_inputs(B, S - 45),
+         torch.randn((B, nh, dh, ds), generator=g, device=dev), Q, "mma"),
+        ("bf16 chunk 8, S=8 (the scheduler's prompts)", ssd_inputs(B, 8),
+         None, 8, "mma"),
+        ("bf16 ds=128 h0 given S=300", ssd_inputs(2, 300, 128, nh_=8),
+         torch.randn((2, 8, dh, 128), generator=g, device=dev), Q, "mma"),
+        ("bf16 chunk 256 S=300", ssd_inputs(2, 300, nh_=8), None, 256,
+         "fma"),
+        ("fp32 h0 given S=300", ssd_inputs(2, 300, dtype=torch.float32,
+                                           nh_=8),
+         torch.randn((2, 8, dh, ds), generator=g, device=dev), Q, "fma"),
+    ]
+    for label, args, h0, chunk, kern in cases:
+        name = f"ssd_scan_{kern}"
+        y, hT = dispatched(lambda: SSD.ssd_scan(*args, h0, chunk), m_kernels,
+                           name)
+        yp, hp = SSD.ssd_scan_plain(*args, h0, chunk)
+        # fp32 y sums up to 2 * chunk terms per output: 10x the fp32 tol
+        check_close(f"y, {label} [{kern}]", y, yp,
+                    TOL_F32 * (10 if y.dtype == torch.float32 else 1),
+                    errs[name])
+        check_close(f"hT, {label} [{kern}]", hT, hp, TOL_STATE, errs[name])
+    y, hT = SSD.ssd_scan_fma(*main, None, Q)
+    yp, hp = SSD.ssd_scan_plain(*main, None, Q)
+    check_close(f"y, bf16 S={S} [fma]", y, yp, TOL_F32,
+                errs["ssd_scan_fma"])
+    check_close(f"hT, bf16 S={S} [fma]", hT, hp, TOL_STATE,
+                errs["ssd_scan_fma"])
+    del cases, yp, hp
     torch.cuda.synchronize()
-    rec["ssd_scan"] = dict(
-        source=CSRC + "ssd_scan.cu",
-        replaces="src/repro/kernels/ssd_scan.py:68",
-        ms=cuda_ms(lambda: SSD.ssd_scan(x, dt, A, Bm, Cm, chunk=Q)),
-        plain_ms=cuda_ms(
-            lambda: SSD.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=Q), reps=3),
-        library_ms=None,
-        max_abs_err=max(e[0] for e in errs),
-        max_rel_err=max(e[1] for e in errs),
-        nbytes=nbytes(x, dt, A, Bm, Cm, y, hT),
-        ops=ssd_ops(B, S, nh, dh, ds, Q), peak_ops=PEAK_BF16,
-        shape=f"x [{B}, {S}, {nh}, {dh}] bf16, B/C [{B}, {S}, {ng}, {ds}], "
-              f"chunk {Q} (4 outputs compared)")
-    log(f"M timed: {rec['ssd_scan']['ms']:.3f} ms, plain "
-        f"{rec['ssd_scan']['plain_ms']:.3f} ms")
+    plain_ms = cuda_ms(lambda: SSD.ssd_scan_plain(*main, None, Q), reps=3)
+    x, dt, A, Bm, Cm = main
+    for fn, note in (
+            (SSD.ssd_scan_mma, "bf16, dh / ds multiples of 16 up to 128, "
+                               "chunk <= 128"),
+            (SSD.ssd_scan_fma, "fp32 and every other width or chunk; off "
+                               "the serving path")):
+        name = fn.__name__
+        rec[name] = dict(
+            source=CSRC + "ssd_scan.cu",
+            replaces="src/repro/kernels/ssd_scan.py:68",
+            ms=cuda_ms(lambda: fn(*main, None, Q),
+                       reps=10 if fn is SSD.ssd_scan_mma else 3),
+            plain_ms=plain_ms, library_ms=None,
+            max_abs_err=max(e[0] for e in errs[name]),
+            max_rel_err=max(e[1] for e in errs[name]),
+            nbytes=nbytes(x, dt, A, Bm, Cm, y, hT),
+            ops=ssd_ops(B, S, nh, dh, ds, Q), peak_ops=PEAK_BF16,
+            shape=f"x [{B}, {S}, {nh}, {dh}] bf16, B/C [{B}, {S}, {ng}, "
+                  f"{ds}], chunk {Q}; takes {note} ({len(errs[name]) // 2} "
+                  f"variants, y and hT each, compared)")
+        log(f"M {name} timed: {rec[name]['ms']:.4f} ms, plain "
+            f"{plain_ms:.3f} ms")
     return rec
 
 
@@ -548,6 +628,9 @@ def serving_path(dev, timings):
     eng.serve_slot(prompts, plans[0.4], rng)
     torch.cuda.synchronize()
 
+    # bf16 at zamba2's widths: every F launch is the wgmma kernel, every M
+    # launch the mma kernel, and the fma kernels never run
+    f_kern, m_kern = "flash_attention_wgmma", "ssd_scan_mma"
     expect = {0.0: (0, 0), 0.4: (3, 12), 1.0: (6, 38)}
     ops.reset_launches()                            # the serving path
     torch.cuda.reset_peak_memory_stats()
@@ -559,8 +642,7 @@ def serving_path(dev, timings):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         after = launch_counts()
-        got = (after["flash_attention"] - before["flash_attention"],
-               after["ssd_scan"] - before["ssd_scan"])
+        got = (after[f_kern] - before[f_kern], after[m_kern] - before[m_kern])
         require(got == expect[level], f"plan {plan.kind}: F and M launched "
                                       f"{got} times, expected "
                                       f"{expect[level]}")
@@ -600,14 +682,17 @@ def serving_path(dev, timings):
             f"scheduler accounting: {rep.summary()}")
     require(np.isfinite(rep.total_cost) and rep.n_slots == SERVE_SLOTS,
             "scheduler cost not finite")
-    for name in ("flash_attention", "ssd_scan"):
+    for name in (f_kern, m_kern):
         require(after[name] > before[name],
                 f"the scheduler never launched {name}")
+    counts = launch_counts()
+    for name in ("flash_attention_fma", "ssd_scan_fma"):
+        require(counts[name] == 0, f"{name} ran on the bf16 serving path")
     timings["scheduler"] = wall
     log(f"scheduler, {SERVE_SLOTS} slots: {rep.summary()}")
     log(f"scheduler wall {wall:.2f} s, {wall / SERVE_SLOTS * 1e3:.1f} ms per "
         f"slot (8-token prompts, as the reference draws them)")
-    return launch_counts()
+    return counts
 
 
 def _leaves(tree):
@@ -739,7 +824,8 @@ def main() -> int:
     # phase 7: the LM serving path at full width and depth
     serve_launches = serving_path(dev, timings)
     log(f"serving path launches: {serve_launches}")
-    for k in (FA.flash_attention, SSD.ssd_scan):
+    for k in (FA.flash_attention_wgmma, FA.flash_attention_fma,
+              SSD.ssd_scan_mma, SSD.ssd_scan_fma):
         launches[k.__name__] = serve_launches[k.__name__]
 
     # phase 8: card == CPU for the serving path
@@ -754,6 +840,7 @@ def main() -> int:
         entry = {
             "name": name, "route": "cuda",
             "source": r.get("source", CSRC + "hosting.cu"),
+            "kernel": KERNEL_SYMBOLS[name],
             "replaces": r["replaces"], "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": max(t_bytes, t_ops),

@@ -6,6 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
+
 
 def tree_from_numpy(tree, device):
     """Turn a nest of dicts / lists / tuples / NamedTuples of numpy arrays
@@ -38,15 +40,22 @@ def _leaf_to_tensor(a, device):
     return torch.from_numpy(a).to(device)
 
 
-def params_from_jax(tree, device="cpu"):
+def params_from_jax(tree, device=None):
     """The reference's model parameter tree (``repro.models.init_params``)
     as the port's: the same nest of dicts and lists (stacked segment
     parameters stay stacked ``[n, ...]``, a ``shared_ref`` segment's empty
     ``{}`` stays empty), every leaf a tensor on ``device`` with the same
-    values and dtype.  Leaves are numpy arrays (``ml_dtypes.bfloat16`` ones
-    included, carried bit for bit) or anything ``np.asarray`` takes."""
-    if isinstance(tree, dict):
-        return {k: params_from_jax(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(params_from_jax(v, device) for v in tree)
-    return _leaf_to_tensor(tree, device)
+    values and dtype.  ``device`` is resolved by ``resolve_device``: the
+    CUDA card by default (raising without one), the CPU only when asked.
+    Leaves are numpy arrays (``ml_dtypes.bfloat16`` ones included, carried
+    bit for bit) or anything ``np.asarray`` takes."""
+    dev = resolve_device(device)
+
+    def carry(t):
+        if isinstance(t, dict):
+            return {k: carry(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(carry(v) for v in t)
+        return _leaf_to_tensor(t, dev)
+
+    return carry(tree)

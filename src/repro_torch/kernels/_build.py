@@ -15,8 +15,9 @@ Flags per library:
   are held bit for bit against the reference, which fixes which
   multiply-adds are one FMA (written as ``__fmaf_rn``) and which are two
   rounded operations.
-* ``flash_attention`` (F) and ``ssd_scan`` (M): nvcc's default
-  contraction; they are held to a stated tolerance, not to bits.
+* ``flash_attention`` (F: the wgmma and the FMA kernel) and ``ssd_scan``
+  (M: the mma.sync and the FMA kernel): nvcc's default contraction; they
+  are held to a stated tolerance, not to bits.
 """
 from __future__ import annotations
 
@@ -46,14 +47,17 @@ LIBRARIES = {
         "launch_sim_alpha_rr": (_P,) * 14 + (_I,) * 5 + (_P,) * 7,
     }),
     "flash_attention": (_COMMON, {
-        # q, k, v, out, B, Sq, Skv, Hq, Hkv, hd, causal, q_offset, is_bf16,
-        # stream
-        "launch_flash_attention": (_P,) * 4 + (_I,) * 9 + (_P,),
+        # q, k, v, out, B, Sq, Skv, Hq, Hkv, hd, causal, q_offset, stream
+        "launch_flash_attention_wgmma": (_P,) * 4 + (_I,) * 8 + (_P,),
+        # the same, then is_bf16, stream
+        "launch_flash_attention_fma": (_P,) * 4 + (_I,) * 9 + (_P,),
     }),
     "ssd_scan": (_COMMON, {
         # x, dt, A, B, C, h0 (or NULL), y, hT, b, s, nh, dh, ng, ds, chunk,
-        # is_bf16, stream
-        "launch_ssd_scan": (_P,) * 8 + (_I,) * 8 + (_P,),
+        # stream
+        "launch_ssd_scan_mma": (_P,) * 8 + (_I,) * 7 + (_P,),
+        # the same, then is_bf16, stream
+        "launch_ssd_scan_fma": (_P,) * 8 + (_I,) * 8 + (_P,),
     }),
 }
 

@@ -9,8 +9,10 @@ nothing is padded here.
 * ``ssd_scan``: x [b,s,nh,dh], dt [b,s,nh], A [nh], B/C [b,s,ng,ds]
   (kernel M).
 
-``KERNELS`` lists every kernel wrapper, whose ``launches`` counters a run
-reads (``reset_launches`` sets them to 0).
+``KERNELS`` lists the launcher of every CUDA kernel, whose ``launches``
+counters a run reads; ``DISPATCHERS`` the wrappers that pick one of two
+kernels (F, M) and count the launches of both.  ``reset_launches`` sets
+every counter to 0.
 """
 from __future__ import annotations
 
@@ -48,12 +50,15 @@ def ssd_scan(x, dt, A, B, C, h0=None, chunk: int = 128):
     return _ssd.ssd_scan(x, dt, A, B, C, h0, chunk)
 
 
-#: every kernel wrapper: P, D, S, F, M
+#: every kernel's launcher: P, D, S, F (tensor-core and fma), M (tensor-core
+#: and fma)
 KERNELS = (hosting.slot_uniform, hosting.dp_minplus,
-           hosting.sim_chunk_alpha_rr, _fa.flash_attention, _ssd.ssd_scan)
+           hosting.sim_chunk_alpha_rr, _fa.flash_attention_wgmma,
+           _fa.flash_attention_fma, _ssd.ssd_scan_mma, _ssd.ssd_scan_fma)
+DISPATCHERS = (_fa.flash_attention, _ssd.ssd_scan)
 
 
 def reset_launches():
-    """Set every kernel's launch counter to 0."""
-    for k in KERNELS:
+    """Set every launch counter to 0."""
+    for k in KERNELS + DISPATCHERS:
         k.launches = 0

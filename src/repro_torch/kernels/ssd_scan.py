@@ -1,5 +1,5 @@
-"""Kernel **M**, the Mamba2 SSD chunked scan: its wrapper and its plain
-PyTorch version.  The port of the Pallas kernel
+"""Kernel **M**, the Mamba2 SSD chunked scan: its wrapper, its two CUDA
+kernels and its plain PyTorch version.  The port of the Pallas kernel
 ``repro/kernels/ssd_scan.py:ssd_scan_bhcqd``, whose oracle is the XLA path
 the reference model runs, ``repro/models/mamba2.py:ssd_chunked``; the CUDA
 source is ``csrc/ssd_scan.cu``.
@@ -13,15 +13,30 @@ dtype, hT [b, nh, dh, ds] fp32)``.  Per chunk of ``chunk`` tokens, with
     y_i = sum_{j<=i} (C_i . B_j) exp(L_i - L_j) u_j + exp(L_i) C_i h^T
     h'  = exp(L_Q) h + sum_j (u_j exp(L_Q - L_j))^T B_j
 
-The wrapper takes the plain version only for CPU tensors; for CUDA tensors
-it checks device, dtype, shape and contiguity, launches on the current
-stream, raises on a refused launch and counts the launch.
+``ssd_scan`` takes the plain version only for CPU tensors.  For CUDA
+tensors it checks device, dtype, shape and contiguity and dispatches
+explicitly on (dtype, widths, chunk):
+
+* bf16 x/B/C with dh and ds multiples of 16 up to 128 and
+  ``min(chunk, s) <= 128``: ``ssd_scan_mma``, the tensor-core kernel
+  (mma.sync, the fp32 side of every product split into two bf16 terms);
+* everything else (fp32 inputs, other widths or chunks): ``ssd_scan_fma``,
+  the fp32-FMA kernel.
+
+Each launcher launches on the current stream, raises on a refused launch
+and adds one to its own ``launches`` counter; ``ssd_scan.launches`` counts
+the launches of both.  There is no fallback between the two and none to the
+plain version.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+
+#: the widest dh / ds and the longest chunk the tensor-core kernel takes
+MMA_MAX_WIDTH = 128
+MMA_MAX_CHUNK = 128
 
 
 def ssd_scan_plain(x, dt, A, B, C, h0=None, chunk: int = 128):
@@ -70,14 +85,15 @@ def ssd_scan_plain(x, dt, A, B, C, h0=None, chunk: int = 128):
     return y, h
 
 
-def ssd_scan(x, dt, A, B, C, h0=None, chunk: int = 128):
-    """Kernel M on CUDA tensors (x/B/C bf16 or fp32, one dtype), and
-    ``ssd_scan_plain`` on CPU tensors."""
-    if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, A, B, C, h0, chunk)
+def _check(x, dt, A, B, C, h0, chunk, dtypes):
+    """The shape rules both kernels share; returns (b, s, nh, dh, ng,
+    ds)."""
     dev, dtype = x.device, x.dtype
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"ssd_scan takes bf16 or fp32 x, got {dtype}")
+    if dev.type != "cuda":
+        raise ValueError(f"the kernels take CUDA tensors, got {dev}; "
+                         f"ssd_scan runs the plain version there")
+    if dtype not in dtypes:
+        raise TypeError(f"ssd_scan takes {dtypes} x, got {dtype}")
     b, s, nh, dh = x.shape
     ng, ds = B.shape[2], B.shape[3]
     f32 = torch.float32
@@ -91,18 +107,69 @@ def ssd_scan(x, dt, A, B, C, h0=None, chunk: int = 128):
     if s < 1 or chunk < 1 or nh % ng != 0:
         raise ValueError(f"need s >= 1, chunk >= 1 and nh % ng == 0, got "
                          f"s={s}, chunk={chunk}, nh={nh}, ng={ng}")
+    return b, s, nh, dh, ng, ds
+
+
+def _mma_takes(dh, ds, s, chunk) -> bool:
+    return (dh % 16 == 0 and ds % 16 == 0 and dh <= MMA_MAX_WIDTH
+            and ds <= MMA_MAX_WIDTH and min(chunk, s) <= MMA_MAX_CHUNK)
+
+
+def _launch(fn, x, dt, A, B, C, h0, chunk, *extra):
+    b, s, nh, dh = x.shape
+    ng, ds = B.shape[2], B.shape[3]
     y = torch.empty_like(x)
-    hT = torch.empty((b, nh, dh, ds), dtype=f32, device=dev)
-    # widths whose chunk does not fit in shared memory are refused by the
-    # launch (cudaErrorInvalidValue)
-    err = _build.library("ssd_scan").launch_ssd_scan(
+    hT = torch.empty((b, nh, dh, ds), dtype=torch.float32, device=x.device)
+    err = getattr(_build.library("ssd_scan"), fn)(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
-        hT.data_ptr(), b, s, nh, dh, ng, ds, int(chunk),
-        int(dtype == torch.bfloat16), _build.stream(dev))
-    _build.raise_on(err, "ssd_scan")
-    ssd_scan.launches += 1
+        hT.data_ptr(), b, s, nh, dh, ng, ds, int(chunk), *extra,
+        _build.stream(x.device))
+    _build.raise_on(err, fn)
     return y, hT
 
 
+def ssd_scan_mma(x, dt, A, B, C, h0=None, chunk: int = 128):
+    """The tensor-core kernel on CUDA tensors: bf16 x/B/C, dh and ds
+    multiples of 16 up to ``MMA_MAX_WIDTH``, ``min(chunk, s) <=
+    MMA_MAX_CHUNK``."""
+    _, s, _, dh, _, ds = _check(x, dt, A, B, C, h0, chunk,
+                                (torch.bfloat16,))
+    if not _mma_takes(dh, ds, s, chunk):
+        raise ValueError(f"the mma kernel takes dh, ds multiples of 16 up "
+                         f"to {MMA_MAX_WIDTH} and min(chunk, s) <= "
+                         f"{MMA_MAX_CHUNK}, got dh={dh}, ds={ds}, "
+                         f"chunk={chunk}, s={s}")
+    out = _launch("launch_ssd_scan_mma", x, dt, A, B, C, h0, chunk)
+    ssd_scan_mma.launches += 1
+    return out
+
+
+def ssd_scan_fma(x, dt, A, B, C, h0=None, chunk: int = 128):
+    """The fp32-FMA kernel on CUDA tensors: x/B/C bf16 or fp32 (one dtype);
+    widths whose chunk does not fit in shared memory are refused by the
+    launch (cudaErrorInvalidValue)."""
+    _check(x, dt, A, B, C, h0, chunk, (torch.bfloat16, torch.float32))
+    out = _launch("launch_ssd_scan_fma", x, dt, A, B, C, h0, chunk,
+                  int(x.dtype == torch.bfloat16))
+    ssd_scan_fma.launches += 1
+    return out
+
+
+def ssd_scan(x, dt, A, B, C, h0=None, chunk: int = 128):
+    """Kernel M on CUDA tensors, dispatched on (dtype, widths, chunk) as the
+    module says; ``ssd_scan_plain`` on CPU tensors."""
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, A, B, C, h0, chunk)
+    if x.dtype == torch.bfloat16 and _mma_takes(x.shape[3], B.shape[3],
+                                                x.shape[1], chunk):
+        out = ssd_scan_mma(x, dt, A, B, C, h0, chunk)
+    else:
+        out = ssd_scan_fma(x, dt, A, B, C, h0, chunk)
+    ssd_scan.launches += 1
+    return out
+
+
 ssd_scan.launches = 0
+ssd_scan_mma.launches = 0
+ssd_scan_fma.launches = 0

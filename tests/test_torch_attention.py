@@ -53,7 +53,7 @@ def _qkv(seed, b, sq, skv, hq, hkv, hd, dtype="float32"):
             _arr(rng, (b, skv, hkv, hd), dtype),
             _arr(rng, (b, skv, hkv, hd), dtype)]
     return ([jnp.asarray(a) for a in arrs],
-            [params_from_jax(a) for a in arrs])
+            [params_from_jax(a, device="cpu") for a in arrs])
 
 
 def _close(port, want, tol):
@@ -141,7 +141,8 @@ def _gqa_pair(**over):
         for name in ("bq", "bk", "bv"):
             jp[name] = jnp.asarray(rng.standard_normal(
                 jp[name].shape).astype(np.float32) * 0.1)
-    return jcfg, pcfg, jp, params_from_jax(jax.tree.map(np.asarray, jp))
+    return jcfg, pcfg, jp, params_from_jax(jax.tree.map(np.asarray, jp),
+                                           device="cpu")
 
 
 @pytest.mark.parametrize("over", [{}, {"rotary_dim": 8, "qkv_bias": True}])

@@ -67,7 +67,10 @@ def test_build_table_is_per_library():
 def test_wrappers_take_the_plain_version_only_on_the_cpu():
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn((1, 9, 2, 16), generator=g) for _ in range(3))
-    n_f, n_m = FA.flash_attention.launches, SSD.ssd_scan.launches
+    counters = (FA.flash_attention, FA.flash_attention_wgmma,
+                FA.flash_attention_fma, SSD.ssd_scan, SSD.ssd_scan_mma,
+                SSD.ssd_scan_fma)
+    before = [k.launches for k in counters]
     assert torch.equal(FA.flash_attention(q, k, v, True, 0),
                        FA.flash_attention_plain(q, k, v, True, 0))
     x = torch.randn((1, 11, 2, 8), generator=g)
@@ -77,7 +80,14 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     for a, b in zip(SSD.ssd_scan(x, dt, A, B, C, chunk=4),
                     SSD.ssd_scan_plain(x, dt, A, B, C, chunk=4)):
         assert torch.equal(a, b)
-    assert (FA.flash_attention.launches, SSD.ssd_scan.launches) == (n_f, n_m)
+    assert [k.launches for k in counters] == before
+    # the kernels' own launchers refuse CPU tensors instead of building
+    for launch, args in ((FA.flash_attention_wgmma, (q, k, v)),
+                         (FA.flash_attention_fma, (q, k, v)),
+                         (SSD.ssd_scan_mma, (x, dt, A, B, C)),
+                         (SSD.ssd_scan_fma, (x, dt, A, B, C))):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            launch(*args)
 
 
 def test_bf16_rule_catches_a_normaliser_missing_a_late_key_tile():
@@ -105,29 +115,60 @@ def test_bf16_rule_catches_a_normaliser_missing_a_late_key_tile():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
-    # (B, Sq, Skv, Hq, Hkv, hd, causal, q_offset, dtype)
-    (2, 64, 64, 4, 4, 16, True, 0, torch.float32),
-    (2, 100, 100, 4, 2, 32, True, 0, torch.float32),
-    (1, 80, 80, 8, 1, 64, True, 0, torch.bfloat16),
-    (1, 256, 256, 2, 2, 128, True, 0, torch.bfloat16),
-    (2, 1, 300, 4, 4, 64, True, 299, torch.bfloat16),
-    (1, 7, 300, 4, 4, 64, True, 200, torch.float32),
-    (2, 16, 80, 2, 2, 32, False, 0, torch.float32),
+    # (B, Sq, Skv, Hq, Hkv, hd, causal, q_offset, dtype, kernel): the
+    # wgmma kernel takes bf16 at hd 64 / 128, the fma kernel the rest
+    (2, 64, 64, 4, 4, 16, True, 0, torch.float32, "fma"),
+    (2, 100, 100, 4, 2, 32, True, 0, torch.float32, "fma"),
+    (1, 80, 80, 8, 1, 64, True, 0, torch.bfloat16, "wgmma"),
+    (1, 256, 256, 2, 2, 128, True, 0, torch.bfloat16, "wgmma"),
+    (2, 1, 300, 4, 4, 64, True, 299, torch.bfloat16, "wgmma"),
+    (1, 7, 300, 4, 4, 64, True, 200, torch.float32, "fma"),
+    (2, 16, 80, 2, 2, 32, False, 0, torch.float32, "fma"),
+    # the tensor-core kernel's edges: Sq not a multiple of its 128-row
+    # q tile, decode at q_offset = Skv - 1, Skv ragged against the 64-key
+    # tile, non-causal over a ragged Skv, GQA 8/2 at hd = 128
+    (2, 200, 200, 4, 4, 64, True, 0, torch.bfloat16, "wgmma"),
+    (2, 1, 2048, 4, 4, 64, True, 2047, torch.bfloat16, "wgmma"),
+    (1, 100, 333, 2, 2, 64, True, 233, torch.bfloat16, "wgmma"),
+    (2, 77, 1000, 4, 4, 64, False, 0, torch.bfloat16, "wgmma"),
+    (2, 300, 300, 8, 2, 128, True, 0, torch.bfloat16, "wgmma"),
+    # bf16 below the tensor-core head dims, and fp32 at them, stay on fma
+    (2, 130, 130, 4, 4, 32, True, 0, torch.bfloat16, "fma"),
+    (1, 140, 140, 2, 2, 64, True, 0, torch.float32, "fma"),
 ])
 def test_flash_attention_kernel_matches_plain(case):
     dev = _card()
-    b, sq, skv, hq, hkv, hd, causal, off, dtype = case
+    b, sq, skv, hq, hkv, hd, causal, off, dtype, kernel = case
     g = torch.Generator(device=dev).manual_seed(1)
     q = torch.randn((b, sq, hq, hd), generator=g, device=dev).to(dtype)
     k, v = (torch.randn((b, skv, hkv, hd), generator=g, device=dev)
             .to(dtype) for _ in range(2))
+    ran = {"wgmma": FA.flash_attention_wgmma, "fma": FA.flash_attention_fma}
     n = FA.flash_attention.launches
+    before = {name: fn.launches for name, fn in ran.items()}
     out = FA.flash_attention(q, k, v, causal, off)
     torch.cuda.synchronize()
     assert FA.flash_attention.launches == n + 1
+    assert {name: fn.launches - before[name] for name, fn in ran.items()} \
+        == {name: int(name == kernel) for name in ran}
     assert out.dtype == dtype and out.shape == q.shape
     assert _close(out, FA.flash_attention_plain(q, k, v, causal, off),
                   TOL_F32)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernels_agree_with_each_other():
+    """Both kernels of F take bf16 at hd 64: held to each other under the
+    same rule as to the plain version."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((2, 333, 4, 64), generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    for causal in (True, False):
+        a = FA.flash_attention_wgmma(q, k, v, causal, 0)
+        b = FA.flash_attention_fma(q, k, v, causal, 0)
+        torch.cuda.synchronize()
+        assert _close(a, b, TOL_F32)
 
 
 @pytest.mark.cuda
@@ -146,16 +187,29 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
-    # (b, s, nh, dh, ng, ds, chunk, dtype, h0)
-    (1, 32, 2, 16, 1, 16, 16, torch.float32, False),
-    (1, 100, 4, 32, 2, 16, 32, torch.float32, True),
-    (2, 13, 4, 32, 1, 16, 8, torch.bfloat16, True),
-    (1, 200, 8, 64, 1, 128, 128, torch.float32, False),
-    (2, 300, 8, 64, 1, 64, 128, torch.bfloat16, False),
+    # (b, s, nh, dh, ng, ds, chunk, dtype, h0, kernel): the mma kernel
+    # takes bf16 with dh, ds multiples of 16 up to 128 and min(chunk, s)
+    # <= 128, the fma kernel the rest
+    (1, 32, 2, 16, 1, 16, 16, torch.float32, False, "fma"),
+    (1, 100, 4, 32, 2, 16, 32, torch.float32, True, "fma"),
+    (2, 13, 4, 32, 1, 16, 8, torch.bfloat16, True, "mma"),
+    (1, 200, 8, 64, 1, 128, 128, torch.float32, False, "fma"),
+    (2, 300, 8, 64, 1, 64, 128, torch.bfloat16, False, "mma"),
+    # the tensor-core kernel's edges: the scheduler's 8-token prompts
+    # (chunk 8, s = 8), a ragged length with h0, ds = 128, both widths
+    # 128 with two groups
+    (2, 8, 8, 64, 1, 64, 8, torch.bfloat16, False, "mma"),
+    (2, 2003, 8, 64, 1, 64, 128, torch.bfloat16, True, "mma"),
+    (1, 300, 4, 64, 1, 128, 128, torch.bfloat16, True, "mma"),
+    (1, 200, 8, 128, 2, 128, 128, torch.bfloat16, True, "mma"),
+    # bf16 past its edges stays on fma: a chunk of 256, dh not a multiple
+    # of 16
+    (1, 300, 4, 64, 1, 64, 256, torch.bfloat16, False, "fma"),
+    (1, 70, 4, 24, 1, 16, 32, torch.bfloat16, True, "fma"),
 ])
 def test_ssd_kernel_matches_plain(case):
     dev = _card()
-    b, s, nh, dh, ng, ds, chunk, dtype, with_h0 = case
+    b, s, nh, dh, ng, ds, chunk, dtype, with_h0, kernel = case
     g = torch.Generator(device=dev).manual_seed(2)
 
     def randn(*shape):
@@ -166,10 +220,14 @@ def test_ssd_kernel_matches_plain(case):
     A = -torch.exp(randn(nh) * 0.5)
     B, C = randn(b, s, ng, ds).to(dtype), randn(b, s, ng, ds).to(dtype)
     h0 = randn(b, nh, dh, ds) if with_h0 else None
+    ran = {"mma": SSD.ssd_scan_mma, "fma": SSD.ssd_scan_fma}
     n = SSD.ssd_scan.launches
+    before = {name: fn.launches for name, fn in ran.items()}
     y, hT = SSD.ssd_scan(x, dt, A, B, C, h0, chunk)
     torch.cuda.synchronize()
     assert SSD.ssd_scan.launches == n + 1
+    assert {name: fn.launches - before[name] for name, fn in ran.items()} \
+        == {name: int(name == kernel) for name in ran}
     yp, hp = SSD.ssd_scan_plain(x, dt, A, B, C, h0, chunk)
     assert y.dtype == dtype and hT.dtype == torch.float32
     # fp32 y sums up to 2 * chunk terms per output: 10x the fp32 tolerance
@@ -179,6 +237,28 @@ def test_ssd_kernel_matches_plain(case):
     with pytest.raises(TypeError):
         SSD.ssd_scan(x, dt, A, B.float() if dtype != torch.float32
                      else B.to(torch.bfloat16), C, h0, chunk)
+
+
+@pytest.mark.cuda
+def test_ssd_kernels_agree_with_each_other():
+    """Both kernels of M take bf16 at dh = ds = 64, chunk 128: held to each
+    other under the same rule as to the plain version."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x = randn(2, 333, 8, 64).to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(randn(2, 333, 8))
+    A = -torch.exp(randn(8) * 0.5)
+    B, C = (randn(2, 333, 1, 64).to(torch.bfloat16) for _ in range(2))
+    h0 = randn(2, 8, 64, 64)
+    ya, ha = SSD.ssd_scan_mma(x, dt, A, B, C, h0, 128)
+    yb, hb = SSD.ssd_scan_fma(x, dt, A, B, C, h0, 128)
+    torch.cuda.synchronize()
+    assert _close(ya, yb, TOL_F32)
+    assert _close(ha, hb, TOL_STATE)
 
 
 @pytest.mark.cuda

@@ -41,7 +41,8 @@ def _pair(arch_id, seed=0):
               (rng.standard_normal(l.shape) * 0.1).astype(np.float32)
               for l in leaves]
     jp = jax.tree.unflatten(treedef, [jnp.asarray(l) for l in leaves])
-    return jcfg, pcfg, jp, params_from_jax(jax.tree.map(np.asarray, jp))
+    return jcfg, pcfg, jp, params_from_jax(jax.tree.map(np.asarray, jp),
+                                           device="cpu")
 
 
 def _tokens(cfg, b, s, seed=2):
@@ -140,13 +141,26 @@ def test_cache_shapes_match_reference(arch_id):
         assert [tuple(t.shape) for t in c] == [s[:-1] for s in spec]
 
 
+def test_params_from_jax_resolves_the_card_by_default():
+    """Without ``device`` the carried weights go to the CUDA card, as every
+    port entry point does (``_device.resolve_device``); without a card that
+    raises instead of falling back to the CPU."""
+    tree = {"w": np.ones((2, 3), np.float32), "seg": [{}]}
+    if torch.cuda.is_available():
+        assert params_from_jax(tree)["w"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            params_from_jax(tree)
+    assert params_from_jax(tree, device="cpu")["w"].device.type == "cpu"
+
+
 def test_params_from_jax_carries_bf16_and_the_tree_layout():
     """bf16 leaves (ml_dtypes) keep their bits; the list of stacked segment
     dicts and the empty ``{}`` of each ``shared_ref`` keep their places."""
     jcfg = jget_arch("zamba2-1.2b").tiny.with_(param_dtype=jnp.bfloat16,
                                                compute_dtype=jnp.bfloat16)
     jp = jax.tree.map(np.asarray, jtf.init_params(jcfg, jax.random.PRNGKey(4)))
-    pp = params_from_jax(jp)
+    pp = params_from_jax(jp, device="cpu")
     assert sorted(pp) == sorted(jp)
     assert isinstance(pp["segments"], list)
     for (kind, n), seg, jseg in zip(jcfg.segments, pp["segments"],

@@ -45,7 +45,8 @@ def engines():
     jeng = JEngine(jspec, params=jparams)
     peng = ServingEngine(get_arch(ARCH), device="cpu",
                          params=params_from_jax(jax.tree.map(np.asarray,
-                                                             jparams)))
+                                                             jparams),
+                                         device="cpu"))
     return jeng, peng
 
 

@@ -51,7 +51,8 @@ def _inputs(seed, b, s, nh, dh, ng, ds, dtype="float32", with_h0=False):
         x, B, C = (a.astype(ml_dtypes.bfloat16) for a in (x, B, C))
     arrs = (x, dt, A, B, C, h0)
     return ([None if a is None else jnp.asarray(a) for a in arrs],
-            [None if a is None else params_from_jax(a) for a in arrs])
+            [None if a is None else params_from_jax(a, device="cpu")
+             for a in arrs])
 
 
 def _close(port, want, tol, rel_to_max=True):
@@ -120,7 +121,8 @@ def _mamba_pair():
     for name in ("conv_x_b", "conv_B_b", "conv_C_b", "dt_bias", "ssm_norm"):
         jp[name] = jnp.asarray(rng.standard_normal(jp[name].shape)
                                .astype(np.float32) * 0.1)
-    return jcfg, pcfg, jp, params_from_jax(jax.tree.map(np.asarray, jp))
+    return jcfg, pcfg, jp, params_from_jax(jax.tree.map(np.asarray, jp),
+                                           device="cpu")
 
 
 def test_mamba2_apply_prefill_and_decode():

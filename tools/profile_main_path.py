@@ -48,8 +48,10 @@ def _device_us(evt) -> float:
 
 
 # device kernels by group, for the serving path: name fragments
-GROUPS = (("kernel F", ("flash_fwd_kernel",)),
-          ("kernel M", ("ssd_scan_kernel",)),
+GROUPS = (("kernel F (wgmma)", ("flash_fwd_wgmma_kernel",)),
+          ("kernel F (fma)", ("flash_fwd_fma_kernel",)),
+          ("kernel M (mma)", ("ssd_scan_mma_kernel",)),
+          ("kernel M (fma)", ("ssd_scan_fma_kernel",)),
           ("matrix products", ("gemm", "xmma", "cutlass", "nvjet", "cublas")))
 
 
