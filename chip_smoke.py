@@ -11,13 +11,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    together (build seconds).  TF32 is switched off for matmuls and cuDNN.
 2. Hosting kernels against their plain PyTorch versions on the card, at the
    fleet path's shapes, bit for bit (``torch.equal``): P (both threefry
-   layouts, with and without a salt), D (+inf-padded levels, frozen slots),
-   S (alpha-RR on K = 3 and on a mixed K = 5 grid, RR on K = 2).
+   layouts, with and without a salt); D with the cost assembly fused in
+   (the fleet's kernel: K = 3 and 2, ragged slabs of R - 3 rows and chunks
+   of 1,000, 1,001 and 1, K = 16, each with and without the argmin table;
+   +inf-padded levels, frozen slots, all-+inf frontiers), also against
+   the route it replaces (float64 ``fma32`` assembly + kernel D on the
+   finished w) on the same slab; D on a finished w; S (alpha-RR on K = 3
+   and on a mixed K = 5 grid, RR on K = 2, ragged slabs, K = 16, with and
+   without the final fetch and the trace).  D and S report cycles per
+   slot at the SM clock nvidia-smi reads while they run.
 3. The fleet path at full width: 1,024 instances (32 M x 32 (alpha, g)) x 4
    seeds = 4,096 rows, T = 65,536, chunks of 4,096: alpha-RR and RR through
    ``run_fleet``, alpha-OPT and OPT through ``offline_opt_fleet``
    (checkpointed, cost only), ``mc_summary`` of each.  Launch counters are
-   zeroed just before and read just after; P, D and S must have run.
+   zeroed just before and read just after; P, the fused D and S must have
+   run, and D on a finished w must not.
 4. A second fleet leg with Gilbert-Elliot arrivals and NA rents,
    antithetic seeds.
 5. Card == CPU: legs 3 and 4 rerun at 64 rows and T = 4,096 on the card and
@@ -47,7 +55,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    same weights: logits within 1e-4, argmax tokens equal where the CPU's
    top-2 margin is wider.
 
-Kernel times are CUDA-event medians after a warm-up.  The last three lines
+Kernel times are CUDA-event medians after a warm-up, over batches of
+back-to-back calls for the kernels (so that the host's launch overhead
+is not counted as the kernel's time).  The last three lines
 are the kernels' JSON record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero.
 """
@@ -102,6 +112,7 @@ SERVE_B, SERVE_S, SERVE_SLOTS = 8, 2048, 60
 # each launcher's CUDA kernel (the symbol in its source)
 KERNEL_SYMBOLS = {
     "slot_uniform": "slot_uniform_kernel",
+    "dp_fwd_model1": "dp_fwd_model1_kernel",
     "dp_minplus": "dp_minplus_kernel",
     "sim_chunk_alpha_rr": "sim_alpha_rr_kernel",
     "flash_attention_wgmma": "flash_fwd_wgmma_kernel",
@@ -120,8 +131,11 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, reps=5, warmup=1):
-    """Median milliseconds of ``fn()`` over ``reps`` CUDA-event timed runs."""
+def cuda_ms(fn, reps=5, warmup=1, batch=1):
+    """Median milliseconds of one ``fn()`` over ``reps`` CUDA-event timed
+    runs of ``batch`` back-to-back calls each (a batch keeps the card busy
+    while the host prepares the next launch, so a kernel's time is not
+    its wrapper's)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -129,10 +143,11 @@ def cuda_ms(fn, reps=5, warmup=1):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return float(np.median(times))
 
 
@@ -163,6 +178,24 @@ def tree_max_abs(a, b):
     return float(torch.where(a == b, 0.0, (a - b).abs()).max())
 
 
+def sm_clock_mhz(fn, ms):
+    """The SM clock (nvidia-smi, MHz) read while the card runs about 0.4 s
+    of back-to-back ``fn()`` calls of ``ms`` each."""
+    for _ in range(max(50, int(400 / max(ms, 1e-3)))):
+        fn()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout
+    torch.cuda.synchronize()
+    return float(out.split()[0])
+
+
+def sub_rows(tensors, rows):
+    """The first ``rows`` rows of each tensor, contiguous."""
+    return tuple(t[:rows].contiguous() for t in tensors)
+
+
 # ----------------------------------------------------------------------
 # Workload.
 # ----------------------------------------------------------------------
@@ -175,6 +208,14 @@ def fleet_grid(n_m, n_alpha, device):
              for M in np.geomspace(2.0, 50.0, N_M)[:n_m]
              for a in np.linspace(0.1, 0.7, N_ALPHA)[:n_alpha]]
     return HostingGrid.from_costs(costs, device=device)
+
+
+def k16_grid(B, device):
+    """B instances on 16 levels (g = 1 - level), M log-spaced in [2, 50]."""
+    lv = np.linspace(0.0, 1.0, 16)
+    return HostingGrid.from_costs(
+        [HostingCosts(M=float(m), levels=tuple(lv), g=tuple(1.0 - lv))
+         for m in np.geomspace(2.0, 50.0, B)], device=device)
 
 
 def bernoulli_uniform(B, device):
@@ -267,7 +308,7 @@ def kernel_checks(dev):
             require(torch.equal(k, p), f"P differs (layout {part}, "
                                        f"salt {salt})")
             err = max(err, tree_max_abs(k, p))
-    ms = cuda_ms(lambda: H.slot_uniform(keys, tids, None, True))
+    ms = cuda_ms(lambda: H.slot_uniform(keys, tids, None, True), batch=10)
     plain_ms = cuda_ms(lambda: H.slot_uniform_plain(keys, tids, None, True),
                        reps=3)
     # per draw: 2 threefry blocks of 79 32-bit ops (2 xors for the third
@@ -289,26 +330,99 @@ def kernel_checks(dev):
     T_len = torch.randint(t0, t0 + 2 * chunk, (R,), generator=g32,
                           dtype=torch.int32).to(dev)
 
-    # D: +inf-padded levels (a quarter of the rows mask out a level), rows
-    # frozen part-way, some all-+inf frontiers
+    # D, both kernels, on one slab: +inf-padded levels (a quarter of the
+    # rows mask out a level), rows frozen part-way, some all-+inf frontiers
     K = grid.K
     kmask = grid.mask.clone()
     kmask[::4, 1] = False
     lv32 = grid.levels
-    svc = x[:, :, None].float() * grid.g[:, None, :]
-    wck = torch.where(kmask[:, None, :],
-                      fma32(c[:, :, None], lv32[:, None, :], svc),
-                      float("inf"))
     fetch = dp_fetch_matrix(grid.M, lv32)
-    valid = tids[None, :] < T_len[:, None]
     J = dp_frontier0(R, K, dev)
     J[1::4] = float("inf")
     J[2::4] = torch.rand((len(range(2, R, 4)), K), generator=g32).to(dev)
+    valid = tids[None, :] < T_len[:, None]
+
+    def old_route():
+        """The fleet DP's chunk before the fusion: the float64 fma32
+        assembly of w, the +inf padding, then kernel D on the finished w."""
+        svc = x[:, :, None].float() * grid.g[:, None, :]
+        w = torch.where(kmask[:, None, :],
+                        fma32(c[:, :, None], lv32[:, None, :], svc),
+                        float("inf"))
+        return H.dp_minplus(J, w, fetch, tids[None, :] < T_len[:, None])
+
+    # the fused kernel D (the fleet path's): with and without the argmin
+    # table, at the fleet's K = 3 and (OPT) K = 2, and on ragged slabs --
+    # R - 3 rows, a chunk of 1,000 (ragged against the 64-slot tile), of
+    # 1,001 (the 4-byte cp.async route) and of 1; plus a K = 16 grid
+    ends = grid.restrict_to_endpoints()
+    k16 = k16_grid(300, dev)
+    fused_cases = [
+        ("K=3", (J, c, x, grid.g, lv32, kmask, fetch, T_len, t0)),
+        ("K=2", (dp_frontier0(R, 2, dev), c, x, ends.g, ends.levels,
+                 ends.mask, dp_fetch_matrix(ends.M, ends.levels), T_len,
+                 t0)),
+        ("K=3 R-3 chunk=1000", sub_rows(
+            (J, c[:, :1000], x[:, :1000], grid.g, lv32, kmask, fetch,
+             T_len), R - 3) + (t0,)),
+        ("K=3 chunk=1001", (J, c[:, :1001].contiguous(),
+                            x[:, :1001].contiguous(), grid.g, lv32, kmask,
+                            fetch, T_len, t0)),
+        ("K=3 chunk=1", (J, c[:, :1].contiguous(), x[:, :1].contiguous(),
+                         grid.g, lv32, kmask, fetch, T_len, t0 + chunk - 1)),
+        ("K=16 R=300 chunk=999", (dp_frontier0(300, 16, dev),
+                                  c[:300, :999].contiguous(),
+                                  x[:300, :999].contiguous(), k16.g,
+                                  k16.levels, k16.mask,
+                                  dp_fetch_matrix(k16.M, k16.levels),
+                                  T_len[:300], t0)),
+    ]
+    for name, args in fused_cases:
+        for with_args in (False, True):
+            k = H.dp_fwd_model1(*args, with_args)
+            p = H.dp_fwd_model1_plain(*args, with_args)
+            torch.cuda.synchronize()
+            require(tree_equal(k, p), f"fused D differs from its plain "
+                                      f"version ({name}, args {with_args})")
+        log(f"D (fused) ok: {name}, argmin table on and off")
+    fused = fused_cases[0][1]
+    k = H.dp_fwd_model1(*fused, True)
+    o = old_route()
+    torch.cuda.synchronize()
+    require(tree_equal(k, o), "fused D differs from the old route")
+    ms = cuda_ms(lambda: H.dp_fwd_model1(*fused), reps=10, batch=10)
+    args_ms = cuda_ms(lambda: H.dp_fwd_model1(*fused, True), reps=5,
+                      batch=10)
+    old_ms = cuda_ms(old_route, reps=5, batch=3)
+    plain_ms = cuda_ms(lambda: H.dp_fwd_model1_plain(*fused), reps=3)
+    clock = sm_clock_mhz(lambda: H.dp_fwd_model1(*fused), ms)
+    Jk = k[0]
+    # per row and slot: K products x*g, K FMAs (2 each), K*K adds, K*(K-1)
+    # compares, K adds of w
+    ops = R * chunk * (K + 2 * K + K * K + K * (K - 1) + K)
+    rec["dp_fwd_model1"] = dict(
+        replaces="src/repro/kernels/hosting.py:116", ms=ms,
+        plain_ms=plain_ms, old_route_ms=old_ms, args_ms=args_ms,
+        sm_clock_mhz=clock, cycles_per_slot=ms * 1e-3 * clock * 1e6 / chunk,
+        max_abs_err=tree_max_abs(k, o), ops=ops,
+        nbytes=nbytes(J, c, x, grid.g, lv32, kmask, fetch, T_len, Jk),
+        shape=f"R={R} chunk={chunk} K={K}, no argmin table (the fleet's "
+              f"call); {len(fused_cases)} slabs compared with and without")
+    log(f"D (fused) timed: {ms:.4f} ms ({args_ms:.4f} ms writing the argmin "
+        f"table), old route {old_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"{rec['dp_fwd_model1']['cycles_per_slot']:.1f} cycles a slot at "
+        f"{clock:.0f} MHz")
+
+    # kernel D on a finished w (offline_opt_batch's; off the fleet path)
+    wck = torch.where(kmask[:, None, :],
+                      fma32(c[:, :, None], lv32[:, None, :],
+                            x[:, :, None].float() * grid.g[:, None, :]),
+                      float("inf"))
     k = H.dp_minplus(J, wck, fetch, valid)
     p = H.dp_minplus_plain(J, wck, fetch, valid)
     torch.cuda.synchronize()
     require(tree_equal(k, p), "D differs from its plain version")
-    ms = cuda_ms(lambda: H.dp_minplus(J, wck, fetch, valid))
+    ms = cuda_ms(lambda: H.dp_minplus(J, wck, fetch, valid), batch=3)
     plain_ms = cuda_ms(lambda: H.dp_minplus_plain(J, wck, fetch, valid),
                        reps=3)
     # per row and slot: K*K adds, K*(K-1) compares, K adds of w
@@ -317,51 +431,74 @@ def kernel_checks(dev):
         replaces="src/repro/kernels/hosting.py:116", ms=ms, plain_ms=plain_ms,
         max_abs_err=tree_max_abs(k, p), ops=ops,
         nbytes=nbytes(J, wck, fetch, valid, *k),
-        shape=f"R={R} chunk={chunk} K={K}")
-    log(f"D ok: {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        shape=f"R={R} chunk={chunk} K={K}; a finished w (offline_opt_batch), "
+              f"off the fleet path")
+    log(f"D (finished w) ok: {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    del wck
 
-    # S: alpha-RR on K = 3 (timed), a mixed K = 5 grid, RR on K = 2; each
-    # from a non-trivial carry (one kernel chunk first)
+    # S: alpha-RR on K = 3 (timed), a mixed K = 5 grid, RR on K = 2, each
+    # from a non-trivial carry (one kernel chunk first); then ragged slabs
+    # (R - 3 rows, chunks of 1,000, 1,001 and 1), K = 16, the final fetch
+    # dropped, the trace off
     mixed = HostingGrid.from_costs(
         [HostingCosts(M=float(m), levels=(0.0, 0.2, 0.45, 0.7, 1.0),
                       g=(1.0, 0.75, 0.5, 0.2, 0.0)) if i % 2 else
          HostingCosts.three_level(float(m), 0.3, 0.6)
          for i, m in enumerate(np.geomspace(2, 50, R))], device=dev)
-    cases = [("alpha-RR K=3", AlphaRR.batch(grid), grid),
-             ("alpha-RR mixed K=5", AlphaRR.batch(mixed), mixed),
-             ("RR K=2", RetroRenting.batch(grid),
-              grid.restrict_to_endpoints())]
+    ends = grid.restrict_to_endpoints()
+    # (label, policy grid, rows, slots, include_final_fetch, trace)
+    cases = [("alpha-RR K=3", grid, R, chunk, True, True),
+             ("alpha-RR mixed K=5", mixed, R, chunk, True, True),
+             ("RR K=2", ends, R, chunk, True, True),
+             ("alpha-RR K=3 R-3 chunk=1000, no final fetch", grid, R - 3,
+              1000, False, True),
+             ("RR K=2 chunk=1001, no trace", ends, R, 1001, True, False),
+             ("alpha-RR K=3 chunk=1", grid, R, 1, False, True),
+             ("alpha-RR K=16 R=300 chunk=999", k16, 300, 999, True, True)]
     err = 0.0
-    for name, pol, gg in cases:
-        carry = (alpha_rr_init(pol.params), sim_acc0(R, gg.K, dev))
-        carry, _ = H.sim_chunk_alpha_rr(pol.params, gg.levels, gg.g, gg.M,
-                                        T_len, t0 - chunk, carry, x, c)
-        args = (pol.params, gg.levels, gg.g, gg.M, T_len, t0, carry, x, c)
-        k = H.sim_chunk_alpha_rr(*args)
-        p = H.sim_chunk_alpha_rr_plain(*args)
+    for name, gg, rows, n, iff, trace in cases:
+        pol = AlphaRR.batch(gg)
+        xs, cs_ = x[:rows, :n].contiguous(), c[:rows, :n].contiguous()
+        gs = sub_rows((gg.levels, gg.g, gg.M), rows)
+        params = {k_: v[:rows].contiguous() for k_, v in pol.params.items()}
+        carry = (alpha_rr_init(params), sim_acc0(rows, gg.K, dev))
+        carry, _ = H.sim_chunk_alpha_rr(params, *gs, T_len[:rows],
+                                        t0 - n, carry, xs, cs_)
+        args = (params, *gs, T_len[:rows], t0, carry, xs, cs_, iff)
+        k = H.sim_chunk_alpha_rr(*args, collect_trace=trace)
+        p = H.sim_chunk_alpha_rr_plain(*args, collect_trace=trace)
         torch.cuda.synchronize()
         require(tree_equal(k, p), f"S differs from its plain version ({name})")
         err = max(err, tree_max_abs(k, p))
         if name == "alpha-RR K=3":
             (st, acc), _ = k
-            timed_bytes = nbytes(*pol.params.values(), gg.levels, gg.g, gg.M,
-                                 T_len, *carry[0].values(),
-                                 *carry[1].values(), x, c, *st.values(),
-                                 *acc.values())
-            ms = cuda_ms(lambda: H.sim_chunk_alpha_rr(*args,
-                                                      collect_trace=False))
-            plain_ms = cuda_ms(lambda: H.sim_chunk_alpha_rr_plain(
-                *args, collect_trace=False), reps=3, warmup=0)
+            timed_bytes = nbytes(*params.values(), *gs, T_len,
+                                 *carry[0].values(), *carry[1].values(), x,
+                                 c, *st.values(), *acc.values())
+            timed = args
         log(f"S ok: {name}")
+    ms = cuda_ms(lambda: H.sim_chunk_alpha_rr(*timed, collect_trace=False),
+                 reps=10, batch=10)
+    trace_ms = cuda_ms(lambda: H.sim_chunk_alpha_rr(*timed), reps=5,
+                       batch=10)
+    plain_ms = cuda_ms(lambda: H.sim_chunk_alpha_rr_plain(
+        *timed, collect_trace=False), reps=3, warmup=0)
+    clock = sm_clock_mhz(
+        lambda: H.sim_chunk_alpha_rr(*timed, collect_trace=False), ms)
     # per row and slot: K products x*g, K FMAs (2 ops), K subtractions,
     # 2K for the suffix minima, 4K for the margins (sub, abs, FMA), K tie
     # adds, K-1 compares, and about 10 for the accounting
     ops = R * chunk * (12 * K + 9)
     rec["sim_chunk_alpha_rr"] = dict(
-        replaces="src/repro/core/simulator.py:147", ms=ms,
-        plain_ms=plain_ms, max_abs_err=err, ops=ops, nbytes=timed_bytes,
-        shape=f"R={R} chunk={chunk} K={K} (3 grids compared)")
-    log(f"S timed: {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        replaces="src/repro/core/simulator.py:147", ms=ms, trace_ms=trace_ms,
+        plain_ms=plain_ms, sm_clock_mhz=clock,
+        cycles_per_slot=ms * 1e-3 * clock * 1e6 / chunk, max_abs_err=err,
+        ops=ops, nbytes=timed_bytes,
+        shape=f"R={R} chunk={chunk} K={K}, no trace (the fleet's call); "
+              f"{len(cases)} slabs compared")
+    cycles = rec["sim_chunk_alpha_rr"]["cycles_per_slot"]
+    log(f"S timed: {ms:.4f} ms ({trace_ms:.4f} ms with the trace), plain "
+        f"{plain_ms:.3f} ms, {cycles:.1f} cycles a slot at {clock:.0f} MHz")
     return rec
 
 
@@ -496,7 +633,7 @@ def lm_kernel_checks(dev):
     plain_ms = cuda_ms(lambda: FA.flash_attention_plain(q, k, v, True, 0),
                        reps=3)
     sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
+        qt, kt, vt, is_causal=True, enable_gqa=True), batch=10)
     f_ops = 4 * B * Hq * hd * (S * (S + 1) // 2)
     shape = f"q/k/v [{B}, {S}, {Hq}, {hd}] bf16 causal"
     for fn, note in (
@@ -508,7 +645,8 @@ def lm_kernel_checks(dev):
             source=CSRC + "flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:71",
             ms=cuda_ms(lambda: fn(q, k, v, True, 0),
-                       reps=10 if fn is FA.flash_attention_wgmma else 3),
+                       reps=10 if fn is FA.flash_attention_wgmma else 3,
+                       batch=10),
             plain_ms=plain_ms, library_ms=sdpa_ms,
             max_abs_err=max(e[0] for e in errs[name]),
             max_rel_err=max(e[1] for e in errs[name]),
@@ -577,7 +715,7 @@ def lm_kernel_checks(dev):
             source=CSRC + "ssd_scan.cu",
             replaces="src/repro/kernels/ssd_scan.py:68",
             ms=cuda_ms(lambda: fn(*main, None, Q),
-                       reps=10 if fn is SSD.ssd_scan_mma else 3),
+                       reps=10 if fn is SSD.ssd_scan_mma else 3, batch=10),
             plain_ms=plain_ms, library_ms=None,
             max_abs_err=max(e[0] for e in errs[name]),
             max_rel_err=max(e[1] for e in errs[name]),
@@ -781,9 +919,11 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = launch_counts()
     log(f"fleet path launches: {launches}")
-    for k in (H.slot_uniform, H.dp_minplus, H.sim_chunk_alpha_rr):
+    for k in (H.slot_uniform, H.dp_fwd_model1, H.sim_chunk_alpha_rr):
         require(launches[k.__name__] > 0,
                 f"kernel {k.__name__} never launched on the fleet path")
+    require(launches["dp_minplus"] == 0,
+            "kernel D on a finished w ran on the fleet path")
     summ = check_leg(main_res, T_MAIN, "main")
     for name, s in summ.items():
         key = "total_mean" if "total_mean" in s else "cost_mean"
@@ -846,8 +986,10 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": r.get("library_ms"), "shape": r["shape"]}
-        if "max_rel_err" in r:
-            entry["max_rel_err"] = r["max_rel_err"]
+        for key in ("max_rel_err", "old_route_ms", "args_ms", "trace_ms",
+                    "sm_clock_mhz", "cycles_per_slot"):
+            if key in r:
+                entry[key] = r[key]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -37,7 +37,8 @@ from repro_torch.core.policies.offline_opt import (dp_fetch_matrix,
 from repro_torch.core.scenarios.base import (Scenario, chunk_geometry,
                                              chunk_tids, tree_map)
 from repro_torch.core.scenarios.combinators import replicate_seeds
-from repro_torch.core.simulator import model1_svc, sim_acc0, sim_chunk
+from repro_torch.core.simulator import sim_acc0, sim_chunk
+from repro_torch.kernels.hosting import dp_fwd_model1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -338,7 +339,11 @@ def offline_opt_fleet(fleet: FleetBatch, *,
     for i in range(n_chunks):
         tids = chunk_tids(i * chunk, chunk, dev)
         gen, slab = scenario.chunk_fn(scenario.params, gen, tids)
-        J, _ = dp_fwd_chunk(J, tids, slab.c, model1_svc(slab.x, grid.g),
-                            lv32, grid.mask, fetch_mat, T_len)
+        if slab.svc is None:        # Model 1: kernel D assembles w itself
+            J, _ = dp_fwd_model1(J, slab.c, slab.x, grid.g, lv32, grid.mask,
+                                 fetch_mat, T_len, i * chunk)
+        else:
+            J, _ = dp_fwd_chunk(J, tids, slab.c, slab.svc, lv32, grid.mask,
+                                fetch_mat, T_len)
     cost = torch.amin(J, dim=1).cpu().numpy().astype(np.float64)
     return FleetOfflineResult(cost=cost, r_hist=None, sim=None, n_seeds=S)

@@ -49,10 +49,6 @@ class SlotRecord:
         return self.rent + self.service + self.fetch
 
 
-def _to(tree, device):
-    return {k: v.to(device) for k, v in tree.items()}
-
-
 class HostingController:
     def __init__(self, costs: HostingCosts, policy_cls=AlphaRR, device=None):
         self.device = resolve_device(device)
@@ -60,8 +56,8 @@ class HostingController:
         # all accounting uses the POLICY's own level grid (RetroRenting
         # rebuilds a 2-level instance)
         self.costs = self.policy.costs
-        fns = self.policy.fns()
-        self._params = _to(fns.params, self.device)
+        fns = self.policy.fns(self.device)
+        self._params = fns.params
         self._step = _EAGER_STEP.get(fns.step_fn, fns.step_fn)
         self.state = fns.init_fn(self._params)
         self.slot = 0

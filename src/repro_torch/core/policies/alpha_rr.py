@@ -37,9 +37,10 @@ _TIE_EPS = float(np.float32(1e-6))  # ties break toward staying
 
 def alpha_rr_params(costs: HostingCosts, device=None) -> dict:
     """One instance's params, a one-row grid: ``M`` [1], ``levels`` and
-    ``mask`` [1, K]."""
-    return alpha_rr_grid_params(HostingGrid.from_costs(
-        [costs], device="cpu" if device is None else device))
+    ``mask`` [1, K], on ``device`` (None: the card, as every entry point
+    resolves it)."""
+    return alpha_rr_grid_params(HostingGrid.from_costs([costs],
+                                                       device=device))
 
 
 def alpha_rr_grid_params(grid: HostingGrid) -> dict:
@@ -117,9 +118,8 @@ class AlphaRR(OnlinePolicy):
     init_fn = staticmethod(alpha_rr_init)
     step_fn = staticmethod(alpha_rr_step)
 
-    @property
-    def params(self):
-        return alpha_rr_params(self.costs)
+    def params_on(self, device=None):
+        return alpha_rr_params(self.costs, device)
 
     @classmethod
     def batch(cls, grid: HostingGrid) -> PolicyFns:

@@ -53,9 +53,11 @@ class OnlinePolicy:
     """Thin class wrapper over a pure ``(init_fn, step_fn)`` pair for ONE
     instance (the port of ``repro/core/policies/base.py:OnlinePolicy``).
 
-    Subclasses set ``init_fn`` / ``step_fn`` as staticmethods and define a
-    ``params`` property built from ``self.costs``: in the port one instance
-    is a one-row grid, so params and state carry a leading [1] axis."""
+    Subclasses set ``init_fn`` / ``step_fn`` as staticmethods and define
+    ``params_on(device)``, the params built from ``self.costs`` on a device
+    (None: the card, as every entry point resolves it): in the port one
+    instance is a one-row grid, so params and state carry a leading [1]
+    axis."""
 
     init_fn: Optional[Callable[[Any], State]] = None
     step_fn: Optional[Callable[[Any, State, SlotObs], State]] = None
@@ -67,12 +69,17 @@ class OnlinePolicy:
     def name(self) -> str:
         return type(self).__name__
 
-    @property
-    def params(self) -> Any:
+    def params_on(self, device=None) -> Any:
         """Tensors parameterising the pure pair for ``self.costs``."""
         raise NotImplementedError
 
-    def fns(self) -> PolicyFns:
-        """This policy as a ``PolicyFns``."""
+    @property
+    def params(self) -> Any:
+        """``params_on`` the default device (the card)."""
+        return self.params_on()
+
+    def fns(self, device=None) -> PolicyFns:
+        """This policy as a ``PolicyFns``, its params on ``device``."""
         cls = type(self)
-        return PolicyFns(self.name, cls.init_fn, cls.step_fn, self.params)
+        return PolicyFns(self.name, cls.init_fn, cls.step_fn,
+                         self.params_on(device))

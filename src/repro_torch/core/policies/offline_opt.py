@@ -5,10 +5,13 @@ State = level index, K states; transition cost = fetch on increments only.
 ``J_t(k) = min_k' [J_{t-1}(k') + M (lv_k - lv_k')^+] + w_t[k]`` with
 ``J_0 = [0, inf, ...]`` (service starts off-edge).
 
-``dp_fwd_chunk`` is the chunk of the forward recursion every driver shares:
-the per-slot costs ``w`` are assembled here in torch, the relaxation runs
-as kernel D (``kernels.ops.dp_minplus``: the kernel on the card, its plain
-version on the CPU).  ``dp_backtrack_chunk`` walks an argmin table back.
+``dp_fwd_chunk`` is the chunk of the forward recursion for given service
+costs: the per-slot costs ``w`` are assembled here in torch, the
+relaxation runs as kernel D on a finished ``w`` (``kernels.ops.dp_minplus``:
+the kernel on the card, its plain version on the CPU).  Under Model-1
+service ``x * g`` the scenario-fused fleet runs the same chunk as
+``kernels.hosting.dp_fwd_model1``, which assembles ``w`` itself.
+``dp_backtrack_chunk`` walks an argmin table back.
 """
 from __future__ import annotations
 

@@ -11,7 +11,7 @@ before a launch (``check_tensor``, ``raise_on``, ``stream``) live here too.
 
 Flags per library:
 
-* ``hosting`` (kernels P, D, S): ``--fmad=false``, because those kernels
+* ``hosting`` (kernels P, D (both), S): ``--fmad=false``, because those kernels
   are held bit for bit against the reference, which fixes which
   multiply-adds are one FMA (written as ``__fmaf_rn``) and which are two
   rounded operations.
@@ -44,6 +44,9 @@ LIBRARIES = {
     "hosting": (_COMMON + ("--fmad=false",), {
         "launch_slot_uniform": (_P, _P, _P, _I, _I, _L, _I, _P),
         "launch_dp_minplus": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+        # J, c, x, g, lv, kmask, fetch, T_len, Jout, args (or NULL), R,
+        # chunk, K, t0, stream
+        "launch_dp_fwd_model1": (_P,) * 10 + (_I,) * 4 + (_P,),
         "launch_sim_alpha_rr": (_P,) * 14 + (_I,) * 5 + (_P,) * 7,
     }),
     "flash_attention": (_COMMON, {

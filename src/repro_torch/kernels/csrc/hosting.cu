@@ -1,10 +1,13 @@
 // Hand-written Hopper (sm_90a) kernels for the hosting engine's hot loops.
 //
-// Three kernels, each behind a plain C entry point (loaded with ctypes by
+// Four kernels, each behind a plain C entry point (loaded with ctypes by
 // repro_torch/kernels/_build.py; wrappers in repro_torch/kernels/hosting.py):
 //
 //   P  slot_uniform        counter-keyed U(0,1) draws (threefry2x32)
-//   D  dp_minplus          one chunk of the offline-OPT min-plus recursion
+//   D  dp_fwd_model1       one chunk of the offline-OPT min-plus recursion
+//                          with the Model-1 cost assembly fused in (the
+//                          fleet DP)
+//      dp_minplus          the same recursion on a finished w (K <= 32)
 //   S  sim_chunk_alpha_rr  one chunk of the per-slot alpha-RR simulation
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
@@ -12,10 +15,10 @@
 // --fmad=false is required: the reference fixes which multiply-adds are
 // one FMA and which are two rounded ops.  XLA:CPU contracts a product that
 // feeds an add inside one fusion: in this slice's path that is w = c*lv + svc
-// and the margin M*|lv - lv_r| + S of alpha-RR (written here as __fmaf_rn)
-// and the rents lo + u*(hi - lo) and the DP's c*lv + svc (computed in
-// PyTorch before the kernels).  Everything else is two rounded ops, which
-// only --fmad=false guarantees.  Every kernel is held bit-for-bit
+// and the margin M*|lv - lv_r| + S of alpha-RR, and the fused DP's
+// c*lv + svc (written here as __fmaf_rn), and the rents lo + u*(hi - lo)
+// (computed in PyTorch before the kernels).  Everything else is two
+// rounded ops, which only --fmad=false guarantees.  Every kernel is held bit-for-bit
 // against its plain PyTorch version (chip_smoke.py) and, through that, against
 // the JAX package (tests/test_torch_*.py).
 //
@@ -97,8 +100,11 @@ __global__ void slot_uniform_kernel(const long long* __restrict__ keys,
 }
 
 // ---------------------------------------------------------------------
-// D: dp_minplus.  Replaces the Pallas kernel dp_minplus_kc
-// (src/repro/kernels/hosting.py:116, body :96, pallas_call at :138).
+// D (finished w): dp_minplus.  Replaces the Pallas kernel dp_minplus_kc
+// (src/repro/kernels/hosting.py:116, body :96, pallas_call at :138) for
+// callers that hand in a finished w (offline_opt_batch, whose w the
+// reference rounds twice) and for K up to 32; the fleet DP runs
+// dp_fwd_model1_kernel below.
 //
 // Per row and slot t: trans[kp, k] = J[kp] + fetch[kp, k];
 // args[t, k] = first kp minimising trans[:, k] (an all-+inf column gives 0);
@@ -155,6 +161,388 @@ __global__ void dp_minplus_kernel(const float* __restrict__ J,
   if (act) Jout[(long long)row * K + k] = Jk;
 }
 
+
+// ---------------------------------------------------------------------
+// Asynchronous staging shared by D (dp_fwd_model1) and S.
+//
+// A CTA owns kRows = 32 consecutive rows; warp 0 is its producer.  The
+// producer stages the rows' c and x over a tile of TILE slots into a ring
+// of raw stages: one cp.async.bulk per row and array (the row's contiguous
+// segment of the tile), completed on the stage's mbarrier by transaction
+// count, when the row stride and both pointers are 16-byte aligned
+// (chunk % 4 == 0, the fleet's case); otherwise 4-byte cp.async copies,
+// whose completion each producer lane hands to the same mbarrier
+// (cp.async.mbarrier.arrive.noinc).  The producer then "cooks" the tile:
+// it computes every state-free value of each (row, slot) into a second
+// ring laid out [slot][field][row], one padding word per slot, so that its
+// stores (lanes over slots) and the consumers' loads (lanes over rows) are
+// both free of bank conflicts.  A ragged last tile and R not a multiple of
+// kRows are masked here and in the consumers; nothing is padded.
+// ---------------------------------------------------------------------
+
+constexpr int kRows = 32;        // rows per CTA: one consumer lane each
+constexpr int kRawStages = 2;
+
+// slots per tile: the cooked ring holds K + 2 words per (row, slot)
+template <int K>
+struct TileOf {
+  static constexpr int value = K <= 4 ? 64 : (K <= 8 ? 32 : 16);
+};
+
+// rows padded by 4 words: each row stays 16-byte aligned for the bulk
+// copy, and a warp's 16-byte loads of one column (a lane per row) hit all
+// 32 banks once per quarter warp
+template <int TILE>
+struct RawStage {
+  static constexpr int kStride = TILE + 4;
+  float c[kRows][kStride];
+  int x[kRows][kStride];
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// order this thread's generic-proxy reads of shared memory before later
+// async-proxy (bulk copy) writes to it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// The ring's barriers: raw_full[s] (copies landed; one expect_tx arrival
+// for the bulk route, 32 cp.async arrivals otherwise), full[s] (cooked,
+// 32 producer lanes), empty[s] (the last reader of a cooked stage, 32
+// lanes).  Called by one thread.
+template <class Sm>
+__device__ void init_ring(Sm& sm, int bulk) {
+  for (int s = 0; s < kRawStages; ++s)
+    mbar_init(&sm.raw_full[s], bulk ? 1u : 32u);
+  for (int s = 0; s < Sm::NC; ++s) {
+    mbar_init(&sm.full[s], 32u);
+    mbar_init(&sm.empty[s], 32u);
+  }
+}
+
+// Producer, one warp: copy tile j0 .. j0 + n of rows row0 .. row0 + nrows
+// of c and x into a raw stage.
+template <int TILE>
+__device__ __forceinline__ void stage_raw(RawStage<TILE>& st, uint64_t* bar,
+                                          const float* __restrict__ c,
+                                          const int* __restrict__ x,
+                                          int row0, int nrows, int chunk,
+                                          int j0, int n, int bulk, int lane) {
+  if (bulk) {
+    if (lane == 0) mbar_arrive_expect_tx(bar, (uint32_t)(nrows * n * 8));
+    __syncwarp();
+    if (lane < nrows) {
+      const long long off = (long long)(row0 + lane) * chunk + j0;
+      bulk_g2s(&st.c[lane][0], c + off, (uint32_t)(n * 4), bar);
+      bulk_g2s(&st.x[lane][0], x + off, (uint32_t)(n * 4), bar);
+    }
+  } else {
+    for (int r = 0; r < nrows; ++r) {
+      const long long off = (long long)(row0 + r) * chunk + j0;
+      for (int jj = lane; jj < n; jj += 32) {
+        cp_async4(&st.c[r][jj], c + off + jj);
+        cp_async4(&st.x[r][jj], x + off + jj);
+      }
+    }
+    cp_async_arrive_noinc(bar);
+  }
+}
+
+// Producer, one warp, for the whole chunk: keeps kRawStages tiles of
+// copies in flight, and cooks each landed tile into the cooked ring once
+// the stage's last reader has released it.  A lane cooks its own row
+// (lane r: row row0 + r, its params in registers), 16 slots at a time
+// whose raw words it loads first (16-byte loads); cook(out, c, x) writes
+// field f of the (row, slot) at out[f * kRows].  Lanes past R cook
+// whatever the raw stage holds, and nobody reads it.
+template <int TILE, int SS, class Sm, class Cook>
+__device__ void produce(Sm& sm, const float* __restrict__ c,
+                        const int* __restrict__ x, int row0, int nrows,
+                        int chunk, int bulk, int lane, Cook cook) {
+  const int ntiles = (chunk + TILE - 1) / TILE;
+  for (int i = 0; i < ntiles && i < kRawStages; ++i)
+    stage_raw<TILE>(sm.raw[i], &sm.raw_full[i], c, x, row0, nrows, chunk,
+                    i * TILE, min(TILE, chunk - i * TILE), bulk, lane);
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % kRawStages, cs = i % Sm::NC;
+    const int n = min(TILE, chunk - i * TILE);
+    mbar_wait(&sm.raw_full[s], (uint32_t)((i / kRawStages) & 1));
+    if (i >= Sm::NC)
+      mbar_wait(&sm.empty[cs], (uint32_t)(((i / Sm::NC) - 1) & 1));
+    float* ck = sm.cooked[cs] + lane;
+    const float* rc = sm.raw[s].c[lane];
+    const int* rx = sm.raw[s].x[lane];
+    for (int j = 0; j < n; j += 16) {            // TILE is a multiple of 16
+      float4 cv[4];
+      int4 xv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        cv[u] = *reinterpret_cast<const float4*>(rc + j + 4 * u);
+        xv[u] = *reinterpret_cast<const int4*>(rx + j + 4 * u);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float cw[4] = {cv[u].x, cv[u].y, cv[u].z, cv[u].w};
+        const int xw[4] = {xv[u].x, xv[u].y, xv[u].z, xv[u].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int jj = j + 4 * u + e;
+          if (jj < n) cook(ck + jj * SS, cw[e], xw[e]);
+        }
+      }
+    }
+    fence_proxy_async();
+    __syncwarp();
+    const int nxt = i + kRawStages;
+    if (nxt < ntiles)
+      stage_raw<TILE>(sm.raw[s], &sm.raw_full[s], c, x, row0, nrows, chunk,
+                      nxt * TILE, min(TILE, chunk - nxt * TILE), bulk, lane);
+    mbar_arrive(&sm.full[cs]);
+  }
+}
+
+template <int K>
+__device__ __forceinline__ float select_k(const float (&a)[K], int i) {
+  // exact a[i] (the reference's one-hot sum) without dynamic register indexing
+  float v = 0.0f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) v = (k == i) ? a[k] : v;
+  return v;
+}
+
+// ---------------------------------------------------------------------
+// D: dp_fwd_model1 -- the fleet DP's chunk: kernel D with the Model-1 cost
+// assembly of offline_opt.dp_fwd_chunk fused in.  Replaces the Pallas
+// kernel dp_minplus_kc (src/repro/kernels/hosting.py:116, pallas_call at
+// :138) together with the w assembly that the reference's fused drivers
+// run before it (src/repro/core/policies/offline_opt.py:136-138).
+//
+// Per row and slot t = t0 + j: svc[k] = float(x) * g[k] (one rounding),
+// w[k] = kmask[k] ? fma(c, lv[k], svc[k]) : +inf (one rounding, as XLA
+// contracts it); trans[kp, k] = J[kp] + fetch[kp, k]; args[j, k] = the
+// first kp minimising trans[:, k] (strict <; an all-+inf column gives 0);
+// J[k] = min + w[k]; a slot at or past T_len freezes J and writes args =
+// k.  args is written only when asked for.
+//
+// Bound: bytes -- c and x (8 bytes per row-slot) and the frontier; its
+// floor for one recursion is chunk x the per-slot dependent chain (K-1
+// compare-selects and two adds).  Design: warp 0 stages c / x by bulk
+// async copies and cooks w (kmask applied) into the ring; warp 1 holds a
+// row per lane, J and fetch in registers (fetch in shared memory past K =
+// 8), and walks the min-plus chain reading only w.  Asked-for args are
+// staged per tile in shared memory and stored as whole row segments.
+// With R = 4,096 rows a CTA of 32 rows lands on each SM, so each SM runs
+// one consumer warp: its in-order issue of the per-slot chain is what the
+// kernel's time is (~110 cycles a slot on an H100, chip_smoke.py;
+// unrolling, fminf for the min, 3 cooked stages and spinning waits
+// measured no faster).
+// ---------------------------------------------------------------------
+
+template <int K, bool ARGS>
+struct DpSmem {
+  static constexpr int TILE = TileOf<K>::value;
+  static constexpr int SS = K * kRows + 1;     // words per cooked slot
+  static constexpr int AS = TILE * K + 1;      // args staging row stride
+  static constexpr bool kFetchSmem = K > 8;
+  static constexpr int NC = 2;                 // cooked stages
+  RawStage<TILE> raw[kRawStages];
+  float cooked[NC][TILE * SS];
+  float fetch[kFetchSmem ? K * K * kRows : 1];
+  int abuf[ARGS ? kRows * AS : 1];
+  uint64_t raw_full[kRawStages];
+  uint64_t full[NC];
+  uint64_t empty[NC];
+};
+
+template <int K, bool ARGS>
+__global__ void __launch_bounds__(64) dp_fwd_model1_kernel(
+    const float* __restrict__ J, const float* __restrict__ c,
+    const int* __restrict__ x, const float* __restrict__ g,
+    const float* __restrict__ lv, const bool* __restrict__ kmask,
+    const float* __restrict__ fetch, const int* __restrict__ Tlen,
+    float* __restrict__ Jout, int* __restrict__ args, int R, int chunk,
+    int t0, int bulk) {
+  using Sm = DpSmem<K, ARGS>;
+  constexpr int TILE = Sm::TILE, SS = Sm::SS;
+  extern __shared__ __align__(128) unsigned char smem_buf[];
+  Sm& sm = *reinterpret_cast<Sm*>(smem_buf);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = blockIdx.x * kRows;
+  const int nrows = min(kRows, R - row0);
+  const int row = row0 + lane;                   // this lane's row
+  const bool live = lane < nrows;
+  if (threadIdx.x == 0) {
+    init_ring(sm, bulk);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    const float INF = __int_as_float(0x7f800000);
+    float lvr[K], gr[K];
+    bool mr[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      lvr[k] = live ? lv[(long long)row * K + k] : 0.0f;
+      gr[k] = live ? g[(long long)row * K + k] : 0.0f;
+      mr[k] = live ? kmask[(long long)row * K + k] : false;
+    }
+    produce<TILE, SS>(sm, c, x, row0, nrows, chunk, bulk, lane,
+                      [&](float* out, float cv, int xv) {
+                        const float xf = (float)xv;
+#pragma unroll
+                        for (int k = 0; k < K; ++k) {
+                          const float svc = xf * gr[k];      // Model 1
+                          out[k * kRows] =
+                              mr[k] ? __fmaf_rn(cv, lvr[k], svc) : INF;
+                        }
+                      });
+    return;
+  }
+
+  // consumer: one row per lane
+  float Jr[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) Jr[k] = live ? J[(long long)row * K + k] : 0.0f;
+  float freg[Sm::kFetchSmem ? 1 : K * K];
+#pragma unroll
+  for (int i = 0; i < K * K; ++i) {
+    const float v = live ? fetch[(long long)row * K * K + i] : 0.0f;
+    if constexpr (Sm::kFetchSmem)
+      sm.fetch[i * kRows + lane] = v;
+    else
+      freg[i] = v;
+  }
+  auto F = [&](int kp, int k) -> float {
+    if constexpr (Sm::kFetchSmem)
+      return sm.fetch[(kp * K + k) * kRows + lane];
+    else
+      return freg[kp * K + k];
+  };
+  const int Tl = live ? Tlen[row] : 0;
+  const int ntiles = (chunk + TILE - 1) / TILE;
+  for (int i = 0; i < ntiles; ++i) {
+    const int cs = i % Sm::NC, j0 = i * TILE;
+    const int n = min(TILE, chunk - j0);
+    mbar_wait(&sm.full[cs], (uint32_t)((i / Sm::NC) & 1));
+    const float* ck = sm.cooked[cs] + lane;
+    int* ab = sm.abuf + lane * Sm::AS;
+    // slots jj < nv are valid; the rest of the tile is past T_len
+    const int nv = max(0, min(n, Tl - t0 - j0));
+    float wn[K];                                 // the next slot's w
+#pragma unroll
+    for (int k = 0; k < K; ++k) wn[k] = ck[k * kRows];
+    for (int jj = 0; jj < nv; ++jj) {
+      float w[K];
+      const int nx = min(jj + 1, n - 1);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        w[k] = wn[k];
+        wn[k] = ck[nx * SS + k * kRows];
+      }
+      float Jn[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        float best = Jr[0] + F(0, k);
+        int a = 0;
+#pragma unroll
+        for (int kp = 1; kp < K; ++kp) {
+          const float tr = Jr[kp] + F(kp, k);
+          if (tr < best) {
+            best = tr;
+            a = kp;
+          }
+        }
+        Jn[k] = best + w[k];
+        if constexpr (ARGS) ab[jj * K + k] = a;
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) Jr[k] = Jn[k];
+    }
+    if constexpr (ARGS)                          // frozen: the identity
+      for (int jj = nv; jj < n; ++jj)
+#pragma unroll
+        for (int k = 0; k < K; ++k) ab[jj * K + k] = k;
+    mbar_arrive(&sm.empty[cs]);
+    if constexpr (ARGS) {
+      __syncwarp();
+      for (int r = 0; r < nrows; ++r) {
+        int* dst = args + ((long long)(row0 + r) * chunk + j0) * K;
+        const int* src = sm.abuf + r * Sm::AS;
+        for (int e = lane; e < n * K; e += 32) dst[e] = src[e];
+      }
+      __syncwarp();
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) Jout[(long long)row * K + k] = Jr[k];
+  }
+}
+
 // ---------------------------------------------------------------------
 // S: sim_chunk_alpha_rr.  New: replaces the XLA lax.scan of
 // sim_chunk_core (src/repro/core/simulator.py:147-227) driving
@@ -169,23 +557,36 @@ __global__ void dp_minplus_kernel(const float* __restrict__ J,
 // sequential float32 adds into sums.
 //
 // Bound: latency -- a dependency chain of chunk slots per row, with only R
-// rows in flight.  Design: one thread per row, the policy state (r, S[K],
-// age) and the accumulator (sums[3], counts[K]) in registers across the
-// whole chunk (K is a template argument, so every level loop unrolls);
-// blocks of 32 threads spread the few warps over as many SMs as possible.
+// rows in flight.  Design: three warps a CTA of 32 rows, each on its own
+// scheduler.  Warp 0 stages x / c by bulk async copies and cooks svc and
+// w (and c, float(x)) into the ring.  Warp 1 walks only the policy's
+// recurrence (select w_r, S, margins, argmin, switch), a row per lane,
+// and writes the level held in each slot into a per-stage ring.  Warp 2
+// does the accounting from that ring (rent, service, fetch in slot order,
+// the counts) off the policy's chain, and stores r_hist as whole row
+// segments.
 // ---------------------------------------------------------------------
 
 template <int K>
-__device__ __forceinline__ float select_k(const float (&a)[K], int i) {
-  // exact a[i] (the reference's one-hot sum) without dynamic register indexing
-  float v = 0.0f;
-#pragma unroll
-  for (int k = 0; k < K; ++k) v = (k == i) ? a[k] : v;
-  return v;
-}
+struct SimSmem {
+  static constexpr int TILE = TileOf<K>::value;
+  static constexpr int NF = K + 2;             // w[0..K-1], c, float(x)
+  static constexpr int SS = NF * kRows + 1;    // words per cooked slot
+  static constexpr int RS = kRows + 1;         // words per slot of rb
+  // three cooked stages let the policy warp run a tile further ahead of
+  // the accounting warp (faster than two at K = 3 on an H100)
+  static constexpr int NC = 3;
+  RawStage<TILE> raw[kRawStages];
+  float cooked[NC][TILE * SS];
+  int rb[NC][(TILE + 1) * RS];                 // level held in each slot
+  uint64_t raw_full[kRawStages];
+  uint64_t full[NC];
+  uint64_t rfull[NC];                          // rb written (32 lanes)
+  uint64_t empty[NC];
+};
 
 template <int K>
-__global__ void sim_alpha_rr_kernel(
+__global__ void __launch_bounds__(96) sim_alpha_rr_kernel(
     const float* __restrict__ plv_g, const bool* __restrict__ mask_g,
     const float* __restrict__ pM_g, const float* __restrict__ lv_g,
     const float* __restrict__ g_g, const float* __restrict__ M_g,
@@ -196,112 +597,217 @@ __global__ void sim_alpha_rr_kernel(
     int chunk, int R, int include_final_fetch, int* __restrict__ r_out,
     float* __restrict__ S_out, int* __restrict__ age_out,
     float* __restrict__ sums_out, int* __restrict__ counts_out,
-    int* __restrict__ r_hist) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= R) return;
-  const float BIG = (float)3.4e38;   // alpha_rr._BIG
-  const float EPS = (float)1e-6;     // alpha_rr._TIE_EPS
+    int* __restrict__ r_hist, int bulk) {
+  using Sm = SimSmem<K>;
+  constexpr int TILE = Sm::TILE, SS = Sm::SS, RS = Sm::RS;
+  extern __shared__ __align__(128) unsigned char smem_buf[];
+  Sm& sm = *reinterpret_cast<Sm*>(smem_buf);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = blockIdx.x * kRows;
+  const int nrows = min(kRows, R - row0);
+  const int row = row0 + lane;                   // this lane's row
+  const bool live = lane < nrows;
+  const long long rk = (long long)row * K;
+  if (threadIdx.x == 0) {
+    init_ring(sm, bulk);
+    for (int s = 0; s < Sm::NC; ++s) mbar_init(&sm.rfull[s], 32u);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
   // policy params (plv, mask, pM) and the accounting grid (lv, g, M) are
   // separate inputs, as in the reference (they coincide for every fleet
   // built by AlphaRR.fleet / RetroRenting.fleet)
-  float plv[K], lv[K], g[K], S[K];
-  bool mk[K];
+  if (warp == 0) {
+    float plr[K], gr[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      plr[k] = live ? plv_g[rk + k] : 0.0f;
+      gr[k] = live ? g_g[rk + k] : 0.0f;
+    }
+    produce<TILE, SS>(sm, c_g, x_g, row0, nrows, chunk, bulk, lane,
+                      [&](float* out, float cv, int xv) {
+                        const float xf = (float)xv;
+#pragma unroll
+                        for (int k = 0; k < K; ++k) {
+                          const float svc = xf * gr[k];      // Model 1
+                          out[k * kRows] = __fmaf_rn(cv, plr[k], svc);
+                        }
+                        out[K * kRows] = cv;
+                        out[(K + 1) * kRows] = xf;
+                      });
+    return;
+  }
+
+  const int Tl = live ? Tlen_g[row] : 0;
+  const int ntiles = (chunk + TILE - 1) / TILE;
+
+  if (warp == 1) {
+    // ---- the policy: alpha_rr_step, state frozen past T_len ----
+    const float BIG = (float)3.4e38;   // alpha_rr._BIG
+    const float EPS = (float)1e-6;     // alpha_rr._TIE_EPS
+    float plv[K], S[K];
+    bool mk[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      plv[k] = live ? plv_g[rk + k] : 0.0f;
+      mk[k] = live ? mask_g[rk + k] : false;
+      S[k] = live ? S_in[rk + k] : 0.0f;
+    }
+    const float pM = live ? pM_g[row] : 0.0f;
+    int r = live ? r_in[row] : 0;
+    int age = live ? age_in[row] : 0;
+    for (int i = 0; i < ntiles; ++i) {
+      const int cs = i % Sm::NC, j0 = i * TILE;
+      const int n = min(TILE, chunk - j0);
+      mbar_wait(&sm.full[cs], (uint32_t)((i / Sm::NC) & 1));
+      const float* ck = sm.cooked[cs] + lane;
+      int* rb = sm.rb[cs] + lane;
+      // slots jj < nv are valid; the state is frozen past T_len
+      const int nv = max(0, min(n, Tl - t0 - j0));
+      float wn[K];                             // the next slot's w
+#pragma unroll
+      for (int k = 0; k < K; ++k) wn[k] = ck[k * kRows];
+      for (int jj = 0; jj < nv; ++jj) {
+        float w[K];
+        const int nx = min(jj + 1, n - 1);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          w[k] = wn[k];
+          wn[k] = ck[nx * SS + k * kRows];
+        }
+        rb[jj * RS] = r;
+        const int age1 = age + 1;
+        const bool gate = age1 >= 2;
+        const float w_r = select_k<K>(w, r);
+        const float plv_r = select_k<K>(plv, r);
+        // margins[k] (0 at r), argmin of margins + (k != r) * EPS with the
+        // first index winning, and the margin at the argmin, in one pass
+        float Sn[K];
+        int js = 0;
+        float best = 0.0f, m_js = 0.0f;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const float d = w[k] - w_r;
+          const float s_new = d + fminf(0.0f, S[k]);
+          Sn[k] = gate ? s_new : S[k];
+          float m = __fmaf_rn(pM, fabsf(plv[k] - plv_r), gate ? s_new : BIG);
+          m = mk[k] ? m : BIG;
+          const float marg = (k == r) ? 0.0f : m;
+          const float v = (k == r) ? 0.0f : m + EPS;   // marg + 0 at r
+          if (k == 0 || v < best) {
+            best = v;
+            js = k;
+            m_js = marg;
+          }
+        }
+        const bool sw = m_js < -0.0f;
+#pragma unroll
+        for (int k = 0; k < K; ++k) S[k] = sw ? BIG : Sn[k];
+        age = sw ? 0 : age1;
+        r = sw ? js : r;
+      }
+      for (int jj = nv; jj < n; ++jj) rb[jj * RS] = r;
+      rb[n * RS] = r;                          // held after the tile
+      mbar_arrive(&sm.rfull[cs]);
+    }
+    if (live) {
+      r_out[row] = r;
+      age_out[row] = age;
+#pragma unroll
+      for (int k = 0; k < K; ++k) S_out[rk + k] = S[k];
+    }
+    return;
+  }
+
+  // ---- warp 2: the accounting of sim_chunk_core, in slot order ----
+  float lv[K], g[K];
   int cnt[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    plv[k] = plv_g[row * K + k];
-    lv[k] = lv_g[row * K + k];
-    g[k] = g_g[row * K + k];
-    mk[k] = mask_g[row * K + k];
-    S[k] = S_in[row * K + k];
-    cnt[k] = counts_in[row * K + k];
+    lv[k] = live ? lv_g[rk + k] : 0.0f;
+    g[k] = live ? g_g[rk + k] : 0.0f;
+    cnt[k] = live ? counts_in[rk + k] : 0;
   }
-  const float pM = pM_g[row];
-  const float M = M_g[row];
-  const int Tl = Tlen_g[row];
-  int r = r_in[row];
-  int age = age_in[row];
-  float s_rent = sums_in[row * 3 + 0];
-  float s_svc = sums_in[row * 3 + 1];
-  float s_fetch = sums_in[row * 3 + 2];
-  const int* xr = x_g + (long long)row * chunk;
-  const float* cr = c_g + (long long)row * chunk;
-  int* hr = r_hist ? r_hist + (long long)row * chunk : nullptr;
-
-  for (int j = 0; j < chunk; ++j) {
-    const int t = t0 + j;
-    const bool valid = t < Tl;
-    const bool last = t == Tl - 1;
-    const float c = cr[j];
-    const float xf = (float)xr[j];
-    float svc[K], w[K];
+  const float M = live ? M_g[row] : 0.0f;
+  float s_rent = live ? sums_in[row * 3 + 0] : 0.0f;
+  float s_svc = live ? sums_in[row * 3 + 1] : 0.0f;
+  float s_fetch = live ? sums_in[row * 3 + 2] : 0.0f;
+  for (int i = 0; i < ntiles; ++i) {
+    const int cs = i % Sm::NC, j0 = i * TILE;
+    const int n = min(TILE, chunk - j0);
+    mbar_wait(&sm.rfull[cs], (uint32_t)((i / Sm::NC) & 1));
+    const float* ck = sm.cooked[cs] + lane;
+    const int* rb = sm.rb[cs] + lane;
+    const int tv = Tl - t0 - j0;
+#pragma unroll 2
+    for (int jj = 0; jj < n; ++jj) {
+      const int rt = rb[jj * RS];
+      const int rn = rb[(jj + 1) * RS];        // the level after the slot
+      const float c = ck[jj * SS + K * kRows];
+      const float xf = ck[jj * SS + (K + 1) * kRows];
+      const bool valid = jj < tv;
+      const bool last = jj == tv - 1;
+      const float lv_t = select_k<K>(lv, rt);
+      const float rent = c * lv_t;
+      const float svc_t = xf * select_k<K>(g, rt);
+      const float lv_next = select_k<K>(lv, rn);
+      float fetch = M * fmaxf(lv_next - lv_t, 0.0f);
+      if (!include_final_fetch && last) fetch = 0.0f;
+      s_rent = s_rent + (valid ? rent : 0.0f);
+      s_svc = s_svc + (valid ? svc_t : 0.0f);
+      s_fetch = s_fetch + (valid ? fetch : 0.0f);
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      svc[k] = xf * g[k];                        // Model-1 service
-      w[k] = __fmaf_rn(c, plv[k], svc[k]);       // one rounding, as XLA
+      for (int k = 0; k < K; ++k) cnt[k] += (valid && k == rt) ? 1 : 0;
     }
-    // ---- alpha_rr_step ----
-    const int age1 = age + 1;
-    const float w_r = select_k<K>(w, r);
-    const float plv_r = select_k<K>(plv, r);
-    float Sn[K], marg[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const float d = w[k] - w_r;
-      const float s_new = d + fminf(0.0f, S[k]);
-      Sn[k] = (age1 >= 2) ? s_new : S[k];
-      float m = __fmaf_rn(pM, fabsf(plv[k] - plv_r),
-                          (age1 >= 2) ? Sn[k] : BIG);
-      m = mk[k] ? m : BIG;
-      marg[k] = (k == r) ? 0.0f : m;
-    }
-    int js = 0;
-    float best = marg[0] + ((0 != r) ? EPS : 0.0f);
-#pragma unroll
-    for (int k = 1; k < K; ++k) {
-      const float v = marg[k] + ((k != r) ? EPS : 0.0f);
-      if (v < best) {
-        best = v;
-        js = k;
+    if (r_hist) {
+      for (int r = 0; r < nrows; ++r) {
+        int* dst = r_hist + (long long)(row0 + r) * chunk + j0;
+        const int* src = sm.rb[cs] + r;
+        for (int jj = lane; jj < n; jj += 32) dst[jj] = src[jj * RS];
       }
     }
-    const bool sw = select_k<K>(marg, js) < -0.0f;
-    // ---- accounting (sim_chunk_core), state frozen past T_len ----
-    const float lv_t = select_k<K>(lv, r);
-    const float rent = c * lv_t;
-    const float svc_t = select_k<K>(svc, r);
-    const int r_next = valid ? (sw ? js : r) : r;
-    const float lv_next = select_k<K>(lv, r_next);
-    float fetch = M * fmaxf(lv_next - lv_t, 0.0f);
-    if (!include_final_fetch && last) fetch = 0.0f;
-    s_rent = s_rent + (valid ? rent : 0.0f);
-    s_svc = s_svc + (valid ? svc_t : 0.0f);
-    s_fetch = s_fetch + (valid ? fetch : 0.0f);
-#pragma unroll
-    for (int k = 0; k < K; ++k) cnt[k] += (valid && k == r) ? 1 : 0;
-    if (hr) hr[j] = r;
-    if (valid) {
-#pragma unroll
-      for (int k = 0; k < K; ++k) S[k] = sw ? BIG : Sn[k];
-      age = sw ? 0 : age1;
-      r = r_next;
-    }
+    mbar_arrive(&sm.empty[cs]);
   }
-
-  r_out[row] = r;
-  age_out[row] = age;
-  sums_out[row * 3 + 0] = s_rent;
-  sums_out[row * 3 + 1] = s_svc;
-  sums_out[row * 3 + 2] = s_fetch;
+  if (live) {
+    sums_out[row * 3 + 0] = s_rent;
+    sums_out[row * 3 + 1] = s_svc;
+    sums_out[row * 3 + 2] = s_fetch;
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    S_out[row * K + k] = S[k];
-    counts_out[row * K + k] = cnt[k];
+    for (int k = 0; k < K; ++k) counts_out[rk + k] = cnt[k];
   }
 }
 
 inline unsigned n_blocks(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
+}
+
+// the bulk route needs 16-byte aligned row segments
+inline int bulk_ok(const void* c, const void* x, int chunk) {
+  return chunk % 4 == 0 && (uintptr_t)c % 16 == 0 && (uintptr_t)x % 16 == 0;
+}
+
+template <class Kern>
+cudaError_t allow_smem(Kern kern, size_t bytes) {
+  return cudaFuncSetAttribute(kern,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+template <int K, bool ARGS>
+int launch_dpf(const void* J, const void* c, const void* x, const void* g,
+               const void* lv, const void* kmask, const void* fetch,
+               const void* T_len, void* Jout, void* args, int R, int chunk,
+               int t0, cudaStream_t st) {
+  const size_t bytes = sizeof(DpSmem<K, ARGS>);
+  const cudaError_t e = allow_smem(dp_fwd_model1_kernel<K, ARGS>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  dp_fwd_model1_kernel<K, ARGS><<<n_blocks(R, kRows), 64, bytes, st>>>(
+      (const float*)J, (const float*)c, (const int*)x, (const float*)g,
+      (const float*)lv, (const bool*)kmask, (const float*)fetch,
+      (const int*)T_len, (float*)Jout, (int*)args, R, chunk, t0,
+      bulk_ok(c, x, chunk));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -334,6 +840,32 @@ int launch_dp_minplus(const void* J, const void* wck, const void* fetch,
   return (int)cudaGetLastError();
 }
 
+// args may be NULL: the argmin table is then not written at all
+int launch_dp_fwd_model1(const void* J, const void* c, const void* x,
+                         const void* g, const void* lv, const void* kmask,
+                         const void* fetch, const void* T_len, void* Jout,
+                         void* args, int R, int chunk, int K, int t0,
+                         void* stream) {
+  if (R <= 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+#define REPRO_DPF_CASE(KK)                                                    \
+  case KK:                                                                    \
+    return args ? launch_dpf<KK, true>(J, c, x, g, lv, kmask, fetch, T_len,   \
+                                       Jout, args, R, chunk, t0, st)          \
+                : launch_dpf<KK, false>(J, c, x, g, lv, kmask, fetch, T_len,  \
+                                        Jout, args, R, chunk, t0, st);
+  switch (K) {
+    REPRO_DPF_CASE(1) REPRO_DPF_CASE(2) REPRO_DPF_CASE(3) REPRO_DPF_CASE(4)
+    REPRO_DPF_CASE(5) REPRO_DPF_CASE(6) REPRO_DPF_CASE(7) REPRO_DPF_CASE(8)
+    REPRO_DPF_CASE(9) REPRO_DPF_CASE(10) REPRO_DPF_CASE(11)
+    REPRO_DPF_CASE(12) REPRO_DPF_CASE(13) REPRO_DPF_CASE(14)
+    REPRO_DPF_CASE(15) REPRO_DPF_CASE(16)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_DPF_CASE
+}
+
 int launch_sim_alpha_rr(const void* plv, const void* mask, const void* pM,
                         const void* lv, const void* g, const void* M,
                         const void* T_len, const void* r_in,
@@ -343,20 +875,23 @@ int launch_sim_alpha_rr(const void* plv, const void* mask, const void* pM,
                         int K, int include_final_fetch, void* r_out,
                         void* S_out, void* age_out, void* sums_out,
                         void* counts_out, void* r_hist, void* stream) {
-  const int threads = 32;
   if (R <= 0) return (int)cudaGetLastError();
-  const dim3 grid(n_blocks(R, threads));
+  const dim3 grid(n_blocks(R, kRows));
+  const int bulk = bulk_ok(c, x, chunk);
   cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaSuccess;
 #define REPRO_SIM_CASE(KK)                                                    \
   case KK:                                                                    \
-    sim_alpha_rr_kernel<KK><<<grid, threads, 0, st>>>(                        \
+    e = allow_smem(sim_alpha_rr_kernel<KK>, sizeof(SimSmem<KK>));             \
+    if (e != cudaSuccess) return (int)e;                                      \
+    sim_alpha_rr_kernel<KK><<<grid, 96, sizeof(SimSmem<KK>), st>>>(           \
         (const float*)plv, (const bool*)mask, (const float*)pM,               \
         (const float*)lv, (const float*)g, (const float*)M,                   \
         (const int*)T_len, (const int*)r_in,                                  \
         (const float*)S_in, (const int*)age_in, (const float*)sums_in,        \
         (const int*)counts_in, (const int*)x, (const float*)c, t0, chunk, R,  \
         include_final_fetch, (int*)r_out, (float*)S_out, (int*)age_out,       \
-        (float*)sums_out, (int*)counts_out, (int*)r_hist);                    \
+        (float*)sums_out, (int*)counts_out, (int*)r_hist, bulk);              \
     break;
   switch (K) {
     REPRO_SIM_CASE(2) REPRO_SIM_CASE(3) REPRO_SIM_CASE(4) REPRO_SIM_CASE(5)

@@ -1,10 +1,15 @@
-"""The hosting engine's three CUDA kernels, their wrappers and their plain
+"""The hosting engine's CUDA kernels, their wrappers and their plain
 PyTorch versions.
 
 * ``slot_uniform`` (kernel **P**) — counter-keyed U(0,1) draws; the port
   of the Pallas kernel ``repro/kernels/hosting.py:slot_uniform_tc``.
-* ``dp_minplus`` (kernel **D**) — one chunk of the offline-OPT min-plus
-  recursion; the port of ``repro/kernels/hosting.py:dp_minplus_kc``.
+* ``dp_fwd_model1`` (kernel **D**) — one chunk of the offline-OPT
+  min-plus recursion with the Model-1 cost assembly ``w = fma(c, lv, x *
+  g)`` fused in: the fleet DP's chunk, the port of
+  ``repro/kernels/hosting.py:dp_minplus_kc`` and of the assembly before it.
+* ``dp_minplus`` (kernel D on a finished ``w``) — the same recursion for
+  callers that assemble ``w`` themselves (``offline_opt_batch``) and for K
+  up to 32.
 * ``sim_chunk_alpha_rr`` (kernel **S**) — one chunk of the per-slot
   alpha-RR simulation, the reference's ``lax.scan`` of
   ``simulator.sim_chunk_core`` over ``alpha_rr_step`` fused into one pass.
@@ -36,8 +41,10 @@ from repro_torch.kernels import _build
 MASK32 = 0xFFFFFFFF
 _ROTS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
-#: the largest level count the kernels take (S: registers; D: one warp)
+#: the largest level count the kernels take (S and the fused D: a template
+#: argument each; D on a finished w: one warp)
 SIM_MAX_K = 16
+DPF_MAX_K = 16
 DP_MAX_K = 32
 
 
@@ -215,6 +222,65 @@ def dp_minplus(J, wck, fetch, valid):
 
 
 dp_minplus.launches = 0
+
+
+def dp_fwd_model1_plain(J, c, x, g, lv, kmask, fetch, T_len, t0: int,
+                        with_args: bool = False):
+    """Plain version of the fused kernel D: one DP forward chunk for R rows
+    priced under Model 1.  ``J`` [R, K], ``c`` [R, chunk] float32 rents,
+    ``x`` [R, chunk] int32 arrivals, ``g``/``lv`` [R, K] float32, ``kmask``
+    [R, K] bool, ``fetch`` [R, K, K], ``T_len`` [R] int32, ``t0`` the
+    chunk's first global slot.  ``w = kmask ? fma(c, lv, float(x) * g) :
+    +inf``, then ``dp_minplus_plain`` over the valid slots ``t0 + j <
+    T_len``.  Returns ``(J', args [R, chunk, K] int32 or None)``."""
+    svc = x[:, :, None].to(g.dtype) * g[:, None, :]      # Model-1 service
+    w = torch.where(kmask[:, None, :],
+                    fma32(c[:, :, None], lv[:, None, :], svc), float("inf"))
+    tids = torch.arange(t0, t0 + c.shape[1], dtype=torch.int32,
+                        device=c.device)
+    J, args = dp_minplus_plain(J, w, fetch, tids[None, :] < T_len[:, None])
+    return J, (args if with_args else None)
+
+
+def dp_fwd_model1(J, c, x, g, lv, kmask, fetch, T_len, t0: int,
+                  with_args: bool = False):
+    """Kernel D with the cost assembly fused in (arguments as
+    ``dp_fwd_model1_plain``; 1 <= K <= 16), bitwise
+    ``dp_fwd_model1_plain``.  The argmin table is written only when
+    ``with_args``; J is the same either way."""
+    if J.device.type == "cpu":
+        return dp_fwd_model1_plain(J, c, x, g, lv, kmask, fetch, T_len, t0,
+                                   with_args)
+    R, K = J.shape
+    chunk = c.shape[1]
+    dev = J.device
+    if not 1 <= K <= DPF_MAX_K:
+        raise ValueError(f"dp_fwd_model1 takes 1 <= K <= {DPF_MAX_K}, "
+                         f"got {K}")
+    if not 0 <= int(t0) < 2 ** 31:
+        raise ValueError(f"t0 must lie in [0, 2**31), got {t0}")
+    f32 = torch.float32
+    for name, t, dtype, shape in (
+            ("J", J, f32, (R, K)), ("c", c, f32, (R, chunk)),
+            ("x", x, torch.int32, (R, chunk)), ("g", g, f32, (R, K)),
+            ("lv", lv, f32, (R, K)), ("kmask", kmask, torch.bool, (R, K)),
+            ("fetch", fetch, f32, (R, K, K)),
+            ("T_len", T_len, torch.int32, (R,))):
+        _build.check_tensor(name, t, dtype, shape, dev)
+    Jout = torch.empty((R, K), dtype=f32, device=dev)
+    args = (torch.empty((R, chunk, K), dtype=torch.int32, device=dev)
+            if with_args else None)
+    err = _build.library("hosting").launch_dp_fwd_model1(
+        J.data_ptr(), c.data_ptr(), x.data_ptr(), g.data_ptr(),
+        lv.data_ptr(), kmask.data_ptr(), fetch.data_ptr(), T_len.data_ptr(),
+        Jout.data_ptr(), None if args is None else args.data_ptr(), R, chunk,
+        K, int(t0), _build.stream(dev))
+    _build.raise_on(err, "dp_fwd_model1")
+    dp_fwd_model1.launches += 1
+    return Jout, args
+
+
+dp_fwd_model1.launches = 0
 
 
 # ----------------------------------------------------------------------

@@ -50,9 +50,9 @@ def ssd_scan(x, dt, A, B, C, h0=None, chunk: int = 128):
     return _ssd.ssd_scan(x, dt, A, B, C, h0, chunk)
 
 
-#: every kernel's launcher: P, D, S, F (tensor-core and fma), M (tensor-core
-#: and fma)
-KERNELS = (hosting.slot_uniform, hosting.dp_minplus,
+#: every kernel's launcher: P, D (fused and on a finished w), S, F
+#: (tensor-core and fma), M (tensor-core and fma)
+KERNELS = (hosting.slot_uniform, hosting.dp_fwd_model1, hosting.dp_minplus,
            hosting.sim_chunk_alpha_rr, _fa.flash_attention_wgmma,
            _fa.flash_attention_fma, _ssd.ssd_scan_mma, _ssd.ssd_scan_fma)
 DISPATCHERS = (_fa.flash_attention, _ssd.ssd_scan)

@@ -1,6 +1,8 @@
-"""Kernels F and M, and the serving engine, on the card: held against their
-plain versions (the ``cuda`` tests skip without a card; run them on the
-card with ``python -m pytest -m cuda tests/test_torch_cuda.py``).  The
+"""Kernels F, M, the fused D and S, and the serving engine, on the card:
+held against their plain versions (the ``cuda`` tests skip without a card;
+run them on the card with ``python -m pytest -m cuda
+tests/test_torch_cuda.py``).  D and S are held bit for bit
+(``torch.equal``).  The
 CPU tests here check what surrounds the kernels: the per-library build
 table and the wrappers' CPU route.  No JAX: this file runs where the port
 runs.
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import hosting as H
 from repro_torch.kernels import ssd_scan as SSD
 
 TOL_F32, TOL_STATE, RTOL_BF16 = 1e-5, 1e-4, 2.0 ** -7
@@ -291,3 +294,132 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+# ----------------------------------------------------------------------
+# Kernels D (fused with the Model-1 cost assembly) and S, bit for bit.
+# ----------------------------------------------------------------------
+
+def _hosting_case(dev, R, chunk, K, mixed, ties, seed):
+    """Fleet-chunk inputs made with numpy: per-row level grids (with
+    ``mixed``, 2..K live levels and the rest masked), rents and arrivals,
+    horizons ending inside the chunk; with ``ties``, costs on a
+    half-integer grid so that equal transition costs are common."""
+    rng = np.random.default_rng(seed)
+    k_eff = rng.integers(2, K + 1, R) if mixed else np.full(R, K)
+    kmask = np.arange(K)[None, :] < k_eff[:, None]
+    lv = np.ones((R, K), np.float32)
+    for i, k in enumerate(k_eff):
+        lv[i, :k] = np.linspace(0.0, 1.0, k)
+    if ties:
+        lv = np.round(lv * 2) / 2
+        c = rng.integers(0, 4, (R, chunk)).astype(np.float32) / 2
+        M = rng.integers(1, 4, R).astype(np.float32)
+    else:
+        c = (rng.random((R, chunk)) * 1.5).astype(np.float32)
+        M = (rng.random(R) * 20 + 0.5).astype(np.float32)
+    g = np.clip(0.9 - lv, 0.0, 1.0).astype(np.float32)
+    g[:, 0] = 1.0
+    x = rng.integers(0, 4, (R, chunk)).astype(np.int32)
+    t0 = 4096
+    T_len = rng.integers(t0 - 5, t0 + chunk + 5, R).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    return dict(lv=t(lv.astype(np.float32)), g=t(g), kmask=t(kmask),
+                M=t(M), c=t(c), x=t(x), T_len=t(T_len), t0=t0,
+                k_eff=k_eff, rng=rng)
+
+
+def _counts(*fns):
+    return [f.launches for f in fns]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_args", [False, True])
+@pytest.mark.parametrize("case", [
+    # (R, chunk, K, mixed, ties): the fleet's K = 3 and K = 2 at full
+    # width; R ragged against the CTA's 32 rows; chunk 1 and 1,001 (the
+    # 4-byte cp.async route) and 1,000 (ragged against the 64-slot tile);
+    # a mixed K = 5 grid with ties; K = 16 (fetch in shared memory)
+    (4096, 4096, 3, False, False),
+    (4096, 4096, 2, False, True),
+    (4093, 1000, 3, False, True),
+    (4096, 1, 3, False, False),
+    (4093, 1001, 2, False, False),
+    (4093, 1000, 5, True, True),
+    (300, 999, 16, True, False),
+    (64, 4096, 16, False, True),
+])
+def test_fused_dp_kernel_matches_plain(case, with_args):
+    from repro_torch.core.policies.offline_opt import dp_fetch_matrix
+    dev = _card()
+    R, chunk, K, mixed, ties = case
+    d = _hosting_case(dev, R, chunk, K, mixed, ties, seed=R + chunk + K)
+    J = (d["rng"].random((R, K)) * 3).astype(np.float32)
+    J[0::7] = np.inf                                  # all-+inf frontiers
+    J[1::7, 1:] = np.inf
+    J = torch.from_numpy(np.where(d["kmask"].cpu().numpy(), J, np.inf)
+                         .astype(np.float32)).to(dev)
+    fetch = dp_fetch_matrix(d["M"], d["lv"])
+    args = (J, d["c"], d["x"], d["g"], d["lv"], d["kmask"], fetch,
+            d["T_len"], d["t0"], with_args)
+    before = _counts(H.dp_fwd_model1, H.dp_minplus)
+    Jk, ak = H.dp_fwd_model1(*args)
+    torch.cuda.synchronize()
+    assert _counts(H.dp_fwd_model1, H.dp_minplus) == [before[0] + 1,
+                                                      before[1]]
+    Jp, ap = H.dp_fwd_model1_plain(*args)
+    assert torch.equal(Jk, Jp)
+    if with_args:
+        assert torch.equal(ak, ap)
+    else:
+        assert ak is None and ap is None
+    # the frozen slots really occur, and so do live ones
+    assert bool((d["T_len"] < d["t0"] + chunk).any())
+    assert bool(torch.isfinite(Jk).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("collect_trace", [False, True])
+@pytest.mark.parametrize("case", [
+    # (R, chunk, K, mixed, include_final_fetch)
+    (4096, 2048, 3, False, True),
+    (4096, 1000, 2, False, False),
+    (4093, 1000, 5, True, True),
+    (4093, 1001, 3, False, False),
+    (4096, 1, 3, False, True),
+    (300, 999, 16, True, False),
+    (64, 2048, 16, False, True),
+])
+def test_sim_kernel_matches_plain(case, collect_trace):
+    dev = _card()
+    R, chunk, K, mixed, iff = case
+    d = _hosting_case(dev, R, chunk, K, mixed, False, seed=3 * R + chunk + K)
+    rng = d["rng"]
+    params = {"levels": d["lv"], "mask": d["kmask"], "M": d["M"]}
+    # a carry in mid-run: held levels on live levels, suffix minima and
+    # ages of every kind (BIG right after a switch), sums and counts
+    r0 = (rng.random(R) * d["k_eff"]).astype(np.int32)
+    S0 = (rng.random((R, K)) * 4 - 2).astype(np.float32)
+    S0[rng.random((R, K)) < 0.3] = np.float32(3.4e38)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    state = {"r": t(r0), "S": t(S0),
+             "age": t(rng.integers(0, 3, R).astype(np.int32))}
+    acc = {"sums": t((rng.random((R, 3)) * 100).astype(np.float32)),
+           "counts": t(rng.integers(0, 50, (R, K)).astype(np.int32))}
+    args = (params, d["lv"], d["g"], d["M"], d["T_len"], d["t0"],
+            (state, acc), d["x"], d["c"], iff, collect_trace)
+    before = H.sim_chunk_alpha_rr.launches
+    (sk, ak), rk = H.sim_chunk_alpha_rr(*args)
+    torch.cuda.synchronize()
+    assert H.sim_chunk_alpha_rr.launches == before + 1
+    (sp, ap), rp = H.sim_chunk_alpha_rr_plain(*args)
+    for key in sp:
+        assert torch.equal(sk[key], sp[key]), key
+    for key in ap:
+        assert torch.equal(ak[key], ap[key]), key
+    if collect_trace:
+        assert torch.equal(rk, rp)
+        if chunk > 1:
+            assert bool((rk != rk[:, :1]).any())      # the policy moved
+    else:
+        assert rk is None and rp is None

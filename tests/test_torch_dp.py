@@ -101,6 +101,72 @@ def test_dp_minplus_wrapper_is_the_plain_version_on_cpu():
     assert (a1.numpy()[frozen] == np.arange(3)).all()
 
 
+def _model1_case(rng, R, chunk, K, grid_values: bool):
+    """``_case``'s chunk with Model-1 service: arrivals ``x`` and a per-row
+    ``g`` in place of ``svc``; returns ``(J, tids, c, x, g, lv, kmask, M,
+    T_len)`` and the Model-1 ``svc`` the reference is handed."""
+    J, tids, c, _, lv, kmask, M, T_len = _case(rng, R, chunk, K, grid_values)
+    x = rng.integers(0, 4, (R, chunk)).astype(np.int32)
+    if grid_values:
+        g = (rng.integers(0, 3, (R, K)) / 2).astype(np.float32)
+    else:
+        g = np.clip(0.9 - lv, 0.0, 1.0).astype(np.float32)
+        g[:, 0] = 1.0
+    # Model 1, as the reference's fleet prices it: float32(x) * g
+    svc = (x[:, :, None].astype(np.float32) * g[:, None, :]).astype(
+        np.float32)
+    return (J, tids, c, x, g, lv, kmask, M, T_len), svc
+
+
+@pytest.mark.parametrize("with_args", [False, True])
+@pytest.mark.parametrize("grid_values", [False, True])
+def test_dp_fwd_model1_plain_matches_reference(grid_values, with_args):
+    """The fused kernel D's plain version, given ``x`` and ``g`` in place of
+    ``svc``, is bitwise the reference's ``dp_fwd_chunk(backend="xla")``
+    under Model-1 ``sck``: mixed K, horizons ending inside the chunk,
+    all-+inf frontiers, and (``grid_values``) tied predecessors.  J does
+    not depend on whether the argmin table is asked for."""
+    rng = np.random.default_rng(17 + grid_values)
+    (J, tids, c, x, g, lv, kmask, M, T_len), svc = _model1_case(
+        rng, R=7, chunk=96, K=5, grid_values=grid_values)
+    J_ref, a_ref = _ref_chunk(J, tids, c, svc, lv, kmask, M, T_len)
+    t = torch.from_numpy
+    fetch = popt.dp_fetch_matrix(t(M), t(lv))
+    J_got, a_got = phost.dp_fwd_model1_plain(
+        t(J), t(c), t(x), t(g), t(lv), t(kmask), fetch, t(T_len),
+        int(tids[0]), with_args)
+    np.testing.assert_array_equal(J_ref, J_got.numpy())
+    if with_args:
+        np.testing.assert_array_equal(a_ref, a_got.numpy())
+    else:
+        assert a_got is None
+    assert (T_len < tids[-1]).any()             # horizons inside the chunk
+    assert np.isinf(J_ref[0]).all()
+
+
+def test_dp_fwd_model1_is_dp_fwd_chunk_on_model1_costs():
+    """The fleet's Model-1 chunk (the fused kernel D's wrapper) and the
+    general chunk agree bit for bit, J and argmins, and the wrapper takes
+    the plain version on the CPU without touching any launch counter."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(23)
+    (J, tids, c, x, g, lv, kmask, M, T_len), svc = _model1_case(
+        rng, R=5, chunk=40, K=4, grid_values=True)
+    t = torch.from_numpy
+    fetch = popt.dp_fetch_matrix(t(M), t(lv))
+    before = [k.launches for k in ops.KERNELS]
+    J1, a1 = phost.dp_fwd_model1(t(J), t(c), t(x), t(g), t(lv), t(kmask),
+                                 fetch, t(T_len), int(tids[0]),
+                                 with_args=True)
+    J2, a2 = popt.dp_fwd_chunk(t(J), t(tids), t(c), t(svc), t(lv),
+                               t(kmask), fetch, t(T_len))
+    assert torch.equal(J1, J2) and torch.equal(a1, a2)
+    J3, a3 = phost.dp_fwd_model1(t(J), t(c), t(x), t(g), t(lv), t(kmask),
+                                 fetch, t(T_len), int(tids[0]))
+    assert torch.equal(J1, J3) and a3 is None
+    assert [k.launches for k in ops.KERNELS] == before
+
+
 def _grid_pair(rng, B):
     spec = []
     for i in range(B):

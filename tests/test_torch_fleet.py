@@ -147,3 +147,31 @@ def test_unported_arguments_raise():
             offline_opt_fleet(pf, scenario=psc, device=CPU, **kw)
     with pytest.raises(ValueError, match="antithetic"):
         run_fleet(pol, pf, scenario=psc, antithetic=True, device=CPU)
+
+
+def test_opt_fleet_runs_the_fused_dp_plain_version_on_the_cpu(monkeypatch):
+    """``offline_opt_fleet`` on Model-1 slabs prices each chunk through the
+    fused kernel D's wrapper, which on the CPU takes its plain version
+    once a chunk; no launch counter moves, and the cost is the
+    reference's."""
+    from repro_torch.kernels import hosting, ops
+    jf, pf = _fleets()
+    jsc, psc = _scenarios("bernoulli")
+    calls = []
+    plain = hosting.dp_fwd_model1_plain
+
+    def spy(*args, **kw):
+        calls.append(args[8])                 # t0 of the chunk
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(hosting, "dp_fwd_model1_plain", spy)
+    before = [k.launches for k in ops.KERNELS]
+    got = offline_opt_fleet(pf, scenario=psc, checkpointed=True,
+                            collect_schedule=False, chunk_size=64,
+                            device=CPU)
+    assert [k.launches for k in ops.KERNELS] == before
+    n_chunks = len(calls)
+    assert n_chunks >= 2 and calls == [i * calls[1] for i in range(n_chunks)]
+    ref = jopt_fleet(jf, scenario=jsc, checkpointed=True,
+                     collect_schedule=False, chunk_size=64)
+    np.testing.assert_array_equal(np.asarray(ref.cost), got.cost)

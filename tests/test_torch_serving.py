@@ -155,6 +155,33 @@ def test_controller_matches_reference_bitwise(policy, model2):
     assert p.level_histogram()[1:].sum() > 0      # the policy did move
 
 
+def test_alpha_rr_params_resolve_the_card_by_default():
+    """One instance's params go to the CUDA card unless the caller asks
+    for the CPU, as every port entry point does
+    (``_device.resolve_device``); without a card that raises instead of
+    falling back.  The controller builds its policy's params on its own
+    device."""
+    import torch
+    from repro_torch.core.policies import alpha_rr_params
+    costs = HostingCosts.three_level(M=6.0, alpha=0.5, g_alpha=0.25)
+    for policy in (AlphaRR(costs), RetroRenting(costs)):
+        if torch.cuda.is_available():
+            assert policy.params["levels"].device.type == "cuda"
+            assert alpha_rr_params(costs)["M"].device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="CUDA card"):
+                policy.params
+            with pytest.raises(RuntimeError, match="CUDA card"):
+                alpha_rr_params(costs)
+        cpu = policy.params_on("cpu")
+        assert {k: v.device.type for k, v in cpu.items()} == \
+            {"M": "cpu", "levels": "cpu", "mask": "cpu"}
+        assert cpu["levels"].shape == (1, policy.costs.K)
+        assert policy.fns("cpu").params["levels"].device.type == "cpu"
+    ctrl = HostingController(costs, device="cpu")
+    assert all(v.device.type == "cpu" for v in ctrl._params.values())
+
+
 def test_controller_rounds_as_the_eager_reference():
     """Finding 3: the reference's controller steps alpha-RR outside any
     jit, so ``c * lv + svc`` and the margins round twice.  On this near tie

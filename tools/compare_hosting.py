@@ -1,0 +1,138 @@
+#!/usr/bin/env python3
+"""Time the fleet path's hosting kernels of several checkouts in turns on
+one CUDA card.
+
+    python3 tools/compare_hosting.py PARENT . . PARENT
+
+Each ROOT is the root of a checkout (a ``git archive`` of another commit
+unpacked into a git-ignored directory, say).  For each, in the order
+given, a fresh process imports that checkout's ``repro_torch`` and times,
+at ``chip_smoke.py``'s fleet shapes (4,096 rows, K = 3, a chunk of 4,096
+slots of Bernoulli arrivals and uniform rents): kernel S without and with
+the trace, the DP chunk as the checkout's fleet runs it (the fused kernel
+D where the checkout has it, else the float64 ``fma32`` assembly + kernel
+D on the finished w), and kernel D on a finished w.  Times are CUDA-event
+medians of batches of back-to-back calls; beside each, the cycles a slot
+at the SM clock nvidia-smi reads while the card runs it.  One JSON line
+per root, then a table.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+
+def _one(root: Path) -> dict:
+    sys.path[:0] = [str(root / "src"), str(root)]
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.core import scenarios as sc
+    from repro_torch.core.policies import AlphaRR
+    from repro_torch.core.policies.alpha_rr import alpha_rr_init
+    from repro_torch.core.policies.offline_opt import (dp_fetch_matrix,
+                                                       dp_frontier0)
+    from repro_torch.core.simulator import sim_acc0
+    from repro_torch.kernels import hosting as H
+
+    def ms_and_clock(fn, batch=10, reps=5):
+        fn()
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(batch):
+                fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b) / batch)
+        ms = float(np.median(times))
+        for _ in range(max(20, int(400 / ms))):   # ~0.4 s of work
+            fn()
+        clock = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True, timeout=60).stdout.split()[0])
+        torch.cuda.synchronize()
+        return {"ms": ms, "sm_clock_mhz": clock,
+                "cycles_per_slot": ms * 1e-3 * clock * 1e6 / chunk}
+
+    dev, chunk = "cuda", cs.CHUNK
+    R = cs.N_M * cs.N_ALPHA * cs.N_SEEDS
+    grid = cs.fleet_grid(cs.N_M, cs.N_ALPHA, dev).repeat_rows(cs.N_SEEDS)
+    scen = sc.replicate_seeds(cs.bernoulli_uniform(cs.N_M * cs.N_ALPHA, dev),
+                              cs.N_SEEDS)
+    t0 = cs.T_MAIN - chunk
+    tids = sc.base.chunk_tids(t0, chunk, dev)
+    _, slab = scen.chunk_fn(scen.params, scen.init_fn(scen.params), tids)
+    x, c = slab.x, slab.c
+    T_len = torch.full((R,), cs.T_MAIN, dtype=torch.int32, device=dev)
+    pol = AlphaRR.batch(grid)
+    sim = (pol.params, grid.levels, grid.g, grid.M, T_len, t0,
+           (alpha_rr_init(pol.params), sim_acc0(R, grid.K, dev)), x, c)
+    lv, fetch = grid.levels, dp_fetch_matrix(grid.M, grid.levels)
+    J = dp_frontier0(R, grid.K, dev)
+    w = torch.where(grid.mask[:, None, :],
+                    H.fma32(c[:, :, None], lv[:, None, :],
+                            x[:, :, None].float() * grid.g[:, None, :]),
+                    float("inf"))
+    valid = tids[None, :] < T_len[:, None]
+
+    def old_route():
+        ww = torch.where(grid.mask[:, None, :],
+                         H.fma32(c[:, :, None], lv[:, None, :],
+                                 x[:, :, None].float() * grid.g[:, None, :]),
+                         float("inf"))
+        return H.dp_minplus(J, ww, fetch, tids[None, :] < T_len[:, None])
+
+    if hasattr(H, "dp_fwd_model1"):
+        fused = (J, c, x, grid.g, lv, grid.mask, fetch, T_len, t0)
+        dp_chunk = ("fused kernel D", lambda: H.dp_fwd_model1(*fused))
+    else:
+        dp_chunk = ("fma32 assembly + kernel D", old_route)
+    out = {"root": str(root), "card": torch.cuda.get_device_name(0),
+           "S": ms_and_clock(lambda: H.sim_chunk_alpha_rr(
+               *sim, collect_trace=False)),
+           "S with trace": ms_and_clock(lambda: H.sim_chunk_alpha_rr(*sim)),
+           "DP chunk": dict(ms_and_clock(dp_chunk[1], batch=3),
+                            route=dp_chunk[0]),
+           "D on a finished w": ms_and_clock(
+               lambda: H.dp_minplus(J, w, fetch, valid), batch=3)}
+    return out
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--one":
+        print(json.dumps(_one(Path(sys.argv[2]).resolve())), flush=True)
+        return 0
+    roots = sys.argv[1:]
+    if not roots:
+        print(__doc__, file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    rows = []
+    for root in roots:
+        run = subprocess.run([sys.executable, __file__, "--one", root],
+                             capture_output=True, text=True, timeout=900)
+        if run.returncode != 0:
+            print(run.stderr[-3000:], file=sys.stderr)
+            return run.returncode
+        rows.append(json.loads(run.stdout.strip().splitlines()[-1]))
+        print(json.dumps(rows[-1]), flush=True)
+    for r in rows:
+        print(r["root"] + ": " + "; ".join(
+            f"{k} {v['ms']:.4f} ms ({v['cycles_per_slot']:.0f} cycles a slot "
+            f"at {v['sm_clock_mhz']:.0f} MHz)"
+            for k, v in r.items() if isinstance(v, dict)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,7 +6,8 @@
 Fleet path: the ``chip_smoke.py`` workload at full width (4,096 rows, K = 3,
 chunks of 4,096) for a shorter horizon under ``torch.profiler``: alpha-RR
 and alpha-OPT on Bernoulli arrivals + uniform rents, and alpha-RR on
-Gilbert-Elliot arrivals + NA rents.
+Gilbert-Elliot arrivals + NA rents; the device time is also grouped into
+kernels D (fused, and on a finished w), S, P and the rest.
 
 Serving path: zamba2-1.2b at full width and depth in bf16 (seeded random
 weights), one ``serve_slot`` of 8 prompts of 2,048 tokens under the full
@@ -47,15 +48,22 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-# device kernels by group, for the serving path: name fragments
-GROUPS = (("kernel F (wgmma)", ("flash_fwd_wgmma_kernel",)),
-          ("kernel F (fma)", ("flash_fwd_fma_kernel",)),
-          ("kernel M (mma)", ("ssd_scan_mma_kernel",)),
-          ("kernel M (fma)", ("ssd_scan_fma_kernel",)),
-          ("matrix products", ("gemm", "xmma", "cutlass", "nvjet", "cublas")))
+# device kernels by group, name fragments: the serving path's and the
+# fleet path's
+SERVING_GROUPS = (
+    ("kernel F (wgmma)", ("flash_fwd_wgmma_kernel",)),
+    ("kernel F (fma)", ("flash_fwd_fma_kernel",)),
+    ("kernel M (mma)", ("ssd_scan_mma_kernel",)),
+    ("kernel M (fma)", ("ssd_scan_fma_kernel",)),
+    ("matrix products", ("gemm", "xmma", "cutlass", "nvjet", "cublas")))
+FLEET_GROUPS = (
+    ("kernel D (fused cost assembly)", ("dp_fwd_model1_kernel",)),
+    ("kernel D (finished w)", ("dp_minplus_kernel",)),
+    ("kernel S", ("sim_alpha_rr_kernel",)),
+    ("kernel P", ("slot_uniform_kernel",)))
 
 
-def profiled(label, fn, top=10, groups=False):
+def profiled(label, fn, top=10, groups=()):
     fn()                                      # warm-up (kernel build, caches)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -76,7 +84,7 @@ def profiled(label, fn, top=10, groups=False):
               f"{e.key[:90]}")
     if groups:
         left = list(kernels)
-        for name, frags in GROUPS:
+        for name, frags in groups:
             mine = [e for e in left
                     if any(f in e.key.lower() for f in frags)]
             left = [e for e in left if e not in mine]
@@ -84,7 +92,7 @@ def profiled(label, fn, top=10, groups=False):
             print(f"   group {name}: {us / 1e3:.2f} ms "
                   f"({100 * us / max(busy_us, 1):.1f}% of device time)")
         us = sum(_device_us(e) for e in left)
-        print(f"   group the rest (elementwise, norms, copies): "
+        print(f"   group the rest (elementwise, copies, the rest): "
               f"{us / 1e3:.2f} ms ({100 * us / max(busy_us, 1):.1f}%)")
     sys.stdout.flush()
 
@@ -98,14 +106,16 @@ def profile_fleet(T, dev):
     ge = cs.ge_na(B, dev)
     profiled(f"alpha-RR, bernoulli + uniform, T={T}",
              lambda: run_fleet(AlphaRR.fleet(fleet), fleet, scenario=bern,
-                               collect_trace=False, **kw))
+                               collect_trace=False, **kw), top=12,
+             groups=FLEET_GROUPS)
     profiled(f"alpha-OPT, bernoulli + uniform, T={T}",
              lambda: offline_opt_fleet(fleet, scenario=bern,
                                        checkpointed=True,
-                                       collect_schedule=False, **kw))
+                                       collect_schedule=False, **kw),
+             top=12, groups=FLEET_GROUPS)
     profiled(f"alpha-RR, GE + NA, T={T}",
              lambda: run_fleet(AlphaRR.fleet(fleet), fleet, scenario=ge,
-                               collect_trace=False, **kw))
+                               collect_trace=False, **kw), groups=FLEET_GROUPS)
 
 
 def profile_serving(dev):
@@ -121,7 +131,7 @@ def profile_serving(dev):
         profiled(f"zamba2-1.2b serve_slot {plan.kind}, {cs.SERVE_B} x "
                  f"{cs.SERVE_S} tokens, bf16",
                  lambda: eng.serve_slot(prompts, plan, rng), top=15,
-                 groups=True)
+                 groups=SERVING_GROUPS)
 
 
 def main() -> int:
