@@ -10,8 +10,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    (``src/repro_torch/kernels/csrc/*.cu``), one nvcc each, all started
    together (build seconds).  TF32 is switched off for matmuls and cuDNN.
 2. Hosting kernels against their plain PyTorch versions on the card, at the
-   fleet path's shapes, bit for bit (``torch.equal``): P (both threefry
-   layouts, with and without a salt); D with the cost assembly fused in
+   fleet path's shapes, bit for bit (``torch.equal``): every variant of P,
+   under both threefry layouts (the uniforms with and without a salt,
+   Bernoulli arrivals and uniform rents with the antithetic replicas'
+   flips, NA-pair rents, the Gilbert-Elliot chunk from a carried-in
+   state), on the fleet's slab, on an odd t0 with R - 3 rows and 1,001
+   slots and on one slot; each is timed, and its SASS
+   (``cuobjdump -sass``) counted for the integer-pipe bound; D with the
+   cost assembly fused in
    (the fleet's kernel: K = 3 and 2, ragged slabs of R - 3 rows and chunks
    of 1,000, 1,001 and 1, K = 16, each with and without the argmin table;
    +inf-padded levels, frozen slots, all-+inf frontiers), also against
@@ -24,10 +30,15 @@ Phases (any failure exits non-zero, and no result line is printed):
    seeds = 4,096 rows, T = 65,536, chunks of 4,096: alpha-RR and RR through
    ``run_fleet``, alpha-OPT and OPT through ``offline_opt_fleet``
    (checkpointed, cost only), ``mc_summary`` of each.  Launch counters are
-   zeroed just before and read just after; P, the fused D and S must have
-   run, and D on a finished w must not.
+   zeroed just before and read just after; P's Bernoulli and uniform-rent
+   variants, the fused D and S must have run, D on a finished w, P's other
+   variants and the plain code the kernels replace (``fma32``'s float64
+   FMA, the per-slot GE loop) must not have run on the card.
 4. A second fleet leg with Gilbert-Elliot arrivals and NA rents,
-   antithetic seeds.
+   antithetic seeds, its counters zeroed before and read after: P's GE
+   and NA variants once per chunk and run, P's uniforms once per run (the
+   chain's initial draw) and nothing else of P, no plain code on the
+   card.  A kernel's ``launches`` in the last lines add up both legs.
 5. Card == CPU: legs 3 and 4 rerun at 64 rows and T = 4,096 on the card and
    on the CPU (the plain versions), compared exactly.
 6. Kernels F (flash attention) and M (SSD scan) against their plain
@@ -64,6 +75,7 @@ are the kernels' JSON record, the nvidia-smi line and
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -111,7 +123,11 @@ CSRC = "src/repro_torch/kernels/csrc/"
 SERVE_B, SERVE_S, SERVE_SLOTS = 8, 2048, 60
 # each launcher's CUDA kernel (the symbol in its source)
 KERNEL_SYMBOLS = {
-    "slot_uniform": "slot_uniform_kernel",
+    "slot_uniform": "counter_stream_kernel<kUniform>",
+    "bernoulli_arrivals_chunk": "counter_stream_kernel<kBernoulli>",
+    "uniform_rents_chunk": "counter_stream_kernel<kUniformRents>",
+    "na_rents_chunk": "counter_stream_kernel<kNaRents>",
+    "ge_bernoulli_chunk": "ge_chain_kernel",
     "dp_fwd_model1": "dp_fwd_model1_kernel",
     "dp_minplus": "dp_minplus_kernel",
     "sim_chunk_alpha_rr": "sim_alpha_rr_kernel",
@@ -284,6 +300,120 @@ def check_leg(res, T, label):
 
 
 # ----------------------------------------------------------------------
+# Kernel P's variants.
+# ----------------------------------------------------------------------
+
+# per variant: threefry blocks a slot on the fleet's slabs (an NA pair's
+# two slots share one draw) and the other 32-bit ops a slot (the bits ->
+# float mapping and the layout's xor, 5 a draw; the flips, compares and
+# the rents' FMA (2); the chain's map and emission select)
+P_WORK = {"slot_uniform": (2, 5), "slot_uniform salt": (3, 5),
+          "bernoulli_arrivals_chunk": (2, 5 + 2),
+          "uniform_rents_chunk": (2, 5 + 4),
+          "na_rents_chunk": (1, 5 / 2 + 4),
+          "ge_bernoulli_chunk": (5, 2 * 5 + 6)}
+# the consumer code of the reference that each variant finishes in-kernel
+P_CONSUMER = {
+    "slot_uniform": None,
+    "bernoulli_arrivals_chunk": "src/repro/core/scenarios/streams.py:67",
+    "uniform_rents_chunk": "src/repro/core/scenarios/streams.py:256",
+    "na_rents_chunk": "src/repro/core/scenarios/streams.py:275",
+    "ge_bernoulli_chunk": "src/repro/core/scenarios/streams.py:139"}
+# each variant's kernel in the SASS (a fragment of its mangled name)
+P_SASS = {"slot_uniform": "counter_stream_kernelILi0ELb0E",
+          "slot_uniform salt": "counter_stream_kernelILi0ELb1E",
+          "bernoulli_arrivals_chunk": "counter_stream_kernelILi1ELb0E",
+          "uniform_rents_chunk": "counter_stream_kernelILi2ELb0E",
+          "na_rents_chunk": "counter_stream_kernelILi3ELb0E",
+          "ge_bernoulli_chunk": "ge_chain_kernel"}
+# SASS opcodes that issue on the integer ALU pipe (64 lanes a clock per SM
+# on Hopper, the CUDA C++ Programming Guide's throughput table for compute
+# capability 9.0): logic, shifts, 3-input adds, compares, selects, min /
+# max, lea, byte permutes.  IMAD, VIADD and the float ops issue on the FMA
+# pipe.
+ALU_OPS = {"LOP3", "SHF", "IADD3", "ISETP", "FSETP", "SEL", "FSEL", "IMNMX",
+           "FMNMX", "VIMNMX", "LEA", "PRMT", "PLOP3", "BMSK", "IABS", "P2R",
+           "R2P"}
+P_SLOTS = 4                       # slots a thread (lane) draws: kSlots
+# the salted uniforms' slot loop is not unrolled: its code holds one slot
+P_SLOTS_IN_CODE = {"slot_uniform salt": 1}
+
+
+def p_variants(dev):
+    """Kernel P's variants on the fleet's rows: {name: (keys, the args
+    after the counters)}; the uniforms draw with the arrivals' keys, the
+    antithetic replicas flip half the rows, the GE chunk starts from the
+    GE leg's initial states."""
+    B = N_M * N_ALPHA
+    bern = sc.replicate_seeds(bernoulli_uniform(B, dev), N_SEEDS,
+                              antithetic=True).params
+    ge = sc.replicate_seeds(ge_na(B, dev), N_SEEDS, antithetic=True)
+    arr, rent = bern["arr"], bern["rent"]
+    gep, nap = ge.params["arr"], ge.params["rent"]
+    require(bool(arr["flip"].any()) and not bool(arr["flip"].all()),
+            "the antithetic replicas must flip half the rows")
+    return {
+        "slot_uniform": (arr["key"], (None,)),
+        "slot_uniform salt": (arr["key"], (1,)),
+        "bernoulli_arrivals_chunk": (arr["key"], (arr["p"], arr["flip"])),
+        "uniform_rents_chunk": (rent["key"], (rent["lo"], rent["hi"],
+                                              rent["flip"])),
+        "na_rents_chunk": (nap["key"], (nap["lo"], nap["hi"])),
+        "ge_bernoulli_chunk": (gep["key"], (
+            ge.init_fn(ge.params)["arr"]["s"], gep["p_hl"], gep["p_lh"],
+            gep["rate_h"], gep["rate_l"])),
+    }
+
+
+def p_call(specs, name, rows, tids, part, plain=False):
+    """Variant ``name``'s wrapper (or its plain version) on the first
+    ``rows`` rows."""
+    keys, args = specs[name]
+    fn = getattr(H, name.split()[0] + ("_plain" if plain else ""))
+    return fn(keys[:rows], tids, *(a[:rows] if isinstance(a, torch.Tensor)
+                                   else a for a in args), part)
+
+
+def p_sass_ops():
+    """{variant: (ALU-pipe ops a slot, all ops a slot)}, counted in the
+    SASS of the built hosting library (``cuobjdump -sass``): a kernel's
+    static instructions over the slots its code holds (a thread's four,
+    one for the salted uniforms' loop).  The static count includes the
+    scalar stores of a ragged edge and the prologue (for the GE kernel
+    and the salted uniforms once per slot or tile where it runs once a
+    thread), so it slightly overstates the work."""
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass",
+                           str(_build.library_path("hosting"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        ops = [m.group(1) for m in re.finditer(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)",
+            part)]
+        for var, frag in P_SASS.items():
+            if frag in name:
+                n = P_SLOTS_IN_CODE.get(var, P_SLOTS)
+                counts[var] = (sum(o in ALU_OPS for o in ops) / n,
+                               len(ops) / n)
+    require(set(counts) == set(P_SASS),
+            f"kernel P's SASS: found {sorted(counts)}")
+    return counts
+
+
+def na_sass_ops(sass, tids):
+    """NA rents' (ALU-pipe, all) ops a slot: the NA kernel's static code
+    holds a hash for each of a thread's slots, of which it runs one per
+    pair it sees, so its count is the uniforms' per draw times the draws
+    a slot of these counters needs (0.5 on whole pairs; the epilogue's few
+    ops are left out, which keeps it a lower bound)."""
+    draws = int(torch.unique(tids // 2).numel()) / tids.numel()
+    return tuple(v * draws for v in sass["slot_uniform"])
+
+
+# ----------------------------------------------------------------------
 # Phase 2: kernels against their plain versions.
 # ----------------------------------------------------------------------
 
@@ -298,29 +428,62 @@ def kernel_checks(dev):
     tids = sc.base.chunk_tids(t0, chunk, dev)
     rec = {}
 
-    # P: both layouts, with and without a salt
-    err = 0.0
+    # P: every stream variant against its plain version at the fleet's
+    # rows, under both layouts: the uniforms with and without a salt,
+    # Bernoulli arrivals and uniform rents with the antithetic replicas'
+    # flips, NA rents, the GE chunk from a carried-in state; on the fleet's
+    # slab, on an odd t0 with R - 3 rows and 1,001 slots, and on one slot
+    specs = p_variants(dev)
+    slabs = [("fleet slab", R, t0, chunk),
+             ("odd t0, R - 3 rows, 1,001 slots", R - 3, t0 + 1, 1001),
+             ("one slot", R, 2 ** 31 - 1, 1)]
     for part in (True, False):
-        for salt in (None, 1):
-            k = H.slot_uniform(keys, tids, salt, part)
-            p = H.slot_uniform_plain(keys, tids, salt, part)
-            torch.cuda.synchronize()
-            require(torch.equal(k, p), f"P differs (layout {part}, "
-                                       f"salt {salt})")
-            err = max(err, tree_max_abs(k, p))
-    ms = cuda_ms(lambda: H.slot_uniform(keys, tids, None, True), batch=10)
-    plain_ms = cuda_ms(lambda: H.slot_uniform_plain(keys, tids, None, True),
-                       reps=3)
-    # per draw: 2 threefry blocks of 79 32-bit ops (2 xors for the third
-    # key word, 2 adds, 20 x (add, rotate, xor) with a rotate one funnel
-    # shift, 5 key injections of 3 adds) and 5 for the layout's xor and the
-    # bits -> float mapping
-    ops = R * chunk * (2 * 79 + 5)
-    rec["slot_uniform"] = dict(
-        replaces="src/repro/kernels/hosting.py:164", ms=ms, plain_ms=plain_ms,
-        max_abs_err=err, ops=ops, nbytes=nbytes(keys, tids, k),
-        shape=f"R={R} chunk={chunk} (4 variants compared)")
-    log(f"P ok: {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        for label, rows, first, n in slabs:
+            tt = sc.base.chunk_tids(first, n, dev)
+            for name in specs:
+                k = p_call(specs, name, rows, tt, part)
+                p = p_call(specs, name, rows, tt, part, plain=True)
+                torch.cuda.synchronize()
+                require(tree_equal(k, p), f"P {name} differs from its plain "
+                                          f"version ({label}, layout {part})")
+        log(f"P ok: {len(specs)} variants x {len(slabs)} slabs, "
+            f"{'partitionable' if part else 'original'} layout")
+    clock = sm_clock_mhz(lambda: H.slot_uniform(keys, tids), 0.1)
+    sass = p_sass_ops()
+    sass["na_rents_chunk"] = na_sass_ops(sass, tids)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for name in specs:
+        k = p_call(specs, name, R, tids, True)
+        ms = cuda_ms(lambda: p_call(specs, name, R, tids, True), reps=7,
+                     batch=10)
+        blocks, extra = P_WORK[name]
+        alu, total = sass[name]
+        r = dict(ms=ms, sm_clock_mhz=clock, alu_ops_per_slot=alu,
+                 ops_per_slot=total,
+                 int_pipe_bound_ms=R * chunk * alu / (64 * n_sm * clock * 1e3),
+                 issue_bound_ms=R * chunk * total / (128 * n_sm * clock * 1e3))
+        log(f"P {name} timed: {ms:.4f} ms; SASS: {alu:.1f} ALU-pipe of "
+            f"{total:.1f} ops a slot -> integer-pipe bound "
+            f"{r['int_pipe_bound_ms']:.4f} ms, issue bound "
+            f"{r['issue_bound_ms']:.4f} ms at {clock:.0f} MHz")
+        if name == "slot_uniform salt":
+            rec["slot_uniform"].update(
+                {f"salt_{key}": v for key, v in r.items()
+                 if key != "sm_clock_mhz"})
+            continue
+        r.update(
+            replaces="src/repro/kernels/hosting.py:164",
+            consumer=P_CONSUMER[name], max_abs_err=0.0,
+            plain_ms=cuda_ms(lambda: p_call(specs, name, R, tids, True,
+                                            plain=True), reps=3),
+            ops=R * chunk * (blocks * 79 + extra),
+            nbytes=nbytes(specs[name][0], tids, *(
+                a for a in specs[name][1] if isinstance(a, torch.Tensor)),
+                *(k if isinstance(k, tuple) else (k,))),
+            shape=f"R={R} chunk={chunk}, partitionable layout; "
+                  f"{2 * len(slabs)} slabs compared")
+        rec[name] = r
+        log(f"   plain {r['plain_ms']:.3f} ms")
 
     # slab data shared by D and S
     gen = scen.init_fn(scen.params)
@@ -737,6 +900,11 @@ def launch_counts():
     return {k.__name__: k.launches for k in ops.KERNELS}
 
 
+def card_calls():
+    """The calls on the card of the plain code the kernels replace."""
+    return {f.__name__: f.card_calls for f in ops.PLAIN_ON_CARD}
+
+
 def serving_path(dev, timings):
     """zamba2-1.2b at full width and depth in bf16: serve_slot under each
     plan, then the scheduler.  Returns the launch counts of the run."""
@@ -917,13 +1085,19 @@ def main() -> int:
     main_res = run_leg(grid, bernoulli_uniform(B, dev), T_MAIN, False, dev,
                        "main", timings)
     torch.cuda.synchronize()
-    launches = launch_counts()
-    log(f"fleet path launches: {launches}")
-    for k in (H.slot_uniform, H.dp_fwd_model1, H.sim_chunk_alpha_rr):
-        require(launches[k.__name__] > 0,
+    main_launches, main_plain = launch_counts(), card_calls()
+    log(f"fleet path launches, main leg: {main_launches}; plain code on "
+        f"the card: {main_plain}")
+    for k in (H.bernoulli_arrivals_chunk, H.uniform_rents_chunk,
+              H.dp_fwd_model1, H.sim_chunk_alpha_rr):
+        require(main_launches[k.__name__] > 0,
                 f"kernel {k.__name__} never launched on the fleet path")
-    require(launches["dp_minplus"] == 0,
-            "kernel D on a finished w ran on the fleet path")
+    for name in ("dp_minplus", "slot_uniform", "na_rents_chunk",
+                 "ge_bernoulli_chunk"):
+        require(main_launches[name] == 0,
+                f"{name} ran on the Bernoulli leg of the fleet path")
+    require(not any(main_plain.values()),
+            f"plain code ran on the card: {main_plain}")
     summ = check_leg(main_res, T_MAIN, "main")
     for name, s in summ.items():
         key = "total_mean" if "total_mean" in s else "cost_mean"
@@ -931,13 +1105,33 @@ def main() -> int:
             f"means of instances 0..3: "
             f"{np.round(s[key][:4] / T_MAIN, 6).tolist()}")
 
-    # phase 4: GE arrivals, NA rents, antithetic seeds
+    # phase 4: GE arrivals, NA rents, antithetic seeds; counters read
+    # around it only: per run and chunk one GE and one NA launch, per run
+    # one uniform launch (the GE chain's initial draw), no plain code
+    ops.reset_launches()
     ge_res = run_leg(grid, ge_na(B, dev), T_GE, True, dev, "ge", timings)
+    torch.cuda.synchronize()
+    ge_launches, ge_plain = launch_counts(), card_calls()
+    log(f"fleet path launches, GE leg: {ge_launches}; plain code on the "
+        f"card: {ge_plain}")
+    runs, n_chunks = 4, -(-T_GE // CHUNK)
+    want = {"ge_bernoulli_chunk": runs * n_chunks,
+            "na_rents_chunk": runs * n_chunks, "slot_uniform": runs,
+            "bernoulli_arrivals_chunk": 0, "uniform_rents_chunk": 0,
+            "dp_minplus": 0}
+    for name, n in want.items():
+        require(ge_launches[name] == n, f"{name} launched "
+                                        f"{ge_launches[name]} times on the "
+                                        f"GE leg, expected {n}")
+    require(not any(ge_plain.values()),
+            f"plain code ran on the card: {ge_plain}")
     summ = check_leg(ge_res, T_GE, "ge")
     for name, s in summ.items():
         key = "total_mean" if "total_mean" in s else "cost_mean"
         log(f"ge {name}: {timings['ge/' + name]:.2f} s; per-slot seed means "
             f"of instances 0..3: {np.round(s[key][:4] / T_GE, 6).tolist()}")
+    # the fleet path's launches: both legs
+    launches = {k: main_launches[k] + ge_launches[k] for k in main_launches}
 
     # phase 5: card == CPU on reduced legs
     for label, make in (("main", bernoulli_uniform), ("ge", ge_na)):
@@ -987,7 +1181,11 @@ def main() -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": r.get("library_ms"), "shape": r["shape"]}
         for key in ("max_rel_err", "old_route_ms", "args_ms", "trace_ms",
-                    "sm_clock_mhz", "cycles_per_slot"):
+                    "sm_clock_mhz", "cycles_per_slot", "consumer",
+                    "alu_ops_per_slot", "ops_per_slot", "int_pipe_bound_ms",
+                    "issue_bound_ms", "salt_ms", "salt_alu_ops_per_slot",
+                    "salt_ops_per_slot", "salt_int_pipe_bound_ms",
+                    "salt_issue_bound_ms"):
             if key in r:
                 entry[key] = r[key]
         kernels.append(entry)

@@ -6,8 +6,27 @@ side = chain state; bernoulli emissions), ``trace_arrivals``.
 Rent streams: ``uniform_rents``, ``na_rents`` (antithetic time-pairs,
 Assumption 7), ``constant_rents``, ``trace_rents``.
 
-Every random draw goes through ``slot_uniform``.  The streams that draw
-through ``jax.random.poisson`` / ``jax.random.normal`` in the reference
+Every random draw is kernel P's (``kernels/hosting.py``), which draws and
+finishes one stream's chunk in one launch on the card, and runs its plain
+version on the CPU.  Each variant replaces the Pallas PRNG kernel
+(``repro/kernels/hosting.py:164``, ``slot_uniform_tc``) and the consumer
+code after it in ``repro/core/scenarios/streams.py``:
+
+* ``_bernoulli_chunk`` -> ``bernoulli_arrivals_chunk``;
+* ``_uniform_rents_chunk`` -> ``uniform_rents_chunk`` (``lo + u * (hi -
+  lo)`` as one FMA, as XLA:CPU computes it);
+* ``_na_rents_chunk`` -> ``na_rents_chunk`` (one hash for both slots of a
+  pair);
+* ``_ge_chunk_bernoulli`` (``_ge_states`` + ``_ge_emit``) ->
+  ``ge_bernoulli_chunk``: the chain runs as a warp scan of its 2-state
+  maps, not slot by slot;
+* ``_ge_init``'s one draw -> ``slot_uniform``.
+
+Each is bound by the threefry hash's integer operations; the kernel keeps
+the draws in registers (no uniform slab in device memory, no float64) and
+issues the hash's adds on the FMA pipe, leaving the integer ALU pipe to the
+rotates and xors (``csrc/hosting.cu``).  The streams that draw through
+``jax.random.poisson`` / ``jax.random.normal`` in the reference
 (GE-poisson emissions, bursty, ARMA / spot rents) and the Model-2 service
 stream come with the sampler slice (ROADMAP.md, Queue 1 item 3).
 
@@ -23,7 +42,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.scenarios.base import Stream, as_keys, bcast, slot_uniform
-from repro_torch.kernels.hosting import fma32
+from repro_torch.kernels import hosting
 
 # Salt for draws that must not collide with any per-slot counter (slot
 # counters are the nonnegative slot indices).
@@ -40,17 +59,13 @@ def _zeros_side(x):
     return torch.zeros_like(x, dtype=_I32)
 
 
-def _flip(u, flip):
-    return torch.where(flip[:, None], 1.0 - u, u)
-
-
 # ----------------------------------------------------------------------
 # Arrival streams.
 # ----------------------------------------------------------------------
 
 def _bernoulli_chunk(params, state, tids):
-    u = _flip(slot_uniform(params["key"], tids), params["flip"])
-    x = (u < params["p"][:, None]).to(_I32)
+    x = hosting.bernoulli_arrivals_chunk(params["key"], tids, params["p"],
+                                         params["flip"])
     return state, (x, _zeros_side(x))
 
 
@@ -60,20 +75,6 @@ def bernoulli_arrivals(key, p, B: int, device=None) -> Stream:
     return Stream("bernoulli", "arrivals", _no_state, _bernoulli_chunk,
                   {"key": as_keys(key, B, dev), "p": bcast(p, B, _F32, dev),
                    "flip": torch.zeros((B,), dtype=torch.bool, device=dev)})
-
-
-def _ge_states(params, state, tids):
-    """Advance the 2-state chain over one chunk: (s', states [B, chunk]).
-    A plain per-slot loop (the chain is sequential)."""
-    u = slot_uniform(params["key"], tids, salt=0)
-    p_hl, p_lh = params["p_hl"], params["p_lh"]
-    s = state["s"]
-    states = torch.empty_like(u, dtype=_I32)
-    for j in range(u.shape[1]):
-        u_t = u[:, j]
-        s = torch.where(s == 1, (u_t >= p_hl).to(_I32), (u_t < p_lh).to(_I32))
-        states[:, j] = s
-    return s, states
 
 
 def _ge_init(params):
@@ -86,11 +87,9 @@ def _ge_init(params):
 
 
 def _ge_chunk_bernoulli(params, state, tids):
-    s, states = _ge_states(params, state, tids)
-    rates = torch.where(states == 1, params["rate_h"][:, None],
-                        params["rate_l"][:, None])
-    u = slot_uniform(params["key"], tids, salt=1)
-    x = (u < rates).to(_I32)
+    s, states, x = hosting.ge_bernoulli_chunk(
+        params["key"], tids, state["s"], params["p_hl"], params["p_lh"],
+        params["rate_h"], params["rate_l"])
     return {"s": s}, (x, states)
 
 
@@ -153,9 +152,8 @@ def trace_arrivals(x, B: Optional[int] = None, side=None,
 # ----------------------------------------------------------------------
 
 def _uniform_rents_chunk(params, state, tids):
-    u = _flip(slot_uniform(params["key"], tids), params["flip"])
-    lo, hi = params["lo"][:, None], params["hi"][:, None]
-    return state, fma32(u, hi - lo, lo)
+    return state, hosting.uniform_rents_chunk(
+        params["key"], tids, params["lo"], params["hi"], params["flip"])
 
 
 def uniform_rents(key, c_mean, half_width, B: int, c_min=1e-3,
@@ -174,10 +172,8 @@ def uniform_rents(key, c_mean, half_width, B: int, c_min=1e-3,
 def _na_rents_chunk(params, state, tids):
     # antithetic time-pairs: slots (2m, 2m+1) share the pair counter m and
     # see (u_m, 1 - u_m) — negatively associated (Assumption 7)
-    u = slot_uniform(params["key"], tids // 2)
-    v = torch.where((tids % 2 == 0)[None, :], u, 1.0 - u)
-    lo, hi = params["lo"][:, None], params["hi"][:, None]
-    return state, fma32(v, hi - lo, lo)
+    return state, hosting.na_rents_chunk(params["key"], tids, params["lo"],
+                                         params["hi"])
 
 
 def na_rents(key, c_mean, half_width, B: int, device=None) -> Stream:

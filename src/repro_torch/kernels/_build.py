@@ -11,7 +11,8 @@ before a launch (``check_tensor``, ``raise_on``, ``stream``) live here too.
 
 Flags per library:
 
-* ``hosting`` (kernels P, D (both), S): ``--fmad=false``, because those kernels
+* ``hosting`` (kernel P's stream variants, D (both), S):
+  ``--fmad=false``, because those kernels
   are held bit for bit against the reference, which fixes which
   multiply-adds are one FMA (written as ``__fmaf_rn``) and which are two
   rounded operations.
@@ -36,13 +37,18 @@ _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 _COMMON = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I = ctypes.c_void_p, ctypes.c_int
 # per library: its nvcc flags and the argtypes of every C entry point
 # (pointers and the stream are c_void_p: ctypes would otherwise pass them
 # as 32-bit ints)
 LIBRARIES = {
     "hosting": (_COMMON + ("--fmad=false",), {
-        "launch_slot_uniform": (_P, _P, _P, _I, _I, _L, _I, _P),
+        # kind, keys, tids, a, b, flip, out, R, chunk, salt,
+        # partitionable, stream
+        "launch_counter_stream": (_I,) + (_P,) * 6 + (_I,) * 4 + (_P,),
+        # keys, tids, s_in, p_hl, p_lh, rate_h, rate_l, s_out, states, x,
+        # R, chunk, partitionable, stream
+        "launch_ge_chain": (_P,) * 10 + (_I,) * 3 + (_P,),
         "launch_dp_minplus": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
         # J, c, x, g, lv, kmask, fetch, T_len, Jout, args (or NULL), R,
         # chunk, K, t0, stream

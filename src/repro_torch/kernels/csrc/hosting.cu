@@ -1,9 +1,14 @@
 // Hand-written Hopper (sm_90a) kernels for the hosting engine's hot loops.
 //
-// Four kernels, each behind a plain C entry point (loaded with ctypes by
-// repro_torch/kernels/_build.py; wrappers in repro_torch/kernels/hosting.py):
+// Plain C entry points (loaded with ctypes by repro_torch/kernels/_build.py;
+// wrappers in repro_torch/kernels/hosting.py) for these kernels:
 //
-//   P  slot_uniform        counter-keyed U(0,1) draws (threefry2x32)
+//   P  counter_stream_kernel<KIND>  one stream's chunk of counter-keyed
+//                          draws, finished in the kernel: U(0,1) uniforms
+//                          (slot_uniform), Bernoulli arrivals, uniform rents,
+//                          NA-pair rents
+//      ge_chain_kernel     the Gilbert-Elliot chain and its Bernoulli
+//                          emissions over one chunk
 //   D  dp_fwd_model1       one chunk of the offline-OPT min-plus recursion
 //                          with the Model-1 cost assembly fused in (the
 //                          fleet DP)
@@ -15,12 +20,12 @@
 // --fmad=false is required: the reference fixes which multiply-adds are
 // one FMA and which are two rounded ops.  XLA:CPU contracts a product that
 // feeds an add inside one fusion: in this slice's path that is w = c*lv + svc
-// and the margin M*|lv - lv_r| + S of alpha-RR, and the fused DP's
-// c*lv + svc (written here as __fmaf_rn), and the rents lo + u*(hi - lo)
-// (computed in PyTorch before the kernels).  Everything else is two
-// rounded ops, which only --fmad=false guarantees.  Every kernel is held bit-for-bit
-// against its plain PyTorch version (chip_smoke.py) and, through that, against
-// the JAX package (tests/test_torch_*.py).
+// and the margin M*|lv - lv_r| + S of alpha-RR, the fused DP's c*lv + svc,
+// and the rents lo + u*(hi - lo), each written here as __fmaf_rn.
+// Everything else is two rounded ops, which only --fmad=false guarantees.
+// Every kernel is held bit-for-bit against its plain PyTorch version
+// (chip_smoke.py) and, through that, against the JAX package
+// (tests/test_torch_*.py).
 //
 // Each entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -29,6 +34,8 @@
 #include <stdint.h>
 
 namespace {
+
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
 
 // ---------------------------------------------------------------------
 // threefry2x32: 20 rounds, 5 key injections (jax's hash, word for word).
@@ -39,64 +46,312 @@ __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return __funnelshift_l(x, x, r);
 }
 
+// a + b as a * one + b, where one is a kernel argument that holds 1:
+// ptxas cannot fold it, so the add issues as IMAD on the FMA pipe and
+// leaves the integer ALU pipe to the rotates (SHF) and xors (LOP3).
+__device__ __forceinline__ uint32_t add32(uint32_t a, uint32_t b,
+                                          uint32_t one) {
+  return a * one + b;
+}
+
+// x through a move the compiler cannot look into, so that it does not
+// reassociate x1 + (ks + c): the injection word ks + c stays one value
+// (computed once a thread when the key is the row's) and the add one IMAD,
+// not IMAD + VIADD
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  uint32_t y;
+  asm("mov.b32 %0, %1;" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// Counter words that are the literal 0 fold away once inlined (fold_in's
+// first word; both words of the bits block); a key that is the same for
+// every call of a thread (the row's key) has its schedule hoisted out.
 __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t& x0, uint32_t& x1) {
+                                             uint32_t& x0, uint32_t& x1,
+                                             uint32_t one) {
   const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
   const int rots[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x0 += k0;
-  x1 += k1;
+  x0 = add32(x0, k0, one);
+  x1 = add32(x1, k1, one);
 #pragma unroll
   for (int r = 0; r < 5; ++r) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      x0 += x1;
+      x0 = add32(x0, x1, one);
       x1 = rotl32(x1, rots[r & 1][i]);
       x1 ^= x0;
     }
-    x0 += ks[(r + 1) % 3];
-    x1 += ks[(r + 2) % 3] + (uint32_t)(r + 1);
+    x0 = add32(x0, ks[(r + 1) % 3], one);
+    x1 = add32(x1, opaque(ks[(r + 2) % 3] + (uint32_t)(r + 1)), one);
+  }
+}
+
+// fold_in(key, d): the counter (0, d); the folded key comes back in (a0, a1)
+__device__ __forceinline__ void fold_in(uint32_t k0, uint32_t k1, uint32_t d,
+                                        uint32_t& a0, uint32_t& a1,
+                                        uint32_t one) {
+  a0 = 0u;
+  a1 = d;
+  threefry2x32(k0, k1, a0, a1, one);
+}
+
+// jax's scalar 32-bit uniform under key (a0, a1): the bits block (counter
+// (0, 0)), the layout's word (x0 ^ x1 partitionable, x0 original), the top
+// 23 bits spliced into [1, 2), minus 1.  jax.random.uniform then clamps at
+// 0 (the plain version keeps it); on [1, 2) - 1, whose least value is +0,
+// that is the identity, so the kernel spends no ALU op on it.
+__device__ __forceinline__ float uniform_of(uint32_t a0, uint32_t a1,
+                                            bool partitionable,
+                                            uint32_t one) {
+  uint32_t b0 = 0u, b1 = 0u;
+  threefry2x32(a0, a1, b0, b1, one);
+  const uint32_t bits = partitionable ? (b0 ^ b1) : b0;
+  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+}
+
+// ---------------------------------------------------------------------
+// P: the counter-keyed stream kernels.  Replace the Pallas kernel
+// slot_uniform_tc (src/repro/kernels/hosting.py:164, pallas_call at :179)
+// together with the consumer code the reference runs on its output
+// (src/repro/core/scenarios/streams.py: _bernoulli_chunk, _ge_states +
+// _ge_emit, _uniform_rents_chunk, _na_rents_chunk).
+//
+// For row i and slot j (counter t = tids[j]), u = the uniform of
+// fold_in(fold_in(key[i], t), salt) (no salt fold when salt < 0), and
+//   kUniform       out = u                                   float32
+//   kBernoulli     out = (flip ? 1 - u : u) < p[i]           int32
+//   kUniformRents  out = fma(flip ? 1 - u : u, hi - lo, lo)  float32
+//   kNaRents       u from the pair counter t >> 1 (floor(t / 2));
+//                  out = fma(t even ? u : 1 - u, hi - lo, lo)
+// hi - lo is one float32 subtraction and the FMA one rounding, as XLA:CPU
+// computes lo + u * (hi - lo) inside its fusion.
+//
+// Bound: integer operations.  Two threefry blocks a draw (three with a
+// salt); of each block's ops the 20 rotates (SHF) and 20-21 xors (LOP3)
+// can only issue on the integer ALU pipe, 64 lanes a clock per SM, and
+// the ~30 adds can go to the FMA pipe.  The sm_90a build holds ~170-176
+// ops a slot, ~88-91 of them for the ALU pipe, so the ALU pipe and the
+// issue rate (128 a clock per SM) bound it about equally.  Design: a
+// block's threads take one row (the grid's x; no index division), each
+// thread kSlots consecutive slots of it, so the row's key words and
+// params load once and the key schedule of the first block is hoisted;
+// its kSlots hashes are independent (instruction-level parallelism); the
+// outputs leave as one 16-byte store per 4 slots (scalar stores at a
+// ragged edge or when chunk % 4 != 0); the adds issue on the FMA pipe
+// (add32).  No uniform slab goes to device memory and nothing runs in
+// float64.  An NA pair's two slots share one hash when one thread holds
+// both.
+// ---------------------------------------------------------------------
+
+constexpr int kSlots = 4;                  // consecutive slots a thread
+
+enum StreamKind { kUniform = 0, kBernoulli = 1, kUniformRents = 2,
+                  kNaRents = 3 };
+
+struct StreamArgs {
+  const long long* keys;   // [R, 2] key words in [0, 2**32)
+  const int* tids;         // [chunk] global slot counters
+  const float* a;          // [R] p (kBernoulli) or lo (rents)
+  const float* b;          // [R] hi (rents)
+  const bool* flip;        // [R] (kBernoulli, kUniformRents)
+  void* out;               // [R, chunk] float32 or int32
+  int R, chunk, salt, partitionable, vec;  // salt >= 0: SALT below
+  uint32_t one;            // 1, opaque to the compiler (add32)
+};
+
+// SALT (kUniform only): fold the salt in after the counter
+template <int KIND, bool SALT>
+__global__ void __launch_bounds__(256)
+    counter_stream_kernel(const StreamArgs p) {
+  const int row = blockIdx.x;
+  const int j0 = (blockIdx.y * blockDim.x + threadIdx.x) * kSlots;
+  if (j0 >= p.chunk) return;
+  const uint32_t k0 = (uint32_t)p.keys[2 * row];
+  const uint32_t k1 = (uint32_t)p.keys[2 * row + 1];
+  const bool part = p.partitionable != 0;
+  float pa = 0.0f, width = 0.0f;
+  bool flip = false;
+  if (KIND != kUniform) pa = p.a[row];
+  if (KIND == kUniformRents || KIND == kNaRents) width = p.b[row] - pa;
+  if (KIND == kBernoulli || KIND == kUniformRents) flip = p.flip[row];
+  uint32_t v[kSlots];
+  uint32_t prev = 0u;
+  float prev_u = 0.0f;
+  auto slot = [&](int s) {
+    // past a ragged edge: draw for the last slot, store nothing
+    const int t = p.tids[min(j0 + s, p.chunk - 1)];
+    const uint32_t ctr = KIND == kNaRents ? (uint32_t)(t >> 1) : (uint32_t)t;
+    float u;
+    if (KIND == kNaRents && s > 0 && ctr == prev) {
+      u = prev_u;                          // the pair's first slot's draw
+    } else {
+      uint32_t a0, a1;
+      fold_in(k0, k1, ctr, a0, a1, p.one);
+      if (SALT) {
+        uint32_t s0, s1;
+        fold_in(a0, a1, (uint32_t)p.salt, s0, s1, p.one);
+        a0 = s0;
+        a1 = s1;
+      }
+      u = uniform_of(a0, a1, part, p.one);
+    }
+    prev = ctr;
+    prev_u = u;
+    if (KIND == kUniform) {
+      v[s] = __float_as_uint(u);
+    } else if (KIND == kBernoulli) {
+      v[s] = (flip ? 1.0f - u : u) < pa ? 1u : 0u;
+    } else {
+      const float w = KIND == kNaRents ? ((t & 1) == 0 ? u : 1.0f - u)
+                                       : (flip ? 1.0f - u : u);
+      v[s] = __float_as_uint(__fmaf_rn(w, width, pa));
+    }
+  };
+  if (SALT) {
+    // three chained blocks a slot: unrolled over the slots, this kernel
+    // ran slower on the H100 at the fleet's shapes than with the slots one
+    // after the other (its unrolled code is 4x larger)
+#pragma unroll 1
+    for (int s = 0; s < kSlots; ++s) slot(s);
+  } else {
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) slot(s);
+  }
+  uint32_t* out = (uint32_t*)p.out + (long long)row * p.chunk + j0;
+  if (p.vec) {                             // chunk % 4 == 0: whole, aligned
+#pragma unroll
+    for (int s = 0; s < kSlots; s += 4)
+      *(uint4*)(out + s) = make_uint4(v[s], v[s + 1], v[s + 2], v[s + 3]);
+  } else {
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s)
+      if (j0 + s < p.chunk) out[s] = v[s];
   }
 }
 
 // ---------------------------------------------------------------------
-// P: slot_uniform.  Replaces the Pallas kernel slot_uniform_tc
-// (src/repro/kernels/hosting.py:164, pallas_call at :179).
+// P: ge_chain_kernel, the Gilbert-Elliot chain with Bernoulli emissions.
+// Replaces slot_uniform_tc's two salted draws a slot plus the reference's
+// lax.scan of the chain (src/repro/core/scenarios/streams.py: _ge_states,
+// _ge_emit).
 //
-// u[row, j] = U(0,1) of fold_in(fold_in(key[row], tids[j]), salt) under
-// jax's scalar 32-bit draw; partitionable selects jax's layout of those
-// bits (x0 ^ x1 of the block) or the original one (x0 alone).
+// Per slot t: a = fold_in(key, t); u0 = uniform of fold_in(a, 0), u1 =
+// uniform of fold_in(a, 1); s_t = s_{t-1} == 1 ? (u0 >= p_hl) : (u0 <
+// p_lh), from the s carried in from the previous chunk; x = u1 < (s_t ?
+// rate_h : rate_l); states = s_t; s_out = the last state.
 //
-// Bound: integer operations -- 2 or 3 threefry blocks (79 32-bit ops
-// each, a rotate being one funnel shift) per 4-byte output.  Design: one thread per (row, slot), the whole
-// fold -> salt -> bits chain in registers; neighbouring threads take
-// neighbouring slots of one row, so the store is coalesced and the key
-// load is a broadcast.
+// Bound: integer operations (five threefry blocks a slot; fold_in(key, t)
+// serves both salts).  Design: one warp per row walks the chunk in tiles
+// of 32 * kSlots slots, each lane drawing kSlots consecutive slots (the
+// hashes run in parallel).  A slot's step is a map {0, 1} -> {0, 1}, two
+// bits; composing maps is associative and exact, so each lane composes
+// its slots' maps, a shuffle scan over the lanes gives each lane the map
+// from the tile's entry state to its own, and each lane re-walks its slots
+// from there to write the states and emissions (16-byte stores).  The
+// chain costs a few dozen instructions a tile against kSlots * 5 hashes a
+// lane; one launch a chunk replaces a few launches a slot.
 // ---------------------------------------------------------------------
 
-__global__ void slot_uniform_kernel(const long long* __restrict__ keys,
-                                    const int* __restrict__ tids,
-                                    float* __restrict__ out, int R, int chunk,
-                                    long long salt, int partitionable) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)R * chunk) return;
-  const int row = (int)(idx / chunk);
-  const int j = (int)(idx - (long long)row * chunk);
-  // key words are int64 tensors holding values in [0, 2**32)
-  const uint32_t k0 = (uint32_t)keys[2 * row];
-  const uint32_t k1 = (uint32_t)keys[2 * row + 1];
-  uint32_t a0 = 0u, a1 = (uint32_t)tids[j];
-  threefry2x32(k0, k1, a0, a1);                  // fold_in(key, t)
-  if (salt >= 0) {
-    uint32_t s0 = 0u, s1 = (uint32_t)salt;
-    threefry2x32(a0, a1, s0, s1);                // fold_in(., salt)
-    a0 = s0;
-    a1 = s1;
+// a map m of {0, 1}: bit s holds the image of s
+constexpr uint32_t kIdentityMap = 2u;
+
+__device__ __forceinline__ uint32_t map_apply(uint32_t m, uint32_t s) {
+  return (m >> s) & 1u;
+}
+
+// g after f
+__device__ __forceinline__ uint32_t map_then(uint32_t f, uint32_t g) {
+  return map_apply(g, f & 1u) | (map_apply(g, (f >> 1) & 1u) << 1);
+}
+
+constexpr int kGeWarps = 4;                // rows (one warp each) a block
+
+struct GeArgs {
+  const long long* keys;   // [R, 2]
+  const int* tids;         // [chunk]
+  const int* s_in;         // [R] the chain state before the chunk
+  const float* p_hl;       // [R]
+  const float* p_lh;
+  const float* rate_h;
+  const float* rate_l;
+  int* s_out;              // [R]
+  int* states;             // [R, chunk]
+  int* x;                  // [R, chunk]
+  int R, chunk, partitionable, vec;
+  uint32_t one;
+};
+
+__global__ void __launch_bounds__(32 * kGeWarps)
+    ge_chain_kernel(const GeArgs p) {
+  const int row = blockIdx.x * kGeWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= p.R) return;                  // warp-uniform exit
+  const uint32_t k0 = (uint32_t)p.keys[2 * row];
+  const uint32_t k1 = (uint32_t)p.keys[2 * row + 1];
+  const bool part = p.partitionable != 0;
+  const float p_hl = p.p_hl[row], p_lh = p.p_lh[row];
+  const float rate_h = p.rate_h[row], rate_l = p.rate_l[row];
+  uint32_t state = (uint32_t)p.s_in[row];
+  const long long base_off = (long long)row * p.chunk;
+  for (int base = 0; base < p.chunk; base += 32 * kSlots) {
+    const int j0 = base + lane * kSlots;
+    uint32_t f[kSlots], xb[kSlots];
+    uint32_t m = kIdentityMap;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int j = j0 + s;
+      const uint32_t t = (uint32_t)p.tids[min(j, p.chunk - 1)];
+      uint32_t a0, a1, c0, c1, d0, d1;
+      fold_in(k0, k1, t, a0, a1, p.one);
+      fold_in(a0, a1, 0u, c0, c1, p.one);
+      fold_in(a0, a1, 1u, d0, d1, p.one);
+      const float u0 = uniform_of(c0, c1, part, p.one);
+      const float u1 = uniform_of(d0, d1, part, p.one);
+      // past the chunk's end: the identity, so the scan passes through
+      f[s] = j < p.chunk
+                 ? (uint32_t)(u0 < p_lh) | ((uint32_t)(u0 >= p_hl) << 1)
+                 : kIdentityMap;
+      xb[s] = (uint32_t)(u1 < rate_l) | ((uint32_t)(u1 < rate_h) << 1);
+      m = map_then(m, f[s]);
+    }
+    // inclusive scan over the lanes (slot order): scan = lane's map after
+    // the maps of every lane before it
+    uint32_t scan = m;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint32_t o = __shfl_up_sync(kFullMask, scan, d);
+      if (lane >= d) scan = map_then(o, scan);
+    }
+    uint32_t before = __shfl_up_sync(kFullMask, scan, 1);
+    if (lane == 0) before = kIdentityMap;
+    uint32_t st = map_apply(before, state);
+    uint32_t sv[kSlots], xv[kSlots];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      st = map_apply(f[s], st);
+      sv[s] = st;
+      xv[s] = (xb[s] >> st) & 1u;
+    }
+    uint32_t* so = (uint32_t*)p.states + base_off + j0;
+    uint32_t* xo = (uint32_t*)p.x + base_off + j0;
+    if (p.vec && j0 < p.chunk) {           // chunk % 4 == 0: whole, aligned
+#pragma unroll
+      for (int s = 0; s < kSlots; s += 4) {
+        *(uint4*)(so + s) = make_uint4(sv[s], sv[s + 1], sv[s + 2], sv[s + 3]);
+        *(uint4*)(xo + s) = make_uint4(xv[s], xv[s + 1], xv[s + 2], xv[s + 3]);
+      }
+    } else if (!p.vec) {
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s)
+        if (j0 + s < p.chunk) {
+          so[s] = sv[s];
+          xo[s] = xv[s];
+        }
+    }
+    state = map_apply(__shfl_sync(kFullMask, scan, 31), state);
   }
-  uint32_t b0 = 0u, b1 = 0u;
-  threefry2x32(a0, a1, b0, b1);                  // random_bits(key, 32, ())
-  const uint32_t bits = partitionable ? (b0 ^ b1) : b0;
-  const float u = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
-  out[idx] = fmaxf(0.0f, u);
+  if (lane == 0) p.s_out[row] = (int)state;
 }
 
 // ---------------------------------------------------------------------
@@ -116,8 +371,6 @@ __global__ void slot_uniform_kernel(const long long* __restrict__ keys,
 // registers); each slot broadcasts J with __shfl_sync and scans kp upward
 // with a strict <, which is jnp.argmin's first-index rule.  K <= 32.
 // ---------------------------------------------------------------------
-
-constexpr unsigned kFullMask = 0xFFFFFFFFu;
 
 __global__ void dp_minplus_kernel(const float* __restrict__ J,
                                   const float* __restrict__ wck,
@@ -810,20 +1063,62 @@ int launch_dpf(const void* J, const void* c, const void* x, const void* g,
   return (int)cudaGetLastError();
 }
 
+// the 16-byte store route needs whole, aligned groups of slots
+inline int vec_ok(int chunk, int slots, const void* p0, const void* p1) {
+  return chunk % slots == 0 && (uintptr_t)p0 % 16 == 0
+         && (uintptr_t)p1 % 16 == 0;
+}
+
+// a block: up to 256 threads over one row's slots (fewer for a short chunk)
+template <int KIND, bool SALT = false>
+int launch_stream(StreamArgs a, cudaStream_t st) {
+  const int per_row = (a.chunk + kSlots - 1) / kSlots;
+  const int threads = per_row >= 256 ? 256 : (per_row + 31) / 32 * 32;
+  a.vec = vec_ok(a.chunk, kSlots, a.out, a.out);
+  if (n_blocks(per_row, threads) > 65535) return (int)cudaErrorInvalidValue;
+  if (a.R > 0 && a.chunk > 0)
+    counter_stream_kernel<KIND, SALT>
+        <<<dim3(a.R, n_blocks(per_row, threads)), threads, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-int launch_slot_uniform(const void* keys, const void* tids, void* out, int R,
-                        int chunk, long long salt, int partitionable,
-                        void* stream) {
-  const int threads = 256;
-  const long long n = (long long)R * chunk;
-  if (n > 0)
-    slot_uniform_kernel<<<n_blocks(n, threads), threads, 0,
-                          (cudaStream_t)stream>>>(
-        (const long long*)keys, (const int*)tids, (float*)out, R, chunk, salt,
-        partitionable);
+// kind: a StreamKind; a / b / flip as StreamArgs (NULL where the kind
+// reads none); salt < 0: no salt fold (kUniform only)
+int launch_counter_stream(int kind, const void* keys, const void* tids,
+                          const void* a, const void* b, const void* flip,
+                          void* out, int R, int chunk, int salt,
+                          int partitionable, void* stream) {
+  const StreamArgs args{(const long long*)keys, (const int*)tids,
+                        (const float*)a, (const float*)b, (const bool*)flip,
+                        out, R, chunk, salt, partitionable, 0, 1u};
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (kind) {
+    case kUniform:
+      return salt >= 0 ? launch_stream<kUniform, true>(args, st)
+                       : launch_stream<kUniform>(args, st);
+    case kBernoulli: return launch_stream<kBernoulli>(args, st);
+    case kUniformRents: return launch_stream<kUniformRents>(args, st);
+    case kNaRents: return launch_stream<kNaRents>(args, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int launch_ge_chain(const void* keys, const void* tids, const void* s_in,
+                    const void* p_hl, const void* p_lh, const void* rate_h,
+                    const void* rate_l, void* s_out, void* states, void* x,
+                    int R, int chunk, int partitionable, void* stream) {
+  GeArgs args{(const long long*)keys, (const int*)tids, (const int*)s_in,
+              (const float*)p_hl, (const float*)p_lh, (const float*)rate_h,
+              (const float*)rate_l, (int*)s_out, (int*)states, (int*)x,
+              R, chunk, partitionable, 0, 1u};
+  if (R <= 0) return (int)cudaGetLastError();
+  args.vec = vec_ok(chunk, kSlots, states, x);
+  ge_chain_kernel<<<n_blocks(R, kGeWarps), 32 * kGeWarps, 0,
+                    (cudaStream_t)stream>>>(args);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,16 @@
 """The hosting engine's CUDA kernels, their wrappers and their plain
 PyTorch versions.
 
-* ``slot_uniform`` (kernel **P**) — counter-keyed U(0,1) draws; the port
-  of the Pallas kernel ``repro/kernels/hosting.py:slot_uniform_tc``.
+* Kernel **P**, the port of the Pallas kernel
+  ``repro/kernels/hosting.py:slot_uniform_tc`` together with what the
+  reference's streams do with its draws: one launch draws and finishes a
+  stream's chunk.  ``slot_uniform`` (U(0,1) draws),
+  ``bernoulli_arrivals_chunk``, ``uniform_rents_chunk`` and
+  ``na_rents_chunk`` (the rents' ``lo + u * (hi - lo)`` one FMA, as
+  XLA:CPU fuses it; no float64) run ``counter_stream_kernel``;
+  ``ge_bernoulli_chunk`` runs ``ge_chain_kernel`` (the Gilbert-Elliot
+  chain as a warp scan of its 2-state maps, with the Bernoulli
+  emissions).
 * ``dp_fwd_model1`` (kernel **D**) — one chunk of the offline-OPT
   min-plus recursion with the Model-1 cost assembly ``w = fma(c, lv, x *
   g)`` fused in: the fleet DP's chunk, the port of
@@ -112,9 +120,12 @@ def fma32(a, b, c):
     rounding to float32 then gives the correctly rounded result.  The
     reference's XLA:CPU build contracts ``a * b + c`` into an FMA where a
     product feeds an add (see the call sites); the kernels use
-    ``__fmaf_rn`` at the same places."""
+    ``__fmaf_rn`` at the same places.  ``card_calls`` counts its calls on
+    the card, where only plain versions call it."""
     a, b, c = (t.to(torch.float64) for t in torch.broadcast_tensors(
         torch.as_tensor(a), torch.as_tensor(b), torch.as_tensor(c)))
+    if a.is_cuda:
+        fma32.card_calls += 1
     p = a * b
     s = p + c
     bp = s - c
@@ -125,14 +136,21 @@ def fma32(a, b, c):
     return s.to(torch.float32)
 
 
+fma32.card_calls = 0
+
+
 # ----------------------------------------------------------------------
-# P: slot_uniform.
+# P: the counter-keyed stream kernels.
 # ----------------------------------------------------------------------
+
+# the kernel's StreamKind (csrc/hosting.cu)
+_UNIFORM, _BERNOULLI, _UNIFORM_RENTS, _NA_RENTS = range(4)
+
 
 def slot_uniform_plain(keys, tids, salt: Optional[int] = None,
                        partitionable: Optional[bool] = None):
-    """Plain version of kernel P: ``[R, chunk]`` float32 U(0,1) draws,
-    ``u[i, j]`` from ``fold_in(keys[i], tids[j])`` (then ``fold_in(.,
+    """Plain version of kernel P's uniforms: ``[R, chunk]`` float32 U(0,1)
+    draws, ``u[i, j]`` from ``fold_in(keys[i], tids[j])`` (then ``fold_in(.,
     salt)`` when a salt is given) and jax's scalar 32-bit draw under the
     current (or the given) threefry layout."""
     part = is_partitionable() if partitionable is None else partitionable
@@ -146,31 +164,188 @@ def slot_uniform_plain(keys, tids, salt: Optional[int] = None,
     return uniform_from_bits(b0 ^ b1 if part else b0)
 
 
-def slot_uniform(keys, tids, salt: Optional[int] = None,
-                 partitionable: Optional[bool] = None):
-    """Kernel P: ``keys`` [R, 2] int64 key words, ``tids`` [chunk] int32
-    global slot counters, ``salt`` an optional static sub-stream fold
-    (``0 <= salt < 2**31``) -> [R, chunk] float32, bitwise
-    ``slot_uniform_plain``."""
-    if keys.device.type == "cpu":
-        return slot_uniform_plain(keys, tids, salt, partitionable)
-    part = is_partitionable() if partitionable is None else partitionable
+def _flipped(u, flip):
+    return torch.where(flip[:, None], 1.0 - u, u)
+
+
+def bernoulli_arrivals_chunk_plain(keys, tids, p, flip,
+                                   partitionable: Optional[bool] = None):
+    """Plain version of kernel P's Bernoulli arrivals: ``[R, chunk]`` int32
+    ``x = (flip ? 1 - u : u) < p`` over ``slot_uniform_plain``'s draws;
+    ``p`` [R] float32, ``flip`` [R] bool."""
+    u = _flipped(slot_uniform_plain(keys, tids, None, partitionable), flip)
+    return (u < p[:, None]).to(torch.int32)
+
+
+def uniform_rents_chunk_plain(keys, tids, lo, hi, flip,
+                              partitionable: Optional[bool] = None):
+    """Plain version of kernel P's uniform rents: ``[R, chunk]`` float32
+    ``fma(flip ? 1 - u : u, hi - lo, lo)``; ``lo``/``hi`` [R] float32,
+    ``flip`` [R] bool."""
+    u = _flipped(slot_uniform_plain(keys, tids, None, partitionable), flip)
+    lo, hi = lo[:, None], hi[:, None]
+    return fma32(u, hi - lo, lo)
+
+
+def na_rents_chunk_plain(keys, tids, lo, hi,
+                         partitionable: Optional[bool] = None):
+    """Plain version of kernel P's NA-pair rents: slots ``(2m, 2m + 1)``
+    share the pair counter ``m = t // 2`` and see ``(u_m, 1 - u_m)``;
+    ``[R, chunk]`` float32 ``fma(v, hi - lo, lo)``."""
+    u = slot_uniform_plain(keys, tids // 2, None, partitionable)
+    v = torch.where((tids % 2 == 0)[None, :], u, 1.0 - u)
+    lo, hi = lo[:, None], hi[:, None]
+    return fma32(v, hi - lo, lo)
+
+
+def ge_bernoulli_chunk_plain(keys, tids, s, p_hl, p_lh, rate_h, rate_l,
+                             partitionable: Optional[bool] = None):
+    """Plain version of kernel P's Gilbert-Elliot chunk: the chain draws
+    (salt 0) walked slot by slot from ``s`` [R] int32, ``s_t = s_{t-1} == 1
+    ? u0 >= p_hl : u0 < p_lh``, then Bernoulli emissions ``x = u1 < (s_t ?
+    rate_h : rate_l)`` (salt 1).  Returns ``(s', states [R, chunk] int32,
+    x [R, chunk] int32)``.  ``card_calls`` counts its calls on the card."""
+    if keys.is_cuda:
+        ge_bernoulli_chunk_plain.card_calls += 1
+    u = slot_uniform_plain(keys, tids, 0, partitionable)
+    states = torch.empty_like(u, dtype=torch.int32)
+    for j in range(u.shape[1]):
+        u_t = u[:, j]
+        s = torch.where(s == 1, (u_t >= p_hl).to(torch.int32),
+                        (u_t < p_lh).to(torch.int32))
+        states[:, j] = s
+    rates = torch.where(states == 1, rate_h[:, None], rate_l[:, None])
+    u = slot_uniform_plain(keys, tids, 1, partitionable)
+    return s, states, (u < rates).to(torch.int32)
+
+
+ge_bernoulli_chunk_plain.card_calls = 0
+
+
+def _row_params(keys, tids, **params):
+    """Check the keys, the counters and the [R] params of a stream kernel;
+    returns (R, chunk)."""
     R, chunk = keys.shape[0], tids.shape[0]
     _build.check_tensor("keys", keys, torch.int64, (R, 2), keys.device)
     _build.check_tensor("tids", tids, torch.int32, (chunk,), keys.device)
+    for name, (t, dtype) in params.items():
+        _build.check_tensor(name, t, dtype, (R,), keys.device)
+    return R, chunk
+
+
+def _stream(kind, keys, tids, out_dtype, salt=None, a=None, b=None,
+            flip=None, partitionable=None):
+    """Launch kernel P's ``kind`` on checked inputs; returns [R, chunk]."""
+    part = is_partitionable() if partitionable is None else partitionable
+    R, chunk = keys.shape[0], tids.shape[0]
+    out = torch.empty((R, chunk), dtype=out_dtype, device=keys.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = _build.library("hosting").launch_counter_stream(
+        kind, keys.data_ptr(), tids.data_ptr(), ptr(a), ptr(b), ptr(flip),
+        out.data_ptr(), R, chunk, -1 if salt is None else int(salt),
+        int(part), _build.stream(keys.device))
+    _build.raise_on(err, "counter_stream")
+    return out
+
+
+def slot_uniform(keys, tids, salt: Optional[int] = None,
+                 partitionable: Optional[bool] = None):
+    """Kernel P's uniforms: ``keys`` [R, 2] int64 key words, ``tids``
+    [chunk] int32 global slot counters, ``salt`` an optional static
+    sub-stream fold (``0 <= salt < 2**31``) -> [R, chunk] float32, bitwise
+    ``slot_uniform_plain``."""
+    if keys.device.type == "cpu":
+        return slot_uniform_plain(keys, tids, salt, partitionable)
+    _row_params(keys, tids)
     if salt is not None and not 0 <= int(salt) < 2 ** 31:
         raise ValueError(f"salt must lie in [0, 2**31), got {salt}")
-    out = torch.empty((R, chunk), dtype=torch.float32, device=keys.device)
-    err = _build.library("hosting").launch_slot_uniform(
-        keys.data_ptr(), tids.data_ptr(), out.data_ptr(), R, chunk,
-        -1 if salt is None else int(salt), int(part),
-        _build.stream(keys.device))
-    _build.raise_on(err, "slot_uniform")
+    out = _stream(_UNIFORM, keys, tids, torch.float32, salt=salt,
+                  partitionable=partitionable)
     slot_uniform.launches += 1
     return out
 
 
 slot_uniform.launches = 0
+
+
+def bernoulli_arrivals_chunk(keys, tids, p, flip,
+                             partitionable: Optional[bool] = None):
+    """Kernel P's Bernoulli arrivals (arguments as
+    ``bernoulli_arrivals_chunk_plain``), bitwise the plain version."""
+    if keys.device.type == "cpu":
+        return bernoulli_arrivals_chunk_plain(keys, tids, p, flip,
+                                              partitionable)
+    _row_params(keys, tids, p=(p, torch.float32), flip=(flip, torch.bool))
+    out = _stream(_BERNOULLI, keys, tids, torch.int32, a=p, flip=flip,
+                  partitionable=partitionable)
+    bernoulli_arrivals_chunk.launches += 1
+    return out
+
+
+bernoulli_arrivals_chunk.launches = 0
+
+
+def uniform_rents_chunk(keys, tids, lo, hi, flip,
+                        partitionable: Optional[bool] = None):
+    """Kernel P's uniform rents (arguments as
+    ``uniform_rents_chunk_plain``), bitwise the plain version."""
+    if keys.device.type == "cpu":
+        return uniform_rents_chunk_plain(keys, tids, lo, hi, flip,
+                                         partitionable)
+    _row_params(keys, tids, lo=(lo, torch.float32), hi=(hi, torch.float32),
+                flip=(flip, torch.bool))
+    out = _stream(_UNIFORM_RENTS, keys, tids, torch.float32, a=lo, b=hi,
+                  flip=flip, partitionable=partitionable)
+    uniform_rents_chunk.launches += 1
+    return out
+
+
+uniform_rents_chunk.launches = 0
+
+
+def na_rents_chunk(keys, tids, lo, hi, partitionable: Optional[bool] = None):
+    """Kernel P's NA-pair rents (arguments as ``na_rents_chunk_plain``),
+    bitwise the plain version."""
+    if keys.device.type == "cpu":
+        return na_rents_chunk_plain(keys, tids, lo, hi, partitionable)
+    _row_params(keys, tids, lo=(lo, torch.float32), hi=(hi, torch.float32))
+    out = _stream(_NA_RENTS, keys, tids, torch.float32, a=lo, b=hi,
+                  partitionable=partitionable)
+    na_rents_chunk.launches += 1
+    return out
+
+
+na_rents_chunk.launches = 0
+
+
+def ge_bernoulli_chunk(keys, tids, s, p_hl, p_lh, rate_h, rate_l,
+                       partitionable: Optional[bool] = None):
+    """Kernel P's Gilbert-Elliot chunk, the chain and its emissions in one
+    launch (arguments and results as ``ge_bernoulli_chunk_plain``), bitwise
+    the plain version."""
+    if keys.device.type == "cpu":
+        return ge_bernoulli_chunk_plain(keys, tids, s, p_hl, p_lh, rate_h,
+                                        rate_l, partitionable)
+    f32 = torch.float32
+    R, chunk = _row_params(keys, tids, s=(s, torch.int32),
+                           p_hl=(p_hl, f32), p_lh=(p_lh, f32),
+                           rate_h=(rate_h, f32), rate_l=(rate_l, f32))
+    part = is_partitionable() if partitionable is None else partitionable
+    dev = keys.device
+    s_out = torch.empty((R,), dtype=torch.int32, device=dev)
+    states = torch.empty((R, chunk), dtype=torch.int32, device=dev)
+    x = torch.empty((R, chunk), dtype=torch.int32, device=dev)
+    err = _build.library("hosting").launch_ge_chain(
+        keys.data_ptr(), tids.data_ptr(), s.data_ptr(), p_hl.data_ptr(),
+        p_lh.data_ptr(), rate_h.data_ptr(), rate_l.data_ptr(),
+        s_out.data_ptr(), states.data_ptr(), x.data_ptr(), R, chunk,
+        int(part), _build.stream(dev))
+    _build.raise_on(err, "ge_chain")
+    ge_bernoulli_chunk.launches += 1
+    return s_out, states, x
+
+
+ge_bernoulli_chunk.launches = 0
 
 
 # ----------------------------------------------------------------------

@@ -11,8 +11,9 @@ nothing is padded here.
 
 ``KERNELS`` lists the launcher of every CUDA kernel, whose ``launches``
 counters a run reads; ``DISPATCHERS`` the wrappers that pick one of two
-kernels (F, M) and count the launches of both.  ``reset_launches`` sets
-every counter to 0.
+kernels (F, M) and count the launches of both; ``PLAIN_ON_CARD`` the plain
+code whose calls on the card a run counts.  ``reset_launches`` sets every
+counter to 0.
 """
 from __future__ import annotations
 
@@ -50,15 +51,25 @@ def ssd_scan(x, dt, A, B, C, h0=None, chunk: int = 128):
     return _ssd.ssd_scan(x, dt, A, B, C, h0, chunk)
 
 
-#: every kernel's launcher: P, D (fused and on a finished w), S, F
+#: every kernel's launcher: P (uniforms, Bernoulli arrivals, uniform
+#: rents, NA rents, the GE chunk), D (fused and on a finished w), S, F
 #: (tensor-core and fma), M (tensor-core and fma)
-KERNELS = (hosting.slot_uniform, hosting.dp_fwd_model1, hosting.dp_minplus,
-           hosting.sim_chunk_alpha_rr, _fa.flash_attention_wgmma,
-           _fa.flash_attention_fma, _ssd.ssd_scan_mma, _ssd.ssd_scan_fma)
+KERNELS = (hosting.slot_uniform, hosting.bernoulli_arrivals_chunk,
+           hosting.uniform_rents_chunk, hosting.na_rents_chunk,
+           hosting.ge_bernoulli_chunk, hosting.dp_fwd_model1,
+           hosting.dp_minplus, hosting.sim_chunk_alpha_rr,
+           _fa.flash_attention_wgmma, _fa.flash_attention_fma,
+           _ssd.ssd_scan_mma, _ssd.ssd_scan_fma)
 DISPATCHERS = (_fa.flash_attention, _ssd.ssd_scan)
+#: plain code that counts its calls on the card (``card_calls``): the
+#: float64 FMA emulation and the per-slot GE loop, which the card's path
+#: replaces with kernel P
+PLAIN_ON_CARD = (hosting.fma32, hosting.ge_bernoulli_chunk_plain)
 
 
 def reset_launches():
-    """Set every launch counter to 0."""
+    """Set every launch counter, and every ``card_calls`` count, to 0."""
     for k in KERNELS + DISPATCHERS:
         k.launches = 0
+    for f in PLAIN_ON_CARD:
+        f.card_calls = 0

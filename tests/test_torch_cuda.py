@@ -423,3 +423,104 @@ def test_sim_kernel_matches_plain(case, collect_trace):
             assert bool((rk != rk[:, :1]).any())      # the policy moved
     else:
         assert rk is None and rp is None
+
+
+# ----------------------------------------------------------------------
+# Kernel P: the counter-keyed stream kernels.  Bit for bit (torch.equal):
+# the hash is integer arithmetic, the flips and the compare exact, and the
+# rents one FMA on both sides.
+# ----------------------------------------------------------------------
+
+P_VARIANTS = ("uniform", "uniform-salt", "bernoulli", "uniform_rents",
+              "na_rents", "ge_bernoulli")
+
+
+def _p_inputs(dev, R, seed):
+    """Row params made with numpy: keys, p, a mixed flip, lo / hi, GE
+    probabilities and rates, a carried-in GE state."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    f32 = lambda: t(rng.random(R).astype(np.float32))  # noqa: E731
+    lo = (rng.random(R) * 0.3).astype(np.float32)
+    return dict(
+        keys=t(rng.integers(0, 2 ** 32, (R, 2), dtype=np.uint64)
+               .astype(np.int64)),
+        p=f32(), flip=t(rng.random(R) < 0.5), lo=t(lo),
+        hi=t((lo + rng.random(R) * 0.5).astype(np.float32)),
+        ge=[f32() for _ in range(4)],
+        s=t(rng.integers(0, 2, R).astype(np.int32)))
+
+
+def _p_call(name, d, tids, part, plain):
+    """``name``'s wrapper (or its plain version) on the inputs ``d``."""
+    sfx = "_plain" if plain else ""
+    keys = d["keys"]
+    if name.startswith("uniform") and not name.startswith("uniform_rents"):
+        salt = 1 if name == "uniform-salt" else None
+        return getattr(H, "slot_uniform" + sfx)(keys, tids, salt, part)
+    if name == "bernoulli":
+        return getattr(H, "bernoulli_arrivals_chunk" + sfx)(
+            keys, tids, d["p"], d["flip"], part)
+    if name == "uniform_rents":
+        return getattr(H, "uniform_rents_chunk" + sfx)(
+            keys, tids, d["lo"], d["hi"], d["flip"], part)
+    if name == "na_rents":
+        return getattr(H, "na_rents_chunk" + sfx)(keys, tids, d["lo"],
+                                                  d["hi"], part)
+    return getattr(H, "ge_bernoulli_chunk" + sfx)(keys, tids, d["s"],
+                                                  *d["ge"], part)
+
+
+def _p_launcher(name):
+    return {"uniform": H.slot_uniform, "uniform-salt": H.slot_uniform,
+            "bernoulli": H.bernoulli_arrivals_chunk,
+            "uniform_rents": H.uniform_rents_chunk,
+            "na_rents": H.na_rents_chunk,
+            "ge_bernoulli": H.ge_bernoulli_chunk}[name]
+
+
+def test_stream_wrappers_take_the_plain_version_only_on_the_cpu():
+    d = _p_inputs("cpu", 5, 0)
+    tids = torch.arange(3, 40, dtype=torch.int32)
+    before = [_p_launcher(n).launches for n in P_VARIANTS]
+    ge_plain = H.ge_bernoulli_chunk_plain.card_calls
+    for name in P_VARIANTS:
+        for part in (True, False):
+            a, b = (_p_call(name, d, tids, part, plain)
+                    for plain in (False, True))
+            for x, y in zip(a if isinstance(a, tuple) else (a,),
+                            b if isinstance(b, tuple) else (b,)):
+                assert torch.equal(x, y), name
+    assert [_p_launcher(n).launches for n in P_VARIANTS] == before
+    assert H.ge_bernoulli_chunk_plain.card_calls == ge_plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", [True, False])
+@pytest.mark.parametrize("case", [
+    # (R, t0, chunk): the fleet's slab; an odd start with chunk % 4 != 0
+    # (the scalar-store route) and R off every block size; a chunk of 1
+    # (the GE init's draw); an odd start at the top of the counter range
+    # (NA pairs cut at both ends); a GE tile cut short (chunk % 128)
+    (4096, 61440, 4096),
+    (4093, 61441, 1001),
+    (4096, 0x7FFFFFFF, 1),
+    (300, 2 ** 31 - 999, 999),
+    (129, 7, 300),
+])
+@pytest.mark.parametrize("name", P_VARIANTS)
+def test_stream_kernel_matches_plain(name, case, part):
+    dev = _card()
+    R, t0, chunk = case
+    d = _p_inputs(dev, R, seed=R + chunk)
+    tids = torch.arange(t0, t0 + chunk, dtype=torch.int64).to(
+        torch.int32).to(dev)
+    launcher = _p_launcher(name)
+    before = launcher.launches
+    k = _p_call(name, d, tids, part, plain=False)
+    torch.cuda.synchronize()
+    assert launcher.launches == before + 1
+    p = _p_call(name, d, tids, part, plain=True)
+    for a, b in zip(k if isinstance(k, tuple) else (k,),
+                    p if isinstance(p, tuple) else (p,)):
+        assert a.dtype == b.dtype and torch.equal(a, b), name

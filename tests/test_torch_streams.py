@@ -130,3 +130,64 @@ def test_unported_samplers_raise():
                            antithetic=True)
     assert torch.equal(ps.split_keys(_pk(_key(2)), 3),
                        ps.as_keys(_pk(_key(2)), 3, CPU))
+
+
+# ----------------------------------------------------------------------
+# Kernel P's stream variants through the streams: flips set per row, NA
+# pairs and the GE chain cut by chunks of odd length that do not divide T
+# (so chunks start on odd slots and the chain crosses every cut), and the
+# antithetic seed axis.
+# ----------------------------------------------------------------------
+
+FLIP = np.array([True, False, False, True])
+
+
+def _with_flip(stream, flip):
+    return stream._replace(params=dict(stream.params, flip=flip))
+
+
+def _variant_streams(k):
+    p = np.array([0.1, 0.35, 0.5, 0.9], np.float32)
+    return {
+        "bernoulli-flip": (
+            _with_flip(js.bernoulli_arrivals(k, p, B), FLIP),
+            _with_flip(ps.bernoulli_arrivals(_pk(k), p, B, device=CPU),
+                       torch.from_numpy(FLIP))),
+        "uniform-flip": (
+            _with_flip(js.uniform_rents(k, 0.35, 0.2, B), FLIP),
+            _with_flip(ps.uniform_rents(_pk(k), 0.35, 0.2, B, device=CPU),
+                       torch.from_numpy(FLIP))),
+        "na": (js.na_rents(k, 0.3, 0.25, B),
+               ps.na_rents(_pk(k), 0.3, 0.25, B, device=CPU)),
+        "ge-bernoulli": (
+            js.ge_arrivals(k, 0.3, 0.2, 0.9, 0.2, B, emission="bernoulli"),
+            ps.ge_arrivals(_pk(k), 0.3, 0.2, 0.9, 0.2, B,
+                           emission="bernoulli", device=CPU)),
+    }
+
+
+@pytest.mark.parametrize("partitionable", LAYOUTS)
+@pytest.mark.parametrize("chunk", [37, 1, 301])
+@pytest.mark.parametrize("name", ["bernoulli-flip", "uniform-flip", "na",
+                                  "ge-bernoulli"])
+def test_stream_variants_bitwise_across_odd_chunks(name, chunk,
+                                                   partitionable):
+    with jax.threefry_partitionable(partitionable), \
+            threefry_partitionable(partitionable):
+        ref, got = _variant_streams(_key(21))[name]
+        want = js.materialize_stream(ref, T + 1, None)
+        _assert_tree_equal(want, ps.materialize_stream(got, T + 1, chunk))
+    if name == "ge-bernoulli":                    # side = the chain state
+        x, side = want
+        assert (np.asarray(side) != np.asarray(side)[:, :1]).any()
+
+
+@pytest.mark.parametrize("partitionable", LAYOUTS)
+def test_antithetic_seed_axis_across_odd_chunks(partitionable):
+    with jax.threefry_partitionable(partitionable), \
+            threefry_partitionable(partitionable):
+        for ref, got in _scenarios(_key(7), _key(8)):
+            r = js.replicate_seeds(ref, 4, True)
+            g = ps.replicate_seeds(got, 4, True)
+            _assert_obs_equal(js.materialize(r, T + 1, 37),
+                              ps.materialize(g, T + 1, 37))

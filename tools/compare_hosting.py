@@ -11,7 +11,12 @@ at ``chip_smoke.py``'s fleet shapes (4,096 rows, K = 3, a chunk of 4,096
 slots of Bernoulli arrivals and uniform rents): kernel S without and with
 the trace, the DP chunk as the checkout's fleet runs it (the fused kernel
 D where the checkout has it, else the float64 ``fma32`` assembly + kernel
-D on the finished w), and kernel D on a finished w.  Times are CUDA-event
+D on the finished w), kernel D on a finished w, kernel P's uniforms, and
+one chunk of each of the fleet's four random streams as the checkout's
+streams generate it (antithetic seed replicas): Bernoulli arrivals,
+uniform rents, NA rents and Gilbert-Elliot arrivals (kernel P's fused
+variants where the checkout has them, else kernel P's uniforms and the
+PyTorch code after them).  Times are CUDA-event
 medians of batches of back-to-back calls; beside each, the cycles a slot
 at the SM clock nvidia-smi reads while the card runs it.  One JSON line
 per root, then a table.
@@ -94,7 +99,28 @@ def _one(root: Path) -> dict:
         dp_chunk = ("fused kernel D", lambda: H.dp_fwd_model1(*fused))
     else:
         dp_chunk = ("fma32 assembly + kernel D", old_route)
+    B, S = cs.N_M * cs.N_ALPHA, cs.N_SEEDS
+    key = lambda seed: sc.prng_key(seed, dev)  # noqa: E731
+    streams = {
+        "P Bernoulli chunk": sc.bernoulli_arrivals(key(0), 0.35, B,
+                                                   device=dev),
+        "P uniform rents chunk": sc.uniform_rents(key(1), 0.35, 0.2, B,
+                                                  device=dev),
+        "P NA rents chunk": sc.na_rents(key(3), 0.35, 0.2, B, device=dev),
+        "P GE chunk": sc.ge_arrivals(key(2), 0.3, 0.2, 0.9, 0.2, B,
+                                     emission="bernoulli", device=dev)}
+    stream_ms = {}
+    for name, st in streams.items():
+        st = sc.replicate_seeds(st, S, antithetic=True)
+        state = st.init_fn(st.params)
+        slow = name == "P GE chunk" and not hasattr(H, "ge_bernoulli_chunk")
+        stream_ms[name] = ms_and_clock(
+            lambda st=st, state=state: st.chunk_fn(st.params, state, tids),
+            batch=1 if slow else 10, reps=3 if slow else 5)
     out = {"root": str(root), "card": torch.cuda.get_device_name(0),
+           "P uniforms": ms_and_clock(lambda: H.slot_uniform(
+               scen.params["arr"]["key"], tids)),
+           **stream_ms,
            "S": ms_and_clock(lambda: H.sim_chunk_alpha_rr(
                *sim, collect_trace=False)),
            "S with trace": ms_and_clock(lambda: H.sim_chunk_alpha_rr(*sim)),

@@ -7,7 +7,8 @@ Fleet path: the ``chip_smoke.py`` workload at full width (4,096 rows, K = 3,
 chunks of 4,096) for a shorter horizon under ``torch.profiler``: alpha-RR
 and alpha-OPT on Bernoulli arrivals + uniform rents, and alpha-RR on
 Gilbert-Elliot arrivals + NA rents; the device time is also grouped into
-kernels D (fused, and on a finished w), S, P and the rest.
+kernels D (fused, and on a finished w), S, P (the stream kernels and
+the GE chain kernel) and the rest.
 
 Serving path: zamba2-1.2b at full width and depth in bf16 (seeded random
 weights), one ``serve_slot`` of 8 prompts of 2,048 tokens under the full
@@ -60,7 +61,8 @@ FLEET_GROUPS = (
     ("kernel D (fused cost assembly)", ("dp_fwd_model1_kernel",)),
     ("kernel D (finished w)", ("dp_minplus_kernel",)),
     ("kernel S", ("sim_alpha_rr_kernel",)),
-    ("kernel P", ("slot_uniform_kernel",)))
+    ("kernel P (streams)", ("counter_stream_kernel",)),
+    ("kernel P (GE chain)", ("ge_chain_kernel",)))
 
 
 def profiled(label, fn, top=10, groups=()):
