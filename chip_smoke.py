@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two main paths on one CUDA card and check
-them.
+"""Drive the PyTorch/CUDA port's main paths on one CUDA card -- the fleet
+path, the paper's figures on it, and LM serving -- and check them.
 
     python3 chip_smoke.py
 
@@ -13,11 +13,15 @@ Phases (any failure exits non-zero, and no result line is printed):
    fleet path's shapes, bit for bit (``torch.equal``): every variant of P,
    under both threefry layouts (the uniforms with and without a salt,
    Bernoulli arrivals and uniform rents with the antithetic replicas'
-   flips, NA-pair rents, the Gilbert-Elliot chunk from a carried-in
-   state), on the fleet's slab, on an odd t0 with R - 3 rows and 1,001
-   slots and on one slot; each is timed, and its SASS
-   (``cuobjdump -sass``) counted for the integer-pipe bound; D with the
-   cost assembly fused in
+   flips, NA-pair rents, the spot rents' scaled normals, the
+   Gilbert-Elliot chunk from a carried-in state), on the fleet's slab, on
+   an odd t0 with R - 3 rows and 1,001 slots and on one slot; each is
+   timed, and its SASS (``cuobjdump -sass``) counted for the integer-pipe
+   bound; P's ARMA chunk with per-instance coefficients over three chunks
+   in a row, the state carried (1,000 slots, 1,001 from t0 = 1,000, then
+   4,096), in both layouts, timed at the fleet's shape against the
+   integer-pipe bound of its normals and the latency bound of its
+   recursion; D with the cost assembly fused in
    (the fleet's kernel: K = 3 and 2, ragged slabs of R - 3 rows and chunks
    of 1,000, 1,001 and 1, K = 16, each with and without the argmin table;
    +inf-padded levels, frozen slots, all-+inf frontiers), also against
@@ -33,15 +37,34 @@ Phases (any failure exits non-zero, and no result line is printed):
    zeroed just before and read just after; P's Bernoulli and uniform-rent
    variants, the fused D and S must have run, D on a finished w, P's other
    variants and the plain code the kernels replace (``fma32``'s float64
-   FMA, the per-slot GE loop) must not have run on the card.
+   FMA, the per-slot GE and ARMA loops) must not have run on the card.
 4. A second fleet leg with Gilbert-Elliot arrivals and NA rents,
    antithetic seeds, its counters zeroed before and read after: P's GE
    and NA variants once per chunk and run, P's uniforms once per run (the
    chain's initial draw) and nothing else of P, no plain code on the
-   card.  A kernel's ``launches`` in the last lines add up both legs.
+   card.  Every fleet run on the card is made three times: the counters
+   cover the first pass, the printed wall time is the median of the three
+   in microseconds.
 5. Card == CPU: legs 3 and 4 rerun at 64 rows and T = 4,096 on the card and
    on the CPU (the plain versions), compared exactly.
-6. Kernels F (flash attention) and M (SSD scan) against their plain
+6. The policy fan-out on the card: alpha-RR and RR lanes with the OPT
+   frontiers over Bernoulli arrivals and spot rents (64 instances x 4
+   seeds, T = 4,096): each lane == its standalone run and ``opt_cost`` ==
+   ``offline_opt_fleet`` of its fleet, bit for bit; card == CPU on the same
+   fan-out at 16 instances x 4 seeds, T = 2,048.
+7. The paper's Figs 1-8 through the port's figure modules
+   (``repro_torch/figures``) at the reference's default sizes: Figs 1-2
+   (10 grid points x 4 seeds, T = 10,000), Figs 3-6 (22 x 4, T = 8,000),
+   Figs 7-8 (5 x 4, T = 8,000; K = 5, 3 and 2 lanes); each figure's
+   ``check(rows)`` must pass, its counters are zeroed before and read
+   after: P's streams, S and (Figs 1-6) D must have run, no plain code.
+8. The fan-out at the fleet leg's width: 1,024 instances x 4 seeds, T =
+   65,536 in chunks of 4,096, Bernoulli(0.35) arrivals and spot rents at
+   mean 0.35, alpha-RR and RR lanes with the OPT frontiers; per chunk one
+   launch of P's Bernoulli and ARMA variants and two each of S and D, one
+   of P's normals a run.  A kernel's ``launches`` in the last lines add up
+   phases 3, 4, 7 and 8 (and the serving path's for F and M).
+9. Kernels F (flash attention) and M (SSD scan) against their plain
    versions on the card, each within a stated tolerance.  Each has two
    kernels, chosen by an explicit dispatch: F's wgmma kernel (bf16, hd 64 /
    128) and its fp32-FMA kernel (the rest), M's mma.sync kernel (bf16, dh /
@@ -54,7 +77,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    and a ragged length, the scheduler's 8-token chunk, ds = 128, a chunk of
    256, fp32.  Each variant requires that the dispatch launched the kernel
    it names.  The FMA kernels are also timed on the main bf16 input.
-7. The LM serving path at full width and depth: zamba2-1.2b in bf16 from
+10. The LM serving path at full width and depth: zamba2-1.2b in bf16 from
    a seeded generator (38 Mamba2 layers, 6 shared-attention
    applications), ``ServingEngine.serve_slot`` under each plan (none,
    layer prefix at alpha 0.4 = 5 segments, full) on 8 prompts of 2,048
@@ -62,7 +85,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    just before and read just after; per full forward F's wgmma kernel runs
    6 times and M's mma kernel 38 times, per prefix forward 3 and 12; the
    FMA kernels never run there.
-8. Card == CPU for the serving path at zamba2's tiny fp32 config with the
+11. Card == CPU for the serving path at zamba2's tiny fp32 config with the
    same weights: logits within 1e-4, argmax tokens equal where the CPU's
    top-2 margin is wider.
 
@@ -90,6 +113,9 @@ from repro_torch.core import (FleetBatch, HostingCosts, HostingGrid,  # noqa: E4
                               mc_summary, offline_opt_fleet, run_fleet)
 from repro_torch.core import scenarios as sc  # noqa: E402
 from repro_torch.core.policies import AlphaRR, RetroRenting  # noqa: E402
+from repro_torch.figures import fig01_02_alpha_sweep  # noqa: E402
+from repro_torch.figures import fig03_06_m_p_sweeps  # noqa: E402
+from repro_torch.figures import fig07_08_multiple_rr  # noqa: E402
 from repro_torch.core.policies.alpha_rr import alpha_rr_init  # noqa: E402
 from repro_torch.core.policies.offline_opt import (dp_fetch_matrix,  # noqa: E402
                                                    dp_frontier0)
@@ -109,6 +135,11 @@ from repro_torch.serve.scheduler import EdgeServingScheduler  # noqa: E402
 N_M, N_ALPHA, N_SEEDS = 32, 32, 4
 T_MAIN, T_GE, T_SMALL, CHUNK = 65536, 8192, 4096, 4096
 SMALL_INSTANCES = 16
+# every fleet run on the card is timed this many times (the median is
+# printed, in microseconds); the launch counters cover the first pass
+REPEATS = 3
+# the spot rents' mean, as the figures draw them
+SPOT_MEAN = 0.35
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the
 # float32 rate outside the tensor cores, the only non-tensor rate listed;
 # the kernels' 32-bit integer and compare ops are counted against it, so
@@ -127,7 +158,9 @@ KERNEL_SYMBOLS = {
     "bernoulli_arrivals_chunk": "counter_stream_kernel<kBernoulli>",
     "uniform_rents_chunk": "counter_stream_kernel<kUniformRents>",
     "na_rents_chunk": "counter_stream_kernel<kNaRents>",
+    "normal_chunk": "counter_stream_kernel<kNormal>",
     "ge_bernoulli_chunk": "ge_chain_kernel",
+    "arma_rents_chunk": "arma_rents_kernel",
     "dp_fwd_model1": "dp_fwd_model1_kernel",
     "dp_minplus": "dp_minplus_kernel",
     "sim_chunk_alpha_rr": "sim_alpha_rr_kernel",
@@ -240,6 +273,20 @@ def bernoulli_uniform(B, device):
         sc.uniform_rents(sc.prng_key(1, device), 0.35, 0.2, B, device=device))
 
 
+def bernoulli_spot(B, device):
+    """Bernoulli(0.35) arrivals and spot rents at mean 0.35: the figures'
+    workload at fleet width."""
+    return sc.combine(
+        sc.bernoulli_arrivals(sc.prng_key(4, device), 0.35, B, device=device),
+        sc.spot_rents(sc.prng_key(5, device), SPOT_MEAN, B, device=device))
+
+
+def spot_params(B, device):
+    """The seed-replicated spot-rent stream's params at B instances."""
+    return sc.replicate_seeds(bernoulli_spot(B, device),
+                              N_SEEDS).params["rent"]
+
+
 def ge_na(B, device):
     return sc.combine(
         sc.ge_arrivals(sc.prng_key(2, device), 0.3, 0.2, 0.9, 0.2, B,
@@ -247,8 +294,33 @@ def ge_na(B, device):
         sc.na_rents(sc.prng_key(3, device), 0.35, 0.2, B, device=device))
 
 
-def run_leg(grid, scenario, T, antithetic, device, label, timings):
-    """alpha-RR, RR, alpha-OPT and OPT of one fleet; returns the results."""
+def timed_passes(runs, device, label, timings, counted=False):
+    """Run every ``runs`` entry (name -> thunk) once a pass, REPEATS passes
+    on the card (one on the CPU); ``timings[label/name]`` gains the wall
+    seconds of each.  Returns the first pass's results and, with
+    ``counted``, the launch counts and plain-code card calls read right
+    after it (the later passes only time)."""
+    out, counts = {}, None
+    for i in range(REPEATS if device != "cpu" else 1):
+        for name, fn in runs.items():
+            if device != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            if device != "cpu":
+                torch.cuda.synchronize()
+            timings.setdefault(f"{label}/{name}", []).append(
+                time.perf_counter() - t0)
+            out.setdefault(name, res)
+        if counted and i == 0:
+            counts = (launch_counts(), card_calls())
+    return out, counts
+
+
+def run_leg(grid, scenario, T, antithetic, device, label, timings,
+            counted=False):
+    """alpha-RR, RR, alpha-OPT and OPT of one fleet; returns the results
+    (and the launch counts of the first pass, with ``counted``)."""
     fleet = FleetBatch.for_scenario(grid, T)
     ends = fleet.restrict_to_endpoints()
     kw = dict(scenario=scenario, chunk_size=min(CHUNK, T), n_seeds=N_SEEDS,
@@ -263,16 +335,12 @@ def run_leg(grid, scenario, T, antithetic, device, label, timings):
         "OPT": lambda: offline_opt_fleet(
             ends, checkpointed=True, collect_schedule=False, **kw),
     }
-    out = {}
-    for name, fn in runs.items():
-        if device != "cpu":
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out[name] = fn()
-        if device != "cpu":
-            torch.cuda.synchronize()
-        timings[f"{label}/{name}"] = time.perf_counter() - t0
-    return out
+    out, counts = timed_passes(runs, device, label, timings, counted)
+    return (out, counts) if counted else out
+
+
+def median_us(timings, key):
+    return float(np.median(timings[key])) * 1e6
 
 
 def check_leg(res, T, label):
@@ -311,20 +379,36 @@ P_WORK = {"slot_uniform": (2, 5), "slot_uniform salt": (3, 5),
           "bernoulli_arrivals_chunk": (2, 5 + 2),
           "uniform_rents_chunk": (2, 5 + 4),
           "na_rents_chunk": (1, 5 / 2 + 4),
+          "normal_chunk": (2, 5 + 110),
           "ge_bernoulli_chunk": (5, 2 * 5 + 6)}
+# the float32 operations of one normal past the uniform (an FMA counts 2):
+# XLA's erf_inv with both its log1p branches, its log and Giles's
+# polynomial, the scale; the ARMA(4, 2) step adds its dots, the
+# innovation, the clip
+NORMAL_FLOPS = 110
+ARMA_STEP_FLOPS = 4 + 3 + 1 + 3 + 1 + 3
+# the ARMA(4, 2) step's dependent chain through x_{t-1}: phi0 * h0, three
+# adds of the AR dot, + e, + the MA dot; at an assumed 4 cycles a
+# dependent float32 instruction on sm_90
+ARMA_CHAIN_OPS, FP32_LATENCY = 6, 4
 # the consumer code of the reference that each variant finishes in-kernel
 P_CONSUMER = {
     "slot_uniform": None,
     "bernoulli_arrivals_chunk": "src/repro/core/scenarios/streams.py:67",
     "uniform_rents_chunk": "src/repro/core/scenarios/streams.py:256",
     "na_rents_chunk": "src/repro/core/scenarios/streams.py:275",
+    "normal_chunk": "src/repro/core/scenarios/streams.py:316",
     "ge_bernoulli_chunk": "src/repro/core/scenarios/streams.py:139"}
+# what each P variant replaces: the Pallas PRNG kernel, or (the normals)
+# XLA's jax.random.normal in _arma_eps_at, which no TPU kernel computes
+P_REPLACES = {"normal_chunk": "src/repro/core/scenarios/streams.py:316"}
 # each variant's kernel in the SASS (a fragment of its mangled name)
 P_SASS = {"slot_uniform": "counter_stream_kernelILi0ELb0E",
           "slot_uniform salt": "counter_stream_kernelILi0ELb1E",
           "bernoulli_arrivals_chunk": "counter_stream_kernelILi1ELb0E",
           "uniform_rents_chunk": "counter_stream_kernelILi2ELb0E",
           "na_rents_chunk": "counter_stream_kernelILi3ELb0E",
+          "normal_chunk": "counter_stream_kernelILi4ELb0E",
           "ge_bernoulli_chunk": "ge_chain_kernel"}
 # SASS opcodes that issue on the integer ALU pipe (64 lanes a clock per SM
 # on Hopper, the CUDA C++ Programming Guide's throughput table for compute
@@ -350,6 +434,7 @@ def p_variants(dev):
     ge = sc.replicate_seeds(ge_na(B, dev), N_SEEDS, antithetic=True)
     arr, rent = bern["arr"], bern["rent"]
     gep, nap = ge.params["arr"], ge.params["rent"]
+    spot = spot_params(B, dev)
     require(bool(arr["flip"].any()) and not bool(arr["flip"].all()),
             "the antithetic replicas must flip half the rows")
     return {
@@ -359,6 +444,7 @@ def p_variants(dev):
         "uniform_rents_chunk": (rent["key"], (rent["lo"], rent["hi"],
                                               rent["flip"])),
         "na_rents_chunk": (nap["key"], (nap["lo"], nap["hi"])),
+        "normal_chunk": (spot["key"], (spot["sigma"],)),
         "ge_bernoulli_chunk": (gep["key"], (
             ge.init_fn(ge.params)["arr"]["s"], gep["p_hl"], gep["p_lh"],
             gep["rate_h"], gep["rate_l"])),
@@ -472,7 +558,7 @@ def kernel_checks(dev):
                  if key != "sm_clock_mhz"})
             continue
         r.update(
-            replaces="src/repro/kernels/hosting.py:164",
+            replaces=P_REPLACES.get(name, "src/repro/kernels/hosting.py:164"),
             consumer=P_CONSUMER[name], max_abs_err=0.0,
             plain_ms=cuda_ms(lambda: p_call(specs, name, R, tids, True,
                                             plain=True), reps=3),
@@ -484,6 +570,9 @@ def kernel_checks(dev):
                   f"{2 * len(slabs)} slabs compared")
         rec[name] = r
         log(f"   plain {r['plain_ms']:.3f} ms")
+
+    rec["arma_rents_chunk"] = arma_checks(dev, R, chunk, clock, n_sm,
+                                          sass["normal_chunk"])
 
     # slab data shared by D and S
     gen = scen.init_fn(scen.params)
@@ -663,6 +752,73 @@ def kernel_checks(dev):
     log(f"S timed: {ms:.4f} ms ({trace_ms:.4f} ms with the trace), plain "
         f"{plain_ms:.3f} ms, {cycles:.1f} cycles a slot at {clock:.0f} MHz")
     return rec
+
+
+def arma_checks(dev, R, chunk, clock, n_sm, normal_sass):
+    """Kernel P's ARMA chunk against its plain version, bit for bit, in
+    both layouts: per-instance coefficients (p = 4, q = 2, as the spot
+    rents), three chunks in a row with the state carried -- 1,000 slots
+    (ragged against the 64-slot tile), 1,001 (chunk % 4 != 0) from t0 =
+    1,000, then the fleet's 4,096; R - 3 rows.  Timed on the spot stream's
+    own params at the fleet's shape.  Returns its record."""
+    spot = spot_params(N_M * N_ALPHA, dev)
+    g = torch.Generator(device="cpu").manual_seed(11)
+    rows = R - 3
+    phi = (torch.rand((rows, 4), generator=g) * 0.15).to(dev)
+    th = (torch.rand((rows, 2), generator=g) * 0.3).to(dev)
+    keys, sig, mean, lo, hi = (spot[k][:rows].contiguous() for k in (
+        "key", "sigma", "mean", "c_min", "c_max"))
+    err = 0.0
+    for part in (True, False):
+        eps0 = H.normal_chunk(keys, sc.base.chunk_tids(0, 2, dev).flip(0),
+                              sig, part)
+        k_state = p_state = (torch.zeros((rows, 4), device=dev), eps0)
+        for t0, n in ((0, 1000), (1000, 1001), (2001, chunk)):
+            tids = sc.base.chunk_tids(t0, n, dev)
+            k = H.arma_rents_chunk(keys, tids, *k_state, phi, th, sig, mean,
+                                   lo, hi, part)
+            pl = H.arma_rents_chunk_plain(keys, tids, *p_state, phi, th,
+                                          sig, mean, lo, hi, part)
+            torch.cuda.synchronize()
+            require(tree_equal(k, pl), f"ARMA differs from its plain "
+                                       f"version (t0={t0}, {n} slots, "
+                                       f"layout {part})")
+            err = max(err, tree_max_abs(k, pl))
+            k_state, p_state = k[:2], pl[:2]
+        log(f"P arma_rents_chunk ok: 3 chunks, state carried, per-instance "
+            f"coefficients, {'partitionable' if part else 'original'} layout")
+    tids = sc.base.chunk_tids(T_MAIN - chunk, chunk, dev)
+    st = {"hist": torch.zeros((R, 4), device=dev),
+          "eps": H.normal_chunk(spot["key"],
+                                sc.base.chunk_tids(0, 2, dev).flip(0),
+                                spot["sigma"])}
+    args = (spot["key"], tids, st["hist"], st["eps"], spot["phi"],
+            spot["th"], spot["sigma"], spot["mean"], spot["c_min"],
+            spot["c_max"])
+    ms = cuda_ms(lambda: H.arma_rents_chunk(*args), reps=7, batch=10)
+    plain_ms = cuda_ms(lambda: H.arma_rents_chunk_plain(*args), reps=1,
+                       warmup=0)
+    alu, total = normal_sass
+    out = H.arma_rents_chunk(*args)
+    r = dict(
+        replaces="src/repro/core/scenarios/streams.py:330", ms=ms,
+        plain_ms=plain_ms, max_abs_err=err, sm_clock_mhz=clock,
+        cycles_per_slot=ms * 1e-3 * clock * 1e6 / chunk,
+        int_pipe_bound_ms=R * chunk * alu / (64 * n_sm * clock * 1e3),
+        issue_bound_ms=R * chunk * total / (128 * n_sm * clock * 1e3),
+        latency_bound_ms=chunk * ARMA_CHAIN_OPS * FP32_LATENCY
+        / (clock * 1e3),
+        ops=R * chunk * (2 * 79 + 5 + NORMAL_FLOPS + ARMA_STEP_FLOPS),
+        nbytes=nbytes(*args, *out),
+        shape=f"R={R} chunk={chunk} p=4 q=2 (the spot rents), partitionable "
+              f"layout; 3 chunks x 2 layouts compared")
+    log(f"P arma_rents_chunk timed: {ms:.4f} ms, plain {plain_ms:.1f} ms; "
+        f"bounds: integer pipe (the normals' hashes) "
+        f"{r['int_pipe_bound_ms']:.4f} ms, issue "
+        f"{r['issue_bound_ms']:.4f} ms, the recursion's latency "
+        f"{r['latency_bound_ms']:.4f} ms ({ARMA_CHAIN_OPS} dependent ops "
+        f"x {FP32_LATENCY} cycles a slot at {clock:.0f} MHz)")
+    return r
 
 
 # ----------------------------------------------------------------------
@@ -893,6 +1049,149 @@ def lm_kernel_checks(dev):
 
 
 # ----------------------------------------------------------------------
+# Phases 6 to 8: the policy fan-out and the paper's figures.
+# ----------------------------------------------------------------------
+
+FIG_KERNELS = {
+    # each figure's kernels: P's streams, S for every lane, D for the OPT
+    # frontiers (Figs 1-6; Figs 7-8 run no OPT)
+    "fig01_02": ("bernoulli_arrivals_chunk", "normal_chunk",
+                 "arma_rents_chunk", "sim_chunk_alpha_rr", "dp_fwd_model1"),
+    "fig03_06": ("bernoulli_arrivals_chunk", "normal_chunk",
+                 "arma_rents_chunk", "sim_chunk_alpha_rr", "dp_fwd_model1"),
+    "fig07_08": ("ge_bernoulli_chunk", "slot_uniform", "normal_chunk",
+                 "arma_rents_chunk", "sim_chunk_alpha_rr"),
+}
+# (module, fleet rows at the defaults: grid points x 4 seeds, T)
+FIGURES = {"fig01_02": (fig01_02_alpha_sweep, 40, 10000),
+           "fig03_06": (fig03_06_m_p_sweeps, 88, 8000),
+           "fig07_08": (fig07_08_multiple_rr, 20, 8000)}
+
+
+def fanout_results_equal(a, b, fields=("total", "rent", "service", "fetch",
+                                       "level_slots", "r_hist",
+                                       "opt_cost")):
+    return all((getattr(a, f) is None and getattr(b, f) is None)
+               or np.array_equal(getattr(a, f), getattr(b, f))
+               for f in fields)
+
+
+def fanout_checks(dev):
+    """The fan-out on the card, bit for bit: alpha-RR on the fleet grid
+    and RR on its endpoints as two lanes over Bernoulli arrivals and spot
+    rents, with the OPT frontiers, 64 instances x 4 seeds, T = 4,096 in
+    chunks of 1,024; each lane equals its standalone run and its
+    ``opt_cost`` ``offline_opt_fleet`` on its fleet.  Then card == CPU on
+    the same fan-out at 16 instances x 4 seeds, T = 2,048."""
+    fleet = FleetBatch.for_scenario(fleet_grid(2, N_ALPHA, dev), 4096)
+    kw = dict(scenario=bernoulli_spot(fleet.B, dev), chunk_size=1024,
+              n_seeds=N_SEEDS, device=dev)
+    lanes = [AlphaRR.fleet_lane(fleet), RetroRenting.fleet_lane(fleet)]
+    fan = run_fleet(lanes, fleet, with_opt_forward=True, **kw)
+    ends = fleet.restrict_to_endpoints()
+    for p, (f, pol) in enumerate(((fleet, AlphaRR.fleet(fleet)),
+                                  (ends, RetroRenting.fleet(fleet)))):
+        alone = run_fleet(pol, f, **kw)
+        opt = offline_opt_fleet(f, checkpointed=True, collect_schedule=False,
+                                **kw)
+        K = alone.level_slots.shape[1]
+        view = fan.policy_view
+        require(np.array_equal(view(fan.total)[p], alone.total)
+                and np.array_equal(view(fan.r_hist)[p], alone.r_hist)
+                and np.array_equal(view(fan.level_slots)[p][:, :K],
+                                   alone.level_slots)
+                and np.array_equal(view(fan.opt_cost)[p], opt.cost),
+                f"fan-out lane {p} differs from its standalone run")
+    log(f"fan-out on the card: both lanes == their standalone runs, "
+        f"opt_cost == offline_opt_fleet ({fan.B} rows, T=4096)")
+    outs = []
+    for d in (dev, "cpu"):
+        f = FleetBatch.for_scenario(fleet_grid(1, SMALL_INSTANCES, d), 2048)
+        t = time.perf_counter()
+        outs.append(run_fleet(
+            [AlphaRR.fleet_lane(f), RetroRenting.fleet_lane(f)], f,
+            scenario=bernoulli_spot(SMALL_INSTANCES, d), chunk_size=512,
+            n_seeds=N_SEEDS, with_opt_forward=True, device=d))
+        wall = time.perf_counter() - t
+    require(fanout_results_equal(*outs), "card != CPU: the spot fan-out")
+    log(f"card == CPU: fan-out with spot rents, {outs[0].B} rows, T=2048 "
+        f"({wall:.1f} s on the CPU)")
+
+
+def figures(dev, timings):
+    """The paper's Figs 1-8 at the reference's default sizes on the card:
+    ``run()`` REPEATS times (launches counted over the first), the rows'
+    shape, finite values and the port's ``check(rows)``.  Returns the
+    launch counts of each figure's first run."""
+    counts = []
+    for name, (mod, n_rows, T) in FIGURES.items():
+        ops.reset_launches()
+        out, (launched, plain) = timed_passes(
+            {"run": lambda: mod.run(device=dev)}, dev, f"figure/{name}",
+            timings, counted=True)
+        rows = out["run"]
+        try:
+            mod.check(rows)
+        except AssertionError as e:
+            raise RuntimeError(f"{name}: check(rows) failed: {e}") from e
+        require(len(rows) * N_SEEDS == n_rows
+                and all(np.isfinite(v).all() for r in rows
+                        for k, v in r.items() if k != "regime"
+                        and k != "fig"),
+                f"{name}: rows not finite / wrong count")
+        for k in FIG_KERNELS[name]:
+            require(launched[k] > 0, f"{name}: {k} never launched")
+        require(launched["dp_minplus"] == 0 and not any(plain.values()),
+                f"{name}: D on a finished w or plain code ran: {plain}")
+        log(f"{name}: {len(rows)} rows ({n_rows} fleet rows, T={T}), "
+            f"{median_us(timings, f'figure/{name}/run'):.1f} us a run "
+            f"(median of {REPEATS}; a run is the warm-up and the timed "
+            f"fan-out), check(rows) passed; launches "
+            f"{ {k: v for k, v in launched.items() if v} }")
+        counts.append(launched)
+    return counts
+
+
+def fanout_leg(dev, timings):
+    """The figures' path at the fleet leg's width: 1,024 instances x 4
+    seeds = 4,096 rows, T = 65,536 in chunks of 4,096, Bernoulli(0.35)
+    arrivals and spot rents at mean 0.35, alpha-RR and RR lanes with the
+    OPT frontiers.  Returns the launch counts of its first run."""
+    fleet = FleetBatch.for_scenario(fleet_grid(N_M, N_ALPHA, dev), T_MAIN)
+    lanes = [AlphaRR.fleet_lane(fleet), RetroRenting.fleet_lane(fleet)]
+    kw = dict(scenario=bernoulli_spot(fleet.B, dev), chunk_size=CHUNK,
+              n_seeds=N_SEEDS, with_opt_forward=True, collect_trace=False,
+              device=dev)
+    ops.reset_launches()
+    out, (launched, plain) = timed_passes(
+        {"run": lambda: run_fleet(lanes, fleet, **kw)}, dev, "fanout",
+        timings, counted=True)
+    res = out["run"]
+    n = T_MAIN // CHUNK
+    want = {"bernoulli_arrivals_chunk": n, "arma_rents_chunk": n,
+            "normal_chunk": 1, "sim_chunk_alpha_rr": 2 * n,
+            "dp_fwd_model1": 2 * n}
+    got = {k: v for k, v in launched.items() if v}
+    require(got == want and not any(plain.values()),
+            f"fan-out leg launched {got}, expected {want}; plain {plain}")
+    tot, opt = (res.policy_view(a) for a in (res.total, res.opt_cost))
+    tol = 1e-3 * T_MAIN
+    require(np.isfinite(tot).all() and np.isfinite(opt).all()
+            and (tot >= opt - tol).all() and (opt[0] <= opt[1] + tol).all()
+            and (res.level_slots.sum(1) == T_MAIN).all(),
+            "fan-out leg: results not finite or out of order")
+    log(f"fan-out leg: {res.B // 2} rows x 2 lanes, T={T_MAIN}: "
+        f"{median_us(timings, 'fanout/run'):.1f} us a run (median of "
+        f"{REPEATS}); launches P {launched['bernoulli_arrivals_chunk']} "
+        f"Bernoulli + {launched['arma_rents_chunk']} ARMA + "
+        f"{launched['normal_chunk']} normal, S "
+        f"{launched['sim_chunk_alpha_rr']}, D {launched['dp_fwd_model1']}; "
+        f"per-slot means alpha-RR / RR / alpha-OPT / OPT "
+        f"{[round(float(a.mean()) / T_MAIN, 6) for a in (*tot, *opt)]}")
+    return launched
+
+
+# ----------------------------------------------------------------------
 # Phases 7 and 8: the LM serving path.
 # ----------------------------------------------------------------------
 
@@ -965,7 +1264,7 @@ def serving_path(dev, timings):
                     and bool(torch.isfinite(lg).all())
                     and res.edge_tokens.shape == (n,),
                     f"plan {plan.kind}: logits not finite / wrong shape")
-            timings[f"serve/{plan.kind}"] = wall
+            timings[f"serve/{plan.kind}"] = [wall]
             log(f"serve_slot {plan.kind} ({plan.n_segments or 13} "
                 f"segments): {wall:.3f} s, {n * SERVE_S / wall:,.0f} prefill "
                 f"tokens/s; F {got[0]}, M {got[1]} launches; tokens "
@@ -994,7 +1293,7 @@ def serving_path(dev, timings):
     counts = launch_counts()
     for name in ("flash_attention_fma", "ssd_scan_fma"):
         require(counts[name] == 0, f"{name} ran on the bf16 serving path")
-    timings["scheduler"] = wall
+    timings["scheduler"] = [wall]
     log(f"scheduler, {SERVE_SLOTS} slots: {rep.summary()}")
     log(f"scheduler wall {wall:.2f} s, {wall / SERVE_SLOTS * 1e3:.1f} ms per "
         f"slot (8-token prompts, as the reference draws them)")
@@ -1082,10 +1381,9 @@ def main() -> int:
     B = N_M * N_ALPHA
     grid = fleet_grid(N_M, N_ALPHA, dev)
     ops.reset_launches()
-    main_res = run_leg(grid, bernoulli_uniform(B, dev), T_MAIN, False, dev,
-                       "main", timings)
-    torch.cuda.synchronize()
-    main_launches, main_plain = launch_counts(), card_calls()
+    main_res, (main_launches, main_plain) = run_leg(
+        grid, bernoulli_uniform(B, dev), T_MAIN, False, dev, "main", timings,
+        counted=True)
     log(f"fleet path launches, main leg: {main_launches}; plain code on "
         f"the card: {main_plain}")
     for k in (H.bernoulli_arrivals_chunk, H.uniform_rents_chunk,
@@ -1093,7 +1391,7 @@ def main() -> int:
         require(main_launches[k.__name__] > 0,
                 f"kernel {k.__name__} never launched on the fleet path")
     for name in ("dp_minplus", "slot_uniform", "na_rents_chunk",
-                 "ge_bernoulli_chunk"):
+                 "ge_bernoulli_chunk", "normal_chunk", "arma_rents_chunk"):
         require(main_launches[name] == 0,
                 f"{name} ran on the Bernoulli leg of the fleet path")
     require(not any(main_plain.values()),
@@ -1101,24 +1399,23 @@ def main() -> int:
     summ = check_leg(main_res, T_MAIN, "main")
     for name, s in summ.items():
         key = "total_mean" if "total_mean" in s else "cost_mean"
-        log(f"main {name}: {timings['main/' + name]:.2f} s; per-slot seed "
-            f"means of instances 0..3: "
+        log(f"main {name}: {median_us(timings, 'main/' + name):.1f} us "
+            f"(median of {REPEATS}); per-slot seed means of instances 0..3: "
             f"{np.round(s[key][:4] / T_MAIN, 6).tolist()}")
 
     # phase 4: GE arrivals, NA rents, antithetic seeds; counters read
     # around it only: per run and chunk one GE and one NA launch, per run
     # one uniform launch (the GE chain's initial draw), no plain code
     ops.reset_launches()
-    ge_res = run_leg(grid, ge_na(B, dev), T_GE, True, dev, "ge", timings)
-    torch.cuda.synchronize()
-    ge_launches, ge_plain = launch_counts(), card_calls()
+    ge_res, (ge_launches, ge_plain) = run_leg(
+        grid, ge_na(B, dev), T_GE, True, dev, "ge", timings, counted=True)
     log(f"fleet path launches, GE leg: {ge_launches}; plain code on the "
         f"card: {ge_plain}")
     runs, n_chunks = 4, -(-T_GE // CHUNK)
     want = {"ge_bernoulli_chunk": runs * n_chunks,
             "na_rents_chunk": runs * n_chunks, "slot_uniform": runs,
             "bernoulli_arrivals_chunk": 0, "uniform_rents_chunk": 0,
-            "dp_minplus": 0}
+            "dp_minplus": 0, "normal_chunk": 0, "arma_rents_chunk": 0}
     for name, n in want.items():
         require(ge_launches[name] == n, f"{name} launched "
                                         f"{ge_launches[name]} times on the "
@@ -1128,8 +1425,9 @@ def main() -> int:
     summ = check_leg(ge_res, T_GE, "ge")
     for name, s in summ.items():
         key = "total_mean" if "total_mean" in s else "cost_mean"
-        log(f"ge {name}: {timings['ge/' + name]:.2f} s; per-slot seed means "
-            f"of instances 0..3: {np.round(s[key][:4] / T_GE, 6).tolist()}")
+        log(f"ge {name}: {median_us(timings, 'ge/' + name):.1f} us (median "
+            f"of {REPEATS}); per-slot seed means of instances 0..3: "
+            f"{np.round(s[key][:4] / T_GE, 6).tolist()}")
     # the fleet path's launches: both legs
     launches = {k: main_launches[k] + ge_launches[k] for k in main_launches}
 
@@ -1149,23 +1447,34 @@ def main() -> int:
                     require(np.array_equal(getattr(a, f), getattr(b, f)),
                             f"card != CPU: {label} {name} {f}")
         log(f"card == CPU: {label} leg, {N_SEEDS * SMALL_INSTANCES} rows, "
-            f"T={T_SMALL} ({timings[f'small-{label}-cpu/alpha-RR']:.1f} s "
-            f"alpha-RR on the CPU)")
+            f"T={T_SMALL} ({timings[f'small-{label}-cpu/alpha-RR'][0]:.1f} "
+            f"s alpha-RR on the CPU)")
 
-    # phase 6: F and M against their plain versions
+    # phases 6 to 8: the policy fan-out on the card, the paper's Figs 1-8,
+    # the fan-out at the fleet leg's width; each counted path adds its
+    # launches
+    fanout_checks(dev)
+    for counts in figures(dev, timings) + [fanout_leg(dev, timings)]:
+        for k in launches:
+            launches[k] += counts[k]
+    for k in (H.normal_chunk, H.arma_rents_chunk):
+        require(launches[k.__name__] > 0, f"{k.__name__} never launched")
+
+    # phase 9: F and M against their plain versions
     rec.update(lm_kernel_checks(dev))
 
-    # phase 7: the LM serving path at full width and depth
+    # phase 10: the LM serving path at full width and depth
     serve_launches = serving_path(dev, timings)
     log(f"serving path launches: {serve_launches}")
     for k in (FA.flash_attention_wgmma, FA.flash_attention_fma,
               SSD.ssd_scan_mma, SSD.ssd_scan_fma):
         launches[k.__name__] = serve_launches[k.__name__]
 
-    # phase 8: card == CPU for the serving path
+    # phase 11: card == CPU for the serving path
     serving_card_vs_cpu(dev)
-    log("timings (s): " + json.dumps({k: round(v, 3)
-                                      for k, v in timings.items()}))
+    log(f"timings (us; a card run the median of {REPEATS} passes, a CPU "
+        f"run and the serving path one): " + json.dumps(
+            {k: round(median_us(timings, k), 1) for k in timings}))
 
     kernels = []
     for name, r in rec.items():
@@ -1185,7 +1494,7 @@ def main() -> int:
                     "alu_ops_per_slot", "ops_per_slot", "int_pipe_bound_ms",
                     "issue_bound_ms", "salt_ms", "salt_alu_ops_per_slot",
                     "salt_ops_per_slot", "salt_int_pipe_bound_ms",
-                    "salt_issue_bound_ms"):
+                    "salt_issue_bound_ms", "latency_bound_ms"):
             if key in r:
                 entry[key] = r[key]
         kernels.append(entry)

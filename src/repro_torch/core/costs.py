@@ -77,6 +77,26 @@ class HostingCosts:
     def K(self) -> int:
         return len(self.levels)
 
+    @property
+    def alpha(self) -> float:
+        """The (single) intermediate level; only defined for the 3-level
+        case."""
+        if self.K != 3:
+            raise ValueError("alpha only defined for 3-level instances")
+        return self.levels[1]
+
+    @property
+    def g_alpha(self) -> float:
+        if self.K != 3:
+            raise ValueError("g_alpha only defined for 3-level instances")
+        return self.g[1]
+
+    def assumption6_holds(self) -> bool:
+        """M > max{1, (1 - g(alpha)) / alpha} (Assumption 6)."""
+        if self.K != 3:
+            return self.M > 1.0
+        return self.M > max(1.0, (1.0 - self.g_alpha) / self.alpha)
+
 
 @dataclasses.dataclass(frozen=True)
 class HostingGrid:

@@ -14,11 +14,22 @@ The Monte-Carlo axis (``n_seeds=S``) replicates each instance S times
 (rows ``b * S + s``, instance-major) with the seed folded into every stream
 key (``scenarios.replicate_seeds``); ``mc_summary`` collapses it.
 
+**Policy fan-out.**  ``run_fleet`` also takes a sequence of policies
+(``PolicyFns``, or ``PolicyLane`` binding a policy to its own accounting
+grid): each ``[R, chunk]`` slab is generated ONCE per chunk and every lane
+steps it with its own kernel-S launch on its own grid's rows, replicated
+over seeds like the fleet's.  ``with_opt_forward=True`` carries one
+offline-DP frontier per lane through the same chunk loop (kernel D on the
+lane's levels and mask) and returns ``FleetResult.opt_cost``.  Rows are
+policy-major, ``(p * B + b) * S + s`` (``FleetResult.policy_view``); lane p
+is bitwise its standalone run, ``opt_cost`` bitwise ``offline_opt_fleet``
+on the lane's fleet.
+
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: obs-backed fleets, ``stream=``, ``policies=[...]``
-fan-out, ``with_opt_forward``, ``async_ingest``, ``gather``, a mesh, the
-materialized DP and ``collect_schedule=True``.  The port runs on one
-device, so no rows are padded.
+ROADMAP.md item: obs-backed fleets, ``stream=``, Model-2 lanes
+(``svc_cols``), ``async_ingest``, ``gather``, a mesh, the materialized DP
+and ``collect_schedule=True``.  The port runs on one device, so no rows
+are padded.
 """
 from __future__ import annotations
 
@@ -31,7 +42,8 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.costs import HostingGrid
-from repro_torch.core.policies.base import PolicyFns
+from repro_torch.core.policies.base import (PolicyFns, PolicyLane,
+                                            as_policy_lanes)
 from repro_torch.core.policies.offline_opt import (dp_fetch_matrix,
                                                    dp_frontier0, dp_fwd_chunk)
 from repro_torch.core.scenarios.base import (Scenario, chunk_geometry,
@@ -83,7 +95,11 @@ class FleetBatch:
 class FleetResult:
     """[B]-structured results of one fleet simulation (padded time already
     sliced away).  With ``n_seeds=S`` the rows are the [B_instances * S]
-    replication, instance-major; ``seed_view`` reshapes to [B, S, ...]."""
+    replication, instance-major; ``seed_view`` reshapes to [B, S, ...].
+    With a fan-out of P lanes the rows are also policy-major, ``(p *
+    B_fleet + b) * S + s``; ``policy_view`` peels the lane axis off,
+    ``level_slots`` is zero-padded to the widest lane's K and ``opt_cost``
+    holds each row's offline DP optimum (``with_opt_forward=True``)."""
 
     total: np.ndarray                 # [B]
     fetch: np.ndarray                 # [B]
@@ -93,6 +109,8 @@ class FleetResult:
     level_slots: np.ndarray           # [B, K] slots spent at each level
     T: np.ndarray                     # [B] per-instance horizons
     n_seeds: int = 1
+    n_policies: int = 1
+    opt_cost: Optional[np.ndarray] = None   # [B] (with_opt_forward only)
 
     @property
     def B(self) -> int:
@@ -106,6 +124,13 @@ class FleetResult:
         """Reshape a [B*S]-leading result array to [B_instances, S, ...]."""
         a = np.asarray(a)
         return a.reshape((self.B_instances, self.n_seeds) + a.shape[1:])
+
+    def policy_view(self, a) -> np.ndarray:
+        """Reshape a policy-major [P * B_fleet * S]-leading result array to
+        [P, B_fleet * S, ...]: one row block per fan-out lane."""
+        a = np.asarray(a)
+        return a.reshape((self.n_policies, self.B // self.n_policies)
+                         + a.shape[1:])
 
 
 @dataclasses.dataclass
@@ -181,7 +206,6 @@ def mc_summary(result, fields=("total", "rent", "service", "fetch"),
 # the ROADMAP.md item that brings each
 _LATER = {
     "stream": "Queue 1 item 7 (host-streamed drivers)",
-    "with_opt_forward": "Queue 1 item 9 (policy fan-out)",
     "async_ingest": "Queue 1 item 10 (live stepper and ingestion)",
     "gather": "Queue 1 item 15 (multi-device / multi-process)",
     "mesh": "Queue 1 item 15 (multi-device / multi-process)",
@@ -250,7 +274,8 @@ def run_fleet(policy, fleet: FleetBatch, *,
     Args:
       policy: a ``PolicyFns`` whose params carry a leading [B] axis matching
         ``fleet.grid`` (``AlphaRR.fleet(fleet)``; RR runs on
-        ``fleet.restrict_to_endpoints()``).
+        ``fleet.restrict_to_endpoints()``), or a sequence of them and of
+        ``PolicyLane`` entries: the fan-out axis (module docstring).
       fleet: ``FleetBatch.for_scenario(grid, T)`` (mixed horizons allowed).
       scenario: the workload generator (B rows).
       chunk_size: slots per chunk (None = the whole horizon in one chunk);
@@ -261,44 +286,127 @@ def run_fleet(policy, fleet: FleetBatch, *,
         streams.
       device: None means the CUDA card (raises without one); ``"cpu"``
         runs the plain PyTorch versions of the kernels.
+      with_opt_forward: co-execute the offline DP's frontier per lane and
+        return ``opt_cost`` (a single ``PolicyFns`` is then a one-lane
+        fan-out).
 
-    Row ``b * S + s`` of the result is bitwise the reference's
-    ``run_fleet`` under the same threefry layout.
+    Row ``b * S + s`` (``(p * B + b) * S + s`` under a fan-out) of the
+    result is bitwise the reference's ``run_fleet`` under the same
+    threefry layout.
     """
-    _refuse_later(stream=stream, with_opt_forward=with_opt_forward,
-                  async_ingest=async_ingest, gather=gather, mesh=mesh)
-    if not isinstance(policy, PolicyFns):
-        raise NotImplementedError(
-            "policies=[...] fan-out is not ported yet: ROADMAP.md, Queue 1 "
-            "item 9")
+    _refuse_later(stream=stream, async_ingest=async_ingest, gather=gather,
+                  mesh=mesh)
+    lanes = as_policy_lanes(policy) or (PolicyLane(policy),)
     fleet, scenario, dev = _to_device(fleet, scenario, device)
+    _check_lanes(lanes, fleet)
     fleet, scenario, S = _replicate_mc(fleet, scenario, n_seeds, antithetic)
-    policy = _replicate_policy(policy, S, dev)
-    B, K, T_max = fleet.B, fleet.K, fleet.T_max
+    T_max = fleet.T_max
     n_chunks, T_pad = chunk_geometry(T_max, chunk_size)
     chunk = T_pad // n_chunks
-    grid = fleet.grid
     T_len = torch.from_numpy(fleet.T).to(dev)
-    carry = (policy.init_fn(policy.params), sim_acc0(B, K, dev))
+    runs = [_Lane(lane, fleet.grid, S, dev, with_opt_forward)
+            for lane in lanes]
     gen = scenario.init_fn(scenario.params)
-    r_parts = []
     for i in range(n_chunks):
         t0 = i * chunk
-        gen, slab = scenario.chunk_fn(scenario.params, gen,
-                                      chunk_tids(t0, chunk, dev))
-        carry, r = sim_chunk(policy, include_final_fetch, grid.levels,
-                             grid.g, grid.M, T_len, t0, carry, slab,
-                             collect_trace)
-        r_parts.append(r)
-    acc = carry[1]
-    sums = acc["sums"].cpu().numpy().astype(np.float64)
-    r_hist = (torch.cat(r_parts, dim=1)[:, :T_max].cpu().numpy()
-              if collect_trace else None)
+        tids = chunk_tids(t0, chunk, dev)
+        gen, slab = scenario.chunk_fn(scenario.params, gen, tids)
+        for run in runs:
+            run.step(include_final_fetch, T_len, t0, tids, slab,
+                     collect_trace)
+    # policy-major rows; hetero-K lanes' histograms zero-padded to the
+    # widest lane's K
+    parts = [run.result(T_max, collect_trace) for run in runs]
+    sums = np.concatenate([p["sums"] for p in parts])
+    counts = [p["level_slots"] for p in parts]
+    K_max = max(c.shape[1] for c in counts)
     return FleetResult(
         total=sums.sum(axis=1), rent=sums[:, 0], service=sums[:, 1],
-        fetch=sums[:, 2], r_hist=r_hist,
-        level_slots=acc["counts"].cpu().numpy().astype(np.int64),
-        T=fleet.T.astype(np.int64), n_seeds=S)
+        fetch=sums[:, 2],
+        r_hist=(np.concatenate([p["r_hist"] for p in parts])
+                if collect_trace else None),
+        level_slots=np.concatenate(
+            [np.pad(c, ((0, 0), (0, K_max - c.shape[1]))) for c in counts]),
+        T=np.tile(fleet.T.astype(np.int64), len(parts)), n_seeds=S,
+        n_policies=len(parts),
+        opt_cost=(np.concatenate([p["opt_cost"] for p in parts])
+                  if with_opt_forward else None))
+
+
+def _check_lanes(lanes, fleet: FleetBatch):
+    """Each lane must be able to price the shared stream: a ``PolicyFns``,
+    a grid of the fleet's B, and (for now) Model-1 pricing."""
+    for i, lane in enumerate(lanes):
+        if not isinstance(lane.fns, PolicyFns):
+            raise TypeError(f"fan-out lane {i}: .fns must be a PolicyFns, "
+                            f"got {type(lane.fns).__name__}")
+        if lane.grid is not None and lane.grid.B != fleet.B:
+            raise ValueError(f"fan-out lane {i} ({lane.name!r}): lane grid "
+                             f"B={lane.grid.B} != fleet B={fleet.B}")
+        if lane.svc_cols is not None:
+            raise NotImplementedError(
+                f"fan-out lane {i} ({lane.name!r}): svc_cols= (Model-2 "
+                "service) comes with Model-2 service on the kernels: "
+                "ROADMAP.md, Queue 1 item 5")
+
+
+class _Lane:
+    """One fan-out lane's device state: its policy and accounting grid
+    replicated over the seeds, its ``(state, acc)`` carry, its trace
+    chunks and, with ``with_opt``, its DP frontier."""
+
+    def __init__(self, lane: PolicyLane, fleet_grid: HostingGrid, S: int,
+                 dev, with_opt: bool):
+        self.grid = (fleet_grid if lane.grid is None
+                     else lane.grid.to(dev).repeat_rows(S))
+        self.policy = _replicate_policy(lane.fns, S, dev)
+        B, K = self.grid.B, self.grid.K
+        self.carry = (self.policy.init_fn(self.policy.params),
+                      sim_acc0(B, K, dev))
+        self.r_parts = []
+        self.dp = _DpLane(self.grid, dev) if with_opt else None
+
+    def step(self, include_final_fetch, T_len, t0, tids, slab,
+             collect_trace):
+        g = self.grid
+        self.carry, r = sim_chunk(self.policy, include_final_fetch, g.levels,
+                                  g.g, g.M, T_len, t0, self.carry, slab,
+                                  collect_trace)
+        self.r_parts.append(r)
+        if self.dp is not None:
+            self.dp.step(T_len, t0, tids, slab)
+
+    def result(self, T_max, collect_trace) -> dict:
+        acc = self.carry[1]
+        return {
+            "sums": acc["sums"].cpu().numpy().astype(np.float64),
+            "level_slots": acc["counts"].cpu().numpy().astype(np.int64),
+            "r_hist": (torch.cat(self.r_parts, dim=1)[:, :T_max].cpu()
+                       .numpy() if collect_trace else None),
+            "opt_cost": None if self.dp is None else self.dp.cost()}
+
+
+class _DpLane:
+    """The offline DP's forward frontier over one grid: the checkpointed
+    cost-only pass of ``offline_opt_fleet``, one chunk at a time."""
+
+    def __init__(self, grid: HostingGrid, dev):
+        self.grid = grid
+        self.lv32 = grid.levels.to(torch.float32)
+        self.fetch = dp_fetch_matrix(grid.M.to(torch.float32), self.lv32)
+        self.J = dp_frontier0(grid.B, grid.K, dev)
+
+    def step(self, T_len, t0, tids, slab):
+        g = self.grid
+        if slab.svc is None:        # Model 1: kernel D assembles w itself
+            self.J, _ = dp_fwd_model1(self.J, slab.c, slab.x, g.g, self.lv32,
+                                      g.mask, self.fetch, T_len, t0)
+        else:
+            self.J, _ = dp_fwd_chunk(self.J, tids, slab.c, slab.svc,
+                                     self.lv32, g.mask, self.fetch, T_len)
+
+    def cost(self) -> np.ndarray:
+        return torch.amin(self.J, dim=1).cpu().numpy().astype(np.float64)
 
 
 def offline_opt_fleet(fleet: FleetBatch, *,
@@ -327,23 +435,14 @@ def offline_opt_fleet(fleet: FleetBatch, *,
             "schedule come with ROADMAP.md, Queue 1 item 7")
     fleet, scenario, dev = _to_device(fleet, scenario, device)
     fleet, scenario, S = _replicate_mc(fleet, scenario, n_seeds, antithetic)
-    B, K, T_max = fleet.B, fleet.K, fleet.T_max
-    n_chunks, T_pad = chunk_geometry(T_max, chunk_size)
+    n_chunks, T_pad = chunk_geometry(fleet.T_max, chunk_size)
     chunk = T_pad // n_chunks
-    grid = fleet.grid
-    lv32 = grid.levels.to(torch.float32)
-    fetch_mat = dp_fetch_matrix(grid.M.to(torch.float32), lv32)
     T_len = torch.from_numpy(fleet.T).to(dev)
-    J = dp_frontier0(B, K, dev)
+    dp = _DpLane(fleet.grid, dev)
     gen = scenario.init_fn(scenario.params)
     for i in range(n_chunks):
         tids = chunk_tids(i * chunk, chunk, dev)
         gen, slab = scenario.chunk_fn(scenario.params, gen, tids)
-        if slab.svc is None:        # Model 1: kernel D assembles w itself
-            J, _ = dp_fwd_model1(J, slab.c, slab.x, grid.g, lv32, grid.mask,
-                                 fetch_mat, T_len, i * chunk)
-        else:
-            J, _ = dp_fwd_chunk(J, tids, slab.c, slab.svc, lv32, grid.mask,
-                                fetch_mat, T_len)
-    cost = torch.amin(J, dim=1).cpu().numpy().astype(np.float64)
-    return FleetOfflineResult(cost=cost, r_hist=None, sim=None, n_seeds=S)
+        dp.step(T_len, i * chunk, tids, slab)
+    return FleetOfflineResult(cost=dp.cost(), r_hist=None, sim=None,
+                              n_seeds=S)

@@ -6,13 +6,14 @@ from repro_torch.core.policies.alpha_rr import (AlphaRR, RetroRenting,
                                                 alpha_rr_params,
                                                 alpha_rr_step,
                                                 alpha_rr_step_eager)
-from repro_torch.core.policies.base import (OnlinePolicy, PolicyFns, SlotObs,
-                                            freeze_invalid)
+from repro_torch.core.policies.base import (OnlinePolicy, PolicyFns,
+                                            PolicyLane, SlotObs,
+                                            as_policy_lanes, freeze_invalid)
 from repro_torch.core.policies.baselines import StaticPolicy
 
 __all__ = [
     "AlphaRR", "RetroRenting", "alpha_rr_grid_params", "alpha_rr_init",
     "alpha_rr_literal", "alpha_rr_params", "alpha_rr_step",
-    "alpha_rr_step_eager", "OnlinePolicy", "PolicyFns", "SlotObs",
-    "freeze_invalid", "StaticPolicy",
+    "alpha_rr_step_eager", "OnlinePolicy", "PolicyFns", "PolicyLane",
+    "SlotObs", "as_policy_lanes", "freeze_invalid", "StaticPolicy",
 ]

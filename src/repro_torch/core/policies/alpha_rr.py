@@ -27,8 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.costs import HostingCosts, HostingGrid
-from repro_torch.core.policies.base import (OnlinePolicy, PolicyFns, SlotObs,
-                                            State)
+from repro_torch.core.policies.base import (OnlinePolicy, PolicyFns,
+                                            PolicyLane, SlotObs, State)
 from repro_torch.kernels.hosting import fma32
 
 _BIG = float(np.float32(3.4e38))   # acts as +inf for min(0, .) gating
@@ -109,6 +109,13 @@ def _step(params, state: State, obs: SlotObs, mul_add) -> State:
             "age": torch.where(switch, 0, age).to(torch.int32)}
 
 
+def _refuse_svc(with_svc: bool):
+    if with_svc:
+        raise NotImplementedError(
+            "fan-out lanes under Model-2 service (with_svc=True) come with "
+            "Model-2 service on the kernels: ROADMAP.md, Queue 1 item 5")
+
+
 class AlphaRR(OnlinePolicy):
     """O(1)-per-slot alpha-RetroRenting over an arbitrary level grid (K=2
     is RetroRenting, K=3 the paper's alpha-RR, K>3 multiple-RR).
@@ -132,6 +139,14 @@ class AlphaRR(OnlinePolicy):
         horizon state; the engine masks each row's own T)."""
         return cls.batch(fleet.grid)
 
+    @classmethod
+    def fleet_lane(cls, fleet, with_svc: bool = False) -> PolicyLane:
+        """This policy as ONE entry of ``run_fleet``'s fan-out axis, on the
+        fleet's own grid."""
+        _refuse_svc(with_svc)
+        return PolicyLane(cls.fleet(fleet))
+
+
 
 class RetroRenting(AlphaRR):
     """RR of [22]: AlphaRR on the endpoint levels (0, 1); run a fleet of it
@@ -145,6 +160,14 @@ class RetroRenting(AlphaRR):
     def batch(cls, grid: HostingGrid) -> PolicyFns:
         return PolicyFns("RR", alpha_rr_init, alpha_rr_step,
                          alpha_rr_grid_params(grid.restrict_to_endpoints()))
+
+    @classmethod
+    def fleet_lane(cls, fleet, with_svc: bool = False) -> PolicyLane:
+        """RR as a fan-out lane on its OWN endpoint accounting grid (Model
+        1: it prices ``g * x`` from the endpoint grid's g row)."""
+        _refuse_svc(with_svc)
+        return PolicyLane(cls.fleet(fleet),
+                          grid=fleet.grid.restrict_to_endpoints())
 
 
 # ----------------------------------------------------------------------

@@ -14,7 +14,7 @@ the [R] int32 index of the level each row holds during the next slot.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -47,6 +47,46 @@ class PolicyFns(NamedTuple):
     init_fn: Callable[[Any], State]
     step_fn: Callable[[Any, State, SlotObs], State]
     params: Any
+
+
+class PolicyLane(NamedTuple):
+    """ONE entry of ``run_fleet``'s policy fan-out axis.
+
+    ``grid=None`` means the lane runs on the fleet's own grid.  A lane with
+    its own grid (same B, its own K / levels / g -- e.g.
+    ``grid.restrict_to_endpoints()`` for RR) prices Model-1 service
+    ``g_lane * x`` from its own g row.  ``svc_cols`` (a [B, K_lane] column
+    map into a Model-2 service slab) comes with Model-2 service on the
+    kernels (ROADMAP.md, Queue 1 item 5); ``run_fleet`` refuses it."""
+
+    fns: PolicyFns
+    grid: Optional[Any] = None       # HostingGrid; None -> fleet.grid
+    svc_cols: Optional[Any] = None   # [B, K_lane] columns into fleet svc
+
+    @property
+    def name(self) -> str:
+        return self.fns.name
+
+
+def as_policy_lanes(policy) -> Optional[Tuple[PolicyLane, ...]]:
+    """``None`` for a single ``PolicyFns`` (the classic path); otherwise the
+    normalised tuple of ``PolicyLane`` entries of a fan-out request."""
+    if isinstance(policy, PolicyFns):
+        return None
+    if isinstance(policy, PolicyLane):
+        return (policy,)
+    lanes = []
+    for entry in policy:
+        if isinstance(entry, PolicyLane):
+            lanes.append(entry)
+        elif isinstance(entry, PolicyFns):
+            lanes.append(PolicyLane(entry))
+        else:
+            raise TypeError(f"fan-out entries must be PolicyFns or "
+                            f"PolicyLane, got {type(entry).__name__}")
+    if not lanes:
+        raise ValueError("policy fan-out needs at least one lane")
+    return tuple(lanes)
 
 
 class OnlinePolicy:

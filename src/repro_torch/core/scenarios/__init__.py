@@ -9,9 +9,11 @@ from repro_torch.core.scenarios.base import (ObsSlab, Scenario, Stream,
 from repro_torch.core.scenarios.combinators import (combine,
                                                     replicate_seeds,
                                                     with_seed)
-from repro_torch.core.scenarios.streams import (bernoulli_arrivals,
+from repro_torch.core.scenarios.streams import (arma_rents,
+                                                bernoulli_arrivals,
                                                 constant_rents, ge_arrivals,
-                                                na_rents, trace_arrivals,
+                                                na_rents, spot_bounds,
+                                                spot_rents, trace_arrivals,
                                                 trace_rents, uniform_rents)
 
 __all__ = [
@@ -19,6 +21,7 @@ __all__ = [
     "materialize", "materialize_stream", "prng_key", "shared_keys",
     "slot_uniform", "split_keys",
     "combine", "replicate_seeds", "with_seed",
-    "bernoulli_arrivals", "constant_rents", "ge_arrivals", "na_rents",
-    "trace_arrivals", "trace_rents", "uniform_rents",
+    "arma_rents", "bernoulli_arrivals", "constant_rents", "ge_arrivals",
+    "na_rents", "spot_bounds", "spot_rents", "trace_arrivals", "trace_rents",
+    "uniform_rents",
 ]

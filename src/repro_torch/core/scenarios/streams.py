@@ -4,7 +4,9 @@
 Arrival streams: ``bernoulli_arrivals``, ``ge_arrivals`` (Gilbert-Elliot,
 side = chain state; bernoulli emissions), ``trace_arrivals``.
 Rent streams: ``uniform_rents``, ``na_rents`` (antithetic time-pairs,
-Assumption 7), ``constant_rents``, ``trace_rents``.
+Assumption 7), ``constant_rents``, ``trace_rents``, ``arma_rents`` and
+``spot_rents`` (AWS-spot-like ARMA(4, 2) rents; ``spot_bounds`` gives
+their clip rails).
 
 Every random draw is kernel P's (``kernels/hosting.py``), which draws and
 finishes one stream's chunk in one launch on the card, and runs its plain
@@ -20,15 +22,21 @@ code after it in ``repro/core/scenarios/streams.py``:
 * ``_ge_chunk_bernoulli`` (``_ge_states`` + ``_ge_emit``) ->
   ``ge_bernoulli_chunk``: the chain runs as a warp scan of its 2-state
   maps, not slot by slot;
-* ``_ge_init``'s one draw -> ``slot_uniform``.
+* ``_ge_init``'s one draw -> ``slot_uniform``;
+* ``_arma_chunk`` (``jax.random.normal`` on per-slot keys, then the
+  ``lax.scan`` of the ARMA recursion) -> ``arma_rents_chunk``: the
+  innovations drawn slot-parallel, each row's recursion walked by one
+  thread; ``_arma_init``'s draws -> ``normal_chunk``.  The normal is
+  ``sqrt(2) * erf_inv(u)`` with XLA's own float32 ``erf_inv`` and ``log``
+  transcribed op for op (``kernels.hosting.erf_inv_plain``).
 
 Each is bound by the threefry hash's integer operations; the kernel keeps
 the draws in registers (no uniform slab in device memory, no float64) and
 issues the hash's adds on the FMA pipe, leaving the integer ALU pipe to the
 rotates and xors (``csrc/hosting.cu``).  The streams that draw through
-``jax.random.poisson`` / ``jax.random.normal`` in the reference
-(GE-poisson emissions, bursty, ARMA / spot rents) and the Model-2 service
-stream come with the sampler slice (ROADMAP.md, Queue 1 item 3).
+``jax.random.poisson`` in the reference (GE-poisson emissions, bursty) and
+the Model-2 service stream come with the rest of the sampler slice
+(ROADMAP.md, Queue 1 item 3b).
 
 ``bernoulli_arrivals`` and ``uniform_rents`` carry a boolean ``flip`` param
 (default False) mapping each slot uniform ``u -> 1 - u``: the hook that
@@ -38,9 +46,11 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.core.rentcosts import DEFAULT_AR, DEFAULT_MA
 from repro_torch.core.scenarios.base import Stream, as_keys, bcast, slot_uniform
 from repro_torch.kernels import hosting
 
@@ -208,3 +218,69 @@ def trace_rents(c, B: Optional[int] = None, device=None) -> Stream:
         c = c[None, :].expand(B or 1, c.shape[0])
     return Stream("trace", "rents", _no_state, _trace_rents_chunk,
                   {"trace": c.contiguous()})
+
+
+def _arma_init(params):
+    p, q = params["phi"].shape[1], params["th"].shape[1]
+    key = params["key"]
+    # eps holds (eps_{-1}, ..., eps_{-q}): counters q-1 .. 0
+    tids = torch.arange(q - 1, -1, -1, dtype=_I32, device=key.device)
+    return {"hist": torch.zeros((key.shape[0], p), dtype=_F32,
+                                device=key.device),
+            "eps": hosting.normal_chunk(key, tids, params["sigma"])}
+
+
+def _arma_chunk(params, state, tids):
+    hist, eps, c = hosting.arma_rents_chunk(
+        params["key"], tids, state["hist"], state["eps"], params["phi"],
+        params["th"], params["sigma"], params["mean"], params["c_min"],
+        params["c_max"])
+    return {"hist": hist, "eps": eps}, c
+
+
+def _coefs(v, B: int, dev):
+    a = torch.as_tensor(np.asarray(v, np.float32), device=dev)
+    return (a[None].expand(B, -1) if a.dim() == 1 else a).contiguous()
+
+
+def arma_rents(key, mean, B: int, ar=None, ma=None, sigma=0.05, c_min=0.05,
+               c_max=10.0, device=None) -> Stream:
+    """ARMA(p, q) rents, clipped to Assumption-3 bounds.
+
+    The recursion state (the last p deviations, the last q innovations)
+    rides in the stream's state; innovation ``eps_t`` uses counter ``t +
+    q`` (counters [0, q) seed the pre-horizon innovations in ``init_fn``),
+    so any chunking replays the same series.  ``ar`` / ``ma`` default to
+    ``rentcosts.DEFAULT_AR`` / ``DEFAULT_MA``; every coefficient may be
+    per-instance [B, p] / [B, q]; 1 <= p <= 8 and 2 <= q <= 8 (XLA's op
+    order is pinned for those; the reference itself fails at q = 0)."""
+    dev = resolve_device(device)
+    phi = _coefs(DEFAULT_AR if ar is None else ar, B, dev)
+    th = _coefs(DEFAULT_MA if ma is None else ma, B, dev)
+    if th.shape[1] < 2:
+        raise NotImplementedError(
+            "arma_rents takes an MA order q >= 2: the op order of XLA's scan "
+            "at q = 1 is not pinned")
+    return Stream("arma", "rents", _arma_init, _arma_chunk,
+                  {"key": as_keys(key, B, dev),
+                   "mean": bcast(mean, B, _F32, dev), "phi": phi, "th": th,
+                   "sigma": bcast(sigma, B, _F32, dev),
+                   "c_min": bcast(c_min, B, _F32, dev),
+                   "c_max": bcast(c_max, B, _F32, dev)})
+
+
+def spot_rents(key, c_mean, B: int, rel_sigma=0.15, c_min=None, c_max=None,
+               device=None) -> Stream:
+    """AWS-spot-like rents: the default ARMA(4, 2) scaled to a target mean
+    (``sigma = rel_sigma * c_mean``, rails ``spot_bounds``), its parameter
+    arithmetic in float64 as the reference's, cast to float32 once."""
+    c_mean = np.asarray(c_mean, np.float64)
+    return arma_rents(
+        key, c_mean, B, sigma=rel_sigma * c_mean,
+        c_min=np.maximum(0.2 * c_mean, 1e-3) if c_min is None else c_min,
+        c_max=3.0 * c_mean if c_max is None else c_max, device=device)
+
+
+def spot_bounds(c_mean):
+    """(c_min, c_max) a ``spot_rents`` stream can ever emit (clip rails)."""
+    return float(max(0.2 * c_mean, 1e-3)), float(3.0 * c_mean)

@@ -1,0 +1,10 @@
+"""The paper's figure benchmarks on the port (the counterparts of
+``benchmarks/fig*.py``): each module's ``run(T, seed, n_seeds, device)``
+builds the reference's grids and keys and returns the same rows, bitwise
+on the CPU; ``check(rows)`` is a copy of the reference module's check.
+
+* ``fig01_02_alpha_sweep`` -- cost and hosting histogram vs alpha + g.
+* ``fig03_06_m_p_sweeps`` -- cost vs fetch cost M and arrival rate p.
+* ``fig07_08_multiple_rr`` -- multiple-RR vs alpha-RR vs RR under GE
+  arrivals.
+"""

@@ -11,7 +11,8 @@ before a launch (``check_tensor``, ``raise_on``, ``stream``) live here too.
 
 Flags per library:
 
-* ``hosting`` (kernel P's stream variants, D (both), S):
+* ``hosting`` (kernel P's stream variants and the ARMA kernel, D (both),
+  S):
   ``--fmad=false``, because those kernels
   are held bit for bit against the reference, which fixes which
   multiply-adds are one FMA (written as ``__fmaf_rn``) and which are two
@@ -49,6 +50,9 @@ LIBRARIES = {
         # keys, tids, s_in, p_hl, p_lh, rate_h, rate_l, s_out, states, x,
         # R, chunk, partitionable, stream
         "launch_ge_chain": (_P,) * 10 + (_I,) * 3 + (_P,),
+        # keys, tids, hist_in, eps_in, phi, th, sigma, mean, c_min, c_max,
+        # hist_out, eps_out, c, R, chunk, P, Q, partitionable, stream
+        "launch_arma_rents": (_P,) * 13 + (_I,) * 5 + (_P,),
         "launch_dp_minplus": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
         # J, c, x, g, lv, kmask, fetch, T_len, Jout, args (or NULL), R,
         # chunk, K, t0, stream

@@ -6,9 +6,12 @@
 //   P  counter_stream_kernel<KIND>  one stream's chunk of counter-keyed
 //                          draws, finished in the kernel: U(0,1) uniforms
 //                          (slot_uniform), Bernoulli arrivals, uniform rents,
-//                          NA-pair rents
+//                          NA-pair rents, scaled normals (XLA's erf_inv)
 //      ge_chain_kernel     the Gilbert-Elliot chain and its Bernoulli
 //                          emissions over one chunk
+//      arma_rents_kernel   the ARMA(p, q) rents over one chunk: normals drawn
+//                          slot-parallel, each row's recursion walked by one
+//                          thread
 //   D  dp_fwd_model1       one chunk of the offline-OPT min-plus recursion
 //                          with the Model-1 cost assembly fused in (the
 //                          fleet DP)
@@ -21,7 +24,8 @@
 // one FMA and which are two rounded ops.  XLA:CPU contracts a product that
 // feeds an add inside one fusion: in this slice's path that is w = c*lv + svc
 // and the margin M*|lv - lv_r| + S of alpha-RR, the fused DP's c*lv + svc,
-// and the rents lo + u*(hi - lo), each written here as __fmaf_rn.
+// the rents lo + u*(hi - lo), every Horner step of XLA's erf_inv / log /
+// log1p, and the ARMA scan's two-term dots, each written here as __fmaf_rn.
 // Everything else is two rounded ops, which only --fmad=false guarantees.
 // Every kernel is held bit-for-bit against its plain PyTorch version
 // (chip_smoke.py) and, through that, against the JAX package
@@ -124,6 +128,9 @@ __device__ __forceinline__ float uniform_of(uint32_t a0, uint32_t a1,
 //   kUniformRents  out = fma(flip ? 1 - u : u, hi - lo, lo)  float32
 //   kNaRents       u from the pair counter t >> 1 (floor(t / 2));
 //                  out = fma(t even ? u : 1 - u, hi - lo, lo)
+//   kNormal        out = (sigma * sqrt(2)) * erf_inv(max(lo, 2u + lo)),
+//                  lo = nextafter(-1, 0): jax.random.normal scaled by
+//                  sigma as XLA folds the scale inside a jit (a = sigma)
 // hi - lo is one float32 subtraction and the FMA one rounding, as XLA:CPU
 // computes lo + u * (hi - lo) inside its fusion.
 //
@@ -144,15 +151,90 @@ __device__ __forceinline__ float uniform_of(uint32_t a0, uint32_t a1,
 // both.
 // ---------------------------------------------------------------------
 
+// ---------------------------------------------------------------------
+// XLA:CPU's float32 log, log1p and erf_inv, op for op, for the normal draw
+// (jax.random.normal is sqrt(2) * erf_inv(u); XLA lowers erf_inv to Giles's
+// polynomials over -log1p(-u * u), log1p to a rational approximation near 0
+// and log(1 + x) elsewhere, and log to an inlined Cephes logf).  XLA's LLVM
+// backend contracts every multiply that feeds only an add into one FMA:
+// those are the __fmaf_rn below; the rest are single rounded operations
+// (--fmad=false).  Constants are the float32 values XLA uses.
+// ---------------------------------------------------------------------
+
+constexpr float kNormalLo = -0.99999994f;  // nextafter(-1, 0)
+constexpr float kSqrt2 = 1.4142135f;
+
+__device__ __forceinline__ float xla_logf(float v) {
+  const float xc = v > 1.1754944e-38f ? v : 1.1754944e-38f;  // FLT_MIN
+  const int bits = __float_as_int(xc);
+  const float m = __int_as_float((bits & 0x7FFFFF) | 0x3F000000);
+  const bool small = m < 0.70710677f;
+  const float e = ((float)((bits >> 23) - 127) + 1.0f) - (small ? 1.0f : 0.0f);
+  const float x = (m + -1.0f) + (small ? m : 0.0f);
+  const float z = x * x;
+  const float x3 = z * x;
+  const float y1 = __fmaf_rn(__fmaf_rn(x, 0.070376836f, -0.1151461f), x,
+                             0.116769984f);
+  const float y2 = __fmaf_rn(__fmaf_rn(x, -0.12420141f, 0.14249323f), x,
+                             -0.16668057f);
+  const float y3 = __fmaf_rn(__fmaf_rn(x, 0.20000714f, -0.24999994f), x,
+                             0.3333333f);
+  const float y = __fmaf_rn(__fmaf_rn(__fmaf_rn(y1, x3, y2), x3, y3), x3,
+                            e * -0.00021219444f);
+  const float out = ((x - z * 0.5f) + y) + e * 0.693359375f;
+  return v == __int_as_float(0x7F800000) ? v
+         : v == 0.0f                    ? __int_as_float(0xFF800000)
+                                        : out;
+}
+
+__device__ __forceinline__ float xla_erf_invf(float u) {
+  const float x = u * -u;
+  const float x2 = x * x;
+  float num = 4.527e-05f;
+  num = __fmaf_rn(num, x, 0.49854103f);
+  num = __fmaf_rn(num, x, 6.5787325f);
+  num = __fmaf_rn(num, x, 29.911919f);
+  num = __fmaf_rn(num, x, 60.94967f);
+  num = __fmaf_rn(num, x, 57.112965f);
+  num = __fmaf_rn(num, x, 20.039553f);
+  float den = 1.0f;
+  den = __fmaf_rn(den, x, 15.062909f);
+  den = __fmaf_rn(den, x, 83.04757f);
+  den = __fmaf_rn(den, x, 221.7624f);
+  den = __fmaf_rn(den, x, 309.09872f);
+  den = __fmaf_rn(den, x, 216.42789f);
+  den = __fmaf_rn(den, x, 60.11866f);
+  const float near0 = x + (x2 * -0.5f + (x * x2) * __fdiv_rn(num, den));
+  const float l1p = fabsf(x) < 0.41421357f ? near0 : xla_logf(x + 1.0f);
+  const bool lt = l1p > -5.0f;
+  const float w = lt ? -2.5f - l1p : __fsqrt_rn(-l1p) + -3.0f;
+  float p = lt ? 2.8102264e-08f : -0.00020021426f;
+  p = __fmaf_rn(p, w, lt ? 3.4327394e-07f : 0.00010095056f);
+  p = __fmaf_rn(p, w, lt ? -3.5233877e-06f : 0.0013493432f);
+  p = __fmaf_rn(p, w, lt ? -4.3915065e-06f : -0.0036734284f);
+  p = __fmaf_rn(p, w, lt ? 0.00021858087f : 0.0057395077f);
+  p = __fmaf_rn(p, w, lt ? -0.001253725f : -0.0076224613f);
+  p = __fmaf_rn(p, w, lt ? -0.0041776816f : 0.0094388705f);
+  p = __fmaf_rn(p, w, lt ? 0.24664073f : 1.001674f);
+  p = __fmaf_rn(p, w, lt ? 1.5014094f : 2.8329768f);
+  return u * (fabsf(u) == 1.0f ? __int_as_float(0x7F800000) : p);
+}
+
+// (scale * sqrt(2)) * erf_inv(u) for the [0, 1) uniform f of a draw: u =
+// max(lo, 2 f + lo) (2 f is exact), scale2 = scale * sqrt(2)
+__device__ __forceinline__ float normal_of(float f, float scale2) {
+  return scale2 * xla_erf_invf(fmaxf(kNormalLo, f * 2.0f + kNormalLo));
+}
+
 constexpr int kSlots = 4;                  // consecutive slots a thread
 
 enum StreamKind { kUniform = 0, kBernoulli = 1, kUniformRents = 2,
-                  kNaRents = 3 };
+                  kNaRents = 3, kNormal = 4 };
 
 struct StreamArgs {
   const long long* keys;   // [R, 2] key words in [0, 2**32)
   const int* tids;         // [chunk] global slot counters
-  const float* a;          // [R] p (kBernoulli) or lo (rents)
+  const float* a;          // [R] p (kBernoulli), lo (rents), sigma (kNormal)
   const float* b;          // [R] hi (rents)
   const bool* flip;        // [R] (kBernoulli, kUniformRents)
   void* out;               // [R, chunk] float32 or int32
@@ -174,6 +256,7 @@ __global__ void __launch_bounds__(256)
   bool flip = false;
   if (KIND != kUniform) pa = p.a[row];
   if (KIND == kUniformRents || KIND == kNaRents) width = p.b[row] - pa;
+  if (KIND == kNormal) pa = pa * kSqrt2;   // sigma * sqrt(2), once a row
   if (KIND == kBernoulli || KIND == kUniformRents) flip = p.flip[row];
   uint32_t v[kSlots];
   uint32_t prev = 0u;
@@ -202,6 +285,8 @@ __global__ void __launch_bounds__(256)
       v[s] = __float_as_uint(u);
     } else if (KIND == kBernoulli) {
       v[s] = (flip ? 1.0f - u : u) < pa ? 1u : 0u;
+    } else if (KIND == kNormal) {
+      v[s] = __float_as_uint(normal_of(u, pa));
     } else {
       const float w = KIND == kNaRents ? ((t & 1) == 0 ? u : 1.0f - u)
                                        : (flip ? 1.0f - u : u);
@@ -352,6 +437,194 @@ __global__ void __launch_bounds__(32 * kGeWarps)
     state = map_apply(__shfl_sync(kFullMask, scan, 31), state);
   }
   if (lane == 0) p.s_out[row] = (int)state;
+}
+
+// ---------------------------------------------------------------------
+// P: arma_rents_kernel, the ARMA(p, q) rents over one chunk.  No TPU
+// kernel: the reference draws the innovations with jax.random.normal on
+// per-slot keys and walks the recursion in a lax.scan
+// (src/repro/core/scenarios/streams.py: _arma_eps_at :316, _arma_chunk
+// :330); the Pallas PRNG kernel is not on that path.
+//
+// Per row and slot j (counter t = tids[j]): e = normal_of(the uniform of
+// fold_in(key, t + q), sigma) and, in XLA's order inside its scan,
+//   x = (phi . hist + e) + th . eps      (p = 1: x = fma(phi0, h0, e))
+// where a two-term dot is fma(a1, b1, a0 * b0) and a longer one a
+// left-to-right sum of rounded products; then hist <- (x, hist[:-1]),
+// eps <- (e, eps[:-1]) and c = min(max(mean + x, c_min), c_max).  The
+// state (hist [R, p], eps [R, q]) comes in and goes out.
+//
+// Bound: the innovations are two threefry blocks and XLA's erf_inv a slot
+// (integer operations, as kernel P's other variants, plus ~110 float
+// operations, an FMA counted as two); the recursion is a chain of
+// dependent float operations a slot (p products and sums, the innovation,
+// the MA dot), which no reassociation may shorten.  Design: a block takes
+// kArmaRows rows; its first warps (producers) draw a tile of kArmaTile
+// slots of every row's innovations into shared memory, slot-parallel,
+// while the last warp (the walker, one lane a row) walks the previous
+// tile's recursion and writes its deviations to a shared tile that the
+// producers then clip and store coalesced.  Two buffers of each, one
+// __syncthreads a tile.  Few rows a block keep several blocks on an SM, so
+// that the producers' hash chains have warps enough to hide their
+// latency; the AR order is a template argument, so that the walker's
+// chain unrolls over registers with nothing on it but the recursion.
+// ---------------------------------------------------------------------
+
+constexpr int kArmaMaxP = 8, kArmaMaxQ = 8;
+constexpr int kArmaRows = 8;               // rows a block: a walker lane each
+constexpr int kArmaTile = 64;              // slots a tile
+constexpr int kArmaWarps = 8;              // 7 producers + 1 walker
+constexpr int kArmaProducers = 32 * (kArmaWarps - 1);
+
+struct ArmaArgs {
+  const long long* keys;   // [R, 2]
+  const int* tids;         // [chunk]
+  const float* hist_in;    // [R, P] newest first
+  const float* eps_in;     // [R, Q] newest first
+  const float* phi;        // [R, P]
+  const float* th;         // [R, Q]
+  const float* sigma;      // [R]
+  const float* mean;
+  const float* c_min;
+  const float* c_max;
+  float* hist_out;         // [R, P]
+  float* eps_out;          // [R, Q]
+  float* c;                // [R, chunk]
+  int R, chunk, P, Q, partitionable;
+  uint32_t one;
+};
+
+// How XLA orders a dot of n terms in the scan: kDotFma2 is n == 2,
+// fma(a1, b1, a0 * b0); kDotSum a left-to-right sum of rounded products
+enum DotOrder { kDotSum = 0, kDotFma2 = 2 };
+
+// the dot of a[0 .. n) and b[0 .. n) in XLA's order (n >= 2; N the
+// arrays' compile-time length, n <= N)
+template <int ORDER, int N>
+__device__ __forceinline__ float xla_dot(const float (&a)[N],
+                                         const float (&b)[N], int n) {
+  float x = a[0] * b[0];
+  if (ORDER == kDotFma2) return __fmaf_rn(a[1], b[1], x);
+#pragma unroll
+  for (int i = 1; i < N; ++i)
+    if (i < n) x = x + a[i] * b[i];
+  return x;
+}
+
+// P: the AR order, a template argument (the walker's chain unrolls over
+// registers); MA: the MA dot's order (q == 2, or q >= 3 up to kArmaMaxQ)
+template <int P, int MA>
+__global__ void __launch_bounds__(32 * kArmaWarps)
+    arma_rents_kernel(const ArmaArgs p) {
+  __shared__ float eps_s[2][kArmaRows][kArmaTile + 1];
+  __shared__ float dev_s[2][kArmaRows][kArmaTile + 1];
+  __shared__ uint32_t key_s[kArmaRows][2];
+  __shared__ float scale_s[kArmaRows], mean_s[kArmaRows], lo_s[kArmaRows],
+      hi_s[kArmaRows];
+  const int row0 = blockIdx.x * kArmaRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_tiles = (p.chunk + kArmaTile - 1) / kArmaTile;
+  const bool part = p.partitionable != 0;
+  if (threadIdx.x < kArmaRows) {
+    const int row = min(row0 + (int)threadIdx.x, p.R - 1);
+    key_s[threadIdx.x][0] = (uint32_t)p.keys[2 * row];
+    key_s[threadIdx.x][1] = (uint32_t)p.keys[2 * row + 1];
+    scale_s[threadIdx.x] = p.sigma[row] * kSqrt2;
+    mean_s[threadIdx.x] = p.mean[row];
+    lo_s[threadIdx.x] = p.c_min[row];
+    hi_s[threadIdx.x] = p.c_max[row];
+  }
+  __syncthreads();
+
+  // draw tile k's innovations: job j is (row j / kArmaTile, slot j % tile)
+  auto produce = [&](int k, int tid, int n_threads) {
+    float(*buf)[kArmaTile + 1] = eps_s[k & 1];
+    for (int j = tid; j < kArmaRows * kArmaTile; j += n_threads) {
+      const int r = j / kArmaTile, s = j % kArmaTile;
+      const int slot = k * kArmaTile + s;
+      if (row0 + r >= p.R || slot >= p.chunk) continue;
+      uint32_t a0, a1;
+      fold_in(key_s[r][0], key_s[r][1], (uint32_t)p.tids[slot] + (uint32_t)p.Q,
+              a0, a1, p.one);
+      buf[r][s] = normal_of(uniform_of(a0, a1, part, p.one), scale_s[r]);
+    }
+  };
+  // store tile k's rents, clip(mean + x, c_min, c_max) of the walker's
+  // deviations, a row's slots on neighbouring threads
+  auto store = [&](int k, int tid, int n_threads) {
+    const float(*buf)[kArmaTile + 1] = dev_s[k & 1];
+    for (int j = tid; j < kArmaRows * kArmaTile; j += n_threads) {
+      const int r = j / kArmaTile, s = j % kArmaTile;
+      const int slot = k * kArmaTile + s;
+      if (row0 + r < p.R && slot < p.chunk)
+        p.c[(long long)(row0 + r) * p.chunk + slot] =
+            fminf(fmaxf(mean_s[r] + buf[r][s], lo_s[r]), hi_s[r]);
+    }
+  };
+
+  produce(0, threadIdx.x, 32 * kArmaWarps);
+  __syncthreads();
+  if (warp == kArmaWarps - 1) {
+    // the walker: lane r < kArmaRows holds row r's state and coefficients
+    // (the other lanes idle; every lane reaches the barriers)
+    const bool walks = lane < kArmaRows;
+    const int row = min(row0 + min(lane, kArmaRows - 1), p.R - 1);
+    float h[P], ph[P], ep[kArmaMaxQ], th[kArmaMaxQ];
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      h[i] = p.hist_in[(long long)row * P + i];
+      ph[i] = p.phi[(long long)row * P + i];
+    }
+#pragma unroll
+    for (int i = 0; i < kArmaMaxQ; ++i) {
+      ep[i] = i < p.Q ? p.eps_in[(long long)row * p.Q + i] : 0.0f;
+      th[i] = i < p.Q ? p.th[(long long)row * p.Q + i] : 0.0f;
+    }
+    for (int k = 0; k < n_tiles; ++k) {
+      const float(*e_t)[kArmaTile + 1] = eps_s[k & 1];
+      float(*x_t)[kArmaTile + 1] = dev_s[k & 1];
+      const int n = walks ? min(kArmaTile, p.chunk - k * kArmaTile) : 0;
+#pragma unroll 8
+      for (int s = 0; s < n; ++s) {
+        const float e = e_t[lane][s];
+        float x;
+        if constexpr (P == 1) {
+          x = __fmaf_rn(ph[0], h[0], e);
+        } else if constexpr (P == 2) {
+          x = __fmaf_rn(ph[1], h[1], ph[0] * h[0]) + e;
+        } else {
+          x = ph[0] * h[0];
+#pragma unroll
+          for (int i = 1; i < P; ++i) x = x + ph[i] * h[i];
+          x = x + e;
+        }
+        x = x + xla_dot<MA>(th, ep, p.Q);
+#pragma unroll
+        for (int i = P - 1; i > 0; --i) h[i] = h[i - 1];
+        h[0] = x;
+#pragma unroll
+        for (int i = kArmaMaxQ - 1; i > 0; --i) ep[i] = ep[i - 1];
+        ep[0] = e;
+        x_t[lane][s] = x;
+      }
+      __syncthreads();
+    }
+    if (walks && row0 + lane < p.R) {
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+        p.hist_out[(long long)row * P + i] = h[i];
+#pragma unroll
+      for (int i = 0; i < kArmaMaxQ; ++i)
+        if (i < p.Q) p.eps_out[(long long)row * p.Q + i] = ep[i];
+    }
+  } else {
+    for (int k = 0; k < n_tiles; ++k) {
+      if (k + 1 < n_tiles) produce(k + 1, threadIdx.x, kArmaProducers);
+      if (k > 0) store(k - 1, threadIdx.x, kArmaProducers);
+      __syncthreads();
+    }
+  }
+  store(n_tiles - 1, threadIdx.x, 32 * kArmaWarps);
 }
 
 // ---------------------------------------------------------------------
@@ -1103,6 +1376,7 @@ int launch_counter_stream(int kind, const void* keys, const void* tids,
     case kBernoulli: return launch_stream<kBernoulli>(args, st);
     case kUniformRents: return launch_stream<kUniformRents>(args, st);
     case kNaRents: return launch_stream<kNaRents>(args, st);
+    case kNormal: return launch_stream<kNormal>(args, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1119,6 +1393,41 @@ int launch_ge_chain(const void* keys, const void* tids, const void* s_in,
   args.vec = vec_ok(chunk, kSlots, states, x);
   ge_chain_kernel<<<n_blocks(R, kGeWarps), 32 * kGeWarps, 0,
                     (cudaStream_t)stream>>>(args);
+  return (int)cudaGetLastError();
+}
+
+// the ARMA rents of one chunk (1 <= P <= 8, 2 <= Q <= 8)
+int launch_arma_rents(const void* keys, const void* tids, const void* hist_in,
+                      const void* eps_in, const void* phi, const void* th,
+                      const void* sigma, const void* mean, const void* c_min,
+                      const void* c_max, void* hist_out, void* eps_out,
+                      void* c, int R, int chunk, int P, int Q,
+                      int partitionable, void* stream) {
+  if (P < 1 || P > kArmaMaxP || Q < 2 || Q > kArmaMaxQ || chunk < 1)
+    return (int)cudaErrorInvalidValue;
+  const ArmaArgs args{(const long long*)keys, (const int*)tids,
+                      (const float*)hist_in, (const float*)eps_in,
+                      (const float*)phi, (const float*)th,
+                      (const float*)sigma, (const float*)mean,
+                      (const float*)c_min, (const float*)c_max,
+                      (float*)hist_out, (float*)eps_out, (float*)c, R, chunk,
+                      P, Q, partitionable, 1u};
+  if (R <= 0) return (int)cudaGetLastError();
+  const dim3 grid(n_blocks(R, kArmaRows));
+  cudaStream_t st = (cudaStream_t)stream;
+#define REPRO_ARMA_CASE(PP)                                                   \
+  case PP:                                                                    \
+    if (Q == 2)                                                               \
+      arma_rents_kernel<PP, kDotFma2><<<grid, 32 * kArmaWarps, 0, st>>>(args); \
+    else                                                                      \
+      arma_rents_kernel<PP, kDotSum><<<grid, 32 * kArmaWarps, 0, st>>>(args);  \
+    break;
+  switch (P) {
+    REPRO_ARMA_CASE(1) REPRO_ARMA_CASE(2) REPRO_ARMA_CASE(3)
+    REPRO_ARMA_CASE(4) REPRO_ARMA_CASE(5) REPRO_ARMA_CASE(6)
+    REPRO_ARMA_CASE(7) REPRO_ARMA_CASE(8)
+  }
+#undef REPRO_ARMA_CASE
   return (int)cudaGetLastError();
 }
 

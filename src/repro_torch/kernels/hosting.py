@@ -10,7 +10,10 @@ PyTorch versions.
   XLA:CPU fuses it; no float64) run ``counter_stream_kernel``;
   ``ge_bernoulli_chunk`` runs ``ge_chain_kernel`` (the Gilbert-Elliot
   chain as a warp scan of its 2-state maps, with the Bernoulli
-  emissions).
+  emissions); ``normal_chunk`` (scaled normals, XLA's float32 ``erf_inv``
+  transcribed op for op) runs ``counter_stream_kernel`` too, and
+  ``arma_rents_chunk`` runs ``arma_rents_kernel`` (the ARMA rents: the
+  normals drawn slot-parallel, each row's recursion walked by one thread).
 * ``dp_fwd_model1`` (kernel **D**) — one chunk of the offline-OPT
   min-plus recursion with the Model-1 cost assembly ``w = fma(c, lv, x *
   g)`` fused in: the fleet DP's chunk, the port of
@@ -122,8 +125,10 @@ def fma32(a, b, c):
     product feeds an add (see the call sites); the kernels use
     ``__fmaf_rn`` at the same places.  ``card_calls`` counts its calls on
     the card, where only plain versions call it."""
+    a = torch.as_tensor(a)
     a, b, c = (t.to(torch.float64) for t in torch.broadcast_tensors(
-        torch.as_tensor(a), torch.as_tensor(b), torch.as_tensor(c)))
+        a, torch.as_tensor(b, device=a.device),
+        torch.as_tensor(c, device=a.device)))
     if a.is_cuda:
         fma32.card_calls += 1
     p = a * b
@@ -144,14 +149,12 @@ fma32.card_calls = 0
 # ----------------------------------------------------------------------
 
 # the kernel's StreamKind (csrc/hosting.cu)
-_UNIFORM, _BERNOULLI, _UNIFORM_RENTS, _NA_RENTS = range(4)
+_UNIFORM, _BERNOULLI, _UNIFORM_RENTS, _NA_RENTS, _NORMAL = range(5)
 
 
-def slot_uniform_plain(keys, tids, salt: Optional[int] = None,
-                       partitionable: Optional[bool] = None):
-    """Plain version of kernel P's uniforms: ``[R, chunk]`` float32 U(0,1)
-    draws, ``u[i, j]`` from ``fold_in(keys[i], tids[j])`` (then ``fold_in(.,
-    salt)`` when a salt is given) and jax's scalar 32-bit draw under the
+def _slot_bits(keys, tids, salt, partitionable):
+    """[R, chunk] int64: jax's scalar 32-bit draw under ``fold_in(keys[i],
+    tids[j])`` (then ``fold_in(., salt)`` when a salt is given), in the
     current (or the given) threefry layout."""
     part = is_partitionable() if partitionable is None else partitionable
     k0, k1 = keys[:, 0:1], keys[:, 1:2]
@@ -161,7 +164,16 @@ def slot_uniform_plain(keys, tids, salt: Optional[int] = None,
         a0, a1 = threefry_fold(a0, a1, torch.full_like(a0, int(salt) & MASK32))
     z = torch.zeros_like(a0)
     b0, b1 = threefry2x32(a0, a1, z, z)
-    return uniform_from_bits(b0 ^ b1 if part else b0)
+    return b0 ^ b1 if part else b0
+
+
+def slot_uniform_plain(keys, tids, salt: Optional[int] = None,
+                       partitionable: Optional[bool] = None):
+    """Plain version of kernel P's uniforms: ``[R, chunk]`` float32 U(0,1)
+    draws, ``u[i, j]`` from ``fold_in(keys[i], tids[j])`` (then ``fold_in(.,
+    salt)`` when a salt is given) and jax's scalar 32-bit draw under the
+    current (or the given) threefry layout."""
+    return uniform_from_bits(_slot_bits(keys, tids, salt, partitionable))
 
 
 def _flipped(u, flip):
@@ -346,6 +358,227 @@ def ge_bernoulli_chunk(keys, tids, s, p_hl, p_lh, rate_h, rate_l,
 
 
 ge_bernoulli_chunk.launches = 0
+
+
+# ----------------------------------------------------------------------
+# P: the normal draw (XLA's float32 erf_inv) and the ARMA rents.
+# ----------------------------------------------------------------------
+
+def _f32(v) -> float:
+    """``v`` rounded to float32, as a Python float."""
+    return torch.tensor(v, dtype=torch.float32).item()
+
+
+# jax.random.normal draws u on [nextafter(-1, 0), 1) and returns
+# sqrt(2) * erf_inv(u), both constants rounded to float32
+NORMAL_LO = -(1.0 - 2.0 ** -24)        # nextafter(-1, 0) in float32
+SQRT2 = _f32(2.0 ** 0.5)
+# XLA's float32 log (Cephes logf): the mantissa split at sqrt(1/2), three
+# interleaved Horner pairs in x, combined in x**3, and ln 2 in two parts
+_LOG_SQRTHF = _f32(0.707106781186547524)
+_LOG_P = tuple(tuple(_f32(c) for c in row) for row in (
+    (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1),
+    (-1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1),
+    (2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)))
+_LOG_Q1, _LOG_Q2 = _f32(-2.12194440e-4), 0.693359375
+# XLA's log1p: a rational approximation where |x| < sqrt(2) - 1, else
+# log(1 + x)
+_LOG1P_SMALL = _f32(0.41421356237309504880)
+_LOG1P_NUM = tuple(_f32(c) for c in (
+    4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+    6.5787325942061044846969e0, 2.9911919328553073277375e1,
+    6.0949667980987787057556e1, 5.7112963590585538103336e1,
+    2.0039553499201281259648e1))
+_LOG1P_DEN = tuple(_f32(c) for c in (
+    1.5062909083469192043167e1, 8.3047565967967209469434e1,
+    2.2176239823732856465394e2, 3.0909872225312059774938e2,
+    2.1642788614495947685003e2, 6.0118660497603843919306e1))
+# XLA's ErfInv32 (Giles): degree-8 polynomials in w - 2.5 (w < 5) and
+# sqrt(w) - 3, w = -log1p(-u * u)
+_ERFINV_LT5 = tuple(_f32(c) for c in (
+    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+    0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+    1.50140941))
+_ERFINV_GE5 = tuple(_f32(c) for c in (
+    -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+    0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682))
+
+
+def _sqrt32(x):
+    """Correctly rounded float32 square root (torch's CPU float32 sqrt is
+    not; the float64 root rounded once is)."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def _xla_log(v):
+    """XLA:CPU's float32 ``log`` of ``v`` > 0, op for op (the ``log_f32``
+    its LLVM IR inlines): ``v`` clamped at FLT_MIN, split into exponent and
+    mantissa, the Cephes polynomial; every multiply feeding one add is one
+    FMA there (``fma32``); ``v == 0`` gives -inf, ``v == inf`` inf."""
+    f32 = torch.float32
+    xc = torch.where(v > 2.0 ** -126, v, torch.tensor(2.0 ** -126, dtype=f32,
+                                                       device=v.device))
+    bits = xc.view(torch.int32)
+    e = ((bits >> 23) - 127).to(f32) + 1.0
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(f32)
+    small = m < _LOG_SQRTHF
+    e = e - small.to(f32)
+    x = (m + (-1.0)) + torch.where(small, m, 0.0)
+    z = x * x
+    x3 = z * x
+    y1, y2, y3 = (fma32(fma32(x, a, b), x, c) for a, b, c in _LOG_P)
+    y = fma32(fma32(fma32(y1, x3, y2), x3, y3), x3, e * _LOG_Q1)
+    out = ((x - z * 0.5) + y) + e * _LOG_Q2
+    out = torch.where(v == float("inf"), float("inf"), out)
+    return torch.where(v == 0, float("-inf"), out)
+
+
+def erf_inv_plain(u):
+    """``jax.lax.erf_inv`` on float32 as XLA:CPU computes it, op for op:
+    ``w = -log1p(-u * u)`` through XLA's own log1p and log, then Giles's
+    polynomial in ``w - 2.5`` or ``sqrt(w) - 3``, times ``u`` (``inf * u``
+    at ``|u| == 1``).  The sites where XLA contracts a multiply into the
+    add that reads it (every Horner step) are ``fma32``; ``-u * u + 1`` is
+    not contracted (its product has several readers)."""
+    x = u * (-u)
+    x2 = x * x
+    num, den = torch.full_like(x, _LOG1P_NUM[0]), torch.ones_like(x)
+    for c in _LOG1P_NUM[1:]:
+        num = fma32(num, x, c)
+    for c in _LOG1P_DEN:
+        den = fma32(den, x, c)
+    small = x + (x2 * -0.5 + (x * x2) * (num / den))
+    l1p = torch.where(x.abs() < _LOG1P_SMALL, small, _xla_log(x + 1.0))
+    lt = l1p > -5.0
+    w = torch.where(lt, -2.5 - l1p, _sqrt32(-l1p) + (-3.0))
+    coef = [torch.where(lt, a, b) for a, b in zip(_ERFINV_LT5, _ERFINV_GE5)]
+    p = coef[0]
+    for c in coef[1:]:
+        p = fma32(p, w, c)
+    return u * torch.where(u.abs() == 1.0, float("inf"), p)
+
+
+def normal_from_bits_plain(bits, scale):
+    """``scale * jax.random.normal(k, (), float32)`` from the 32 random bits
+    jax draws for it (the same bits as the uniform's), as XLA computes it
+    inside a jit: the uniform on ``[nextafter(-1, 0), 1)`` (``[1, 2) -
+    1``, times 2, plus the low end, clamped there), then ``(scale *
+    sqrt(2)) * erf_inv(u)`` -- XLA folds the scale into the ``sqrt(2)``
+    first; ``scale = 1`` is ``jax.random.normal`` itself."""
+    fb = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    u = torch.clamp_min((fb.view(torch.float32) - 1.0) * 2.0 + NORMAL_LO,
+                        NORMAL_LO)
+    return (scale * SQRT2) * erf_inv_plain(u)
+
+
+def normal_chunk_plain(keys, tids, sigma,
+                       partitionable: Optional[bool] = None):
+    """Plain version of kernel P's normals: ``[R, chunk]`` float32
+    ``(sigma * sqrt(2)) * erf_inv(u)`` under ``fold_in(keys[i], tids[j])``,
+    bitwise the reference's ``sigma * jax.random.normal(k, (), float32)``
+    on its per-slot keys inside a jit (``sigma`` = 1: ``jax.random.normal``
+    itself); ``sigma`` [R] float32."""
+    return normal_from_bits_plain(
+        _slot_bits(keys, tids, None, partitionable), sigma[:, None])
+
+
+def _xla_dot(a, b):
+    """Row-wise ``a . b`` as XLA:CPU's small batched dot computes it inside
+    the ARMA scan: two terms are one FMA, ``fma(a1, b1, a0 * b0)``; three
+    or more a left-to-right sum of rounded products."""
+    x = a[:, 0] * b[:, 0]
+    for i in range(1, a.shape[1]):
+        x = (fma32(a[:, i], b[:, i], x) if a.shape[1] == 2
+             else x + a[:, i] * b[:, i])
+    return x
+
+
+def arma_rents_chunk_plain(keys, tids, hist, eps, phi, th, sigma, mean,
+                           c_min, c_max, partitionable: Optional[bool] = None):
+    """Plain version of kernel P's ARMA(p, q) rents over one chunk:
+    innovations ``e_t = (sigma * sqrt(2)) * erf_inv(u)`` at counter ``t +
+    q``, then per slot ``x = (phi . hist + e_t) + th . eps`` with each dot
+    in the order of ``_xla_dot`` (for p = 1 the product is fused into the
+    add: ``fma(phi0, h0, e_t)``), the histories shifted (newest first),
+    and ``clip(mean + x, c_min, c_max)``.  ``hist`` [R, p] and ``eps`` [R,
+    q] carry the state in; ``phi`` / ``th`` [R, p] / [R, q] and the [R]
+    params are float32; q >= 2 (the MA(1) order of XLA's scan is not
+    pinned).  Returns ``(hist', eps', c [R, chunk])``.  ``card_calls``
+    counts its calls on the card (its slot loop is what the kernel
+    replaces)."""
+    if keys.is_cuda:
+        arma_rents_chunk_plain.card_calls += 1
+    p, q = phi.shape[1], th.shape[1]
+    if q < 2:
+        raise NotImplementedError(f"ARMA rents take q >= 2, got q={q}")
+    e = normal_chunk_plain(keys, tids + q, sigma, partitionable)
+    devs = torch.empty_like(e)
+    for j in range(e.shape[1]):
+        x = (fma32(phi[:, 0], hist[:, 0], e[:, j]) if p == 1
+             else _xla_dot(phi, hist) + e[:, j])
+        x = x + _xla_dot(th, eps)
+        hist = torch.cat([x[:, None], hist[:, :p - 1]], dim=1)
+        eps = torch.cat([e[:, j:j + 1], eps[:, :q - 1]], dim=1)
+        devs[:, j] = x
+    c = torch.minimum(torch.maximum(mean[:, None] + devs, c_min[:, None]),
+                      c_max[:, None])
+    return hist, eps, c
+
+
+arma_rents_chunk_plain.card_calls = 0
+#: the AR and MA orders the ARMA kernel takes
+ARMA_MAX_P, ARMA_MAX_Q = 8, 8
+
+
+def normal_chunk(keys, tids, sigma, partitionable: Optional[bool] = None):
+    """Kernel P's normals (arguments as ``normal_chunk_plain``), bitwise the
+    plain version."""
+    if keys.device.type == "cpu":
+        return normal_chunk_plain(keys, tids, sigma, partitionable)
+    _row_params(keys, tids, sigma=(sigma, torch.float32))
+    out = _stream(_NORMAL, keys, tids, torch.float32, a=sigma,
+                  partitionable=partitionable)
+    normal_chunk.launches += 1
+    return out
+
+
+normal_chunk.launches = 0
+
+
+def arma_rents_chunk(keys, tids, hist, eps, phi, th, sigma, mean, c_min,
+                     c_max, partitionable: Optional[bool] = None):
+    """Kernel P's ARMA rents, the innovations and the recursion in one
+    launch (arguments and results as ``arma_rents_chunk_plain``; 1 <= p <=
+    8, 2 <= q <= 8), bitwise the plain version."""
+    if keys.device.type == "cpu":
+        return arma_rents_chunk_plain(keys, tids, hist, eps, phi, th, sigma,
+                                      mean, c_min, c_max, partitionable)
+    f32 = torch.float32
+    R, chunk = _row_params(keys, tids, sigma=(sigma, f32), mean=(mean, f32),
+                           c_min=(c_min, f32), c_max=(c_max, f32))
+    p, q = phi.shape[1], th.shape[1]
+    if not (1 <= p <= ARMA_MAX_P and 2 <= q <= ARMA_MAX_Q):
+        raise ValueError(f"arma_rents_chunk takes 1 <= p <= {ARMA_MAX_P} and "
+                         f"2 <= q <= {ARMA_MAX_Q}, got p={p}, q={q}")
+    dev = keys.device
+    for name, t, shape in (("hist", hist, (R, p)), ("eps", eps, (R, q)),
+                           ("phi", phi, (R, p)), ("th", th, (R, q))):
+        _build.check_tensor(name, t, f32, shape, dev)
+    part = is_partitionable() if partitionable is None else partitionable
+    hist_out, eps_out = torch.empty_like(hist), torch.empty_like(eps)
+    c = torch.empty((R, chunk), dtype=f32, device=dev)
+    err = _build.library("hosting").launch_arma_rents(
+        keys.data_ptr(), tids.data_ptr(), hist.data_ptr(), eps.data_ptr(),
+        phi.data_ptr(), th.data_ptr(), sigma.data_ptr(), mean.data_ptr(),
+        c_min.data_ptr(), c_max.data_ptr(), hist_out.data_ptr(),
+        eps_out.data_ptr(), c.data_ptr(), R, chunk, p, q, int(part),
+        _build.stream(dev))
+    _build.raise_on(err, "arma_rents")
+    arma_rents_chunk.launches += 1
+    return hist_out, eps_out, c
+
+
+arma_rents_chunk.launches = 0
 
 
 # ----------------------------------------------------------------------

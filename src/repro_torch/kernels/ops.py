@@ -52,19 +52,21 @@ def ssd_scan(x, dt, A, B, C, h0=None, chunk: int = 128):
 
 
 #: every kernel's launcher: P (uniforms, Bernoulli arrivals, uniform
-#: rents, NA rents, the GE chunk), D (fused and on a finished w), S, F
-#: (tensor-core and fma), M (tensor-core and fma)
+#: rents, NA rents, normals, the GE chunk, the ARMA chunk), D (fused and
+#: on a finished w), S, F (tensor-core and fma), M (tensor-core and fma)
 KERNELS = (hosting.slot_uniform, hosting.bernoulli_arrivals_chunk,
            hosting.uniform_rents_chunk, hosting.na_rents_chunk,
-           hosting.ge_bernoulli_chunk, hosting.dp_fwd_model1,
+           hosting.normal_chunk, hosting.ge_bernoulli_chunk,
+           hosting.arma_rents_chunk, hosting.dp_fwd_model1,
            hosting.dp_minplus, hosting.sim_chunk_alpha_rr,
            _fa.flash_attention_wgmma, _fa.flash_attention_fma,
            _ssd.ssd_scan_mma, _ssd.ssd_scan_fma)
 DISPATCHERS = (_fa.flash_attention, _ssd.ssd_scan)
 #: plain code that counts its calls on the card (``card_calls``): the
-#: float64 FMA emulation and the per-slot GE loop, which the card's path
-#: replaces with kernel P
-PLAIN_ON_CARD = (hosting.fma32, hosting.ge_bernoulli_chunk_plain)
+#: float64 FMA emulation and the per-slot GE and ARMA loops, which the
+#: card's path replaces with kernel P
+PLAIN_ON_CARD = (hosting.fma32, hosting.ge_bernoulli_chunk_plain,
+                 hosting.arma_rents_chunk_plain)
 
 
 def reset_launches():

@@ -524,3 +524,95 @@ def test_stream_kernel_matches_plain(name, case, part):
     for a, b in zip(k if isinstance(k, tuple) else (k,),
                     p if isinstance(p, tuple) else (p,)):
         assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+# ----------------------------------------------------------------------
+# Kernel P's normals and the ARMA rents.  Bit for bit (torch.equal): XLA's
+# erf_inv / log transcribed op for op on both sides, its FMA sites as
+# __fmaf_rn and fma32, the recursion in the same order.
+# ----------------------------------------------------------------------
+
+def _arma_inputs(dev, R, p, q, seed):
+    """Per-instance coefficients, params and a carried-in state, made with
+    numpy."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    f32 = lambda *s, lo=0.0, hi=1.0: t(  # noqa: E731
+        rng.uniform(lo, hi, s).astype(np.float32))
+    return dict(
+        keys=t(rng.integers(0, 2 ** 32, (R, 2), dtype=np.uint64)
+               .astype(np.int64)),
+        hist=f32(R, p, lo=-0.1, hi=0.1), eps=f32(R, q, lo=-0.1, hi=0.1),
+        phi=f32(R, p, hi=0.6 / p), th=f32(R, q, hi=0.4 / q),
+        sigma=f32(R, lo=0.01, hi=0.2), mean=f32(R, lo=0.2, hi=0.6),
+        c_min=f32(R, lo=0.05, hi=0.15), c_max=f32(R, lo=0.7, hi=1.2))
+
+
+def _arma_call(d, tids, part, plain):
+    fn = H.arma_rents_chunk_plain if plain else H.arma_rents_chunk
+    return fn(d["keys"], tids, d["hist"], d["eps"], d["phi"], d["th"],
+              d["sigma"], d["mean"], d["c_min"], d["c_max"], part)
+
+
+def test_normal_and_arma_wrappers_take_the_plain_version_only_on_the_cpu():
+    d = _arma_inputs("cpu", 5, 4, 2, 0)
+    tids = torch.arange(3, 40, dtype=torch.int32)
+    counters = (H.normal_chunk, H.arma_rents_chunk)
+    before = [k.launches for k in counters]
+    plain_calls = H.arma_rents_chunk_plain.card_calls
+    for part in (True, False):
+        assert torch.equal(H.normal_chunk(d["keys"], tids, d["sigma"], part),
+                           H.normal_chunk_plain(d["keys"], tids, d["sigma"],
+                                                part))
+        for a, b in zip(_arma_call(d, tids, part, False),
+                        _arma_call(d, tids, part, True)):
+            assert torch.equal(a, b)
+    assert [k.launches for k in counters] == before
+    assert H.arma_rents_chunk_plain.card_calls == plain_calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", [True, False])
+@pytest.mark.parametrize("case", [
+    # (R, t0, chunk): the fleet's slab; an odd start with chunk % 4 != 0
+    # and R off every block size; one slot at the top of the counter range
+    (4096, 61440, 4096), (4093, 61441, 1001), (300, 0x7FFFFFFF, 1)])
+def test_normal_kernel_matches_plain(case, part):
+    dev = _card()
+    R, t0, chunk = case
+    d = _arma_inputs(dev, R, 4, 2, seed=R + chunk)
+    tids = torch.arange(t0, t0 + chunk, dtype=torch.int64).to(
+        torch.int32).to(dev)
+    before = H.normal_chunk.launches
+    k = H.normal_chunk(d["keys"], tids, d["sigma"], part)
+    torch.cuda.synchronize()
+    assert H.normal_chunk.launches == before + 1
+    assert torch.equal(k, H.normal_chunk_plain(d["keys"], tids, d["sigma"],
+                                               part))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", [True, False])
+@pytest.mark.parametrize("pq", [(4, 2), (1, 2), (2, 3), (8, 8)])
+def test_arma_kernel_matches_plain(pq, part):
+    """Three chunks in a row, the state carried: a ragged chunk (not a
+    tile multiple, chunk % 4 != 0), a whole tile, one slot; R off the
+    block's rows."""
+    dev = _card()
+    p, q = pq
+    d = _arma_inputs(dev, 301, p, q, seed=p * 10 + q)
+    k_state = p_state = (d["hist"], d["eps"])
+    before = H.arma_rents_chunk.launches
+    for t0, chunk in ((5, 999), (1004, 64), (1068, 1)):
+        tids = torch.arange(t0, t0 + chunk, dtype=torch.int32, device=dev)
+        k = H.arma_rents_chunk(d["keys"], tids, *k_state, d["phi"], d["th"],
+                               d["sigma"], d["mean"], d["c_min"],
+                               d["c_max"], part)
+        torch.cuda.synchronize()
+        pl = H.arma_rents_chunk_plain(d["keys"], tids, *p_state, d["phi"],
+                                      d["th"], d["sigma"], d["mean"],
+                                      d["c_min"], d["c_max"], part)
+        for a, b in zip(k, pl):
+            assert torch.equal(a, b), (t0, chunk)
+        k_state, p_state = k[:2], pl[:2]
+    assert H.arma_rents_chunk.launches == before + 3

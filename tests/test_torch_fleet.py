@@ -20,7 +20,8 @@ from repro_torch.core import scenarios as ps
 from repro_torch.core.costs import HostingCosts, HostingGrid
 from repro_torch.core.fleet import (FleetBatch, mc_summary, offline_opt_fleet,
                                     run_fleet)
-from repro_torch.core.policies import AlphaRR, RetroRenting, StaticPolicy
+from repro_torch.core.policies import (AlphaRR, PolicyLane, RetroRenting,
+                                      StaticPolicy)
 from repro_torch.kernels.hosting import threefry_partitionable
 
 CPU = "cpu"
@@ -133,12 +134,15 @@ def test_unported_arguments_raise():
     _, pf = _fleets()
     _, psc = _scenarios("bernoulli")
     pol = AlphaRR.fleet(pf)
-    for kw in (dict(stream=True), dict(with_opt_forward=True),
-               dict(async_ingest=True), dict(gather=True)):
+    for kw in (dict(stream=True), dict(async_ingest=True),
+               dict(gather=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             run_fleet(pol, pf, scenario=psc, device=CPU, **kw)
-    with pytest.raises(NotImplementedError, match="fan-out"):
-        run_fleet([pol], pf, scenario=psc, device=CPU)
+    # the fan-out is ported; its Model-2 lanes are not yet
+    lane = PolicyLane(pol, grid=pf.grid,
+                      svc_cols=np.zeros((pf.B, pf.K), np.int32))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        run_fleet([lane], pf, scenario=psc, device=CPU)
     with pytest.raises(NotImplementedError, match="obs-backed"):
         run_fleet(pol, pf, device=CPU)
     for kw in (dict(checkpointed=False, collect_schedule=False),

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the port's main paths goes on one CUDA card.
 
-    python3 tools/profile_main_path.py [--T 16384] [--path fleet|serving|both]
+    python3 tools/profile_main_path.py [--T 16384]
+        [--path fleet|figures|serving|both]
 
 Fleet path: the ``chip_smoke.py`` workload at full width (4,096 rows, K = 3,
 chunks of 4,096) for a shorter horizon under ``torch.profiler``: alpha-RR
@@ -9,6 +10,13 @@ and alpha-OPT on Bernoulli arrivals + uniform rents, and alpha-RR on
 Gilbert-Elliot arrivals + NA rents; the device time is also grouped into
 kernels D (fused, and on a finished w), S, P (the stream kernels and
 the GE chain kernel) and the rest.
+
+Figures: each of the port's figure modules (``repro_torch/figures``) at
+its default size, one ``run()`` (the figure's warm-up fan-out and its timed
+fan-out), and the fan-out of ``chip_smoke.py``'s phase 8 (alpha-RR and RR
+lanes with the OPT frontiers over Bernoulli arrivals and spot rents, 4,096
+rows) at horizon T; the device time is grouped as for the fleet path, the
+ARMA kernel on its own.
 
 Serving path: zamba2-1.2b at full width and depth in bf16 (seeded random
 weights), one ``serve_slot`` of 8 prompts of 2,048 tokens under the full
@@ -39,7 +47,7 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import (FleetBatch, offline_opt_fleet,  # noqa: E402
                               run_fleet)
-from repro_torch.core.policies import AlphaRR  # noqa: E402
+from repro_torch.core.policies import AlphaRR, RetroRenting  # noqa: E402
 
 
 def _device_us(evt) -> float:
@@ -62,7 +70,8 @@ FLEET_GROUPS = (
     ("kernel D (finished w)", ("dp_minplus_kernel",)),
     ("kernel S", ("sim_alpha_rr_kernel",)),
     ("kernel P (streams)", ("counter_stream_kernel",)),
-    ("kernel P (GE chain)", ("ge_chain_kernel",)))
+    ("kernel P (GE chain)", ("ge_chain_kernel",)),
+    ("kernel P (ARMA)", ("arma_rents_kernel",)))
 
 
 def profiled(label, fn, top=10, groups=()):
@@ -120,6 +129,21 @@ def profile_fleet(T, dev):
                                collect_trace=False, **kw), groups=FLEET_GROUPS)
 
 
+def profile_figures(T, dev):
+    for name, (mod, n_rows, T_fig) in cs.FIGURES.items():
+        profiled(f"{name} run(), {n_rows} fleet rows, T={T_fig}",
+                 lambda: mod.run(device=dev), top=12, groups=FLEET_GROUPS)
+    fleet = FleetBatch.for_scenario(cs.fleet_grid(cs.N_M, cs.N_ALPHA, dev), T)
+    lanes = [AlphaRR.fleet_lane(fleet), RetroRenting.fleet_lane(fleet)]
+    sc = cs.bernoulli_spot(fleet.B, dev)
+    profiled(f"fan-out alpha-RR + RR with the OPT frontiers, bernoulli + "
+             f"spot, T={T}",
+             lambda: run_fleet(lanes, fleet, scenario=sc,
+                               chunk_size=cs.CHUNK, n_seeds=cs.N_SEEDS,
+                               with_opt_forward=True, collect_trace=False,
+                               device=dev), top=12, groups=FLEET_GROUPS)
+
+
 def profile_serving(dev):
     spec = get_arch("zamba2-1.2b")
     eng = cs.ServingEngine(spec, generator=torch.Generator(dev).manual_seed(0),
@@ -139,7 +163,7 @@ def profile_serving(dev):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--T", type=int, default=16384)
-    ap.add_argument("--path", choices=("fleet", "serving", "both"),
+    ap.add_argument("--path", choices=("fleet", "figures", "serving", "both"),
                     default="both")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -155,6 +179,8 @@ def main() -> int:
           torch.__version__, flush=True)
     if args.path in ("fleet", "both"):
         profile_fleet(args.T, dev)
+    if args.path == "figures":
+        profile_figures(args.T, dev)
     if args.path in ("serving", "both"):
         profile_serving(dev)
     return 0
