@@ -29,7 +29,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    finished w) on the same slab; D on a finished w; S (alpha-RR on K = 3
    and on a mixed K = 5 grid, RR on K = 2, ragged slabs, K = 16, with and
    without the final fetch and the trace).  D and S report cycles per
-   slot at the SM clock nvidia-smi reads while they run.
+   slot at the SM clock nvidia-smi reads while they run.  Model 2 (reduced
+   slabs: 256 rows x 1,024 slots, 253 rows x 1,001 slots from an odd t0,
+   one slot at the top of the counters; both layouts): P's Poisson draws
+   at rates {0, 0.15, 1.2, 2, 4, 8, 9.99} a row and in the salted GE form
+   over two chunks with the chain's state carried, P's Model-2 service at
+   K = 3, 5 and 16 (24 and 7 requests a slot), D and S on the service slab
+   with and without a column map (K = 2 lanes taking endpoint columns),
+   with and without the argmin table / trace; the same at the figures'
+   shapes (Figs 12-15: 76 rows x 6,000 slots; Figs 10-11: GE-Poisson, 40
+   rows x two chunks of 2,000); and at the Model-2 fan-out's shape (4,096
+   rows x 4,096 slots, K = 3: alpha-RR's and RR's D and S), where each is
+   timed against its bound and its plain version's one call is timed.
 3. The fleet path at full width: 1,024 instances (32 M x 32 (alpha, g)) x 4
    seeds = 4,096 rows, T = 65,536, chunks of 4,096: alpha-RR and RR through
    ``run_fleet``, alpha-OPT and OPT through ``offline_opt_fleet``
@@ -52,19 +63,31 @@ Phases (any failure exits non-zero, and no result line is printed):
    seeds, T = 4,096): each lane == its standalone run and ``opt_cost`` ==
    ``offline_opt_fleet`` of its fleet, bit for bit; card == CPU on the same
    fan-out at 16 instances x 4 seeds, T = 2,048.
-7. The paper's Figs 1-8 through the port's figure modules
+7. The paper's Figs 1-8 and 10-15 through the port's figure modules
    (``repro_torch/figures``) at the reference's default sizes: Figs 1-2
    (10 grid points x 4 seeds, T = 10,000), Figs 3-6 (22 x 4, T = 8,000),
-   Figs 7-8 (5 x 4, T = 8,000; K = 5, 3 and 2 lanes); each figure's
+   Figs 7-8 (5 x 4, T = 8,000; K = 5, 3 and 2 lanes), Figs 10-11 (10 x 4,
+   T = 8,000; bursty GE-Poisson arrivals), Figs 12-15 (19 x 4, T = 6,000;
+   Poisson arrivals and Model-2 service, no DP); each figure's
    ``check(rows)`` must pass, its counters are zeroed before and read
-   after: P's streams, S and (Figs 1-6) D must have run, no plain code.
+   after: P's streams, S and (Figs 1-6, 10-11) D must have run, no plain
+   code.
 8. The fan-out at the fleet leg's width: 1,024 instances x 4 seeds, T =
    65,536 in chunks of 4,096, Bernoulli(0.35) arrivals and spot rents at
    mean 0.35, alpha-RR and RR lanes with the OPT frontiers; per chunk one
    launch of P's Bernoulli and ARMA variants and two each of S and D, one
-   of P's normals a run.  A kernel's ``launches`` in the last lines add up
-   phases 3, 4, 7 and 8 (and the serving path's for F and M).
-9. Kernels F (flash attention) and M (SSD scan) against their plain
+   of P's normals a run.
+9. Model 2 at the fleet leg's width: 1,024 instances x 4 seeds, T =
+   65,536 in chunks of 4,096, Poisson arrivals at rates cycled over {2, 4,
+   8}, spot rents at mean 4.5, Model-2 service (24 requests a slot) on the
+   fleet grid's g; alpha-RR and RR (gathering its endpoint columns) lanes
+   with the OPT frontiers; per chunk one launch of P's Poisson, service
+   and ARMA variants and two each of S and D on the slab, none of the
+   plain code; each lane == its standalone run and ``opt_cost`` ==
+   ``offline_opt_fleet``; card == CPU at 16 instances x 4 seeds, T =
+   1,024.  A kernel's ``launches`` in the last lines add up phases 3, 4, 7,
+   8 and 9 (and the serving path's for F and M).
+10. Kernels F (flash attention) and M (SSD scan) against their plain
    versions on the card, each within a stated tolerance.  Each has two
    kernels, chosen by an explicit dispatch: F's wgmma kernel (bf16, hd 64 /
    128) and its fp32-FMA kernel (the rest), M's mma.sync kernel (bf16, dh /
@@ -77,7 +100,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    and a ragged length, the scheduler's 8-token chunk, ds = 128, a chunk of
    256, fp32.  Each variant requires that the dispatch launched the kernel
    it names.  The FMA kernels are also timed on the main bf16 input.
-10. The LM serving path at full width and depth: zamba2-1.2b in bf16 from
+11. The LM serving path at full width and depth: zamba2-1.2b in bf16 from
    a seeded generator (38 Mamba2 layers, 6 shared-attention
    applications), ``ServingEngine.serve_slot`` under each plan (none,
    layer prefix at alpha 0.4 = 5 segments, full) on 8 prompts of 2,048
@@ -85,7 +108,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    just before and read just after; per full forward F's wgmma kernel runs
    6 times and M's mma kernel 38 times, per prefix forward 3 and 12; the
    FMA kernels never run there.
-11. Card == CPU for the serving path at zamba2's tiny fp32 config with the
+12. Card == CPU for the serving path at zamba2's tiny fp32 config with the
    same weights: logits within 1e-4, argmax tokens equal where the CPU's
    top-2 margin is wider.
 
@@ -116,6 +139,8 @@ from repro_torch.core.policies import AlphaRR, RetroRenting  # noqa: E402
 from repro_torch.figures import fig01_02_alpha_sweep  # noqa: E402
 from repro_torch.figures import fig03_06_m_p_sweeps  # noqa: E402
 from repro_torch.figures import fig07_08_multiple_rr  # noqa: E402
+from repro_torch.figures import fig10_11_trace  # noqa: E402
+from repro_torch.figures import fig12_15_poisson_model2  # noqa: E402
 from repro_torch.core.policies.alpha_rr import alpha_rr_init  # noqa: E402
 from repro_torch.core.policies.offline_opt import (dp_fetch_matrix,  # noqa: E402
                                                    dp_frontier0)
@@ -135,6 +160,9 @@ from repro_torch.serve.scheduler import EdgeServingScheduler  # noqa: E402
 N_M, N_ALPHA, N_SEEDS = 32, 32, 4
 T_MAIN, T_GE, T_SMALL, CHUNK = 65536, 8192, 4096, 4096
 SMALL_INSTANCES = 16
+# cycles of the spin that each timed batch of kernel calls waits behind
+# (~10 ms at the H100's 1,980 MHz)
+SPACER_CYCLES = 20_000_000
 # every fleet run on the card is timed this many times (the median is
 # printed, in microseconds); the launch counters cover the first pass
 REPEATS = 3
@@ -159,11 +187,15 @@ KERNEL_SYMBOLS = {
     "uniform_rents_chunk": "counter_stream_kernel<kUniformRents>",
     "na_rents_chunk": "counter_stream_kernel<kNaRents>",
     "normal_chunk": "counter_stream_kernel<kNormal>",
-    "ge_bernoulli_chunk": "ge_chain_kernel",
+    "ge_bernoulli_chunk": "ge_chain_kernel<EMIT>",
     "arma_rents_chunk": "arma_rents_kernel",
-    "dp_fwd_model1": "dp_fwd_model1_kernel",
+    "poisson_chunk": "poisson_knuth_kernel",
+    "model2_service_chunk": "model2_service_kernel",
+    "dp_fwd_model1": "dp_fwd_kernel<K, ARGS, false>",
+    "dp_fwd_model2": "dp_fwd_kernel<K, ARGS, true>",
     "dp_minplus": "dp_minplus_kernel",
-    "sim_chunk_alpha_rr": "sim_alpha_rr_kernel",
+    "sim_chunk_alpha_rr": "sim_alpha_rr_kernel<K, false>",
+    "sim_chunk_alpha_rr_svc": "sim_alpha_rr_kernel<K, true>",
     "flash_attention_wgmma": "flash_fwd_wgmma_kernel",
     "flash_attention_fma": "flash_fwd_fma_kernel",
     "ssd_scan_mma": "ssd_scan_mma_kernel",
@@ -182,15 +214,17 @@ def log(*a):
 
 def cuda_ms(fn, reps=5, warmup=1, batch=1):
     """Median milliseconds of one ``fn()`` over ``reps`` CUDA-event timed
-    runs of ``batch`` back-to-back calls each (a batch keeps the card busy
-    while the host prepares the next launch, so a kernel's time is not
-    its wrapper's)."""
+    runs of ``batch`` back-to-back calls each.  Each run starts behind
+    ~10 ms of ``torch.cuda._sleep``, during which the host queues the
+    batch, so the batch runs back to back: a kernel's time is not its
+    wrapper's, even on a host slower than the kernel."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPACER_CYCLES)
         a.record()
         for _ in range(batch):
             fn()
@@ -198,6 +232,19 @@ def cuda_ms(fn, reps=5, warmup=1, batch=1):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / batch)
     return float(np.median(times))
+
+
+def timed_once(fn):
+    """``fn()`` called once, timed by CUDA events: (ms, its result) -- for
+    the plain versions, whose one call at the fleet's shape takes up to
+    seconds and whose result is held against the kernel's."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b), out
 
 
 def tree_equal(a, b):
@@ -292,6 +339,24 @@ def ge_na(B, device):
         sc.ge_arrivals(sc.prng_key(2, device), 0.3, 0.2, 0.9, 0.2, B,
                        emission="bernoulli", device=device),
         sc.na_rents(sc.prng_key(3, device), 0.35, 0.2, B, device=device))
+
+
+# the Model-2 fan-out: Poisson rates cycled over the instances, spot rents
+# at Figs 12-15's mean, Model-2 service of up to 24 requests a slot
+M2_LAMS, M2_RENT, M2_MAX = (2.0, 4.0, 8.0), 4.5, 24
+
+
+def model2_scenario(grid, device):
+    """Poisson arrivals (rates cycled over ``M2_LAMS``), spot rents at mean
+    4.5 and Model-2 service on ``grid``'s g (the endpoint grid's g gives
+    the same draws' endpoint columns)."""
+    B = grid.B
+    lam = np.resize(np.asarray(M2_LAMS, np.float32), B)
+    return sc.combine(
+        sc.poisson_arrivals(sc.prng_key(6, device), lam, B, device=device),
+        sc.spot_rents(sc.prng_key(7, device), M2_RENT, B, device=device),
+        svc=sc.model2_service(sc.prng_key(8, device), grid.g, B, M2_MAX,
+                              device=device))
 
 
 def timed_passes(runs, device, label, timings, counted=False):
@@ -409,7 +474,7 @@ P_SASS = {"slot_uniform": "counter_stream_kernelILi0ELb0E",
           "uniform_rents_chunk": "counter_stream_kernelILi2ELb0E",
           "na_rents_chunk": "counter_stream_kernelILi3ELb0E",
           "normal_chunk": "counter_stream_kernelILi4ELb0E",
-          "ge_bernoulli_chunk": "ge_chain_kernel"}
+          "ge_bernoulli_chunk": "ge_chain_kernelILb1E"}
 # SASS opcodes that issue on the integer ALU pipe (64 lanes a clock per SM
 # on Hopper, the CUDA C++ Programming Guide's throughput table for compute
 # capability 9.0): logic, shifts, 3-input adds, compares, selects, min /
@@ -573,6 +638,7 @@ def kernel_checks(dev):
 
     rec["arma_rents_chunk"] = arma_checks(dev, R, chunk, clock, n_sm,
                                           sass["normal_chunk"])
+    rec.update(svc_kernel_checks(dev, clock, n_sm, sass))
 
     # slab data shared by D and S
     gen = scen.init_fn(scen.params)
@@ -822,7 +888,311 @@ def arma_checks(dev, R, chunk, clock, n_sm, normal_sass):
 
 
 # ----------------------------------------------------------------------
-# Phase 6: kernels F and M against their plain versions.
+# Phase 2, Model 2: P's Poisson and service variants, D and S on a
+# Model-2 service slab.
+# ----------------------------------------------------------------------
+
+POISSON_LAMS = (0.0, 0.15, 1.2, 2.0, 4.0, 8.0, 9.99)
+# the 32-bit operations of one Knuth round past its three threefry blocks
+# (an FMA counts 2): XLA's log (~25), the uniform's mapping (5), the add
+# and the compare
+KNUTH_ROUND_OPS = 32
+# of one live request of the service kernel past its block: the mapping
+# (5) and a compare and an add a level
+M2_REQUEST_OPS = 5
+
+
+def svc_grids(dev, rows):
+    """The Model-2 checks' grids on ``rows`` rows: the fleet's K = 3, a
+    mixed K = 5 grid (every other row K = 3, padded) and a K = 16 grid."""
+    g3 = fleet_grid(N_M, N_ALPHA, dev).repeat_rows(N_SEEDS)
+    g3 = HostingGrid(*sub_rows((g3.M, g3.levels, g3.g, g3.mask), rows))
+    g5 = HostingGrid.from_costs(
+        [HostingCosts(M=float(m), levels=(0.0, 0.2, 0.45, 0.7, 1.0),
+                      g=(1.0, 0.75, 0.5, 0.2, 0.0)) if i % 2 else
+         HostingCosts.three_level(float(m), 0.3, 0.6)
+         for i, m in enumerate(np.geomspace(2, 50, rows))], device=dev)
+    return g3, g5, k16_grid(rows, dev)
+
+
+def svc_lane_args(grid, rows, T_len, t0, c, svc, cols, with_args, trace):
+    """D's and S's arguments for a lane on ``grid`` (its first ``rows``
+    rows; ``cols`` None: the grid's own levels, else the endpoint lane
+    gathering ``cols``) over the slab ``c`` / ``svc`` from ``t0``."""
+    lane = grid.restrict_to_endpoints() if cols is not None else grid
+    dev = c.device
+    J = dp_frontier0(rows, lane.K, dev)
+    J[1::7] = float("inf")
+    d = (J, c, svc, lane.levels, lane.mask,
+         dp_fetch_matrix(lane.M, lane.levels), T_len, t0, cols, with_args)
+    pol = (RetroRenting if cols is not None else AlphaRR).batch(lane)
+    carry = (alpha_rr_init(pol.params), sim_acc0(rows, lane.K, dev))
+    s = (pol.params, lane.levels, lane.M, T_len, t0, carry, c, svc, cols,
+         trace, trace)
+    return d, s
+
+
+def svc_kernel_checks(dev, clock, n_sm, sass):
+    """Kernel P's Poisson and Model-2 service variants and kernels D and S
+    on a Model-2 slab against their plain versions, bit for bit.  Reduced
+    slabs in both layouts: 256 rows x 1,024 slots, 253 rows from an odd t0
+    x 1,001 slots, 256 rows x one slot at the top of the counters; Poisson
+    rates cycled over {0, 0.15, 1.2, 2, 4, 8, 9.99} a row, and the salted
+    GE form over two chunks with the chain's state carried; service at K =
+    3, 5 and 16 (24 and 7 requests a slot, arrivals past the cap
+    included); D with and without the argmin table, S with and without the
+    trace, each on the slab's own levels and on a K = 2 lane gathering the
+    endpoint columns (bulk copies on the aligned slab where the columns
+    fit a stage, 4-byte copies otherwise).  Then the figures' shapes (Figs
+    12-15: 76 rows x 6,000 slots; Figs 10-11: GE-Poisson on 40 rows x two
+    chunks of 2,000) and the Model-2 fan-out's slab at the fleet's shape
+    (4,096 rows x 4,096 slots, K = 3), each kernel there timed and held
+    against its plain version, whose one call is timed too.  Returns their
+    records."""
+    R, chunk = N_M * N_ALPHA * N_SEEDS, CHUNK
+    rows = 256
+    t0 = T_MAIN - chunk
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    keys = sc.split_keys(sc.prng_key(9, dev), rows)
+    lam = torch.from_numpy(np.resize(np.float32(POISSON_LAMS), rows)).to(dev)
+    grids = svc_grids(dev, rows)
+    slabs = [("256 rows x 1,024 slots", rows, t0, 1024),
+             ("253 rows, odd t0, 1,001 slots", rows - 3, t0 + 1, 1001),
+             ("256 rows, one slot", rows, 2 ** 31 - 1, 1)]
+    names = ("poisson_chunk", "model2_service_chunk", "dp_fwd_model2",
+             "sim_chunk_alpha_rr_svc")
+    err = {k: 0.0 for k in names}
+    n_cmp = {k: 0 for k in names}
+
+    def same(name, k, p, what):
+        torch.cuda.synchronize()
+        require(tree_equal(k, p), f"{name} differs from its plain version "
+                                  f"({what})")
+        err[name] = max(err[name], tree_max_abs(k, p))
+        n_cmp[name] += 1
+
+    def lanes_same(grid, n_rows, T_len, first, c, svc, what, withs):
+        """D and S on ``grid``'s own levels and on its endpoint columns,
+        under each (with_args / trace) flag of ``withs``."""
+        for cols in (None, grid.endpoint_columns()):
+            for w in withs:
+                d, s_ = svc_lane_args(grid, n_rows, T_len, first, c, svc,
+                                      cols, w, w)
+                lbl = (f"{what}, K={2 if cols is not None else grid.K} of "
+                       f"{grid.K}, args / trace {w}")
+                same("dp_fwd_model2", H.dp_fwd_model2(*d),
+                     H.dp_fwd_model2_plain(*d), lbl)
+                same("sim_chunk_alpha_rr_svc", H.sim_chunk_alpha_rr_svc(*s_),
+                     H.sim_chunk_alpha_rr_svc_plain(*s_), lbl)
+
+    def ge_poisson_same(n_rows, chunks, part, what):
+        """The GE form: the chain's states over ``chunks`` (t0, n) in a
+        row, its state carried, the Poisson emissions at the per-slot
+        rates, salt 1."""
+        ge = sc.ge_arrivals(keys[:n_rows], 0.2, 0.08,
+                            lam[:n_rows].flip(0).contiguous(),
+                            lam[:n_rows].contiguous(), n_rows, device=dev)
+        s, pp = ge.init_fn(ge.params)["s"], ge.params
+        for first, n in chunks:
+            tt = sc.base.chunk_tids(first, n, dev)
+            s, states, _ = H.ge_bernoulli_chunk(
+                pp["key"], tt, s, pp["p_hl"], pp["p_lh"], pp["rate_h"],
+                pp["rate_l"], part, emit=False)
+            same("poisson_chunk",
+                 H.poisson_chunk(pp["key"], tt, pp["rate_l"], 1, states,
+                                 pp["rate_h"], part),
+                 H.poisson_chunk_plain(pp["key"], tt, pp["rate_l"], 1,
+                                       states, pp["rate_h"], part),
+                 f"{what}, GE states, t0={first}, {n} slots")
+
+    for part in (True, False):
+        lay = "partitionable" if part else "original"
+        for label, n_rows, first, n in slabs:
+            tt = sc.base.chunk_tids(first, n, dev)
+            kk, ll = keys[:n_rows].contiguous(), lam[:n_rows].contiguous()
+            x = H.poisson_chunk(kk, tt, ll, partitionable=part)
+            same("poisson_chunk", x,
+                 H.poisson_chunk_plain(kk, tt, ll, partitionable=part),
+                 f"{label}, {lay}")
+            x = x.clone()
+            x[::5, ::3] = 30                         # past the 24-request cap
+            T_len = torch.randint(first, first + 2 * n, (n_rows,),
+                                  generator=gen).clamp_max(2 ** 31 - 1).to(
+                                      torch.int32).to(dev)
+            c = (torch.rand((n_rows, n), generator=gen) * 9).to(dev)
+            for grid in grids:
+                gr = HostingGrid(*sub_rows((grid.M, grid.levels, grid.g,
+                                            grid.mask), n_rows))
+                for n_max in (M2_MAX, 7):
+                    svc = H.model2_service_chunk(kk, tt, x, gr.g, n_max,
+                                                 part)
+                    same("model2_service_chunk", svc,
+                         H.model2_service_chunk_plain(kk, tt, x, gr.g, n_max,
+                                                      part),
+                         f"{label}, K={gr.K}, {n_max} requests, {lay}")
+                lanes_same(gr, n_rows, T_len, first, c, svc,
+                           f"{label}, {lay}", (False, True))
+        ge_poisson_same(rows, ((t0, 1000), (t0 + 1000, 1001)), part, lay)
+        log(f"Model-2 kernels ok: Poisson, service, D and S on reduced "
+            f"slabs, {lay} layout")
+
+    # the figures' shapes, in the default layout: Figs 12-15's one chunk
+    # (76 rows x 6,000 slots: Poisson at {2, 4, 8}, service on K = 3, S
+    # with its trace for alpha-RR and RR), Figs 10-11's GE-Poisson chunks
+    n_rows, n = 76, 6000
+    tt = sc.base.chunk_tids(0, n, dev)
+    kk = keys[:n_rows].contiguous()
+    ll = torch.from_numpy(np.resize(np.float32(M2_LAMS), n_rows)).to(dev)
+    x = H.poisson_chunk(kk, tt, ll)
+    same("poisson_chunk", x, H.poisson_chunk_plain(kk, tt, ll),
+         "Figs 12-15's chunk")
+    gr = HostingGrid(*sub_rows((grids[0].M, grids[0].levels, grids[0].g,
+                                grids[0].mask), n_rows))
+    svc = H.model2_service_chunk(kk, tt, x, gr.g, M2_MAX)
+    same("model2_service_chunk", svc,
+         H.model2_service_chunk_plain(kk, tt, x, gr.g, M2_MAX),
+         "Figs 12-15's chunk")
+    T_len = torch.full((n_rows,), n, dtype=torch.int32, device=dev)
+    c = (torch.rand((n_rows, n), generator=gen) * 9).to(dev)
+    lanes_same(gr, n_rows, T_len, 0, c, svc, "Figs 12-15's chunk", (True,))
+    ge_poisson_same(40, ((0, 2000), (2000, 2000)), None, "Figs 10-11's chunks")
+    log(f"Model-2 kernels ok at the figures' shapes; compared "
+        f"{sum(n_cmp.values())} calls in all: {n_cmp}")
+
+    # the Model-2 fan-out's slab at the fleet's shape: timed, and held
+    # against the plain versions there too
+    grid = fleet_grid(N_M, N_ALPHA, dev)
+    scen = sc.replicate_seeds(model2_scenario(grid, dev), N_SEEDS)
+    tids = sc.base.chunk_tids(t0, chunk, dev)
+    gen_state = scen.init_fn(scen.params)
+    _, slab = scen.chunk_fn(scen.params, gen_state, tids)
+    arr, sv = scen.params["arr"], scen.params["svc"]
+    rgrid = grid.repeat_rows(N_SEEDS)
+    K = rgrid.K
+    T_len = torch.full((R,), T_MAIN, dtype=torch.int32, device=dev)
+    alu_block = sass["slot_uniform"][0] / 2     # ALU-pipe ops a block
+    N = R * chunk
+    fleet = "the Model-2 leg's slab"
+    rec = {}
+
+    def bound_int(blocks):
+        return blocks * alu_block / (64 * n_sm * clock * 1e3)
+
+    p_args = (arr["key"], tids, arr["lam"])
+    x = H.poisson_chunk(*p_args)
+    plain_ms, xp = timed_once(lambda: H.poisson_chunk_plain(*p_args))
+    same("poisson_chunk", x, xp, fleet)
+    rounds = float(torch.where(arr["lam"][:, None] > 0, x + 1, 0)
+                   .double().sum())
+    blocks = N + 3 * rounds
+    rec["poisson_chunk"] = dict(
+        replaces="src/repro/core/scenarios/streams.py:82",
+        consumer="src/repro/core/scenarios/streams.py:98",
+        ms=cuda_ms(lambda: H.poisson_chunk(*p_args), reps=7, batch=5),
+        plain_ms=plain_ms, sm_clock_mhz=clock,
+        mean_rounds=rounds / N, alu_ops_per_block=alu_block,
+        int_pipe_bound_ms=bound_int(blocks),
+        ops=79 * blocks + KNUTH_ROUND_OPS * rounds,
+        nbytes=nbytes(*p_args, x),
+        shape=f"R={R} chunk={chunk}, rates {M2_LAMS} cycled, partitionable "
+              f"layout; {n_cmp['poisson_chunk']} calls compared, this one "
+              f"included")
+    live = float(torch.clamp(slab.x, 0, M2_MAX).double().sum())
+    m_args = (sv["key"], tids, slab.x, sv["g"], M2_MAX)
+    out = H.model2_service_chunk(*m_args)
+    plain_ms, outp = timed_once(lambda: H.model2_service_chunk_plain(*m_args))
+    same("model2_service_chunk", out, outp, fleet)
+    require(torch.equal(out, slab.svc), "the fan-out's service slab differs "
+                                        "from model2_service_chunk's")
+    rec["model2_service_chunk"] = dict(
+        replaces="src/repro/core/scenarios/streams.py:402",
+        consumer="src/repro/core/scenarios/streams.py:403",
+        ms=cuda_ms(lambda: H.model2_service_chunk(*m_args), reps=7, batch=5),
+        plain_ms=plain_ms, sm_clock_mhz=clock,
+        live_requests_per_slot=live / N,
+        int_pipe_bound_ms=bound_int(N + live),
+        ops=79 * (N + live) + live * (M2_REQUEST_OPS + 2 * K),
+        nbytes=nbytes(sv["key"], tids, slab.x, sv["g"], out),
+        shape=f"R={R} chunk={chunk} K={K}, {M2_MAX} requests a slot at "
+              f"most, partitionable layout; "
+              f"{n_cmp['model2_service_chunk']} calls compared, this one "
+              f"included")
+    d_args, s_args = svc_lane_args(rgrid, R, T_len, t0, slab.c, slab.svc,
+                                   None, False, False)
+    e_args, r_args = svc_lane_args(rgrid, R, T_len, t0, slab.c, slab.svc,
+                                   rgrid.endpoint_columns(), False, False)
+    d_args = (dp_frontier0(R, K, dev),) + d_args[1:]     # the fleet's J_0
+    e_args = (dp_frontier0(R, 2, dev),) + e_args[1:]
+    outs = {}
+    for key, fn, args in (("d", H.dp_fwd_model2, d_args),
+                          ("e", H.dp_fwd_model2, e_args),
+                          ("s", H.sim_chunk_alpha_rr_svc, s_args),
+                          ("r", H.sim_chunk_alpha_rr_svc, r_args)):
+        outs[key] = fn(*args)
+    plain = {}
+    for key, fn, args in (("d", H.dp_fwd_model2_plain, d_args),
+                          ("e", H.dp_fwd_model2_plain, e_args),
+                          ("s", H.sim_chunk_alpha_rr_svc_plain, s_args),
+                          ("r", H.sim_chunk_alpha_rr_svc_plain, r_args)):
+        plain[key] = timed_once(lambda: fn(*args))
+        name = ("dp_fwd_model2" if key in "de" else
+                "sim_chunk_alpha_rr_svc")
+        who = "RR, the endpoint columns" if key in "er" else "alpha-RR"
+        same(name, outs[key], plain[key][1], f"{fleet}, {who}")
+    Jk = outs["d"][0]
+    ms = cuda_ms(lambda: H.dp_fwd_model2(*d_args), reps=10, batch=10)
+    rec["dp_fwd_model2"] = dict(
+        replaces="src/repro/kernels/hosting.py:116", ms=ms,
+        plain_ms=plain["d"][0], cols_plain_ms=plain["e"][0],
+        cols_ms=cuda_ms(lambda: H.dp_fwd_model2(*e_args), reps=10,
+                        batch=10),
+        args_ms=cuda_ms(lambda: H.dp_fwd_model2(*d_args[:-1], True), reps=5,
+                        batch=10),
+        sm_clock_mhz=clock,
+        cycles_per_slot=ms * 1e-3 * clock * 1e6 / chunk,
+        ops=N * (2 * K + K * K + K * (K - 1) + K),
+        nbytes=nbytes(*d_args[:7], Jk),
+        shape=f"R={R} chunk={chunk} K={K}, no column map, no argmin "
+              f"table: alpha-RR's frontier; cols_ms: RR's K = 2 columns of "
+              f"the same slab (both by bulk copies); "
+              f"{n_cmp['dp_fwd_model2']} calls compared, these two "
+              f"included")
+    (st, acc), _ = outs["s"]
+    ms = cuda_ms(lambda: H.sim_chunk_alpha_rr_svc(*s_args), reps=10,
+                 batch=10)
+    pol_params, carry = s_args[0], s_args[5]
+    rec["sim_chunk_alpha_rr_svc"] = dict(
+        replaces="src/repro/core/simulator.py:147", ms=ms,
+        plain_ms=plain["s"][0], cols_plain_ms=plain["r"][0],
+        cols_ms=cuda_ms(lambda: H.sim_chunk_alpha_rr_svc(*r_args), reps=10,
+                        batch=10),
+        sm_clock_mhz=clock,
+        cycles_per_slot=ms * 1e-3 * clock * 1e6 / chunk,
+        ops=N * (11 * K + 9),
+        nbytes=nbytes(*pol_params.values(), rgrid.levels, rgrid.M, T_len,
+                      *carry[0].values(), *carry[1].values(), slab.c,
+                      slab.svc, *st.values(), *acc.values()),
+        shape=f"R={R} chunk={chunk} K={K}, no column map, no trace: "
+              f"alpha-RR's call; cols_ms: RR's K = 2 columns of the same "
+              f"slab (both by bulk copies); "
+              f"{n_cmp['sim_chunk_alpha_rr_svc']} calls compared, these "
+              f"two included")
+    for name, r in rec.items():
+        r["max_abs_err"] = err[name]
+        log(f"{name} timed: {r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms"
+            + (f", integer-pipe bound {r['int_pipe_bound_ms']:.4f} ms"
+               if "int_pipe_bound_ms" in r else "")
+            + (f", {r['cols_ms']:.4f} ms on RR's columns (plain "
+               f"{r['cols_plain_ms']:.1f} ms)" if "cols_ms" in r else ""))
+    live = rec["model2_service_chunk"]["live_requests_per_slot"]
+    log(f"   Poisson: {rec['poisson_chunk']['mean_rounds']:.3f} rounds a "
+        f"slot; service: {live:.3f} live requests a slot; every kernel == "
+        f"its plain version at the fleet's shape")
+    return rec
+
+
+# ----------------------------------------------------------------------
+# Phase 10: kernels F and M against their plain versions.
 # ----------------------------------------------------------------------
 
 # Tolerances.  fp32 outputs, normwise: max |kernel - plain| <= tol *
@@ -1049,7 +1419,7 @@ def lm_kernel_checks(dev):
 
 
 # ----------------------------------------------------------------------
-# Phases 6 to 8: the policy fan-out and the paper's figures.
+# Phases 6 to 9: the policy fan-out and the paper's figures.
 # ----------------------------------------------------------------------
 
 FIG_KERNELS = {
@@ -1061,11 +1431,21 @@ FIG_KERNELS = {
                  "arma_rents_chunk", "sim_chunk_alpha_rr", "dp_fwd_model1"),
     "fig07_08": ("ge_bernoulli_chunk", "slot_uniform", "normal_chunk",
                  "arma_rents_chunk", "sim_chunk_alpha_rr"),
+    # the bursty arrivals: the GE chain (its initial draw on the uniforms)
+    # and its Poisson emissions
+    "fig10_11": ("ge_bernoulli_chunk", "slot_uniform", "poisson_chunk",
+                 "normal_chunk", "arma_rents_chunk", "sim_chunk_alpha_rr",
+                 "dp_fwd_model1"),
+    # Model 2: Poisson arrivals, the service draws, S on the slab (no DP)
+    "fig12_15": ("poisson_chunk", "model2_service_chunk", "normal_chunk",
+                 "arma_rents_chunk", "sim_chunk_alpha_rr_svc"),
 }
 # (module, fleet rows at the defaults: grid points x 4 seeds, T)
 FIGURES = {"fig01_02": (fig01_02_alpha_sweep, 40, 10000),
            "fig03_06": (fig03_06_m_p_sweeps, 88, 8000),
-           "fig07_08": (fig07_08_multiple_rr, 20, 8000)}
+           "fig07_08": (fig07_08_multiple_rr, 20, 8000),
+           "fig10_11": (fig10_11_trace, 40, 8000),
+           "fig12_15": (fig12_15_poisson_model2, 76, 6000)}
 
 
 def fanout_results_equal(a, b, fields=("total", "rent", "service", "fetch",
@@ -1191,8 +1571,88 @@ def fanout_leg(dev, timings):
     return launched
 
 
+def model2_fanout_leg(dev, timings):
+    """Model 2 at the fleet leg's width: 1,024 instances x 4 seeds = 4,096
+    rows, T = 65,536 in chunks of 4,096, Poisson arrivals at rates cycled
+    over {2, 4, 8}, spot rents at mean 4.5, Model-2 service (24 requests a
+    slot at most) on the fleet grid's g; alpha-RR and RR (gathering its
+    endpoint columns) lanes with the OPT frontiers.  Each lane equals its
+    standalone run (RR's on a service stream drawn on the endpoint grid)
+    and ``opt_cost`` ``offline_opt_fleet`` on the lane's fleet, bit for
+    bit; then card == CPU on the same fan-out at 16 instances x 4 seeds,
+    T = 1,024.  Returns the launch counts of its first run."""
+    fleet = FleetBatch.for_scenario(fleet_grid(N_M, N_ALPHA, dev), T_MAIN)
+    ends = fleet.restrict_to_endpoints()
+    lanes = [AlphaRR.fleet_lane(fleet, with_svc=True),
+             RetroRenting.fleet_lane(fleet, with_svc=True)]
+    kw = dict(chunk_size=CHUNK, n_seeds=N_SEEDS, device=dev)
+    scen, scen_e = model2_scenario(fleet.grid, dev), model2_scenario(
+        ends.grid, dev)
+    ops.reset_launches()
+    out, (launched, plain) = timed_passes(
+        {"run": lambda: run_fleet(lanes, fleet, scenario=scen,
+                                  with_opt_forward=True, collect_trace=False,
+                                  **kw)}, dev, "model2", timings,
+        counted=True)
+    res = out["run"]
+    n = T_MAIN // CHUNK
+    want = {"poisson_chunk": n, "model2_service_chunk": n,
+            "arma_rents_chunk": n, "normal_chunk": 1,
+            "sim_chunk_alpha_rr_svc": 2 * n, "dp_fwd_model2": 2 * n}
+    got = {k: v for k, v in launched.items() if v}
+    require(got == want and not any(plain.values()),
+            f"Model-2 leg launched {got}, expected {want}; plain {plain}")
+    alone = [run_fleet(AlphaRR.fleet(fleet), fleet, scenario=scen,
+                       collect_trace=False, **kw),
+             run_fleet(RetroRenting.fleet(fleet), ends, scenario=scen_e,
+                       collect_trace=False, **kw)]
+    opts = [offline_opt_fleet(f, scenario=sc_, checkpointed=True,
+                              collect_schedule=False, **kw)
+            for f, sc_ in ((fleet, scen), (ends, scen_e))]
+    view = res.policy_view
+    for p in range(2):
+        K = alone[p].level_slots.shape[1]
+        require(np.array_equal(view(res.total)[p], alone[p].total)
+                and np.array_equal(view(res.service)[p], alone[p].service)
+                and np.array_equal(view(res.level_slots)[p][:, :K],
+                                   alone[p].level_slots)
+                and np.array_equal(view(res.opt_cost)[p], opts[p].cost),
+                f"Model-2 lane {p} differs from its standalone run or "
+                f"offline_opt_fleet")
+    tot, opt = view(res.total), view(res.opt_cost)
+    tol = 1e-3 * T_MAIN
+    require(np.isfinite(tot).all() and np.isfinite(opt).all()
+            and (tot >= opt - tol).all() and (opt[0] <= opt[1] + tol).all()
+            and (res.level_slots.sum(1) == T_MAIN).all()
+            and (res.service > 0).all(),
+            "Model-2 leg: results not finite or out of order")
+    log(f"Model-2 leg: {res.B // 2} rows x 2 lanes, T={T_MAIN}: "
+        f"{median_us(timings, 'model2/run'):.1f} us a run (median of "
+        f"{REPEATS}); launches P {launched['poisson_chunk']} Poisson + "
+        f"{launched['model2_service_chunk']} service + "
+        f"{launched['arma_rents_chunk']} ARMA + {launched['normal_chunk']} "
+        f"normal, S {launched['sim_chunk_alpha_rr_svc']}, D "
+        f"{launched['dp_fwd_model2']}; both lanes == their standalone runs, "
+        f"opt_cost == offline_opt_fleet; per-slot means alpha-RR / RR / "
+        f"alpha-OPT / OPT "
+        f"{[round(float(a.mean()) / T_MAIN, 6) for a in (*tot, *opt)]}")
+    outs = []
+    for d in (dev, "cpu"):
+        f = FleetBatch.for_scenario(fleet_grid(1, SMALL_INSTANCES, d), 1024)
+        t = time.perf_counter()
+        outs.append(run_fleet(
+            [AlphaRR.fleet_lane(f), RetroRenting.fleet_lane(f, with_svc=True)],
+            f, scenario=model2_scenario(f.grid, d), chunk_size=256,
+            n_seeds=N_SEEDS, with_opt_forward=True, device=d))
+        wall = time.perf_counter() - t
+    require(fanout_results_equal(*outs), "card != CPU: the Model-2 fan-out")
+    log(f"card == CPU: Model-2 fan-out, {outs[0].B} rows, T=1024 "
+        f"({wall:.1f} s on the CPU)")
+    return launched
+
+
 # ----------------------------------------------------------------------
-# Phases 7 and 8: the LM serving path.
+# Phases 10 to 12: the LM serving path.
 # ----------------------------------------------------------------------
 
 def launch_counts():
@@ -1391,7 +1851,9 @@ def main() -> int:
         require(main_launches[k.__name__] > 0,
                 f"kernel {k.__name__} never launched on the fleet path")
     for name in ("dp_minplus", "slot_uniform", "na_rents_chunk",
-                 "ge_bernoulli_chunk", "normal_chunk", "arma_rents_chunk"):
+                 "ge_bernoulli_chunk", "normal_chunk", "arma_rents_chunk",
+                 "poisson_chunk", "model2_service_chunk", "dp_fwd_model2",
+                 "sim_chunk_alpha_rr_svc"):
         require(main_launches[name] == 0,
                 f"{name} ran on the Bernoulli leg of the fleet path")
     require(not any(main_plain.values()),
@@ -1415,7 +1877,9 @@ def main() -> int:
     want = {"ge_bernoulli_chunk": runs * n_chunks,
             "na_rents_chunk": runs * n_chunks, "slot_uniform": runs,
             "bernoulli_arrivals_chunk": 0, "uniform_rents_chunk": 0,
-            "dp_minplus": 0, "normal_chunk": 0, "arma_rents_chunk": 0}
+            "dp_minplus": 0, "normal_chunk": 0, "arma_rents_chunk": 0,
+            "poisson_chunk": 0, "model2_service_chunk": 0,
+            "dp_fwd_model2": 0, "sim_chunk_alpha_rr_svc": 0}
     for name, n in want.items():
         require(ge_launches[name] == n, f"{name} launched "
                                         f"{ge_launches[name]} times on the "
@@ -1450,27 +1914,30 @@ def main() -> int:
             f"T={T_SMALL} ({timings[f'small-{label}-cpu/alpha-RR'][0]:.1f} "
             f"s alpha-RR on the CPU)")
 
-    # phases 6 to 8: the policy fan-out on the card, the paper's Figs 1-8,
-    # the fan-out at the fleet leg's width; each counted path adds its
-    # launches
+    # phases 6 to 9: the policy fan-out on the card, the paper's Figs 1-8
+    # and 10-15, the fan-out at the fleet leg's width, the Model-2 fan-out
+    # at that width; each counted path adds its launches
     fanout_checks(dev)
-    for counts in figures(dev, timings) + [fanout_leg(dev, timings)]:
+    for counts in figures(dev, timings) + [fanout_leg(dev, timings),
+                                           model2_fanout_leg(dev, timings)]:
         for k in launches:
             launches[k] += counts[k]
-    for k in (H.normal_chunk, H.arma_rents_chunk):
+    for k in (H.normal_chunk, H.arma_rents_chunk, H.poisson_chunk,
+              H.model2_service_chunk, H.dp_fwd_model2,
+              H.sim_chunk_alpha_rr_svc):
         require(launches[k.__name__] > 0, f"{k.__name__} never launched")
 
-    # phase 9: F and M against their plain versions
+    # phase 10: F and M against their plain versions
     rec.update(lm_kernel_checks(dev))
 
-    # phase 10: the LM serving path at full width and depth
+    # phase 11: the LM serving path at full width and depth
     serve_launches = serving_path(dev, timings)
     log(f"serving path launches: {serve_launches}")
     for k in (FA.flash_attention_wgmma, FA.flash_attention_fma,
               SSD.ssd_scan_mma, SSD.ssd_scan_fma):
         launches[k.__name__] = serve_launches[k.__name__]
 
-    # phase 11: card == CPU for the serving path
+    # phase 12: card == CPU for the serving path
     serving_card_vs_cpu(dev)
     log(f"timings (us; a card run the median of {REPEATS} passes, a CPU "
         f"run and the serving path one): " + json.dumps(
@@ -1490,6 +1957,9 @@ def main() -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": r.get("library_ms"), "shape": r["shape"]}
         for key in ("max_rel_err", "old_route_ms", "args_ms", "trace_ms",
+                    "cols_ms", "cols_plain_ms", "mean_rounds",
+                    "alu_ops_per_block",
+                    "live_requests_per_slot",
                     "sm_clock_mhz", "cycles_per_slot", "consumer",
                     "alu_ops_per_slot", "ops_per_slot", "int_pipe_bound_ms",
                     "issue_bound_ms", "salt_ms", "salt_alu_ops_per_slot",

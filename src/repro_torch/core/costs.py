@@ -184,3 +184,19 @@ class HostingGrid:
         return HostingGrid(M=self.M, levels=lv, g=g,
                            mask=torch.ones((B, 2), dtype=torch.bool,
                                            device=dev))
+
+    def endpoint_columns(self) -> torch.Tensor:
+        """[B, 2] int32 column indices of the endpoint levels (0, top) in
+        this grid: the ``PolicyLane.svc_cols`` map that scores a
+        no-partial-hosting lane on the service slab generated once on the
+        full grid (coupled Model-2 uniforms, so the gathered columns equal
+        ``endpoint_service`` and an endpoint grid's own draws bitwise)."""
+        zeros = torch.zeros((self.B,), dtype=torch.int32, device=self.device)
+        return torch.stack([zeros, self.top_index().to(torch.int32)], dim=1)
+
+    def endpoint_service(self, svc: torch.Tensor) -> torch.Tensor:
+        """A stacked [B, T, K] service matrix gathered down to the endpoint
+        levels: [B, T, 2] columns (level 0, top level), the realized costs a
+        no-partial policy sees on the same sample path."""
+        idx = self.endpoint_columns().to(torch.int64)[:, None, :]
+        return torch.gather(svc, 2, idx.expand(-1, svc.shape[1], -1))

@@ -18,7 +18,10 @@ key (``scenarios.replicate_seeds``); ``mc_summary`` collapses it.
 (``PolicyFns``, or ``PolicyLane`` binding a policy to its own accounting
 grid): each ``[R, chunk]`` slab is generated ONCE per chunk and every lane
 steps it with its own kernel-S launch on its own grid's rows, replicated
-over seeds like the fleet's.  ``with_opt_forward=True`` carries one
+over seeds like the fleet's.  Under a Model-2 scenario (``combine(svc=)``)
+a lane on its own grid carries ``svc_cols``, its levels' columns in the
+service slab (``RetroRenting.fleet_lane(fleet, with_svc=True)``), and
+kernels S and D gather them themselves.  ``with_opt_forward=True`` carries one
 offline-DP frontier per lane through the same chunk loop (kernel D on the
 lane's levels and mask) and returns ``FleetResult.opt_cost``.  Rows are
 policy-major, ``(p * B + b) * S + s`` (``FleetResult.policy_view``); lane p
@@ -26,10 +29,9 @@ is bitwise its standalone run, ``opt_cost`` bitwise ``offline_opt_fleet``
 on the lane's fleet.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: obs-backed fleets, ``stream=``, Model-2 lanes
-(``svc_cols``), ``async_ingest``, ``gather``, a mesh, the materialized DP
-and ``collect_schedule=True``.  The port runs on one device, so no rows
-are padded.
+ROADMAP.md item: obs-backed fleets, ``stream=``, ``async_ingest``,
+``gather``, a mesh, the materialized DP and ``collect_schedule=True``.
+The port runs on one device, so no rows are padded.
 """
 from __future__ import annotations
 
@@ -45,12 +47,12 @@ from repro_torch.core.costs import HostingGrid
 from repro_torch.core.policies.base import (PolicyFns, PolicyLane,
                                             as_policy_lanes)
 from repro_torch.core.policies.offline_opt import (dp_fetch_matrix,
-                                                   dp_frontier0, dp_fwd_chunk)
+                                                   dp_frontier0)
 from repro_torch.core.scenarios.base import (Scenario, chunk_geometry,
                                              chunk_tids, tree_map)
 from repro_torch.core.scenarios.combinators import replicate_seeds
 from repro_torch.core.simulator import sim_acc0, sim_chunk
-from repro_torch.kernels.hosting import dp_fwd_model1
+from repro_torch.kernels.hosting import dp_fwd_model1, dp_fwd_model2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -298,7 +300,7 @@ def run_fleet(policy, fleet: FleetBatch, *,
                   mesh=mesh)
     lanes = as_policy_lanes(policy) or (PolicyLane(policy),)
     fleet, scenario, dev = _to_device(fleet, scenario, device)
-    _check_lanes(lanes, fleet)
+    _check_lanes(lanes, fleet, scenario.has_svc)
     fleet, scenario, S = _replicate_mc(fleet, scenario, n_seeds, antithetic)
     T_max = fleet.T_max
     n_chunks, T_pad = chunk_geometry(T_max, chunk_size)
@@ -312,7 +314,7 @@ def run_fleet(policy, fleet: FleetBatch, *,
         tids = chunk_tids(t0, chunk, dev)
         gen, slab = scenario.chunk_fn(scenario.params, gen, tids)
         for run in runs:
-            run.step(include_final_fetch, T_len, t0, tids, slab,
+            run.step(include_final_fetch, T_len, t0, slab,
                      collect_trace)
     # policy-major rows; hetero-K lanes' histograms zero-padded to the
     # widest lane's K
@@ -333,9 +335,10 @@ def run_fleet(policy, fleet: FleetBatch, *,
                   if with_opt_forward else None))
 
 
-def _check_lanes(lanes, fleet: FleetBatch):
+def _check_lanes(lanes, fleet: FleetBatch, has_svc: bool):
     """Each lane must be able to price the shared stream: a ``PolicyFns``,
-    a grid of the fleet's B, and (for now) Model-1 pricing."""
+    a grid of the fleet's B, and under a Model-2 slab a column map if the
+    lane has its own grid (none without one)."""
     for i, lane in enumerate(lanes):
         if not isinstance(lane.fns, PolicyFns):
             raise TypeError(f"fan-out lane {i}: .fns must be a PolicyFns, "
@@ -343,38 +346,47 @@ def _check_lanes(lanes, fleet: FleetBatch):
         if lane.grid is not None and lane.grid.B != fleet.B:
             raise ValueError(f"fan-out lane {i} ({lane.name!r}): lane grid "
                              f"B={lane.grid.B} != fleet B={fleet.B}")
-        if lane.svc_cols is not None:
-            raise NotImplementedError(
-                f"fan-out lane {i} ({lane.name!r}): svc_cols= (Model-2 "
-                "service) comes with Model-2 service on the kernels: "
-                "ROADMAP.md, Queue 1 item 5")
+        if lane.svc_cols is not None and not has_svc:
+            raise ValueError(
+                f"fan-out lane {i} ({lane.name!r}): svc_cols= was given but "
+                "the stream generates no Model-2 service channel -- a "
+                "Model-1 lane prices g * x from its own grid")
+        if has_svc and lane.grid is not None and lane.svc_cols is None:
+            raise ValueError(
+                f"fan-out lane {i} ({lane.name!r}): a lane on its own grid "
+                "must map the shared Model-2 service slab onto its levels "
+                "via svc_cols= (HostingGrid.endpoint_columns builds the "
+                "endpoint map)")
 
 
 class _Lane:
-    """One fan-out lane's device state: its policy and accounting grid
-    replicated over the seeds, its ``(state, acc)`` carry, its trace
-    chunks and, with ``with_opt``, its DP frontier."""
+    """One fan-out lane's device state: its policy, accounting grid and
+    Model-2 column map replicated over the seeds, its ``(state, acc)``
+    carry, its trace chunks and, with ``with_opt``, its DP frontier."""
 
     def __init__(self, lane: PolicyLane, fleet_grid: HostingGrid, S: int,
                  dev, with_opt: bool):
         self.grid = (fleet_grid if lane.grid is None
                      else lane.grid.to(dev).repeat_rows(S))
         self.policy = _replicate_policy(lane.fns, S, dev)
+        self.cols = (None if lane.svc_cols is None else torch.as_tensor(
+            lane.svc_cols, dtype=torch.int32, device=dev)
+            .repeat_interleave(S, dim=0).contiguous())
         B, K = self.grid.B, self.grid.K
         self.carry = (self.policy.init_fn(self.policy.params),
                       sim_acc0(B, K, dev))
         self.r_parts = []
         self.dp = _DpLane(self.grid, dev) if with_opt else None
 
-    def step(self, include_final_fetch, T_len, t0, tids, slab,
+    def step(self, include_final_fetch, T_len, t0, slab,
              collect_trace):
         g = self.grid
         self.carry, r = sim_chunk(self.policy, include_final_fetch, g.levels,
                                   g.g, g.M, T_len, t0, self.carry, slab,
-                                  collect_trace)
+                                  collect_trace, self.cols)
         self.r_parts.append(r)
         if self.dp is not None:
-            self.dp.step(T_len, t0, tids, slab)
+            self.dp.step(T_len, t0, slab, self.cols)
 
     def result(self, T_max, collect_trace) -> dict:
         acc = self.carry[1]
@@ -396,14 +408,16 @@ class _DpLane:
         self.fetch = dp_fetch_matrix(grid.M.to(torch.float32), self.lv32)
         self.J = dp_frontier0(grid.B, grid.K, dev)
 
-    def step(self, T_len, t0, tids, slab):
+    def step(self, T_len, t0, slab, svc_cols=None):
+        # kernel D assembles w itself: from x * g under Model 1, from the
+        # service slab (its svc_cols columns) under Model 2
         g = self.grid
-        if slab.svc is None:        # Model 1: kernel D assembles w itself
+        if slab.svc is None:
             self.J, _ = dp_fwd_model1(self.J, slab.c, slab.x, g.g, self.lv32,
                                       g.mask, self.fetch, T_len, t0)
         else:
-            self.J, _ = dp_fwd_chunk(self.J, tids, slab.c, slab.svc,
-                                     self.lv32, g.mask, self.fetch, T_len)
+            self.J, _ = dp_fwd_model2(self.J, slab.c, slab.svc, self.lv32,
+                                      g.mask, self.fetch, T_len, t0, svc_cols)
 
     def cost(self) -> np.ndarray:
         return torch.amin(self.J, dim=1).cpu().numpy().astype(np.float64)
@@ -443,6 +457,6 @@ def offline_opt_fleet(fleet: FleetBatch, *,
     for i in range(n_chunks):
         tids = chunk_tids(i * chunk, chunk, dev)
         gen, slab = scenario.chunk_fn(scenario.params, gen, tids)
-        dp.step(T_len, i * chunk, tids, slab)
+        dp.step(T_len, i * chunk, slab)
     return FleetOfflineResult(cost=dp.cost(), r_hist=None, sim=None,
                               n_seeds=S)

@@ -109,13 +109,6 @@ def _step(params, state: State, obs: SlotObs, mul_add) -> State:
             "age": torch.where(switch, 0, age).to(torch.int32)}
 
 
-def _refuse_svc(with_svc: bool):
-    if with_svc:
-        raise NotImplementedError(
-            "fan-out lanes under Model-2 service (with_svc=True) come with "
-            "Model-2 service on the kernels: ROADMAP.md, Queue 1 item 5")
-
-
 class AlphaRR(OnlinePolicy):
     """O(1)-per-slot alpha-RetroRenting over an arbitrary level grid (K=2
     is RetroRenting, K=3 the paper's alpha-RR, K>3 multiple-RR).
@@ -142,8 +135,9 @@ class AlphaRR(OnlinePolicy):
     @classmethod
     def fleet_lane(cls, fleet, with_svc: bool = False) -> PolicyLane:
         """This policy as ONE entry of ``run_fleet``'s fan-out axis, on the
-        fleet's own grid."""
-        _refuse_svc(with_svc)
+        fleet's own grid (a Model-2 slab applies directly, so ``with_svc``
+        changes nothing)."""
+        del with_svc
         return PolicyLane(cls.fleet(fleet))
 
 
@@ -163,11 +157,14 @@ class RetroRenting(AlphaRR):
 
     @classmethod
     def fleet_lane(cls, fleet, with_svc: bool = False) -> PolicyLane:
-        """RR as a fan-out lane on its OWN endpoint accounting grid (Model
-        1: it prices ``g * x`` from the endpoint grid's g row)."""
-        _refuse_svc(with_svc)
-        return PolicyLane(cls.fleet(fleet),
-                          grid=fleet.grid.restrict_to_endpoints())
+        """RR as a fan-out lane on its OWN endpoint accounting grid: under
+        Model 1 it prices ``g * x`` from the endpoint grid's g row; under a
+        Model-2 slab (``with_svc=True``) it gathers its two columns out of
+        the fleet-grid slab (``grid.endpoint_columns()``)."""
+        grid = fleet.grid
+        return PolicyLane(cls.fleet(fleet), grid=grid.restrict_to_endpoints(),
+                          svc_cols=grid.endpoint_columns() if with_svc
+                          else None)
 
 
 # ----------------------------------------------------------------------

@@ -55,9 +55,11 @@ class PolicyLane(NamedTuple):
     ``grid=None`` means the lane runs on the fleet's own grid.  A lane with
     its own grid (same B, its own K / levels / g -- e.g.
     ``grid.restrict_to_endpoints()`` for RR) prices Model-1 service
-    ``g_lane * x`` from its own g row.  ``svc_cols`` (a [B, K_lane] column
-    map into a Model-2 service slab) comes with Model-2 service on the
-    kernels (ROADMAP.md, Queue 1 item 5); ``run_fleet`` refuses it."""
+    ``g_lane * x`` from its own g row; under a Model-2 scenario it must
+    carry ``svc_cols``, a [B, K_lane] int map of its levels' columns in the
+    service slab generated once on the fleet grid (coupled uniforms make
+    the gathered columns bitwise the lane grid's own draws; kernels S and D
+    gather them themselves)."""
 
     fns: PolicyFns
     grid: Optional[Any] = None       # HostingGrid; None -> fleet.grid

@@ -23,6 +23,7 @@ from __future__ import annotations
 import math
 from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
@@ -41,11 +42,14 @@ class ObsSlab(NamedTuple):
 
 
 class Stream(NamedTuple):
-    """One generated channel (``kind``: ``"arrivals"`` or ``"rents"``).
+    """One generated channel (``kind``: ``"arrivals"``, ``"rents"`` or
+    ``"svc"``).
 
     ``chunk_fn(params, state, tids) -> (state', values)``: arrival streams
-    emit ``(x, side)``, rent streams ``c``.  ``has_side`` marks arrival
-    streams whose side channel carries the GE chain state."""
+    emit ``(x, side)``, rent streams ``c``; a service stream's
+    ``chunk_fn(params, state, tids, x)`` reads the chunk's arrivals and
+    emits ``svc`` [B, chunk, K].  ``has_side`` marks arrival streams whose
+    side channel carries the GE chain state."""
 
     name: str
     kind: str
@@ -152,6 +156,12 @@ def fold_keys(keys, data) -> torch.Tensor:
     return torch.stack([y0, y1], dim=1)
 
 
+def fold_in(key, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` of one [2] key."""
+    d = torch.tensor([int(data)], dtype=torch.int64, device=key.device)
+    return fold_keys(key[None], d)[0]
+
+
 def slot_uniform(keys, tids, salt: Optional[int] = None) -> torch.Tensor:
     """[B, chunk] independent U(0,1) float32 draws, one per global slot
     index: ``fold_in(key, t)`` (then the optional salt fold) and jax's
@@ -179,15 +189,22 @@ def chunk_tids(t0: int, chunk: int, device) -> torch.Tensor:
     return torch.arange(t0, t0 + chunk, dtype=torch.int32, device=device)
 
 
-def _run_chunks(init_fn, chunk_fn, params, T: int, chunk_size):
+def _run_chunks(init_fn, chunk_fn, params, T: int, chunk_size, x=None):
+    """Every chunk's values; ``x`` [B, T] (a service stream's arrivals,
+    zero-padded past T) is cut into the chunks and handed to each."""
     n_chunks, T_pad = chunk_geometry(T, chunk_size)
     chunk = T_pad // n_chunks
     device = tree_leaves(params)[0].device
+    if x is not None:
+        x = torch.as_tensor(np.asarray(x, np.int32), device=device)
+        x = torch.nn.functional.pad(x, (0, T_pad - T))
     state = init_fn(params)
     outs = []
     for i in range(n_chunks):
-        state, vals = chunk_fn(params, state, chunk_tids(i * chunk, chunk,
-                                                         device))
+        tids = chunk_tids(i * chunk, chunk, device)
+        extra = () if x is None else (
+            x[:, i * chunk:(i + 1) * chunk].contiguous(),)
+        state, vals = chunk_fn(params, state, tids, *extra)
         outs.append(vals)
     return outs
 
@@ -199,12 +216,15 @@ def _cat_crop(parts, T: int):
 
 
 def materialize_stream(stream: Stream, T: int,
-                       chunk_size: Optional[int] = None):
+                       chunk_size: Optional[int] = None, x=None):
     """Run one stream over the whole horizon; returns its values as numpy
-    arrays shaped [B, T] (an ``(x, side)`` pair for arrival streams).
-    Chunk-invariant: any ``chunk_size`` gives the same bits."""
+    arrays shaped [B, T] (an ``(x, side)`` pair for arrival streams,
+    [B, T, K] for a service stream, which needs the arrivals ``x`` [B,
+    T]).  Chunk-invariant: any ``chunk_size`` gives the same bits."""
+    if stream.kind == "svc" and x is None:
+        raise ValueError("service streams need the arrival slab x")
     outs = _run_chunks(stream.init_fn, stream.chunk_fn, stream.params, T,
-                       chunk_size)
+                       chunk_size, x if stream.kind == "svc" else None)
     if stream.kind == "arrivals":
         return (_cat_crop([o[0] for o in outs], T),
                 _cat_crop([o[1] for o in outs], T))

@@ -1,7 +1,10 @@
 """Scenario combinators (the port of ``combine``, ``with_seed`` and
 ``replicate_seeds`` from ``repro/core/scenarios/combinators.py``).
+Every stream key of a scenario, the service stream's included, takes the
+seed fold.
 
-* ``combine``         — one stream per channel -> a full ``Scenario``.
+* ``combine``         — one stream per channel (arrivals, rents and
+                        optionally Model-2 service) -> a full ``Scenario``.
 * ``with_seed``       — fold one Monte-Carlo seed into every stream key
                         (before the per-slot counter fold).
 * ``replicate_seeds`` — the MC axis: S seed-replicas of a B-instance
@@ -22,33 +25,44 @@ from repro_torch.core.scenarios.base import (ObsSlab, Scenario, Stream,
                                              fold_keys, tree_leaves)
 
 
-def _combine_fns(arrivals: Stream, rents: Stream):
+def _combine_fns(arrivals: Stream, rents: Stream, svc: Optional[Stream]):
     def init_fn(params):
-        return {"arr": arrivals.init_fn(params["arr"]),
-                "rent": rents.init_fn(params["rent"])}
+        st = {"arr": arrivals.init_fn(params["arr"]),
+              "rent": rents.init_fn(params["rent"])}
+        if svc is not None:
+            st["svc"] = svc.init_fn(params["svc"])
+        return st
 
     def chunk_fn(params, state, tids):
         sa, (x, side) = arrivals.chunk_fn(params["arr"], state["arr"], tids)
         sr, c = rents.chunk_fn(params["rent"], state["rent"], tids)
-        return {"arr": sa, "rent": sr}, ObsSlab(x=x, c=c, svc=None, side=side)
+        st = {"arr": sa, "rent": sr}
+        svc_v = None
+        if svc is not None:            # the service draws read the arrivals
+            st["svc"], svc_v = svc.chunk_fn(params["svc"], state["svc"],
+                                            tids, x)
+        return st, ObsSlab(x=x, c=c, svc=svc_v, side=side)
 
     return init_fn, chunk_fn
 
 
 def combine(arrivals: Stream, rents: Stream, svc: Optional[Stream] = None,
             name: Optional[str] = None) -> Scenario:
-    """Fuse per-channel streams into one Scenario."""
+    """Fuse per-channel streams into one Scenario; a Model-2 ``svc``
+    stream draws each chunk's service costs from its arrivals."""
     for s, kind in ((arrivals, "arrivals"), (rents, "rents")):
         if s.kind != kind:
             raise ValueError(f"{s.name} is a {s.kind} stream, expected {kind}")
+    if svc is not None and svc.kind != "svc":
+        raise ValueError(f"{svc.name} is a {svc.kind} stream, expected svc")
+    params = {"arr": arrivals.params, "rent": rents.params}
     if svc is not None:
-        raise NotImplementedError(
-            "Model-2 service streams come with the sampler slice "
-            "(ROADMAP.md, Queue 1 item 3)")
-    init_fn, chunk_fn = _combine_fns(arrivals, rents)
-    return Scenario(name or f"{arrivals.name}+{rents.name}", init_fn,
-                    chunk_fn, {"arr": arrivals.params, "rent": rents.params},
-                    has_svc=False, has_side=arrivals.has_side)
+        params["svc"] = svc.params
+    init_fn, chunk_fn = _combine_fns(arrivals, rents, svc)
+    name = name or f"{arrivals.name}+{rents.name}" + (
+        f"+{svc.name}" if svc is not None else "")
+    return Scenario(name, init_fn, chunk_fn, params,
+                    has_svc=svc is not None, has_side=arrivals.has_side)
 
 
 # ----------------------------------------------------------------------

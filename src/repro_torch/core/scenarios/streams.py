@@ -1,12 +1,15 @@
 """Primitive workload streams (the port of the uniform-driven part of
 ``repro/core/scenarios/streams.py``).
 
-Arrival streams: ``bernoulli_arrivals``, ``ge_arrivals`` (Gilbert-Elliot,
-side = chain state; bernoulli emissions), ``trace_arrivals``.
+Arrival streams: ``bernoulli_arrivals``, ``poisson_arrivals``,
+``ge_arrivals`` (Gilbert-Elliot, side = chain state; Bernoulli or Poisson
+emissions), ``bursty_arrivals`` (the cluster-trace stand-in, GE-Poisson),
+``trace_arrivals``.
 Rent streams: ``uniform_rents``, ``na_rents`` (antithetic time-pairs,
 Assumption 7), ``constant_rents``, ``trace_rents``, ``arma_rents`` and
 ``spot_rents`` (AWS-spot-like ARMA(4, 2) rents; ``spot_bounds`` gives
 their clip rails).
+Service streams: ``model2_service`` (coupled per-request uniforms).
 
 Every random draw is kernel P's (``kernels/hosting.py``), which draws and
 finishes one stream's chunk in one launch on the card, and runs its plain
@@ -33,10 +36,19 @@ code after it in ``repro/core/scenarios/streams.py``:
 Each is bound by the threefry hash's integer operations; the kernel keeps
 the draws in registers (no uniform slab in device memory, no float64) and
 issues the hash's adds on the FMA pipe, leaving the integer ALU pipe to the
-rotates and xors (``csrc/hosting.cu``).  The streams that draw through
-``jax.random.poisson`` in the reference (GE-poisson emissions, bursty) and
-the Model-2 service stream come with the rest of the sampler slice
-(ROADMAP.md, Queue 1 item 3b).
+rotates and xors (``csrc/hosting.cu``).
+
+* ``_poisson_chunk`` and ``_ge_emit``'s Poisson emissions (``jax.random.
+  poisson``, Knuth's branch: a key split, a uniform and XLA's ``log`` a
+  round) -> ``poisson_chunk``, one thread a draw; a GE-Poisson chunk runs
+  the chain on ``ge_bernoulli_chunk`` first (``emit=False``: the states
+  only).  Rates of 10 and above take
+  jax's rejection branch, which is not ported: the constructors raise
+  (ROADMAP.md, Queue 1 item 3c), as ``bursty_arrivals`` does for a
+  diurnal period.
+* ``_model2_chunk_fn`` (a shaped ``uniform(k, (R,))`` a slot, compared
+  with every level's g) -> ``model2_service_chunk``, which draws only the
+  slot's live requests.
 
 ``bernoulli_arrivals`` and ``uniform_rents`` carry a boolean ``flip`` param
 (default False) mapping each slot uniform ``u -> 1 - u``: the hook that
@@ -44,6 +56,7 @@ antithetic seed replication (``combinators.replicate_seeds``) uses.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -103,25 +116,78 @@ def _ge_chunk_bernoulli(params, state, tids):
     return {"s": s}, (x, states)
 
 
+def _ge_chunk_poisson(params, state, tids):
+    # the chain on kernel P's GE variant (without its Bernoulli emissions),
+    # the Poisson emissions at the per-slot rates, salt 1, on its Poisson
+    # variant
+    s, states, _ = hosting.ge_bernoulli_chunk(
+        params["key"], tids, state["s"], params["p_hl"], params["p_lh"],
+        params["rate_h"], params["rate_l"], emit=False)
+    x = hosting.poisson_chunk(params["key"], tids, params["rate_l"], salt=1,
+                              states=states, lam_h=params["rate_h"])
+    return {"s": s}, (x, states)
+
+
 def ge_arrivals(key, p_hl, p_lh, rate_h, rate_l, B: int,
                 emission: str = "poisson", device=None) -> Stream:
     """Gilbert-Elliot Markov-modulated arrivals; ``side`` carries the chain
-    state (1 = H).  Only ``emission="bernoulli"`` is ported."""
-    if emission == "poisson":
-        raise NotImplementedError(
-            "ge_arrivals(emission='poisson') draws through jax.random.poisson"
-            ", which comes with the sampler slice (ROADMAP.md, Queue 1 "
-            "item 3); use emission='bernoulli'")
-    if emission != "bernoulli":
+    state (1 = H).  Poisson emissions need both rates below 10 (the port
+    has Knuth's branch of ``jax.random.poisson`` only)."""
+    chunk = {"poisson": _ge_chunk_poisson,
+             "bernoulli": _ge_chunk_bernoulli}.get(emission)
+    if chunk is None:
         raise ValueError(emission)
     dev = resolve_device(device)
-    return Stream("ge-bernoulli", "arrivals", _ge_init, _ge_chunk_bernoulli,
-                  {"key": as_keys(key, B, dev),
-                   "p_hl": bcast(p_hl, B, _F32, dev),
-                   "p_lh": bcast(p_lh, B, _F32, dev),
-                   "rate_h": bcast(rate_h, B, _F32, dev),
-                   "rate_l": bcast(rate_l, B, _F32, dev)},
+    params = {"key": as_keys(key, B, dev),
+              "p_hl": bcast(p_hl, B, _F32, dev),
+              "p_lh": bcast(p_lh, B, _F32, dev),
+              "rate_h": bcast(rate_h, B, _F32, dev),
+              "rate_l": bcast(rate_l, B, _F32, dev)}
+    if emission == "poisson":
+        hosting.check_knuth_rates(params["rate_h"], params["rate_l"])
+    return Stream(f"ge-{emission}", "arrivals", _ge_init, chunk, params,
                   has_side=True)
+
+
+def _poisson_chunk(params, state, tids):
+    x = hosting.poisson_chunk(params["key"], tids, params["lam"])
+    return state, (x, _zeros_side(x))
+
+
+def poisson_arrivals(key, lam, B: int, device=None) -> Stream:
+    """Poisson(lam) arrivals, ``lam`` scalar or per-instance [B], each
+    below 10."""
+    dev = resolve_device(device)
+    lam = bcast(lam, B, _F32, dev)
+    hosting.check_knuth_rates(lam)
+    return Stream("poisson", "arrivals", _no_state, _poisson_chunk,
+                  {"key": as_keys(key, B, dev), "lam": lam})
+
+
+# burst-exit rate of the bursty (cluster-trace-like) GE background -- public
+# so callers computing the process's stationary mean stay in lockstep
+BURSTY_EXIT_P = 0.2
+
+
+def _bursty_chunk(params, state, tids):
+    state, (x, _) = _ge_chunk_poisson(params, state, tids)
+    return state, (x, _zeros_side(x))
+
+
+def bursty_arrivals(key, B: int, base_rate=2.0, burst_rate=20.0,
+                    burst_p=0.05, diurnal_period: int = 0,
+                    device=None) -> Stream:
+    """The cluster-trace stand-in: GE-Poisson bursts over a low-rate
+    background (``arrivals.cluster_trace_like``); its side channel is
+    zeros.  Both rates must be below 10, and the diurnal remodulation
+    (``diurnal_period != 0``, XLA's ``sin``) is not ported."""
+    if diurnal_period:
+        raise NotImplementedError(
+            "bursty_arrivals(diurnal_period != 0) draws through XLA's sin, "
+            "which is not ported: ROADMAP.md, Queue 1 item 3c")
+    ge = ge_arrivals(key, p_hl=BURSTY_EXIT_P, p_lh=burst_p,
+                     rate_h=burst_rate, rate_l=base_rate, B=B, device=device)
+    return Stream("bursty", "arrivals", _ge_init, _bursty_chunk, ge.params)
 
 
 def _slice_trace(trace, tids):
@@ -284,3 +350,32 @@ def spot_rents(key, c_mean, B: int, rel_sigma=0.15, c_min=None, c_max=None,
 def spot_bounds(c_mean):
     """(c_min, c_max) a ``spot_rents`` stream can ever emit (clip rails)."""
     return float(max(0.2 * c_mean, 1e-3)), float(3.0 * c_mean)
+
+
+# ----------------------------------------------------------------------
+# Service streams (Model 2).
+# ----------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _model2_chunk_fn(max_per_slot: int):
+    def chunk(params, state, tids, x):
+        return state, hosting.model2_service_chunk(
+            params["key"], tids, x, params["g"], max_per_slot)
+
+    return chunk
+
+
+def model2_service(key, g, B: int, max_per_slot: int, device=None) -> Stream:
+    """Realized Model-2 service costs, coupled across levels: request i of
+    slot t draws one uniform of ``uniform(fold_in(key, t), (max_per_slot,))``
+    and is forwarded (cost 1) at level k iff ``u < g[k]``; the slot's cost
+    at level k counts its first ``min(x_t, max_per_slot)`` requests so
+    forwarded.  ``g`` is [K] or [B, K] (pass ``grid.g``: the endpoint
+    columns of the result then equal an endpoint grid's own draws)."""
+    dev = resolve_device(device)
+    g = torch.as_tensor(g, dtype=_F32, device=dev)
+    if g.dim() == 1:
+        g = g[None].expand(B, -1)
+    return Stream("model2", "svc", _no_state,
+                  _model2_chunk_fn(int(max_per_slot)),
+                  {"key": as_keys(key, B, dev), "g": g.contiguous()})

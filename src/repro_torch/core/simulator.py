@@ -11,7 +11,8 @@ rows, carrying ``(policy state, accumulator)`` across chunks.  Slots past a
 row's own horizon ``T_len`` add exactly 0.0 and freeze the state, so mixed
 horizons and any chunking give the reference's bits.  Here it is a plain
 Python loop over the chunk's slots on [R] tensors; ``sim_chunk`` sends
-alpha-RR (and RR, its K=2 case) to kernel S instead.
+alpha-RR (and RR, its K=2 case) to kernel S instead, under Model-1 service
+and on a Model-2 slab alike.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ import torch
 
 from repro_torch.core.policies.alpha_rr import alpha_rr_step
 from repro_torch.core.policies.base import PolicyFns, SlotObs, freeze_invalid
-from repro_torch.kernels.hosting import sim_chunk_alpha_rr
+from repro_torch.kernels.hosting import (gather_svc, sim_chunk_alpha_rr,
+                                         sim_chunk_alpha_rr_svc)
 
 
 @dataclasses.dataclass
@@ -66,10 +68,11 @@ def sim_chunk_core(step_fn, include_final_fetch: bool, params, lv, M, T_len,
                    t0: int, carry, x, c, svc, side=None):
     """Step slots ``[t0, t0 + chunk)`` of R rows: ``lv`` [R, K], ``M`` [R],
     ``T_len`` [R] int32, ``x`` / ``c`` / ``side`` [R, chunk], ``svc``
-    [R, chunk, K].  Returns ``(carry', r_hist [R, chunk] int32)``; the
+    [R, chunk, K] (``x`` may be None for a policy that reads only the
+    service costs).  Returns ``(carry', r_hist [R, chunk] int32)``; the
     sums accumulate slot by slot, in the reference's order."""
     R, K = lv.shape
-    chunk = x.shape[1]
+    chunk = c.shape[1]
     state, acc = carry
     sums, counts = acc["sums"], acc["counts"]
     levels = torch.arange(K, device=lv.device)[None, :]
@@ -82,7 +85,7 @@ def sim_chunk_core(step_fn, include_final_fetch: bool, params, lv, M, T_len,
         lv_t = _select(onehot_t, lv)
         rent_t = c[:, j] * lv_t
         svc_cost_t = _select(onehot_t, svc[:, j])
-        obs = SlotObs(x[:, j], c[:, j], svc[:, j],
+        obs = SlotObs(None if x is None else x[:, j], c[:, j], svc[:, j],
                       None if side is None else side[:, j])
         new_state = freeze_invalid(valid, step_fn(params, state, obs), state)
         lv_next = _select(levels == new_state["r"][:, None], lv)
@@ -99,16 +102,24 @@ def sim_chunk_core(step_fn, include_final_fetch: bool, params, lv, M, T_len,
 
 
 def sim_chunk(policy: PolicyFns, include_final_fetch: bool, lv, g, M, T_len,
-              t0: int, carry, slab, collect_trace: bool = True):
+              t0: int, carry, slab, collect_trace: bool = True,
+              svc_cols=None):
     """One chunk of one fleet simulation on a generated ``ObsSlab``.
-    alpha-RR under Model-1 service runs as kernel S
-    (``kernels.hosting.sim_chunk_alpha_rr``: the kernel on the card, its
-    plain version on the CPU); every other policy runs the plain loop."""
-    if policy.step_fn is alpha_rr_step and slab.svc is None:
-        return sim_chunk_alpha_rr(policy.params, lv, g, M, T_len, t0, carry,
-                                  slab.x, slab.c, include_final_fetch,
-                                  collect_trace)
-    svc = model1_svc(slab.x, g) if slab.svc is None else slab.svc
+    alpha-RR runs as kernel S (the kernel on the card, its plain version on
+    the CPU): under Model-1 service ``kernels.hosting.sim_chunk_alpha_rr``,
+    on a Model-2 slab ``sim_chunk_alpha_rr_svc``, which gathers a lane's
+    columns through ``svc_cols`` [R, K] itself.  Every other policy runs
+    the plain loop."""
+    if policy.step_fn is alpha_rr_step:
+        if slab.svc is None:
+            return sim_chunk_alpha_rr(policy.params, lv, g, M, T_len, t0,
+                                      carry, slab.x, slab.c,
+                                      include_final_fetch, collect_trace)
+        return sim_chunk_alpha_rr_svc(policy.params, lv, M, T_len, t0, carry,
+                                      slab.c, slab.svc, svc_cols,
+                                      include_final_fetch, collect_trace)
+    svc = (model1_svc(slab.x, g) if slab.svc is None
+           else gather_svc(slab.svc, svc_cols))
     carry, r = sim_chunk_core(policy.step_fn, include_final_fetch,
                               policy.params, lv, M, T_len, t0, carry, slab.x,
                               slab.c, svc, slab.side)

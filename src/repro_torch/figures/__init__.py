@@ -7,4 +7,8 @@ on the CPU; ``check(rows)`` is a copy of the reference module's check.
 * ``fig03_06_m_p_sweeps`` -- cost vs fetch cost M and arrival rate p.
 * ``fig07_08_multiple_rr`` -- multiple-RR vs alpha-RR vs RR under GE
   arrivals.
+* ``fig10_11_trace`` -- cost vs M under bursty (GE-Poisson) arrivals and
+  spot rents.
+* ``fig12_15_poisson_model2`` -- Model-2 service under Poisson arrivals:
+  histograms and cost vs M and vs the rent.
 """

@@ -11,8 +11,9 @@ before a launch (``check_tensor``, ``raise_on``, ``stream``) live here too.
 
 Flags per library:
 
-* ``hosting`` (kernel P's stream variants and the ARMA kernel, D (both),
-  S):
+* ``hosting`` (kernel P's stream variants, the ARMA, Poisson and Model-2
+  service kernels, D (fused, under both service models, and on a finished
+  w), S (under both)):
   ``--fmad=false``, because those kernels
   are held bit for bit against the reference, which fixes which
   multiply-adds are one FMA (written as ``__fmaf_rn``) and which are two
@@ -54,10 +55,19 @@ LIBRARIES = {
         # hist_out, eps_out, c, R, chunk, P, Q, partitionable, stream
         "launch_arma_rents": (_P,) * 13 + (_I,) * 5 + (_P,),
         "launch_dp_minplus": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-        # J, c, x, g, lv, kmask, fetch, T_len, Jout, args (or NULL), R,
-        # chunk, K, t0, stream
-        "launch_dp_fwd_model1": (_P,) * 10 + (_I,) * 4 + (_P,),
-        "launch_sim_alpha_rr": (_P,) * 14 + (_I,) * 5 + (_P,) * 7,
+        # J, c, x, g, svc, cols (x / g or svc / cols NULL), lv, kmask,
+        # fetch, T_len, Jout, args (or NULL), R, chunk, K, Kf, t0, stream
+        "launch_dp_fwd": (_P,) * 12 + (_I,) * 5 + (_P,),
+        # levels, mask, policy M, lv, g, M, T_len, r, S, age, sums, counts,
+        # x, c, svc, cols (g / x or svc / cols NULL), t0, chunk, R, K, Kf,
+        # include_final_fetch, r_out, S_out, age_out, sums_out, counts_out,
+        # r_hist, stream
+        "launch_sim_alpha_rr": (_P,) * 16 + (_I,) * 6 + (_P,) * 7,
+        # keys, tids, lam, lam_h, states, out, R, chunk, salt,
+        # partitionable, stream
+        "launch_poisson": (_P,) * 6 + (_I,) * 4 + (_P,),
+        # keys, tids, x, g, out, R, chunk, K, n_max, partitionable, stream
+        "launch_model2_service": (_P,) * 5 + (_I,) * 5 + (_P,),
     }),
     "flash_attention": (_COMMON, {
         # q, k, v, out, B, Sq, Skv, Hq, Hkv, hd, causal, q_offset, stream

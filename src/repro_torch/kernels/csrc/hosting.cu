@@ -12,11 +12,18 @@
 //      arma_rents_kernel   the ARMA(p, q) rents over one chunk: normals drawn
 //                          slot-parallel, each row's recursion walked by one
 //                          thread
-//   D  dp_fwd_model1       one chunk of the offline-OPT min-plus recursion
-//                          with the Model-1 cost assembly fused in (the
-//                          fleet DP)
+//      poisson_knuth_kernel  jax.random.poisson (Knuth's branch) a slot, at
+//                          a per-row rate or the GE states' per-slot rates
+//      model2_service_kernel  the Model-2 service costs of one chunk (the
+//                          live requests' coupled uniforms)
+//   D  dp_fwd_kernel       one chunk of the offline-OPT min-plus recursion
+//                          with the cost assembly fused in (the fleet DP):
+//                          Model 1 (dp_fwd_model1) or a Model-2 service
+//                          slab (dp_fwd_model2)
 //      dp_minplus          the same recursion on a finished w (K <= 32)
-//   S  sim_chunk_alpha_rr  one chunk of the per-slot alpha-RR simulation
+//   S  sim_alpha_rr_kernel  one chunk of the per-slot alpha-RR simulation,
+//                          under Model 1 (sim_chunk_alpha_rr) or on a
+//                          Model-2 service slab (sim_chunk_alpha_rr_svc)
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC
@@ -36,6 +43,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -324,7 +333,8 @@ __global__ void __launch_bounds__(256)
 // Per slot t: a = fold_in(key, t); u0 = uniform of fold_in(a, 0), u1 =
 // uniform of fold_in(a, 1); s_t = s_{t-1} == 1 ? (u0 >= p_hl) : (u0 <
 // p_lh), from the s carried in from the previous chunk; x = u1 < (s_t ?
-// rate_h : rate_l); states = s_t; s_out = the last state.
+// rate_h : rate_l); states = s_t; s_out = the last state.  EMIT false
+// (x NULL: a caller that draws its own emissions) draws no u1.
 //
 // Bound: integer operations (five threefry blocks a slot; fold_in(key, t)
 // serves both salts).  Design: one warp per row walks the chunk in tiles
@@ -367,6 +377,7 @@ struct GeArgs {
   uint32_t one;
 };
 
+template <bool EMIT>
 __global__ void __launch_bounds__(32 * kGeWarps)
     ge_chain_kernel(const GeArgs p) {
   const int row = blockIdx.x * kGeWarps + (threadIdx.x >> 5);
@@ -387,17 +398,18 @@ __global__ void __launch_bounds__(32 * kGeWarps)
     for (int s = 0; s < kSlots; ++s) {
       const int j = j0 + s;
       const uint32_t t = (uint32_t)p.tids[min(j, p.chunk - 1)];
-      uint32_t a0, a1, c0, c1, d0, d1;
+      uint32_t a0, a1, c0, c1, d0 = 0u, d1 = 0u;
       fold_in(k0, k1, t, a0, a1, p.one);
       fold_in(a0, a1, 0u, c0, c1, p.one);
-      fold_in(a0, a1, 1u, d0, d1, p.one);
+      if constexpr (EMIT) fold_in(a0, a1, 1u, d0, d1, p.one);
       const float u0 = uniform_of(c0, c1, part, p.one);
-      const float u1 = uniform_of(d0, d1, part, p.one);
+      const float u1 = EMIT ? uniform_of(d0, d1, part, p.one) : 0.0f;
       // past the chunk's end: the identity, so the scan passes through
       f[s] = j < p.chunk
                  ? (uint32_t)(u0 < p_lh) | ((uint32_t)(u0 >= p_hl) << 1)
                  : kIdentityMap;
-      xb[s] = (uint32_t)(u1 < rate_l) | ((uint32_t)(u1 < rate_h) << 1);
+      xb[s] = EMIT ? (uint32_t)(u1 < rate_l) | ((uint32_t)(u1 < rate_h) << 1)
+                   : 0u;
       m = map_then(m, f[s]);
     }
     // inclusive scan over the lanes (slot order): scan = lane's map after
@@ -419,19 +431,21 @@ __global__ void __launch_bounds__(32 * kGeWarps)
       xv[s] = (xb[s] >> st) & 1u;
     }
     uint32_t* so = (uint32_t*)p.states + base_off + j0;
-    uint32_t* xo = (uint32_t*)p.x + base_off + j0;
+    uint32_t* xo = EMIT ? (uint32_t*)p.x + base_off + j0 : nullptr;
     if (p.vec && j0 < p.chunk) {           // chunk % 4 == 0: whole, aligned
 #pragma unroll
       for (int s = 0; s < kSlots; s += 4) {
         *(uint4*)(so + s) = make_uint4(sv[s], sv[s + 1], sv[s + 2], sv[s + 3]);
-        *(uint4*)(xo + s) = make_uint4(xv[s], xv[s + 1], xv[s + 2], xv[s + 3]);
+        if constexpr (EMIT)
+          *(uint4*)(xo + s) =
+              make_uint4(xv[s], xv[s + 1], xv[s + 2], xv[s + 3]);
       }
     } else if (!p.vec) {
 #pragma unroll
       for (int s = 0; s < kSlots; ++s)
         if (j0 + s < p.chunk) {
           so[s] = sv[s];
-          xo[s] = xv[s];
+          if constexpr (EMIT) xo[s] = xv[s];
         }
     }
     state = map_apply(__shfl_sync(kFullMask, scan, 31), state);
@@ -628,6 +642,172 @@ __global__ void __launch_bounds__(32 * kArmaWarps)
 }
 
 // ---------------------------------------------------------------------
+// P: poisson_knuth_kernel, jax.random.poisson on per-slot keys (Knuth's
+// branch, rates below 10).  No TPU kernel: the reference draws through
+// XLA's while loop of jax.random.poisson (jax/_src/random.py:
+// _poisson_knuth) on per-slot keys (src/repro/core/scenarios/streams.py:
+// _poisson_chunk :80, _ge_emit :92).
+//
+// Per row and slot j (counter t = tids[j]): key = fold_in(key[row], t)
+// (then fold_in(., salt) with SALT); the rate lam[row], or with STATES
+// (the GE chain's states[row, j]) lam_h[row] in state 1 and lam[row] in
+// state 0.  While log_prod > -lam: (key, sub) = split(key), log_prod +=
+// xla_logf(uniform of sub), rounds += 1.  out = lam == 0 ? 0 : rounds - 1.
+// split is two threefry blocks in either layout (partitionable: the
+// counters (0, 0) and (0, 1); original: (0, 2) and (1, 3), key' their
+// first words, sub their second), the uniform a third.  XLA computes the
+// log inside the loop's fusion exactly as xla_logf, and the add after it
+// as a single rounded add.
+//
+// Bound: integer operations, three threefry blocks a round; the mean
+// round count is lam + 1.  Design: one thread a (row, slot) (the grid's
+// x the row), the rounds a loop until the lane's own log_prod falls to
+// -lam; a warp runs as long as its slowest lane.  Simple first.
+// ---------------------------------------------------------------------
+
+struct PoissonArgs {
+  const long long* keys;   // [R, 2]
+  const int* tids;         // [chunk]
+  const float* lam;        // [R] the rate, or the state-0 rate with STATES
+  const float* lam_h;      // [R] the state-1 rate (STATES)
+  const int* states;       // [R, chunk] (STATES)
+  int* out;                // [R, chunk]
+  int R, chunk, salt, partitionable;
+  uint32_t one;
+};
+
+// jax.random.split(key): (r0, r1) the next key, (s0, s1) the subkey
+__device__ __forceinline__ void split2(uint32_t k0, uint32_t k1, bool part,
+                                       uint32_t& r0, uint32_t& r1,
+                                       uint32_t& s0, uint32_t& s1,
+                                       uint32_t one) {
+  if (part) {
+    r0 = 0u;
+    r1 = 0u;
+    threefry2x32(k0, k1, r0, r1, one);
+    s0 = 0u;
+    s1 = 1u;
+    threefry2x32(k0, k1, s0, s1, one);
+  } else {
+    uint32_t a0 = 0u, a1 = 2u, b0 = 1u, b1 = 3u;
+    threefry2x32(k0, k1, a0, a1, one);
+    threefry2x32(k0, k1, b0, b1, one);
+    r0 = a0;
+    r1 = b0;
+    s0 = a1;
+    s1 = b1;
+  }
+}
+
+template <bool SALT, bool STATES>
+__global__ void __launch_bounds__(256)
+    poisson_knuth_kernel(const PoissonArgs p) {
+  const int row = blockIdx.x;
+  const int j = blockIdx.y * blockDim.x + threadIdx.x;
+  if (j >= p.chunk) return;
+  const bool part = p.partitionable != 0;
+  uint32_t a0, a1;
+  fold_in((uint32_t)p.keys[2 * row], (uint32_t)p.keys[2 * row + 1],
+          (uint32_t)p.tids[j], a0, a1, p.one);
+  if (SALT) {
+    uint32_t s0, s1;
+    fold_in(a0, a1, (uint32_t)p.salt, s0, s1, p.one);
+    a0 = s0;
+    a1 = s1;
+  }
+  const long long o = (long long)row * p.chunk + j;
+  const float lam = STATES && p.states[o] == 1 ? p.lam_h[row] : p.lam[row];
+  const float neg = -lam;
+  float log_prod = 0.0f;
+  int rounds = 0;
+  while (log_prod > neg) {
+    uint32_t r0, r1, s0, s1;
+    split2(a0, a1, part, r0, r1, s0, s1, p.one);
+    log_prod = log_prod + xla_logf(uniform_of(s0, s1, part, p.one));
+    ++rounds;
+    a0 = r0;
+    a1 = r1;
+  }
+  p.out[o] = lam == 0.0f ? 0 : rounds - 1;
+}
+
+// ---------------------------------------------------------------------
+// P: model2_service_kernel, the Model-2 service costs of one chunk.  No
+// TPU kernel: the reference draws a shaped uniform(fold_in(key, t), (N,))
+// a slot and counts, per level, the live requests it forwards
+// (src/repro/core/scenarios/streams.py: _model2_chunk_fn :399-406).
+//
+// Per row and slot j: n = min(x[row, j], N) live requests; request i's
+// uniform is word i of uniform(key, (N,)) under key = fold_in(key[row],
+// t); svc[row, j, k] = #{i < n : u_i < g[row, k]} as float32.  The words:
+// partitionable, the xor of the block of counter (0, i); original, the
+// counters 0 .. N - 1 (a 0 appended for odd N) cut in halves and hashed
+// pairwise, so block i < H = ceil(N / 2) holds (0-based) words i and H + i
+// -- one hash serves two requests.  Requests past n are never drawn (the
+// reference masks them out), which gives the same counts.
+//
+// Bound: the output's bytes (K floats a slot) and the live requests'
+// hashes.  Design: one thread a (row, slot), g in registers, K a template
+// argument.
+// ---------------------------------------------------------------------
+
+struct Model2Args {
+  const long long* keys;   // [R, 2]
+  const int* tids;         // [chunk]
+  const int* x;            // [R, chunk]
+  const float* g;          // [R, K]
+  float* out;              // [R, chunk, K]
+  int R, chunk, n_max, partitionable;
+  uint32_t one;
+};
+
+template <int K>
+__global__ void __launch_bounds__(256)
+    model2_service_kernel(const Model2Args p) {
+  const int row = blockIdx.x;
+  const int j = blockIdx.y * blockDim.x + threadIdx.x;
+  if (j >= p.chunk) return;
+  const bool part = p.partitionable != 0;
+  uint32_t a0, a1;
+  fold_in((uint32_t)p.keys[2 * row], (uint32_t)p.keys[2 * row + 1],
+          (uint32_t)p.tids[j], a0, a1, p.one);
+  float g[K];
+  int cnt[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    g[k] = p.g[(long long)row * K + k];
+    cnt[k] = 0;
+  }
+  const long long o = (long long)row * p.chunk + j;
+  const int n = min(max(p.x[o], 0), p.n_max);
+  auto count = [&](uint32_t bits) {
+    const float u = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) cnt[k] += u < g[k] ? 1 : 0;
+  };
+  if (part) {
+    for (int i = 0; i < n; ++i) {
+      uint32_t b0 = 0u, b1 = (uint32_t)i;
+      threefry2x32(a0, a1, b0, b1, p.one);
+      count(b0 ^ b1);
+    }
+  } else {
+    const int h = (p.n_max + 1) / 2;
+    for (int i = 0; i < n && i < h; ++i) {
+      // the second counter word: H + i, or the appended 0 for odd N
+      uint32_t b0 = (uint32_t)i,
+               b1 = h + i < p.n_max ? (uint32_t)(h + i) : 0u;
+      threefry2x32(a0, a1, b0, b1, p.one);
+      count(b0);
+      if (h + i < n) count(b1);
+    }
+  }
+  float* out = p.out + o * K;
+#pragma unroll
+  for (int k = 0; k < K; ++k) out[k] = (float)cnt[k];
+}
+
+// ---------------------------------------------------------------------
 // D (finished w): dp_minplus.  Replaces the Pallas kernel dp_minplus_kc
 // (src/repro/kernels/hosting.py:116, body :96, pallas_call at :138) for
 // callers that hand in a finished w (offline_opt_batch, whose w the
@@ -708,6 +888,7 @@ __global__ void dp_minplus_kernel(const float* __restrict__ J,
 
 constexpr int kRows = 32;        // rows per CTA: one consumer lane each
 constexpr int kRawStages = 2;
+constexpr int kSmemMax = 227 * 1024;   // dynamic shared memory a CTA, sm_90
 
 // slots per tile: the cooked ring holds K + 2 words per (row, slot)
 template <int K>
@@ -890,6 +1071,168 @@ __device__ void produce(Sm& sm, const float* __restrict__ c,
   }
 }
 
+// The raw stage of a Model-2 slab: a tile of the rows' c and of their
+// service columns.  Two routes share it.  Bulk (chunk % 4 == 0, 16-byte
+// aligned slabs, at most KB slab columns): each row's tile of c and its
+// [slot][Kf] segment of svc are contiguous and go by one cp.async.bulk
+// each, into rows padded to 16 bytes; the cooking lane picks its row's
+// columns cols[k] out of each slot's Kf words.  Gather (a ragged or
+// unaligned slab, or more than KB columns): svc[row, t, cols[row][k]] by
+// 4-byte cp.async, laid out [k][slot] with odd row strides.  KB, the
+// columns a bulk stage holds: at least K, and 192 words a row's tile
+// (the fleet's K = 2 lanes of a K = 3 slab copy in bulk).
+template <int TILE, int K>
+constexpr int svc_bulk_cols() {
+  return K > 192 / TILE ? K : 192 / TILE;
+}
+
+template <int TILE, int K>
+struct RawSvcGather {
+  float c[kRows][TILE + 1];
+  float s[kRows][K * TILE + 1];                // [k][slot] within a row
+};
+
+template <int TILE, int KB>
+struct RawSvcBulk {
+  float c[kRows][TILE + 4];
+  float s[kRows][KB * TILE + 4];               // [slot][Kf] within a row
+};
+
+template <int TILE, int K>
+union RawSvcStage {
+  RawSvcGather<TILE, K> g;
+  RawSvcBulk<TILE, svc_bulk_cols<TILE, K>()> b;
+};
+
+// Producer, one warp: copy tile j0 .. j0 + n of rows row0 .. row0 + nrows
+// of c and of the rows' service columns (cols [kRows][K] in shared
+// memory) into a raw stage, by the bulk route (one copy per row and
+// array) or the gather route (lanes over slots, a row at a time).
+template <int TILE, int K>
+__device__ __forceinline__ void stage_raw_svc(
+    RawSvcStage<TILE, K>& st, uint64_t* bar, const float* __restrict__ c,
+    const float* __restrict__ svc, int Kf, int (*cols)[K], int row0,
+    int nrows, int chunk, int j0, int n, int bulk, int lane) {
+  if (bulk) {
+    if (lane == 0)
+      mbar_arrive_expect_tx(bar, (uint32_t)(nrows * n * (Kf + 1) * 4));
+    __syncwarp();
+    if (lane < nrows) {
+      const long long off = (long long)(row0 + lane) * chunk + j0;
+      bulk_g2s(&st.b.c[lane][0], c + off, (uint32_t)(n * 4), bar);
+      bulk_g2s(&st.b.s[lane][0], svc + off * Kf, (uint32_t)(n * Kf * 4),
+               bar);
+    }
+    return;
+  }
+  for (int r = 0; r < nrows; ++r) {
+    const long long off = (long long)(row0 + r) * chunk + j0;
+    for (int jj = lane; jj < n; jj += 32) {
+      cp_async4(&st.g.c[r][jj], c + off + jj);
+      const float* sp = svc + (off + jj) * Kf;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        cp_async4(&st.g.s[r][k * TILE + jj], sp + cols[r][k]);
+    }
+  }
+  cp_async_arrive_noinc(bar);
+}
+
+// Producer, one warp, on a Model-2 service slab (svc [R, chunk, Kf]): as
+// produce, kRawStages tiles of copies in flight, each landed tile cooked,
+// cook(out, c, s[K]), by the lane of its row once the stage's last reader
+// has released it.  cols [kRows][K] holds each row's columns; ident: no
+// column map (Kf == K).  A bulk stage without a map is read four slots at
+// a time by 16-byte loads.  Otherwise word k of slot jj of the lane's raw
+// row lies at jj * step + at[k] (bulk: step Kf, at the row's columns;
+// gather: step 1, at k * TILE), read four slots' words before their four
+// cooked stores, and the rows 8g .. 8g + 7 take those slots rotated by g
+// (a bulk stage's rows start 16-byte aligned, so one word of all 32 rows
+// falls in only 8 banks; rotated, with Kf odd, in 32).
+template <int TILE, int SS, int K, class Sm, class Cook>
+__device__ void produce_svc(Sm& sm, const float* __restrict__ c,
+                            const float* __restrict__ svc, int Kf, int row0,
+                            int nrows, int chunk, int bulk, bool ident,
+                            int lane, Cook cook) {
+  const int ntiles = (chunk + TILE - 1) / TILE;
+  const int step = bulk ? Kf : 1, skew = lane >> 3;
+  int at[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) at[k] = bulk ? sm.cols[lane][k] : k * TILE;
+  for (int i = 0; i < ntiles && i < kRawStages; ++i)
+    stage_raw_svc<TILE, K>(sm.raw[i], &sm.raw_full[i], c, svc, Kf, sm.cols,
+                           row0, nrows, chunk, i * TILE,
+                           min(TILE, chunk - i * TILE), bulk, lane);
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % kRawStages, cs = i % Sm::NC;
+    const int n = min(TILE, chunk - i * TILE);
+    mbar_wait(&sm.raw_full[s], (uint32_t)((i / kRawStages) & 1));
+    if (i >= Sm::NC)
+      mbar_wait(&sm.empty[cs], (uint32_t)(((i / Sm::NC) - 1) & 1));
+    float* ck = sm.cooked[cs] + lane;
+    const float* rc = bulk ? sm.raw[s].b.c[lane] : sm.raw[s].g.c[lane];
+    const float* rs = bulk ? sm.raw[s].b.s[lane] : sm.raw[s].g.s[lane];
+    if (bulk && ident) {                 // n % 4 == 0 on the bulk route
+      for (int j = 0; j < n; j += 4) {
+        const float4 c4 = *reinterpret_cast<const float4*>(rc + j);
+        const float cw[4] = {c4.x, c4.y, c4.z, c4.w};
+        float sf[4 * K];
+#pragma unroll
+        for (int q = 0; q < K; ++q) {
+          const float4 v = *reinterpret_cast<const float4*>(rs + j * K + 4 * q);
+          sf[4 * q] = v.x;
+          sf[4 * q + 1] = v.y;
+          sf[4 * q + 2] = v.z;
+          sf[4 * q + 3] = v.w;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float sv[K];
+#pragma unroll
+          for (int k = 0; k < K; ++k) sv[k] = sf[e * K + k];
+          cook(ck + (j + e) * SS, cw[e], sv);
+        }
+      }
+    } else {
+      for (int j = 0; j < n; j += 4) {
+        float cv[4], sv[4][K];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int jj = min(j + ((e + skew) & 3), n - 1);
+          cv[e] = rc[jj];
+#pragma unroll
+          for (int k = 0; k < K; ++k) sv[e][k] = rs[jj * step + at[k]];
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int jj = j + ((e + skew) & 3);
+          if (jj < n) cook(ck + jj * SS, cv[e], sv[e]);
+        }
+      }
+    }
+    fence_proxy_async();
+    __syncwarp();
+    const int nxt = i + kRawStages;
+    if (nxt < ntiles)
+      stage_raw_svc<TILE, K>(sm.raw[s], &sm.raw_full[s], c, svc, Kf,
+                             sm.cols, row0, nrows, chunk, nxt * TILE,
+                             min(TILE, chunk - nxt * TILE), bulk, lane);
+    mbar_arrive(&sm.full[cs]);
+  }
+}
+
+// a lane's Model-2 column map (cols[row], NULL: the identity) into the
+// producer's shared table; the producer warp syncs before staging
+template <int K>
+__device__ __forceinline__ void load_cols(int (*dst)[K],
+                                          const int* __restrict__ cols,
+                                          int row, bool live, int lane) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    dst[lane][k] = live && cols ? cols[(long long)row * K + k] : k;
+  __syncwarp();
+}
+
 template <int K>
 __device__ __forceinline__ float select_k(const float (&a)[K], int i) {
   // exact a[i] (the reference's one-hot sum) without dynamic register indexing
@@ -900,9 +1243,11 @@ __device__ __forceinline__ float select_k(const float (&a)[K], int i) {
 }
 
 // ---------------------------------------------------------------------
-// D: dp_fwd_model1 -- the fleet DP's chunk: kernel D with the Model-1 cost
-// assembly of offline_opt.dp_fwd_chunk fused in.  Replaces the Pallas
-// kernel dp_minplus_kc (src/repro/kernels/hosting.py:116, pallas_call at
+// D: dp_fwd_kernel<K, ARGS, SVC> -- the fleet DP's chunk: kernel D with the
+// cost assembly of offline_opt.dp_fwd_chunk fused in, under Model 1
+// (dp_fwd_model1, SVC false) or on a Model-2 service slab (dp_fwd_model2,
+// SVC true: svc[k] is the slab's column cols[k], or k without a map,
+// staged by produce_svc).  Replaces the Pallas kernel dp_minplus_kc (src/repro/kernels/hosting.py:116, pallas_call at
 // :138) together with the w assembly that the reference's fused drivers
 // run before it (src/repro/core/policies/offline_opt.py:136-138).
 //
@@ -927,14 +1272,16 @@ __device__ __forceinline__ float select_k(const float (&a)[K], int i) {
 // measured no faster).
 // ---------------------------------------------------------------------
 
-template <int K, bool ARGS>
+template <int K, bool ARGS, bool SVC>
 struct DpSmem {
   static constexpr int TILE = TileOf<K>::value;
   static constexpr int SS = K * kRows + 1;     // words per cooked slot
   static constexpr int AS = TILE * K + 1;      // args staging row stride
   static constexpr bool kFetchSmem = K > 8;
   static constexpr int NC = 2;                 // cooked stages
-  RawStage<TILE> raw[kRawStages];
+  typename std::conditional<SVC, RawSvcStage<TILE, K>,
+                            RawStage<TILE>>::type raw[kRawStages];
+  int cols[SVC ? kRows : 1][K];                // SVC: each row's columns
   float cooked[NC][TILE * SS];
   float fetch[kFetchSmem ? K * K * kRows : 1];
   int abuf[ARGS ? kRows * AS : 1];
@@ -943,15 +1290,16 @@ struct DpSmem {
   uint64_t empty[NC];
 };
 
-template <int K, bool ARGS>
-__global__ void __launch_bounds__(64) dp_fwd_model1_kernel(
+template <int K, bool ARGS, bool SVC>
+__global__ void __launch_bounds__(64) dp_fwd_kernel(
     const float* __restrict__ J, const float* __restrict__ c,
     const int* __restrict__ x, const float* __restrict__ g,
+    const float* __restrict__ svc, const int* __restrict__ cols, int Kf,
     const float* __restrict__ lv, const bool* __restrict__ kmask,
     const float* __restrict__ fetch, const int* __restrict__ Tlen,
     float* __restrict__ Jout, int* __restrict__ args, int R, int chunk,
     int t0, int bulk) {
-  using Sm = DpSmem<K, ARGS>;
+  using Sm = DpSmem<K, ARGS, SVC>;
   constexpr int TILE = Sm::TILE, SS = Sm::SS;
   extern __shared__ __align__(128) unsigned char smem_buf[];
   Sm& sm = *reinterpret_cast<Sm*>(smem_buf);
@@ -968,24 +1316,38 @@ __global__ void __launch_bounds__(64) dp_fwd_model1_kernel(
 
   if (warp == 0) {
     const float INF = __int_as_float(0x7f800000);
-    float lvr[K], gr[K];
+    float lvr[K];
     bool mr[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       lvr[k] = live ? lv[(long long)row * K + k] : 0.0f;
-      gr[k] = live ? g[(long long)row * K + k] : 0.0f;
       mr[k] = live ? kmask[(long long)row * K + k] : false;
     }
-    produce<TILE, SS>(sm, c, x, row0, nrows, chunk, bulk, lane,
-                      [&](float* out, float cv, int xv) {
-                        const float xf = (float)xv;
+    if constexpr (SVC) {
+      load_cols<K>(sm.cols, cols, row, live, lane);
+      produce_svc<TILE, SS, K>(
+          sm, c, svc, Kf, row0, nrows, chunk, bulk, cols == nullptr, lane,
+          [&](float* out, float cv, const float(&sv)[K]) {
 #pragma unroll
-                        for (int k = 0; k < K; ++k) {
-                          const float svc = xf * gr[k];      // Model 1
-                          out[k * kRows] =
-                              mr[k] ? __fmaf_rn(cv, lvr[k], svc) : INF;
-                        }
-                      });
+            for (int k = 0; k < K; ++k)
+              out[k * kRows] = mr[k] ? __fmaf_rn(cv, lvr[k], sv[k]) : INF;
+          });
+    } else {
+      float gr[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        gr[k] = live ? g[(long long)row * K + k] : 0.0f;
+      produce<TILE, SS>(sm, c, x, row0, nrows, chunk, bulk, lane,
+                        [&](float* out, float cv, int xv) {
+                          const float xf = (float)xv;
+#pragma unroll
+                          for (int k = 0; k < K; ++k) {
+                            const float s = xf * gr[k];      // Model 1
+                            out[k * kRows] =
+                                mr[k] ? __fmaf_rn(cv, lvr[k], s) : INF;
+                          }
+                        });
+    }
     return;
   }
 
@@ -1070,7 +1432,11 @@ __global__ void __launch_bounds__(64) dp_fwd_model1_kernel(
 }
 
 // ---------------------------------------------------------------------
-// S: sim_chunk_alpha_rr.  New: replaces the XLA lax.scan of
+// S: sim_alpha_rr_kernel<K, SVC> -- sim_chunk_alpha_rr (Model 1, SVC false)
+// and sim_chunk_alpha_rr_svc (a Model-2 service slab, SVC true: svc[k] is
+// the slab's column cols[k], or k without a map; w = fma(c, lv, svc) and
+// the accounting's service cost svc[r], staged by produce_svc).  New:
+// replaces the XLA lax.scan of
 // sim_chunk_core (src/repro/core/simulator.py:147-227) driving
 // alpha_rr_step (src/repro/core/policies/alpha_rr.py:88-124); no Pallas
 // kernel covered it.
@@ -1093,16 +1459,24 @@ __global__ void __launch_bounds__(64) dp_fwd_model1_kernel(
 // segments.
 // ---------------------------------------------------------------------
 
-template <int K>
+template <int K, bool SVC>
 struct SimSmem {
-  static constexpr int TILE = TileOf<K>::value;
-  static constexpr int NF = K + 2;             // w[0..K-1], c, float(x)
+  // SVC cooks twice the fields, so its tiles are those of 2K levels
+  static constexpr int TILE = TileOf<SVC ? 2 * K : K>::value;
+  // w[0..K-1], c, then float(x) (Model 1) or svc[0..K-1] (SVC)
+  static constexpr int NF = SVC ? 2 * K + 1 : K + 2;
   static constexpr int SS = NF * kRows + 1;    // words per cooked slot
   static constexpr int RS = kRows + 1;         // words per slot of rb
+  using Raw = typename std::conditional<SVC, RawSvcStage<TILE, K>,
+                                        RawStage<TILE>>::type;
   // three cooked stages let the policy warp run a tile further ahead of
-  // the accounting warp (faster than two at K = 3 on an H100)
-  static constexpr int NC = 3;
-  RawStage<TILE> raw[kRawStages];
+  // the accounting warp (faster than two at K = 3 on an H100); two where
+  // three would not fit the SM's shared memory
+  static constexpr int NC =
+      kRawStages * sizeof(Raw) + 3 * (TILE * SS + (TILE + 1) * RS) * 4
+              + 1024 <= kSmemMax ? 3 : 2;
+  Raw raw[kRawStages];
+  int cols[SVC ? kRows : 1][K];                // SVC: each row's columns
   float cooked[NC][TILE * SS];
   int rb[NC][(TILE + 1) * RS];                 // level held in each slot
   uint64_t raw_full[kRawStages];
@@ -1111,7 +1485,7 @@ struct SimSmem {
   uint64_t empty[NC];
 };
 
-template <int K>
+template <int K, bool SVC>
 __global__ void __launch_bounds__(96) sim_alpha_rr_kernel(
     const float* __restrict__ plv_g, const bool* __restrict__ mask_g,
     const float* __restrict__ pM_g, const float* __restrict__ lv_g,
@@ -1123,8 +1497,9 @@ __global__ void __launch_bounds__(96) sim_alpha_rr_kernel(
     int chunk, int R, int include_final_fetch, int* __restrict__ r_out,
     float* __restrict__ S_out, int* __restrict__ age_out,
     float* __restrict__ sums_out, int* __restrict__ counts_out,
-    int* __restrict__ r_hist, int bulk) {
-  using Sm = SimSmem<K>;
+    int* __restrict__ r_hist, const float* __restrict__ svc_g,
+    const int* __restrict__ cols_g, int Kf, int bulk) {
+  using Sm = SimSmem<K, SVC>;
   constexpr int TILE = Sm::TILE, SS = Sm::SS, RS = Sm::RS;
   extern __shared__ __align__(128) unsigned char smem_buf[];
   Sm& sm = *reinterpret_cast<Sm*>(smem_buf);
@@ -1145,23 +1520,37 @@ __global__ void __launch_bounds__(96) sim_alpha_rr_kernel(
   // separate inputs, as in the reference (they coincide for every fleet
   // built by AlphaRR.fleet / RetroRenting.fleet)
   if (warp == 0) {
-    float plr[K], gr[K];
+    float plr[K];
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      plr[k] = live ? plv_g[rk + k] : 0.0f;
-      gr[k] = live ? g_g[rk + k] : 0.0f;
+    for (int k = 0; k < K; ++k) plr[k] = live ? plv_g[rk + k] : 0.0f;
+    if constexpr (SVC) {
+      load_cols<K>(sm.cols, cols_g, row, live, lane);
+      produce_svc<TILE, SS, K>(
+          sm, c_g, svc_g, Kf, row0, nrows, chunk, bulk, cols_g == nullptr, lane,
+          [&](float* out, float cv, const float(&sv)[K]) {
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+              out[k * kRows] = __fmaf_rn(cv, plr[k], sv[k]);
+              out[(K + 1 + k) * kRows] = sv[k];
+            }
+            out[K * kRows] = cv;
+          });
+    } else {
+      float gr[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) gr[k] = live ? g_g[rk + k] : 0.0f;
+      produce<TILE, SS>(sm, c_g, x_g, row0, nrows, chunk, bulk, lane,
+                        [&](float* out, float cv, int xv) {
+                          const float xf = (float)xv;
+#pragma unroll
+                          for (int k = 0; k < K; ++k) {
+                            const float s = xf * gr[k];      // Model 1
+                            out[k * kRows] = __fmaf_rn(cv, plr[k], s);
+                          }
+                          out[K * kRows] = cv;
+                          out[(K + 1) * kRows] = xf;
+                        });
     }
-    produce<TILE, SS>(sm, c_g, x_g, row0, nrows, chunk, bulk, lane,
-                      [&](float* out, float cv, int xv) {
-                        const float xf = (float)xv;
-#pragma unroll
-                        for (int k = 0; k < K; ++k) {
-                          const float svc = xf * gr[k];      // Model 1
-                          out[k * kRows] = __fmaf_rn(cv, plr[k], svc);
-                        }
-                        out[K * kRows] = cv;
-                        out[(K + 1) * kRows] = xf;
-                      });
     return;
   }
 
@@ -1252,7 +1641,7 @@ __global__ void __launch_bounds__(96) sim_alpha_rr_kernel(
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     lv[k] = live ? lv_g[rk + k] : 0.0f;
-    g[k] = live ? g_g[rk + k] : 0.0f;
+    g[k] = live && !SVC ? g_g[rk + k] : 0.0f;
     cnt[k] = live ? counts_in[rk + k] : 0;
   }
   const float M = live ? M_g[row] : 0.0f;
@@ -1271,12 +1660,14 @@ __global__ void __launch_bounds__(96) sim_alpha_rr_kernel(
       const int rt = rb[jj * RS];
       const int rn = rb[(jj + 1) * RS];        // the level after the slot
       const float c = ck[jj * SS + K * kRows];
-      const float xf = ck[jj * SS + (K + 1) * kRows];
       const bool valid = jj < tv;
       const bool last = jj == tv - 1;
       const float lv_t = select_k<K>(lv, rt);
       const float rent = c * lv_t;
-      const float svc_t = xf * select_k<K>(g, rt);
+      // the held level's service: its slab column (SVC), or x * g
+      const float svc_t = SVC ? ck[jj * SS + (K + 1 + rt) * kRows]
+                              : ck[jj * SS + (K + 1) * kRows]
+                                    * select_k<K>(g, rt);
       const float lv_next = select_k<K>(lv, rn);
       float fetch = M * fmaxf(lv_next - lv_t, 0.0f);
       if (!include_final_fetch && last) fetch = 0.0f;
@@ -1320,20 +1711,104 @@ cudaError_t allow_smem(Kern kern, size_t bytes) {
                               (int)bytes);
 }
 
-template <int K, bool ARGS>
-int launch_dpf(const void* J, const void* c, const void* x, const void* g,
-               const void* lv, const void* kmask, const void* fetch,
-               const void* T_len, void* Jout, void* args, int R, int chunk,
-               int t0, cudaStream_t st) {
-  const size_t bytes = sizeof(DpSmem<K, ARGS>);
-  const cudaError_t e = allow_smem(dp_fwd_model1_kernel<K, ARGS>, bytes);
+// D's and S's producer route: bulk copies when the row segments are
+// contiguous and 16-byte aligned (Model 1: c and x; SVC: c and svc, and
+// the slab's columns fit a bulk stage)
+template <bool SVC, int TILE, int K>
+int bulk_route(const void* c, const void* x, const void* svc, int Kf,
+               int chunk) {
+  return SVC ? Kf <= svc_bulk_cols<TILE, K>() && bulk_ok(c, svc, chunk)
+             : bulk_ok(c, x, chunk);
+}
+
+// the inputs of the fused D (x, g: Model 1; svc, cols, Kf: SVC)
+struct DpfArgs {
+  const void *J, *c, *x, *g, *svc, *cols;
+  int Kf;
+  const void *lv, *kmask, *fetch, *T_len;
+  void *Jout, *args;
+  int R, chunk, t0;
+};
+
+template <int K, bool ARGS, bool SVC>
+int launch_dpf(const DpfArgs& a, cudaStream_t st) {
+  const size_t bytes = sizeof(DpSmem<K, ARGS, SVC>);
+  const cudaError_t e = allow_smem(dp_fwd_kernel<K, ARGS, SVC>, bytes);
   if (e != cudaSuccess) return (int)e;
-  dp_fwd_model1_kernel<K, ARGS><<<n_blocks(R, kRows), 64, bytes, st>>>(
-      (const float*)J, (const float*)c, (const int*)x, (const float*)g,
-      (const float*)lv, (const bool*)kmask, (const float*)fetch,
-      (const int*)T_len, (float*)Jout, (int*)args, R, chunk, t0,
-      bulk_ok(c, x, chunk));
+  dp_fwd_kernel<K, ARGS, SVC><<<n_blocks(a.R, kRows), 64, bytes, st>>>(
+      (const float*)a.J, (const float*)a.c, (const int*)a.x,
+      (const float*)a.g, (const float*)a.svc, (const int*)a.cols, a.Kf,
+      (const float*)a.lv, (const bool*)a.kmask, (const float*)a.fetch,
+      (const int*)a.T_len, (float*)a.Jout, (int*)a.args, a.R, a.chunk, a.t0,
+      bulk_route<SVC, DpSmem<K, ARGS, SVC>::TILE, K>(a.c, a.x, a.svc, a.Kf,
+                                                     a.chunk));
   return (int)cudaGetLastError();
+}
+
+// the fused D at a runtime K (1..16), with or without the argmin table
+template <bool SVC>
+int launch_dpf_any(const DpfArgs& a, int K, cudaStream_t st) {
+  if (a.R <= 0) return (int)cudaGetLastError();
+#define REPRO_DPF_CASE(KK)                                                    \
+  case KK:                                                                    \
+    return a.args ? launch_dpf<KK, true, SVC>(a, st)                          \
+                  : launch_dpf<KK, false, SVC>(a, st);
+  switch (K) {
+    REPRO_DPF_CASE(1) REPRO_DPF_CASE(2) REPRO_DPF_CASE(3) REPRO_DPF_CASE(4)
+    REPRO_DPF_CASE(5) REPRO_DPF_CASE(6) REPRO_DPF_CASE(7) REPRO_DPF_CASE(8)
+    REPRO_DPF_CASE(9) REPRO_DPF_CASE(10) REPRO_DPF_CASE(11)
+    REPRO_DPF_CASE(12) REPRO_DPF_CASE(13) REPRO_DPF_CASE(14)
+    REPRO_DPF_CASE(15) REPRO_DPF_CASE(16)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_DPF_CASE
+}
+
+// the inputs of S (x, g: Model 1; svc, cols, Kf: SVC)
+struct SimArgs {
+  const void *plv, *mask, *pM, *lv, *g, *M, *T_len, *r_in, *S_in, *age_in,
+      *sums_in, *counts_in, *x, *c, *svc, *cols;
+  int t0, chunk, R, Kf, include_final_fetch;
+  void *r_out, *S_out, *age_out, *sums_out, *counts_out, *r_hist;
+};
+
+template <int K, bool SVC>
+int launch_sim(const SimArgs& a, cudaStream_t st) {
+  const size_t bytes = sizeof(SimSmem<K, SVC>);
+  const cudaError_t e = allow_smem(sim_alpha_rr_kernel<K, SVC>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  sim_alpha_rr_kernel<K, SVC><<<n_blocks(a.R, kRows), 96, bytes, st>>>(
+      (const float*)a.plv, (const bool*)a.mask, (const float*)a.pM,
+      (const float*)a.lv, (const float*)a.g, (const float*)a.M,
+      (const int*)a.T_len, (const int*)a.r_in, (const float*)a.S_in,
+      (const int*)a.age_in, (const float*)a.sums_in,
+      (const int*)a.counts_in, (const int*)a.x, (const float*)a.c, a.t0,
+      a.chunk, a.R, a.include_final_fetch, (int*)a.r_out, (float*)a.S_out,
+      (int*)a.age_out, (float*)a.sums_out, (int*)a.counts_out,
+      (int*)a.r_hist, (const float*)a.svc, (const int*)a.cols, a.Kf,
+      bulk_route<SVC, SimSmem<K, SVC>::TILE, K>(a.c, a.x, a.svc, a.Kf,
+                                                a.chunk));
+  return (int)cudaGetLastError();
+}
+
+// S at a runtime K (2..16)
+template <bool SVC>
+int launch_sim_any(const SimArgs& a, int K, cudaStream_t st) {
+  if (a.R <= 0) return (int)cudaGetLastError();
+#define REPRO_SIM_CASE(KK) \
+  case KK:                 \
+    return launch_sim<KK, SVC>(a, st);
+  switch (K) {
+    REPRO_SIM_CASE(2) REPRO_SIM_CASE(3) REPRO_SIM_CASE(4) REPRO_SIM_CASE(5)
+    REPRO_SIM_CASE(6) REPRO_SIM_CASE(7) REPRO_SIM_CASE(8) REPRO_SIM_CASE(9)
+    REPRO_SIM_CASE(10) REPRO_SIM_CASE(11) REPRO_SIM_CASE(12)
+    REPRO_SIM_CASE(13) REPRO_SIM_CASE(14) REPRO_SIM_CASE(15)
+    REPRO_SIM_CASE(16)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_SIM_CASE
 }
 
 // the 16-byte store route needs whole, aligned groups of slots
@@ -1391,8 +1866,12 @@ int launch_ge_chain(const void* keys, const void* tids, const void* s_in,
               R, chunk, partitionable, 0, 1u};
   if (R <= 0) return (int)cudaGetLastError();
   args.vec = vec_ok(chunk, kSlots, states, x);
-  ge_chain_kernel<<<n_blocks(R, kGeWarps), 32 * kGeWarps, 0,
-                    (cudaStream_t)stream>>>(args);
+  if (x)
+    ge_chain_kernel<true><<<n_blocks(R, kGeWarps), 32 * kGeWarps, 0,
+                            (cudaStream_t)stream>>>(args);
+  else
+    ge_chain_kernel<false><<<n_blocks(R, kGeWarps), 32 * kGeWarps, 0,
+                             (cudaStream_t)stream>>>(args);
   return (int)cudaGetLastError();
 }
 
@@ -1444,69 +1923,94 @@ int launch_dp_minplus(const void* J, const void* wck, const void* fetch,
   return (int)cudaGetLastError();
 }
 
-// args may be NULL: the argmin table is then not written at all
-int launch_dp_fwd_model1(const void* J, const void* c, const void* x,
-                         const void* g, const void* lv, const void* kmask,
-                         const void* fetch, const void* T_len, void* Jout,
-                         void* args, int R, int chunk, int K, int t0,
-                         void* stream) {
-  if (R <= 0) return (int)cudaGetLastError();
-  cudaStream_t st = (cudaStream_t)stream;
-#define REPRO_DPF_CASE(KK)                                                    \
-  case KK:                                                                    \
-    return args ? launch_dpf<KK, true>(J, c, x, g, lv, kmask, fetch, T_len,   \
-                                       Jout, args, R, chunk, t0, st)          \
-                : launch_dpf<KK, false>(J, c, x, g, lv, kmask, fetch, T_len,  \
-                                        Jout, args, R, chunk, t0, st);
-  switch (K) {
-    REPRO_DPF_CASE(1) REPRO_DPF_CASE(2) REPRO_DPF_CASE(3) REPRO_DPF_CASE(4)
-    REPRO_DPF_CASE(5) REPRO_DPF_CASE(6) REPRO_DPF_CASE(7) REPRO_DPF_CASE(8)
-    REPRO_DPF_CASE(9) REPRO_DPF_CASE(10) REPRO_DPF_CASE(11)
-    REPRO_DPF_CASE(12) REPRO_DPF_CASE(13) REPRO_DPF_CASE(14)
-    REPRO_DPF_CASE(15) REPRO_DPF_CASE(16)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef REPRO_DPF_CASE
+// the fused D under Model 1 (x, g; svc and cols NULL) or on a Model-2
+// service slab svc [R, chunk, Kf] (x and g NULL) with cols [R, K] (NULL:
+// the identity, Kf == K); args may be NULL: the argmin table is then not
+// written at all
+int launch_dp_fwd(const void* J, const void* c, const void* x, const void* g,
+                  const void* svc, const void* cols, const void* lv,
+                  const void* kmask, const void* fetch, const void* T_len,
+                  void* Jout, void* args, int R, int chunk, int K, int Kf,
+                  int t0, void* stream) {
+  if (Kf < 1 || Kf > 16) return (int)cudaErrorInvalidValue;
+  const DpfArgs a{J, c, x, g, svc, cols, Kf, lv, kmask, fetch,
+                  T_len, Jout, args, R, chunk, t0};
+  return svc ? launch_dpf_any<true>(a, K, (cudaStream_t)stream)
+             : launch_dpf_any<false>(a, K, (cudaStream_t)stream);
 }
 
+// S under Model 1 (x, g; svc and cols NULL) or on a Model-2 service slab
+// svc [R, chunk, Kf] (x and g NULL) with cols [R, K] (NULL: the identity,
+// Kf == K); r_hist may be NULL
 int launch_sim_alpha_rr(const void* plv, const void* mask, const void* pM,
                         const void* lv, const void* g, const void* M,
                         const void* T_len, const void* r_in,
                         const void* S_in, const void* age_in,
                         const void* sums_in, const void* counts_in,
-                        const void* x, const void* c, int t0, int chunk, int R,
-                        int K, int include_final_fetch, void* r_out,
+                        const void* x, const void* c, const void* svc,
+                        const void* cols, int t0, int chunk, int R, int K,
+                        int Kf, int include_final_fetch, void* r_out,
                         void* S_out, void* age_out, void* sums_out,
                         void* counts_out, void* r_hist, void* stream) {
-  if (R <= 0) return (int)cudaGetLastError();
-  const dim3 grid(n_blocks(R, kRows));
-  const int bulk = bulk_ok(c, x, chunk);
+  if (Kf < 1 || Kf > 16) return (int)cudaErrorInvalidValue;
+  const SimArgs a{plv, mask, pM, lv, g, M, T_len, r_in, S_in, age_in,
+                  sums_in, counts_in, x, c, svc, cols, t0, chunk, R,
+                  Kf, include_final_fetch, r_out, S_out, age_out, sums_out,
+                  counts_out, r_hist};
+  return svc ? launch_sim_any<true>(a, K, (cudaStream_t)stream)
+             : launch_sim_any<false>(a, K, (cudaStream_t)stream);
+}
+
+// jax.random.poisson (Knuth, rates < 10) a (row, slot); salt < 0: no salt
+// fold; states / lam_h NULL: the per-row rate lam
+int launch_poisson(const void* keys, const void* tids, const void* lam,
+                   const void* lam_h, const void* states, void* out, int R,
+                   int chunk, int salt, int partitionable, void* stream) {
+  const PoissonArgs a{(const long long*)keys, (const int*)tids,
+                      (const float*)lam, (const float*)lam_h,
+                      (const int*)states, (int*)out, R, chunk, salt,
+                      partitionable, 1u};
+  if (R <= 0 || chunk <= 0) return (int)cudaGetLastError();
+  const int threads = chunk >= 256 ? 256 : (chunk + 31) / 32 * 32;
+  const dim3 grid(R, n_blocks(chunk, threads));
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = cudaSuccess;
-#define REPRO_SIM_CASE(KK)                                                    \
-  case KK:                                                                    \
-    e = allow_smem(sim_alpha_rr_kernel<KK>, sizeof(SimSmem<KK>));             \
-    if (e != cudaSuccess) return (int)e;                                      \
-    sim_alpha_rr_kernel<KK><<<grid, 96, sizeof(SimSmem<KK>), st>>>(           \
-        (const float*)plv, (const bool*)mask, (const float*)pM,               \
-        (const float*)lv, (const float*)g, (const float*)M,                   \
-        (const int*)T_len, (const int*)r_in,                                  \
-        (const float*)S_in, (const int*)age_in, (const float*)sums_in,        \
-        (const int*)counts_in, (const int*)x, (const float*)c, t0, chunk, R,  \
-        include_final_fetch, (int*)r_out, (float*)S_out, (int*)age_out,       \
-        (float*)sums_out, (int*)counts_out, (int*)r_hist, bulk);              \
+  if (states && salt >= 0)
+    poisson_knuth_kernel<true, true><<<grid, threads, 0, st>>>(a);
+  else if (states)
+    poisson_knuth_kernel<false, true><<<grid, threads, 0, st>>>(a);
+  else if (salt >= 0)
+    poisson_knuth_kernel<true, false><<<grid, threads, 0, st>>>(a);
+  else
+    poisson_knuth_kernel<false, false><<<grid, threads, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// the Model-2 service costs of one chunk (1 <= K <= 16)
+int launch_model2_service(const void* keys, const void* tids, const void* x,
+                          const void* g, void* out, int R, int chunk, int K,
+                          int n_max, int partitionable, void* stream) {
+  const Model2Args a{(const long long*)keys, (const int*)tids, (const int*)x,
+                     (const float*)g, (float*)out, R, chunk, n_max,
+                     partitionable, 1u};
+  if (R <= 0 || chunk <= 0) return (int)cudaGetLastError();
+  const int threads = chunk >= 256 ? 256 : (chunk + 31) / 32 * 32;
+  const dim3 grid(R, n_blocks(chunk, threads));
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+#define REPRO_M2_CASE(KK)                                          \
+  case KK:                                                         \
+    model2_service_kernel<KK><<<grid, threads, 0, st>>>(a);        \
     break;
   switch (K) {
-    REPRO_SIM_CASE(2) REPRO_SIM_CASE(3) REPRO_SIM_CASE(4) REPRO_SIM_CASE(5)
-    REPRO_SIM_CASE(6) REPRO_SIM_CASE(7) REPRO_SIM_CASE(8) REPRO_SIM_CASE(9)
-    REPRO_SIM_CASE(10) REPRO_SIM_CASE(11) REPRO_SIM_CASE(12)
-    REPRO_SIM_CASE(13) REPRO_SIM_CASE(14) REPRO_SIM_CASE(15)
-    REPRO_SIM_CASE(16)
+    REPRO_M2_CASE(1) REPRO_M2_CASE(2) REPRO_M2_CASE(3) REPRO_M2_CASE(4)
+    REPRO_M2_CASE(5) REPRO_M2_CASE(6) REPRO_M2_CASE(7) REPRO_M2_CASE(8)
+    REPRO_M2_CASE(9) REPRO_M2_CASE(10) REPRO_M2_CASE(11) REPRO_M2_CASE(12)
+    REPRO_M2_CASE(13) REPRO_M2_CASE(14) REPRO_M2_CASE(15) REPRO_M2_CASE(16)
     default:
       return (int)cudaErrorInvalidValue;
   }
-#undef REPRO_SIM_CASE
+#undef REPRO_M2_CASE
   return (int)cudaGetLastError();
 }
 

@@ -13,17 +13,25 @@ PyTorch versions.
   emissions); ``normal_chunk`` (scaled normals, XLA's float32 ``erf_inv``
   transcribed op for op) runs ``counter_stream_kernel`` too, and
   ``arma_rents_chunk`` runs ``arma_rents_kernel`` (the ARMA rents: the
-  normals drawn slot-parallel, each row's recursion walked by one thread).
+  normals drawn slot-parallel, each row's recursion walked by one thread);
+  ``poisson_chunk`` (``jax.random.poisson``, Knuth's branch, at a per-row
+  rate or the GE states' per-slot rates) runs ``poisson_knuth_kernel`` and
+  ``model2_service_chunk`` (the Model-2 service costs of the live
+  requests' coupled uniforms) ``model2_service_kernel``.
 * ``dp_fwd_model1`` (kernel **D**) — one chunk of the offline-OPT
   min-plus recursion with the Model-1 cost assembly ``w = fma(c, lv, x *
   g)`` fused in: the fleet DP's chunk, the port of
   ``repro/kernels/hosting.py:dp_minplus_kc`` and of the assembly before it.
+* ``dp_fwd_model2`` (kernel D on a Model-2 service slab) -- the same
+  chunk with ``w = fma(c, lv, svc)``, ``svc`` the slab's columns of the
+  row's levels (``svc_cols``).
 * ``dp_minplus`` (kernel D on a finished ``w``) — the same recursion for
   callers that assemble ``w`` themselves (``offline_opt_batch``) and for K
   up to 32.
 * ``sim_chunk_alpha_rr`` (kernel **S**) — one chunk of the per-slot
   alpha-RR simulation, the reference's ``lax.scan`` of
-  ``simulator.sim_chunk_core`` over ``alpha_rr_step`` fused into one pass.
+  ``simulator.sim_chunk_core`` over ``alpha_rr_step`` fused into one pass;
+  ``sim_chunk_alpha_rr_svc`` the same on a Model-2 service slab.
 
 Every wrapper follows the same rules: it takes the plain version *only*
 for tensors on the CPU; for CUDA tensors it checks device, dtype, shape and
@@ -152,19 +160,34 @@ fma32.card_calls = 0
 _UNIFORM, _BERNOULLI, _UNIFORM_RENTS, _NA_RENTS, _NORMAL = range(5)
 
 
-def _slot_bits(keys, tids, salt, partitionable):
-    """[R, chunk] int64: jax's scalar 32-bit draw under ``fold_in(keys[i],
-    tids[j])`` (then ``fold_in(., salt)`` when a salt is given), in the
-    current (or the given) threefry layout."""
-    part = is_partitionable() if partitionable is None else partitionable
+def _layout(partitionable) -> bool:
+    return is_partitionable() if partitionable is None else partitionable
+
+
+def _slot_keys(keys, tids, salt):
+    """The [R, chunk] key words ``fold_in(keys[i], tids[j])`` (then
+    ``fold_in(., salt)`` when a salt is given)."""
     k0, k1 = keys[:, 0:1], keys[:, 1:2]
     t = (tids.to(torch.int64) & MASK32)[None, :]
     a0, a1 = threefry_fold(k0, k1, t)
     if salt is not None:
         a0, a1 = threefry_fold(a0, a1, torch.full_like(a0, int(salt) & MASK32))
-    z = torch.zeros_like(a0)
-    b0, b1 = threefry2x32(a0, a1, z, z)
+    return a0, a1
+
+
+def _bits32(k0, k1, part: bool):
+    """jax's scalar 32-bit draw under the key words ``(k0, k1)``: the bits
+    block (counter (0, 0)) and the layout's word."""
+    z = torch.zeros_like(k0)
+    b0, b1 = threefry2x32(k0, k1, z, z)
     return b0 ^ b1 if part else b0
+
+
+def _slot_bits(keys, tids, salt, partitionable):
+    """[R, chunk] int64: jax's scalar 32-bit draw under ``fold_in(keys[i],
+    tids[j])`` (then ``fold_in(., salt)`` when a salt is given), in the
+    current (or the given) threefry layout."""
+    return _bits32(*_slot_keys(keys, tids, salt), _layout(partitionable))
 
 
 def slot_uniform_plain(keys, tids, salt: Optional[int] = None,
@@ -211,12 +234,14 @@ def na_rents_chunk_plain(keys, tids, lo, hi,
 
 
 def ge_bernoulli_chunk_plain(keys, tids, s, p_hl, p_lh, rate_h, rate_l,
-                             partitionable: Optional[bool] = None):
+                             partitionable: Optional[bool] = None,
+                             emit: bool = True):
     """Plain version of kernel P's Gilbert-Elliot chunk: the chain draws
     (salt 0) walked slot by slot from ``s`` [R] int32, ``s_t = s_{t-1} == 1
     ? u0 >= p_hl : u0 < p_lh``, then Bernoulli emissions ``x = u1 < (s_t ?
     rate_h : rate_l)`` (salt 1).  Returns ``(s', states [R, chunk] int32,
-    x [R, chunk] int32)``.  ``card_calls`` counts its calls on the card."""
+    x [R, chunk] int32, or None without ``emit``)``.  ``card_calls`` counts
+    its calls on the card."""
     if keys.is_cuda:
         ge_bernoulli_chunk_plain.card_calls += 1
     u = slot_uniform_plain(keys, tids, 0, partitionable)
@@ -226,12 +251,19 @@ def ge_bernoulli_chunk_plain(keys, tids, s, p_hl, p_lh, rate_h, rate_l,
         s = torch.where(s == 1, (u_t >= p_hl).to(torch.int32),
                         (u_t < p_lh).to(torch.int32))
         states[:, j] = s
+    if not emit:
+        return s, states, None
     rates = torch.where(states == 1, rate_h[:, None], rate_l[:, None])
     u = slot_uniform_plain(keys, tids, 1, partitionable)
     return s, states, (u < rates).to(torch.int32)
 
 
 ge_bernoulli_chunk_plain.card_calls = 0
+
+
+def _ptr(t):
+    """A tensor's data pointer, or None (NULL) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def _row_params(keys, tids, **params):
@@ -248,12 +280,11 @@ def _row_params(keys, tids, **params):
 def _stream(kind, keys, tids, out_dtype, salt=None, a=None, b=None,
             flip=None, partitionable=None):
     """Launch kernel P's ``kind`` on checked inputs; returns [R, chunk]."""
-    part = is_partitionable() if partitionable is None else partitionable
+    part = _layout(partitionable)
     R, chunk = keys.shape[0], tids.shape[0]
     out = torch.empty((R, chunk), dtype=out_dtype, device=keys.device)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = _build.library("hosting").launch_counter_stream(
-        kind, keys.data_ptr(), tids.data_ptr(), ptr(a), ptr(b), ptr(flip),
+        kind, keys.data_ptr(), tids.data_ptr(), _ptr(a), _ptr(b), _ptr(flip),
         out.data_ptr(), R, chunk, -1 if salt is None else int(salt),
         int(part), _build.stream(keys.device))
     _build.raise_on(err, "counter_stream")
@@ -331,26 +362,29 @@ na_rents_chunk.launches = 0
 
 
 def ge_bernoulli_chunk(keys, tids, s, p_hl, p_lh, rate_h, rate_l,
-                       partitionable: Optional[bool] = None):
+                       partitionable: Optional[bool] = None,
+                       emit: bool = True):
     """Kernel P's Gilbert-Elliot chunk, the chain and its emissions in one
-    launch (arguments and results as ``ge_bernoulli_chunk_plain``), bitwise
+    launch (arguments and results as ``ge_bernoulli_chunk_plain``; without
+    ``emit`` the kernel neither draws nor stores the emissions), bitwise
     the plain version."""
     if keys.device.type == "cpu":
         return ge_bernoulli_chunk_plain(keys, tids, s, p_hl, p_lh, rate_h,
-                                        rate_l, partitionable)
+                                        rate_l, partitionable, emit)
     f32 = torch.float32
     R, chunk = _row_params(keys, tids, s=(s, torch.int32),
                            p_hl=(p_hl, f32), p_lh=(p_lh, f32),
                            rate_h=(rate_h, f32), rate_l=(rate_l, f32))
-    part = is_partitionable() if partitionable is None else partitionable
+    part = _layout(partitionable)
     dev = keys.device
     s_out = torch.empty((R,), dtype=torch.int32, device=dev)
     states = torch.empty((R, chunk), dtype=torch.int32, device=dev)
-    x = torch.empty((R, chunk), dtype=torch.int32, device=dev)
+    x = (torch.empty((R, chunk), dtype=torch.int32, device=dev) if emit
+         else None)
     err = _build.library("hosting").launch_ge_chain(
         keys.data_ptr(), tids.data_ptr(), s.data_ptr(), p_hl.data_ptr(),
         p_lh.data_ptr(), rate_h.data_ptr(), rate_l.data_ptr(),
-        s_out.data_ptr(), states.data_ptr(), x.data_ptr(), R, chunk,
+        s_out.data_ptr(), states.data_ptr(), _ptr(x), R, chunk,
         int(part), _build.stream(dev))
     _build.raise_on(err, "ge_chain")
     ge_bernoulli_chunk.launches += 1
@@ -564,7 +598,7 @@ def arma_rents_chunk(keys, tids, hist, eps, phi, th, sigma, mean, c_min,
     for name, t, shape in (("hist", hist, (R, p)), ("eps", eps, (R, q)),
                            ("phi", phi, (R, p)), ("th", th, (R, q))):
         _build.check_tensor(name, t, f32, shape, dev)
-    part = is_partitionable() if partitionable is None else partitionable
+    part = _layout(partitionable)
     hist_out, eps_out = torch.empty_like(hist), torch.empty_like(eps)
     c = torch.empty((R, chunk), dtype=f32, device=dev)
     err = _build.library("hosting").launch_arma_rents(
@@ -579,6 +613,197 @@ def arma_rents_chunk(keys, tids, hist, eps, phi, th, sigma, mean, c_min,
 
 
 arma_rents_chunk.launches = 0
+
+
+# ----------------------------------------------------------------------
+# P: Poisson draws (Knuth's branch) and the Model-2 service draws.
+# ----------------------------------------------------------------------
+
+#: ``jax.random.poisson`` draws by Knuth's algorithm below this rate and by
+#: Hormann's rejection at and above it; only Knuth's branch is ported
+POISSON_KNUTH_MAX = 10.0
+
+
+def check_knuth_rates(*rates):
+    """Raise ``NotImplementedError`` unless every rate is below
+    ``POISSON_KNUTH_MAX`` (the port has Knuth's branch only).  The Poisson
+    streams call it when they are built; ``poisson_chunk`` and its plain
+    version do not check, and run Knuth's loop at any rate."""
+    for r in rates:
+        r = torch.as_tensor(r, dtype=torch.float32)
+        if bool((r >= POISSON_KNUTH_MAX).any()):
+            raise NotImplementedError(
+                f"Poisson rates >= {POISSON_KNUTH_MAX:g} take jax.random."
+                f"poisson's rejection branch (XLA's lgamma), which is not "
+                f"ported: ROADMAP.md, Queue 1 item 3c (Poisson rejection "
+                f"branch); got max rate {float(r.max())}")
+
+
+def _split2(k0, k1, part: bool):
+    """``jax.random.split(key)`` of the key words ``(k0, k1)``: the pairs
+    ``(key', subkey)``.  Partitionable: key i hashes the counter (0, i);
+    original: the counters (0, 2) and (1, 3) hashed, key' their first
+    words, subkey their second."""
+    z = torch.zeros_like(k0)
+    if part:
+        return threefry2x32(k0, k1, z, z), threefry2x32(k0, k1, z, z + 1)
+    a0, a1 = threefry2x32(k0, k1, z, z + 2)
+    b0, b1 = threefry2x32(k0, k1, z + 1, z + 3)
+    return (a0, b0), (a1, b1)
+
+
+def poisson_knuth_plain(k0, k1, lam, partitionable: Optional[bool] = None):
+    """``jax.random.poisson(key, lam, ())`` for every key words ``(k0,
+    k1)`` and float32 rate ``lam`` (same shape, ``lam`` < 10), Knuth's
+    branch of jax's ``_poisson`` as XLA:CPU computes it: while ``log_prod >
+    -lam``, split the key, count the round, add XLA's ``log`` of the
+    subkey's uniform (``_xla_log``, as inside the loop's fusion) to
+    ``log_prod``; the draw is the rounds less one, and ``lam == 0`` gives
+    0.  A lane's loop stops when its own ``log_prod`` falls to ``-lam``
+    (vmapped, jax freezes the finished lanes), so the result is per lane.
+    Returns int32 of the same shape."""
+    part = _layout(partitionable)
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=k0.device)
+    k0, k1, lam = torch.broadcast_tensors(k0, k1, lam)
+    shape = lam.shape
+    k0, k1, lam = k0.reshape(-1), k1.reshape(-1), lam.reshape(-1)
+    neg = -lam
+    rounds = torch.zeros(lam.shape, dtype=torch.int32, device=lam.device)
+    log_prod = torch.zeros_like(lam)
+    idx = torch.nonzero(log_prod > neg)[:, 0]         # the lanes still live
+    k0, k1, log_prod, neg = k0[idx], k1[idx], log_prod[idx], neg[idx]
+    while idx.numel():
+        (r0, r1), (s0, s1) = _split2(k0, k1, part)
+        log_prod = log_prod + _xla_log(uniform_from_bits(_bits32(s0, s1,
+                                                                 part)))
+        rounds[idx] += 1
+        live = log_prod > neg
+        idx, k0, k1, log_prod, neg = (idx[live], r0[live], r1[live],
+                                      log_prod[live], neg[live])
+    out = torch.where(lam == 0, 0, rounds - 1).to(torch.int32)
+    return out.reshape(shape)
+
+
+def poisson_chunk_plain(keys, tids, lam, salt: Optional[int] = None,
+                        states=None, lam_h=None,
+                        partitionable: Optional[bool] = None):
+    """Plain version of kernel P's Poisson draws: ``[R, chunk]`` int32
+    ``jax.random.poisson`` under ``fold_in(keys[i], tids[j])`` (then
+    ``fold_in(., salt)`` when a salt is given) at rate ``lam[i]`` (float32
+    [R]), or, given GE ``states`` [R, chunk] int32, at the per-slot rate
+    ``states == 1 ? lam_h[i] : lam[i]`` (``_ge_emit``'s Poisson
+    emissions).  Knuth's loop runs at any rate; it is jax's draw only
+    below 10, which ``check_knuth_rates`` holds the streams to.
+    ``card_calls`` counts its calls on the card (its round loop is what the
+    kernel replaces)."""
+    if keys.is_cuda:
+        poisson_chunk_plain.card_calls += 1
+    a0, a1 = _slot_keys(keys, tids, salt)
+    rate = (lam[:, None] if states is None
+            else torch.where(states == 1, lam_h[:, None], lam[:, None]))
+    return poisson_knuth_plain(a0, a1, rate.expand(a0.shape).contiguous(),
+                               partitionable)
+
+
+poisson_chunk_plain.card_calls = 0
+
+
+def shaped_bits(k0, k1, n: int, partitionable: Optional[bool] = None):
+    """``[..., n]`` int64: the 32-bit words jax draws for ``uniform(key,
+    (n,))`` under each key words ``(k0, k1)``.  Partitionable: word i
+    hashes the counter (0, i), xor of the pair.  Original: the counters
+    ``0 .. n - 1`` (a 0 appended when n is odd) cut in halves x0 | x1 and
+    hashed pairwise, the words the first outputs then the second ones."""
+    part = _layout(partitionable)
+    k0, k1 = k0[..., None], k1[..., None]
+    if part:
+        i = torch.arange(n, dtype=torch.int64, device=k0.device)
+        y0, y1 = threefry2x32(k0, k1, torch.zeros_like(i), i)
+        return y0 ^ y1
+    h = (n + 1) // 2
+    cnt = torch.arange(2 * h, dtype=torch.int64, device=k0.device)
+    cnt[n:] = 0
+    y0, y1 = threefry2x32(k0, k1, cnt[:h], cnt[h:])
+    return torch.cat([y0, y1], dim=-1)[..., :n]
+
+
+def model2_service_chunk_plain(keys, tids, x, g, n_max: int,
+                               partitionable: Optional[bool] = None):
+    """Plain version of kernel P's Model-2 service draws: under ``fold_in(
+    keys[i], tids[j])`` the slot's ``n_max`` request uniforms ``u =
+    uniform(key, (n_max,))``; ``svc[i, j, k] = #{r < min(x[i, j], n_max) :
+    u[r] < g[i, k]}`` as float32 (exact).  ``x`` [R, chunk] int32, ``g``
+    [R, K] float32 -> [R, chunk, K].  ``card_calls`` counts its calls on
+    the card."""
+    if keys.is_cuda:
+        model2_service_chunk_plain.card_calls += 1
+    a0, a1 = _slot_keys(keys, tids, None)
+    u = uniform_from_bits(shaped_bits(a0, a1, n_max, partitionable))
+    live = torch.arange(n_max, device=x.device) < x[:, :, None]
+    fwd = u[:, :, :, None] < g[:, None, None, :]
+    return (live[:, :, :, None] & fwd).sum(dim=2).to(torch.float32)
+
+
+model2_service_chunk_plain.card_calls = 0
+
+
+def poisson_chunk(keys, tids, lam, salt: Optional[int] = None, states=None,
+                  lam_h=None, partitionable: Optional[bool] = None):
+    """Kernel P's Poisson draws (arguments as ``poisson_chunk_plain``, and
+    as there the rates are not checked: the streams check them when they
+    are built), bitwise the plain version."""
+    if keys.device.type == "cpu":
+        return poisson_chunk_plain(keys, tids, lam, salt, states, lam_h,
+                                   partitionable)
+    f32 = torch.float32
+    R, chunk = _row_params(keys, tids, lam=(lam, f32))
+    if (states is None) != (lam_h is None):
+        raise ValueError("poisson_chunk: states and lam_h go together")
+    if states is not None:
+        _build.check_tensor("lam_h", lam_h, f32, (R,), keys.device)
+        _build.check_tensor("states", states, torch.int32, (R, chunk),
+                            keys.device)
+    if salt is not None and not 0 <= int(salt) < 2 ** 31:
+        raise ValueError(f"salt must lie in [0, 2**31), got {salt}")
+    out = torch.empty((R, chunk), dtype=torch.int32, device=keys.device)
+    err = _build.library("hosting").launch_poisson(
+        keys.data_ptr(), tids.data_ptr(), lam.data_ptr(), _ptr(lam_h),
+        _ptr(states), out.data_ptr(), R, chunk,
+        -1 if salt is None else int(salt), int(_layout(partitionable)),
+        _build.stream(keys.device))
+    _build.raise_on(err, "poisson")
+    poisson_chunk.launches += 1
+    return out
+
+
+poisson_chunk.launches = 0
+
+
+def model2_service_chunk(keys, tids, x, g, n_max: int,
+                         partitionable: Optional[bool] = None):
+    """Kernel P's Model-2 service draws (arguments as
+    ``model2_service_chunk_plain``; K <= 16), bitwise the plain version."""
+    if keys.device.type == "cpu":
+        return model2_service_chunk_plain(keys, tids, x, g, n_max,
+                                          partitionable)
+    R, chunk = _row_params(keys, tids)
+    K = g.shape[1] if g.dim() == 2 else -1
+    if not 1 <= K <= DPF_MAX_K or n_max < 0:
+        raise ValueError(f"model2_service_chunk takes 1 <= K <= {DPF_MAX_K} "
+                         f"and n_max >= 0, got K={K}, n_max={n_max}")
+    _build.check_tensor("x", x, torch.int32, (R, chunk), keys.device)
+    _build.check_tensor("g", g, torch.float32, (R, K), keys.device)
+    out = torch.empty((R, chunk, K), dtype=torch.float32, device=keys.device)
+    err = _build.library("hosting").launch_model2_service(
+        keys.data_ptr(), tids.data_ptr(), x.data_ptr(), g.data_ptr(),
+        out.data_ptr(), R, chunk, K, int(n_max), int(_layout(partitionable)),
+        _build.stream(keys.device))
+    _build.raise_on(err, "model2_service")
+    model2_service_chunk.launches += 1
+    return out
+
+
+model2_service_chunk.launches = 0
 
 
 # ----------------------------------------------------------------------
@@ -650,6 +875,39 @@ def dp_fwd_model1_plain(J, c, x, g, lv, kmask, fetch, T_len, t0: int,
     return J, (args if with_args else None)
 
 
+def _dp_fwd(name, J, c, lv, kmask, fetch, T_len, t0, with_args, x=None,
+            g=None, svc=None, svc_cols=None):
+    """Check the fused D's inputs, under Model 1 (``x``, ``g``) or on a
+    Model-2 slab (``svc``, ``svc_cols``), and launch it on the card."""
+    R, K = J.shape
+    chunk = c.shape[1]
+    dev = J.device
+    if not 1 <= K <= DPF_MAX_K:
+        raise ValueError(f"{name} takes 1 <= K <= {DPF_MAX_K}, got {K}")
+    if not 0 <= int(t0) < 2 ** 31:
+        raise ValueError(f"t0 must lie in [0, 2**31), got {t0}")
+    f32 = torch.float32
+    ins = [("J", J, f32, (R, K)), ("c", c, f32, (R, chunk)),
+           ("lv", lv, f32, (R, K)), ("kmask", kmask, torch.bool, (R, K)),
+           ("fetch", fetch, f32, (R, K, K)),
+           ("T_len", T_len, torch.int32, (R,))]
+    if svc is None:
+        ins += [("x", x, torch.int32, (R, chunk)), ("g", g, f32, (R, K))]
+    for arg in ins:
+        _build.check_tensor(*arg, dev)
+    Kf = K if svc is None else _check_svc(svc, svc_cols, R, chunk, K, dev)
+    Jout = torch.empty((R, K), dtype=f32, device=dev)
+    args = (torch.empty((R, chunk, K), dtype=torch.int32, device=dev)
+            if with_args else None)
+    err = _build.library("hosting").launch_dp_fwd(
+        J.data_ptr(), c.data_ptr(), _ptr(x), _ptr(g), _ptr(svc),
+        _ptr(svc_cols), lv.data_ptr(), kmask.data_ptr(), fetch.data_ptr(),
+        T_len.data_ptr(), Jout.data_ptr(), _ptr(args), R, chunk, K, Kf,
+        int(t0), _build.stream(dev))
+    _build.raise_on(err, name)
+    return Jout, args
+
+
 def dp_fwd_model1(J, c, x, g, lv, kmask, fetch, T_len, t0: int,
                   with_args: bool = False):
     """Kernel D with the cost assembly fused in (arguments as
@@ -659,36 +917,75 @@ def dp_fwd_model1(J, c, x, g, lv, kmask, fetch, T_len, t0: int,
     if J.device.type == "cpu":
         return dp_fwd_model1_plain(J, c, x, g, lv, kmask, fetch, T_len, t0,
                                    with_args)
-    R, K = J.shape
-    chunk = c.shape[1]
-    dev = J.device
-    if not 1 <= K <= DPF_MAX_K:
-        raise ValueError(f"dp_fwd_model1 takes 1 <= K <= {DPF_MAX_K}, "
-                         f"got {K}")
-    if not 0 <= int(t0) < 2 ** 31:
-        raise ValueError(f"t0 must lie in [0, 2**31), got {t0}")
-    f32 = torch.float32
-    for name, t, dtype, shape in (
-            ("J", J, f32, (R, K)), ("c", c, f32, (R, chunk)),
-            ("x", x, torch.int32, (R, chunk)), ("g", g, f32, (R, K)),
-            ("lv", lv, f32, (R, K)), ("kmask", kmask, torch.bool, (R, K)),
-            ("fetch", fetch, f32, (R, K, K)),
-            ("T_len", T_len, torch.int32, (R,))):
-        _build.check_tensor(name, t, dtype, shape, dev)
-    Jout = torch.empty((R, K), dtype=f32, device=dev)
-    args = (torch.empty((R, chunk, K), dtype=torch.int32, device=dev)
-            if with_args else None)
-    err = _build.library("hosting").launch_dp_fwd_model1(
-        J.data_ptr(), c.data_ptr(), x.data_ptr(), g.data_ptr(),
-        lv.data_ptr(), kmask.data_ptr(), fetch.data_ptr(), T_len.data_ptr(),
-        Jout.data_ptr(), None if args is None else args.data_ptr(), R, chunk,
-        K, int(t0), _build.stream(dev))
-    _build.raise_on(err, "dp_fwd_model1")
+    out = _dp_fwd("dp_fwd_model1", J, c, lv, kmask, fetch, T_len, t0,
+                  with_args, x=x, g=g)
     dp_fwd_model1.launches += 1
-    return Jout, args
+    return out
 
 
 dp_fwd_model1.launches = 0
+
+
+def gather_svc(svc, svc_cols):
+    """``svc`` [R, chunk, K_fleet] restricted to a lane's columns: ``[R,
+    chunk, K_lane]`` with ``out[i, j, k] = svc[i, j, svc_cols[i, k]]``
+    (``svc_cols`` None: ``svc`` itself) -- the reference's ``jnp.take``
+    of a lane's Model-2 columns, exact."""
+    if svc_cols is None:
+        return svc
+    idx = svc_cols.to(torch.int64)[:, None, :].expand(-1, svc.shape[1], -1)
+    return torch.gather(svc, 2, idx)
+
+
+def _check_svc(svc, svc_cols, R, chunk, K, dev):
+    """Check a Model-2 service slab and its optional column map for a
+    K-level lane; returns the slab's level count."""
+    Kf = svc.shape[2] if svc.dim() == 3 else -1
+    _build.check_tensor("svc", svc, torch.float32, (R, chunk, Kf), dev)
+    if svc_cols is None:
+        if Kf != K:
+            raise ValueError(f"svc has {Kf} levels, the lane {K}: pass "
+                             f"svc_cols")
+    else:
+        _build.check_tensor("svc_cols", svc_cols, torch.int32, (R, K), dev)
+    if not 1 <= Kf <= DPF_MAX_K:
+        raise ValueError(f"svc takes 1 <= K <= {DPF_MAX_K} levels, got {Kf}")
+    return Kf
+
+
+def dp_fwd_model2_plain(J, c, svc, lv, kmask, fetch, T_len, t0: int,
+                        svc_cols=None, with_args: bool = False):
+    """Plain version of the fused kernel D under Model-2 service: one DP
+    forward chunk for R rows on a realized service slab.  ``svc`` [R,
+    chunk, K_svc] float32, gathered to the row's K levels through
+    ``svc_cols`` [R, K] int32 when given; ``w = kmask ? fma(c, lv, svc) :
+    +inf`` (one rounding, as the reference's fused drivers contract it),
+    then ``dp_minplus_plain`` over the valid slots ``t0 + j < T_len``.
+    Other arguments and the result as ``dp_fwd_model1_plain``."""
+    s = gather_svc(svc, svc_cols)
+    w = torch.where(kmask[:, None, :],
+                    fma32(c[:, :, None], lv[:, None, :], s), float("inf"))
+    tids = torch.arange(t0, t0 + c.shape[1], dtype=torch.int32,
+                        device=c.device)
+    J, args = dp_minplus_plain(J, w, fetch, tids[None, :] < T_len[:, None])
+    return J, (args if with_args else None)
+
+
+def dp_fwd_model2(J, c, svc, lv, kmask, fetch, T_len, t0: int, svc_cols=None,
+                  with_args: bool = False):
+    """Kernel D on a Model-2 service slab, the cost assembly fused in
+    (arguments as ``dp_fwd_model2_plain``; 1 <= K <= 16 levels, and the
+    slab too), bitwise ``dp_fwd_model2_plain``."""
+    if J.device.type == "cpu":
+        return dp_fwd_model2_plain(J, c, svc, lv, kmask, fetch, T_len, t0,
+                                   svc_cols, with_args)
+    out = _dp_fwd("dp_fwd_model2", J, c, lv, kmask, fetch, T_len, t0,
+                  with_args, svc=svc, svc_cols=svc_cols)
+    dp_fwd_model2.launches += 1
+    return out
+
+
+dp_fwd_model2.launches = 0
 
 
 # ----------------------------------------------------------------------
@@ -713,22 +1010,17 @@ def sim_chunk_alpha_rr_plain(params, lv, g, M, T_len, t0: int, carry, x, c,
     return carry, (r if collect_trace else None)
 
 
-def sim_chunk_alpha_rr(params, lv, g, M, T_len, t0: int, carry, x, c,
-                       include_final_fetch: bool = True,
-                       collect_trace: bool = True):
-    """Kernel S (arguments as ``sim_chunk_alpha_rr_plain``; 2 <= K <= 16),
-    bitwise ``sim_chunk_alpha_rr_plain``."""
-    if x.device.type == "cpu":
-        return sim_chunk_alpha_rr_plain(params, lv, g, M, T_len, t0, carry,
-                                        x, c, include_final_fetch,
-                                        collect_trace)
+def _sim_alpha_rr(name, params, lv, M, T_len, t0, carry, c,
+                  include_final_fetch, collect_trace, x=None, g=None,
+                  svc=None, svc_cols=None):
+    """Check kernel S's inputs, under Model 1 (``x``, ``g``) or on a
+    Model-2 slab (``svc``, ``svc_cols``), and launch it on the card."""
     state, acc = carry
     R, K = lv.shape
-    chunk = x.shape[1]
-    dev = x.device
+    chunk = c.shape[1]
+    dev = c.device
     if not 2 <= K <= SIM_MAX_K:
-        raise ValueError(f"sim_chunk_alpha_rr takes 2 <= K <= {SIM_MAX_K}, "
-                         f"got {K}")
+        raise ValueError(f"{name} takes 2 <= K <= {SIM_MAX_K}, got {K}")
     f32, i32 = torch.float32, torch.int32
     ins = (("levels", params["levels"], f32, (R, K)),
            ("mask", params["mask"], torch.bool, (R, K)),
@@ -740,24 +1032,76 @@ def sim_chunk_alpha_rr(params, lv, g, M, T_len, t0: int, carry, x, c,
            ("sums", acc["sums"], f32, (R, 3)),
            ("counts", acc["counts"], i32, (R, K)),
            ("x", x, i32, (R, chunk)), ("c", c, f32, (R, chunk)))
-    for name, t, dtype, shape in ins:
-        _build.check_tensor(name, t, dtype, shape, dev)
-    new_state = {"r": torch.empty_like(state["r"]),
-                 "S": torch.empty_like(state["S"]),
-                 "age": torch.empty_like(state["age"])}
-    new_acc = {"sums": torch.empty_like(acc["sums"]),
-               "counts": torch.empty_like(acc["counts"])}
+    for arg in ins:
+        if svc is None or arg[0] not in ("g", "x"):
+            _build.check_tensor(*arg, dev)
+    Kf = K if svc is None else _check_svc(svc, svc_cols, R, chunk, K, dev)
+    new_state = {k: torch.empty_like(state[k]) for k in ("r", "S", "age")}
+    new_acc = {k: torch.empty_like(acc[k]) for k in ("sums", "counts")}
     r_hist = (torch.empty((R, chunk), dtype=i32, device=dev)
               if collect_trace else None)
     outs = (new_state["r"], new_state["S"], new_state["age"],
-            new_acc["sums"], new_acc["counts"])
+            new_acc["sums"], new_acc["counts"], r_hist)
     err = _build.library("hosting").launch_sim_alpha_rr(
-        *(t.data_ptr() for _, t, _, _ in ins), int(t0), chunk, R, K,
-        int(include_final_fetch), *(t.data_ptr() for t in outs),
-        None if r_hist is None else r_hist.data_ptr(), _build.stream(dev))
-    _build.raise_on(err, "sim_chunk_alpha_rr")
-    sim_chunk_alpha_rr.launches += 1
+        *(_ptr(t) for _, t, _, _ in ins), _ptr(svc), _ptr(svc_cols), int(t0),
+        chunk, R, K, Kf, int(include_final_fetch), *(_ptr(t) for t in outs),
+        _build.stream(dev))
+    _build.raise_on(err, name)
     return (new_state, new_acc), r_hist
 
 
+def sim_chunk_alpha_rr(params, lv, g, M, T_len, t0: int, carry, x, c,
+                       include_final_fetch: bool = True,
+                       collect_trace: bool = True):
+    """Kernel S (arguments as ``sim_chunk_alpha_rr_plain``; 2 <= K <= 16),
+    bitwise ``sim_chunk_alpha_rr_plain``."""
+    if x.device.type == "cpu":
+        return sim_chunk_alpha_rr_plain(params, lv, g, M, T_len, t0, carry,
+                                        x, c, include_final_fetch,
+                                        collect_trace)
+    out = _sim_alpha_rr("sim_chunk_alpha_rr", params, lv, M, T_len, t0,
+                        carry, c, include_final_fetch, collect_trace, x=x,
+                        g=g)
+    sim_chunk_alpha_rr.launches += 1
+    return out
+
+
 sim_chunk_alpha_rr.launches = 0
+
+
+def sim_chunk_alpha_rr_svc_plain(params, lv, M, T_len, t0: int, carry, c,
+                                 svc, svc_cols=None,
+                                 include_final_fetch: bool = True,
+                                 collect_trace: bool = True):
+    """Plain version of kernel S under Model-2 service: the same chunk as
+    ``sim_chunk_alpha_rr_plain`` on a realized service slab ``svc`` [R,
+    chunk, K_svc], gathered to the rows' K levels through ``svc_cols`` [R,
+    K] int32 when given: ``w = fma(c, lv, svc)`` and the service cost of
+    the held level ``svc[r]``.  Returns ``(carry', r_hist or None)``."""
+    from repro_torch.core.policies.alpha_rr import alpha_rr_step
+    from repro_torch.core.simulator import sim_chunk_core
+    carry, r = sim_chunk_core(alpha_rr_step, include_final_fetch, params, lv,
+                              M, T_len, t0, carry, None, c,
+                              gather_svc(svc, svc_cols))
+    return carry, (r if collect_trace else None)
+
+
+def sim_chunk_alpha_rr_svc(params, lv, M, T_len, t0: int, carry, c, svc,
+                           svc_cols=None, include_final_fetch: bool = True,
+                           collect_trace: bool = True):
+    """Kernel S under Model-2 service (arguments as
+    ``sim_chunk_alpha_rr_svc_plain``; 2 <= K <= 16 levels, the slab 1 to
+    16), bitwise ``sim_chunk_alpha_rr_svc_plain``."""
+    if c.device.type == "cpu":
+        return sim_chunk_alpha_rr_svc_plain(params, lv, M, T_len, t0, carry,
+                                            c, svc, svc_cols,
+                                            include_final_fetch,
+                                            collect_trace)
+    out = _sim_alpha_rr("sim_chunk_alpha_rr_svc", params, lv, M, T_len, t0,
+                        carry, c, include_final_fetch, collect_trace, svc=svc,
+                        svc_cols=svc_cols)
+    sim_chunk_alpha_rr_svc.launches += 1
+    return out
+
+
+sim_chunk_alpha_rr_svc.launches = 0

@@ -52,21 +52,27 @@ def ssd_scan(x, dt, A, B, C, h0=None, chunk: int = 128):
 
 
 #: every kernel's launcher: P (uniforms, Bernoulli arrivals, uniform
-#: rents, NA rents, normals, the GE chunk, the ARMA chunk), D (fused and
-#: on a finished w), S, F (tensor-core and fma), M (tensor-core and fma)
+#: rents, NA rents, normals, the GE chunk, the ARMA chunk, Poisson draws,
+#: Model-2 service), D (fused under Model 1 and Model 2, and on a finished
+#: w), S (Model 1 and Model 2), F (tensor-core and fma), M (tensor-core
+#: and fma)
 KERNELS = (hosting.slot_uniform, hosting.bernoulli_arrivals_chunk,
            hosting.uniform_rents_chunk, hosting.na_rents_chunk,
            hosting.normal_chunk, hosting.ge_bernoulli_chunk,
-           hosting.arma_rents_chunk, hosting.dp_fwd_model1,
-           hosting.dp_minplus, hosting.sim_chunk_alpha_rr,
+           hosting.arma_rents_chunk, hosting.poisson_chunk,
+           hosting.model2_service_chunk, hosting.dp_fwd_model1,
+           hosting.dp_fwd_model2, hosting.dp_minplus,
+           hosting.sim_chunk_alpha_rr, hosting.sim_chunk_alpha_rr_svc,
            _fa.flash_attention_wgmma, _fa.flash_attention_fma,
            _ssd.ssd_scan_mma, _ssd.ssd_scan_fma)
 DISPATCHERS = (_fa.flash_attention, _ssd.ssd_scan)
 #: plain code that counts its calls on the card (``card_calls``): the
-#: float64 FMA emulation and the per-slot GE and ARMA loops, which the
-#: card's path replaces with kernel P
+#: float64 FMA emulation (every plain D and S calls it), the per-slot GE
+#: and ARMA loops, the Poisson rounds and the Model-2 counts, which the
+#: card's path replaces with kernels
 PLAIN_ON_CARD = (hosting.fma32, hosting.ge_bernoulli_chunk_plain,
-                 hosting.arma_rents_chunk_plain)
+                 hosting.arma_rents_chunk_plain, hosting.poisson_chunk_plain,
+                 hosting.model2_service_chunk_plain)
 
 
 def reset_launches():

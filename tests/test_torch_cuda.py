@@ -1,4 +1,6 @@
-"""Kernels F, M, the fused D and S, and the serving engine, on the card:
+"""Kernels F, M, the fused D and S (under Model 1 and on a Model-2
+service slab), P's Poisson and Model-2 variants, and the serving engine,
+on the card:
 held against their plain versions (the ``cuda`` tests skip without a card;
 run them on the card with ``python -m pytest -m cuda
 tests/test_torch_cuda.py``).  D and S are held bit for bit
@@ -432,7 +434,7 @@ def test_sim_kernel_matches_plain(case, collect_trace):
 # ----------------------------------------------------------------------
 
 P_VARIANTS = ("uniform", "uniform-salt", "bernoulli", "uniform_rents",
-              "na_rents", "ge_bernoulli")
+              "na_rents", "ge_bernoulli", "ge_states")
 
 
 def _p_inputs(dev, R, seed):
@@ -467,8 +469,10 @@ def _p_call(name, d, tids, part, plain):
     if name == "na_rents":
         return getattr(H, "na_rents_chunk" + sfx)(keys, tids, d["lo"],
                                                   d["hi"], part)
+    # ge_states: the chain without its emissions (the GE-Poisson stream's)
     return getattr(H, "ge_bernoulli_chunk" + sfx)(keys, tids, d["s"],
-                                                  *d["ge"], part)
+                                                  *d["ge"], part,
+                                                  name == "ge_bernoulli")
 
 
 def _p_launcher(name):
@@ -476,7 +480,8 @@ def _p_launcher(name):
             "bernoulli": H.bernoulli_arrivals_chunk,
             "uniform_rents": H.uniform_rents_chunk,
             "na_rents": H.na_rents_chunk,
-            "ge_bernoulli": H.ge_bernoulli_chunk}[name]
+            "ge_bernoulli": H.ge_bernoulli_chunk,
+            "ge_states": H.ge_bernoulli_chunk}[name]
 
 
 def test_stream_wrappers_take_the_plain_version_only_on_the_cpu():
@@ -490,7 +495,9 @@ def test_stream_wrappers_take_the_plain_version_only_on_the_cpu():
                     for plain in (False, True))
             for x, y in zip(a if isinstance(a, tuple) else (a,),
                             b if isinstance(b, tuple) else (b,)):
-                assert torch.equal(x, y), name
+                assert (x is None and y is None) or torch.equal(x, y), name
+            if name == "ge_states":
+                assert a[2] is None
     assert [_p_launcher(n).launches for n in P_VARIANTS] == before
     assert H.ge_bernoulli_chunk_plain.card_calls == ge_plain
 
@@ -523,7 +530,8 @@ def test_stream_kernel_matches_plain(name, case, part):
     p = _p_call(name, d, tids, part, plain=True)
     for a, b in zip(k if isinstance(k, tuple) else (k,),
                     p if isinstance(p, tuple) else (p,)):
-        assert a.dtype == b.dtype and torch.equal(a, b), name
+        assert (a is None and b is None) or (
+            a.dtype == b.dtype and torch.equal(a, b)), name
 
 
 # ----------------------------------------------------------------------
@@ -616,3 +624,161 @@ def test_arma_kernel_matches_plain(pq, part):
             assert torch.equal(a, b), (t0, chunk)
         k_state, p_state = k[:2], pl[:2]
     assert H.arma_rents_chunk.launches == before + 3
+
+
+# ----------------------------------------------------------------------
+# Kernel P's Poisson and Model-2 service variants, and D and S on a
+# Model-2 service slab, bit for bit.
+# ----------------------------------------------------------------------
+
+POISSON_LAMS = (0.0, 0.15, 1.2, 2.0, 4.0, 8.0, 9.99)
+
+
+def _svc_inputs(dev, R, chunk, K, Kf, seed):
+    """Row keys, Poisson rates cycling over ``POISSON_LAMS``, GE states
+    and rates, arrivals (some past 24 requests), a service slab of ``Kf``
+    levels (counts on a half-integer grid, so ties are common) and a
+    column map of ``K`` of its levels, made with numpy."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    lam = np.resize(np.asarray(POISSON_LAMS, np.float32), R)
+    cols = np.sort(rng.integers(0, Kf, (R, K)), axis=1).astype(np.int32)
+    cols[:, 0], cols[:, -1] = 0, Kf - 1
+    g = np.sort(rng.random((R, Kf)).astype(np.float32), axis=1)[:, ::-1]
+    return dict(
+        keys=t(rng.integers(0, 2 ** 32, (R, 2), dtype=np.uint64)
+               .astype(np.int64)),
+        lam=t(lam), lam_h=t(rng.uniform(0, 9.99, R).astype(np.float32)),
+        states=t(rng.integers(0, 2, (R, chunk)).astype(np.int32)),
+        x=t(rng.integers(0, 30, (R, chunk)).astype(np.int32)),
+        g=t(g), cols=t(cols),
+        svc=t((rng.integers(0, 8, (R, chunk, Kf)) / 2).astype(np.float32)))
+
+
+def test_poisson_model2_and_svc_wrappers_take_the_plain_version_on_the_cpu():
+    from repro_torch.core.policies.alpha_rr import alpha_rr_init
+    from repro_torch.core.policies.offline_opt import dp_fetch_matrix
+    from repro_torch.core.simulator import sim_acc0
+    R, chunk, K = 9, 33, 2
+    d = _svc_inputs("cpu", R, chunk, K, 3, 0)
+    h = _hosting_case("cpu", R, chunk, K, False, True, 1)
+    tids = torch.arange(7, 7 + chunk, dtype=torch.int32)
+    counters = (H.poisson_chunk, H.model2_service_chunk, H.dp_fwd_model2,
+                H.sim_chunk_alpha_rr_svc)
+    before = [k.launches for k in counters]
+    plain = (H.poisson_chunk_plain.card_calls,
+             H.model2_service_chunk_plain.card_calls, H.fma32.card_calls)
+    for part in (True, False):
+        assert torch.equal(
+            H.poisson_chunk(d["keys"], tids, d["lam"], 1, d["states"],
+                            d["lam_h"], part),
+            H.poisson_chunk_plain(d["keys"], tids, d["lam"], 1, d["states"],
+                                  d["lam_h"], part))
+        assert torch.equal(
+            H.model2_service_chunk(d["keys"], tids, d["x"], d["g"], 24, part),
+            H.model2_service_chunk_plain(d["keys"], tids, d["x"], d["g"], 24,
+                                         part))
+    J = torch.zeros((R, K))
+    dargs = (J, h["c"], d["svc"], h["lv"], h["kmask"],
+             dp_fetch_matrix(h["M"], h["lv"]), h["T_len"], h["t0"],
+             d["cols"], True)
+    for a, b in zip(H.dp_fwd_model2(*dargs), H.dp_fwd_model2_plain(*dargs)):
+        assert torch.equal(a, b)
+    params = {"levels": h["lv"], "mask": h["kmask"], "M": h["M"]}
+    sargs = (params, h["lv"], h["M"], h["T_len"], h["t0"],
+             (alpha_rr_init(params), sim_acc0(R, K, "cpu")), h["c"],
+             d["svc"], d["cols"])
+    (sk, ak), rk = H.sim_chunk_alpha_rr_svc(*sargs)
+    (sp, ap), rp = H.sim_chunk_alpha_rr_svc_plain(*sargs)
+    assert torch.equal(rk, rp) and torch.equal(ak["sums"], ap["sums"])
+    assert [k.launches for k in counters] == before
+    assert (H.poisson_chunk_plain.card_calls,
+            H.model2_service_chunk_plain.card_calls,
+            H.fma32.card_calls) == plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", [True, False])
+@pytest.mark.parametrize("case", [
+    # (R, t0, chunk): a reduced fleet slab; an odd start with chunk % 4 !=
+    # 0 and R off every block size; one slot at the top of the counters
+    (256, 61440, 1024), (253, 61441, 1001), (300, 0x7FFFFFFF, 1)])
+def test_poisson_and_model2_kernels_match_plain(case, part):
+    """Per-row rates at every rate of Knuth's branch, the salted GE form at
+    per-slot rates, and Model-2 service at K = 2, 3 and 5, odd and even
+    request counts."""
+    dev = _card()
+    R, t0, chunk = case
+    tids = torch.arange(t0, t0 + chunk, dtype=torch.int64).to(
+        torch.int32).to(dev)
+    for Kf in (2, 3, 5):
+        d = _svc_inputs(dev, R, chunk, 2, Kf, seed=R + chunk + Kf)
+        before = (H.poisson_chunk.launches, H.model2_service_chunk.launches)
+        k = H.poisson_chunk(d["keys"], tids, d["lam"], None, None, None,
+                            part)
+        kg = H.poisson_chunk(d["keys"], tids, d["lam"], 1, d["states"],
+                             d["lam_h"], part)
+        torch.cuda.synchronize()
+        assert torch.equal(k, H.poisson_chunk_plain(d["keys"], tids,
+                                                    d["lam"], None, None,
+                                                    None, part))
+        assert torch.equal(kg, H.poisson_chunk_plain(
+            d["keys"], tids, d["lam"], 1, d["states"], d["lam_h"], part))
+        for n_max in (24, 7):
+            m = H.model2_service_chunk(d["keys"], tids, d["x"], d["g"],
+                                       n_max, part)
+            torch.cuda.synchronize()
+            assert torch.equal(m, H.model2_service_chunk_plain(
+                d["keys"], tids, d["x"], d["g"], n_max, part)), (Kf, n_max)
+        assert (H.poisson_chunk.launches, H.model2_service_chunk.launches) \
+            == (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_args", [False, True])
+@pytest.mark.parametrize("case", [
+    # (R, chunk, K, Kf, cols): the figures' K = 3 slab and RR's endpoint
+    # columns of it (the bulk route, with and without a map); R ragged
+    # against the CTA's rows, chunks 1 and 1,001; K = 5; K = 16 out of a
+    # K = 16 slab, ragged (the gather route) and aligned (bulk), with and
+    # without a map; more slab columns than a bulk stage holds (K = 2 of
+    # 5: gather on an aligned slab; K = 4 of 6: D gathers, S copies in bulk)
+    (1024, 1024, 3, 3, False), (1024, 1024, 2, 3, True),
+    (1021, 1001, 3, 5, True), (1024, 1, 2, 2, False),
+    (253, 999, 5, 5, False), (96, 333, 16, 16, True),
+    (1024, 1024, 2, 2, False), (96, 336, 16, 16, False),
+    (96, 336, 16, 16, True), (1024, 1024, 2, 5, True),
+    (256, 512, 4, 6, True)])
+def test_svc_dp_and_sim_kernels_match_plain(case, with_args):
+    from repro_torch.core.policies.alpha_rr import alpha_rr_init
+    from repro_torch.core.policies.offline_opt import dp_fetch_matrix
+    from repro_torch.core.simulator import sim_acc0
+    dev = _card()
+    R, chunk, K, Kf, use_cols = case
+    h = _hosting_case(dev, R, chunk, K, K > 3, True, seed=R + chunk + K)
+    d = _svc_inputs(dev, R, chunk, K, Kf, seed=R + K)
+    cols = d["cols"] if use_cols else None
+    J = torch.zeros((R, K), device=dev)
+    J[1::5] = float("inf")
+    dargs = (J, h["c"], d["svc"], h["lv"], h["kmask"],
+             dp_fetch_matrix(h["M"], h["lv"]), h["T_len"], h["t0"], cols,
+             with_args)
+    before = (H.dp_fwd_model2.launches, H.sim_chunk_alpha_rr_svc.launches)
+    k = H.dp_fwd_model2(*dargs)
+    torch.cuda.synchronize()
+    p = H.dp_fwd_model2_plain(*dargs)
+    assert torch.equal(k[0], p[0])
+    assert (k[1] is None and p[1] is None) or torch.equal(k[1], p[1])
+    params = {"levels": h["lv"], "mask": h["kmask"], "M": h["M"]}
+    carry = (alpha_rr_init(params), sim_acc0(R, K, dev))
+    sargs = (params, h["lv"], h["M"], h["T_len"], h["t0"], carry, h["c"],
+             d["svc"], cols, not with_args, with_args)
+    (sk, ak), rk = H.sim_chunk_alpha_rr_svc(*sargs)
+    torch.cuda.synchronize()
+    (sp, ap), rp = H.sim_chunk_alpha_rr_svc_plain(*sargs)
+    for a, b in ((sk, sp), (ak, ap)):
+        for key in a:
+            assert torch.equal(a[key], b[key]), key
+    assert (rk is None and rp is None) or torch.equal(rk, rp)
+    assert (H.dp_fwd_model2.launches, H.sim_chunk_alpha_rr_svc.launches) \
+        == (before[0] + 1, before[1] + 1)

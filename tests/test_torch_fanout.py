@@ -117,12 +117,16 @@ def test_fanout_refusals():
     fleet = FleetBatch.for_scenario(HostingGrid.from_costs(five, device=CPU),
                                     T)
     sc = _scenario(ps, jax.random.PRNGKey(0))
-    for fn in (AlphaRR.fleet_lane, RetroRenting.fleet_lane):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            fn(fleet, with_svc=True)
+    # Model-2 lanes: alpha-RR ignores with_svc, RR binds its endpoint
+    # columns; a column map over a stream without a service channel is
+    # refused, as in the reference
+    assert AlphaRR.fleet_lane(fleet, with_svc=True).svc_cols is None
+    rr = RetroRenting.fleet_lane(fleet, with_svc=True)
+    assert np.array_equal(rr.svc_cols.numpy(),
+                          np.tile([0, 4], (fleet.B, 1)))
     lane = PolicyLane(AlphaRR.fleet(fleet), grid=fleet.grid,
                       svc_cols=np.zeros((fleet.B, 5), np.int32))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(ValueError, match="no Model-2 service channel"):
         run_fleet([lane], fleet, scenario=sc, device=CPU)
     short = HostingGrid.from_costs(five[:2], device=CPU)
     with pytest.raises(ValueError, match="lane grid B=2"):

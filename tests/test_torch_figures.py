@@ -11,7 +11,8 @@ import pytest
 from repro_torch.kernels.hosting import threefry_partitionable
 
 FIGURES = ["fig01_02_alpha_sweep", "fig03_06_m_p_sweeps",
-           "fig07_08_multiple_rr"]
+           "fig07_08_multiple_rr", "fig10_11_trace",
+           "fig12_15_poisson_model2"]
 
 
 def _check(mod, rows):

@@ -138,10 +138,10 @@ def test_unported_arguments_raise():
                dict(gather=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             run_fleet(pol, pf, scenario=psc, device=CPU, **kw)
-    # the fan-out is ported; its Model-2 lanes are not yet
+    # a Model-2 column map needs a service channel in the stream
     lane = PolicyLane(pol, grid=pf.grid,
                       svc_cols=np.zeros((pf.B, pf.K), np.int32))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(ValueError, match="no Model-2 service channel"):
         run_fleet([lane], pf, scenario=psc, device=CPU)
     with pytest.raises(NotImplementedError, match="obs-backed"):
         run_fleet(pol, pf, device=CPU)

@@ -16,10 +16,13 @@ one chunk of each of the fleet's four random streams as the checkout's
 streams generate it (antithetic seed replicas): Bernoulli arrivals,
 uniform rents, NA rents and Gilbert-Elliot arrivals (kernel P's fused
 variants where the checkout has them, else kernel P's uniforms and the
-PyTorch code after them).  Times are CUDA-event
-medians of batches of back-to-back calls; beside each, the cycles a slot
-at the SM clock nvidia-smi reads while the card runs it.  One JSON line
-per root, then a table.
+PyTorch code after them); where the checkout has them, kernels D and S on
+the Model-2 fan-out's slab (Poisson arrivals, spot rents, Model-2
+service) for alpha-RR's own columns and RR's endpoint columns.  Times are
+CUDA-event medians of batches of back-to-back calls, each batch queued
+behind ~10 ms of ``torch.cuda._sleep`` so that it runs back to back;
+beside each, the cycles a slot at the SM clock nvidia-smi reads while
+the card runs it.  One JSON line per root, then a table.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ def _one(root: Path) -> dict:
 
     import chip_smoke as cs
     from repro_torch.core import scenarios as sc
-    from repro_torch.core.policies import AlphaRR
+    from repro_torch.core.policies import AlphaRR, RetroRenting
     from repro_torch.core.policies.alpha_rr import alpha_rr_init
     from repro_torch.core.policies.offline_opt import (dp_fetch_matrix,
                                                        dp_frontier0)
@@ -49,6 +52,7 @@ def _one(root: Path) -> dict:
         for _ in range(reps):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(20_000_000)         # ~10 ms at 1,980 MHz
             a.record()
             for _ in range(batch):
                 fn()
@@ -128,6 +132,26 @@ def _one(root: Path) -> dict:
                             route=dp_chunk[0]),
            "D on a finished w": ms_and_clock(
                lambda: H.dp_minplus(J, w, fetch, valid), batch=3)}
+    if hasattr(H, "dp_fwd_model2"):
+        m2 = sc.replicate_seeds(
+            cs.model2_scenario(cs.fleet_grid(cs.N_M, cs.N_ALPHA, dev), dev),
+            cs.N_SEEDS)
+        _, sl = m2.chunk_fn(m2.params, m2.init_fn(m2.params), tids)
+        for name, lane, cols, P in (
+                ("alpha-RR", grid, None, AlphaRR),
+                ("RR", grid.restrict_to_endpoints(), grid.endpoint_columns(),
+                 RetroRenting)):
+            d = (dp_frontier0(R, lane.K, dev), sl.c, sl.svc, lane.levels,
+                 lane.mask, dp_fetch_matrix(lane.M, lane.levels), T_len, t0,
+                 cols)
+            p = P.batch(lane)
+            s = (p.params, lane.levels, lane.M, T_len, t0,
+                 (alpha_rr_init(p.params), sim_acc0(R, lane.K, dev)), sl.c,
+                 sl.svc, cols, True, False)
+            out[f"D on a Model-2 slab, {name}"] = ms_and_clock(
+                lambda d=d: H.dp_fwd_model2(*d))
+            out[f"S on a Model-2 slab, {name}"] = ms_and_clock(
+                lambda s=s: H.sim_chunk_alpha_rr_svc(*s))
     return out
 
 

@@ -13,10 +13,12 @@ the GE chain kernel) and the rest.
 
 Figures: each of the port's figure modules (``repro_torch/figures``) at
 its default size, one ``run()`` (the figure's warm-up fan-out and its timed
-fan-out), and the fan-out of ``chip_smoke.py``'s phase 8 (alpha-RR and RR
+fan-out), the fan-out of ``chip_smoke.py``'s phase 8 (alpha-RR and RR
 lanes with the OPT frontiers over Bernoulli arrivals and spot rents, 4,096
-rows) at horizon T; the device time is grouped as for the fleet path, the
-ARMA kernel on its own.
+rows) and its Model-2 leg (phase 9: Poisson arrivals, spot rents, Model-2
+service, RR gathering its endpoint columns) at horizon T; the device time
+is grouped as for the fleet path, the ARMA, Poisson and service kernels
+each on their own.
 
 Serving path: zamba2-1.2b at full width and depth in bf16 (seeded random
 weights), one ``serve_slot`` of 8 prompts of 2,048 tokens under the full
@@ -66,12 +68,14 @@ SERVING_GROUPS = (
     ("kernel M (fma)", ("ssd_scan_fma_kernel",)),
     ("matrix products", ("gemm", "xmma", "cutlass", "nvjet", "cublas")))
 FLEET_GROUPS = (
-    ("kernel D (fused cost assembly)", ("dp_fwd_model1_kernel",)),
+    ("kernel D (fused cost assembly)", ("dp_fwd_kernel",)),
     ("kernel D (finished w)", ("dp_minplus_kernel",)),
     ("kernel S", ("sim_alpha_rr_kernel",)),
     ("kernel P (streams)", ("counter_stream_kernel",)),
     ("kernel P (GE chain)", ("ge_chain_kernel",)),
-    ("kernel P (ARMA)", ("arma_rents_kernel",)))
+    ("kernel P (ARMA)", ("arma_rents_kernel",)),
+    ("kernel P (Poisson)", ("poisson_knuth_kernel",)),
+    ("kernel P (Model-2 service)", ("model2_service_kernel",)))
 
 
 def profiled(label, fn, top=10, groups=()):
@@ -139,6 +143,15 @@ def profile_figures(T, dev):
     profiled(f"fan-out alpha-RR + RR with the OPT frontiers, bernoulli + "
              f"spot, T={T}",
              lambda: run_fleet(lanes, fleet, scenario=sc,
+                               chunk_size=cs.CHUNK, n_seeds=cs.N_SEEDS,
+                               with_opt_forward=True, collect_trace=False,
+                               device=dev), top=12, groups=FLEET_GROUPS)
+    lanes = [AlphaRR.fleet_lane(fleet, with_svc=True),
+             RetroRenting.fleet_lane(fleet, with_svc=True)]
+    m2 = cs.model2_scenario(fleet.grid, dev)
+    profiled(f"Model-2 fan-out alpha-RR + RR with the OPT frontiers, "
+             f"Poisson + spot + service, T={T}",
+             lambda: run_fleet(lanes, fleet, scenario=m2,
                                chunk_size=cs.CHUNK, n_seeds=cs.N_SEEDS,
                                with_opt_forward=True, collect_trace=False,
                                device=dev), top=12, groups=FLEET_GROUPS)
