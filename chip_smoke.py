@@ -19,9 +19,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    timed, and its SASS (``cuobjdump -sass``) counted for the integer-pipe
    bound; P's ARMA chunk with per-instance coefficients over three chunks
    in a row, the state carried (1,000 slots, 1,001 from t0 = 1,000, then
-   4,096), in both layouts, timed at the fleet's shape against the
+   4,096; R - 3 rows), and over Figs 10-11's two chunks of 2,000 on 40
+   rows, in both layouts, timed at the fleet's shape against the
    integer-pipe bound of its normals and the latency bound of its
-   recursion; D with the cost assembly fused in
+   recursion (the log prints the Poisson and ARMA kernels' previous
+   design's time beside each, ``PREV_MS``); D with the cost assembly fused in
    (the fleet's kernel: K = 3 and 2, ragged slabs of R - 3 rows and chunks
    of 1,000, 1,001 and 1, K = 16, each with and without the argmin table;
    +inf-padded levels, frozen slots, all-+inf frontiers), also against
@@ -456,6 +458,10 @@ ARMA_STEP_FLOPS = 4 + 3 + 1 + 3 + 1 + 3
 # adds of the AR dot, + e, + the MA dot; at an assumed 4 cycles a
 # dependent float32 instruction on sm_90
 ARMA_CHAIN_OPS, FP32_LATENCY = 6, 4
+# the ms of the design each redesigned kernel replaced, at the same shape
+# (PERF.md section 6; NVIDIA H100 80GB HBM3, 700 W): the log prints old ->
+# new
+PREV_MS = {"poisson_chunk": 1.8543, "arma_rents_chunk": 0.2784}
 # the consumer code of the reference that each variant finishes in-kernel
 P_CONSUMER = {
     "slot_uniform": None,
@@ -824,35 +830,39 @@ def arma_checks(dev, R, chunk, clock, n_sm, normal_sass):
     """Kernel P's ARMA chunk against its plain version, bit for bit, in
     both layouts: per-instance coefficients (p = 4, q = 2, as the spot
     rents), three chunks in a row with the state carried -- 1,000 slots
-    (ragged against the 64-slot tile), 1,001 (chunk % 4 != 0) from t0 =
-    1,000, then the fleet's 4,096; R - 3 rows.  Timed on the spot stream's
-    own params at the fleet's shape.  Returns its record."""
+    (ragged against the tile), 1,001 (chunk % 4 != 0) from t0 = 1,000,
+    then the fleet's 4,096; R - 3 rows (32 rows a block), then 40 rows
+    (the figures' slabs, 8 rows a block) over Figs 10-11's two chunks of
+    2,000.  Timed on the spot stream's own params at the fleet's shape.
+    Returns its record."""
     spot = spot_params(N_M * N_ALPHA, dev)
     g = torch.Generator(device="cpu").manual_seed(11)
-    rows = R - 3
-    phi = (torch.rand((rows, 4), generator=g) * 0.15).to(dev)
-    th = (torch.rand((rows, 2), generator=g) * 0.3).to(dev)
-    keys, sig, mean, lo, hi = (spot[k][:rows].contiguous() for k in (
-        "key", "sigma", "mean", "c_min", "c_max"))
     err = 0.0
-    for part in (True, False):
-        eps0 = H.normal_chunk(keys, sc.base.chunk_tids(0, 2, dev).flip(0),
-                              sig, part)
-        k_state = p_state = (torch.zeros((rows, 4), device=dev), eps0)
-        for t0, n in ((0, 1000), (1000, 1001), (2001, chunk)):
-            tids = sc.base.chunk_tids(t0, n, dev)
-            k = H.arma_rents_chunk(keys, tids, *k_state, phi, th, sig, mean,
-                                   lo, hi, part)
-            pl = H.arma_rents_chunk_plain(keys, tids, *p_state, phi, th,
-                                          sig, mean, lo, hi, part)
-            torch.cuda.synchronize()
-            require(tree_equal(k, pl), f"ARMA differs from its plain "
-                                       f"version (t0={t0}, {n} slots, "
-                                       f"layout {part})")
-            err = max(err, tree_max_abs(k, pl))
-            k_state, p_state = k[:2], pl[:2]
-        log(f"P arma_rents_chunk ok: 3 chunks, state carried, per-instance "
-            f"coefficients, {'partitionable' if part else 'original'} layout")
+    for rows, chunks in ((R - 3, ((0, 1000), (1000, 1001), (2001, chunk))),
+                         (40, ((0, 2000), (2000, 2000)))):
+        phi = (torch.rand((rows, 4), generator=g) * 0.15).to(dev)
+        th = (torch.rand((rows, 2), generator=g) * 0.3).to(dev)
+        keys, sig, mean, lo, hi = (spot[k][:rows].contiguous() for k in (
+            "key", "sigma", "mean", "c_min", "c_max"))
+        for part in (True, False):
+            eps0 = H.normal_chunk(keys, sc.base.chunk_tids(0, 2, dev).flip(0),
+                                  sig, part)
+            k_state = p_state = (torch.zeros((rows, 4), device=dev), eps0)
+            for t0, n in chunks:
+                tids = sc.base.chunk_tids(t0, n, dev)
+                k = H.arma_rents_chunk(keys, tids, *k_state, phi, th, sig,
+                                       mean, lo, hi, part)
+                pl = H.arma_rents_chunk_plain(keys, tids, *p_state, phi, th,
+                                              sig, mean, lo, hi, part)
+                torch.cuda.synchronize()
+                require(tree_equal(k, pl), f"ARMA differs from its plain "
+                                           f"version ({rows} rows, t0={t0}, "
+                                           f"{n} slots, layout {part})")
+                err = max(err, tree_max_abs(k, pl))
+                k_state, p_state = k[:2], pl[:2]
+            log(f"P arma_rents_chunk ok: {rows} rows, {len(chunks)} chunks, "
+                f"state carried, per-instance coefficients, "
+                f"{'partitionable' if part else 'original'} layout")
     tids = sc.base.chunk_tids(T_MAIN - chunk, chunk, dev)
     st = {"hist": torch.zeros((R, 4), device=dev),
           "eps": H.normal_chunk(spot["key"],
@@ -868,7 +878,8 @@ def arma_checks(dev, R, chunk, clock, n_sm, normal_sass):
     out = H.arma_rents_chunk(*args)
     r = dict(
         replaces="src/repro/core/scenarios/streams.py:330", ms=ms,
-        plain_ms=plain_ms, max_abs_err=err, sm_clock_mhz=clock,
+        prev_ms=PREV_MS["arma_rents_chunk"], plain_ms=plain_ms,
+        max_abs_err=err, sm_clock_mhz=clock,
         cycles_per_slot=ms * 1e-3 * clock * 1e6 / chunk,
         int_pipe_bound_ms=R * chunk * alu / (64 * n_sm * clock * 1e3),
         issue_bound_ms=R * chunk * total / (128 * n_sm * clock * 1e3),
@@ -877,8 +888,10 @@ def arma_checks(dev, R, chunk, clock, n_sm, normal_sass):
         ops=R * chunk * (2 * 79 + 5 + NORMAL_FLOPS + ARMA_STEP_FLOPS),
         nbytes=nbytes(*args, *out),
         shape=f"R={R} chunk={chunk} p=4 q=2 (the spot rents), partitionable "
-              f"layout; 3 chunks x 2 layouts compared")
-    log(f"P arma_rents_chunk timed: {ms:.4f} ms, plain {plain_ms:.1f} ms; "
+              f"layout; 5 chunks x 2 layouts compared (R - 3 and 40 rows)")
+    log(f"P arma_rents_chunk timed: {PREV_MS['arma_rents_chunk']:.4f} -> "
+        f"{ms:.4f} ms (previous design -> this one), plain {plain_ms:.1f} "
+        f"ms; "
         f"bounds: integer pipe (the normals' hashes) "
         f"{r['int_pipe_bound_ms']:.4f} ms, issue "
         f"{r['issue_bound_ms']:.4f} ms, the recursion's latency "
@@ -1089,7 +1102,8 @@ def svc_kernel_checks(dev, clock, n_sm, sass):
         replaces="src/repro/core/scenarios/streams.py:82",
         consumer="src/repro/core/scenarios/streams.py:98",
         ms=cuda_ms(lambda: H.poisson_chunk(*p_args), reps=7, batch=5),
-        plain_ms=plain_ms, sm_clock_mhz=clock,
+        prev_ms=PREV_MS["poisson_chunk"], plain_ms=plain_ms,
+        sm_clock_mhz=clock,
         mean_rounds=rounds / N, alu_ops_per_block=alu_block,
         int_pipe_bound_ms=bound_int(blocks),
         ops=79 * blocks + KNUTH_ROUND_OPS * rounds,
@@ -1179,7 +1193,9 @@ def svc_kernel_checks(dev, clock, n_sm, sass):
               f"two included")
     for name, r in rec.items():
         r["max_abs_err"] = err[name]
-        log(f"{name} timed: {r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms"
+        log(f"{name} timed: "
+            + (f"{r['prev_ms']:.4f} -> " if "prev_ms" in r else "")
+            + f"{r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms"
             + (f", integer-pipe bound {r['int_pipe_bound_ms']:.4f} ms"
                if "int_pipe_bound_ms" in r else "")
             + (f", {r['cols_ms']:.4f} ms on RR's columns (plain "
@@ -1956,7 +1972,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": r.get("library_ms"), "shape": r["shape"]}
-        for key in ("max_rel_err", "old_route_ms", "args_ms", "trace_ms",
+        for key in ("max_rel_err", "old_route_ms", "args_ms",
+                    "trace_ms",
                     "cols_ms", "cols_plain_ms", "mean_rounds",
                     "alu_ops_per_block",
                     "live_requests_per_slot",

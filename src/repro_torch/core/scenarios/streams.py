@@ -40,7 +40,8 @@ rotates and xors (``csrc/hosting.cu``).
 
 * ``_poisson_chunk`` and ``_ge_emit``'s Poisson emissions (``jax.random.
   poisson``, Knuth's branch: a key split, a uniform and XLA's ``log`` a
-  round) -> ``poisson_chunk``, one thread a draw; a GE-Poisson chunk runs
+  round) -> ``poisson_chunk``, whose lanes take the next staged draw as
+  soon as theirs ends; a GE-Poisson chunk runs
   the chain on ``ge_bernoulli_chunk`` first (``emit=False``: the states
   only).  Rates of 10 and above take
   jax's rejection branch, which is not ported: the constructors raise

@@ -63,9 +63,9 @@ LIBRARIES = {
         # include_final_fetch, r_out, S_out, age_out, sums_out, counts_out,
         # r_hist, stream
         "launch_sim_alpha_rr": (_P,) * 16 + (_I,) * 6 + (_P,) * 7,
-        # keys, tids, lam, lam_h, states, out, R, chunk, salt,
+        # keys, tids, lam, lam_h, states, out, work, R, chunk, salt,
         # partitionable, stream
-        "launch_poisson": (_P,) * 6 + (_I,) * 4 + (_P,),
+        "launch_poisson": (_P,) * 7 + (_I,) * 4 + (_P,),
         # keys, tids, x, g, out, R, chunk, K, n_max, partitionable, stream
         "launch_model2_service": (_P,) * 5 + (_I,) * 5 + (_P,),
     }),

@@ -9,11 +9,12 @@
 //                          NA-pair rents, scaled normals (XLA's erf_inv)
 //      ge_chain_kernel     the Gilbert-Elliot chain and its Bernoulli
 //                          emissions over one chunk
-//      arma_rents_kernel   the ARMA(p, q) rents over one chunk: normals drawn
-//                          slot-parallel, each row's recursion walked by one
-//                          thread
+//      arma_rents_kernel   the ARMA(p, q) rents over one chunk: producer
+//                          warps draw the normals into an mbarrier ring,
+//                          one walker lane a row runs the recursion behind
 //      poisson_knuth_kernel  jax.random.poisson (Knuth's branch) a slot, at
-//                          a per-row rate or the GE states' per-slot rates
+//                          a per-row rate or the GE states' per-slot rates:
+//                          lanes refilled from staged slot keys
 //      model2_service_kernel  the Model-2 service costs of one chunk (the
 //                          live requests' coupled uniforms)
 //   D  dp_fwd_kernel       one chunk of the offline-OPT min-plus recursion
@@ -44,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <atomic>
 #include <type_traits>
 
 namespace {
@@ -121,6 +124,43 @@ __device__ __forceinline__ float uniform_of(uint32_t a0, uint32_t a1,
   threefry2x32(a0, a1, b0, b1, one);
   const uint32_t bits = partitionable ? (b0 ^ b1) : b0;
   return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+}
+
+// ---------------------------------------------------------------------
+// mbarriers in shared memory: the rings of P's ARMA kernel, D and S.
+// ---------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
 }
 
 // ---------------------------------------------------------------------
@@ -468,27 +508,58 @@ __global__ void __launch_bounds__(32 * kGeWarps)
 // eps <- (e, eps[:-1]) and c = min(max(mean + x, c_min), c_max).  The
 // state (hist [R, p], eps [R, q]) comes in and goes out.
 //
-// Bound: the innovations are two threefry blocks and XLA's erf_inv a slot
-// (integer operations, as kernel P's other variants, plus ~110 float
-// operations, an FMA counted as two); the recursion is a chain of
-// dependent float operations a slot (p products and sums, the innovation,
-// the MA dot), which no reassociation may shorten.  Design: a block takes
-// kArmaRows rows; its first warps (producers) draw a tile of kArmaTile
-// slots of every row's innovations into shared memory, slot-parallel,
-// while the last warp (the walker, one lane a row) walks the previous
-// tile's recursion and writes its deviations to a shared tile that the
-// producers then clip and store coalesced.  Two buffers of each, one
-// __syncthreads a tile.  Few rows a block keep several blocks on an SM, so
-// that the producers' hash chains have warps enough to hide their
-// latency; the AR order is a template argument, so that the walker's
-// chain unrolls over registers with nothing on it but the recursion.
+// Bound: the innovations are the normals' work, two threefry blocks and
+// XLA's erf_inv a slot, so the normal chunk alone (counter_stream_kernel<
+// kNormal>) bounds this kernel from below: its integer-pipe bound, ~0.134
+// ms at 4,096 x 4,096 on the H100.  The recursion is a chain of dependent
+// float operations a slot (p products and sums, the innovation, the MA
+// dot) that no reassociation may shorten: ~24 cycles a slot, ~0.05 ms a
+// 4,096-slot chunk, far below the draws once it runs behind them.
+//
+// Design: a block takes ROWS rows (32 when the slab gives every SM a
+// block of them, else 8, so that a small slab's draws spread over more
+// SMs) and decouples the draws from the walk with a ring of kArmaStages
+// tiles of kArmaTile slots, each with a full and an empty mbarrier.
+// ArmaShape<ROWS>::kProducers producer warps (16; 8 at 8 rows) draw a
+// tile's innovations slot-parallel (warp w rows w, w + kProducers, ..., a
+// lane a slot: 2 or 1 draws a thread, so the producers split a tile's
+// draws exactly and a thread's draws run as independent chains), arrive
+// on the tile's full barrier and go on to the next tile once the walker
+// has released its stage: they run up to kArmaStages tiles ahead and wait
+// on nothing else.  The walker warp (a lane a row: all 32 lanes at 32
+// rows) waits for a tile and walks its recursion, four innovations a
+// 16-byte shared load; it clips each rent in registers and stores four
+// slots a 16-byte store (scalar stores on a ragged tile or when chunk % 4
+// != 0), so no store waits on the next tile's draws.  A whole tile is
+// walked by straight-line code (the AR order is a template argument), so
+// the history shifts are register renames and the walker issues ~15
+// instructions a slot; a loop with a variable trip count keeps the
+// shifted state in place with ~10 moves a slot.
+// Measured (chip_smoke.py; H100 80GB HBM3, 700 W, 4,096 x 4,096, p = 4,
+// q = 2): 0.222 ms, 60% of the integer-pipe bound, against 0.168 for the
+// normal chunk alone.  32 rows a block on a wide slab because a walker of
+// 32 busy lanes issues half the instructions a row of two 16-lane ones
+// (0.253 ms at 16 rows a block, tools/compare_hosting.py).
+// Left: the walker's issue slots on the scheduler it shares with four
+// producer warps, one tile of ring fill and drain at the chunk's ends,
+// and at R = 4,096 four of the 132 SMs without a block; at 8 rows a
+// block, the walker's idle lanes and the last block's rows past R
+// (drawn, not stored).
 // ---------------------------------------------------------------------
 
 constexpr int kArmaMaxP = 8, kArmaMaxQ = 8;
-constexpr int kArmaRows = 8;               // rows a block: a walker lane each
-constexpr int kArmaTile = 64;              // slots a tile
-constexpr int kArmaWarps = 8;              // 7 producers + 1 walker
-constexpr int kArmaProducers = 32 * (kArmaWarps - 1);
+constexpr int kArmaTile = 32;              // slots a tile: a lane each
+constexpr int kArmaStride = kArmaTile + 4; // a tile row, 16-byte aligned
+constexpr int kArmaStages = 4;             // tiles in the ring
+constexpr int kArmaWideRows = 32;          // rows a block on a wide slab
+constexpr int kArmaNarrowRows = 8;         // rows a block on a small one
+
+// a block of ROWS rows: its producer warps (then one walker warp)
+template <int ROWS>
+struct ArmaShape {
+  static constexpr int kProducers = ROWS >= 32 ? 16 : 8;
+  static constexpr int kThreads = 32 * (kProducers + 1);
+};
 
 struct ArmaArgs {
   const long long* keys;   // [R, 2]
@@ -505,6 +576,7 @@ struct ArmaArgs {
   float* eps_out;          // [R, Q]
   float* c;                // [R, chunk]
   int R, chunk, P, Q, partitionable;
+  int vec;                 // chunk % 4 == 0 and c 16-byte aligned
   uint32_t one;
 };
 
@@ -525,120 +597,132 @@ __device__ __forceinline__ float xla_dot(const float (&a)[N],
   return x;
 }
 
-// P: the AR order, a template argument (the walker's chain unrolls over
-// registers); MA: the MA dot's order (q == 2, or q >= 3 up to kArmaMaxQ)
-template <int P, int MA>
-__global__ void __launch_bounds__(32 * kArmaWarps)
+// P: the AR order (the walker's chain unrolls over registers); MA: the MA
+// dot's order (q == 2, or q >= 3 up to kArmaMaxQ); ROWS: rows a block
+template <int P, int MA, int ROWS>
+__global__ void __launch_bounds__(ArmaShape<ROWS>::kThreads)
     arma_rents_kernel(const ArmaArgs p) {
-  __shared__ float eps_s[2][kArmaRows][kArmaTile + 1];
-  __shared__ float dev_s[2][kArmaRows][kArmaTile + 1];
-  __shared__ uint32_t key_s[kArmaRows][2];
-  __shared__ float scale_s[kArmaRows], mean_s[kArmaRows], lo_s[kArmaRows],
-      hi_s[kArmaRows];
-  const int row0 = blockIdx.x * kArmaRows;
+  constexpr int NPROD = ArmaShape<ROWS>::kProducers;
+  constexpr int QN = MA == kDotFma2 ? 2 : kArmaMaxQ;   // the MA registers
+  constexpr int DRAWS = ROWS / NPROD;                   // a thread a tile
+  __shared__ __align__(16) float eps_s[kArmaStages][ROWS][kArmaStride];
+  __shared__ uint32_t key_s[ROWS][2];
+  __shared__ float scale_s[ROWS];
+  __shared__ __align__(8) uint64_t full[kArmaStages], empty[kArmaStages];
+  const int row0 = blockIdx.x * ROWS;
+  const int nrows = min(ROWS, p.R - row0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n_tiles = (p.chunk + kArmaTile - 1) / kArmaTile;
-  const bool part = p.partitionable != 0;
-  if (threadIdx.x < kArmaRows) {
+  if (threadIdx.x < ROWS) {
+    // rows past R take the last row's params: drawn, never stored
     const int row = min(row0 + (int)threadIdx.x, p.R - 1);
     key_s[threadIdx.x][0] = (uint32_t)p.keys[2 * row];
     key_s[threadIdx.x][1] = (uint32_t)p.keys[2 * row + 1];
     scale_s[threadIdx.x] = p.sigma[row] * kSqrt2;
-    mean_s[threadIdx.x] = p.mean[row];
-    lo_s[threadIdx.x] = p.c_min[row];
-    hi_s[threadIdx.x] = p.c_max[row];
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kArmaStages; ++s) {
+      mbar_init(&full[s], 32u * NPROD);
+      mbar_init(&empty[s], 32u);
+    }
+    fence_mbar_init();
   }
   __syncthreads();
 
-  // draw tile k's innovations: job j is (row j / kArmaTile, slot j % tile)
-  auto produce = [&](int k, int tid, int n_threads) {
-    float(*buf)[kArmaTile + 1] = eps_s[k & 1];
-    for (int j = tid; j < kArmaRows * kArmaTile; j += n_threads) {
-      const int r = j / kArmaTile, s = j % kArmaTile;
-      const int slot = k * kArmaTile + s;
-      if (row0 + r >= p.R || slot >= p.chunk) continue;
-      uint32_t a0, a1;
-      fold_in(key_s[r][0], key_s[r][1], (uint32_t)p.tids[slot] + (uint32_t)p.Q,
-              a0, a1, p.one);
-      buf[r][s] = normal_of(uniform_of(a0, a1, part, p.one), scale_s[r]);
-    }
-  };
-  // store tile k's rents, clip(mean + x, c_min, c_max) of the walker's
-  // deviations, a row's slots on neighbouring threads
-  auto store = [&](int k, int tid, int n_threads) {
-    const float(*buf)[kArmaTile + 1] = dev_s[k & 1];
-    for (int j = tid; j < kArmaRows * kArmaTile; j += n_threads) {
-      const int r = j / kArmaTile, s = j % kArmaTile;
-      const int slot = k * kArmaTile + s;
-      if (row0 + r < p.R && slot < p.chunk)
-        p.c[(long long)(row0 + r) * p.chunk + slot] =
-            fminf(fmaxf(mean_s[r] + buf[r][s], lo_s[r]), hi_s[r]);
-    }
-  };
-
-  produce(0, threadIdx.x, 32 * kArmaWarps);
-  __syncthreads();
-  if (warp == kArmaWarps - 1) {
-    // the walker: lane r < kArmaRows holds row r's state and coefficients
-    // (the other lanes idle; every lane reaches the barriers)
-    const bool walks = lane < kArmaRows;
-    const int row = min(row0 + min(lane, kArmaRows - 1), p.R - 1);
-    float h[P], ph[P], ep[kArmaMaxQ], th[kArmaMaxQ];
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-      h[i] = p.hist_in[(long long)row * P + i];
-      ph[i] = p.phi[(long long)row * P + i];
-    }
-#pragma unroll
-    for (int i = 0; i < kArmaMaxQ; ++i) {
-      ep[i] = i < p.Q ? p.eps_in[(long long)row * p.Q + i] : 0.0f;
-      th[i] = i < p.Q ? p.th[(long long)row * p.Q + i] : 0.0f;
-    }
+  if (warp < NPROD) {
+    const bool part = p.partitionable != 0;
     for (int k = 0; k < n_tiles; ++k) {
-      const float(*e_t)[kArmaTile + 1] = eps_s[k & 1];
-      float(*x_t)[kArmaTile + 1] = dev_s[k & 1];
-      const int n = walks ? min(kArmaTile, p.chunk - k * kArmaTile) : 0;
-#pragma unroll 8
-      for (int s = 0; s < n; ++s) {
-        const float e = e_t[lane][s];
-        float x;
-        if constexpr (P == 1) {
-          x = __fmaf_rn(ph[0], h[0], e);
-        } else if constexpr (P == 2) {
-          x = __fmaf_rn(ph[1], h[1], ph[0] * h[0]) + e;
-        } else {
-          x = ph[0] * h[0];
+      const int s = k % kArmaStages;
+      // past the chunk's end: the last slot drawn again, never read
+      const int j = min(k * kArmaTile + lane, p.chunk - 1);
+      const uint32_t ctr = (uint32_t)p.tids[j] + (uint32_t)p.Q;
+      if (k >= kArmaStages)
+        mbar_wait(&empty[s], (uint32_t)(((k / kArmaStages) - 1) & 1));
+      float e[DRAWS];
 #pragma unroll
-          for (int i = 1; i < P; ++i) x = x + ph[i] * h[i];
-          x = x + e;
-        }
-        x = x + xla_dot<MA>(th, ep, p.Q);
-#pragma unroll
-        for (int i = P - 1; i > 0; --i) h[i] = h[i - 1];
-        h[0] = x;
-#pragma unroll
-        for (int i = kArmaMaxQ - 1; i > 0; --i) ep[i] = ep[i - 1];
-        ep[0] = e;
-        x_t[lane][s] = x;
+      for (int d = 0; d < DRAWS; ++d) {
+        const int r = warp + NPROD * d;
+        uint32_t a0, a1;
+        fold_in(key_s[r][0], key_s[r][1], ctr, a0, a1, p.one);
+        e[d] = normal_of(uniform_of(a0, a1, part, p.one), scale_s[r]);
       }
-      __syncthreads();
-    }
-    if (walks && row0 + lane < p.R) {
 #pragma unroll
-      for (int i = 0; i < P; ++i)
-        p.hist_out[(long long)row * P + i] = h[i];
-#pragma unroll
-      for (int i = 0; i < kArmaMaxQ; ++i)
-        if (i < p.Q) p.eps_out[(long long)row * p.Q + i] = ep[i];
+      for (int d = 0; d < DRAWS; ++d)
+        eps_s[s][warp + NPROD * d][lane] = e[d];
+      mbar_arrive(&full[s]);
     }
-  } else {
-    for (int k = 0; k < n_tiles; ++k) {
-      if (k + 1 < n_tiles) produce(k + 1, threadIdx.x, kArmaProducers);
-      if (k > 0) store(k - 1, threadIdx.x, kArmaProducers);
-      __syncthreads();
-    }
+    return;
   }
-  store(n_tiles - 1, threadIdx.x, 32 * kArmaWarps);
+
+  // the walker: lane r < nrows holds row row0 + r's state, coefficients
+  // and clip bounds
+  const bool walks = lane < nrows;
+  const int row = row0 + min(lane, nrows - 1);
+  float h[P], ph[P], ep[QN], th[QN];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    h[i] = p.hist_in[(long long)row * P + i];
+    ph[i] = p.phi[(long long)row * P + i];
+  }
+#pragma unroll
+  for (int i = 0; i < QN; ++i) {
+    ep[i] = i < p.Q ? p.eps_in[(long long)row * p.Q + i] : 0.0f;
+    th[i] = i < p.Q ? p.th[(long long)row * p.Q + i] : 0.0f;
+  }
+  const float mean = p.mean[row], lo = p.c_min[row], hi = p.c_max[row];
+  float* crow = p.c + (long long)row * p.chunk;
+  // one slot: x in XLA's order, the state shifted, the rent clipped
+  auto step = [&](float e) {
+    float x;
+    if constexpr (P == 1) {
+      x = __fmaf_rn(ph[0], h[0], e);
+    } else if constexpr (P == 2) {
+      x = __fmaf_rn(ph[1], h[1], ph[0] * h[0]) + e;
+    } else {
+      x = ph[0] * h[0];
+#pragma unroll
+      for (int i = 1; i < P; ++i) x = x + ph[i] * h[i];
+      x = x + e;
+    }
+    x = x + xla_dot<MA>(th, ep, p.Q);
+#pragma unroll
+    for (int i = P - 1; i > 0; --i) h[i] = h[i - 1];
+    h[0] = x;
+#pragma unroll
+    for (int i = QN - 1; i > 0; --i) ep[i] = ep[i - 1];
+    ep[0] = e;
+    return fminf(fmaxf(mean + x, lo), hi);
+  };
+  for (int k = 0; k < n_tiles; ++k) {
+    const int s = k % kArmaStages;
+    const int j0 = k * kArmaTile;
+    const int n = min(kArmaTile, p.chunk - j0);
+    mbar_wait(&full[s], (uint32_t)((k / kArmaStages) & 1));
+    const float* e_t = eps_s[s][min(lane, ROWS - 1)];
+    if (walks && n == kArmaTile && p.vec) {
+#pragma unroll
+      for (int t = 0; t < kArmaTile; t += 4) {
+        const float4 e4 = *reinterpret_cast<const float4*>(e_t + t);
+        float4 c4;
+        c4.x = step(e4.x);
+        c4.y = step(e4.y);
+        c4.z = step(e4.z);
+        c4.w = step(e4.w);
+        *reinterpret_cast<float4*>(crow + j0 + t) = c4;
+      }
+    } else if (walks) {
+      for (int t = 0; t < n; ++t) crow[j0 + t] = step(e_t[t]);
+    }
+    __syncwarp();
+    mbar_arrive(&empty[s]);
+  }
+  if (walks) {
+#pragma unroll
+    for (int i = 0; i < P; ++i) p.hist_out[(long long)row * P + i] = h[i];
+#pragma unroll
+    for (int i = 0; i < QN; ++i)
+      if (i < p.Q) p.eps_out[(long long)row * p.Q + i] = ep[i];
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -657,13 +741,50 @@ __global__ void __launch_bounds__(32 * kArmaWarps)
 // counters (0, 0) and (0, 1); original: (0, 2) and (1, 3), key' their
 // first words, sub their second), the uniform a third.  XLA computes the
 // log inside the loop's fusion exactly as xla_logf, and the add after it
-// as a single rounded add.
+// as a single rounded add.  A draw depends only on its own key and rate
+// (vmapped, jax freezes a finished lane), so the order in which the
+// items are drawn changes no bit.
 //
-// Bound: integer operations, three threefry blocks a round; the mean
-// round count is lam + 1.  Design: one thread a (row, slot) (the grid's
-// x the row), the rounds a loop until the lane's own log_prod falls to
-// -lam; a warp runs as long as its slowest lane.  Simple first.
+// Bound: integer operations, three threefry blocks a round and one (two
+// with SALT) a slot for its key; the mean round count is lam + 1 (5.66
+// at the Model-2 leg's rates {2, 4, 8}), so ~0.79 ms at 4,096 x 4,096 on
+// the H100's integer ALU pipe.  With one thread a slot a warp runs as
+// long as its slowest lane (the largest of 32 draws, ~1.7-2x the mean
+// here), which held that design at 43% of the bound (1.85 ms).
+//
+// Design: lanes refilled from staged tickets.  The grid is one wave of
+// blocks (what the SMs hold), and its warps take tickets from a counter
+// (one atomicAdd a ticket): a ticket is `span` consecutive slots of one
+// row (128; 64 or 32 on small slabs, so that every warp of the wave gets
+// two or more).  Tickets, not equal shares of the slab: a warp's work is
+// its items' rates, and with equal shares the warps on rate-8 rows ran
+// alone at the end (1.79 ms against 1.20 with tickets, both measured by
+// tools/compare_hosting.py).
+//  - Staging: the warp hashes a ticket's slot keys (the fold_ins, the
+//    salt) slot-parallel into one of its two shared buffers, with one
+//    state bit a slot (STATES, a ballot a 32 slots): uniform work, no
+//    divergence; the row's rates stay in warp-uniform registers.
+//  - Rounds: every lane holding an item runs one Knuth round
+//    (knuth_round); a lane whose draw ended writes its count over the
+//    item's key in the buffer.  The idle lanes (one ballot a round) take
+//    the next items of the current buffer in lane order (__popc of the
+//    idle lanes below, no atomics) and load their staged keys and rates;
+//    an item that needs no round (lam == 0) ends at once.  When the
+//    buffer is handed out, the warp takes a ticket into the other buffer
+//    and goes on refilling from it while the old buffer's last draws
+//    finish; that buffer's counts are stored (coalesced) before it is
+//    staged again, after a round if a lane still holds one of its items.
+// Measured (chip_smoke.py; H100 80GB HBM3, 700 W, 4,096 x 4,096): 1.20
+// ms, 66% of the integer-pipe bound.  Left: what a round issues beyond
+// its hashes' ALU-pipe ops (the round's log, its loop, the refill's
+// ballot and selects), the lanes a laggard keeps idle, each warp's final
+// drain and the wave's last tickets.  A later
+// variable-round branch (the rejection sampler for rates >= 10) fits the
+// same frame: a per-item branch in the item state and its own round.
 // ---------------------------------------------------------------------
+
+constexpr int kPoisWarps = 8;              // warps a block
+constexpr int kPoisSpan = 128;             // slots a staging buffer holds
 
 struct PoissonArgs {
   const long long* keys;   // [R, 2]
@@ -672,7 +793,11 @@ struct PoissonArgs {
   const float* lam_h;      // [R] the state-1 rate (STATES)
   const int* states;       // [R, chunk] (STATES)
   int* out;                // [R, chunk]
+  unsigned* work;          // the ticket counter, 0 at the launch
   int R, chunk, salt, partitionable;
+  int span;                // slots a ticket (a multiple of 32, <= kPoisSpan)
+  int spans_per_row;       // ceil(chunk / span)
+  long long n_spans;       // R * spans_per_row: the tickets
   uint32_t one;
 };
 
@@ -699,36 +824,166 @@ __device__ __forceinline__ void split2(uint32_t k0, uint32_t k1, bool part,
   }
 }
 
+// one round of Knuth's loop on the key (a0, a1); true once the draw ended
+__device__ __forceinline__ bool knuth_round(uint32_t& a0, uint32_t& a1,
+                                            float& log_prod, int& rounds,
+                                            float neg, bool part,
+                                            uint32_t one) {
+  uint32_t r0, r1, s0, s1;
+  split2(a0, a1, part, r0, r1, s0, s1, one);
+  log_prod = log_prod + xla_logf(uniform_of(s0, s1, part, one));
+  ++rounds;
+  a0 = r0;
+  a1 = r1;
+  return !(log_prod > neg);
+}
+
+// a warp's staging buffer: one ticket's slots
+struct PoisBuf {
+  uint2 key[kPoisSpan];          // the slot keys; a finished count in .x
+  uint32_t hi[kPoisSpan / 32];   // STATES: bit l of word m, slot 32 m + l
+};
+
+// a staged ticket (warp-uniform)
+struct PoisSpan {
+  long long off;                 // its first item's offset in out
+  int n;                         // its slots
+  float neg0, neg1;              // -lam, -lam_h of its row
+};
+
+// the next ticket (warp-uniform)
+__device__ __forceinline__ long long pois_ticket(const PoissonArgs& p,
+                                                 int lane) {
+  unsigned t = 0u;
+  if (lane == 0) t = atomicAdd(p.work, 1u);
+  return (long long)__shfl_sync(kFullMask, t, 0);
+}
+
+// stage ticket t into B: its slot keys, hashed slot-parallel, and the
+// state bits
 template <bool SALT, bool STATES>
-__global__ void __launch_bounds__(256)
+__device__ __forceinline__ PoisSpan pois_stage(const PoissonArgs& p,
+                                               PoisBuf& B, long long t,
+                                               int lane) {
+  const long long row = t / p.spans_per_row;
+  const int j0 = (int)(t - row * p.spans_per_row) * p.span;
+  const int n = min(p.span, p.chunk - j0);
+  const uint32_t k0 = (uint32_t)p.keys[2 * row];
+  const uint32_t k1 = (uint32_t)p.keys[2 * row + 1];
+  for (int i0 = 0; i0 < n; i0 += 32) {
+    const int i = i0 + lane;
+    if (i < n) {
+      uint32_t a0, a1;
+      fold_in(k0, k1, (uint32_t)p.tids[j0 + i], a0, a1, p.one);
+      if (SALT) {
+        uint32_t s0, s1;
+        fold_in(a0, a1, (uint32_t)p.salt, s0, s1, p.one);
+        a0 = s0;
+        a1 = s1;
+      }
+      B.key[i] = make_uint2(a0, a1);
+    }
+    if (STATES) {
+      const unsigned m = __ballot_sync(
+          kFullMask, i < n && p.states[row * p.chunk + j0 + i] == 1);
+      if (lane == 0) B.hi[i0 >> 5] = m;
+    }
+  }
+  __syncwarp();
+  return PoisSpan{row * p.chunk + j0, n, -p.lam[row],
+                  STATES ? -p.lam_h[row] : 0.0f};
+}
+
+// store the counts of a staged ticket whose items have all finished
+__device__ __forceinline__ void pois_flush(const PoissonArgs& p,
+                                           const PoisBuf& B, long long off,
+                                           int n, int lane) {
+  __syncwarp();
+  for (int i = lane; i < n; i += 32) p.out[off + i] = (int)B.key[i].x;
+}
+
+template <bool SALT, bool STATES>
+__global__ void __launch_bounds__(32 * kPoisWarps)
     poisson_knuth_kernel(const PoissonArgs p) {
-  const int row = blockIdx.x;
-  const int j = blockIdx.y * blockDim.x + threadIdx.x;
-  if (j >= p.chunk) return;
+  __shared__ PoisBuf buf_s[kPoisWarps][2];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  PoisBuf* buf = buf_s[warp];
+  const unsigned below = (1u << lane) - 1u;      // the lanes before this
   const bool part = p.partitionable != 0;
-  uint32_t a0, a1;
-  fold_in((uint32_t)p.keys[2 * row], (uint32_t)p.keys[2 * row + 1],
-          (uint32_t)p.tids[j], a0, a1, p.one);
-  if (SALT) {
-    uint32_t s0, s1;
-    fold_in(a0, a1, (uint32_t)p.salt, s0, s1, p.one);
-    a0 = s0;
-    a1 = s1;
+  // the two buffers' tickets (sp1 empty and current: the first pass
+  // stages into buffer 0); pend: staged, not yet stored; more: tickets
+  // may be left
+  PoisSpan sp0{0, 0, 0.0f, 0.0f}, sp1{0, 0, 0.0f, 0.0f};
+  bool pend0 = false, pend1 = false, more = true;
+  int cb = 1, next = 0;                  // the buffer handed out, its next
+  // this lane's item: buffer ib (-1: none), slot ii, key, log_prod, rate
+  int ib = -1, ii = 0, rounds = 0;
+  uint32_t a0 = 0u, a1 = 0u;
+  float log_prod = 0.0f, neg = 0.0f;
+  unsigned idle = kFullMask;             // the lanes without an item
+  while (true) {
+    // hand the idle lanes the next items, staging a ticket when the
+    // buffer runs out
+    while (idle != 0u) {
+      const int n_cur = cb ? sp1.n : sp0.n;
+      if (next >= n_cur) {
+        if (!more) break;
+        const int ob = cb ^ 1;
+        if (ob ? pend1 : pend0) {
+          // a lane still draws an item of the other buffer: a round first
+          if (__ballot_sync(kFullMask, ib == ob) != 0u) break;
+          pois_flush(p, buf[ob], ob ? sp1.off : sp0.off, ob ? sp1.n : sp0.n,
+                     lane);
+        }
+        const long long t = pois_ticket(p, lane);
+        if (t >= p.n_spans) {
+          more = false;
+          if (ob) pend1 = false;
+          else pend0 = false;
+          break;
+        }
+        const PoisSpan sp = pois_stage<SALT, STATES>(p, buf[ob], t, lane);
+        if (ob) {
+          sp1 = sp;
+          pend1 = true;
+        } else {
+          sp0 = sp;
+          pend0 = true;
+        }
+        cb = ob;
+        next = 0;
+        continue;
+      }
+      const int i = next + __popc(idle & below);
+      if (ib < 0 && i < n_cur) {
+        const uint2 k = buf[cb].key[i];
+        a0 = k.x;
+        a1 = k.y;
+        log_prod = 0.0f;
+        rounds = 0;
+        const bool h = STATES && ((buf[cb].hi[i >> 5] >> (i & 31)) & 1u);
+        neg = cb ? (h ? sp1.neg1 : sp1.neg0) : (h ? sp0.neg1 : sp0.neg0);
+        ib = cb;
+        ii = i;
+        if (!(log_prod > neg)) {                 // no round: lam <= 0
+          buf[cb].key[i].x = neg == 0.0f ? 0u : 0xFFFFFFFFu;
+          ib = -1;
+        }
+      }
+      next = min(next + __popc(idle), n_cur);
+      idle = __ballot_sync(kFullMask, ib < 0);
+    }
+    // the loop above stops with idle lanes only when nothing is left to
+    // hand out or a lane still draws: no lane draws means the warp is done
+    if (idle == kFullMask) break;
+    if (ib >= 0 && knuth_round(a0, a1, log_prod, rounds, neg, part, p.one)) {
+      buf[ib].key[ii].x = (uint32_t)(neg == 0.0f ? 0 : rounds - 1);
+      ib = -1;
+    }
+    idle = __ballot_sync(kFullMask, ib < 0);
   }
-  const long long o = (long long)row * p.chunk + j;
-  const float lam = STATES && p.states[o] == 1 ? p.lam_h[row] : p.lam[row];
-  const float neg = -lam;
-  float log_prod = 0.0f;
-  int rounds = 0;
-  while (log_prod > neg) {
-    uint32_t r0, r1, s0, s1;
-    split2(a0, a1, part, r0, r1, s0, s1, p.one);
-    log_prod = log_prod + xla_logf(uniform_of(s0, s1, part, p.one));
-    ++rounds;
-    a0 = r0;
-    a1 = r1;
-  }
-  p.out[o] = lam == 0.0f ? 0 : rounds - 1;
+  if (pend0) pois_flush(p, buf[0], sp0.off, sp0.n, lane);
+  if (pend1) pois_flush(p, buf[1], sp1.off, sp1.n, lane);
 }
 
 // ---------------------------------------------------------------------
@@ -906,22 +1161,6 @@ struct RawStage {
   int x[kRows][kStride];
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
                                                       uint32_t bytes) {
   asm volatile(
@@ -929,19 +1168,6 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
           smem_u32(bar)),
       "r"(bytes)
       : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
 }
 
 __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
@@ -970,10 +1196,6 @@ __device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
 // async-proxy (bulk copy) writes to it
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void fence_mbar_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
 }
 
 // The ring's barriers: raw_full[s] (copies landed; one expect_tx arrival
@@ -1699,6 +1921,34 @@ inline unsigned n_blocks(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
+constexpr int kMaxDevices = 64;
+
+// a fixed property of the current device (positive), queried by
+// query(dev, n) on its first use there and then read from cache, a slot a
+// device (0: not yet queried)
+template <class Query>
+cudaError_t per_device(std::atomic<int> (&cache)[kMaxDevices], int* n,
+                       Query query) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices &&
+      (*n = cache[dev].load(std::memory_order_relaxed)) > 0)
+    return cudaSuccess;
+  e = query(dev, n);
+  if (e == cudaSuccess && dev < kMaxDevices)
+    cache[dev].store(*n, std::memory_order_relaxed);
+  return e;
+}
+
+// the current device's SM count
+inline cudaError_t sm_count(int* n) {
+  static std::atomic<int> cache[kMaxDevices];
+  return per_device(cache, n, [](int dev, int* v) {
+    return cudaDeviceGetAttribute(v, cudaDevAttrMultiProcessorCount, dev);
+  });
+}
+
 // the bulk route needs 16-byte aligned row segments
 inline int bulk_ok(const void* c, const void* x, int chunk) {
   return chunk % 4 == 0 && (uintptr_t)c % 16 == 0 && (uintptr_t)x % 16 == 0;
@@ -1884,22 +2134,38 @@ int launch_arma_rents(const void* keys, const void* tids, const void* hist_in,
                       int partitionable, void* stream) {
   if (P < 1 || P > kArmaMaxP || Q < 2 || Q > kArmaMaxQ || chunk < 1)
     return (int)cudaErrorInvalidValue;
+  if (R <= 0) return (int)cudaGetLastError();
+  int n_sm = 0;
+  const cudaError_t e = sm_count(&n_sm);
+  if (e != cudaSuccess) return (int)e;
   const ArmaArgs args{(const long long*)keys, (const int*)tids,
                       (const float*)hist_in, (const float*)eps_in,
                       (const float*)phi, (const float*)th,
                       (const float*)sigma, (const float*)mean,
                       (const float*)c_min, (const float*)c_max,
                       (float*)hist_out, (float*)eps_out, (float*)c, R, chunk,
-                      P, Q, partitionable, 1u};
-  if (R <= 0) return (int)cudaGetLastError();
-  const dim3 grid(n_blocks(R, kArmaRows));
+                      P, Q, partitionable, vec_ok(chunk, 4, c, c), 1u};
+  // 32 rows a block once the slab gives nearly every SM such a block
+  // (R = 4,096 on 132 SMs: 128 blocks); else 8, which spreads a small
+  // slab's draws over more SMs
+  const bool wide = R >= (kArmaWideRows - 2) * n_sm;
+  constexpr int W = kArmaWideRows, N = kArmaNarrowRows;
+  const dim3 grid(n_blocks(R, wide ? W : N));
   cudaStream_t st = (cudaStream_t)stream;
-#define REPRO_ARMA_CASE(PP)                                                   \
-  case PP:                                                                    \
-    if (Q == 2)                                                               \
-      arma_rents_kernel<PP, kDotFma2><<<grid, 32 * kArmaWarps, 0, st>>>(args); \
-    else                                                                      \
-      arma_rents_kernel<PP, kDotSum><<<grid, 32 * kArmaWarps, 0, st>>>(args);  \
+#define REPRO_ARMA_ROWS(PP, MA)                                            \
+  if (wide)                                                                \
+    arma_rents_kernel<PP, MA, W>                                           \
+        <<<grid, ArmaShape<W>::kThreads, 0, st>>>(args);                   \
+  else                                                                     \
+    arma_rents_kernel<PP, MA, N>                                           \
+        <<<grid, ArmaShape<N>::kThreads, 0, st>>>(args);
+#define REPRO_ARMA_CASE(PP)                                                \
+  case PP:                                                                 \
+    if (Q == 2) {                                                          \
+      REPRO_ARMA_ROWS(PP, kDotFma2)                                        \
+    } else {                                                               \
+      REPRO_ARMA_ROWS(PP, kDotSum)                                         \
+    }                                                                      \
     break;
   switch (P) {
     REPRO_ARMA_CASE(1) REPRO_ARMA_CASE(2) REPRO_ARMA_CASE(3)
@@ -1907,6 +2173,7 @@ int launch_arma_rents(const void* keys, const void* tids, const void* hist_in,
     REPRO_ARMA_CASE(7) REPRO_ARMA_CASE(8)
   }
 #undef REPRO_ARMA_CASE
+#undef REPRO_ARMA_ROWS
   return (int)cudaGetLastError();
 }
 
@@ -1962,27 +2229,55 @@ int launch_sim_alpha_rr(const void* plv, const void* mask, const void* pM,
 }
 
 // jax.random.poisson (Knuth, rates < 10) a (row, slot); salt < 0: no salt
-// fold; states / lam_h NULL: the per-row rate lam
+// fold; states / lam_h NULL: the per-row rate lam; work: one word of
+// device memory for the ticket counter (zeroed here, on the stream, so
+// launches that share it on one stream run one after another)
 int launch_poisson(const void* keys, const void* tids, const void* lam,
-                   const void* lam_h, const void* states, void* out, int R,
-                   int chunk, int salt, int partitionable, void* stream) {
+                   const void* lam_h, const void* states, void* out,
+                   void* work, int R, int chunk, int salt, int partitionable,
+                   void* stream) {
+  if (R <= 0 || chunk <= 0) return (int)cudaGetLastError();
+  // the instance, by (STATES, SALT), and the blocks of one wave of it (what
+  // the device's SMs hold), queried once a device and instance
+  static void (*const kerns[4])(PoissonArgs) = {
+      poisson_knuth_kernel<false, false>, poisson_knuth_kernel<true, false>,
+      poisson_knuth_kernel<false, true>, poisson_knuth_kernel<true, true>};
+  static std::atomic<int> waves[4][kMaxDevices];
+  const int variant = 2 * (states != nullptr) + (salt >= 0);
+  void (*const kern)(PoissonArgs) = kerns[variant];
+  int wave_blocks = 0;
+  cudaError_t e = per_device(waves[variant], &wave_blocks,
+                             [kern](int dev, int* v) {
+    int n_sm = 0, per_sm = 0;
+    cudaError_t q =
+        cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (q == cudaSuccess)
+      q = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        32 * kPoisWarps, 0);
+    *v = n_sm * std::max(per_sm, 1);
+    return q;
+  });
+  if (e != cudaSuccess) return (int)e;
+  // one wave of blocks; the longest ticket that still gives each of its
+  // warps two (down to 32 slots), and no more blocks than take a ticket
+  const long long wave = wave_blocks;
+  int span = kPoisSpan;
+  while (span > 32 && (long long)R * ((chunk + span - 1) / span)
+                          < 2 * wave * kPoisWarps)
+    span /= 2;
+  const int spr = (chunk + span - 1) / span;
+  const long long n_spans = (long long)R * spr;
+  if (n_spans >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const long long blocks =
+      std::min(wave, (n_spans + kPoisWarps - 1) / kPoisWarps);
   const PoissonArgs a{(const long long*)keys, (const int*)tids,
                       (const float*)lam, (const float*)lam_h,
-                      (const int*)states, (int*)out, R, chunk, salt,
-                      partitionable, 1u};
-  if (R <= 0 || chunk <= 0) return (int)cudaGetLastError();
-  const int threads = chunk >= 256 ? 256 : (chunk + 31) / 32 * 32;
-  const dim3 grid(R, n_blocks(chunk, threads));
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+                      (const int*)states, (int*)out, (unsigned*)work, R,
+                      chunk, salt, partitionable, span, spr, n_spans, 1u};
   cudaStream_t st = (cudaStream_t)stream;
-  if (states && salt >= 0)
-    poisson_knuth_kernel<true, true><<<grid, threads, 0, st>>>(a);
-  else if (states)
-    poisson_knuth_kernel<false, true><<<grid, threads, 0, st>>>(a);
-  else if (salt >= 0)
-    poisson_knuth_kernel<true, false><<<grid, threads, 0, st>>>(a);
-  else
-    poisson_knuth_kernel<false, false><<<grid, threads, 0, st>>>(a);
+  e = cudaMemsetAsync(work, 0, sizeof(unsigned), st);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<(unsigned)blocks, 32 * kPoisWarps, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -747,6 +747,12 @@ def model2_service_chunk_plain(keys, tids, x, g, n_max: int,
 model2_service_chunk_plain.card_calls = 0
 
 
+# the Poisson kernel's ticket counter, one word a (device, stream): the
+# launcher zeroes it on that stream before each launch, so the launches
+# that share it run one after another
+_POISSON_TICKETS: dict = {}
+
+
 def poisson_chunk(keys, tids, lam, salt: Optional[int] = None, states=None,
                   lam_h=None, partitionable: Optional[bool] = None):
     """Kernel P's Poisson draws (arguments as ``poisson_chunk_plain``, and
@@ -766,11 +772,17 @@ def poisson_chunk(keys, tids, lam, salt: Optional[int] = None, states=None,
     if salt is not None and not 0 <= int(salt) < 2 ** 31:
         raise ValueError(f"salt must lie in [0, 2**31), got {salt}")
     out = torch.empty((R, chunk), dtype=torch.int32, device=keys.device)
+    stream = _build.stream(keys.device)
+    work = _POISSON_TICKETS.get((keys.device, stream))
+    if work is None:
+        work = _POISSON_TICKETS.setdefault(
+            (keys.device, stream),
+            torch.empty((1,), dtype=torch.int32, device=keys.device))
     err = _build.library("hosting").launch_poisson(
         keys.data_ptr(), tids.data_ptr(), lam.data_ptr(), _ptr(lam_h),
-        _ptr(states), out.data_ptr(), R, chunk,
+        _ptr(states), out.data_ptr(), work.data_ptr(), R, chunk,
         -1 if salt is None else int(salt), int(_layout(partitionable)),
-        _build.stream(keys.device))
+        stream)
     _build.raise_on(err, "poisson")
     poisson_chunk.launches += 1
     return out

@@ -603,27 +603,35 @@ def test_normal_kernel_matches_plain(case, part):
 @pytest.mark.parametrize("part", [True, False])
 @pytest.mark.parametrize("pq", [(4, 2), (1, 2), (2, 3), (8, 8)])
 def test_arma_kernel_matches_plain(pq, part):
-    """Three chunks in a row, the state carried: a ragged chunk (not a
-    tile multiple, chunk % 4 != 0), a whole tile, one slot; R off the
-    block's rows."""
+    """Chunks in a row, the state carried.  R = 301 (8 rows a block, R off
+    the block's rows): a ragged chunk (not a tile multiple, chunk % 4 !=
+    0), a whole 64-slot chunk, one slot.  R = 5 (fewer rows than a block
+    holds): a chunk shorter than one tile, one that wraps the ring of tile
+    buffers twice over, one slot.  R = 4,001 (32 rows a block on the
+    H100, the last block ragged): a chunk that wraps the ring many times."""
     dev = _card()
     p, q = pq
-    d = _arma_inputs(dev, 301, p, q, seed=p * 10 + q)
-    k_state = p_state = (d["hist"], d["eps"])
-    before = H.arma_rents_chunk.launches
-    for t0, chunk in ((5, 999), (1004, 64), (1068, 1)):
-        tids = torch.arange(t0, t0 + chunk, dtype=torch.int32, device=dev)
-        k = H.arma_rents_chunk(d["keys"], tids, *k_state, d["phi"], d["th"],
-                               d["sigma"], d["mean"], d["c_min"],
-                               d["c_max"], part)
-        torch.cuda.synchronize()
-        pl = H.arma_rents_chunk_plain(d["keys"], tids, *p_state, d["phi"],
-                                      d["th"], d["sigma"], d["mean"],
-                                      d["c_min"], d["c_max"], part)
-        for a, b in zip(k, pl):
-            assert torch.equal(a, b), (t0, chunk)
-        k_state, p_state = k[:2], pl[:2]
-    assert H.arma_rents_chunk.launches == before + 3
+    for R, chunks in ((301, ((5, 999), (1004, 64), (1068, 1))),
+                      (5, ((0, 20), (20, 300), (320, 1))),
+                      (4001, ((7, 1000),))):
+        d = _arma_inputs(dev, R, p, q, seed=p * 10 + q + R)
+        k_state = p_state = (d["hist"], d["eps"])
+        before = H.arma_rents_chunk.launches
+        for t0, chunk in chunks:
+            tids = torch.arange(t0, t0 + chunk, dtype=torch.int32,
+                                device=dev)
+            k = H.arma_rents_chunk(d["keys"], tids, *k_state, d["phi"],
+                                   d["th"], d["sigma"], d["mean"],
+                                   d["c_min"], d["c_max"], part)
+            torch.cuda.synchronize()
+            pl = H.arma_rents_chunk_plain(d["keys"], tids, *p_state,
+                                          d["phi"], d["th"], d["sigma"],
+                                          d["mean"], d["c_min"], d["c_max"],
+                                          part)
+            for a, b in zip(k, pl):
+                assert torch.equal(a, b), (R, t0, chunk)
+            k_state, p_state = k[:2], pl[:2]
+        assert H.arma_rents_chunk.launches == before + len(chunks)
 
 
 # ----------------------------------------------------------------------
@@ -701,12 +709,17 @@ def test_poisson_model2_and_svc_wrappers_take_the_plain_version_on_the_cpu():
 @pytest.mark.parametrize("part", [True, False])
 @pytest.mark.parametrize("case", [
     # (R, t0, chunk): a reduced fleet slab; an odd start with chunk % 4 !=
-    # 0 and R off every block size; one slot at the top of the counters
-    (256, 61440, 1024), (253, 61441, 1001), (300, 0x7FFFFFFF, 1)])
+    # 0 and R off every block size; one slot at the top of the counters;
+    # the figures' slabs (Figs 10-11: 40 x 2,000, Figs 12-15: 76 x 6,000),
+    # neither chunk a multiple of a Poisson ticket (128, 64 or 32 slots)
+    (256, 61440, 1024), (253, 61441, 1001), (300, 0x7FFFFFFF, 1),
+    (40, 2000, 2000), (76, 0, 6000)])
 def test_poisson_and_model2_kernels_match_plain(case, part):
     """Per-row rates at every rate of Knuth's branch, the salted GE form at
     per-slot rates, and Model-2 service at K = 2, 3 and 5, odd and even
-    request counts."""
+    request counts.  Then rows at rate 0 beside rows at 9.99 (draws that
+    end at once beside the longest), and the salted GE form with states
+    that flip every slot between those two rates."""
     dev = _card()
     R, t0, chunk = case
     tids = torch.arange(t0, t0 + chunk, dtype=torch.int64).to(
@@ -732,6 +745,19 @@ def test_poisson_and_model2_kernels_match_plain(case, part):
                 d["keys"], tids, d["x"], d["g"], n_max, part)), (Kf, n_max)
         assert (H.poisson_chunk.launches, H.model2_service_chunk.launches) \
             == (before[0] + 2, before[1] + 2)
+    lo_hi = torch.tensor([0.0, 9.99], dtype=torch.float32).repeat(
+        (R + 1) // 2)[:R].contiguous().to(dev)
+    flips = ((torch.arange(chunk)[None, :] + torch.arange(R)[:, None]) % 2
+             ).to(torch.int32).to(dev)
+    for salt, states, lam_h in ((None, None, None),
+                                (1, flips, lo_hi.flip(0).contiguous())):
+        before = H.poisson_chunk.launches
+        k = H.poisson_chunk(d["keys"], tids, lo_hi, salt, states, lam_h,
+                            part)
+        torch.cuda.synchronize()
+        assert H.poisson_chunk.launches == before + 1
+        assert torch.equal(k, H.poisson_chunk_plain(
+            d["keys"], tids, lo_hi, salt, states, lam_h, part)), salt
 
 
 @pytest.mark.cuda

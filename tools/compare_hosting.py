@@ -18,17 +18,24 @@ uniform rents, NA rents and Gilbert-Elliot arrivals (kernel P's fused
 variants where the checkout has them, else kernel P's uniforms and the
 PyTorch code after them); where the checkout has them, kernels D and S on
 the Model-2 fan-out's slab (Poisson arrivals, spot rents, Model-2
-service) for alpha-RR's own columns and RR's endpoint columns.  Times are
+service) for alpha-RR's own columns and RR's endpoint columns, and one
+chunk of that fan-out's Poisson arrivals (rates cycled over {2, 4, 8});
+where the checkout has it, one chunk of kernel P's ARMA rents (the spot
+stream, p = 4, q = 2) at the fleet's shape.  Times are
 CUDA-event medians of batches of back-to-back calls, each batch queued
 behind ~10 ms of ``torch.cuda._sleep`` so that it runs back to back;
 beside each, the cycles a slot at the SM clock nvidia-smi reads while
-the card runs it.  One JSON line per root, then a table.
+the card runs it.  Last, the host wall of each figure module's ``run()``
+at the reference's default size (its warm-up and timed fan-outs, as
+``chip_smoke.py`` times it), the median of five after one untimed run.
+One JSON line per root, then a table.
 """
 from __future__ import annotations
 
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 
@@ -132,10 +139,22 @@ def _one(root: Path) -> dict:
                             route=dp_chunk[0]),
            "D on a finished w": ms_and_clock(
                lambda: H.dp_minplus(J, w, fetch, valid), batch=3)}
+    if hasattr(H, "arma_rents_chunk"):
+        spot = cs.spot_params(B, dev)
+        eps0 = H.normal_chunk(spot["key"], sc.base.chunk_tids(0, 2, dev)
+                              .flip(0), spot["sigma"])
+        a_args = (spot["key"], tids, torch.zeros((R, 4), device=dev), eps0,
+                  spot["phi"], spot["th"], spot["sigma"], spot["mean"],
+                  spot["c_min"], spot["c_max"])
+        out["P ARMA chunk"] = ms_and_clock(
+            lambda: H.arma_rents_chunk(*a_args))
     if hasattr(H, "dp_fwd_model2"):
         m2 = sc.replicate_seeds(
             cs.model2_scenario(cs.fleet_grid(cs.N_M, cs.N_ALPHA, dev), dev),
             cs.N_SEEDS)
+        arr = m2.params["arr"]
+        out["P Poisson chunk"] = ms_and_clock(
+            lambda: H.poisson_chunk(arr["key"], tids, arr["lam"]), batch=5)
         _, sl = m2.chunk_fn(m2.params, m2.init_fn(m2.params), tids)
         for name, lane, cols, P in (
                 ("alpha-RR", grid, None, AlphaRR),
@@ -152,6 +171,18 @@ def _one(root: Path) -> dict:
                 lambda d=d: H.dp_fwd_model2(*d))
             out[f"S on a Model-2 slab, {name}"] = ms_and_clock(
                 lambda s=s: H.sim_chunk_alpha_rr_svc(*s))
+    walls = {}
+    for name, (mod, _, _) in cs.FIGURES.items():
+        mod.run(device=dev)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            mod.run(device=dev)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        walls[name] = float(np.median(times)) * 1e3
+    out["figure walls ms"] = walls
     return out
 
 
@@ -180,7 +211,10 @@ def main() -> int:
         print(r["root"] + ": " + "; ".join(
             f"{k} {v['ms']:.4f} ms ({v['cycles_per_slot']:.0f} cycles a slot "
             f"at {v['sm_clock_mhz']:.0f} MHz)"
-            for k, v in r.items() if isinstance(v, dict)))
+            for k, v in r.items() if isinstance(v, dict) and "ms" in v))
+        walls = r.get("figure walls ms", {})
+        print(r["root"] + ": figure walls " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in walls.items()))
     return 0
 
 
