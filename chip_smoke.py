@@ -461,7 +461,8 @@ ARMA_CHAIN_OPS, FP32_LATENCY = 6, 4
 # the ms of the design each redesigned kernel replaced, at the same shape
 # (PERF.md section 6; NVIDIA H100 80GB HBM3, 700 W): the log prints old ->
 # new
-PREV_MS = {"poisson_chunk": 1.8543, "arma_rents_chunk": 0.2784}
+PREV_MS = {"poisson_chunk": 1.8543, "arma_rents_chunk": 0.2784,
+           "model2_service_chunk": 0.5514}
 # the consumer code of the reference that each variant finishes in-kernel
 P_CONSUMER = {
     "slot_uniform": None,
@@ -910,9 +911,10 @@ POISSON_LAMS = (0.0, 0.15, 1.2, 2.0, 4.0, 8.0, 9.99)
 # (an FMA counts 2): XLA's log (~25), the uniform's mapping (5), the add
 # and the compare
 KNUTH_ROUND_OPS = 32
-# of one live request of the service kernel past its block: the mapping
-# (5) and a compare and an add a level
-M2_REQUEST_OPS = 5
+# of one live request of the service kernel past its block: its word
+# (the layout's xor; each level's integer threshold on the word stands
+# for the uniform's mapping) and a compare and an add a level
+M2_REQUEST_OPS = 1
 
 
 def svc_grids(dev, rows):
@@ -953,7 +955,9 @@ def svc_kernel_checks(dev, clock, n_sm, sass):
     rates cycled over {0, 0.15, 1.2, 2, 4, 8, 9.99} a row, and the salted
     GE form over two chunks with the chain's state carried; service at K =
     3, 5 and 16 (24 and 7 requests a slot, arrivals past the cap
-    included); D with and without the argmin table, S with and without the
+    included; 100 on arrivals up to 120, so that a slot's requests span
+    several of a warp's passes, with rows of empty slots and negative
+    arrivals); D with and without the argmin table, S with and without the
     trace, each on the slab's own levels and on a K = 2 lane gathering the
     endpoint columns (bulk copies on the aligned slab where the columns
     fit a stage, 4-byte copies otherwise).  Then the figures' shapes (Figs
@@ -1029,6 +1033,12 @@ def svc_kernel_checks(dev, clock, n_sm, sass):
                  f"{label}, {lay}")
             x = x.clone()
             x[::5, ::3] = 30                         # past the 24-request cap
+            # up to 120 requests (a slot over several of a warp's passes),
+            # rows of empty slots, negative arrivals
+            x_wide = x * 4
+            x_wide[1::6] = 120
+            x_wide[2::6] = 0
+            x_wide[3::6, ::2] = -4
             T_len = torch.randint(first, first + 2 * n, (n_rows,),
                                   generator=gen).clamp_max(2 ** 31 - 1).to(
                                       torch.int32).to(dev)
@@ -1036,12 +1046,12 @@ def svc_kernel_checks(dev, clock, n_sm, sass):
             for grid in grids:
                 gr = HostingGrid(*sub_rows((grid.M, grid.levels, grid.g,
                                             grid.mask), n_rows))
-                for n_max in (M2_MAX, 7):
-                    svc = H.model2_service_chunk(kk, tt, x, gr.g, n_max,
+                for n_max, xx in ((M2_MAX, x), (100, x_wide), (7, x)):
+                    svc = H.model2_service_chunk(kk, tt, xx, gr.g, n_max,
                                                  part)
                     same("model2_service_chunk", svc,
-                         H.model2_service_chunk_plain(kk, tt, x, gr.g, n_max,
-                                                      part),
+                         H.model2_service_chunk_plain(kk, tt, xx, gr.g,
+                                                      n_max, part),
                          f"{label}, K={gr.K}, {n_max} requests, {lay}")
                 lanes_same(gr, n_rows, T_len, first, c, svc,
                            f"{label}, {lay}", (False, True))
@@ -1111,7 +1121,13 @@ def svc_kernel_checks(dev, clock, n_sm, sass):
         shape=f"R={R} chunk={chunk}, rates {M2_LAMS} cycled, partitionable "
               f"layout; {n_cmp['poisson_chunk']} calls compared, this one "
               f"included")
-    live = float(torch.clamp(slab.x, 0, M2_MAX).double().sum())
+    n_live = torch.clamp(slab.x, 0, M2_MAX)
+    live = float(n_live.double().sum())
+    live_slots = float((n_live > 0).double().sum())
+    # the share of lanes that hold a request in the kernel's passes (its
+    # 128-slot spans at this shape, 32 requests a pass)
+    per_span = n_live.reshape(R, -1, 128).sum(dim=2).double()
+    pass_fill = live / float(32 * torch.ceil(per_span / 32).sum())
     m_args = (sv["key"], tids, slab.x, sv["g"], M2_MAX)
     out = H.model2_service_chunk(*m_args)
     plain_ms, outp = timed_once(lambda: H.model2_service_chunk_plain(*m_args))
@@ -1122,10 +1138,11 @@ def svc_kernel_checks(dev, clock, n_sm, sass):
         replaces="src/repro/core/scenarios/streams.py:402",
         consumer="src/repro/core/scenarios/streams.py:403",
         ms=cuda_ms(lambda: H.model2_service_chunk(*m_args), reps=7, batch=5),
-        plain_ms=plain_ms, sm_clock_mhz=clock,
-        live_requests_per_slot=live / N,
-        int_pipe_bound_ms=bound_int(N + live),
-        ops=79 * (N + live) + live * (M2_REQUEST_OPS + 2 * K),
+        prev_ms=PREV_MS["model2_service_chunk"], plain_ms=plain_ms,
+        sm_clock_mhz=clock, live_requests_per_slot=live / N,
+        live_slots_share=live_slots / N, pass_fill=pass_fill,
+        int_pipe_bound_ms=bound_int(live_slots + live),
+        ops=79 * (live_slots + live) + live * (M2_REQUEST_OPS + 2 * K),
         nbytes=nbytes(sv["key"], tids, slab.x, sv["g"], out),
         shape=f"R={R} chunk={chunk} K={K}, {M2_MAX} requests a slot at "
               f"most, partitionable layout; "
@@ -1200,10 +1217,13 @@ def svc_kernel_checks(dev, clock, n_sm, sass):
                if "int_pipe_bound_ms" in r else "")
             + (f", {r['cols_ms']:.4f} ms on RR's columns (plain "
                f"{r['cols_plain_ms']:.1f} ms)" if "cols_ms" in r else ""))
-    live = rec["model2_service_chunk"]["live_requests_per_slot"]
+    m2 = rec["model2_service_chunk"]
     log(f"   Poisson: {rec['poisson_chunk']['mean_rounds']:.3f} rounds a "
-        f"slot; service: {live:.3f} live requests a slot; every kernel == "
-        f"its plain version at the fleet's shape")
+        f"slot; service: {m2['live_requests_per_slot']:.3f} live requests "
+        f"a slot, {m2['live_slots_share']:.4f} of the slots live, lanes "
+        f"busy in {m2['pass_fill']:.4f} of its passes, "
+        f"{m2['int_pipe_bound_ms'] / m2['ms']:.1%} of its integer-pipe "
+        f"bound; every kernel == its plain version at the fleet's shape")
     return rec
 
 
@@ -1976,7 +1996,8 @@ def main() -> int:
                     "trace_ms",
                     "cols_ms", "cols_plain_ms", "mean_rounds",
                     "alu_ops_per_block",
-                    "live_requests_per_slot",
+                    "live_requests_per_slot", "live_slots_share",
+                    "pass_fill",
                     "sm_clock_mhz", "cycles_per_slot", "consumer",
                     "alu_ops_per_slot", "ops_per_slot", "int_pipe_bound_ms",
                     "issue_bound_ms", "salt_ms", "salt_alu_ops_per_slot",

@@ -992,19 +992,71 @@ __global__ void __launch_bounds__(32 * kPoisWarps)
 // a slot and counts, per level, the live requests it forwards
 // (src/repro/core/scenarios/streams.py: _model2_chunk_fn :399-406).
 //
-// Per row and slot j: n = min(x[row, j], N) live requests; request i's
-// uniform is word i of uniform(key, (N,)) under key = fold_in(key[row],
-// t); svc[row, j, k] = #{i < n : u_i < g[row, k]} as float32.  The words:
-// partitionable, the xor of the block of counter (0, i); original, the
-// counters 0 .. N - 1 (a 0 appended for odd N) cut in halves and hashed
-// pairwise, so block i < H = ceil(N / 2) holds (0-based) words i and H + i
-// -- one hash serves two requests.  Requests past n are never drawn (the
-// reference masks them out), which gives the same counts.
+// Per row and slot j: n = min(max(x[row, j], 0), N) live requests;
+// request i's uniform is word i of uniform(key, (N,)) under key =
+// fold_in(key[row], t); svc[row, j, k] = #{i < n : u_i < g[row, k]} as
+// float32.  The words: partitionable, the xor of the block of counter (0,
+// i); original, the counters 0 .. N - 1 (a 0 appended for odd N) cut in
+// halves and hashed pairwise, so block i < H = ceil(N / 2) holds (0-based)
+// words i and H + i -- one hash serves two requests.  Requests past n are
+// never drawn (the reference masks them out), which gives the same counts.
+// The counts are exact integers, so the order in which a slot's requests
+// are drawn and counted changes no bit: only which requests are counted,
+// and each one's word, must be the reference's.  u = m * 2^-23 exactly (m
+// = bits >> 9), so u < g is m < ceil(g * 2^23) (g * 2^23 is exact; g > 1
+// counts every request, g <= 0 or NaN none): the kernel compares m with
+// one integer threshold a level.
 //
-// Bound: the output's bytes (K floats a slot) and the live requests'
-// hashes.  Design: one thread a (row, slot), g in registers, K a template
-// argument.
+// Bound: integer operations, one threefry block a live slot (its key
+// fold; a slot with n = 0 needs none) and one a live request (a live
+// block in the original layout), on the H100's integer ALU pipe.  At the
+// Model-2 leg's rates {2, 4, 8} (4.67 live requests a slot) one thread a
+// (row, slot) held that design at 45% of the bound (0.5514 ms at 4,096 x
+// 4,096, K = 3): a warp ran as long as its slot with the most requests,
+// and each thread stored K strided floats.
+//
+// Design: live requests spread over the lanes.  A warp takes a span of
+// consecutive slots of one row (128; 64 or 32 on small slabs, so that
+// the SMs hold 32 warps each); a plain grid of 4-warp blocks, whose
+// scheduler balances rows of different rates (a span's work is the sum
+// of 128 draws, so the warps of a block end together).
+//  - Staging: a lane owns 4 consecutive slots of the span (16-byte loads
+//    of x and the counters when aligned).  One warp scan of its live
+//    slots and items (requests; blocks in the original layout) places
+//    them; the lane folds the keys of its live slots and writes them,
+//    compacted in order, to shared memory with their first items, and
+//    marks where each starts: bit l of word q when its first item is 32 q
+//    + l (one shared atomicOr a slot; up to 128 passes at once).
+//  - Passes: the warp walks the span's flattened items 32 at a time, one
+//    a lane.  A lane's slot is the live slots started before the pass
+//    plus the __popc of the pass's start bits up to the lane; one 16-byte
+//    shared load gives its key and first item.  It hashes its counter
+//    and ranks its word: r = the levels whose threshold it reaches (u <
+//    g_k iff m < T_k, so u is counted at level k iff r <= lo_k, the
+//    levels with a threshold below T_k: g need not be sorted) and adds
+//    one to the slot's histogram bucket r by a shared atomicAdd, with no
+//    branch: bucket K, never read, takes rank K and a lane past the
+//    span's items.  The original layout's lanes rank both words of their
+//    block, the second counted when H + i < n.
+//  - Store: a lane turns its 4 slots' buckets into prefix sums and picks
+//    level k's count at lo_k in registers; the span's [slot][k] floats
+//    leave as one contiguous run, 16-byte stores where aligned.
+// Measured (tools/compare_hosting.py, H100 80GB HBM3, 700 W, 4,096 x
+// 4,096, K = 3, partitionable): 0.3985 / 0.3965 ms against the one
+// thread a slot design's 0.5496 / 0.5493 in the same call, 62% of the
+// integer-pipe bound (0.2462 ms).  Left: what a pass issues beyond its
+// hash (the slot lookup, a compare and a select a level, the bucket's
+// address and atomic): the hash issues about as many FMA-pipe as
+// ALU-pipe instructions (its adds, as IMAD), so a pass is bound by issue,
+// not by the ALU pipe; a span's last, partly filled pass; a slot's
+// staging (its loads, the scans, the compaction, its counts and stores).
 // ---------------------------------------------------------------------
+
+constexpr int kM2Warps = 4;                // warps a block
+constexpr int kM2Span = 128;               // slots a span holds at most
+constexpr int kM2Window = 128;             // passes whose starts are marked
+// n_max at most: a span's items fit an int, a count a float exactly
+constexpr int kM2MaxRequests = 1 << 23;
 
 struct Model2Args {
   const long long* keys;   // [R, 2]
@@ -1013,53 +1065,240 @@ struct Model2Args {
   const float* g;          // [R, K]
   float* out;              // [R, chunk, K]
   int R, chunk, n_max, partitionable;
+  int span;                // slots a span (32, 64 or kM2Span)
+  int spans_per_row;       // ceil(chunk / span)
+  long long n_spans;       // R * spans_per_row: one a warp
+  int vec;                 // chunk % 4 == 0, x, tids, out 16-byte aligned
   uint32_t one;
 };
 
+// a warp's span in shared memory
 template <int K>
-__global__ void __launch_bounds__(256)
-    model2_service_kernel(const Model2Args p) {
-  const int row = blockIdx.x;
-  const int j = blockIdx.y * blockDim.x + threadIdx.x;
-  if (j >= p.chunk) return;
-  const bool part = p.partitionable != 0;
-  uint32_t a0, a1;
-  fold_in((uint32_t)p.keys[2 * row], (uint32_t)p.keys[2 * row + 1],
-          (uint32_t)p.tids[j], a0, a1, p.one);
-  float g[K];
-  int cnt[K];
+struct M2Span {
+  // the live slots in order: key (x, y), first item (z), n << 7 | the
+  // slot's place in the span (w)
+  uint4 live[kM2Span];
+  unsigned starts[kM2Window];  // the window's start bits, a word a pass
+  int hist[kM2Span * (K + 1)]; // [slot][rank]: rank K, or no item, discarded
+};
+
+// T = ceil(g * 2^23), the level's threshold on m = bits >> 9: u < g iff
+// m < T (g > 1 counts every request, g <= 0 or NaN none)
+__device__ __forceinline__ uint32_t m2_threshold(float g) {
+  return g > 0.0f ? (uint32_t)ceilf(fminf(g, 1.0f) * 8388608.0f) : 0u;
+}
+
+// a word's rank: the levels whose threshold its m reaches, m >= T iff
+// bits > lim = T * 512 - 1; r0 counts the levels at T = 0 (lim 2^32 - 1,
+// as for T = 2^23, which no m reaches)
+template <int K>
+__device__ __forceinline__ int m2_rank(uint32_t bits,
+                                       const uint32_t (&lim)[K], int r0) {
+  int r = r0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) r += bits > lim[k] ? 1 : 0;
+  return r;
+}
+
+// a slot's counts from its buckets h: level k counts the ranks <= lo[k]
+template <int K>
+__device__ __forceinline__ void m2_counts(const int* h, const int (&lo)[K],
+                                          float* c) {
+  int pre[K];
+  int acc = 0;
+#pragma unroll
+  for (int r = 0; r < K; ++r) {
+    acc += h[r];
+    pre[r] = acc;
+  }
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    g[k] = p.g[(long long)row * K + k];
-    cnt[k] = 0;
-  }
-  const long long o = (long long)row * p.chunk + j;
-  const int n = min(max(p.x[o], 0), p.n_max);
-  auto count = [&](uint32_t bits) {
-    const float u = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+    int v = pre[0];
 #pragma unroll
-    for (int k = 0; k < K; ++k) cnt[k] += u < g[k] ? 1 : 0;
-  };
-  if (part) {
-    for (int i = 0; i < n; ++i) {
-      uint32_t b0 = 0u, b1 = (uint32_t)i;
-      threefry2x32(a0, a1, b0, b1, p.one);
-      count(b0 ^ b1);
+    for (int r = 1; r < K; ++r) v = r <= lo[k] ? pre[r] : v;
+    c[k] = (float)v;
+  }
+}
+
+// the passes over a staged span's W items (L live slots); the starts of
+// the first window are marked
+template <int K, bool PART>
+__device__ __forceinline__ void m2_walk(const Model2Args& p, M2Span<K>& S,
+                                        int L, int W,
+                                        const uint32_t (&lim)[K], int r0,
+                                        int lane) {
+  const unsigned upto = (2u << lane) - 1u;    // this lane and those before
+  const int h = (p.n_max + 1) / 2;
+  int cb = 0;                    // the live slots started before the pass
+  for (int w0 = 0; w0 < W; w0 += 32 * kM2Window) {
+    const int wend = min(W, w0 + 32 * kM2Window);
+    if (w0 > 0) {                // a later window: its starts marked anew
+      for (int q = lane; q < (wend - w0 + 31) >> 5; q += 32)
+        S.starts[q] = 0u;
+      __syncwarp();
+      for (int c = lane; c < L; c += 32) {
+        const int st = (int)S.live[c].z - w0;
+        if (st >= 0 && st < 32 * kM2Window)
+          atomicOr(&S.starts[st >> 5], 1u << (st & 31));
+      }
+      __syncwarp();
     }
+    for (int base = w0; base < wend; base += 32) {
+      const unsigned starts = S.starts[(base - w0) >> 5];
+      const uint4 r = S.live[cb - 1 + __popc(starts & upto)];
+      cb += __popc(starts);
+      const int f = base + lane;
+      const int i = f - (int)r.z;              // the item within its slot
+      // a lane past W, and the original layout's second word past n, add
+      // to the discarded bucket K
+      int* hist = S.hist + (r.w & (kM2Span - 1)) * (K + 1);
+      if (PART) {
+        uint32_t b0 = 0u, b1 = (uint32_t)i;
+        threefry2x32(r.x, r.y, b0, b1, p.one);
+        atomicAdd(hist + (f < W ? m2_rank(b0 ^ b1, lim, r0) : K), 1);
+      } else {
+        // the second counter word: H + i, or the appended 0 for odd N
+        uint32_t b0 = (uint32_t)i,
+                 b1 = h + i < p.n_max ? (uint32_t)(h + i) : 0u;
+        threefry2x32(r.x, r.y, b0, b1, p.one);
+        atomicAdd(hist + (f < W ? m2_rank(b0, lim, r0) : K), 1);
+        atomicAdd(hist + (f < W && h + i < (int)(r.w >> 7)
+                              ? m2_rank(b1, lim, r0) : K), 1);
+      }
+    }
+    __syncwarp();
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(32 * kM2Warps)
+    model2_service_kernel(const Model2Args p) {
+  __shared__ M2Span<K> spans[kM2Warps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long t = (long long)blockIdx.x * kM2Warps + warp;
+  if (t >= p.n_spans) return;
+  M2Span<K>& S = spans[warp];
+  const long long row = t / p.spans_per_row;
+  const int j0 = (int)(t - row * p.spans_per_row) * p.span;
+  const int ns = min(p.span, p.chunk - j0);
+  const long long o = row * p.chunk + j0;
+  const bool part = p.partitionable != 0;
+  const int h = (p.n_max + 1) / 2;
+  // staging: this lane's slots sb .. sb + 3 (with vec, all or none in
+  // the span), their live requests n and items w
+  const int sb = 4 * lane;
+  int n[4];
+  uint32_t tid[4];
+  if (p.vec && sb < ns) {
+    const int4 xv = *reinterpret_cast<const int4*>(p.x + o + sb);
+    const int4 tv = *reinterpret_cast<const int4*>(p.tids + j0 + sb);
+    n[0] = xv.x, n[1] = xv.y, n[2] = xv.z, n[3] = xv.w;
+    tid[0] = tv.x, tid[1] = tv.y, tid[2] = tv.z, tid[3] = tv.w;
   } else {
-    const int h = (p.n_max + 1) / 2;
-    for (int i = 0; i < n && i < h; ++i) {
-      // the second counter word: H + i, or the appended 0 for odd N
-      uint32_t b0 = (uint32_t)i,
-               b1 = h + i < p.n_max ? (uint32_t)(h + i) : 0u;
-      threefry2x32(a0, a1, b0, b1, p.one);
-      count(b0);
-      if (h + i < n) count(b1);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool in = sb + j < ns;
+      n[j] = in ? p.x[o + sb + j] : 0;
+      tid[j] = in ? (uint32_t)p.tids[j0 + sb + j] : 0u;
     }
   }
-  float* out = p.out + o * K;
+  int w[4], items = 0, lives = 0;
 #pragma unroll
-  for (int k = 0; k < K; ++k) out[k] = (float)cnt[k];
+  for (int j = 0; j < 4; ++j) {
+    n[j] = min(max(n[j], 0), p.n_max);
+    w[j] = part ? n[j] : min(n[j], h);
+    items += w[j];
+    lives += w[j] > 0 ? 1 : 0;
+  }
+  // inclusive scans over the lanes: the items and the live slots
+  int si = items, sl = lives;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int vi = __shfl_up_sync(kFullMask, si, d);
+    const int vl = __shfl_up_sync(kFullMask, sl, d);
+    if (lane >= d) {
+      si += vi;
+      sl += vl;
+    }
+  }
+  const int W = __shfl_sync(kFullMask, si, 31);
+  const int L = __shfl_sync(kFullMask, sl, 31);
+  for (int q = lane; q < min((W + 31) >> 5, kM2Window); q += 32)
+    S.starts[q] = 0u;
+  if (sb < ns) {
+    int4* hz = reinterpret_cast<int4*>(S.hist + sb * (K + 1));
+#pragma unroll
+    for (int r = 0; r <= K; ++r) hz[r] = make_int4(0, 0, 0, 0);
+  }
+  __syncwarp();
+  // this lane's live slots, compacted in order: key, first item, start bit
+  const uint32_t k0 = (uint32_t)p.keys[2 * row];
+  const uint32_t k1 = (uint32_t)p.keys[2 * row + 1];
+  int c = sl - lives, f = si - items;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (w[j] > 0) {
+      uint32_t a0, a1;
+      fold_in(k0, k1, tid[j], a0, a1, p.one);
+      S.live[c] = make_uint4(a0, a1, (uint32_t)f,
+                             (uint32_t)n[j] << 7 | (uint32_t)(sb + j));
+      if (f < 32 * kM2Window) atomicOr(&S.starts[f >> 5], 1u << (f & 31));
+      ++c;
+      f += w[j];
+    }
+  }
+  // the row's thresholds: lim and r0 rank a word, lo[k] (the levels with
+  // a threshold below level k's) says which ranks level k counts
+  uint32_t thr[K], lim[K];
+  int lo[K], r0 = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    thr[k] = m2_threshold(p.g[row * K + k]);
+    lim[k] = thr[k] == 0u ? kFullMask : thr[k] * 512u - 1u;
+    r0 += thr[k] == 0u ? 1 : 0;
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    lo[k] = 0;
+#pragma unroll
+    for (int q = 0; q < K; ++q) lo[k] += thr[q] < thr[k] ? 1 : 0;
+  }
+  __syncwarp();
+  if (part)
+    m2_walk<K, true>(p, S, L, W, lim, r0, lane);
+  else
+    m2_walk<K, false>(p, S, L, W, lim, r0, lane);
+  // store: this lane's slots' counts, [slot][k] from out[o + sb]
+  if (sb >= ns) return;
+  float* dst = p.out + (o + sb) * K;
+  if (K <= 4 && p.vec) {
+    // 4 K consecutive floats, 16-byte aligned (o is a multiple of 4)
+    int hv[4 * (K + 1)];
+    float cv[4 * K];
+#pragma unroll
+    for (int q = 0; q <= K; ++q) {
+      const int4 v = reinterpret_cast<const int4*>(S.hist + sb * (K + 1))[q];
+      hv[4 * q] = v.x, hv[4 * q + 1] = v.y, hv[4 * q + 2] = v.z,
+      hv[4 * q + 3] = v.w;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      m2_counts<K>(hv + j * (K + 1), lo, cv + j * K);
+#pragma unroll
+    for (int q = 0; q < K; ++q)
+      reinterpret_cast<float4*>(dst)[q] = make_float4(
+          cv[4 * q], cv[4 * q + 1], cv[4 * q + 2], cv[4 * q + 3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (sb + j < ns) {
+        float cv[K];
+        m2_counts<K>(S.hist + (sb + j) * (K + 1), lo, cv);
+#pragma unroll
+        for (int k = 0; k < K; ++k) dst[j * K + k] = cv[k];
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -2281,29 +2520,42 @@ int launch_poisson(const void* keys, const void* tids, const void* lam,
   return (int)cudaGetLastError();
 }
 
-// the Model-2 service costs of one chunk (1 <= K <= 16)
+// the Model-2 service costs of one chunk (1 <= K <= 16, 0 <= n_max <=
+// 2^23)
 int launch_model2_service(const void* keys, const void* tids, const void* x,
                           const void* g, void* out, int R, int chunk, int K,
                           int n_max, int partitionable, void* stream) {
+  if (K < 1 || K > 16 || n_max < 0 || n_max > kM2MaxRequests)
+    return (int)cudaErrorInvalidValue;
+  if (R <= 0 || chunk <= 0) return (int)cudaGetLastError();
+  int n_sm = 0;
+  const cudaError_t e = sm_count(&n_sm);
+  if (e != cudaSuccess) return (int)e;
+  // the longest span that still gives each SM 32 warps (down to 32 slots)
+  int span = kM2Span;
+  while (span > 32 && (long long)R * ((chunk + span - 1) / span)
+                          < 32LL * n_sm)
+    span /= 2;
+  const int spr = (chunk + span - 1) / span;
+  const long long n_spans = (long long)R * spr;
+  const long long blocks = (n_spans + kM2Warps - 1) / kM2Warps;
+  if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const int vec = chunk % 4 == 0 && (uintptr_t)x % 16 == 0
+                  && (uintptr_t)tids % 16 == 0 && (uintptr_t)out % 16 == 0;
   const Model2Args a{(const long long*)keys, (const int*)tids, (const int*)x,
                      (const float*)g, (float*)out, R, chunk, n_max,
-                     partitionable, 1u};
-  if (R <= 0 || chunk <= 0) return (int)cudaGetLastError();
-  const int threads = chunk >= 256 ? 256 : (chunk + 31) / 32 * 32;
-  const dim3 grid(R, n_blocks(chunk, threads));
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+                     partitionable, span, spr, n_spans, vec, 1u};
   cudaStream_t st = (cudaStream_t)stream;
-#define REPRO_M2_CASE(KK)                                          \
-  case KK:                                                         \
-    model2_service_kernel<KK><<<grid, threads, 0, st>>>(a);        \
+#define REPRO_M2_CASE(KK)                                           \
+  case KK:                                                          \
+    model2_service_kernel<KK>                                       \
+        <<<(unsigned)blocks, 32 * kM2Warps, 0, st>>>(a);            \
     break;
   switch (K) {
     REPRO_M2_CASE(1) REPRO_M2_CASE(2) REPRO_M2_CASE(3) REPRO_M2_CASE(4)
     REPRO_M2_CASE(5) REPRO_M2_CASE(6) REPRO_M2_CASE(7) REPRO_M2_CASE(8)
     REPRO_M2_CASE(9) REPRO_M2_CASE(10) REPRO_M2_CASE(11) REPRO_M2_CASE(12)
     REPRO_M2_CASE(13) REPRO_M2_CASE(14) REPRO_M2_CASE(15) REPRO_M2_CASE(16)
-    default:
-      return (int)cudaErrorInvalidValue;
   }
 #undef REPRO_M2_CASE
   return (int)cudaGetLastError();

@@ -17,7 +17,8 @@ PyTorch versions.
   ``poisson_chunk`` (``jax.random.poisson``, Knuth's branch, at a per-row
   rate or the GE states' per-slot rates) runs ``poisson_knuth_kernel`` and
   ``model2_service_chunk`` (the Model-2 service costs of the live
-  requests' coupled uniforms) ``model2_service_kernel``.
+  requests' coupled uniforms, the requests spread over a warp's lanes)
+  ``model2_service_kernel``.
 * ``dp_fwd_model1`` (kernel **D**) — one chunk of the offline-OPT
   min-plus recursion with the Model-1 cost assembly ``w = fma(c, lv, x *
   g)`` fused in: the fleet DP's chunk, the port of
@@ -64,6 +65,9 @@ _PARITY = 0x1BD11BDA
 #: argument each; D on a finished w: one warp)
 SIM_MAX_K = 16
 DPF_MAX_K = 16
+#: model2_service_chunk's n_max at most on the card (hosting.cu:
+#: kM2MaxRequests): a span's requests fit an int32, a count a float32
+M2_MAX_REQUESTS = 2 ** 23
 DP_MAX_K = 32
 
 
@@ -794,15 +798,17 @@ poisson_chunk.launches = 0
 def model2_service_chunk(keys, tids, x, g, n_max: int,
                          partitionable: Optional[bool] = None):
     """Kernel P's Model-2 service draws (arguments as
-    ``model2_service_chunk_plain``; K <= 16), bitwise the plain version."""
+    ``model2_service_chunk_plain``; K <= 16, n_max <= 2**23), bitwise the
+    plain version."""
     if keys.device.type == "cpu":
         return model2_service_chunk_plain(keys, tids, x, g, n_max,
                                           partitionable)
     R, chunk = _row_params(keys, tids)
     K = g.shape[1] if g.dim() == 2 else -1
-    if not 1 <= K <= DPF_MAX_K or n_max < 0:
+    if not 1 <= K <= DPF_MAX_K or not 0 <= n_max <= M2_MAX_REQUESTS:
         raise ValueError(f"model2_service_chunk takes 1 <= K <= {DPF_MAX_K} "
-                         f"and n_max >= 0, got K={K}, n_max={n_max}")
+                         f"and 0 <= n_max <= {M2_MAX_REQUESTS}, got K={K}, "
+                         f"n_max={n_max}")
     _build.check_tensor("x", x, torch.int32, (R, chunk), keys.device)
     _build.check_tensor("g", g, torch.float32, (R, K), keys.device)
     out = torch.empty((R, chunk, K), dtype=torch.float32, device=keys.device)

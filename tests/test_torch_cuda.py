@@ -646,7 +646,10 @@ def _svc_inputs(dev, R, chunk, K, Kf, seed):
     """Row keys, Poisson rates cycling over ``POISSON_LAMS``, GE states
     and rates, arrivals (some past 24 requests), a service slab of ``Kf``
     levels (counts on a half-integer grid, so ties are common) and a
-    column map of ``K`` of its levels, made with numpy."""
+    column map of ``K`` of its levels, made with numpy.  For the service
+    draws also ``x_wide``: arrivals in [-5, 120] with a row of zeros, a
+    row at 120 and a row of negatives in each five; ``g1`` and ``g16``:
+    unsorted levels with exact 0.0 and 1.0 entries."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
     lam = np.resize(np.asarray(POISSON_LAMS, np.float32), R)
@@ -660,7 +663,21 @@ def _svc_inputs(dev, R, chunk, K, Kf, seed):
         states=t(rng.integers(0, 2, (R, chunk)).astype(np.int32)),
         x=t(rng.integers(0, 30, (R, chunk)).astype(np.int32)),
         g=t(g), cols=t(cols),
-        svc=t((rng.integers(0, 8, (R, chunk, Kf)) / 2).astype(np.float32)))
+        svc=t((rng.integers(0, 8, (R, chunk, Kf)) / 2).astype(np.float32)),
+        x_wide=t(_wide_arrivals(rng, R, chunk)),
+        g1=t(_unsorted_levels(rng, R, 1)), g16=t(_unsorted_levels(rng, R, 16)))
+
+
+def _wide_arrivals(rng, R, chunk):
+    x = rng.integers(-5, 121, (R, chunk)).astype(np.int32)
+    x[0::5], x[1::5], x[2::5] = 0, 120, -3
+    return x
+
+
+def _unsorted_levels(rng, R, K):
+    g = rng.random((R, K)).astype(np.float32)
+    g.flat[::3], g.flat[1::7] = 0.0, 1.0
+    return g
 
 
 def test_poisson_model2_and_svc_wrappers_take_the_plain_version_on_the_cpu():
@@ -719,7 +736,9 @@ def test_poisson_and_model2_kernels_match_plain(case, part):
     per-slot rates, and Model-2 service at K = 2, 3 and 5, odd and even
     request counts.  Then rows at rate 0 beside rows at 9.99 (draws that
     end at once beside the longest), and the salted GE form with states
-    that flip every slot between those two rates."""
+    that flip every slot between those two rates.  Last the service
+    draws' ragged cases (see below); no chunk here is a multiple of a
+    warp's span of 128, 64 or 32 slots but the first."""
     dev = _card()
     R, t0, chunk = case
     tids = torch.arange(t0, t0 + chunk, dtype=torch.int64).to(
@@ -758,6 +777,32 @@ def test_poisson_and_model2_kernels_match_plain(case, part):
         assert H.poisson_chunk.launches == before + 1
         assert torch.equal(k, H.poisson_chunk_plain(
             d["keys"], tids, lo_hi, salt, states, lam_h, part)), salt
+    # the service draws where requests are spread over a warp's lanes: a
+    # slot's requests over several passes (n_max 33, 100), one request
+    # a slot at most, odd n_max, rows of empty slots beside rows at n_max,
+    # negative arrivals, K = 1 and 16 with unsorted levels that hold 0.0
+    # and 1.0, then levels tied to drawn uniforms and one float above
+    before = H.model2_service_chunk.launches
+    for g in (d["g1"], d["g16"], d["g"]):
+        for n_max in (1, 33, 100):
+            m = H.model2_service_chunk(d["keys"], tids, d["x_wide"], g, n_max,
+                                       part)
+            torch.cuda.synchronize()
+            assert torch.equal(m, H.model2_service_chunk_plain(
+                d["keys"], tids, d["x_wide"], g, n_max, part)), (g.shape,
+                                                                 n_max)
+    u = H.uniform_from_bits(H.shaped_bits(
+        *H._slot_keys(d["keys"], tids, None), 24, part))[:, 0, :4]
+    up = torch.tensor(2.0, device=dev)
+    tied = torch.stack([u[:, 0], torch.nextafter(u[:, 1], up), u[:, 2],
+                        torch.nextafter(u[:, 3], -up)], 1).contiguous()
+    x = d["x_wide"].clone()
+    x[:, 0] = 24
+    m = H.model2_service_chunk(d["keys"], tids, x, tied, 24, part)
+    torch.cuda.synchronize()
+    assert torch.equal(m, H.model2_service_chunk_plain(d["keys"], tids, x,
+                                                       tied, 24, part))
+    assert H.model2_service_chunk.launches == before + 10
 
 
 @pytest.mark.cuda

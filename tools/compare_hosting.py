@@ -18,8 +18,10 @@ uniform rents, NA rents and Gilbert-Elliot arrivals (kernel P's fused
 variants where the checkout has them, else kernel P's uniforms and the
 PyTorch code after them); where the checkout has them, kernels D and S on
 the Model-2 fan-out's slab (Poisson arrivals, spot rents, Model-2
-service) for alpha-RR's own columns and RR's endpoint columns, and one
-chunk of that fan-out's Poisson arrivals (rates cycled over {2, 4, 8});
+service) for alpha-RR's own columns and RR's endpoint columns, one
+chunk of that fan-out's Poisson arrivals (rates cycled over {2, 4, 8})
+and one of its Model-2 service (K = 3, 24 requests a slot at most, on
+those arrivals);
 where the checkout has it, one chunk of kernel P's ARMA rents (the spot
 stream, p = 4, q = 2) at the fleet's shape.  Times are
 CUDA-event medians of batches of back-to-back calls, each batch queued
@@ -155,6 +157,11 @@ def _one(root: Path) -> dict:
         arr = m2.params["arr"]
         out["P Poisson chunk"] = ms_and_clock(
             lambda: H.poisson_chunk(arr["key"], tids, arr["lam"]), batch=5)
+        sv = m2.params["svc"]
+        x_m2 = H.poisson_chunk(arr["key"], tids, arr["lam"])
+        out["P service chunk"] = ms_and_clock(
+            lambda: H.model2_service_chunk(sv["key"], tids, x_m2, sv["g"],
+                                           cs.M2_MAX), batch=5)
         _, sl = m2.chunk_fn(m2.params, m2.init_fn(m2.params), tids)
         for name, lane, cols, P in (
                 ("alpha-RR", grid, None, AlphaRR),
