@@ -43,6 +43,20 @@ Phases (any failure exits non-zero, and no result line is printed):
    rows x two chunks of 2,000); and at the Model-2 fan-out's shape (4,096
    rows x 4,096 slots, K = 3: alpha-RR's and RR's D and S), where each is
    timed against its bound and its plain version's one call is timed.
+   Figs 17-22 (the same reduced slabs, both layouts): P's Poisson draws at
+   rates {10, 10.5, 37, 200, 1e5} a row (Hormann's rejection), at rows
+   mixing 0, 2, 9.99, 10 and 200, and in the salted GE form at 200 / 10
+   over two chunks with the chain's state carried; the service draws at
+   260 requests a slot with slots past 260; S's table variant (static,
+   MDP, ABC) under Model 1 and on the service slab, with and without a
+   column map, the trace and the final fetch, K = 3, 2 and 16; then at
+   Figs 17-22's own chunks (84 rows, the figure's scenario over its six
+   chunks of 512, the last one's horizon ending after 440 slots: the
+   Poisson and service draws and MDP's and ABC's table variant on the
+   slab's levels and on RR's endpoint columns, each chunk); then at the
+   Markov leg's shape (4,096 x 4,096, K = 3) each timed, the Poisson
+   draws with their mean Hormann rounds and the share that reach
+   ``lgamma``.
 3. The fleet path at full width: 1,024 instances (32 M x 32 (alpha, g)) x 4
    seeds = 4,096 rows, T = 65,536, chunks of 4,096: alpha-RR and RR through
    ``run_fleet``, alpha-OPT and OPT through ``offline_opt_fleet``
@@ -70,10 +84,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    (10 grid points x 4 seeds, T = 10,000), Figs 3-6 (22 x 4, T = 8,000),
    Figs 7-8 (5 x 4, T = 8,000; K = 5, 3 and 2 lanes), Figs 10-11 (10 x 4,
    T = 8,000; bursty GE-Poisson arrivals), Figs 12-15 (19 x 4, T = 6,000;
-   Poisson arrivals and Model-2 service, no DP); each figure's
+   Poisson arrivals and Model-2 service, no DP), Figs 17-22 (21 x 4, T =
+   3,000 in chunks of 512; GE-Poisson at 200 / 10, Model-2 service at 260
+   a slot, alpha-RR / RR and the MDP and ABC baselines); each figure's
    ``check(rows)`` must pass, its counters are zeroed before and read
-   after: P's streams, S and (Figs 1-6, 10-11) D must have run, no plain
-   code.
+   after: P's streams, S (Figs 17-22: its table variant too) and (Figs
+   1-6, 10-11) D must have run, no plain code.
 8. The fan-out at the fleet leg's width: 1,024 instances x 4 seeds, T =
    65,536 in chunks of 4,096, Bernoulli(0.35) arrivals and spot rents at
    mean 0.35, alpha-RR and RR lanes with the OPT frontiers; per chunk one
@@ -87,9 +103,23 @@ Phases (any failure exits non-zero, and no result line is printed):
    and ARMA variants and two each of S and D on the slab, none of the
    plain code; each lane == its standalone run and ``opt_cost`` ==
    ``offline_opt_fleet``; card == CPU at 16 instances x 4 seeds, T =
-   1,024.  A kernel's ``launches`` in the last lines add up phases 3, 4, 7,
-   8 and 9 (and the serving path's for F and M).
-10. Kernels F (flash attention) and M (SSD scan) against their plain
+   1,024.
+10. The Markov fan-out at the fleet leg's width: 1,024 instances x 4
+   seeds, T = 65,536 in chunks of 4,096; Figs 17-22's three regimes
+   cycled over the instances (GE-Poisson at 200 / 10), alpha 0.16, g
+   0.76, the figure's (M, c) sweep cycled, spot rents, Model-2 service of
+   up to 260 requests a slot; alpha-RR and RR (its endpoint columns) as
+   one fan-out, MDP and ABC each their own ``run_fleet``; per chunk and
+   run one launch each of P's GE, Poisson, service and ARMA variants,
+   two of S for the fan-out and one of S's table variant for MDP and for
+   ABC, none of the plain code; each lane == its standalone run; card ==
+   CPU at 16 instances x 4 seeds, T = 1,024.  A kernel's ``launches`` in
+   the last lines add up phases 3, 4, 7, 8, 9 and 10 (and the serving
+   path's for F and M); the Poisson variant's Hormann record counts the
+   launches in which the kernel drew an item on Hormann's branch (the
+   kernel counts them), which must be those of Figs 17-22 and phase 10
+   only.
+11. Kernels F (flash attention) and M (SSD scan) against their plain
    versions on the card, each within a stated tolerance.  Each has two
    kernels, chosen by an explicit dispatch: F's wgmma kernel (bf16, hd 64 /
    128) and its fp32-FMA kernel (the rest), M's mma.sync kernel (bf16, dh /
@@ -102,7 +132,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    and a ragged length, the scheduler's 8-token chunk, ds = 128, a chunk of
    256, fp32.  Each variant requires that the dispatch launched the kernel
    it names.  The FMA kernels are also timed on the main bf16 input.
-11. The LM serving path at full width and depth: zamba2-1.2b in bf16 from
+12. The LM serving path at full width and depth: zamba2-1.2b in bf16 from
    a seeded generator (38 Mamba2 layers, 6 shared-attention
    applications), ``ServingEngine.serve_slot`` under each plan (none,
    layer prefix at alpha 0.4 = 5 segments, full) on 8 prompts of 2,048
@@ -110,7 +140,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    just before and read just after; per full forward F's wgmma kernel runs
    6 times and M's mma kernel 38 times, per prefix forward 3 and 12; the
    FMA kernels never run there.
-12. Card == CPU for the serving path at zamba2's tiny fp32 config with the
+13. Card == CPU for the serving path at zamba2's tiny fp32 config with the
    same weights: logits within 1e-4, argmax tokens equal where the CPU's
    top-2 margin is wider.
 
@@ -137,13 +167,18 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.core import (FleetBatch, HostingCosts, HostingGrid,  # noqa: E402
                               mc_summary, offline_opt_fleet, run_fleet)
 from repro_torch.core import scenarios as sc  # noqa: E402
-from repro_torch.core.policies import AlphaRR, RetroRenting  # noqa: E402
+from repro_torch.core.arrivals import GilbertElliot  # noqa: E402
+from repro_torch.core.policies import (ABCPolicy, AlphaRR,  # noqa: E402
+                                       MDPPolicy, RetroRenting,
+                                       StaticPolicy)
 from repro_torch.figures import fig01_02_alpha_sweep  # noqa: E402
 from repro_torch.figures import fig03_06_m_p_sweeps  # noqa: E402
 from repro_torch.figures import fig07_08_multiple_rr  # noqa: E402
 from repro_torch.figures import fig10_11_trace  # noqa: E402
 from repro_torch.figures import fig12_15_poisson_model2  # noqa: E402
+from repro_torch.figures import fig17_22_markov_mdp  # noqa: E402
 from repro_torch.core.policies.alpha_rr import alpha_rr_init  # noqa: E402
+from repro_torch.core.policies.baselines import table_form  # noqa: E402
 from repro_torch.core.policies.offline_opt import (dp_fetch_matrix,  # noqa: E402
                                                    dp_frontier0)
 from repro_torch.core.simulator import sim_acc0  # noqa: E402
@@ -191,13 +226,16 @@ KERNEL_SYMBOLS = {
     "normal_chunk": "counter_stream_kernel<kNormal>",
     "ge_bernoulli_chunk": "ge_chain_kernel<EMIT>",
     "arma_rents_chunk": "arma_rents_kernel",
-    "poisson_chunk": "poisson_knuth_kernel",
+    "poisson_chunk": "poisson_kernel<SALT, STATES>",
+    "poisson_chunk rejection": "poisson_kernel<SALT, STATES> (Hormann)",
     "model2_service_chunk": "model2_service_kernel",
     "dp_fwd_model1": "dp_fwd_kernel<K, ARGS, false>",
     "dp_fwd_model2": "dp_fwd_kernel<K, ARGS, true>",
     "dp_minplus": "dp_minplus_kernel",
-    "sim_chunk_alpha_rr": "sim_alpha_rr_kernel<K, false>",
-    "sim_chunk_alpha_rr_svc": "sim_alpha_rr_kernel<K, true>",
+    "sim_chunk_alpha_rr": "sim_kernel<K, false, false>",
+    "sim_chunk_alpha_rr_svc": "sim_kernel<K, true, false>",
+    "sim_chunk_table": "sim_kernel<K, false, true>",
+    "sim_chunk_table_svc": "sim_kernel<K, true, true>",
     "flash_attention_wgmma": "flash_fwd_wgmma_kernel",
     "flash_attention_fma": "flash_fwd_fma_kernel",
     "ssd_scan_mma": "ssd_scan_mma_kernel",
@@ -346,6 +384,8 @@ def ge_na(B, device):
 # the Model-2 fan-out: Poisson rates cycled over the instances, spot rents
 # at Figs 12-15's mean, Model-2 service of up to 24 requests a slot
 M2_LAMS, M2_RENT, M2_MAX = (2.0, 4.0, 8.0), 4.5, 24
+# Figs 17-22's service cap (the Markov leg's)
+MARKOV_MAX = fig17_22_markov_mdp.MAX_PER_SLOT
 
 
 def model2_scenario(grid, device):
@@ -646,6 +686,10 @@ def kernel_checks(dev):
     rec["arma_rents_chunk"] = arma_checks(dev, R, chunk, clock, n_sm,
                                           sass["normal_chunk"])
     rec.update(svc_kernel_checks(dev, clock, n_sm, sass))
+    mrec, markov_svc = markov_kernel_checks(dev, clock, n_sm, sass)
+    rec.update(mrec)
+    rec["model2_service_chunk"].update(
+        {f"markov_{k}": v for k, v in markov_svc.items()})
 
     # slab data shared by D and S
     gen = scen.init_fn(scen.params)
@@ -1228,7 +1272,383 @@ def svc_kernel_checks(dev, clock, n_sm, sass):
 
 
 # ----------------------------------------------------------------------
-# Phase 10: kernels F and M against their plain versions.
+# Phase 2, Figs 17-22: P's Poisson variant at rates of 10 and above
+# (Hormann's rejection), the service draws at 260 requests a slot, and S's
+# table variant (static, MDP, ABC).
+# ----------------------------------------------------------------------
+
+REJECTION_LAMS = (10.0, 10.5, 37.0, 200.0, 1e5)
+# the float32 operations of one Hormann round past its five threefry
+# blocks (an FMA counts 2), estimated from the source (hosting.cu:
+# hormann_round, xla_lgamma1pf), not counted in the SASS: the two
+# uniforms' mappings (10), the k arithmetic (a division, the FMA, the
+# floor: ~15) and the quick tests (~8); a round that reaches the s <= t
+# test adds XLA's log of its ratio (two divisions), lgamma (eight
+# divisions, the Lanczos adds, log1p, a division, log, the FMA) and t:
+# LGAMMA_ROUND_OPS, each division ~10 ops.  Their time at the float32
+# peak stands beside the integer-pipe bound, not added to it: the two
+# pipes issue side by side
+HORMANN_ROUND_OPS = 33
+LGAMMA_ROUND_OPS = 25 + 2 * 10 + 8 * 10 + 8 + 35 + 10 + 25 + 6
+# of one table step past its staging: the observation (a compare or two
+# selects and the clip), the lookup's index and load, and the
+# accounting's ~10 ops
+TABLE_STEP_OPS = 6 + 2 + 10
+# the rows on which the service draws' plain version runs at the Markov
+# leg's shape (its 260 words a slot in int64 fill the card at 4,096 rows)
+SVC_ROWS = 128
+
+
+def markov_instances(n_inst):
+    """fig17_22's instances cycled to ``n_inst``: instance i takes regime i
+    % 3 and (M, c) sweep point (i // 3) % 7 -- (costs, GE chains, mean
+    rents)."""
+    regimes = list(fig17_22_markov_mdp.REGIMES.values())
+    sweep = list(dict.fromkeys(
+        [(50.0, cm) for cm in fig17_22_markov_mdp.C_SWEEP]
+        + [(M, 20.0) for M in fig17_22_markov_mdp.M_SWEEP]))
+    costs, ges, cms = [], [], []
+    for i in range(n_inst):
+        M, cm = sweep[(i // 3) % len(sweep)]
+        lo, hi = sc.spot_bounds(cm)
+        costs.append(HostingCosts.three_level(
+            M, fig17_22_markov_mdp.ALPHA, fig17_22_markov_mdp.G_ALPHA,
+            c_min=lo, c_max=hi))
+        ges.append(GilbertElliot(emission="poisson", **regimes[i % 3]))
+        cms.append(cm)
+    return costs, ges, cms
+
+
+def markov_scenario(grid, ges, cms, device):
+    """GE-Poisson arrivals at each instance's regime (rates 200 / 10),
+    spot rents at its mean and Model-2 service of up to 260 requests a
+    slot on ``grid``'s g; per-instance keys."""
+    B = grid.B
+    f32 = lambda v: np.asarray(v, np.float32)            # noqa: E731
+    keys = [sc.split_keys(sc.prng_key(s, device), B) for s in (12, 13, 14)]
+    return sc.combine(
+        sc.ge_arrivals(keys[0], f32([g.p_hl for g in ges]),
+                       f32([g.p_lh for g in ges]),
+                       f32([g.rate_h for g in ges]),
+                       f32([g.rate_l for g in ges]), B, device=device),
+        sc.spot_rents(keys[1], f32(cms), B, device=device),
+        svc=sc.model2_service(keys[2], grid.g, B, MARKOV_MAX, device=device))
+
+
+def fig_chunks_same(dev, same):
+    """Figs 17-22's own chunks, in the default layout: its 21 instances x 4
+    seeds = 84 rows over T = 3,000 in the six chunks of 512 that the figure
+    runs (the last one's horizon ends after 440 slots), the figure's
+    scenario drawn chunk by chunk with the generators' state carried.  At
+    every chunk the Poisson draws (salt 1, the GE chain's states, rates 200
+    / 10), the service draws at 260 on K = 3 and S's table variant for MDP
+    and ABC, on the slab's own levels and on RR's endpoint columns (its
+    state carried from chunk to chunk), each against its plain version by
+    ``same(name, kernel, plain, what)``."""
+    fig = fig17_22_markov_mdp
+    T, chunk = 3000, fig.CHUNK
+    costs, ges, cms, _, scenario_fn = fig.instances(0, dev)
+    grid = HostingGrid.from_costs(costs, device=dev)
+    scen = sc.replicate_seeds(scenario_fn(grid), N_SEEDS)
+    arr, sv = scen.params["arr"], scen.params["svc"]
+    rgrid = grid.repeat_rows(N_SEEDS)
+    R = rgrid.B
+    rep = lambda t: t.repeat_interleave(N_SEEDS, dim=0)   # noqa: E731
+    T_len = torch.full((R,), T, dtype=torch.int32, device=dev)
+    ends = [HostingCosts.two_level(cc.M, cc.c_min, cc.c_max) for cc in costs]
+    lanes = []                  # (label, policy, levels, M, columns)
+    for lbl, g_, cs_, cols in (
+            ("own levels", grid, costs, None),
+            ("RR's endpoint columns", grid.restrict_to_endpoints(), ends,
+             rgrid.endpoint_columns())):
+        for pol in (MDPPolicy.batch(g_, cs_, ges, cms),
+                    ABCPolicy.batch(g_, cs_, ges, cms)):
+            pol = pol._replace(params={k: rep(v)
+                                       for k, v in pol.params.items()})
+            lanes.append((f"{pol.name}, {lbl}", pol, rep(g_.levels),
+                          rep(g_.M), cols))
+    carries = [(pol.init_fn(pol.params), sim_acc0(R, lv.shape[1], dev))
+               for _, pol, lv, _, _ in lanes]
+    state = scen.init_fn(scen.params)
+    for i in range(-(-T // chunk)):
+        t0 = i * chunk
+        tids = sc.base.chunk_tids(t0, chunk, dev)
+        state, slab = scen.chunk_fn(scen.params, state, tids)
+        what = f"Figs 17-22's chunk at t0={t0}"
+        p_args = (arr["key"], tids, arr["rate_l"], 1, slab.side,
+                  arr["rate_h"])
+        same("poisson_chunk rejection", H.poisson_chunk(*p_args),
+             H.poisson_chunk_plain(*p_args), what)
+        m_args = (sv["key"], tids, slab.x, sv["g"], MARKOV_MAX)
+        svc = H.model2_service_chunk(*m_args)
+        same("model2_service_chunk 260", svc,
+             H.model2_service_chunk_plain(*m_args), what)
+        require(torch.equal(svc, slab.svc), f"{what}: the figure's service "
+                                            f"slab differs")
+        for j, (lbl, pol, lv, M, cols) in enumerate(lanes):
+            a = (*table_form(pol.step_fn, pol.params, lv.shape[1]), lv, M,
+                 T_len, t0, carries[j], slab.x, slab.c, slab.side, slab.svc,
+                 cols, True, True)
+            k = H.sim_chunk_table_svc(*a)
+            same("sim_chunk_table_svc", k, H.sim_chunk_table_svc_plain(*a),
+                 f"{what}, {lbl}")
+            carries[j] = k[0]
+
+
+def markov_kernel_checks(dev, clock, n_sm, sass):
+    """P's Poisson variant at rates of 10 and above, the service draws at
+    260 requests a slot and S's table variant against their plain
+    versions, bit for bit.  Reduced slabs in both layouts (256 rows x
+    1,024 slots; 253 rows from an odd t0 x 1,001 slots; 256 rows x one
+    slot at the top of the counters): Poisson rates {10, 10.5, 37, 200,
+    1e5} a row, rows mixing 0, 2, 9.99, 10 and 200, and the salted GE form
+    at 200 / 10 over two chunks with the chain's state carried; the
+    service draws at 260 with slots past 260; the table variant for
+    static, MDP and ABC under Model 1 and on the Model-2 slab (its own
+    levels, and RR's endpoint columns), with and without the trace and
+    the final fetch, at K = 3, 2 and 16.  Then Figs 17-22's own chunks
+    (``fig_chunks_same``) and the Markov leg's slab (4,096 rows x 4,096
+    slots, K = 3), each kernel timed there against its bound and its plain
+    version's one call.  Returns their records."""
+    R, chunk = N_M * N_ALPHA * N_SEEDS, CHUNK
+    rows = 256
+    t0 = T_MAIN - chunk
+    gen = torch.Generator(device="cpu").manual_seed(23)
+    keys = sc.split_keys(sc.prng_key(15, dev), rows)
+    lam = torch.from_numpy(np.resize(np.float32(REJECTION_LAMS), rows)).to(
+        dev)
+    mixed = torch.from_numpy(np.resize(np.float32(
+        [0.0, 2.0, 9.99, 10.0, 200.0]), rows)).to(dev)
+    slabs = [("256 rows x 1,024 slots", rows, t0, 1024),
+             ("253 rows, odd t0, 1,001 slots", rows - 3, t0 + 1, 1001),
+             ("256 rows, one slot", rows, 2 ** 31 - 1, 1)]
+    names = ("poisson_chunk rejection", "model2_service_chunk 260",
+             "sim_chunk_table", "sim_chunk_table_svc")
+    n_cmp = {k: 0 for k in names}
+
+    def same(name, k, p, what):
+        torch.cuda.synchronize()
+        require(tree_equal(k, p), f"{name} differs from its plain version "
+                                  f"({what})")
+        n_cmp[name] += 1
+
+    def table_same(grid, cols, n_rows, T_len, first, x, c, side, svc, what,
+                   odd):
+        """S's table variant for static, MDP and ABC on ``grid`` (its
+        endpoint lane with ``cols``), under Model 1 (``svc`` None) or on
+        the slab; the trace and the final fetch on for every other policy
+        (``odd`` shifts which)."""
+        lane = grid.restrict_to_endpoints() if cols is not None else grid
+        lv, M = lane.levels, lane.M
+        costs, ges, cms = markov_instances(n_rows)
+        if cols is not None:                     # the endpoint lane's own
+            costs = [HostingCosts.two_level(cc.M, cc.c_min, cc.c_max)
+                     for cc in costs]
+        pols = [StaticPolicy.batch(lane, lane.top_index()),
+                MDPPolicy.batch(lane, costs, ges, cms),
+                ABCPolicy.batch(lane, costs, ges, cms)]
+        for i, pol in enumerate(pols):
+            flag = (i + odd) % 2 == 0
+            carry = (pol.init_fn(pol.params), sim_acc0(n_rows, lane.K, dev))
+            lbl = f"{what}, {pol.name}, K={lane.K}, trace {flag}"
+            tab = table_form(pol.step_fn, pol.params, lane.K)
+            if svc is None:
+                a = (*tab, lv, lane.g, M, T_len, first, carry, x, c, side,
+                     flag, flag)
+                same("sim_chunk_table", H.sim_chunk_table(*a),
+                     H.sim_chunk_table_plain(*a), lbl)
+            else:
+                a = (*tab, lv, M, T_len, first, carry, x, c, side, svc,
+                     cols, flag, flag)
+                same("sim_chunk_table_svc", H.sim_chunk_table_svc(*a),
+                     H.sim_chunk_table_svc_plain(*a), lbl)
+
+    for part in (True, False):
+        lay = "partitionable" if part else "original"
+        for label, n_rows, first, n in slabs:
+            tt = sc.base.chunk_tids(first, n, dev)
+            kk = keys[:n_rows].contiguous()
+            for lm, what in ((lam, "rates >= 10"), (mixed, "mixed rates")):
+                ll = lm[:n_rows].contiguous()
+                x = H.poisson_chunk(kk, tt, ll, partitionable=part)
+                same("poisson_chunk rejection", x,
+                     H.poisson_chunk_plain(kk, tt, ll, partitionable=part),
+                     f"{label}, {what}, {lay}")
+            x = x.clone()
+            x[::4, ::3] = 300                        # past the 260 cap
+            grids = svc_grids(dev, n_rows)
+            T_len = torch.randint(first, first + 2 * n, (n_rows,),
+                                  generator=gen).clamp_max(2 ** 31 - 1).to(
+                                      torch.int32).to(dev)
+            c = (torch.rand((n_rows, n), generator=gen) * 300).to(dev)
+            side = torch.randint(-1, 3, (n_rows, n), generator=gen,
+                                 dtype=torch.int32).to(dev)
+            for grid in (grids[0], grids[2]):
+                gr = HostingGrid(*sub_rows((grid.M, grid.levels, grid.g,
+                                            grid.mask), n_rows))
+                svc = H.model2_service_chunk(kk, tt, x, gr.g, MARKOV_MAX,
+                                             part)
+                same("model2_service_chunk 260", svc,
+                     H.model2_service_chunk_plain(kk, tt, x, gr.g,
+                                                  MARKOV_MAX, part),
+                     f"{label}, K={gr.K}, {lay}")
+                table_same(gr, None, n_rows, T_len, first, x, c, side, None,
+                           f"{label}, Model 1, {lay}", 0)
+                for odd, cols in enumerate((None, gr.endpoint_columns())):
+                    table_same(gr, cols, n_rows, T_len, first, x, c, side,
+                               svc, f"{label}, Model 2, {lay}", odd)
+        # the salted GE form at the figure's rates, two chunks in a row
+        ge = sc.ge_arrivals(keys, 0.4, 0.4, 200.0, 10.0, rows, device=dev)
+        s, pp = ge.init_fn(ge.params)["s"], ge.params
+        for first, n in ((t0, 1000), (t0 + 1000, 1001)):
+            tt = sc.base.chunk_tids(first, n, dev)
+            s, states, _ = H.ge_bernoulli_chunk(
+                pp["key"], tt, s, pp["p_hl"], pp["p_lh"], pp["rate_h"],
+                pp["rate_l"], part, emit=False)
+            same("poisson_chunk rejection",
+                 H.poisson_chunk(pp["key"], tt, pp["rate_l"], 1, states,
+                                 pp["rate_h"], part),
+                 H.poisson_chunk_plain(pp["key"], tt, pp["rate_l"], 1,
+                                       states, pp["rate_h"], part),
+                 f"GE 200 / 10, t0={first}, {n} slots, {lay}")
+        log(f"Figs 17-22 kernels ok: Poisson rejection, service at 260, S's "
+            f"table variant on reduced slabs, {lay} layout")
+    fig_chunks_same(dev, same)
+    log(f"Figs 17-22 kernels ok at the figure's chunks; compared {n_cmp}")
+
+    # the Markov leg's slab at the fleet's shape: timed, and held against
+    # the plain versions there too
+    costs, ges, cms = markov_instances(N_M * N_ALPHA)
+    grid = HostingGrid.from_costs(costs, device=dev)
+    scen = sc.replicate_seeds(markov_scenario(grid, ges, cms, dev), N_SEEDS)
+    tids = sc.base.chunk_tids(t0, chunk, dev)
+    _, slab = scen.chunk_fn(scen.params, scen.init_fn(scen.params), tids)
+    arr, sv = scen.params["arr"], scen.params["svc"]
+    rgrid = grid.repeat_rows(N_SEEDS)
+    rep = lambda t: t.repeat_interleave(N_SEEDS, dim=0)   # noqa: E731
+    alu_block = sass["slot_uniform"][0] / 2     # ALU-pipe ops a block
+    N = R * chunk
+    fleet = "the Markov leg's slab"
+    rec = {}
+
+    def bound_int(blocks):
+        return blocks * alu_block / (64 * n_sm * clock * 1e3)
+
+    p_args = (arr["key"], tids, arr["rate_l"], 1, slab.side, arr["rate_h"])
+    x = H.poisson_chunk(*p_args)
+    plain_ms, xp = timed_once(lambda: H.poisson_chunk_plain(*p_args))
+    same("poisson_chunk rejection", x, xp, fleet)
+    a0, a1 = H._slot_keys(arr["key"], tids, 1)
+    rate = torch.where(slab.side == 1, arr["rate_h"][:, None],
+                       arr["rate_l"][:, None])
+    _, rounds, slow = H.poisson_rejection_plain(a0, a1, rate, stats=True)
+    del a0, a1, rate
+    blocks = 2 * N + 5 * rounds
+    float_ms = (slow * LGAMMA_ROUND_OPS + rounds * HORMANN_ROUND_OPS) / (
+        256 * n_sm * clock * 1e3)
+    rec["poisson_chunk rejection"] = dict(
+        replaces="src/repro/core/scenarios/streams.py:98",
+        consumer="src/repro/core/scenarios/streams.py:98",
+        ms=cuda_ms(lambda: H.poisson_chunk(*p_args), reps=7, batch=5),
+        plain_ms=plain_ms, sm_clock_mhz=clock, mean_rounds=rounds / N,
+        lgamma_share=slow / rounds, alu_ops_per_block=alu_block,
+        int_pipe_bound_ms=bound_int(blocks), float_work_ms=float_ms,
+        ops=79 * blocks + HORMANN_ROUND_OPS * rounds
+        + LGAMMA_ROUND_OPS * slow,
+        nbytes=nbytes(*(a for a in p_args if isinstance(a, torch.Tensor)),
+                      x),
+        shape=f"R={R} chunk={chunk}, the GE states' rates 200 / 10 (salt "
+              f"1), partitionable layout; "
+              f"{n_cmp['poisson_chunk rejection']} calls compared, this one "
+              f"included")
+    m_args = (sv["key"], tids, slab.x, sv["g"], MARKOV_MAX)
+    out = H.model2_service_chunk(*m_args)
+    # the plain version hashes [rows, slots, 260] int64 words, which do not
+    # fit the card at 4,096 rows: it is held and timed on the first 128
+    sub_k, sub_x, sub_g = sub_rows((sv["key"], slab.x, sv["g"]), SVC_ROWS)
+    plain_ms, outp = timed_once(lambda: H.model2_service_chunk_plain(
+        sub_k, tids, sub_x, sub_g, MARKOV_MAX))
+    same("model2_service_chunk 260", out[:SVC_ROWS], outp,
+         f"{fleet}, its first {SVC_ROWS} rows")
+    require(torch.equal(out, slab.svc), "the Markov leg's service slab "
+                                        "differs from model2_service_chunk's")
+    n_live = torch.clamp(slab.x, 0, MARKOV_MAX)
+    live = float(n_live.double().sum())
+    live_slots = float((n_live > 0).double().sum())
+    markov_svc = dict(
+        ms=cuda_ms(lambda: H.model2_service_chunk(*m_args), reps=7, batch=3),
+        plain_ms=plain_ms, live_requests_per_slot=live / N,
+        int_pipe_bound_ms=bound_int(live_slots + live),
+        plain_rows=SVC_ROWS)
+    del out, outp
+    T_len = torch.full((R,), T_MAIN, dtype=torch.int32, device=dev)
+    mdp = MDPPolicy.batch(grid, costs, ges, cms)
+    abc = ABCPolicy.batch(grid, costs, ges, cms)
+    mdp = mdp._replace(params={k: rep(v) for k, v in mdp.params.items()})
+    abc = abc._replace(params={k: rep(v) for k, v in abc.params.items()})
+    recs = {}
+    for pol in (mdp, abc):
+        carry = (pol.init_fn(pol.params), sim_acc0(R, rgrid.K, dev))
+        a = (*table_form(pol.step_fn, pol.params, rgrid.K), rgrid.levels,
+             rgrid.M, T_len, t0, carry, slab.x, slab.c, slab.side, slab.svc,
+             None, True, False)
+        k = H.sim_chunk_table_svc(*a)
+        plain_ms, p = timed_once(lambda: H.sim_chunk_table_svc_plain(*a))
+        same("sim_chunk_table_svc", k, p, f"{fleet}, {pol.name}")
+        recs[pol.name] = dict(
+            ms=cuda_ms(lambda: H.sim_chunk_table_svc(*a), reps=10,
+                       batch=10),
+            plain_ms=plain_ms, args=a, out=k)
+    # Model 1 on the same rows: MDP on the slab's arrivals and its side
+    a1_ = (*table_form(mdp.step_fn, mdp.params, rgrid.K), rgrid.levels,
+           rgrid.g, rgrid.M, T_len, t0,
+           (mdp.init_fn(mdp.params), sim_acc0(R, rgrid.K, dev)), slab.x,
+           slab.c, slab.side, True, False)
+    k1 = H.sim_chunk_table(*a1_)
+    plain1_ms, p1 = timed_once(lambda: H.sim_chunk_table_plain(*a1_))
+    same("sim_chunk_table", k1, p1, f"{fleet}, MDP, Model 1")
+    ms1 = cuda_ms(lambda: H.sim_chunk_table(*a1_), reps=10, batch=10)
+    K = rgrid.K
+    for name, r_, args, carry, out, extra in (
+            ("sim_chunk_table_svc", recs["MDP"], recs["MDP"]["args"],
+             recs["MDP"]["args"][7], recs["MDP"]["out"], (slab.svc,)),
+            ("sim_chunk_table", dict(ms=ms1, plain_ms=plain1_ms), a1_,
+             a1_[8], k1, (slab.x, rgrid.g))):
+        (st, acc), _ = out
+        pi = args[0]
+        rec[name] = dict(
+            replaces="src/repro/core/simulator.py:147", ms=r_["ms"],
+            plain_ms=r_["plain_ms"], sm_clock_mhz=clock,
+            cycles_per_slot=r_["ms"] * 1e-3 * clock * 1e6 / chunk,
+            ops=N * TABLE_STEP_OPS,
+            nbytes=nbytes(pi, rgrid.levels, rgrid.M, T_len,
+                          *carry[0].values(), *carry[1].values(),
+                          slab.c, slab.side, *extra, *st.values(),
+                          *acc.values()),
+            shape=f"R={R} chunk={chunk} K={K}, MDP (the side channel), no "
+                  f"trace; {n_cmp[name]} calls compared, this one included")
+    rec["sim_chunk_table_svc"]["abc_ms"] = recs["ABC"]["ms"]
+    for name, r in rec.items():
+        r["max_abs_err"] = 0.0
+        log(f"{name} timed: {r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms"
+            + (f", integer-pipe bound {r['int_pipe_bound_ms']:.4f} ms "
+               f"({r['int_pipe_bound_ms'] / r['ms']:.1%}); its float work "
+               f"(estimated) {r['float_work_ms']:.4f} ms at the float32 peak"
+               if "int_pipe_bound_ms" in r else "")
+            + (f", ABC {r['abc_ms']:.4f} ms" if "abc_ms" in r else ""))
+    pr = rec["poisson_chunk rejection"]
+    log(f"   Poisson (Hormann): {pr['mean_rounds']:.4f} rounds a draw, "
+        f"{pr['lgamma_share']:.4f} of them reach lgamma; service at "
+        f"{MARKOV_MAX} requests a slot: {markov_svc['ms']:.4f} ms, "
+        f"{markov_svc['live_requests_per_slot']:.3f} live requests a slot, "
+        f"integer-pipe bound {markov_svc['int_pipe_bound_ms']:.4f} ms, "
+        f"plain {markov_svc['plain_ms']:.1f} ms on {SVC_ROWS} rows; "
+        f"compared {n_cmp}")
+    return rec, markov_svc
+
+
+# ----------------------------------------------------------------------
+# Phase 11: kernels F and M against their plain versions.
 # ----------------------------------------------------------------------
 
 # Tolerances.  fp32 outputs, normwise: max |kernel - plain| <= tol *
@@ -1455,7 +1875,7 @@ def lm_kernel_checks(dev):
 
 
 # ----------------------------------------------------------------------
-# Phases 6 to 9: the policy fan-out and the paper's figures.
+# Phases 6 to 10: the policy fan-out, the figures, the fan-out legs.
 # ----------------------------------------------------------------------
 
 FIG_KERNELS = {
@@ -1475,13 +1895,19 @@ FIG_KERNELS = {
     # Model 2: Poisson arrivals, the service draws, S on the slab (no DP)
     "fig12_15": ("poisson_chunk", "model2_service_chunk", "normal_chunk",
                  "arma_rents_chunk", "sim_chunk_alpha_rr_svc"),
+    # GE-Poisson at 200 / 10 (the rejection branch), Model-2 service, S
+    # for alpha-RR / RR and S's table variant for MDP and ABC (no DP)
+    "fig17_22": ("ge_bernoulli_chunk", "slot_uniform", "poisson_chunk",
+                 "model2_service_chunk", "normal_chunk", "arma_rents_chunk",
+                 "sim_chunk_alpha_rr_svc", "sim_chunk_table_svc"),
 }
 # (module, fleet rows at the defaults: grid points x 4 seeds, T)
 FIGURES = {"fig01_02": (fig01_02_alpha_sweep, 40, 10000),
            "fig03_06": (fig03_06_m_p_sweeps, 88, 8000),
            "fig07_08": (fig07_08_multiple_rr, 20, 8000),
            "fig10_11": (fig10_11_trace, 40, 8000),
-           "fig12_15": (fig12_15_poisson_model2, 76, 6000)}
+           "fig12_15": (fig12_15_poisson_model2, 76, 6000),
+           "fig17_22": (fig17_22_markov_mdp, 84, 3000)}
 
 
 def fanout_results_equal(a, b, fields=("total", "rent", "service", "fetch",
@@ -1535,7 +1961,7 @@ def fanout_checks(dev):
 
 
 def figures(dev, timings):
-    """The paper's Figs 1-8 at the reference's default sizes on the card:
+    """The paper's Figs 1-22 at the reference's default sizes on the card:
     ``run()`` REPEATS times (launches counted over the first), the rows'
     shape, finite values and the port's ``check(rows)``.  Returns the
     launch counts of each figure's first run."""
@@ -1687,12 +2113,99 @@ def model2_fanout_leg(dev, timings):
     return launched
 
 
+def markov_fanout_leg(dev, timings):
+    """Figs 17-22's path at the fleet leg's width: 1,024 instances x 4
+    seeds = 4,096 rows, T = 65,536 in chunks of 4,096; the three regimes
+    cycled over the instances (GE-Poisson at 200 / 10), alpha 0.16, g
+    0.76, the figure's (M, c) sweep cycled, spot rents, Model-2 service
+    of up to 260 requests a slot; alpha-RR and RR (its endpoint columns)
+    as one fan-out, MDP and ABC each their own ``run_fleet``, as the
+    figure runs them.  Each fan-out lane equals its standalone run (RR's
+    on a service stream drawn on the endpoint grid); then card == CPU on
+    the same runs at 16 instances x 4 seeds, T = 1,024.  Returns the
+    launch counts of its first run."""
+    costs, ges, cms = markov_instances(N_M * N_ALPHA)
+    grid = HostingGrid.from_costs(costs, device=dev)
+    fleet = FleetBatch.for_scenario(grid, T_MAIN)
+    ends = fleet.restrict_to_endpoints()
+    scen = markov_scenario(grid, ges, cms, dev)
+    kw = dict(scenario=scen, chunk_size=CHUNK, n_seeds=N_SEEDS,
+              collect_trace=False, device=dev)
+    lanes = [AlphaRR.fleet_lane(fleet, with_svc=True),
+             RetroRenting.fleet_lane(fleet, with_svc=True)]
+    mdp = MDPPolicy.fleet(fleet, costs, ges, cms)
+    abc = ABCPolicy.fleet(fleet, costs, ges, cms)
+
+    def run():
+        return (run_fleet(lanes, fleet, **kw), run_fleet(mdp, fleet, **kw),
+                run_fleet(abc, fleet, **kw))
+
+    ops.reset_launches()
+    out, (launched, plain) = timed_passes({"run": run}, dev, "markov",
+                                          timings, counted=True)
+    fan, rm, ra = out["run"]
+    n = T_MAIN // CHUNK
+    want = {"ge_bernoulli_chunk": 3 * n, "slot_uniform": 3,
+            "poisson_chunk": 3 * n, "poisson_chunk rejection": 3 * n,
+            "model2_service_chunk": 3 * n,
+            "arma_rents_chunk": 3 * n, "normal_chunk": 3,
+            "sim_chunk_alpha_rr_svc": 2 * n, "sim_chunk_table_svc": 2 * n}
+    got = {k: v for k, v in launched.items() if v}
+    require(got == want and not any(plain.values()),
+            f"Markov leg launched {got}, expected {want}; plain {plain}")
+    alone = [run_fleet(AlphaRR.fleet(fleet), fleet, **kw),
+             run_fleet(RetroRenting.fleet(fleet), ends, **{
+                 **kw, "scenario": markov_scenario(ends.grid, ges, cms,
+                                                   dev)})]
+    view = fan.policy_view
+    for p in range(2):
+        K = alone[p].level_slots.shape[1]
+        require(np.array_equal(view(fan.total)[p], alone[p].total)
+                and np.array_equal(view(fan.service)[p], alone[p].service)
+                and np.array_equal(view(fan.level_slots)[p][:, :K],
+                                   alone[p].level_slots),
+                f"Markov fan-out lane {p} differs from its standalone run")
+    tot = [view(fan.total)[0], view(fan.total)[1], rm.total, ra.total]
+    require(all(np.isfinite(t).all() and (t > 0).all() for t in tot)
+            and all((r.level_slots.sum(1) == T_MAIN).all()
+                    for r in (fan, rm, ra)),
+            "Markov leg: results not finite or out of order")
+    log(f"Markov leg: {fan.B // 2} rows x 2 lanes + MDP + ABC, T={T_MAIN}: "
+        f"{median_us(timings, 'markov/run'):.1f} us a run (median of "
+        f"{REPEATS}); launches {got}; both lanes == their standalone runs; "
+        f"per-slot means alpha-RR / RR / MDP / ABC "
+        f"{[round(float(t.mean()) / T_MAIN, 6) for t in tot]}")
+    outs = []
+    for d in (dev, "cpu"):
+        c_, g_, m_ = markov_instances(SMALL_INSTANCES)
+        gr = HostingGrid.from_costs(c_, device=d)
+        f = FleetBatch.for_scenario(gr, 1024)
+        k_ = dict(scenario=markov_scenario(gr, g_, m_, d), chunk_size=256,
+                  n_seeds=N_SEEDS, device=d)
+        t = time.perf_counter()
+        outs.append((
+            run_fleet([AlphaRR.fleet_lane(f, with_svc=True),
+                       RetroRenting.fleet_lane(f, with_svc=True)], f, **k_),
+            run_fleet(MDPPolicy.fleet(f, c_, g_, m_), f, **k_),
+            run_fleet(ABCPolicy.fleet(f, c_, g_, m_), f, **k_)))
+        wall = time.perf_counter() - t
+    require(all(fanout_results_equal(a, b) for a, b in zip(*outs)),
+            "card != CPU: the Markov leg")
+    log(f"card == CPU: Markov leg, {outs[0][1].B} rows, T=1024, fan-out, "
+        f"MDP and ABC ({wall:.1f} s on the CPU)")
+    return launched
+
+
 # ----------------------------------------------------------------------
-# Phases 10 to 12: the LM serving path.
+# Phases 12 and 13: the LM serving path.
 # ----------------------------------------------------------------------
 
 def launch_counts():
-    return {k.__name__: k.launches for k in ops.KERNELS}
+    """Every kernel's launches, and (``poisson_chunk rejection``) the
+    Poisson launches in which the kernel drew an item on Hormann's
+    branch, as the kernel counts them."""
+    return {**{k.__name__: k.launches for k in ops.KERNELS},
+            "poisson_chunk rejection": H.poisson_rejection_launches()}
 
 
 def card_calls():
@@ -1850,6 +2363,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     dev = DEVICE
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1889,7 +2403,8 @@ def main() -> int:
     for name in ("dp_minplus", "slot_uniform", "na_rents_chunk",
                  "ge_bernoulli_chunk", "normal_chunk", "arma_rents_chunk",
                  "poisson_chunk", "model2_service_chunk", "dp_fwd_model2",
-                 "sim_chunk_alpha_rr_svc"):
+                 "sim_chunk_alpha_rr_svc", "sim_chunk_table",
+                 "sim_chunk_table_svc"):
         require(main_launches[name] == 0,
                 f"{name} ran on the Bernoulli leg of the fleet path")
     require(not any(main_plain.values()),
@@ -1915,7 +2430,8 @@ def main() -> int:
             "bernoulli_arrivals_chunk": 0, "uniform_rents_chunk": 0,
             "dp_minplus": 0, "normal_chunk": 0, "arma_rents_chunk": 0,
             "poisson_chunk": 0, "model2_service_chunk": 0,
-            "dp_fwd_model2": 0, "sim_chunk_alpha_rr_svc": 0}
+            "dp_fwd_model2": 0, "sim_chunk_alpha_rr_svc": 0,
+            "sim_chunk_table": 0, "sim_chunk_table_svc": 0}
     for name, n in want.items():
         require(ge_launches[name] == n, f"{name} launched "
                                         f"{ge_launches[name]} times on the "
@@ -1950,30 +2466,42 @@ def main() -> int:
             f"T={T_SMALL} ({timings[f'small-{label}-cpu/alpha-RR'][0]:.1f} "
             f"s alpha-RR on the CPU)")
 
-    # phases 6 to 9: the policy fan-out on the card, the paper's Figs 1-8
-    # and 10-15, the fan-out at the fleet leg's width, the Model-2 fan-out
-    # at that width; each counted path adds its launches
+    # phases 6 to 10: the policy fan-out on the card, the paper's Figs
+    # 1-8, 10-15 and 17-22, the fan-out at the fleet leg's width, the
+    # Model-2 fan-out and the Markov fan-out at that width; each counted
+    # path adds its launches
     fanout_checks(dev)
-    for counts in figures(dev, timings) + [fanout_leg(dev, timings),
-                                           model2_fanout_leg(dev, timings)]:
+    fig_counts = figures(dev, timings)
+    legs = [fanout_leg(dev, timings), model2_fanout_leg(dev, timings),
+            markov_fanout_leg(dev, timings)]
+    for counts in fig_counts + legs:
         for k in launches:
             launches[k] += counts[k]
+    # Hormann's branch ran in Figs 17-22 and the Markov leg (rates 200 /
+    # 10), and nowhere else (every other Poisson rate is below 10)
+    rej = "poisson_chunk rejection"
+    for name, counts in zip(list(FIGURES) + ["fan-out", "Model-2", "Markov"],
+                            fig_counts + legs):
+        on = name in ("fig17_22", "Markov")
+        require((counts[rej] > 0) == on and counts[rej] <= counts[
+            "poisson_chunk"], f"{name}: {counts[rej]} Poisson launches on "
+                              f"Hormann's branch of {counts['poisson_chunk']}")
     for k in (H.normal_chunk, H.arma_rents_chunk, H.poisson_chunk,
               H.model2_service_chunk, H.dp_fwd_model2,
-              H.sim_chunk_alpha_rr_svc):
+              H.sim_chunk_alpha_rr_svc, H.sim_chunk_table_svc):
         require(launches[k.__name__] > 0, f"{k.__name__} never launched")
 
-    # phase 10: F and M against their plain versions
+    # phase 11: F and M against their plain versions
     rec.update(lm_kernel_checks(dev))
 
-    # phase 11: the LM serving path at full width and depth
+    # phase 12: the LM serving path at full width and depth
     serve_launches = serving_path(dev, timings)
     log(f"serving path launches: {serve_launches}")
     for k in (FA.flash_attention_wgmma, FA.flash_attention_fma,
               SSD.ssd_scan_mma, SSD.ssd_scan_fma):
         launches[k.__name__] = serve_launches[k.__name__]
 
-    # phase 12: card == CPU for the serving path
+    # phase 13: card == CPU for the serving path
     serving_card_vs_cpu(dev)
     log(f"timings (us; a card run the median of {REPEATS} passes, a CPU "
         f"run and the serving path one): " + json.dumps(
@@ -1997,7 +2525,10 @@ def main() -> int:
                     "cols_ms", "cols_plain_ms", "mean_rounds",
                     "alu_ops_per_block",
                     "live_requests_per_slot", "live_slots_share",
-                    "pass_fill",
+                    "pass_fill", "lgamma_share", "float_work_ms", "abc_ms",
+                    "markov_ms", "markov_plain_ms", "markov_plain_rows",
+                    "markov_live_requests_per_slot",
+                    "markov_int_pipe_bound_ms",
                     "sm_clock_mhz", "cycles_per_slot", "consumer",
                     "alu_ops_per_slot", "ops_per_slot", "int_pipe_bound_ms",
                     "issue_bound_ms", "salt_ms", "salt_alu_ops_per_slot",
@@ -2006,6 +2537,7 @@ def main() -> int:
             if key in r:
                 entry[key] = r[key]
         kernels.append(entry)
+    log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,8 @@
 two-state Markov-modulated arrival chain, with its stationary law and its
 fleet stream.  The whole-horizon array builders of the reference
 (``bernoulli``, ``poisson``, ``cluster_trace_like``, the adversarial
-constructions) come with the rest of the sampler slice (ROADMAP.md, Queue
-1 item 3c)."""
+constructions) come with the rest of ``arrivals.py`` (ROADMAP.md, Queue
+1 items 2 and 12)."""
 from __future__ import annotations
 
 import dataclasses

@@ -39,14 +39,14 @@ issues the hash's adds on the FMA pipe, leaving the integer ALU pipe to the
 rotates and xors (``csrc/hosting.cu``).
 
 * ``_poisson_chunk`` and ``_ge_emit``'s Poisson emissions (``jax.random.
-  poisson``, Knuth's branch: a key split, a uniform and XLA's ``log`` a
-  round) -> ``poisson_chunk``, whose lanes take the next staged draw as
-  soon as theirs ends; a GE-Poisson chunk runs
-  the chain on ``ge_bernoulli_chunk`` first (``emit=False``: the states
-  only).  Rates of 10 and above take
-  jax's rejection branch, which is not ported: the constructors raise
-  (ROADMAP.md, Queue 1 item 3c), as ``bursty_arrivals`` does for a
-  diurnal period.
+  poisson``: Knuth's branch below rate 10, a key split, a uniform and
+  XLA's ``log`` a round; Hormann's rejection at 10 and above, a three-way
+  split, two uniforms and XLA's ``log`` and ``lgamma`` a round) ->
+  ``poisson_chunk``, whose lanes take the next staged draw as soon as
+  theirs ends; a GE-Poisson chunk runs the chain on ``ge_bernoulli_chunk``
+  first (``emit=False``: the states only).  ``bursty_arrivals`` with a
+  diurnal period (XLA's ``sin``) is not ported and raises (ROADMAP.md,
+  Queue 1 items 2 and 12, the rest of ``arrivals.py``).
 * ``_model2_chunk_fn`` (a shaped ``uniform(k, (R,))`` a slot, compared
   with every level's g) -> ``model2_service_chunk``, which draws only the
   slot's live requests.
@@ -132,8 +132,7 @@ def _ge_chunk_poisson(params, state, tids):
 def ge_arrivals(key, p_hl, p_lh, rate_h, rate_l, B: int,
                 emission: str = "poisson", device=None) -> Stream:
     """Gilbert-Elliot Markov-modulated arrivals; ``side`` carries the chain
-    state (1 = H).  Poisson emissions need both rates below 10 (the port
-    has Knuth's branch of ``jax.random.poisson`` only)."""
+    state (1 = H), which is what the MDP / ABC baselines observe."""
     chunk = {"poisson": _ge_chunk_poisson,
              "bernoulli": _ge_chunk_bernoulli}.get(emission)
     if chunk is None:
@@ -144,8 +143,6 @@ def ge_arrivals(key, p_hl, p_lh, rate_h, rate_l, B: int,
               "p_lh": bcast(p_lh, B, _F32, dev),
               "rate_h": bcast(rate_h, B, _F32, dev),
               "rate_l": bcast(rate_l, B, _F32, dev)}
-    if emission == "poisson":
-        hosting.check_knuth_rates(params["rate_h"], params["rate_l"])
     return Stream(f"ge-{emission}", "arrivals", _ge_init, chunk, params,
                   has_side=True)
 
@@ -156,13 +153,11 @@ def _poisson_chunk(params, state, tids):
 
 
 def poisson_arrivals(key, lam, B: int, device=None) -> Stream:
-    """Poisson(lam) arrivals, ``lam`` scalar or per-instance [B], each
-    below 10."""
+    """Poisson(lam) arrivals, ``lam`` scalar or per-instance [B]."""
     dev = resolve_device(device)
-    lam = bcast(lam, B, _F32, dev)
-    hosting.check_knuth_rates(lam)
     return Stream("poisson", "arrivals", _no_state, _poisson_chunk,
-                  {"key": as_keys(key, B, dev), "lam": lam})
+                  {"key": as_keys(key, B, dev), "lam": bcast(lam, B, _F32,
+                                                             dev)})
 
 
 # burst-exit rate of the bursty (cluster-trace-like) GE background -- public
@@ -180,12 +175,13 @@ def bursty_arrivals(key, B: int, base_rate=2.0, burst_rate=20.0,
                     device=None) -> Stream:
     """The cluster-trace stand-in: GE-Poisson bursts over a low-rate
     background (``arrivals.cluster_trace_like``); its side channel is
-    zeros.  Both rates must be below 10, and the diurnal remodulation
-    (``diurnal_period != 0``, XLA's ``sin``) is not ported."""
+    zeros.  The diurnal remodulation (``diurnal_period != 0``, XLA's
+    ``sin``) is not ported."""
     if diurnal_period:
         raise NotImplementedError(
             "bursty_arrivals(diurnal_period != 0) draws through XLA's sin, "
-            "which is not ported: ROADMAP.md, Queue 1 item 3c")
+            "which is not ported: ROADMAP.md, Queue 1 items 2 and 12 (the "
+            "rest of arrivals.py)")
     ge = ge_arrivals(key, p_hl=BURSTY_EXIT_P, p_lh=burst_p,
                      rate_h=burst_rate, rate_l=base_rate, B=B, device=device)
     return Stream("bursty", "arrivals", _ge_init, _bursty_chunk, ge.params)

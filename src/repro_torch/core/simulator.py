@@ -11,8 +11,9 @@ rows, carrying ``(policy state, accumulator)`` across chunks.  Slots past a
 row's own horizon ``T_len`` add exactly 0.0 and freeze the state, so mixed
 horizons and any chunking give the reference's bits.  Here it is a plain
 Python loop over the chunk's slots on [R] tensors; ``sim_chunk`` sends
-alpha-RR (and RR, its K=2 case) to kernel S instead, under Model-1 service
-and on a Model-2 slab alike.
+alpha-RR (and RR, its K=2 case) to kernel S instead, and the static, MDP
+and ABC policies to kernel S's table variant, under Model-1 service and on
+a Model-2 slab alike.
 """
 from __future__ import annotations
 
@@ -23,8 +24,10 @@ import torch
 
 from repro_torch.core.policies.alpha_rr import alpha_rr_step
 from repro_torch.core.policies.base import PolicyFns, SlotObs, freeze_invalid
+from repro_torch.core.policies.baselines import TABLE_STEPS, table_form
 from repro_torch.kernels.hosting import (gather_svc, sim_chunk_alpha_rr,
-                                         sim_chunk_alpha_rr_svc)
+                                         sim_chunk_alpha_rr_svc,
+                                         sim_chunk_table, sim_chunk_table_svc)
 
 
 @dataclasses.dataclass
@@ -108,9 +111,12 @@ def sim_chunk(policy: PolicyFns, include_final_fetch: bool, lv, g, M, T_len,
     alpha-RR runs as kernel S (the kernel on the card, its plain version on
     the CPU): under Model-1 service ``kernels.hosting.sim_chunk_alpha_rr``,
     on a Model-2 slab ``sim_chunk_alpha_rr_svc``, which gathers a lane's
-    columns through ``svc_cols`` [R, K] itself.  Every other policy runs
-    the plain loop."""
-    if policy.step_fn is alpha_rr_step:
+    columns through ``svc_cols`` [R, K] itself.  The static, MDP and ABC
+    policies run as S's table variant (``sim_chunk_table`` /
+    ``sim_chunk_table_svc`` on their ``table_form``).  Any other policy
+    runs the plain loop."""
+    step = policy.step_fn
+    if step is alpha_rr_step:
         if slab.svc is None:
             return sim_chunk_alpha_rr(policy.params, lv, g, M, T_len, t0,
                                       carry, slab.x, slab.c,
@@ -118,6 +124,15 @@ def sim_chunk(policy: PolicyFns, include_final_fetch: bool, lv, g, M, T_len,
         return sim_chunk_alpha_rr_svc(policy.params, lv, M, T_len, t0, carry,
                                       slab.c, slab.svc, svc_cols,
                                       include_final_fetch, collect_trace)
+    if step in TABLE_STEPS:
+        table = table_form(step, policy.params, lv.shape[1])
+        if slab.svc is None:
+            return sim_chunk_table(*table, lv, g, M, T_len, t0, carry,
+                                   slab.x, slab.c, slab.side,
+                                   include_final_fetch, collect_trace)
+        return sim_chunk_table_svc(*table, lv, M, T_len, t0, carry, slab.x,
+                                   slab.c, slab.side, slab.svc, svc_cols,
+                                   include_final_fetch, collect_trace)
     svc = (model1_svc(slab.x, g) if slab.svc is None
            else gather_svc(slab.svc, svc_cols))
     carry, r = sim_chunk_core(policy.step_fn, include_final_fetch,

@@ -11,4 +11,6 @@ on the CPU; ``check(rows)`` is a copy of the reference module's check.
   spot rents.
 * ``fig12_15_poisson_model2`` -- Model-2 service under Poisson arrivals:
   histograms and cost vs M and vs the rent.
+* ``fig17_22_markov_mdp`` -- Model-2 service under GE-Poisson arrivals:
+  alpha-RR and RR against the MDP and ABC baselines in three regimes.
 """

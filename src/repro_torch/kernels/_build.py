@@ -13,7 +13,7 @@ Flags per library:
 
 * ``hosting`` (kernel P's stream variants, the ARMA, Poisson and Model-2
   service kernels, D (fused, under both service models, and on a finished
-  w), S (under both)):
+  w), S (alpha-RR and the table variant, under both)):
   ``--fmad=false``, because those kernels
   are held bit for bit against the reference, which fixes which
   multiply-adds are one FMA (written as ``__fmaf_rn``) and which are two
@@ -63,6 +63,11 @@ LIBRARIES = {
         # include_final_fetch, r_out, S_out, age_out, sums_out, counts_out,
         # r_hist, stream
         "launch_sim_alpha_rr": (_P,) * 16 + (_I,) * 6 + (_P,) * 7,
+        # pi, thr, lv, g, M, T_len, r, sums, counts, x, c, o, svc, cols
+        # (thr / g / x / o / svc / cols NULL where unused), obs, S, t0,
+        # chunk, R, K, Kf, include_final_fetch, r_out, sums_out,
+        # counts_out, r_hist, stream
+        "launch_sim_table": (_P,) * 14 + (_I,) * 8 + (_P,) * 5,
         # keys, tids, lam, lam_h, states, out, work, R, chunk, salt,
         # partitionable, stream
         "launch_poisson": (_P,) * 7 + (_I,) * 4 + (_P,),

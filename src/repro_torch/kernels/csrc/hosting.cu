@@ -12,7 +12,8 @@
 //      arma_rents_kernel   the ARMA(p, q) rents over one chunk: producer
 //                          warps draw the normals into an mbarrier ring,
 //                          one walker lane a row runs the recursion behind
-//      poisson_knuth_kernel  jax.random.poisson (Knuth's branch) a slot, at
+//      poisson_kernel      jax.random.poisson a slot (Knuth's branch below
+//                          rate 10, Hormann's rejection at and above), at
 //                          a per-row rate or the GE states' per-slot rates:
 //                          lanes refilled from staged slot keys
 //      model2_service_kernel  the Model-2 service costs of one chunk (the
@@ -22,9 +23,11 @@
 //                          Model 1 (dp_fwd_model1) or a Model-2 service
 //                          slab (dp_fwd_model2)
 //      dp_minplus          the same recursion on a finished w (K <= 32)
-//   S  sim_alpha_rr_kernel  one chunk of the per-slot alpha-RR simulation,
-//                          under Model 1 (sim_chunk_alpha_rr) or on a
-//                          Model-2 service slab (sim_chunk_alpha_rr_svc)
+//   S  sim_kernel<K, SVC, TABLE>  one chunk of the per-slot simulation,
+//                          alpha-RR (sim_chunk_alpha_rr) or a table policy
+//                          (static, MDP, ABC: sim_chunk_table), under
+//                          Model 1 or on a Model-2 service slab (the _svc
+//                          wrappers)
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC
@@ -236,8 +239,10 @@ __device__ __forceinline__ float xla_logf(float v) {
                                         : out;
 }
 
-__device__ __forceinline__ float xla_erf_invf(float u) {
-  const float x = u * -u;
+// XLA's log1p: the rational approximation where |x| < sqrt(2) - 1 (its
+// Horner steps FMAs; x2 * -0.5 is exact, so that sum is one rounding
+// either way), else log(1 + x)
+__device__ __forceinline__ float xla_log1pf(float x) {
   const float x2 = x * x;
   float num = 4.527e-05f;
   num = __fmaf_rn(num, x, 0.49854103f);
@@ -254,7 +259,11 @@ __device__ __forceinline__ float xla_erf_invf(float u) {
   den = __fmaf_rn(den, x, 216.42789f);
   den = __fmaf_rn(den, x, 60.11866f);
   const float near0 = x + (x2 * -0.5f + (x * x2) * __fdiv_rn(num, den));
-  const float l1p = fabsf(x) < 0.41421357f ? near0 : xla_logf(x + 1.0f);
+  return fabsf(x) < 0.41421357f ? near0 : xla_logf(x + 1.0f);
+}
+
+__device__ __forceinline__ float xla_erf_invf(float u) {
+  const float l1p = xla_log1pf(u * -u);
   const bool lt = l1p > -5.0f;
   const float w = lt ? -2.5f - l1p : __fsqrt_rn(-l1p) + -3.0f;
   float p = lt ? 2.8102264e-08f : -0.00020021426f;
@@ -267,6 +276,26 @@ __device__ __forceinline__ float xla_erf_invf(float u) {
   p = __fmaf_rn(p, w, lt ? 0.24664073f : 1.001674f);
   p = __fmaf_rn(p, w, lt ? 1.5014094f : 2.8329768f);
   return u * (fabsf(u) == 1.0f ? __int_as_float(0x7F800000) : p);
+}
+
+// XLA's float32 lgamma(z + 1) for an integer z >= 0 (the rejection draw's
+// k, where XLA folds (k + 1) - 1 to k): the Lanczos sum (g = 7, base 1 in
+// float32) in order, log_t = log1p(z / 7.5) + log(7.5) (XLA multiplies by
+// the reciprocal), then fma((z + 0.5) - (z + 7.5) / log_t, log_t,
+// log(sqrt(2 pi))) + log(sum), the one FMA XLA contracts there
+__device__ __forceinline__ float xla_lgamma1pf(float z) {
+  float s = 1.0f;
+  s = s + __fdiv_rn(676.5204f, z + 1.0f);
+  s = s + __fdiv_rn(-1259.1392f, z + 2.0f);
+  s = s + __fdiv_rn(771.3234f, z + 3.0f);
+  s = s + __fdiv_rn(-176.61504f, z + 4.0f);
+  s = s + __fdiv_rn(12.507343f, z + 5.0f);
+  s = s + __fdiv_rn(-0.1385711f, z + 6.0f);
+  s = s + __fdiv_rn(0.000009984369f, z + 7.0f);
+  s = s + __fdiv_rn(0.00000015056327f, z + 8.0f);
+  const float log_t = xla_log1pf(z * 0.13333334f) + 2.014903f;
+  const float q = __fdiv_rn(z + 7.5f, log_t);
+  return __fmaf_rn((z + 0.5f) - q, log_t, 0.9189385f) + xla_logf(s);
 }
 
 // (scale * sqrt(2)) * erf_inv(u) for the [0, 1) uniform f of a draw: u =
@@ -726,31 +755,44 @@ __global__ void __launch_bounds__(ArmaShape<ROWS>::kThreads)
 }
 
 // ---------------------------------------------------------------------
-// P: poisson_knuth_kernel, jax.random.poisson on per-slot keys (Knuth's
-// branch, rates below 10).  No TPU kernel: the reference draws through
-// XLA's while loop of jax.random.poisson (jax/_src/random.py:
-// _poisson_knuth) on per-slot keys (src/repro/core/scenarios/streams.py:
-// _poisson_chunk :80, _ge_emit :92).
+// P: poisson_kernel, jax.random.poisson on per-slot keys: Knuth's branch
+// below rate 10 (and at NaN), Hormann's transformed rejection at 10 and
+// above, a per-item branch.  No TPU kernel: the reference draws through
+// XLA's while loops of jax.random.poisson (jax/_src/random.py:
+// _poisson_knuth, _poisson_rejection) on per-slot keys
+// (src/repro/core/scenarios/streams.py: _poisson_chunk :80, _ge_emit :92).
 //
 // Per row and slot j (counter t = tids[j]): key = fold_in(key[row], t)
 // (then fold_in(., salt) with SALT); the rate lam[row], or with STATES
 // (the GE chain's states[row, j]) lam_h[row] in state 1 and lam[row] in
-// state 0.  While log_prod > -lam: (key, sub) = split(key), log_prod +=
-// xla_logf(uniform of sub), rounds += 1.  out = lam == 0 ? 0 : rounds - 1.
-// split is two threefry blocks in either layout (partitionable: the
-// counters (0, 0) and (0, 1); original: (0, 2) and (1, 3), key' their
-// first words, sub their second), the uniform a third.  XLA computes the
-// log inside the loop's fusion exactly as xla_logf, and the add after it
-// as a single rounded add.  A draw depends only on its own key and rate
-// (vmapped, jax freezes a finished lane), so the order in which the
-// items are drawn changes no bit.
+// state 0.
+//  - Knuth (lam < 10): while log_prod > -lam: (key, sub) = split(key),
+//    log_prod += xla_logf(uniform of sub), rounds += 1; out = lam == 0 ?
+//    0 : rounds - 1.  split is two threefry blocks in either layout
+//    (partitionable: the counters (0, 0) and (0, 1); original: (0, 2) and
+//    (1, 3), key' their first words, sub their second), the uniform a
+//    third.  XLA computes the log inside the loop's fusion exactly as
+//    xla_logf, and the add after it as a single rounded add.
+//  - Hormann (lam >= 10): the rate's constants once (RejRate, at
+//    staging), then rounds until the first acceptance (hormann_round):
+//    split(key, 3) (three blocks; original layout: the counters 0 .. 5 in
+//    halves, the words regrouped in pairs), two uniforms (two blocks), k
+//    = floor(fma(2a / us + b, u, lam) + 0.43), the quick accept / reject
+//    tests, and only where they decide nothing s = log(v inv_alpha / (a /
+//    us^2 + b)) against t = fma(k, log lam, -lam) - lgamma(k + 1); out =
+//    k.  sqrt, / and the three FMAs are where XLA rounds and contracts.
+// A draw depends only on its own key and rate (vmapped, jax freezes a
+// finished lane), so the order in which the items are drawn changes no
+// bit.
 //
-// Bound: integer operations, three threefry blocks a round and one (two
-// with SALT) a slot for its key; the mean round count is lam + 1 (5.66
-// at the Model-2 leg's rates {2, 4, 8}), so ~0.79 ms at 4,096 x 4,096 on
-// the H100's integer ALU pipe.  With one thread a slot a warp runs as
-// long as its slowest lane (the largest of 32 draws, ~1.7-2x the mean
-// here), which held that design at 43% of the bound (1.85 ms).
+// Bound: integer operations, the threefry blocks: one (two with SALT) a
+// slot for its key; three a Knuth round; five a Hormann round (mean
+// rounds ~1.1-1.2 at the figures' rates 10 and 200), plus its float
+// work, about the ops of two logs, a log1p, nine divisions and the
+// Lanczos sum where the quick tests do not decide.  With one thread a
+// slot a warp runs as long as its slowest lane (the largest of 32
+// draws, ~1.7-2x the mean for Knuth), which held that design at 43% of
+// the bound (1.85 ms at 4,096 x 4,096, rates {2, 4, 8}).
 //
 // Design: lanes refilled from staged tickets.  The grid is one wave of
 // blocks (what the SMs hold), and its warps take tickets from a counter
@@ -762,29 +804,31 @@ __global__ void __launch_bounds__(ArmaShape<ROWS>::kThreads)
 // tools/compare_hosting.py).
 //  - Staging: the warp hashes a ticket's slot keys (the fold_ins, the
 //    salt) slot-parallel into one of its two shared buffers, with one
-//    state bit a slot (STATES, a ballot a 32 slots): uniform work, no
-//    divergence; the row's rates stay in warp-uniform registers.
-//  - Rounds: every lane holding an item runs one Knuth round
-//    (knuth_round); a lane whose draw ended writes its count over the
-//    item's key in the buffer.  The idle lanes (one ballot a round) take
-//    the next items of the current buffer in lane order (__popc of the
-//    idle lanes below, no atomics) and load their staged keys and rates;
-//    an item that needs no round (lam == 0) ends at once.  When the
-//    buffer is handed out, the warp takes a ticket into the other buffer
-//    and goes on refilling from it while the old buffer's last draws
-//    finish; that buffer's counts are stored (coalesced) before it is
-//    staged again, after a round if a lane still holds one of its items.
-// Measured (chip_smoke.py; H100 80GB HBM3, 700 W, 4,096 x 4,096): 1.20
-// ms, 66% of the integer-pipe bound.  Left: what a round issues beyond
-// its hashes' ALU-pipe ops (the round's log, its loop, the refill's
-// ballot and selects), the lanes a laggard keeps idle, each warp's final
-// drain and the wave's last tickets.  A later
-// variable-round branch (the rejection sampler for rates >= 10) fits the
-// same frame: a per-item branch in the item state and its own round.
+//    state bit a slot (STATES, a ballot a 32 slots), and the row's two
+//    rates' Hormann constants: uniform work, no divergence.
+//  - Rounds: every lane holding an item runs one round of its item's
+//    branch (knuth_round or hormann_round); a lane whose draw ended
+//    writes its count over the item's key in the buffer.  The idle lanes
+//    (one ballot a round) take the next items of the current buffer in
+//    lane order (__popc of the idle lanes below, no atomics) and load
+//    their staged keys, rates and (Hormann) constants; an item that needs
+//    no round (lam == 0) ends at once.  When the buffer is handed out,
+//    the warp takes a ticket into the other buffer and goes on refilling
+//    from it while the old buffer's last draws finish; that buffer's
+//    counts are stored (coalesced) before it is staged again, after a
+//    round if a lane still holds one of its items.
+// Measured (chip_smoke.py; H100 80GB HBM3, 700 W, 4,096 x 4,096, Knuth
+// at rates {2, 4, 8}): 1.20 ms, 66% of the integer-pipe bound.  Left:
+// what a round issues beyond its hashes' ALU-pipe ops (the round's log,
+// its loop, the refill's ballot and selects), the lanes a laggard keeps
+// idle, each warp's final drain and the wave's last tickets; a Hormann
+// round diverges from a Knuth one within a warp only on rows that mix
+// the branches.
 // ---------------------------------------------------------------------
 
 constexpr int kPoisWarps = 8;              // warps a block
 constexpr int kPoisSpan = 128;             // slots a staging buffer holds
+constexpr float kKnuthMax = 10.0f;         // Knuth below, Hormann at/above
 
 struct PoissonArgs {
   const long long* keys;   // [R, 2]
@@ -793,7 +837,9 @@ struct PoissonArgs {
   const float* lam_h;      // [R] the state-1 rate (STATES)
   const int* states;       // [R, chunk] (STATES)
   int* out;                // [R, chunk]
-  unsigned* work;          // the ticket counter, 0 at the launch
+  unsigned* work;          // [0] the ticket counter, [1] set when a Hormann
+                           // item ran (both 0 at the launch), [2] the
+                           // launches that ran one
   int R, chunk, salt, partitionable;
   int span;                // slots a ticket (a multiple of 32, <= kPoisSpan)
   int spans_per_row;       // ceil(chunk / span)
@@ -838,10 +884,63 @@ __device__ __forceinline__ bool knuth_round(uint32_t& a0, uint32_t& a1,
   return !(log_prod > neg);
 }
 
+// Hormann's per-rate constants, as XLA computes them before its loop:
+// b = fma(sqrt(lam), 2.53, 0.931), a = fma(b, 0.02483, -0.059),
+// inv_alpha = 1.1328 / fma(sqrt(lam), 2.53, 0.931 - 3.4) + 1.1239, v_r =
+// 0.9277 - 3.6224 / fma(sqrt(lam), 2.53, 0.931 - 2) (XLA folds b - c into
+// the FMA's constant), log_lam = XLA's log
+struct RejRate {
+  float log_lam, b, a, inv_alpha, v_r;
+};
+
+__device__ __forceinline__ RejRate rej_rate(float lam) {
+  const float sq = __fsqrt_rn(lam);
+  RejRate q;
+  q.log_lam = xla_logf(lam);
+  q.b = __fmaf_rn(sq, 2.53f, 0.931f);
+  q.a = __fmaf_rn(q.b, 0.02483f, -0.059f);
+  q.inv_alpha = __fdiv_rn(1.1328f, __fmaf_rn(sq, 2.53f, -2.469f)) + 1.1239f;
+  q.v_r = 0.9277f - __fdiv_rn(3.6224f, __fmaf_rn(sq, 2.53f, -1.069f));
+  return q;
+}
+
+// one round of Hormann's rejection on the key (a0, a1) at rate -neg; true
+// once a k is accepted (then in k)
+__device__ __forceinline__ bool hormann_round(uint32_t& a0, uint32_t& a1,
+                                              const RejRate& q, float neg,
+                                              bool part, uint32_t one,
+                                              float& k) {
+  // split(key, 3): three blocks, the key and two subkeys
+  uint32_t x0 = 0u, x1 = part ? 0u : 3u;
+  uint32_t y0 = part ? 0u : 1u, y1 = part ? 1u : 4u;
+  uint32_t z0 = part ? 0u : 2u, z1 = part ? 2u : 5u;
+  threefry2x32(a0, a1, x0, x1, one);
+  threefry2x32(a0, a1, y0, y1, one);
+  threefry2x32(a0, a1, z0, z1, one);
+  uint32_t s0, s1, w0, w1;
+  if (part) {                       // key i: the block of counter (0, i)
+    a0 = x0; a1 = x1; s0 = y0; s1 = y1; w0 = z0; w1 = z1;
+  } else {                          // the words x0 y0 z0 x1 y1 z1 in pairs
+    a0 = x0; a1 = y0; s0 = z0; s1 = x1; w0 = y1; w1 = z1;
+  }
+  const float u = uniform_of(s0, s1, part, one) - 0.5f;
+  const float v = uniform_of(w0, w1, part, one);
+  const float us = 0.5f - fabsf(u);
+  const float lam = -neg;
+  k = floorf(__fmaf_rn(__fdiv_rn(q.a * 2.0f, us) + q.b, u, lam) + 0.43f);
+  if (us >= 0.07f && v <= q.v_r) return true;             // accept1
+  if (k < 0.0f || (us < 0.013f && v > us)) return false;  // reject
+  const float sl = xla_logf(
+      __fdiv_rn(v * q.inv_alpha, __fdiv_rn(q.a, us * us) + q.b));
+  const float t = __fmaf_rn(k, q.log_lam, neg) - xla_lgamma1pf(k);
+  return sl <= t;                                         // accept2
+}
+
 // a warp's staging buffer: one ticket's slots
 struct PoisBuf {
   uint2 key[kPoisSpan];          // the slot keys; a finished count in .x
   uint32_t hi[kPoisSpan / 32];   // STATES: bit l of word m, slot 32 m + l
+  RejRate rate[2];               // the row's two rates' Hormann constants
 };
 
 // a staged ticket (warp-uniform)
@@ -859,17 +958,19 @@ __device__ __forceinline__ long long pois_ticket(const PoissonArgs& p,
   return (long long)__shfl_sync(kFullMask, t, 0);
 }
 
-// stage ticket t into B: its slot keys, hashed slot-parallel, and the
-// state bits
+// stage ticket t into B: its slot keys, hashed slot-parallel, the state
+// bits and the row's Hormann constants (rates of 10 and above); rej is set
+// if one of its items is drawn on Hormann's branch (warp-uniform)
 template <bool SALT, bool STATES>
 __device__ __forceinline__ PoisSpan pois_stage(const PoissonArgs& p,
                                                PoisBuf& B, long long t,
-                                               int lane) {
+                                               int lane, bool& rej) {
   const long long row = t / p.spans_per_row;
   const int j0 = (int)(t - row * p.spans_per_row) * p.span;
   const int n = min(p.span, p.chunk - j0);
   const uint32_t k0 = (uint32_t)p.keys[2 * row];
   const uint32_t k1 = (uint32_t)p.keys[2 * row + 1];
+  int ones = 0;                          // STATES: its slots in state 1
   for (int i0 = 0; i0 < n; i0 += 32) {
     const int i = i0 + lane;
     if (i < n) {
@@ -887,11 +988,17 @@ __device__ __forceinline__ PoisSpan pois_stage(const PoissonArgs& p,
       const unsigned m = __ballot_sync(
           kFullMask, i < n && p.states[row * p.chunk + j0 + i] == 1);
       if (lane == 0) B.hi[i0 >> 5] = m;
+      ones += __popc(m);
     }
   }
+  const float l0 = p.lam[row], l1 = STATES ? p.lam_h[row] : 0.0f;
+  rej |= (l0 >= kKnuthMax && n > ones) || (l1 >= kKnuthMax && ones > 0);
+  if (lane < (STATES ? 2 : 1)) {
+    const float l = lane ? l1 : l0;
+    if (l >= kKnuthMax) B.rate[lane] = rej_rate(l);
+  }
   __syncwarp();
-  return PoisSpan{row * p.chunk + j0, n, -p.lam[row],
-                  STATES ? -p.lam_h[row] : 0.0f};
+  return PoisSpan{row * p.chunk + j0, n, -l0, -l1};
 }
 
 // store the counts of a staged ticket whose items have all finished
@@ -904,7 +1011,7 @@ __device__ __forceinline__ void pois_flush(const PoissonArgs& p,
 
 template <bool SALT, bool STATES>
 __global__ void __launch_bounds__(32 * kPoisWarps)
-    poisson_knuth_kernel(const PoissonArgs p) {
+    poisson_kernel(const PoissonArgs p) {
   __shared__ PoisBuf buf_s[kPoisWarps][2];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   PoisBuf* buf = buf_s[warp];
@@ -916,10 +1023,14 @@ __global__ void __launch_bounds__(32 * kPoisWarps)
   PoisSpan sp0{0, 0, 0.0f, 0.0f}, sp1{0, 0, 0.0f, 0.0f};
   bool pend0 = false, pend1 = false, more = true;
   int cb = 1, next = 0;                  // the buffer handed out, its next
-  // this lane's item: buffer ib (-1: none), slot ii, key, log_prod, rate
+  // this lane's item: buffer ib (-1: none), slot ii, key, -rate, branch;
+  // Knuth: log_prod, rounds; Hormann: the rate's constants
   int ib = -1, ii = 0, rounds = 0;
   uint32_t a0 = 0u, a1 = 0u;
   float log_prod = 0.0f, neg = 0.0f;
+  bool rej = false;
+  RejRate q{0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  bool ran_rej = false;                  // a staged item was Hormann's
   unsigned idle = kFullMask;             // the lanes without an item
   while (true) {
     // hand the idle lanes the next items, staging a ticket when the
@@ -942,7 +1053,8 @@ __global__ void __launch_bounds__(32 * kPoisWarps)
           else pend0 = false;
           break;
         }
-        const PoisSpan sp = pois_stage<SALT, STATES>(p, buf[ob], t, lane);
+        const PoisSpan sp =
+            pois_stage<SALT, STATES>(p, buf[ob], t, lane, ran_rej);
         if (ob) {
           sp1 = sp;
           pend1 = true;
@@ -961,11 +1073,14 @@ __global__ void __launch_bounds__(32 * kPoisWarps)
         a1 = k.y;
         log_prod = 0.0f;
         rounds = 0;
-        const bool h = STATES && ((buf[cb].hi[i >> 5] >> (i & 31)) & 1u);
+        const int h = STATES ? (int)((buf[cb].hi[i >> 5] >> (i & 31)) & 1u)
+                             : 0;
         neg = cb ? (h ? sp1.neg1 : sp1.neg0) : (h ? sp0.neg1 : sp0.neg0);
+        rej = neg <= -kKnuthMax;         // lam >= 10 (NaN: Knuth)
+        if (rej) q = buf[cb].rate[h];
         ib = cb;
         ii = i;
-        if (!(log_prod > neg)) {                 // no round: lam <= 0
+        if (!rej && !(log_prod > neg)) {         // no round: lam <= 0
           buf[cb].key[i].x = neg == 0.0f ? 0u : 0xFFFFFFFFu;
           ib = -1;
         }
@@ -976,14 +1091,25 @@ __global__ void __launch_bounds__(32 * kPoisWarps)
     // the loop above stops with idle lanes only when nothing is left to
     // hand out or a lane still draws: no lane draws means the warp is done
     if (idle == kFullMask) break;
-    if (ib >= 0 && knuth_round(a0, a1, log_prod, rounds, neg, part, p.one)) {
-      buf[ib].key[ii].x = (uint32_t)(neg == 0.0f ? 0 : rounds - 1);
-      ib = -1;
+    if (ib >= 0) {
+      if (rej) {
+        float k;
+        if (hormann_round(a0, a1, q, neg, part, p.one, k)) {
+          buf[ib].key[ii].x = (uint32_t)(int)k;
+          ib = -1;
+        }
+      } else if (knuth_round(a0, a1, log_prod, rounds, neg, part, p.one)) {
+        buf[ib].key[ii].x = (uint32_t)(neg == 0.0f ? 0 : rounds - 1);
+        ib = -1;
+      }
     }
     idle = __ballot_sync(kFullMask, ib < 0);
   }
   if (pend0) pois_flush(p, buf[0], sp0.off, sp0.n, lane);
   if (pend1) pois_flush(p, buf[1], sp1.off, sp1.n, lane);
+  // count the launch once if any of its warps staged a Hormann item
+  if (lane == 0 && ran_rej && atomicCAS(p.work + 1, 0u, 1u) == 0u)
+    atomicAdd(p.work + 2, 1u);
 }
 
 // ---------------------------------------------------------------------
@@ -1392,9 +1518,21 @@ struct TileOf {
 
 // rows padded by 4 words: each row stays 16-byte aligned for the bulk
 // copy, and a warp's 16-byte loads of one column (a lane per row) hit all
-// 32 banks once per quarter warp
-template <int TILE>
-struct RawStage {
+// 32 banks once per quarter warp.  OBS: a third int array, the
+// observation slab that S's table variant reads (the side channel, or
+// the arrivals on a Model-2 slab), staged when one is given: a base
+// class, empty without OBS, so that D's and alpha-RR's stages keep their
+// layout (every array a multiple of 16 bytes).
+template <bool OBS, int W>
+struct ObsRows {
+  int o[kRows][W];
+};
+
+template <int W>
+struct ObsRows<false, W> {};
+
+template <int TILE, bool OBS = false>
+struct RawStage : ObsRows<OBS, TILE + 4> {
   static constexpr int kStride = TILE + 4;
   float c[kRows][kStride];
   int x[kRows][kStride];
@@ -1452,20 +1590,27 @@ __device__ void init_ring(Sm& sm, int bulk) {
 }
 
 // Producer, one warp: copy tile j0 .. j0 + n of rows row0 .. row0 + nrows
-// of c and x into a raw stage.
-template <int TILE>
-__device__ __forceinline__ void stage_raw(RawStage<TILE>& st, uint64_t* bar,
+// of c and x (and, OBS and given, of the observation slab o) into a raw
+// stage.
+template <int TILE, bool OBS = false>
+__device__ __forceinline__ void stage_raw(RawStage<TILE, OBS>& st,
+                                          uint64_t* bar,
                                           const float* __restrict__ c,
                                           const int* __restrict__ x,
                                           int row0, int nrows, int chunk,
-                                          int j0, int n, int bulk, int lane) {
+                                          int j0, int n, int bulk, int lane,
+                                          const int* __restrict__ o) {
+  const bool with_o = OBS && o != nullptr;
   if (bulk) {
-    if (lane == 0) mbar_arrive_expect_tx(bar, (uint32_t)(nrows * n * 8));
+    if (lane == 0)
+      mbar_arrive_expect_tx(bar, (uint32_t)(nrows * n * (with_o ? 12 : 8)));
     __syncwarp();
     if (lane < nrows) {
       const long long off = (long long)(row0 + lane) * chunk + j0;
       bulk_g2s(&st.c[lane][0], c + off, (uint32_t)(n * 4), bar);
       bulk_g2s(&st.x[lane][0], x + off, (uint32_t)(n * 4), bar);
+      if constexpr (OBS)
+        if (with_o) bulk_g2s(&st.o[lane][0], o + off, (uint32_t)(n * 4), bar);
     }
   } else {
     for (int r = 0; r < nrows; ++r) {
@@ -1473,6 +1618,8 @@ __device__ __forceinline__ void stage_raw(RawStage<TILE>& st, uint64_t* bar,
       for (int jj = lane; jj < n; jj += 32) {
         cp_async4(&st.c[r][jj], c + off + jj);
         cp_async4(&st.x[r][jj], x + off + jj);
+        if constexpr (OBS)
+          if (with_o) cp_async4(&st.o[r][jj], o + off + jj);
       }
     }
     cp_async_arrive_noinc(bar);
@@ -1484,16 +1631,19 @@ __device__ __forceinline__ void stage_raw(RawStage<TILE>& st, uint64_t* bar,
 // the stage's last reader has released it.  A lane cooks its own row
 // (lane r: row row0 + r, its params in registers), 16 slots at a time
 // whose raw words it loads first (16-byte loads); cook(out, c, x) writes
-// field f of the (row, slot) at out[f * kRows].  Lanes past R cook
+// field f of the (row, slot) at out[f * kRows] (OBS: cook(out, c, x, o),
+// o the observation slab's word, 0 without one).  Lanes past R cook
 // whatever the raw stage holds, and nobody reads it.
-template <int TILE, int SS, class Sm, class Cook>
+template <int TILE, int SS, bool OBS = false, class Sm, class Cook>
 __device__ void produce(Sm& sm, const float* __restrict__ c,
                         const int* __restrict__ x, int row0, int nrows,
-                        int chunk, int bulk, int lane, Cook cook) {
+                        int chunk, int bulk, int lane, Cook cook,
+                        const int* __restrict__ o = nullptr) {
   const int ntiles = (chunk + TILE - 1) / TILE;
   for (int i = 0; i < ntiles && i < kRawStages; ++i)
-    stage_raw<TILE>(sm.raw[i], &sm.raw_full[i], c, x, row0, nrows, chunk,
-                    i * TILE, min(TILE, chunk - i * TILE), bulk, lane);
+    stage_raw<TILE, OBS>(sm.raw[i], &sm.raw_full[i], c, x, row0, nrows,
+                         chunk, i * TILE, min(TILE, chunk - i * TILE), bulk,
+                         lane, o);
   for (int i = 0; i < ntiles; ++i) {
     const int s = i % kRawStages, cs = i % Sm::NC;
     const int n = min(TILE, chunk - i * TILE);
@@ -1503,13 +1653,18 @@ __device__ void produce(Sm& sm, const float* __restrict__ c,
     float* ck = sm.cooked[cs] + lane;
     const float* rc = sm.raw[s].c[lane];
     const int* rx = sm.raw[s].x[lane];
+    const int* ro = nullptr;
+    if constexpr (OBS) ro = sm.raw[s].o[lane];
     for (int j = 0; j < n; j += 16) {            // TILE is a multiple of 16
       float4 cv[4];
-      int4 xv[4];
+      int4 xv[4], ov[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         cv[u] = *reinterpret_cast<const float4*>(rc + j + 4 * u);
         xv[u] = *reinterpret_cast<const int4*>(rx + j + 4 * u);
+        if constexpr (OBS)
+          ov[u] = o ? *reinterpret_cast<const int4*>(ro + j + 4 * u)
+                    : make_int4(0, 0, 0, 0);
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
@@ -1518,7 +1673,12 @@ __device__ void produce(Sm& sm, const float* __restrict__ c,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int jj = j + 4 * u + e;
-          if (jj < n) cook(ck + jj * SS, cw[e], xw[e]);
+          if constexpr (OBS) {
+            const int ow[4] = {ov[u].x, ov[u].y, ov[u].z, ov[u].w};
+            if (jj < n) cook(ck + jj * SS, cw[e], xw[e], ow[e]);
+          } else {
+            if (jj < n) cook(ck + jj * SS, cw[e], xw[e]);
+          }
         }
       }
     }
@@ -1526,8 +1686,9 @@ __device__ void produce(Sm& sm, const float* __restrict__ c,
     __syncwarp();
     const int nxt = i + kRawStages;
     if (nxt < ntiles)
-      stage_raw<TILE>(sm.raw[s], &sm.raw_full[s], c, x, row0, nrows, chunk,
-                      nxt * TILE, min(TILE, chunk - nxt * TILE), bulk, lane);
+      stage_raw<TILE, OBS>(sm.raw[s], &sm.raw_full[s], c, x, row0, nrows,
+                           chunk, nxt * TILE, min(TILE, chunk - nxt * TILE),
+                           bulk, lane, o);
     mbar_arrive(&sm.full[cs]);
   }
 }
@@ -1547,42 +1708,49 @@ constexpr int svc_bulk_cols() {
   return K > 192 / TILE ? K : 192 / TILE;
 }
 
-template <int TILE, int K>
-struct RawSvcGather {
+template <int TILE, int K, bool OBS>
+struct RawSvcGather : ObsRows<OBS, TILE + 1> {
   float c[kRows][TILE + 1];
   float s[kRows][K * TILE + 1];                // [k][slot] within a row
 };
 
-template <int TILE, int KB>
-struct RawSvcBulk {
+template <int TILE, int KB, bool OBS>
+struct RawSvcBulk : ObsRows<OBS, TILE + 4> {
   float c[kRows][TILE + 4];
   float s[kRows][KB * TILE + 4];               // [slot][Kf] within a row
 };
 
-template <int TILE, int K>
+template <int TILE, int K, bool OBS = false>
 union RawSvcStage {
-  RawSvcGather<TILE, K> g;
-  RawSvcBulk<TILE, svc_bulk_cols<TILE, K>()> b;
+  RawSvcGather<TILE, K, OBS> g;
+  RawSvcBulk<TILE, svc_bulk_cols<TILE, K>(), OBS> b;
 };
 
 // Producer, one warp: copy tile j0 .. j0 + n of rows row0 .. row0 + nrows
 // of c and of the rows' service columns (cols [kRows][K] in shared
-// memory) into a raw stage, by the bulk route (one copy per row and
-// array) or the gather route (lanes over slots, a row at a time).
-template <int TILE, int K>
+// memory), and (OBS and given) of the observation slab o, into a raw
+// stage, by the bulk route (one copy per row and array) or the gather
+// route (lanes over slots, a row at a time).
+template <int TILE, int K, bool OBS = false>
 __device__ __forceinline__ void stage_raw_svc(
-    RawSvcStage<TILE, K>& st, uint64_t* bar, const float* __restrict__ c,
-    const float* __restrict__ svc, int Kf, int (*cols)[K], int row0,
-    int nrows, int chunk, int j0, int n, int bulk, int lane) {
+    RawSvcStage<TILE, K, OBS>& st, uint64_t* bar,
+    const float* __restrict__ c, const float* __restrict__ svc, int Kf,
+    int (*cols)[K], int row0, int nrows, int chunk, int j0, int n, int bulk,
+    int lane, const int* __restrict__ o) {
+  const bool with_o = OBS && o != nullptr;
   if (bulk) {
     if (lane == 0)
-      mbar_arrive_expect_tx(bar, (uint32_t)(nrows * n * (Kf + 1) * 4));
+      mbar_arrive_expect_tx(
+          bar, (uint32_t)(nrows * n * (Kf + (with_o ? 2 : 1)) * 4));
     __syncwarp();
     if (lane < nrows) {
       const long long off = (long long)(row0 + lane) * chunk + j0;
       bulk_g2s(&st.b.c[lane][0], c + off, (uint32_t)(n * 4), bar);
       bulk_g2s(&st.b.s[lane][0], svc + off * Kf, (uint32_t)(n * Kf * 4),
                bar);
+      if constexpr (OBS)
+        if (with_o)
+          bulk_g2s(&st.b.o[lane][0], o + off, (uint32_t)(n * 4), bar);
     }
     return;
   }
@@ -1594,6 +1762,8 @@ __device__ __forceinline__ void stage_raw_svc(
 #pragma unroll
       for (int k = 0; k < K; ++k)
         cp_async4(&st.g.s[r][k * TILE + jj], sp + cols[r][k]);
+      if constexpr (OBS)
+        if (with_o) cp_async4(&st.g.o[r][jj], o + off + jj);
     }
   }
   cp_async_arrive_noinc(bar);
@@ -1609,21 +1779,23 @@ __device__ __forceinline__ void stage_raw_svc(
 // gather: step 1, at k * TILE), read four slots' words before their four
 // cooked stores, and the rows 8g .. 8g + 7 take those slots rotated by g
 // (a bulk stage's rows start 16-byte aligned, so one word of all 32 rows
-// falls in only 8 banks; rotated, with Kf odd, in 32).
-template <int TILE, int SS, int K, class Sm, class Cook>
+// falls in only 8 banks; rotated, with Kf odd, in 32).  OBS: cook(out, c,
+// s[K], o), o the observation slab's word (0 without one).
+template <int TILE, int SS, int K, bool OBS = false, class Sm, class Cook>
 __device__ void produce_svc(Sm& sm, const float* __restrict__ c,
                             const float* __restrict__ svc, int Kf, int row0,
                             int nrows, int chunk, int bulk, bool ident,
-                            int lane, Cook cook) {
+                            int lane, Cook cook,
+                            const int* __restrict__ o = nullptr) {
   const int ntiles = (chunk + TILE - 1) / TILE;
   const int step = bulk ? Kf : 1, skew = lane >> 3;
   int at[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) at[k] = bulk ? sm.cols[lane][k] : k * TILE;
   for (int i = 0; i < ntiles && i < kRawStages; ++i)
-    stage_raw_svc<TILE, K>(sm.raw[i], &sm.raw_full[i], c, svc, Kf, sm.cols,
-                           row0, nrows, chunk, i * TILE,
-                           min(TILE, chunk - i * TILE), bulk, lane);
+    stage_raw_svc<TILE, K, OBS>(sm.raw[i], &sm.raw_full[i], c, svc, Kf,
+                                sm.cols, row0, nrows, chunk, i * TILE,
+                                min(TILE, chunk - i * TILE), bulk, lane, o);
   for (int i = 0; i < ntiles; ++i) {
     const int s = i % kRawStages, cs = i % Sm::NC;
     const int n = min(TILE, chunk - i * TILE);
@@ -1633,10 +1805,20 @@ __device__ void produce_svc(Sm& sm, const float* __restrict__ c,
     float* ck = sm.cooked[cs] + lane;
     const float* rc = bulk ? sm.raw[s].b.c[lane] : sm.raw[s].g.c[lane];
     const float* rs = bulk ? sm.raw[s].b.s[lane] : sm.raw[s].g.s[lane];
+    const int* ro = nullptr;
+    if constexpr (OBS) ro = bulk ? sm.raw[s].b.o[lane] : sm.raw[s].g.o[lane];
     if (bulk && ident) {                 // n % 4 == 0 on the bulk route
       for (int j = 0; j < n; j += 4) {
         const float4 c4 = *reinterpret_cast<const float4*>(rc + j);
         const float cw[4] = {c4.x, c4.y, c4.z, c4.w};
+        int ow[4] = {0, 0, 0, 0};
+        if (OBS && o) {
+          const int4 o4 = *reinterpret_cast<const int4*>(ro + j);
+          ow[0] = o4.x;
+          ow[1] = o4.y;
+          ow[2] = o4.z;
+          ow[3] = o4.w;
+        }
         float sf[4 * K];
 #pragma unroll
         for (int q = 0; q < K; ++q) {
@@ -1651,23 +1833,30 @@ __device__ void produce_svc(Sm& sm, const float* __restrict__ c,
           float sv[K];
 #pragma unroll
           for (int k = 0; k < K; ++k) sv[k] = sf[e * K + k];
-          cook(ck + (j + e) * SS, cw[e], sv);
+          if constexpr (OBS) cook(ck + (j + e) * SS, cw[e], sv, ow[e]);
+          else cook(ck + (j + e) * SS, cw[e], sv);
         }
       }
     } else {
       for (int j = 0; j < n; j += 4) {
         float cv[4], sv[4][K];
+        int ov[4] = {0, 0, 0, 0};
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int jj = min(j + ((e + skew) & 3), n - 1);
           cv[e] = rc[jj];
 #pragma unroll
           for (int k = 0; k < K; ++k) sv[e][k] = rs[jj * step + at[k]];
+          if (OBS && o) ov[e] = ro[jj];
         }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int jj = j + ((e + skew) & 3);
-          if (jj < n) cook(ck + jj * SS, cv[e], sv[e]);
+          if constexpr (OBS) {
+            if (jj < n) cook(ck + jj * SS, cv[e], sv[e], ov[e]);
+          } else {
+            if (jj < n) cook(ck + jj * SS, cv[e], sv[e]);
+          }
         }
       }
     }
@@ -1675,9 +1864,10 @@ __device__ void produce_svc(Sm& sm, const float* __restrict__ c,
     __syncwarp();
     const int nxt = i + kRawStages;
     if (nxt < ntiles)
-      stage_raw_svc<TILE, K>(sm.raw[s], &sm.raw_full[s], c, svc, Kf,
-                             sm.cols, row0, nrows, chunk, nxt * TILE,
-                             min(TILE, chunk - nxt * TILE), bulk, lane);
+      stage_raw_svc<TILE, K, OBS>(sm.raw[s], &sm.raw_full[s], c, svc, Kf,
+                                  sm.cols, row0, nrows, chunk, nxt * TILE,
+                                  min(TILE, chunk - nxt * TILE), bulk, lane,
+                                  o);
     mbar_arrive(&sm.full[cs]);
   }
 }
@@ -1893,43 +2083,63 @@ __global__ void __launch_bounds__(64) dp_fwd_kernel(
 }
 
 // ---------------------------------------------------------------------
-// S: sim_alpha_rr_kernel<K, SVC> -- sim_chunk_alpha_rr (Model 1, SVC false)
-// and sim_chunk_alpha_rr_svc (a Model-2 service slab, SVC true: svc[k] is
-// the slab's column cols[k], or k without a map; w = fma(c, lv, svc) and
-// the accounting's service cost svc[r], staged by produce_svc).  New:
-// replaces the XLA lax.scan of
-// sim_chunk_core (src/repro/core/simulator.py:147-227) driving
-// alpha_rr_step (src/repro/core/policies/alpha_rr.py:88-124); no Pallas
-// kernel covered it.
-//
-// Per row and slot it reproduces the reference op for op: the Model-1
-// service x*g, w = fma(c, lv, svc), d = w - w[r], the suffix minima S, the
-// margins fma(M, |lv - lv_r|, S), the +1e-6 tie break, the first-index argmin,
-// margin* < -0.0, freeze_invalid past T_len, the fetch M*max(lv' - lv, 0)
-// (zeroed on the last slot without include_final_fetch), and the
-// sequential float32 adds into sums.
+// S: sim_kernel<K, SVC, TABLE> -- one chunk of the per-slot simulation,
+// the reference's XLA lax.scan of sim_chunk_core
+// (src/repro/core/simulator.py:147-227); no Pallas kernel covered it.
+// Under Model 1 (SVC false: the service x * g) or on a Model-2 service
+// slab (SVC true: svc[k] is the slab's column cols[k], or k without a
+// map, staged by produce_svc), its policy warp steps
+//  - alpha-RR (TABLE false: sim_chunk_alpha_rr / sim_chunk_alpha_rr_svc,
+//    alpha_rr_step, src/repro/core/policies/alpha_rr.py:88-124): the
+//    Model-1 service x*g, w = fma(c, lv, svc), d = w - w[r], the suffix
+//    minima S, the margins fma(M, |lv - lv_r|, S), the +1e-6 tie break,
+//    the first-index argmin, margin* < -0.0;
+//  - or a decision table (TABLE true: sim_chunk_table /
+//    sim_chunk_table_svc, static_step, mdp_step and abc_step,
+//    src/repro/core/policies/baselines.py:45-170): r' = pi[row][s][r],
+//    s the slot's observation, clipped to [0, S - 1]: 0 (static, a one-row
+//    table of its level_idx), the side channel (MDP: the GE chain's
+//    state) or float(x) >= x_threshold[row] (ABC).  The producer stages
+//    that observation as one more [R, chunk] int slab (the side channel;
+//    the arrivals on a Model-2 slab, which Model 1 stages anyway) and
+//    cooks s into the ring.
+// Both: the state frozen past T_len (freeze_invalid), then the
+// accounting, op for op: the rent c * lv_r, the service (one rounded
+// float(x) * g[r], or the slab's column), the fetch M * max(lv' - lv, 0)
+// (zeroed on the last slot without include_final_fetch), sequential
+// float32 adds into sums, frozen past T_len, the level counts.
 //
 // Bound: latency -- a dependency chain of chunk slots per row, with only R
 // rows in flight.  Design: three warps a CTA of 32 rows, each on its own
-// scheduler.  Warp 0 stages x / c by bulk async copies and cooks svc and
-// w (and c, float(x)) into the ring.  Warp 1 walks only the policy's
-// recurrence (select w_r, S, margins, argmin, switch), a row per lane,
-// and writes the level held in each slot into a per-stage ring.  Warp 2
-// does the accounting from that ring (rent, service, fetch in slot order,
-// the counts) off the policy's chain, and stores r_hist as whole row
-// segments.
+// scheduler.  Warp 0 stages x / c (or c and the slab's rows, and the
+// observation) by bulk async copies and cooks each slot's state-free
+// fields into the ring.  Warp 1 walks only the policy's recurrence, a row
+// per lane (alpha-RR: select w_r, S, margins, argmin, switch; a table:
+// one shared-memory lookup a slot), and writes the level held in each
+// slot into a per-stage ring.  Warp 2 does the accounting from that ring
+// (rent, service, fetch in slot order, the counts) off the policy's
+// chain, and stores r_hist as whole row segments.
 // ---------------------------------------------------------------------
 
-template <int K, bool SVC>
+// the observation a table step indexes its table with (TableObs)
+constexpr int kObsNone = 0, kObsSide = 1, kObsX = 2;
+constexpr int kTableMaxS = 2;              // table rows (observed states)
+
+template <int K, bool SVC, bool TABLE>
 struct SimSmem {
-  // SVC cooks twice the fields, so its tiles are those of 2K levels
-  static constexpr int TILE = TileOf<SVC ? 2 * K : K>::value;
-  // w[0..K-1], c, then float(x) (Model 1) or svc[0..K-1] (SVC)
-  static constexpr int NF = SVC ? 2 * K + 1 : K + 2;
+  // cooked fields: alpha-RR w[0..K-1], c, then float(x) (Model 1) or
+  // svc[0..K-1] (SVC); a table step s (int bits), c, then float(x) or
+  // svc[0..K-1].  FC: c's field, FX: float(x)'s or svc[0]'s
+  static constexpr int FC = TABLE ? 1 : K;
+  static constexpr int FX = FC + 1;
+  static constexpr int NF = FX + (SVC ? K : 1);
+  // tiles hold NF + 0..1 fields a slot as TileOf<K> holds K + 2
+  static constexpr int TILE = TileOf<NF - 2 < 1 ? 1 : NF - 2>::value;
   static constexpr int SS = NF * kRows + 1;    // words per cooked slot
   static constexpr int RS = kRows + 1;         // words per slot of rb
-  using Raw = typename std::conditional<SVC, RawSvcStage<TILE, K>,
-                                        RawStage<TILE>>::type;
+  static constexpr int PS = kTableMaxS * K + 1;  // words per row of pi
+  using Raw = typename std::conditional<SVC, RawSvcStage<TILE, K, TABLE>,
+                                        RawStage<TILE, TABLE>>::type;
   // three cooked stages let the policy warp run a tile further ahead of
   // the accounting warp (faster than two at K = 3 on an H100); two where
   // three would not fit the SM's shared memory
@@ -1940,28 +2150,44 @@ struct SimSmem {
   int cols[SVC ? kRows : 1][K];                // SVC: each row's columns
   float cooked[NC][TILE * SS];
   int rb[NC][(TILE + 1) * RS];                 // level held in each slot
+  int pi[TABLE ? kRows : 1][TABLE ? PS : 1];   // TABLE: each row's table
   uint64_t raw_full[kRawStages];
   uint64_t full[NC];
   uint64_t rfull[NC];                          // rb written (32 lanes)
   uint64_t empty[NC];
 };
 
-template <int K, bool SVC>
-__global__ void __launch_bounds__(96) sim_alpha_rr_kernel(
+// the inputs of S: alpha-RR's policy params (plv, mask, pM) and state (S,
+// age), or a table policy's (pi [R, S, K], thr [R], the observation kind
+// and S); the accounting grid (lv, g: Model 1, M), the horizons, the
+// carried level and sums; x and c (Model 1), or c, svc and cols (SVC),
+// and the observation slab o (TABLE)
+struct SimArgs {
+  const void *plv, *mask, *pM, *pi, *thr, *lv, *g, *M, *T_len, *r_in, *S_in,
+      *age_in, *sums_in, *counts_in, *x, *c, *svc, *cols, *o;
+  int obs, S, t0, chunk, R, Kf, include_final_fetch;
+  void *r_out, *S_out, *age_out, *sums_out, *counts_out, *r_hist;
+};
+
+template <int K, bool SVC, bool TABLE>
+__global__ void __launch_bounds__(96) sim_kernel(
     const float* __restrict__ plv_g, const bool* __restrict__ mask_g,
-    const float* __restrict__ pM_g, const float* __restrict__ lv_g,
+    const float* __restrict__ pM_g, const int* __restrict__ pi_g,
+    const float* __restrict__ thr_g, const float* __restrict__ lv_g,
     const float* __restrict__ g_g, const float* __restrict__ M_g,
     const int* __restrict__ Tlen_g, const int* __restrict__ r_in,
     const float* __restrict__ S_in, const int* __restrict__ age_in,
     const float* __restrict__ sums_in, const int* __restrict__ counts_in,
-    const int* __restrict__ x_g, const float* __restrict__ c_g, int t0,
-    int chunk, int R, int include_final_fetch, int* __restrict__ r_out,
+    const int* __restrict__ x_g, const float* __restrict__ c_g,
+    const float* __restrict__ svc_g, const int* __restrict__ cols_g,
+    const int* __restrict__ o_g, int obs, int S_rows, int t0, int chunk,
+    int R, int Kf, int include_final_fetch, int* __restrict__ r_out,
     float* __restrict__ S_out, int* __restrict__ age_out,
     float* __restrict__ sums_out, int* __restrict__ counts_out,
-    int* __restrict__ r_hist, const float* __restrict__ svc_g,
-    const int* __restrict__ cols_g, int Kf, int bulk) {
-  using Sm = SimSmem<K, SVC>;
+    int* __restrict__ r_hist, int bulk) {
+  using Sm = SimSmem<K, SVC, TABLE>;
   constexpr int TILE = Sm::TILE, SS = Sm::SS, RS = Sm::RS;
+  constexpr int FC = Sm::FC, FX = Sm::FX;
   extern __shared__ __align__(128) unsigned char smem_buf[];
   Sm& sm = *reinterpret_cast<Sm*>(smem_buf);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -1977,40 +2203,76 @@ __global__ void __launch_bounds__(96) sim_alpha_rr_kernel(
   }
   __syncthreads();
 
-  // policy params (plv, mask, pM) and the accounting grid (lv, g, M) are
-  // separate inputs, as in the reference (they coincide for every fleet
-  // built by AlphaRR.fleet / RetroRenting.fleet)
+  // policy params and the accounting grid (lv, g, M) are separate inputs,
+  // as in the reference (they coincide for every fleet built by
+  // AlphaRR.fleet / RetroRenting.fleet)
   if (warp == 0) {
-    float plr[K];
+    if constexpr (TABLE) {
+      // the slot's observation: clip(side, 0, S - 1), float(x) >= thr, 0
+      const int smax = S_rows - 1;
+      const float thr = live && obs == kObsX ? thr_g[row] : 0.0f;
+      auto state = [=](int xv, int ov) {
+        const int st = obs == kObsSide ? ov
+                       : obs == kObsX  ? ((float)xv >= thr ? 1 : 0)
+                                       : 0;
+        return __int_as_float(min(max(st, 0), smax));
+      };
+      if constexpr (SVC) {
+        load_cols<K>(sm.cols, cols_g, row, live, lane);
+        produce_svc<TILE, SS, K, true>(
+            sm, c_g, svc_g, Kf, row0, nrows, chunk, bulk,
+            cols_g == nullptr, lane,
+            [&](float* out, float cv, const float(&sv)[K], int ov) {
+              // ABC on a Model-2 slab: the arrivals are the staged slab
+              out[0] = state(ov, ov);
+              out[FC * kRows] = cv;
 #pragma unroll
-    for (int k = 0; k < K; ++k) plr[k] = live ? plv_g[rk + k] : 0.0f;
-    if constexpr (SVC) {
-      load_cols<K>(sm.cols, cols_g, row, live, lane);
-      produce_svc<TILE, SS, K>(
-          sm, c_g, svc_g, Kf, row0, nrows, chunk, bulk, cols_g == nullptr, lane,
-          [&](float* out, float cv, const float(&sv)[K]) {
-#pragma unroll
-            for (int k = 0; k < K; ++k) {
-              out[k * kRows] = __fmaf_rn(cv, plr[k], sv[k]);
-              out[(K + 1 + k) * kRows] = sv[k];
-            }
-            out[K * kRows] = cv;
-          });
+              for (int k = 0; k < K; ++k) out[(FX + k) * kRows] = sv[k];
+            },
+            o_g);
+      } else {
+        produce<TILE, SS, true>(
+            sm, c_g, x_g, row0, nrows, chunk, bulk, lane,
+            [&](float* out, float cv, int xv, int ov) {
+              out[0] = state(xv, ov);
+              out[FC * kRows] = cv;
+              out[FX * kRows] = (float)xv;
+            },
+            o_g);
+      }
     } else {
-      float gr[K];
+      float plr[K];
 #pragma unroll
-      for (int k = 0; k < K; ++k) gr[k] = live ? g_g[rk + k] : 0.0f;
-      produce<TILE, SS>(sm, c_g, x_g, row0, nrows, chunk, bulk, lane,
-                        [&](float* out, float cv, int xv) {
-                          const float xf = (float)xv;
+      for (int k = 0; k < K; ++k) plr[k] = live ? plv_g[rk + k] : 0.0f;
+      if constexpr (SVC) {
+        load_cols<K>(sm.cols, cols_g, row, live, lane);
+        produce_svc<TILE, SS, K>(
+            sm, c_g, svc_g, Kf, row0, nrows, chunk, bulk,
+            cols_g == nullptr, lane,
+            [&](float* out, float cv, const float(&sv)[K]) {
 #pragma unroll
-                          for (int k = 0; k < K; ++k) {
-                            const float s = xf * gr[k];      // Model 1
-                            out[k * kRows] = __fmaf_rn(cv, plr[k], s);
-                          }
-                          out[K * kRows] = cv;
-                          out[(K + 1) * kRows] = xf;
-                        });
+              for (int k = 0; k < K; ++k) {
+                out[k * kRows] = __fmaf_rn(cv, plr[k], sv[k]);
+                out[(FX + k) * kRows] = sv[k];
+              }
+              out[FC * kRows] = cv;
+            });
+      } else {
+        float gr[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) gr[k] = live ? g_g[rk + k] : 0.0f;
+        produce<TILE, SS>(sm, c_g, x_g, row0, nrows, chunk, bulk, lane,
+                          [&](float* out, float cv, int xv) {
+                            const float xf = (float)xv;
+#pragma unroll
+                            for (int k = 0; k < K; ++k) {
+                              const float s = xf * gr[k];      // Model 1
+                              out[k * kRows] = __fmaf_rn(cv, plr[k], s);
+                            }
+                            out[FC * kRows] = cv;
+                            out[FX * kRows] = xf;
+                          });
+      }
     }
     return;
   }
@@ -2019,81 +2281,109 @@ __global__ void __launch_bounds__(96) sim_alpha_rr_kernel(
   const int ntiles = (chunk + TILE - 1) / TILE;
 
   if (warp == 1) {
-    // ---- the policy: alpha_rr_step, state frozen past T_len ----
-    const float BIG = (float)3.4e38;   // alpha_rr._BIG
-    const float EPS = (float)1e-6;     // alpha_rr._TIE_EPS
-    float plv[K], S[K];
-    bool mk[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      plv[k] = live ? plv_g[rk + k] : 0.0f;
-      mk[k] = live ? mask_g[rk + k] : false;
-      S[k] = live ? S_in[rk + k] : 0.0f;
-    }
-    const float pM = live ? pM_g[row] : 0.0f;
     int r = live ? r_in[row] : 0;
-    int age = live ? age_in[row] : 0;
-    for (int i = 0; i < ntiles; ++i) {
-      const int cs = i % Sm::NC, j0 = i * TILE;
-      const int n = min(TILE, chunk - j0);
-      mbar_wait(&sm.full[cs], (uint32_t)((i / Sm::NC) & 1));
-      const float* ck = sm.cooked[cs] + lane;
-      int* rb = sm.rb[cs] + lane;
-      // slots jj < nv are valid; the state is frozen past T_len
-      const int nv = max(0, min(n, Tl - t0 - j0));
-      float wn[K];                             // the next slot's w
-#pragma unroll
-      for (int k = 0; k < K; ++k) wn[k] = ck[k * kRows];
-      for (int jj = 0; jj < nv; ++jj) {
-        float w[K];
-        const int nx = min(jj + 1, n - 1);
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          w[k] = wn[k];
-          wn[k] = ck[nx * SS + k * kRows];
+    if constexpr (TABLE) {
+      // ---- a table step: r' = pi[row][s][r], frozen past T_len ----
+      int* pr = sm.pi[lane];
+      for (int i = 0; i < S_rows * K; ++i)
+        pr[i] = live ? pi_g[(long long)row * S_rows * K + i] : 0;
+      __syncwarp();
+      for (int i = 0; i < ntiles; ++i) {
+        const int cs = i % Sm::NC, j0 = i * TILE;
+        const int n = min(TILE, chunk - j0);
+        mbar_wait(&sm.full[cs], (uint32_t)((i / Sm::NC) & 1));
+        const float* ck = sm.cooked[cs] + lane;
+        int* rb = sm.rb[cs] + lane;
+        // slots jj < nv are valid; the state is frozen past T_len
+        const int nv = max(0, min(n, Tl - t0 - j0));
+        for (int jj = 0; jj < nv; ++jj) {
+          rb[jj * RS] = r;
+          r = pr[__float_as_int(ck[jj * SS]) * K + r];
         }
-        rb[jj * RS] = r;
-        const int age1 = age + 1;
-        const bool gate = age1 >= 2;
-        const float w_r = select_k<K>(w, r);
-        const float plv_r = select_k<K>(plv, r);
-        // margins[k] (0 at r), argmin of margins + (k != r) * EPS with the
-        // first index winning, and the margin at the argmin, in one pass
-        float Sn[K];
-        int js = 0;
-        float best = 0.0f, m_js = 0.0f;
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const float d = w[k] - w_r;
-          const float s_new = d + fminf(0.0f, S[k]);
-          Sn[k] = gate ? s_new : S[k];
-          float m = __fmaf_rn(pM, fabsf(plv[k] - plv_r), gate ? s_new : BIG);
-          m = mk[k] ? m : BIG;
-          const float marg = (k == r) ? 0.0f : m;
-          const float v = (k == r) ? 0.0f : m + EPS;   // marg + 0 at r
-          if (k == 0 || v < best) {
-            best = v;
-            js = k;
-            m_js = marg;
-          }
-        }
-        const bool sw = m_js < -0.0f;
-#pragma unroll
-        for (int k = 0; k < K; ++k) S[k] = sw ? BIG : Sn[k];
-        age = sw ? 0 : age1;
-        r = sw ? js : r;
+        for (int jj = nv; jj < n; ++jj) rb[jj * RS] = r;
+        rb[n * RS] = r;                        // held after the tile
+        mbar_arrive(&sm.rfull[cs]);
       }
-      for (int jj = nv; jj < n; ++jj) rb[jj * RS] = r;
-      rb[n * RS] = r;                          // held after the tile
-      mbar_arrive(&sm.rfull[cs]);
-    }
-    if (live) {
-      r_out[row] = r;
-      age_out[row] = age;
+      if (live) r_out[row] = r;
+      return;
+    } else {
+      // ---- the policy: alpha_rr_step, state frozen past T_len ----
+      const float BIG = (float)3.4e38;   // alpha_rr._BIG
+      const float EPS = (float)1e-6;     // alpha_rr._TIE_EPS
+      float plv[K], S[K];
+      bool mk[K];
 #pragma unroll
-      for (int k = 0; k < K; ++k) S_out[rk + k] = S[k];
+      for (int k = 0; k < K; ++k) {
+        plv[k] = live ? plv_g[rk + k] : 0.0f;
+        mk[k] = live ? mask_g[rk + k] : false;
+        S[k] = live ? S_in[rk + k] : 0.0f;
+      }
+      const float pM = live ? pM_g[row] : 0.0f;
+      int age = live ? age_in[row] : 0;
+      for (int i = 0; i < ntiles; ++i) {
+        const int cs = i % Sm::NC, j0 = i * TILE;
+        const int n = min(TILE, chunk - j0);
+        mbar_wait(&sm.full[cs], (uint32_t)((i / Sm::NC) & 1));
+        const float* ck = sm.cooked[cs] + lane;
+        int* rb = sm.rb[cs] + lane;
+        // slots jj < nv are valid; the state is frozen past T_len
+        const int nv = max(0, min(n, Tl - t0 - j0));
+        float wn[K];                           // the next slot's w
+#pragma unroll
+        for (int k = 0; k < K; ++k) wn[k] = ck[k * kRows];
+        for (int jj = 0; jj < nv; ++jj) {
+          float w[K];
+          const int nx = min(jj + 1, n - 1);
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            w[k] = wn[k];
+            wn[k] = ck[nx * SS + k * kRows];
+          }
+          rb[jj * RS] = r;
+          const int age1 = age + 1;
+          const bool gate = age1 >= 2;
+          const float w_r = select_k<K>(w, r);
+          const float plv_r = select_k<K>(plv, r);
+          // margins[k] (0 at r), argmin of margins + (k != r) * EPS with
+          // the first index winning, and the margin at the argmin, in one
+          // pass
+          float Sn[K];
+          int js = 0;
+          float best = 0.0f, m_js = 0.0f;
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            const float d = w[k] - w_r;
+            const float s_new = d + fminf(0.0f, S[k]);
+            Sn[k] = gate ? s_new : S[k];
+            float m = __fmaf_rn(pM, fabsf(plv[k] - plv_r),
+                                gate ? s_new : BIG);
+            m = mk[k] ? m : BIG;
+            const float marg = (k == r) ? 0.0f : m;
+            const float v = (k == r) ? 0.0f : m + EPS;   // marg + 0 at r
+            if (k == 0 || v < best) {
+              best = v;
+              js = k;
+              m_js = marg;
+            }
+          }
+          const bool sw = m_js < -0.0f;
+#pragma unroll
+          for (int k = 0; k < K; ++k) S[k] = sw ? BIG : Sn[k];
+          age = sw ? 0 : age1;
+          r = sw ? js : r;
+        }
+        for (int jj = nv; jj < n; ++jj) rb[jj * RS] = r;
+        rb[n * RS] = r;                        // held after the tile
+        mbar_arrive(&sm.rfull[cs]);
+      }
+      if (live) {
+        r_out[row] = r;
+        age_out[row] = age;
+#pragma unroll
+        for (int k = 0; k < K; ++k) S_out[rk + k] = S[k];
+      }
+      return;
     }
-    return;
   }
 
   // ---- warp 2: the accounting of sim_chunk_core, in slot order ----
@@ -2120,14 +2410,14 @@ __global__ void __launch_bounds__(96) sim_alpha_rr_kernel(
     for (int jj = 0; jj < n; ++jj) {
       const int rt = rb[jj * RS];
       const int rn = rb[(jj + 1) * RS];        // the level after the slot
-      const float c = ck[jj * SS + K * kRows];
+      const float c = ck[jj * SS + FC * kRows];
       const bool valid = jj < tv;
       const bool last = jj == tv - 1;
       const float lv_t = select_k<K>(lv, rt);
       const float rent = c * lv_t;
       // the held level's service: its slab column (SVC), or x * g
-      const float svc_t = SVC ? ck[jj * SS + (K + 1 + rt) * kRows]
-                              : ck[jj * SS + (K + 1) * kRows]
+      const float svc_t = SVC ? ck[jj * SS + (FX + rt) * kRows]
+                              : ck[jj * SS + FX * kRows]
                                     * select_k<K>(g, rt);
       const float lv_next = select_k<K>(lv, rn);
       float fetch = M * fmaxf(lv_next - lv_t, 0.0f);
@@ -2254,40 +2544,37 @@ int launch_dpf_any(const DpfArgs& a, int K, cudaStream_t st) {
 #undef REPRO_DPF_CASE
 }
 
-// the inputs of S (x, g: Model 1; svc, cols, Kf: SVC)
-struct SimArgs {
-  const void *plv, *mask, *pM, *lv, *g, *M, *T_len, *r_in, *S_in, *age_in,
-      *sums_in, *counts_in, *x, *c, *svc, *cols;
-  int t0, chunk, R, Kf, include_final_fetch;
-  void *r_out, *S_out, *age_out, *sums_out, *counts_out, *r_hist;
-};
-
-template <int K, bool SVC>
+template <int K, bool SVC, bool TABLE>
 int launch_sim(const SimArgs& a, cudaStream_t st) {
-  const size_t bytes = sizeof(SimSmem<K, SVC>);
-  const cudaError_t e = allow_smem(sim_alpha_rr_kernel<K, SVC>, bytes);
+  using Sm = SimSmem<K, SVC, TABLE>;
+  const size_t bytes = sizeof(Sm);
+  const cudaError_t e = allow_smem(sim_kernel<K, SVC, TABLE>, bytes);
   if (e != cudaSuccess) return (int)e;
-  sim_alpha_rr_kernel<K, SVC><<<n_blocks(a.R, kRows), 96, bytes, st>>>(
+  // the bulk route needs the observation slab's rows aligned too
+  const int bulk = bulk_route<SVC, Sm::TILE, K>(a.c, a.x, a.svc, a.Kf,
+                                                a.chunk)
+                   && (uintptr_t)a.o % 16 == 0;
+  sim_kernel<K, SVC, TABLE><<<n_blocks(a.R, kRows), 96, bytes, st>>>(
       (const float*)a.plv, (const bool*)a.mask, (const float*)a.pM,
-      (const float*)a.lv, (const float*)a.g, (const float*)a.M,
-      (const int*)a.T_len, (const int*)a.r_in, (const float*)a.S_in,
-      (const int*)a.age_in, (const float*)a.sums_in,
-      (const int*)a.counts_in, (const int*)a.x, (const float*)a.c, a.t0,
-      a.chunk, a.R, a.include_final_fetch, (int*)a.r_out, (float*)a.S_out,
+      (const int*)a.pi, (const float*)a.thr, (const float*)a.lv,
+      (const float*)a.g, (const float*)a.M, (const int*)a.T_len,
+      (const int*)a.r_in, (const float*)a.S_in, (const int*)a.age_in,
+      (const float*)a.sums_in, (const int*)a.counts_in, (const int*)a.x,
+      (const float*)a.c, (const float*)a.svc, (const int*)a.cols,
+      (const int*)a.o, a.obs, a.S, a.t0, a.chunk, a.R, a.Kf,
+      a.include_final_fetch, (int*)a.r_out, (float*)a.S_out,
       (int*)a.age_out, (float*)a.sums_out, (int*)a.counts_out,
-      (int*)a.r_hist, (const float*)a.svc, (const int*)a.cols, a.Kf,
-      bulk_route<SVC, SimSmem<K, SVC>::TILE, K>(a.c, a.x, a.svc, a.Kf,
-                                                a.chunk));
+      (int*)a.r_hist, bulk);
   return (int)cudaGetLastError();
 }
 
 // S at a runtime K (2..16)
-template <bool SVC>
+template <bool SVC, bool TABLE>
 int launch_sim_any(const SimArgs& a, int K, cudaStream_t st) {
   if (a.R <= 0) return (int)cudaGetLastError();
 #define REPRO_SIM_CASE(KK) \
   case KK:                 \
-    return launch_sim<KK, SVC>(a, st);
+    return launch_sim<KK, SVC, TABLE>(a, st);
   switch (K) {
     REPRO_SIM_CASE(2) REPRO_SIM_CASE(3) REPRO_SIM_CASE(4) REPRO_SIM_CASE(5)
     REPRO_SIM_CASE(6) REPRO_SIM_CASE(7) REPRO_SIM_CASE(8) REPRO_SIM_CASE(9)
@@ -2459,18 +2746,50 @@ int launch_sim_alpha_rr(const void* plv, const void* mask, const void* pM,
                         void* S_out, void* age_out, void* sums_out,
                         void* counts_out, void* r_hist, void* stream) {
   if (Kf < 1 || Kf > 16) return (int)cudaErrorInvalidValue;
-  const SimArgs a{plv, mask, pM, lv, g, M, T_len, r_in, S_in, age_in,
-                  sums_in, counts_in, x, c, svc, cols, t0, chunk, R,
-                  Kf, include_final_fetch, r_out, S_out, age_out, sums_out,
-                  counts_out, r_hist};
-  return svc ? launch_sim_any<true>(a, K, (cudaStream_t)stream)
-             : launch_sim_any<false>(a, K, (cudaStream_t)stream);
+  const SimArgs a{plv,     mask,    pM,      nullptr, nullptr, lv,
+                  g,       M,       T_len,   r_in,    S_in,    age_in,
+                  sums_in, counts_in, x,     c,       svc,     cols,
+                  nullptr, kObsNone, 1,      t0,      chunk,   R,
+                  Kf,      include_final_fetch, r_out, S_out,  age_out,
+                  sums_out, counts_out, r_hist};
+  return svc ? launch_sim_any<true, false>(a, K, (cudaStream_t)stream)
+             : launch_sim_any<false, false>(a, K, (cudaStream_t)stream);
 }
 
-// jax.random.poisson (Knuth, rates < 10) a (row, slot); salt < 0: no salt
-// fold; states / lam_h NULL: the per-row rate lam; work: one word of
-// device memory for the ticket counter (zeroed here, on the stream, so
-// launches that share it on one stream run one after another)
+// S's table variant: pi [R, S, K] int32 (1 <= S <= 2), thr [R] (ABC,
+// else NULL), obs the observation kind (kObsNone / kObsSide / kObsX);
+// under Model 1 (x, g; svc and cols NULL) or on a Model-2 slab svc [R,
+// chunk, Kf] (x and g NULL) with cols [R, K] (NULL: the identity); o [R,
+// chunk] the observation slab (the side channel; the arrivals on a
+// Model-2 slab; NULL otherwise); r_hist may be NULL
+int launch_sim_table(const void* pi, const void* thr, const void* lv,
+                     const void* g, const void* M, const void* T_len,
+                     const void* r_in, const void* sums_in,
+                     const void* counts_in, const void* x, const void* c,
+                     const void* o, const void* svc, const void* cols,
+                     int obs, int S, int t0, int chunk, int R, int K, int Kf,
+                     int include_final_fetch, void* r_out, void* sums_out,
+                     void* counts_out, void* r_hist, void* stream) {
+  if (Kf < 1 || Kf > 16 || S < 1 || S > kTableMaxS || obs < kObsNone
+      || obs > kObsX || (obs == kObsSide && !o) || (obs == kObsX && !thr)
+      || (svc && obs == kObsX && !o) || (!svc && (!x || !g)))
+    return (int)cudaErrorInvalidValue;
+  const SimArgs a{nullptr, nullptr, nullptr, pi,     thr,     lv,
+                  g,       M,       T_len,   r_in,   nullptr, nullptr,
+                  sums_in, counts_in, x,     c,      svc,     cols,
+                  o,       obs,     S,       t0,     chunk,   R,
+                  Kf,      include_final_fetch, r_out, nullptr, nullptr,
+                  sums_out, counts_out, r_hist};
+  return svc ? launch_sim_any<true, true>(a, K, (cudaStream_t)stream)
+             : launch_sim_any<false, true>(a, K, (cudaStream_t)stream);
+}
+
+// jax.random.poisson (Knuth below rate 10, Hormann at and above) a (row,
+// slot); salt < 0: no salt fold; states / lam_h NULL: the per-row rate
+// lam; work: three words of device memory, the ticket counter and the
+// launch's Hormann flag (both zeroed here, on the stream, so launches that
+// share them on one stream run one after another), then the count of the
+// launches that ran a Hormann item (kept)
 int launch_poisson(const void* keys, const void* tids, const void* lam,
                    const void* lam_h, const void* states, void* out,
                    void* work, int R, int chunk, int salt, int partitionable,
@@ -2479,8 +2798,8 @@ int launch_poisson(const void* keys, const void* tids, const void* lam,
   // the instance, by (STATES, SALT), and the blocks of one wave of it (what
   // the device's SMs hold), queried once a device and instance
   static void (*const kerns[4])(PoissonArgs) = {
-      poisson_knuth_kernel<false, false>, poisson_knuth_kernel<true, false>,
-      poisson_knuth_kernel<false, true>, poisson_knuth_kernel<true, true>};
+      poisson_kernel<false, false>, poisson_kernel<true, false>,
+      poisson_kernel<false, true>, poisson_kernel<true, true>};
   static std::atomic<int> waves[4][kMaxDevices];
   const int variant = 2 * (states != nullptr) + (salt >= 0);
   void (*const kern)(PoissonArgs) = kerns[variant];
@@ -2514,7 +2833,7 @@ int launch_poisson(const void* keys, const void* tids, const void* lam,
                       (const int*)states, (int*)out, (unsigned*)work, R,
                       chunk, salt, partitionable, span, spr, n_spans, 1u};
   cudaStream_t st = (cudaStream_t)stream;
-  e = cudaMemsetAsync(work, 0, sizeof(unsigned), st);
+  e = cudaMemsetAsync(work, 0, 2 * sizeof(unsigned), st);
   if (e != cudaSuccess) return (int)e;
   kern<<<(unsigned)blocks, 32 * kPoisWarps, 0, st>>>(a);
   return (int)cudaGetLastError();

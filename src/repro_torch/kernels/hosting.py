@@ -14,8 +14,9 @@ PyTorch versions.
   transcribed op for op) runs ``counter_stream_kernel`` too, and
   ``arma_rents_chunk`` runs ``arma_rents_kernel`` (the ARMA rents: the
   normals drawn slot-parallel, each row's recursion walked by one thread);
-  ``poisson_chunk`` (``jax.random.poisson``, Knuth's branch, at a per-row
-  rate or the GE states' per-slot rates) runs ``poisson_knuth_kernel`` and
+  ``poisson_chunk`` (``jax.random.poisson``, Knuth's branch below rate 10
+  and Hormann's rejection at and above it, at a per-row rate or the GE
+  states' per-slot rates) runs ``poisson_kernel`` and
   ``model2_service_chunk`` (the Model-2 service costs of the live
   requests' coupled uniforms, the requests spread over a warp's lanes)
   ``model2_service_kernel``.
@@ -32,7 +33,11 @@ PyTorch versions.
 * ``sim_chunk_alpha_rr`` (kernel **S**) — one chunk of the per-slot
   alpha-RR simulation, the reference's ``lax.scan`` of
   ``simulator.sim_chunk_core`` over ``alpha_rr_step`` fused into one pass;
-  ``sim_chunk_alpha_rr_svc`` the same on a Model-2 service slab.
+  ``sim_chunk_alpha_rr_svc`` the same on a Model-2 service slab;
+  ``sim_chunk_table`` / ``sim_chunk_table_svc`` (S's table variant) the
+  same chunk stepping a decision table (a lookup a slot; the static, MDP
+  and ABC policies in their ``policies.baselines.table_form``) under
+  Model 1 / on a Model-2 slab.
 
 Every wrapper follows the same rules: it takes the plain version *only*
 for tensors on the CPU; for CUDA tensors it checks device, dtype, shape and
@@ -471,14 +476,10 @@ def _xla_log(v):
     return torch.where(v == 0, float("-inf"), out)
 
 
-def erf_inv_plain(u):
-    """``jax.lax.erf_inv`` on float32 as XLA:CPU computes it, op for op:
-    ``w = -log1p(-u * u)`` through XLA's own log1p and log, then Giles's
-    polynomial in ``w - 2.5`` or ``sqrt(w) - 3``, times ``u`` (``inf * u``
-    at ``|u| == 1``).  The sites where XLA contracts a multiply into the
-    add that reads it (every Horner step) are ``fma32``; ``-u * u + 1`` is
-    not contracted (its product has several readers)."""
-    x = u * (-u)
+def _xla_log1p(x):
+    """XLA:CPU's float32 ``log1p``, op for op: the rational approximation
+    (its Horner steps ``fma32``) where ``|x| < sqrt(2) - 1``, else
+    ``_xla_log(x + 1)``."""
     x2 = x * x
     num, den = torch.full_like(x, _LOG1P_NUM[0]), torch.ones_like(x)
     for c in _LOG1P_NUM[1:]:
@@ -486,7 +487,17 @@ def erf_inv_plain(u):
     for c in _LOG1P_DEN:
         den = fma32(den, x, c)
     small = x + (x2 * -0.5 + (x * x2) * (num / den))
-    l1p = torch.where(x.abs() < _LOG1P_SMALL, small, _xla_log(x + 1.0))
+    return torch.where(x.abs() < _LOG1P_SMALL, small, _xla_log(x + 1.0))
+
+
+def erf_inv_plain(u):
+    """``jax.lax.erf_inv`` on float32 as XLA:CPU computes it, op for op:
+    ``w = -log1p(-u * u)`` through XLA's own log1p and log, then Giles's
+    polynomial in ``w - 2.5`` or ``sqrt(w) - 3``, times ``u`` (``inf * u``
+    at ``|u| == 1``).  The sites where XLA contracts a multiply into the
+    add that reads it (every Horner step) are ``fma32``; ``-u * u + 1`` is
+    not contracted (its product has several readers)."""
+    l1p = _xla_log1p(u * (-u))
     lt = l1p > -5.0
     w = torch.where(lt, -2.5 - l1p, _sqrt32(-l1p) + (-3.0))
     coef = [torch.where(lt, a, b) for a, b in zip(_ERFINV_LT5, _ERFINV_GE5)]
@@ -620,27 +631,13 @@ arma_rents_chunk.launches = 0
 
 
 # ----------------------------------------------------------------------
-# P: Poisson draws (Knuth's branch) and the Model-2 service draws.
+# P: Poisson draws (Knuth's branch and Hormann's rejection) and the Model-2
+# service draws.
 # ----------------------------------------------------------------------
 
-#: ``jax.random.poisson`` draws by Knuth's algorithm below this rate and by
-#: Hormann's rejection at and above it; only Knuth's branch is ported
+#: ``jax.random.poisson`` draws by Knuth's algorithm below this rate (and
+#: at NaN) and by Hormann's transformed rejection at and above it
 POISSON_KNUTH_MAX = 10.0
-
-
-def check_knuth_rates(*rates):
-    """Raise ``NotImplementedError`` unless every rate is below
-    ``POISSON_KNUTH_MAX`` (the port has Knuth's branch only).  The Poisson
-    streams call it when they are built; ``poisson_chunk`` and its plain
-    version do not check, and run Knuth's loop at any rate."""
-    for r in rates:
-        r = torch.as_tensor(r, dtype=torch.float32)
-        if bool((r >= POISSON_KNUTH_MAX).any()):
-            raise NotImplementedError(
-                f"Poisson rates >= {POISSON_KNUTH_MAX:g} take jax.random."
-                f"poisson's rejection branch (XLA's lgamma), which is not "
-                f"ported: ROADMAP.md, Queue 1 item 3c (Poisson rejection "
-                f"branch); got max rate {float(r.max())}")
 
 
 def _split2(k0, k1, part: bool):
@@ -688,6 +685,150 @@ def poisson_knuth_plain(k0, k1, lam, partitionable: Optional[bool] = None):
     return out.reshape(shape)
 
 
+def _split3(k0, k1, part: bool):
+    """``jax.random.split(key, 3)`` of the key words ``(k0, k1)``: three
+    key pairs.  Partitionable: key i hashes the counter (0, i).  Original:
+    the counters 0 .. 5 cut in halves (x0 = 0, 1, 2; x1 = 3, 4, 5) and
+    hashed pairwise, the output words (all first words, then all second
+    ones) regrouped in pairs."""
+    z = torch.zeros_like(k0)
+    if part:
+        return tuple(threefry2x32(k0, k1, z, z + i) for i in range(3))
+    a0, a1 = threefry2x32(k0, k1, z, z + 3)
+    b0, b1 = threefry2x32(k0, k1, z + 1, z + 4)
+    c0, c1 = threefry2x32(k0, k1, z + 2, z + 5)
+    return (a0, b0), (c0, a1), (b1, c1)
+
+
+# XLA's float32 lgamma (Lanczos, g = 7): the base coefficient (1 in
+# float32), the eight coefficients, log(g + 1/2), 1 / (g + 1/2) (XLA turns
+# the division into this product) and log(sqrt(2 pi)), all float32
+_LANCZOS = tuple(_f32(c) for c in (
+    676.520368121885098567009190444019, -1259.13921672240287047156078755283,
+    771.3234287776530788486528258894, -176.61502916214059906584551354,
+    12.507343278686904814458936853, -0.13857109526572011689554707,
+    9.984369578019570859563e-6, 1.50563273514931155834e-7))
+_LANCZOS_BASE = _f32(0.99999999999980993227684700473478)
+_LOG_G_HALF = _f32(2.01490302054226464)
+_INV_G_HALF = _f32(1.0 / 7.5)
+_LOG_SQRT_2PI = _f32(0.91893853320467274178)
+
+
+def _rdiv(c: float, t):
+    """``c / t`` rounded once (torch computes ``scalar / tensor`` as
+    ``scalar * (1 / t)``, two roundings)."""
+    return torch.full_like(t, c) / t
+
+
+def _xla_lgamma(x, z=None):
+    """XLA:CPU's float32 ``lgamma`` for ``x >= 0.5``, op for op: ``z = x -
+    1`` (or the given ``z``, which the rejection draw passes as its integer
+    ``k`` where XLA folds ``(k + 1) - 1``), the Lanczos sum ``1 + sum c_i /
+    (z + i + 1)`` in order, ``log_t = log1p(z / 7.5) + log(7.5)`` (XLA's
+    log1p of the product by the reciprocal), ``t = z + 7.5``, then
+    ``fma((z + 0.5) - t / log_t, log_t, log(sqrt(2 pi))) + log(sum)`` (the
+    one FMA XLA contracts there); +inf at +inf.  Below 0.5 XLA reflects
+    through its ``sin``, which is not transcribed: the result there is NaN
+    (the rejection draw never reads it)."""
+    if z is None:
+        z = x - 1.0
+    s = torch.full_like(z, _LANCZOS_BASE)
+    for i, c in enumerate(_LANCZOS):
+        s = s + _rdiv(c, z + float(i + 1))
+    log_t = _xla_log1p(z * _INV_G_HALF) + _LOG_G_HALF
+    q = (z + 7.5) / log_t
+    out = fma32((z + 0.5) - q, log_t, _LOG_SQRT_2PI) + _xla_log(s)
+    out = torch.where(x < 0.5, float("nan"), out)
+    return torch.where(x.abs() == float("inf"), float("inf"), out)
+
+
+# Hormann's constants (jax/_src/random.py: _poisson_rejection), float32;
+# XLA folds b - 2 and b - 3.4 into the constant of b's FMA
+_HOR_B = (_f32(2.53), _f32(0.931))
+_HOR_A = (_f32(0.02483), _f32(-0.059))
+_HOR_B2, _HOR_B34 = _f32(_HOR_B[1] - 2.0), _f32(_HOR_B[1] - 3.4)
+_HOR_INV = (_f32(1.1328), _f32(1.1239))
+_HOR_VR = (_f32(3.6224), _f32(0.9277))
+_HOR_K0, _HOR_US1, _HOR_US2 = _f32(0.43), _f32(0.07), _f32(0.013)
+
+
+def poisson_rejection_plain(k0, k1, lam, partitionable: Optional[bool] = None,
+                            stats: bool = False):
+    """``jax.random.poisson(key, lam, ())`` by Hormann's transformed
+    rejection (jax's branch for ``lam >= 10``) for every key words ``(k0,
+    k1)`` and float32 rate ``lam`` (same shape), as XLA:CPU computes it.
+    Per item, once: ``log_lam = log(lam)``, ``b = fma(sqrt(lam), 2.53,
+    0.931)``, ``a = fma(b, 0.02483, -0.059)``, ``inv_alpha = 1.1328 /
+    fma(sqrt(lam), 2.53, 0.931 - 3.4) + 1.1239``, ``v_r = 0.9277 - 3.6224
+    / fma(sqrt(lam), 2.53, 0.931 - 2)`` (XLA folds ``b - c``).  Each round:
+    ``(key, s0, s1) = split(key, 3)``, ``u = uniform(s0) - 0.5``, ``v =
+    uniform(s1)``, ``us = 0.5 - |u|``, ``k = floor(fma(2a / us + b, u,
+    lam) + 0.43)``, ``s = log(v * inv_alpha / (a / (us * us) + b))``, ``t
+    = fma(k, log_lam, -lam) - lgamma(k + 1)``; accept when ``us >= 0.07 &
+    v <= v_r``, or when not (``k < 0 | (us < 0.013 & v > us)``) and ``s <=
+    t``.  ``sqrt`` is correctly rounded, ``log`` / ``lgamma`` XLA's own;
+    the three FMAs are where XLA contracts.  A lane is frozen at its first
+    acceptance (vmapped, jax freezes it), so the result is per lane.
+    Returns int32 of the same shape; with ``stats`` also the rounds drawn
+    and the rounds that reached the ``s <= t`` test (the ones that
+    evaluate ``lgamma``), summed over the items (a kernel's work)."""
+    part = _layout(partitionable)
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=k0.device)
+    k0, k1, lam = torch.broadcast_tensors(k0, k1, lam)
+    shape = lam.shape
+    k0, k1, lam = k0.reshape(-1), k1.reshape(-1), lam.reshape(-1)
+    sq = _sqrt32(lam)
+    b = fma32(sq, *_HOR_B)
+    a = fma32(b, *_HOR_A)
+    a2 = a * 2.0
+    inv_alpha = (_rdiv(_HOR_INV[0], fma32(sq, _HOR_B[0], _HOR_B34))
+                 + _HOR_INV[1])
+    v_r = _HOR_VR[1] - _rdiv(_HOR_VR[0], fma32(sq, _HOR_B[0], _HOR_B2))
+    log_lam, neg = _xla_log(lam), -lam
+    out = torch.full(lam.shape, -1, dtype=torch.int32, device=lam.device)
+    idx = torch.arange(lam.numel(), device=lam.device)   # the live lanes
+    rounds = slow = 0
+    while idx.numel():
+        (k0, k1), (s0, s1), (w0, w1) = _split3(k0, k1, part)
+        u = uniform_from_bits(_bits32(s0, s1, part)) - 0.5
+        v = uniform_from_bits(_bits32(w0, w1, part))
+        us = 0.5 - u.abs()
+        k = torch.floor(fma32(a2 / us + b, u, lam) + _HOR_K0)
+        s = _xla_log(v * inv_alpha / (a / (us * us) + b))
+        t = fma32(k, log_lam, neg) - _xla_lgamma(k + 1.0, k)
+        accept1 = (us >= _HOR_US1) & (v <= v_r)
+        reject = (k < 0) | ((us < _HOR_US2) & (v > us))
+        acc = accept1 | (~reject & (s <= t))
+        if stats:
+            rounds += idx.numel()
+            slow += int((~accept1 & ~reject).sum())
+        out[idx[acc]] = k[acc].to(torch.int32)
+        live = ~acc
+        idx, k0, k1 = idx[live], k0[live], k1[live]
+        lam, b, a, a2, inv_alpha, v_r, log_lam, neg = (
+            p[live] for p in (lam, b, a, a2, inv_alpha, v_r, log_lam, neg))
+    out = out.reshape(shape)
+    return (out, rounds, slow) if stats else out
+
+
+def poisson_plain(k0, k1, lam, partitionable: Optional[bool] = None):
+    """``jax.random.poisson(key, lam, ())`` for every key words ``(k0,
+    k1)`` and float32 rate ``lam``: per item Knuth's branch
+    (``poisson_knuth_plain``) where ``isnan(lam) | lam < 10``, Hormann's
+    rejection (``poisson_rejection_plain``) elsewhere; ``lam == 0`` gives
+    0.  Returns int32 of the broadcast shape."""
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=k0.device)
+    k0, k1, lam = torch.broadcast_tensors(k0, k1, lam)
+    knuth = torch.isnan(lam) | (lam < POISSON_KNUTH_MAX)
+    out = torch.empty(lam.shape, dtype=torch.int32, device=lam.device)
+    out[knuth] = poisson_knuth_plain(k0[knuth], k1[knuth], lam[knuth],
+                                     partitionable)
+    rej = ~knuth
+    out[rej] = poisson_rejection_plain(k0[rej], k1[rej], lam[rej],
+                                       partitionable)
+    return out
+
+
 def poisson_chunk_plain(keys, tids, lam, salt: Optional[int] = None,
                         states=None, lam_h=None,
                         partitionable: Optional[bool] = None):
@@ -696,17 +837,16 @@ def poisson_chunk_plain(keys, tids, lam, salt: Optional[int] = None,
     ``fold_in(., salt)`` when a salt is given) at rate ``lam[i]`` (float32
     [R]), or, given GE ``states`` [R, chunk] int32, at the per-slot rate
     ``states == 1 ? lam_h[i] : lam[i]`` (``_ge_emit``'s Poisson
-    emissions).  Knuth's loop runs at any rate; it is jax's draw only
-    below 10, which ``check_knuth_rates`` holds the streams to.
-    ``card_calls`` counts its calls on the card (its round loop is what the
-    kernel replaces)."""
+    emissions): each item by Knuth's branch or Hormann's rejection as its
+    rate says (``poisson_plain``).  ``card_calls`` counts its calls on the
+    card (its round loops are what the kernel replaces)."""
     if keys.is_cuda:
         poisson_chunk_plain.card_calls += 1
     a0, a1 = _slot_keys(keys, tids, salt)
     rate = (lam[:, None] if states is None
             else torch.where(states == 1, lam_h[:, None], lam[:, None]))
-    return poisson_knuth_plain(a0, a1, rate.expand(a0.shape).contiguous(),
-                               partitionable)
+    return poisson_plain(a0, a1, rate.expand(a0.shape).contiguous(),
+                         partitionable)
 
 
 poisson_chunk_plain.card_calls = 0
@@ -751,10 +891,25 @@ def model2_service_chunk_plain(keys, tids, x, g, n_max: int,
 model2_service_chunk_plain.card_calls = 0
 
 
-# the Poisson kernel's ticket counter, one word a (device, stream): the
-# launcher zeroes it on that stream before each launch, so the launches
-# that share it run one after another
+# the Poisson kernel's work words a (device, stream): the ticket counter
+# and the launch's Hormann flag, which the launcher zeroes on that stream
+# before each launch (so the launches that share them run one after
+# another), and the count of the launches that drew an item on Hormann's
+# branch, which the kernel adds to
 _POISSON_TICKETS: dict = {}
+
+
+def poisson_rejection_launches() -> int:
+    """The launches of kernel P's Poisson variant, since the last
+    ``reset_poisson_rejection_launches``, in which the kernel drew an item
+    on Hormann's branch (a rate of 10 or more); the kernel counts them, so
+    reading the count waits for the card."""
+    return sum(int(w[2].item()) for w in _POISSON_TICKETS.values())
+
+
+def reset_poisson_rejection_launches():
+    for w in _POISSON_TICKETS.values():
+        w[2].zero_()
 
 
 def poisson_chunk(keys, tids, lam, salt: Optional[int] = None, states=None,
@@ -781,7 +936,7 @@ def poisson_chunk(keys, tids, lam, salt: Optional[int] = None, states=None,
     if work is None:
         work = _POISSON_TICKETS.setdefault(
             (keys.device, stream),
-            torch.empty((1,), dtype=torch.int32, device=keys.device))
+            torch.zeros((3,), dtype=torch.int32, device=keys.device))
     err = _build.library("hosting").launch_poisson(
         keys.data_ptr(), tids.data_ptr(), lam.data_ptr(), _ptr(lam_h),
         _ptr(states), out.data_ptr(), work.data_ptr(), R, chunk,
@@ -1123,3 +1278,170 @@ def sim_chunk_alpha_rr_svc(params, lv, M, T_len, t0: int, carry, c, svc,
 
 
 sim_chunk_alpha_rr_svc.launches = 0
+
+
+# ----------------------------------------------------------------------
+# S: the table variant (static, MDP and ABC policies).
+# ----------------------------------------------------------------------
+
+# the observation a table step reads (csrc/hosting.cu: TableObs): none
+# (static: one table row), the side channel (MDP: the GE chain's state),
+# the arrivals (ABC: float32(x) >= the row's threshold)
+_OBS_KINDS = {"none": 0, "side": 1, "x": 2}
+#: the table rows (observed states) the kernel takes
+TABLE_MAX_S = 2
+
+
+def table_step(params, state, obs):
+    """One slot of a table policy as kernel S's table variant steps it:
+    ``r' = pi[row, s, r]`` with ``params = {"pi": [R, S, K] int32, "obs":
+    kind, "x_threshold": [R] float32 or None}``; ``s`` is 0 (kind
+    ``"none"``), the side channel clipped to ``[0, S - 1]`` (``"side"``) or
+    ``float32(x) >= x_threshold`` (``"x"``)."""
+    pi, kind = params["pi"], params["obs"]
+    R, S, K = pi.shape
+    if kind == "side":
+        s = torch.clamp(obs.side, 0, S - 1)
+    elif kind == "x":
+        s = (obs.x.to(torch.float32) >= params["x_threshold"]).to(torch.int32)
+    else:
+        s = torch.zeros_like(state["r"])
+    idx = (s.to(torch.int64) * K + state["r"].to(torch.int64))[:, None]
+    return {"r": torch.gather(pi.reshape(R, -1), 1, idx)[:, 0]}
+
+
+def sim_chunk_table_plain(pi, obs, x_threshold, lv, g, M, T_len, t0: int,
+                          carry, x, c, side, include_final_fetch: bool = True,
+                          collect_trace: bool = True):
+    """Plain version of kernel S's table variant: ``simulator.
+    sim_chunk_core`` stepping ``table_step`` on the table ``pi`` [R, S, K]
+    int32 (S = 1 or 2) read at the observation ``obs`` (``"none"``,
+    ``"side"``, or ``"x"`` against ``x_threshold`` [R]) over slots ``[t0,
+    t0 + chunk)`` of R rows under Model-1 service ``x * g``; ``side`` [R,
+    chunk] int32 is the side channel.  Returns ``(carry', r_hist [R,
+    chunk] int32 or None)``.  ``card_calls`` counts its calls on the card
+    (its slot loop is what the kernel replaces)."""
+    from repro_torch.core.simulator import model1_svc, sim_chunk_core
+    if c.is_cuda:
+        sim_chunk_table_plain.card_calls += 1
+    params = {"pi": pi, "obs": obs, "x_threshold": x_threshold}
+    carry, r = sim_chunk_core(table_step, include_final_fetch, params, lv, M,
+                              T_len, t0, carry, x, c, model1_svc(x, g), side)
+    return carry, (r if collect_trace else None)
+
+
+sim_chunk_table_plain.card_calls = 0
+
+
+def sim_chunk_table_svc_plain(pi, obs, x_threshold, lv, M, T_len, t0: int,
+                              carry, x, c, side, svc, svc_cols=None,
+                              include_final_fetch: bool = True,
+                              collect_trace: bool = True):
+    """Plain version of kernel S's table variant on a Model-2 service slab
+    ``svc`` [R, chunk, K_svc], gathered to the rows' K levels through
+    ``svc_cols`` [R, K] int32 when given (other arguments as
+    ``sim_chunk_table_plain``; ``card_calls`` as there)."""
+    from repro_torch.core.simulator import sim_chunk_core
+    if c.is_cuda:
+        sim_chunk_table_svc_plain.card_calls += 1
+    params = {"pi": pi, "obs": obs, "x_threshold": x_threshold}
+    carry, r = sim_chunk_core(table_step, include_final_fetch, params, lv, M,
+                              T_len, t0, carry, x, c,
+                              gather_svc(svc, svc_cols), side)
+    return carry, (r if collect_trace else None)
+
+
+sim_chunk_table_svc_plain.card_calls = 0
+
+
+def _sim_table(name, pi, obs, thr, lv, M, T_len, t0, carry, x, c, side,
+               include_final_fetch, collect_trace, g=None, svc=None,
+               svc_cols=None):
+    """Check the table variant's inputs, under Model 1 (``g``) or on a
+    Model-2 slab (``svc``, ``svc_cols``), and launch it on the card."""
+    state, acc = carry
+    R, K = lv.shape
+    chunk = c.shape[1]
+    dev = c.device
+    if not 2 <= K <= SIM_MAX_K:
+        raise ValueError(f"{name} takes 2 <= K <= {SIM_MAX_K}, got {K}")
+    if obs not in _OBS_KINDS:
+        raise ValueError(f"{name}: obs must be one of {sorted(_OBS_KINDS)}, "
+                         f"got {obs!r}")
+    S = pi.shape[1] if pi.dim() == 3 else -1
+    if not 1 <= S <= TABLE_MAX_S:
+        raise ValueError(f"{name} takes 1 <= S <= {TABLE_MAX_S} table rows, "
+                         f"got {S}")
+    f32, i32 = torch.float32, torch.int32
+    ins = [("pi", pi, i32, (R, S, K)), ("lv", lv, f32, (R, K)),
+           ("M", M, f32, (R,)), ("T_len", T_len, i32, (R,)),
+           ("r", state["r"], i32, (R,)), ("sums", acc["sums"], f32, (R, 3)),
+           ("counts", acc["counts"], i32, (R, K)),
+           ("x", x, i32, (R, chunk)), ("c", c, f32, (R, chunk))]
+    if svc is None:
+        ins.append(("g", g, f32, (R, K)))
+    if obs == "side":
+        ins.append(("side", side, i32, (R, chunk)))
+    if obs == "x":
+        ins.append(("x_threshold", thr, f32, (R,)))
+    for arg in ins:
+        _build.check_tensor(*arg, dev)
+    Kf = K if svc is None else _check_svc(svc, svc_cols, R, chunk, K, dev)
+    # the observation slab the producer stages besides c and x / svc: the
+    # side channel, or the arrivals on a Model-2 slab (Model 1 stages x)
+    o = side if obs == "side" else (x if obs == "x" and svc is not None
+                                    else None)
+    new_state = {"r": torch.empty_like(state["r"])}
+    new_acc = {k: torch.empty_like(acc[k]) for k in ("sums", "counts")}
+    r_hist = (torch.empty((R, chunk), dtype=i32, device=dev)
+              if collect_trace else None)
+    err = _build.library("hosting").launch_sim_table(
+        pi.data_ptr(), _ptr(thr), lv.data_ptr(), _ptr(g), M.data_ptr(),
+        T_len.data_ptr(), state["r"].data_ptr(), acc["sums"].data_ptr(),
+        acc["counts"].data_ptr(), _ptr(x if svc is None else None),
+        c.data_ptr(), _ptr(o), _ptr(svc), _ptr(svc_cols), _OBS_KINDS[obs], S,
+        int(t0), chunk, R, K, Kf, int(include_final_fetch),
+        new_state["r"].data_ptr(), new_acc["sums"].data_ptr(),
+        new_acc["counts"].data_ptr(), _ptr(r_hist), _build.stream(dev))
+    _build.raise_on(err, name)
+    return (new_state, new_acc), r_hist
+
+
+def sim_chunk_table(pi, obs, x_threshold, lv, g, M, T_len, t0: int, carry,
+                    x, c, side, include_final_fetch: bool = True,
+                    collect_trace: bool = True):
+    """Kernel S's table variant (arguments as ``sim_chunk_table_plain``; 2
+    <= K <= 16, tables of 1 or 2 rows), bitwise ``sim_chunk_table_plain``."""
+    if c.device.type == "cpu":
+        return sim_chunk_table_plain(pi, obs, x_threshold, lv, g, M, T_len,
+                                     t0, carry, x, c, side,
+                                     include_final_fetch, collect_trace)
+    out = _sim_table("sim_chunk_table", pi, obs, x_threshold, lv, M, T_len,
+                     t0, carry, x, c, side, include_final_fetch,
+                     collect_trace, g=g)
+    sim_chunk_table.launches += 1
+    return out
+
+
+sim_chunk_table.launches = 0
+
+
+def sim_chunk_table_svc(pi, obs, x_threshold, lv, M, T_len, t0: int, carry,
+                        x, c, side, svc, svc_cols=None,
+                        include_final_fetch: bool = True,
+                        collect_trace: bool = True):
+    """Kernel S's table variant on a Model-2 service slab (arguments as
+    ``sim_chunk_table_svc_plain``; 2 <= K <= 16 levels, the slab 1 to 16),
+    bitwise ``sim_chunk_table_svc_plain``."""
+    if c.device.type == "cpu":
+        return sim_chunk_table_svc_plain(pi, obs, x_threshold, lv, M, T_len,
+                                         t0, carry, x, c, side, svc, svc_cols,
+                                         include_final_fetch, collect_trace)
+    out = _sim_table("sim_chunk_table_svc", pi, obs, x_threshold, lv, M,
+                     T_len, t0, carry, x, c, side, include_final_fetch,
+                     collect_trace, svc=svc, svc_cols=svc_cols)
+    sim_chunk_table_svc.launches += 1
+    return out
+
+
+sim_chunk_table_svc.launches = 0

@@ -54,8 +54,8 @@ def ssd_scan(x, dt, A, B, C, h0=None, chunk: int = 128):
 #: every kernel's launcher: P (uniforms, Bernoulli arrivals, uniform
 #: rents, NA rents, normals, the GE chunk, the ARMA chunk, Poisson draws,
 #: Model-2 service), D (fused under Model 1 and Model 2, and on a finished
-#: w), S (Model 1 and Model 2), F (tensor-core and fma), M (tensor-core
-#: and fma)
+#: w), S (alpha-RR and the table variant, each under Model 1 and Model 2),
+#: F (tensor-core and fma), M (tensor-core and fma)
 KERNELS = (hosting.slot_uniform, hosting.bernoulli_arrivals_chunk,
            hosting.uniform_rents_chunk, hosting.na_rents_chunk,
            hosting.normal_chunk, hosting.ge_bernoulli_chunk,
@@ -63,21 +63,27 @@ KERNELS = (hosting.slot_uniform, hosting.bernoulli_arrivals_chunk,
            hosting.model2_service_chunk, hosting.dp_fwd_model1,
            hosting.dp_fwd_model2, hosting.dp_minplus,
            hosting.sim_chunk_alpha_rr, hosting.sim_chunk_alpha_rr_svc,
+           hosting.sim_chunk_table, hosting.sim_chunk_table_svc,
            _fa.flash_attention_wgmma, _fa.flash_attention_fma,
            _ssd.ssd_scan_mma, _ssd.ssd_scan_fma)
 DISPATCHERS = (_fa.flash_attention, _ssd.ssd_scan)
 #: plain code that counts its calls on the card (``card_calls``): the
-#: float64 FMA emulation (every plain D and S calls it), the per-slot GE
-#: and ARMA loops, the Poisson rounds and the Model-2 counts, which the
-#: card's path replaces with kernels
+#: float64 FMA emulation (every plain D and alpha-RR S calls it), the
+#: per-slot GE and ARMA loops, the Poisson rounds, the Model-2 counts and
+#: the table policies' slot loops, which the card's path replaces with
+#: kernels
 PLAIN_ON_CARD = (hosting.fma32, hosting.ge_bernoulli_chunk_plain,
                  hosting.arma_rents_chunk_plain, hosting.poisson_chunk_plain,
-                 hosting.model2_service_chunk_plain)
+                 hosting.model2_service_chunk_plain,
+                 hosting.sim_chunk_table_plain,
+                 hosting.sim_chunk_table_svc_plain)
 
 
 def reset_launches():
-    """Set every launch counter, and every ``card_calls`` count, to 0."""
+    """Set every launch counter (the Poisson launches on Hormann's branch
+    too), and every ``card_calls`` count, to 0."""
     for k in KERNELS + DISPATCHERS:
         k.launches = 0
+    hosting.reset_poisson_rejection_launches()
     for f in PLAIN_ON_CARD:
         f.card_calls = 0

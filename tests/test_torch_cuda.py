@@ -1,6 +1,6 @@
-"""Kernels F, M, the fused D and S (under Model 1 and on a Model-2
-service slab), P's Poisson and Model-2 variants, and the serving engine,
-on the card:
+"""Kernels F, M, the fused D and S (alpha-RR and the table variant, under
+Model 1 and on a Model-2 service slab), P's Poisson (both branches) and
+Model-2 variants, and the serving engine, on the card:
 held against their plain versions (the ``cuda`` tests skip without a card;
 run them on the card with ``python -m pytest -m cuda
 tests/test_torch_cuda.py``).  D and S are held bit for bit
@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.policies.baselines import table_form
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import hosting as H
@@ -853,3 +854,169 @@ def test_svc_dp_and_sim_kernels_match_plain(case, with_args):
     assert (rk is None and rp is None) or torch.equal(rk, rp)
     assert (H.dp_fwd_model2.launches, H.sim_chunk_alpha_rr_svc.launches) \
         == (before[0] + 1, before[1] + 1)
+
+
+# ----------------------------------------------------------------------
+# P's Poisson variant at rates of 10 and above (Hormann's rejection) and
+# S's table variant (static, MDP, ABC).  Bit for bit.
+# ----------------------------------------------------------------------
+
+REJECTION_LAMS = (10.0, 10.5, 37.0, 200.0, 1e5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", [True, False])
+@pytest.mark.parametrize("case", [
+    # (R, t0, chunk): a reduced fleet slab; an odd start with chunk % 4 !=
+    # 0 and R off every block size; one slot at the top of the counters;
+    # Figs 17-22's chunk (84 rows x 512 slots)
+    (256, 61440, 1024), (253, 61441, 1001), (300, 0x7FFFFFFF, 1),
+    (84, 2560, 512)])
+def test_poisson_rejection_kernel_matches_plain(case, part):
+    """Per-row rates at {10, 10.5, 37, 200, 1e5}; rows that mix rates
+    below and above 10 (0, 2, 9.99, 10, 200); rates below 10 only (a
+    launch that the kernel does not count as one on Hormann's branch); the
+    salted GE form at the figure's rates 10 / 200 and at 2 / 20 (a row's
+    slots on both branches), its states from the GE chain over two chunks
+    with the chain's state carried."""
+    dev = _card()
+    R, t0, chunk = case
+    rng = np.random.default_rng(R + chunk)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    keys = t(rng.integers(0, 2 ** 32, (R, 2), dtype=np.uint64)
+             .astype(np.int64))
+    tids = torch.arange(t0, t0 + chunk, dtype=torch.int64).to(
+        torch.int32).to(dev)
+    mixed = np.resize(np.float32([0.0, 2.0, 9.99, 10.0, 200.0]), R)
+    knuth = np.resize(np.float32([0.0, 2.0, 9.99]), R)
+    # (rates, whether the kernel counts the launch as one on Hormann's
+    # branch)
+    for lam, rej in ((np.resize(np.float32(REJECTION_LAMS), R), 1),
+                     (mixed, 1), (knuth, 0)):
+        before = H.poisson_chunk.launches
+        n_rej = H.poisson_rejection_launches()
+        k = H.poisson_chunk(keys, tids, t(lam), None, None, None, part)
+        torch.cuda.synchronize()
+        assert H.poisson_chunk.launches == before + 1
+        assert H.poisson_rejection_launches() == n_rej + rej
+        assert torch.equal(k, H.poisson_chunk_plain(keys, tids, t(lam), None,
+                                                    None, None, part))
+    for hi, lo in ((200.0, 10.0), (20.0, 2.0)):
+        lam_h = t(np.full(R, hi, np.float32))
+        lam_l = t(np.full(R, lo, np.float32))
+        s = t(rng.integers(0, 2, R).astype(np.int32))
+        p = t(np.full(R, 0.4, np.float32))
+        for first, n in ((t0, chunk), (t0 + chunk, chunk)):
+            tt = torch.arange(first, first + n, dtype=torch.int64).to(
+                torch.int32).to(dev)
+            s, states, _ = H.ge_bernoulli_chunk(keys, tt, s, p, p, lam_h,
+                                                lam_l, part, emit=False)
+            k = H.poisson_chunk(keys, tt, lam_l, 1, states, lam_h, part)
+            torch.cuda.synchronize()
+            assert torch.equal(k, H.poisson_chunk_plain(
+                keys, tt, lam_l, 1, states, lam_h, part)), (hi, first)
+
+
+def _table_case(dev, R, chunk, K, policy, seed):
+    """A table policy's ``(step_fn, params)`` on R rows, made with numpy:
+    MDP and ABC tables of two rows mapping into each row's live levels,
+    ABC thresholds inside the arrivals' range, a static level a row."""
+    from repro_torch.core.policies import abc_step, mdp_step
+    from repro_torch.core.policies.baselines import static_step
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    if policy == "static":
+        return static_step, {"level_idx": t(rng.integers(0, K, R)
+                                            .astype(np.int32))}
+    pi = t(rng.integers(0, K, (R, 2, K)).astype(np.int32))
+    if policy == "mdp":
+        return mdp_step, {"pi": pi}
+    return abc_step, {"pi": pi, "x_threshold": t(
+        rng.choice(np.float32([0.5, 1.5, 2.0, 14.5]), R))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("collect_trace", [False, True])
+@pytest.mark.parametrize("policy", ["static", "mdp", "abc"])
+@pytest.mark.parametrize("case", [
+    # (R, chunk, K, service, include_final_fetch): Model 1 at the fleet's
+    # K = 3 and full width, ragged rows and chunks (the 4-byte cp.async
+    # route), one slot, K = 2 and 16; Model 2 on the slab's own levels
+    # (bulk), RR's endpoint columns of a K = 3 slab (bulk, with a map), a
+    # ragged slab (gather), K = 16
+    (4096, 1024, 3, "model1", True), (4093, 1001, 2, "model1", False),
+    (4096, 1, 3, "model1", True), (300, 999, 16, "model1", False),
+    (1024, 1024, 3, "model2", True), (1024, 1024, 2, "model2-cols", False),
+    (1021, 1001, 3, "model2-cols", True), (96, 333, 16, "model2", False)])
+def test_table_kernel_matches_plain(case, policy, collect_trace):
+    """S's table variant == ``simulator.sim_chunk_core`` stepping the
+    static, MDP or ABC table (``table_form``): a carried-in level, sums
+    and counts, side
+    channels out of [0, 1] (clipped), horizons inside the chunk."""
+    from repro_torch.core.simulator import sim_acc0
+    dev = _card()
+    R, chunk, K, service, iff = case
+    h = _hosting_case(dev, R, chunk, K, False, False, seed=R + chunk + K)
+    tab = table_form(*_table_case(dev, R, chunk, K, policy, seed=R + K), K)
+    rng = h["rng"]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    side = t(rng.integers(-1, 3, (R, chunk)).astype(np.int32))
+    x = t(rng.integers(0, 30, (R, chunk)).astype(np.int32))
+    acc = sim_acc0(R, K, dev)
+    acc["sums"] += t((rng.random((R, 3)) * 100).astype(np.float32))
+    acc["counts"] += t(rng.integers(0, 50, (R, K)).astype(np.int32))
+    carry = ({"r": t(rng.integers(0, K, R).astype(np.int32))}, acc)
+    if service == "model1":
+        args = (*tab, h["lv"], h["g"], h["M"], h["T_len"], h["t0"], carry,
+                x, h["c"], side, iff, collect_trace)
+        kern, plain = H.sim_chunk_table, H.sim_chunk_table_plain
+    else:
+        Kf = 3 if service == "model2-cols" else K
+        d = _svc_inputs(dev, R, chunk, K, Kf, seed=R + K)
+        cols = d["cols"] if service == "model2-cols" else None
+        args = (*tab, h["lv"], h["M"], h["T_len"], h["t0"], carry, x,
+                h["c"], side, d["svc"], cols, iff, collect_trace)
+        kern, plain = H.sim_chunk_table_svc, H.sim_chunk_table_svc_plain
+    before = kern.launches
+    (sk, ak), rk = kern(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    (sp, ap), rp = plain(*args)
+    assert torch.equal(sk["r"], sp["r"])
+    for key in ap:
+        assert torch.equal(ak[key], ap[key]), key
+    assert (rk is None and rp is None) or torch.equal(rk, rp)
+
+
+def test_table_wrappers_take_the_plain_version_only_on_the_cpu():
+    """On CPU tensors the table wrappers are their plain versions: no
+    launch, no card call counted."""
+    from repro_torch.core.simulator import sim_acc0
+    R, chunk, K = 9, 33, 3
+    h = _hosting_case("cpu", R, chunk, K, False, False, 2)
+    d = _svc_inputs("cpu", R, chunk, K, K, 0)
+    counters = (H.sim_chunk_table, H.sim_chunk_table_svc)
+    before = [k.launches for k in counters]
+    calls = (H.sim_chunk_table_plain.card_calls,
+             H.sim_chunk_table_svc_plain.card_calls)
+    side = d["states"]
+    for policy in ("static", "mdp", "abc"):
+        pi, obs, thr = table_form(*_table_case("cpu", R, chunk, K, policy,
+                                               1), K)
+        carry = ({"r": torch.zeros(R, dtype=torch.int32)},
+                 sim_acc0(R, K, "cpu"))
+        for kern, plain, extra in (
+                (H.sim_chunk_table, H.sim_chunk_table_plain,
+                 dict(g=h["g"])),
+                (H.sim_chunk_table_svc, H.sim_chunk_table_svc_plain,
+                 dict(svc=d["svc"]))):
+            a = dict(pi=pi, obs=obs, x_threshold=thr, lv=h["lv"], M=h["M"],
+                     T_len=h["T_len"], t0=h["t0"], carry=carry, x=d["x"],
+                     c=h["c"], side=side, **extra)
+            (sk, ak), rk = kern(**a)
+            (sp, ap), rp = plain(**a)
+            assert torch.equal(rk, rp) and torch.equal(ak["sums"],
+                                                       ap["sums"])
+    assert [k.launches for k in counters] == before
+    assert (H.sim_chunk_table_plain.card_calls,
+            H.sim_chunk_table_svc_plain.card_calls) == calls

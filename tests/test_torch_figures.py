@@ -12,7 +12,7 @@ from repro_torch.kernels.hosting import threefry_partitionable
 
 FIGURES = ["fig01_02_alpha_sweep", "fig03_06_m_p_sweeps",
            "fig07_08_multiple_rr", "fig10_11_trace",
-           "fig12_15_poisson_model2"]
+           "fig12_15_poisson_model2", "fig17_22_markov_mdp"]
 
 
 def _check(mod, rows):

@@ -2,8 +2,9 @@
 package, bit for bit (``np.array_equal``), in both threefry layouts:
 ``jax.random.poisson`` on slot keys at rates in [0, 10), the Poisson,
 GE-Poisson and bursty streams materialized at any chunking, the seed
-axis, and the refusals of the parts that are not ported (rates of 10 and
-above, the diurnal remodulation)."""
+axis, the same streams at rates that reach 10 (Hormann's branch, held in
+full by ``test_torch_rejection.py``), and the refusal of the part that is
+not ported (the diurnal remodulation)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -117,23 +118,30 @@ def test_poisson_seed_replicas_match_the_reference(partitionable):
 
 
 def test_unported_poisson_parts_raise():
-    """Rates of 10 and above (jax's rejection branch) and the diurnal
-    remodulation raise, naming their ROADMAP item; the bursty constants
-    are the reference's."""
-    k = _pk(jax.random.PRNGKey(0))
-    for make in (
-            lambda: ps.poisson_arrivals(k, [2.0, 10.0, 1.0, 1.0], B,
-                                        device=CPU),
-            lambda: ps.ge_arrivals(k, 0.3, 0.2, 10.0, 0.5, B, device=CPU),
-            lambda: ps.bursty_arrivals(k, B, device=CPU),    # rate 20
-            lambda: ps.bursty_arrivals(k, B, base_rate=0.5, burst_rate=2.0,
-                                       diurnal_period=24, device=CPU)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3c"):
-            make()
-    # the one check, which every Poisson stream makes when it is built;
-    # the chunk functions, on the card and off it, do not check
-    with pytest.raises(NotImplementedError, match="rejection branch"):
-        H.check_knuth_rates(torch.tensor([1.0, 2.0]), torch.tensor([12.0]))
+    """Rates of 10 and above (jax's rejection branch), refused before the
+    Figs 17-22 slice, now equal the reference bit for bit in both layouts
+    at the same rates; the diurnal remodulation still raises, naming its
+    ROADMAP item; the bursty constants are the reference's."""
+    key = jax.random.PRNGKey(0)
+    k = _pk(key)
+    lam = np.asarray([2.0, 10.0, 1.0, 1.0], np.float32)
+    for part in LAYOUTS:
+        with jax.threefry_partitionable(part), \
+                threefry_partitionable(part):
+            for ref, got in (
+                    (js.poisson_arrivals(key, lam, B),
+                     ps.poisson_arrivals(k, lam, B, device=CPU)),
+                    (js.ge_arrivals(key, 0.3, 0.2, 10.0, 0.5, B),
+                     ps.ge_arrivals(k, 0.3, 0.2, 10.0, 0.5, B, device=CPU)),
+                    (js.bursty_arrivals(key, B),             # rate 20
+                     ps.bursty_arrivals(k, B, device=CPU))):
+                want = js.materialize_stream(ref, 90)
+                out = ps.materialize_stream(got, 90, 40)
+                for w, o in zip(want, out):
+                    assert np.array_equal(o, np.asarray(w)), (part, ref.name)
+    with pytest.raises(NotImplementedError, match="items 2 and 12"):
+        ps.bursty_arrivals(k, B, base_rate=0.5, burst_rate=2.0,
+                           diurnal_period=24, device=CPU)
     assert ps.BURSTY_EXIT_P == J_EXIT_P
     # Bernoulli emissions still take any rate up to 1
     ps.ge_arrivals(k, 0.3, 0.2, 0.9, 0.2, B, emission="bernoulli",

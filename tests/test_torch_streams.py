@@ -124,9 +124,17 @@ def test_chunk_invariance_and_replica_rows():
 
 def test_unported_samplers_raise():
     # Poisson emissions at a rate of 10 or more take jax's rejection
-    # branch, which is not ported
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3c"):
-        ps.ge_arrivals(_pk(_key(0)), 0.3, 0.2, 12.0, 0.5, B, device=CPU)
+    # branch, ported since the Figs 17-22 slice: the GE stream that was
+    # refused here is now held bit for bit (both layouts)
+    for part in LAYOUTS:
+        with jax.threefry_partitionable(part), threefry_partitionable(part):
+            want = js.materialize_stream(
+                js.ge_arrivals(_key(0), 0.3, 0.2, 12.0, 0.5, B), 120)
+            got = ps.materialize_stream(
+                ps.ge_arrivals(_pk(_key(0)), 0.3, 0.2, 12.0, 0.5, B,
+                               device=CPU), 120, 50)
+            for w, g in zip(want, got):
+                np.testing.assert_array_equal(g, np.asarray(w))
     with pytest.raises(ValueError):
         ps.replicate_seeds(_scenarios(_key(0), _key(1))[0][1], 3,
                            antithetic=True)

@@ -23,7 +23,9 @@ chunk of that fan-out's Poisson arrivals (rates cycled over {2, 4, 8})
 and one of its Model-2 service (K = 3, 24 requests a slot at most, on
 those arrivals);
 where the checkout has it, one chunk of kernel P's ARMA rents (the spot
-stream, p = 4, q = 2) at the fleet's shape.  Times are
+stream, p = 4, q = 2) at the fleet's shape; where the checkout has the
+Markov leg, one chunk of its Poisson draws on Hormann's branch (the GE
+chain's states at rates 200 / 10, salt 1).  Times are
 CUDA-event medians of batches of back-to-back calls, each batch queued
 behind ~10 ms of ``torch.cuda._sleep`` so that it runs back to back;
 beside each, the cycles a slot at the SM clock nvidia-smi reads while
@@ -178,6 +180,16 @@ def _one(root: Path) -> dict:
                 lambda d=d: H.dp_fwd_model2(*d))
             out[f"S on a Model-2 slab, {name}"] = ms_and_clock(
                 lambda s=s: H.sim_chunk_alpha_rr_svc(*s))
+    if hasattr(cs, "markov_scenario"):
+        costs, ges, cms = cs.markov_instances(cs.N_M * cs.N_ALPHA)
+        mk = sc.replicate_seeds(cs.markov_scenario(
+            cs.HostingGrid.from_costs(costs, device=dev), ges, cms, dev),
+            cs.N_SEEDS)
+        arr = mk.params["arr"]
+        _, sl = mk.chunk_fn(mk.params, mk.init_fn(mk.params), tids)
+        p_args = (arr["key"], tids, arr["rate_l"], 1, sl.side, arr["rate_h"])
+        out["P Poisson chunk, Hormann"] = ms_and_clock(
+            lambda: H.poisson_chunk(*p_args), batch=5)
     walls = {}
     for name, (mod, _, _) in cs.FIGURES.items():
         mod.run(device=dev)

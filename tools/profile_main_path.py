@@ -15,10 +15,12 @@ Figures: each of the port's figure modules (``repro_torch/figures``) at
 its default size, one ``run()`` (the figure's warm-up fan-out and its timed
 fan-out), the fan-out of ``chip_smoke.py``'s phase 8 (alpha-RR and RR
 lanes with the OPT frontiers over Bernoulli arrivals and spot rents, 4,096
-rows) and its Model-2 leg (phase 9: Poisson arrivals, spot rents, Model-2
-service, RR gathering its endpoint columns) at horizon T; the device time
-is grouped as for the fleet path, the ARMA, Poisson and service kernels
-each on their own.
+rows), its Model-2 leg (phase 9: Poisson arrivals, spot rents, Model-2
+service, RR gathering its endpoint columns) and its Markov leg (phase 10:
+GE-Poisson arrivals at 200 / 10, spot rents, service at 260 requests a
+slot; the alpha-RR / RR fan-out, then MDP and ABC) at horizon T; the
+device time is grouped as for the fleet path, the ARMA, Poisson and
+service kernels each on their own.
 
 Serving path: zamba2-1.2b at full width and depth in bf16 (seeded random
 weights), one ``serve_slot`` of 8 prompts of 2,048 tokens under the full
@@ -47,9 +49,10 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.core import (FleetBatch, offline_opt_fleet,  # noqa: E402
-                              run_fleet)
-from repro_torch.core.policies import AlphaRR, RetroRenting  # noqa: E402
+from repro_torch.core import (FleetBatch, HostingGrid,  # noqa: E402
+                              offline_opt_fleet, run_fleet)
+from repro_torch.core.policies import (ABCPolicy, AlphaRR,  # noqa: E402
+                                       MDPPolicy, RetroRenting)
 
 
 def _device_us(evt) -> float:
@@ -70,11 +73,11 @@ SERVING_GROUPS = (
 FLEET_GROUPS = (
     ("kernel D (fused cost assembly)", ("dp_fwd_kernel",)),
     ("kernel D (finished w)", ("dp_minplus_kernel",)),
-    ("kernel S", ("sim_alpha_rr_kernel",)),
+    ("kernel S (alpha-RR, table)", ("sim_kernel",)),
     ("kernel P (streams)", ("counter_stream_kernel",)),
     ("kernel P (GE chain)", ("ge_chain_kernel",)),
     ("kernel P (ARMA)", ("arma_rents_kernel",)),
-    ("kernel P (Poisson)", ("poisson_knuth_kernel",)),
+    ("kernel P (Poisson)", ("poisson_kernel",)),
     ("kernel P (Model-2 service)", ("model2_service_kernel",)))
 
 
@@ -155,6 +158,22 @@ def profile_figures(T, dev):
                                chunk_size=cs.CHUNK, n_seeds=cs.N_SEEDS,
                                with_opt_forward=True, collect_trace=False,
                                device=dev), top=12, groups=FLEET_GROUPS)
+    costs, ges, cms = cs.markov_instances(fleet.B)
+    fleet = FleetBatch.for_scenario(
+        HostingGrid.from_costs(costs, device=dev), T)
+    kw = dict(scenario=cs.markov_scenario(fleet.grid, ges, cms, dev),
+              chunk_size=cs.CHUNK, n_seeds=cs.N_SEEDS, collect_trace=False,
+              device=dev)
+    lanes = [AlphaRR.fleet_lane(fleet, with_svc=True),
+             RetroRenting.fleet_lane(fleet, with_svc=True)]
+    mdp = MDPPolicy.fleet(fleet, costs, ges, cms)
+    abc = ABCPolicy.fleet(fleet, costs, ges, cms)
+    profiled(f"Markov leg: fan-out alpha-RR + RR, MDP, ABC, GE-Poisson + "
+             f"spot + service at {cs.MARKOV_MAX}, T={T}",
+             lambda: (run_fleet(lanes, fleet, **kw),
+                      run_fleet(mdp, fleet, **kw),
+                      run_fleet(abc, fleet, **kw)),
+             top=12, groups=FLEET_GROUPS)
 
 
 def profile_serving(dev):
