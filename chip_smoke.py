@@ -56,7 +56,25 @@ Phases (any failure exits non-zero, and no result line is printed):
    slab's levels and on RR's endpoint columns, each chunk); then at the
    Markov leg's shape (4,096 x 4,096, K = 3) each timed, the Poisson
    draws with their mean Hormann rounds and the share that reach
-   ``lgamma``.
+   ``lgamma``, Hormann's bound by pipe from ``poisson_kernel``'s own SASS
+   (``nvdisasm -gi`` on the library's line tables: a round's hashes and
+   the code every round runs, on every round; the code past the quick
+   tests, ``lgamma`` included, on the rounds that reach it), the larger
+   pipe's.
+   The g-curve modules (default layout): Figs 23-25's recorded path (P's
+   Bernoulli and ARMA variants on one row x 4,000 slots, equal to the
+   array builders' rows), the service draws at one request a slot on Fig
+   24's 76 x 4,000 slab and Fig 25's four 20 x 1,000 chunks, D and S on
+   those chunks (alpha-RR, RR's endpoint columns); the study's 31-level
+   union slab (4 x 4,000) with S for its lanes of 2, 3 and 8 levels; then
+   slabs of 17, 24, 31 and 32 levels (256 x 1,024 and 253 x 1,001): the
+   service draws in both layouts (also at 6, 8, 9 and 16 levels, the ends
+   of their bands of a run-time K), alpha-RR's S and the static table on
+   lanes of 3 and 8 levels gathering their columns; the service draws on
+   31 levels and S on the 31-level slab timed at the study's shape and at
+   4,096 x 4,096, S also on its lane's columns gathered beforehand (its
+   bulk route), against the policy's latency bound and the gather's
+   32-byte sectors.
 3. The fleet path at full width: 1,024 instances (32 M x 32 (alpha, g)) x 4
    seeds = 4,096 rows, T = 65,536, chunks of 4,096: alpha-RR and RR through
    ``run_fleet``, alpha-OPT and OPT through ``offline_opt_fleet``
@@ -86,10 +104,16 @@ Phases (any failure exits non-zero, and no result line is printed):
    T = 8,000; bursty GE-Poisson arrivals), Figs 12-15 (19 x 4, T = 6,000;
    Poisson arrivals and Model-2 service, no DP), Figs 17-22 (21 x 4, T =
    3,000 in chunks of 512; GE-Poisson at 200 / 10, Model-2 service at 260
-   a slot, alpha-RR / RR and the MDP and ABC baselines); each figure's
+   a slot, alpha-RR / RR and the MDP and ABC baselines), Figs 23-25 (the
+   g-curve, then 19 curve points x 4 seeds and 5 M x 4 seeds, T = 4,000;
+   trace playback, Model-2 service at one request a slot, D for Fig 25's
+   OPT frontiers) and ``beyond_knapsack_levels`` (26 lanes of 2 to 8
+   levels on one 31-level slab, 4 seeds, T = 4,000); each module's
    ``check(rows)`` must pass, its counters are zeroed before and read
    after: P's streams, S (Figs 17-22: its table variant too) and (Figs
-   1-6, 10-11) D must have run, no plain code.
+   1-6, 10-11, 23-25) D must have run, the service draws and S on more
+   than 16 levels in the study and nowhere else, no plain code.  Then
+   card == CPU for the two g-curve modules at ``run(T=400, n_seeds=2)``.
 8. The fan-out at the fleet leg's width: 1,024 instances x 4 seeds, T =
    65,536 in chunks of 4,096, Bernoulli(0.35) arrivals and spot rents at
    mean 0.35, alpha-RR and RR lanes with the OPT frontiers; per chunk one
@@ -156,6 +180,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -177,6 +202,9 @@ from repro_torch.figures import fig07_08_multiple_rr  # noqa: E402
 from repro_torch.figures import fig10_11_trace  # noqa: E402
 from repro_torch.figures import fig12_15_poisson_model2  # noqa: E402
 from repro_torch.figures import fig17_22_markov_mdp  # noqa: E402
+from repro_torch.figures import fig23_25_geolife  # noqa: E402
+from repro_torch.figures import beyond_knapsack_levels  # noqa: E402
+from repro_torch.core import arrivals, rentcosts  # noqa: E402
 from repro_torch.core.policies.alpha_rr import alpha_rr_init  # noqa: E402
 from repro_torch.core.policies.baselines import table_form  # noqa: E402
 from repro_torch.core.policies.offline_opt import (dp_fetch_matrix,  # noqa: E402
@@ -229,11 +257,15 @@ KERNEL_SYMBOLS = {
     "poisson_chunk": "poisson_kernel<SALT, STATES>",
     "poisson_chunk rejection": "poisson_kernel<SALT, STATES> (Hormann)",
     "model2_service_chunk": "model2_service_kernel",
+    "model2_service_chunk wide": "model2_service_kernel<KM> (the bands of a "
+                                 "run-time K at 17 to 32 levels)",
     "dp_fwd_model1": "dp_fwd_kernel<K, ARGS, false>",
     "dp_fwd_model2": "dp_fwd_kernel<K, ARGS, true>",
     "dp_minplus": "dp_minplus_kernel",
     "sim_chunk_alpha_rr": "sim_kernel<K, false, false>",
     "sim_chunk_alpha_rr_svc": "sim_kernel<K, true, false>",
+    "sim_chunk_alpha_rr_svc wide": "sim_kernel<K, true, false> (a slab of "
+                                   "17 to 32 levels, the gather route)",
     "sim_chunk_table": "sim_kernel<K, false, true>",
     "sim_chunk_table_svc": "sim_kernel<K, true, true>",
     "flash_attention_wgmma": "flash_fwd_wgmma_kernel",
@@ -498,6 +530,15 @@ ARMA_STEP_FLOPS = 4 + 3 + 1 + 3 + 1 + 3
 # adds of the AR dot, + e, + the MA dot; at an assumed 4 cycles a
 # dependent float32 instruction on sm_90
 ARMA_CHAIN_OPS, FP32_LATENCY = 6, 4
+
+
+def sim_chain_ops(K):
+    """The dependent ops a slot on alpha-RR's chain in S's policy warp
+    (hosting.cu: sim_kernel): the select of w_r (K - 1 selects after its
+    first), w - w_r, the add of min(0, S), the margin's FMA, the mask's
+    select, + EPS, the first-index argmin (a compare and a select a
+    level after the first), the switch test and r's select."""
+    return (K - 1) + 5 + 2 * (K - 1) + 2
 # the ms of the design each redesigned kernel replaced, at the same shape
 # (PERF.md section 6; NVIDIA H100 80GB HBM3, 700 W): the log prints old ->
 # new
@@ -530,6 +571,13 @@ P_SASS = {"slot_uniform": "counter_stream_kernelILi0ELb0E",
 ALU_OPS = {"LOP3", "SHF", "IADD3", "ISETP", "FSETP", "SEL", "FSEL", "IMNMX",
            "FMNMX", "VIMNMX", "LEA", "PRMT", "PLOP3", "BMSK", "IABS", "P2R",
            "R2P"}
+# SASS opcodes on the FMA pipe (the same table: float32 add, multiply and
+# FMA at 128 lanes a clock per SM; integer multiply-add at 64) and on the
+# transcendental unit (MUFU: 16)
+FMA_FLOAT_OPS = {"FFMA", "FADD", "FMUL", "FFMA32I", "FADD32I", "FMUL32I",
+                 "HFMA2"}
+FMA_INT_OPS = {"IMAD", "IMUL", "VIADD", "IMAD32I", "IMUL32I"}
+XU_OPS = {"MUFU"}
 P_SLOTS = 4                       # slots a thread (lane) draws: kSlots
 # the salted uniforms' slot loop is not unrolled: its code holds one slot
 P_SLOTS_IN_CODE = {"slot_uniform salt": 1}
@@ -572,25 +620,53 @@ def p_call(specs, name, rows, tids, part, plain=False):
                                    else a for a in args), part)
 
 
-def p_sass_ops():
-    """{variant: (ALU-pipe ops a slot, all ops a slot)}, counted in the
-    SASS of the built hosting library (``cuobjdump -sass``): a kernel's
-    static instructions over the slots its code holds (a thread's four,
-    one for the salted uniforms' loop).  The static count includes the
-    scalar stores of a ragged edge and the prologue (for the GE kernel
-    and the salted uniforms once per slot or tile where it runs once a
-    thread), so it slightly overstates the work."""
+def sass_functions():
+    """{function: [opcode, ...]} of the built hosting library's SASS
+    (``cuobjdump -sass``), its static instructions in order."""
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass",
                            str(_build.library_path("hosting"))],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    counts = {}
+    funcs = {}
     for part in sass.split("Function : ")[1:]:
-        name = part.split(None, 1)[0]
-        ops = [m.group(1) for m in re.finditer(
+        funcs[part.split(None, 1)[0]] = [m.group(1) for m in re.finditer(
             r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)",
             part)]
+    return funcs
+
+
+def pipe_ops(ops, scale=1.0):
+    """A list of SASS opcodes by pipe, times ``scale``: ``alu`` (the
+    ALU_OPS), ``ffma`` (FMA_FLOAT_OPS), ``imad`` (FMA_INT_OPS), ``xu``
+    (XU_OPS) and ``all``."""
+    return {"alu": sum(o in ALU_OPS for o in ops) * scale,
+            "ffma": sum(o in FMA_FLOAT_OPS for o in ops) * scale,
+            "imad": sum(o in FMA_INT_OPS for o in ops) * scale,
+            "xu": sum(o in XU_OPS for o in ops) * scale,
+            "all": len(ops) * scale}
+
+
+def pipe_cycles(c):
+    """SM clocks the ``pipe_ops`` counts ``c`` (summed over the work) hold
+    each pipe: the ALU pipe 64 lanes a clock, the FMA pipe 128 float
+    lanes a clock of which the integer multiply-adds take its 64-lane
+    heavy half, the transcendental unit 16."""
+    return {"alu": c["alu"] / 64,
+            "fma": max(c["imad"] / 64, (c["ffma"] + c["imad"]) / 128),
+            "xu": c["xu"] / 16}
+
+
+def p_sass_ops(funcs):
+    """{variant: (ALU-pipe ops a slot, all ops a slot)}, counted in the
+    SASS of the built hosting library (``sass_functions``): a kernel's
+    static instructions over the slots its code holds (a thread's four,
+    one for the salted uniforms' loop).  The static count includes the
+    scalar stores of a ragged edge and the prologue (for the GE kernel
+    and the salted uniforms once per slot or tile where it runs once a
+    thread), so it slightly overstates the work."""
+    counts = {}
+    for name, ops in funcs.items():
         for var, frag in P_SASS.items():
             if frag in name:
                 n = P_SLOTS_IN_CODE.get(var, P_SLOTS)
@@ -647,8 +723,14 @@ def kernel_checks(dev):
         log(f"P ok: {len(specs)} variants x {len(slabs)} slabs, "
             f"{'partitionable' if part else 'original'} layout")
     clock = sm_clock_mhz(lambda: H.slot_uniform(keys, tids), 0.1)
-    sass = p_sass_ops()
+    funcs = sass_functions()
+    sass = p_sass_ops(funcs)
     sass["na_rents_chunk"] = na_sass_ops(sass, tids)
+    # a threefry block's ops by pipe: the uniforms' kernel over its slots'
+    # two blocks (its bits-to-float mapping included)
+    sass["block pipes"] = pipe_ops(funcs[next(
+        f for f in funcs if P_SASS["slot_uniform"] in f)], 1 / (2 * P_SLOTS))
+    sass["hormann"] = hormann_sass(sass["block pipes"])
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for name in specs:
         k = p_call(specs, name, R, tids, True)
@@ -690,6 +772,7 @@ def kernel_checks(dev):
     rec.update(mrec)
     rec["model2_service_chunk"].update(
         {f"markov_{k}": v for k, v in markov_svc.items()})
+    rec.update(gcurve_kernel_checks(dev, clock, n_sm, sass))
 
     # slab data shared by D and S
     gen = scen.init_fn(scen.params)
@@ -1278,18 +1361,131 @@ def svc_kernel_checks(dev, clock, n_sm, sass):
 # ----------------------------------------------------------------------
 
 REJECTION_LAMS = (10.0, 10.5, 37.0, 200.0, 1e5)
-# the float32 operations of one Hormann round past its five threefry
-# blocks (an FMA counts 2), estimated from the source (hosting.cu:
-# hormann_round, xla_lgamma1pf), not counted in the SASS: the two
-# uniforms' mappings (10), the k arithmetic (a division, the FMA, the
-# floor: ~15) and the quick tests (~8); a round that reaches the s <= t
-# test adds XLA's log of its ratio (two divisions), lgamma (eight
-# divisions, the Lanczos adds, log1p, a division, log, the FMA) and t:
-# LGAMMA_ROUND_OPS, each division ~10 ops.  Their time at the float32
-# peak stands beside the integer-pipe bound, not added to it: the two
-# pipes issue side by side
-HORMANN_ROUND_OPS = 33
-LGAMMA_ROUND_OPS = 25 + 2 * 10 + 8 * 10 + 8 + 35 + 10 + 25 + 6
+
+
+def _source_span(lines, name):
+    """(first, last) 1-based lines of the device function ``name`` in
+    hosting.cu: its signature's line to the next line that is ``}``."""
+    first = next(i for i, ln in enumerate(lines, 1)
+                 if re.search(rf"\b{name}\(", ln) and "__device__" in ln)
+    last = next(i for i, ln in enumerate(lines[first:], first + 1)
+                if ln.rstrip() == "}")
+    return first, last
+
+
+# poisson_kernel<true, true> in the SASS (a fragment of its mangled name)
+POISSON_GE_SASS = "poisson_kernelILb1ELb1E"
+
+
+def sass_with_lines(frag):
+    """[(opcode, [hosting.cu lines])] of the built hosting library's
+    kernel whose mangled name holds ``frag``, in order: ``nvdisasm -c -gi``
+    on the library's cubin (``cuobjdump -xelf``) gives each instruction's
+    source line and the lines it is inlined at, a comment a frame,
+    innermost first (lines of other files, the CUDA headers', are
+    dropped).  Subroutines reached by
+    CALL, placed after the kernel's own code (the divisions' and square
+    roots' slow paths), are left out."""
+    bin_dir = Path(_build._nvcc()).parent
+    with tempfile.TemporaryDirectory() as tmp:
+        subprocess.run([str(bin_dir / "cuobjdump"), "-xelf", "all",
+                        str(_build.library_path("hosting"))], cwd=tmp,
+                       capture_output=True, check=True, timeout=300)
+        texts = [subprocess.run([str(bin_dir / "nvdisasm"), "-c", "-gi",
+                                 str(c)], capture_output=True, text=True,
+                                check=True, timeout=600).stdout
+                 for c in sorted(Path(tmp).glob("*.cubin"))]
+    bodies = []
+    for text in texts:
+        lines = text.splitlines()
+        starts = [i for i, ln in enumerate(lines)
+                  if re.match(r"\s*\.section\s+\.text\.", ln)]
+        for i, j in zip(starts, starts[1:] + [len(lines)]):
+            if frag in lines[i]:
+                bodies.append(lines[i + 1:j])
+    require(len(bodies) == 1, f"{frag}: {len(bodies)} kernels in the SASS")
+    body = bodies[0]
+    targets = {m.group(1) for ln in body for m in re.finditer(
+        r"CALL\S*\s+`\(([^)]+)\)", ln)}
+    out, chain, fresh = [], [], True
+    for ln in body:
+        if "//## File" in ln:
+            # an instruction's stack: one comment a frame, innermost first,
+            # each naming its line and the line it is inlined at
+            if fresh:
+                chain, fresh = [], False
+            chain += [int(n) for f, n in re.findall(
+                r'"([^"]+)", line (\d+)', ln) if f.endswith("hosting.cu")]
+            continue
+        lab = re.match(r"\s*([^\s/][^\s]*):\s*$", ln)
+        if lab and lab.group(1) in targets:
+            break                            # the subroutines from here
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9_]*)", ln)
+        if m:
+            out.append((m.group(1), chain))
+            fresh = True
+    require(len(out) > 100 and any(chain for _, chain in out),
+            f"{frag}: {len(out)} instructions, none with a line of "
+            f"hosting.cu")
+    return out
+
+
+def hormann_sass(blk):
+    """Hormann's round by pipe, counted in the SASS of the built
+    ``poisson_kernel<true, true>`` (the GE form's instance, which the
+    Markov leg runs).  The library carries line tables (``-lineinfo``), so
+    ``nvdisasm -gi`` names each instruction's source line and the lines
+    it is inlined at; an instruction belongs to the round when one of
+    those lines lies in ``hormann_round``.  Of those: ``hash`` (in
+    ``threefry2x32``: the five blocks), ``slow`` (from the line of the
+    log before ``lgamma`` on, ``lgamma`` included: the code that only
+    rounds past the quick tests run) and ``round`` (the rest, which every
+    round runs).  Subroutines reached by CALL (the divisions' slow paths,
+    for arguments that no round here gives them) are left out.  Static
+    counts: a branch's two sides both count.  Returns {class: pipe_ops}
+    and the check that ``hash`` holds five blocks (its ALU ops over 5 x
+    ``blk``'s)."""
+    src = (Path(__file__).resolve().parent / CSRC / "hosting.cu"
+           ).read_text().splitlines()
+    spans = {f: _source_span(src, f) for f in
+             ("hormann_round", "xla_lgamma1pf", "threefry2x32")}
+    h0, h1 = spans["hormann_round"]
+    slow_from = next(i for i in range(h0, h1 + 1)
+                     if "const float sl = " in src[i - 1])
+    inside = lambda f, ln: spans[f][0] <= ln <= spans[f][1]  # noqa: E731
+    ops = {"hash": [], "round": [], "slow": []}
+    for op, chain in sass_with_lines(POISSON_GE_SASS):
+        at = [v for v in chain if inside("hormann_round", v)]
+        if not at:
+            continue
+        if any(inside("threefry2x32", v) for v in chain):
+            ops["hash"].append(op)
+        elif at[0] >= slow_from or any(inside("xla_lgamma1pf", v)
+                                       for v in chain):
+            ops["slow"].append(op)
+        else:
+            ops["round"].append(op)
+    counts = {k: pipe_ops(v) for k, v in ops.items()}
+    five = counts["hash"]["alu"] / (5 * blk["alu"])
+    require(0.6 <= five <= 1.6, f"Hormann's round in the SASS: its hashes "
+                                f"hold {five:.2f} x five blocks' ALU ops")
+    counts["five_blocks_ratio"] = five
+    return counts
+
+
+def hormann_pipes(sass, blocks, rounds, slow):
+    """The Poisson draws' instructions on Hormann's branch by pipe:
+    ``blocks`` threefry blocks outside the rounds (the items' keys) at
+    the uniforms' kernel's count a block, and ``rounds`` rounds, of which
+    ``slow`` pass the quick tests, at ``hormann_sass``' counts (a round's
+    hashes and its ``round`` code on every round, its ``slow`` code on the
+    slow ones).  Returns (the summed counts, the per-round counts)."""
+    blk, hs = sass["block pipes"], sass["hormann"]
+    tot = {k: blocks * blk[k] + rounds * (hs["hash"][k] + hs["round"][k])
+           + slow * hs["slow"][k] for k in blk}
+    return tot, {c: hs[c] for c in ("hash", "round", "slow")}
+
 # of one table step past its staging: the observation (a compare or two
 # selects and the clip), the lookup's index and load, and the
 # accounting's ~10 ops
@@ -1544,17 +1740,25 @@ def markov_kernel_checks(dev, clock, n_sm, sass):
     _, rounds, slow = H.poisson_rejection_plain(a0, a1, rate, stats=True)
     del a0, a1, rate
     blocks = 2 * N + 5 * rounds
-    float_ms = (slow * LGAMMA_ROUND_OPS + rounds * HORMANN_ROUND_OPS) / (
-        256 * n_sm * clock * 1e3)
+    tot, per = hormann_pipes(sass, 2 * N, rounds, slow)
+    pipes = {k: v / (n_sm * clock * 1e3)
+             for k, v in pipe_cycles(tot).items()}
+    top = max(pipes, key=pipes.get)
     rec["poisson_chunk rejection"] = dict(
         replaces="src/repro/core/scenarios/streams.py:98",
         consumer="src/repro/core/scenarios/streams.py:98",
         ms=cuda_ms(lambda: H.poisson_chunk(*p_args), reps=7, batch=5),
         plain_ms=plain_ms, sm_clock_mhz=clock, mean_rounds=rounds / N,
         lgamma_share=slow / rounds, alu_ops_per_block=alu_block,
-        int_pipe_bound_ms=bound_int(blocks), float_work_ms=float_ms,
-        ops=79 * blocks + HORMANN_ROUND_OPS * rounds
-        + LGAMMA_ROUND_OPS * slow,
+        int_pipe_bound_ms=bound_int(blocks), alu_pipe_bound_ms=pipes["alu"],
+        fma_pipe_bound_ms=pipes["fma"], xu_pipe_bound_ms=pipes["xu"],
+        pipe_bound_ms=pipes[top], bound_pipe=top,
+        hash_pipe_ops=per["hash"], round_pipe_ops=per["round"],
+        slow_pipe_ops=per["slow"],
+        five_blocks_ratio=sass["hormann"]["five_blocks_ratio"],
+        ops=79 * blocks + sum(
+            n * (per[c]["ffma"] + per[c]["imad"] + per[c]["alu"])
+            for c, n in (("round", rounds), ("slow", slow))),
         nbytes=nbytes(*(a for a in p_args if isinstance(a, torch.Tensor)),
                       x),
         shape=f"R={R} chunk={chunk}, the GE states' rates 200 / 10 (salt "
@@ -1631,10 +1835,18 @@ def markov_kernel_checks(dev, clock, n_sm, sass):
     for name, r in rec.items():
         r["max_abs_err"] = 0.0
         log(f"{name} timed: {r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms"
-            + (f", integer-pipe bound {r['int_pipe_bound_ms']:.4f} ms "
-               f"({r['int_pipe_bound_ms'] / r['ms']:.1%}); its float work "
-               f"(estimated) {r['float_work_ms']:.4f} ms at the float32 peak"
-               if "int_pipe_bound_ms" in r else "")
+            + (f", integer-pipe bound of its blocks "
+               f"{r['int_pipe_bound_ms']:.4f} ms; pipes from the SASS (ALU "
+               f"{r['alu_pipe_bound_ms']:.4f}, FMA "
+               f"{r['fma_pipe_bound_ms']:.4f}, XU "
+               f"{r['xu_pipe_bound_ms']:.4f} ms): bound "
+               f"{r['pipe_bound_ms']:.4f} ms by the {r['bound_pipe']} pipe "
+               f"({r['pipe_bound_ms'] / r['ms']:.1%}); a round's hashes "
+               f"{r['hash_pipe_ops']} ({r['five_blocks_ratio']:.3f} x five "
+               f"blocks' ALU ops), the rest of every round "
+               f"{r['round_pipe_ops']}, of a slow round "
+               f"{r['slow_pipe_ops']}"
+               if "pipe_bound_ms" in r else "")
             + (f", ABC {r['abc_ms']:.4f} ms" if "abc_ms" in r else ""))
     pr = rec["poisson_chunk rejection"]
     log(f"   Poisson (Hormann): {pr['mean_rounds']:.4f} rounds a draw, "
@@ -1645,6 +1857,378 @@ def markov_kernel_checks(dev, clock, n_sm, sass):
         f"plain {markov_svc['plain_ms']:.1f} ms on {SVC_ROWS} rows; "
         f"compared {n_cmp}")
     return rec, markov_svc
+
+
+# ----------------------------------------------------------------------
+# Phase 2, the g-curve modules (Figs 23-25, beyond_knapsack_levels): their
+# own chunks, and Model-2 slabs of more than 16 levels.
+# ----------------------------------------------------------------------
+
+# the modules' horizon and Fig 25's chunk, at their defaults
+GCURVE_T, FIG25_CHUNK = 4000, 1000
+# the slab widths past 16 levels held against the plain versions, and
+# the service draws' bands below them (each band's ends)
+WIDE_KS = (17, 24, 31, 32)
+BAND_KS = (6, 8, 9, 16)
+# the level counts at which the service draws are timed at fleet width
+# (the static instances end at K = 5, their 16-byte stores at 4; the bands
+# of a run-time K start at 6, 9, 17 and 25)
+SERVICE_SWEEP_KS = (3, 4, 5, 6, 8, 9, 12, 16, 17, 24, 25, 31, 32)
+
+
+def gcurve_kernel_checks(dev, clock, n_sm, sass):
+    """The g-curve modules' kernels against their plain versions, bit for
+    bit.  Their own chunks, in the default layout: Figs 23-25's recorded
+    path (P's Bernoulli and ARMA variants on one row x 4,000 slots, the
+    array builders' output), the service draws at one request a slot on
+    K = 3 over Fig 24's slab (19 curve points x 4 seeds = 76 rows x
+    4,000) and Fig 25's four chunks of 1,000 (5 M x 4 seeds = 20 rows, at
+    a curve point), with D's and S's svc variants for alpha-RR and RR's
+    endpoint columns on those chunks (state carried); the study's union
+    slab (4 rows x 4,000, K = 31) with S for its lanes of K = 2, 3 and 8.
+    Then slabs of Kf = 17, 24, 31 and 32 levels, aligned (256 rows x
+    1,024 slots) and ragged (253 rows from an odd t0 x 1,001): the
+    service draws at 24 and one request a slot in both layouts (also at
+    the bands' ``BAND_KS``), and on
+    the default layout's slabs alpha-RR's S (trace and final fetch on and
+    off) and the static table on lanes of 3 and 8 levels gathering their
+    columns.  Timed: the service draws on
+    31 levels and S on the 31-level slab at the study's shape and at a
+    fleet-width chunk (4,096 x 4,096; the Model-2 leg's arrivals at 24 a
+    slot), and the service draws on that chunk at each K of
+    ``SERVICE_SWEEP_KS`` (evenly spread levels).  Returns their records."""
+    n_cmp = {}
+
+    def same(name, k, p, what):
+        torch.cuda.synchronize()
+        require(tree_equal(k, p), f"{name} differs from its plain version "
+                                  f"({what})")
+        n_cmp[name] = n_cmp.get(name, 0) + 1
+
+    T = GCURVE_T
+    tids = sc.base.chunk_tids(0, T, dev)
+    fig, bk = fig23_25_geolife, beyond_knapsack_levels
+    # Figs 23-25's recorded path on one row, and the builders' rows
+    kx, kc, _ = sc.split_keys(sc.prng_key(0, dev), 3)
+    bern = sc.bernoulli_arrivals(kx, 0.5, 1, device=dev).params
+    b_args = (bern["key"], tids, bern["p"], bern["flip"])
+    x1 = H.bernoulli_arrivals_chunk(*b_args)
+    same("bernoulli_arrivals_chunk", x1,
+         H.bernoulli_arrivals_chunk_plain(*b_args), "Figs 23-25, 1 x 4,000")
+    spot = sc.spot_rents(kc, fig.C_MEAN, 1, device=dev)
+    st, pp = spot.init_fn(spot.params), spot.params
+    a_args = (pp["key"], tids, st["hist"], st["eps"], pp["phi"], pp["th"],
+              pp["sigma"], pp["mean"], pp["c_min"], pp["c_max"])
+    c1 = H.arma_rents_chunk(*a_args)
+    same("arma_rents_chunk", c1, H.arma_rents_chunk_plain(*a_args),
+         "Figs 23-25, 1 x 4,000: one row's FMA-chain dots")
+    require(np.array_equal(arrivals.bernoulli(kx, 0.5, T, device=dev),
+                           x1[0].cpu().numpy())
+            and np.array_equal(rentcosts.aws_spot_like(kc, fig.C_MEAN, T,
+                                                       device=dev),
+                               c1[2][0].cpu().numpy()),
+            "the array builders differ from their streams' kernels")
+
+    # Fig 24's slab: the curve's interior points x 4 seeds, trace playback
+    _, _, points, cmin, cmax, scenario_fn = fig.workload(T, 0, dev)
+    grid24 = HostingGrid.from_costs(
+        [HostingCosts.three_level(10.0, a, g, cmin, cmax)
+         for a, g in points], device=dev)
+    scen = sc.replicate_seeds(scenario_fn(grid24), N_SEEDS)
+    _, slab = scen.chunk_fn(scen.params, scen.init_fn(scen.params), tids)
+    sv = scen.params["svc"]
+    m_args = (sv["key"], tids, slab.x, sv["g"], fig.MAX_PER_SLOT)
+    svc = H.model2_service_chunk(*m_args)
+    same("model2_service_chunk", svc, H.model2_service_chunk_plain(*m_args),
+         f"Fig 24's slab, {svc.shape[0]} x {T}, K = 3, one request a slot")
+    require(svc.shape[0] == 76 and torch.equal(svc, slab.svc),
+            "Fig 24's slab: 76 rows, the scenario's service slab")
+
+    # Fig 25's chunks at a curve point: 5 M x 4 seeds, chunks of 1,000
+    a_mid, g_mid = points[len(points) // 2]
+    grid25 = HostingGrid.from_costs(
+        [HostingCosts.three_level(M, a_mid, g_mid, cmin, cmax)
+         for M in (2.0, 5.0, 10.0, 20.0, 40.0)], device=dev)
+    scen = sc.replicate_seeds(scenario_fn(grid25), N_SEEDS)
+    rgrid = grid25.repeat_rows(N_SEEDS)
+    R25 = rgrid.B
+    T_len = torch.full((R25,), T, dtype=torch.int32, device=dev)
+    state, lanes = scen.init_fn(scen.params), {}
+    sv = scen.params["svc"]
+    for t0 in range(0, T, FIG25_CHUNK):
+        tt = sc.base.chunk_tids(t0, FIG25_CHUNK, dev)
+        state, slab = scen.chunk_fn(scen.params, state, tt)
+        for lbl, cols in (("alpha-RR", None),
+                          ("RR", rgrid.endpoint_columns())):
+            lanes.setdefault(lbl, svc_lane_args(
+                rgrid, R25, T_len, 0, slab.c, slab.svc, cols, False, True))
+        m_args = (sv["key"], tt, slab.x, sv["g"], fig.MAX_PER_SLOT)
+        same("model2_service_chunk", H.model2_service_chunk(*m_args),
+             H.model2_service_chunk_plain(*m_args),
+             f"Fig 25's chunk at t0={t0}, {R25} x {FIG25_CHUNK}")
+        for lbl, (d, s_) in lanes.items():
+            d = (d[0], slab.c, slab.svc, *d[3:7], t0, *d[8:])
+            s_ = (*s_[:4], t0, s_[5], slab.c, slab.svc, *s_[8:])
+            kd, ks_ = H.dp_fwd_model2(*d), H.sim_chunk_alpha_rr_svc(*s_)
+            same("dp_fwd_model2", kd, H.dp_fwd_model2_plain(*d),
+                 f"Fig 25's chunk at t0={t0}, {lbl}")
+            same("sim_chunk_alpha_rr_svc", ks_,
+                 H.sim_chunk_alpha_rr_svc_plain(*s_),
+                 f"Fig 25's chunk at t0={t0}, {lbl}")
+            lanes[lbl] = [(kd[0],) + d[1:], s_[:5] + (ks_[0],) + s_[6:]]
+
+    # the study's union slab: 31 levels, 4 seeds x 4,000 slots
+    curve_pts, _, bk_lanes, ugrid, usc = bk.candidates(0, dev)
+    scen = sc.replicate_seeds(usc, N_SEEDS)
+    _, slab = scen.chunk_fn(scen.params, scen.init_fn(scen.params), tids)
+    sv = scen.params["svc"]
+    Kf = sv["g"].shape[1]
+    require(Kf == 31 and len(bk_lanes) == 26,
+            f"the study's union grid has {Kf} levels, {len(bk_lanes)} lanes")
+    study_args = (sv["key"], tids, slab.x, sv["g"], bk.MAX_PER_SLOT)
+    svc31 = H.model2_service_chunk(*study_args)
+    same("model2_service_chunk wide", svc31,
+         H.model2_service_chunk_plain(*study_args),
+         f"the study's slab, {N_SEEDS} x {T}, K = {Kf}")
+    require(torch.equal(svc31, slab.svc), "the study's service slab differs")
+    T_len4 = torch.full((N_SEEDS,), T, dtype=torch.int32, device=dev)
+
+    def lane_args(lane, c, svc, T_len, rows, cols=None):
+        """S's arguments for ``lane`` (its grid and column map repeated
+        over ``rows`` rows) on the slab ``c`` / ``svc``."""
+        reps = rows // lane.grid.B
+        g_l = lane.grid.repeat_rows(reps)
+        if cols is None:
+            cols = torch.as_tensor(np.repeat(lane.svc_cols, reps, axis=0),
+                                   dtype=torch.int32, device=dev)
+        pol = AlphaRR.batch(g_l)
+        return (pol.params, g_l.levels, g_l.M, T_len, 0,
+                (alpha_rr_init(pol.params), sim_acc0(rows, g_l.K, dev)), c,
+                svc, cols, True, True)
+
+    # the lanes of K = 2 (RR), 3 (a curve point) and 8 (the knapsack grid
+    # of k = 6)
+    study_lanes = {}
+    for lane in (bk_lanes[len(curve_pts)], bk_lanes[0], bk_lanes[-2]):
+        a = lane_args(lane, slab.c, slab.svc, T_len4, N_SEEDS)
+        same("sim_chunk_alpha_rr_svc wide", H.sim_chunk_alpha_rr_svc(*a),
+             H.sim_chunk_alpha_rr_svc_plain(*a),
+             f"the study's slab, a lane of K = {lane.grid.K}")
+        study_lanes[lane.grid.K] = a
+    require(sorted(study_lanes) == [2, 3, 8], f"the study's lanes: "
+                                              f"{sorted(study_lanes)}")
+    log(f"g-curve kernels ok at the modules' own chunks: {n_cmp}")
+
+    # slabs of 17 to 32 levels, aligned and ragged, both layouts
+    gen = torch.Generator(device="cpu").manual_seed(29)
+    rows, t0 = 256, T_MAIN - CHUNK
+    keys = sc.split_keys(sc.prng_key(16, dev), rows)
+    slabs = [("256 rows x 1,024 slots", rows, t0, 1024),
+             ("253 rows, odd t0, 1,001 slots", rows - 3, t0 + 1, 1001)]
+    for part in (True, False):
+        lay = "partitionable" if part else "original"
+        for label, n_rows, first, n in slabs:
+            tt = sc.base.chunk_tids(first, n, dev)
+            kk = keys[:n_rows].contiguous()
+            x = torch.randint(-2, 30, (n_rows, n), generator=gen,
+                              dtype=torch.int32).to(dev)
+            c = (torch.rand((n_rows, n), generator=gen) * 3).to(dev)
+            T_len = torch.randint(first, first + 2 * n, (n_rows,),
+                                  generator=gen).to(torch.int32).to(dev)
+            for Kw in BAND_KS + WIDE_KS:
+                g = torch.rand((n_rows, Kw), generator=gen)
+                g[::3, 0], g[1::4, Kw // 2] = 1.0, 0.0
+                g = g.to(dev)
+                for n_max in (M2_MAX, 1):
+                    svc = H.model2_service_chunk(kk, tt, x, g, n_max, part)
+                    same("model2_service_chunk"
+                         + (" wide" if Kw > H.DPF_MAX_K else ""), svc,
+                         H.model2_service_chunk_plain(kk, tt, x, g, n_max,
+                                                      part),
+                         f"{label}, K={Kw}, {n_max} requests, {lay}")
+                if not part or Kw not in WIDE_KS:
+                    continue       # S reads the slab, not the keys
+                for K in (3, 8):
+                    cols = torch.sort(torch.randint(
+                        0, Kw, (n_rows, K), generator=gen), dim=1)[0]
+                    cols[:, 0], cols[:, -1] = 0, Kw - 1
+                    cols = cols.to(torch.int32).to(dev)
+                    lane = HostingGrid.from_costs(
+                        [HostingCosts(M=float(m), levels=tuple(
+                            np.linspace(0.0, 1.0, K)), g=tuple(
+                            np.linspace(1.0, 0.0, K)))
+                         for m in np.geomspace(2, 50, n_rows)], device=dev)
+                    pol = AlphaRR.batch(lane)
+                    for flag in (True, False):
+                        a = (pol.params, lane.levels, lane.M, T_len, first,
+                             (alpha_rr_init(pol.params),
+                              sim_acc0(n_rows, K, dev)), c, svc, cols, flag,
+                             flag)
+                        same("sim_chunk_alpha_rr_svc wide",
+                             H.sim_chunk_alpha_rr_svc(*a),
+                             H.sim_chunk_alpha_rr_svc_plain(*a),
+                             f"{label}, K={K} of {Kw}, trace {flag}, {lay}")
+                    stat = StaticPolicy.batch(lane, lane.top_index())
+                    a = (*table_form(stat.step_fn, stat.params, K),
+                         lane.levels, lane.M, T_len, first,
+                         (stat.init_fn(stat.params),
+                          sim_acc0(n_rows, K, dev)), x, c, None, svc, cols,
+                         True, True)
+                    same("sim_chunk_table_svc", H.sim_chunk_table_svc(*a),
+                         H.sim_chunk_table_svc_plain(*a),
+                         f"{label}, static, K={K} of {Kw}, {lay}")
+        log(f"wide slabs ok (K = {WIDE_KS}; the service draws also at "
+            f"{BAND_KS}), {lay} layout")
+    log(f"g-curve and wide-slab kernels ok; compared {n_cmp}")
+
+    # timed: the study's shape, and a fleet-width chunk of the union grid
+    R, chunk = N_M * N_ALPHA * N_SEEDS, CHUNK
+    alu_block = sass["slot_uniform"][0] / 2     # ALU-pipe ops a block
+
+    def service_work(x, n_max, K):
+        n_live = torch.clamp(x, 0, n_max)
+        live = float(n_live.double().sum())
+        slots = float((n_live > 0).double().sum())
+        bound = (slots + live) * alu_block / (64 * n_sm * clock * 1e3)
+        return live, slots, bound, 79 * (slots + live) + live * (
+            M2_REQUEST_OPS + 2 * K)
+
+    live, slots, int_bound, ops = service_work(slab.x, bk.MAX_PER_SLOT, Kf)
+    plain_ms, _ = timed_once(lambda: H.model2_service_chunk_plain(
+        *study_args))
+    m2 = dict(
+        replaces="src/repro/core/scenarios/streams.py:402",
+        consumer="src/repro/core/scenarios/streams.py:403",
+        ms=cuda_ms(lambda: H.model2_service_chunk(*study_args), reps=7,
+                   batch=10),
+        plain_ms=plain_ms, sm_clock_mhz=clock, max_abs_err=0.0,
+        live_requests_per_slot=live / (N_SEEDS * T),
+        int_pipe_bound_ms=int_bound, ops=ops,
+        nbytes=nbytes(*study_args[:4], svc31))
+    fk = sc.split_keys(sc.prng_key(33, dev), R)
+    ftids = sc.base.chunk_tids(T_MAIN - chunk, chunk, dev)
+    fx = H.poisson_chunk(fk, ftids, torch.from_numpy(np.resize(
+        np.float32(M2_LAMS), R)).to(dev))
+    fg = ugrid.g.expand(R, Kf).contiguous()
+    f_args = (fk, ftids, fx, fg, M2_MAX)
+    fout = H.model2_service_chunk(*f_args)
+    fplain_ms, fp = timed_once(lambda: H.model2_service_chunk_plain(
+        *sub_rows((fk,), SVC_ROWS), ftids, *sub_rows((fx, fg), SVC_ROWS),
+        M2_MAX))
+    same("model2_service_chunk wide", fout[:SVC_ROWS], fp,
+         f"the fleet-width chunk, its first {SVC_ROWS} rows")
+    _, _, f_int, f_ops = service_work(fx, M2_MAX, Kf)
+    g3 = fleet_grid(N_M, N_ALPHA, dev).repeat_rows(N_SEEDS).g
+    by_k = {}
+    for K in SERVICE_SWEEP_KS:            # the same draws on K levels
+        gk = torch.linspace(1.0, 0.0, K, device=dev).expand(R, K)
+        gk = gk.contiguous()
+        by_k[K] = cuda_ms(lambda: H.model2_service_chunk(
+            fk, ftids, fx, gk, M2_MAX), reps=3, batch=3)
+    m2.update(
+        fleet_ms=cuda_ms(lambda: H.model2_service_chunk(*f_args), reps=5,
+                         batch=3),
+        fleet_k3_ms=cuda_ms(lambda: H.model2_service_chunk(
+            fk, ftids, fx, g3, M2_MAX), reps=5, batch=3),
+        fleet_ms_by_k=by_k,
+        fleet_plain_ms=fplain_ms, fleet_plain_rows=SVC_ROWS,
+        fleet_int_pipe_bound_ms=f_int,
+        fleet_bound_ms=max(nbytes(*f_args[:4], fout) / PEAK_BYTES,
+                           f_ops / PEAK_OPS) * 1e3,
+        shape=f"R={N_SEEDS} chunk={T} K={Kf}, one request a slot at most "
+              f"(beyond_knapsack_levels' slab), partitionable layout; "
+              f"fleet_*: R={R} chunk={chunk} K={Kf}, {M2_MAX} requests a "
+              f"slot at most (the Model-2 leg's arrivals), fleet_k3_ms the "
+              f"same arrivals on K = 3; "
+              f"{n_cmp['model2_service_chunk wide']} calls compared")
+    # S: the study's K = 8 lane on its slab; at fleet width a K = 3 lane of
+    # the 31-level slab.  Each also on its own columns gathered beforehand
+    # into a [rows, slots, K] slab, which S stages by its bulk route: the
+    # difference is what the gather route costs
+    a8 = study_lanes[8]
+    (st8, acc8), _ = H.sim_chunk_alpha_rr_svc(*a8)
+    plain_ms, _ = timed_once(lambda: H.sim_chunk_alpha_rr_svc_plain(*a8))
+    pre8 = a8[:7] + (H.gather_svc(a8[7], a8[8]), None) + a8[9:]
+    same("sim_chunk_alpha_rr_svc", H.sim_chunk_alpha_rr_svc(*pre8),
+         H.sim_chunk_alpha_rr_svc(*a8), "the study's K = 8 lane, its "
+                                        "columns gathered beforehand")
+    s_rec = dict(
+        replaces="src/repro/core/simulator.py:147",
+        ms=cuda_ms(lambda: H.sim_chunk_alpha_rr_svc(*a8), reps=10,
+                   batch=10),
+        bulk_ms=cuda_ms(lambda: H.sim_chunk_alpha_rr_svc(*pre8), reps=10,
+                        batch=10),
+        plain_ms=plain_ms, sm_clock_mhz=clock, max_abs_err=0.0, lane_k=8,
+        chain_ops=sim_chain_ops(8),
+        latency_bound_ms=T * sim_chain_ops(8) * FP32_LATENCY
+        / (clock * 1e3),
+        ops=N_SEEDS * T * (11 * 8 + 9),
+        nbytes=nbytes(*a8[0].values(), a8[1], a8[2], a8[3],
+                      *a8[5][0].values(), *a8[5][1].values(), a8[6],
+                      H.gather_svc(a8[7], a8[8]), a8[8], *st8.values(),
+                      *acc8.values()))
+    del slab, svc31
+    fslab_c = (torch.rand((R, chunk), generator=gen) * 3).to(dev)
+    T_lenR = torch.full((R,), T_MAIN, dtype=torch.int32, device=dev)
+    lane3 = bk_lanes[0]
+    cols3 = torch.as_tensor(np.repeat(lane3.svc_cols, R, axis=0),
+                            dtype=torch.int32, device=dev)
+    fa = lane_args(lane3, fslab_c, fout, T_lenR, R, cols3)
+    fa = fa[:9] + (True, False)
+    k = H.sim_chunk_alpha_rr_svc(*fa)
+    fplain_ms, p = timed_once(lambda: H.sim_chunk_alpha_rr_svc_plain(*fa))
+    same("sim_chunk_alpha_rr_svc wide", k, p,
+         f"the fleet-width chunk, a lane of K = 3 of {Kf}")
+    (stf, accf), _ = k
+    pre3 = fa[:7] + (H.gather_svc(fa[7], fa[8]), None) + fa[9:]
+    same("sim_chunk_alpha_rr_svc", H.sim_chunk_alpha_rr_svc(*pre3), k,
+         "the fleet-width K = 3 lane, its columns gathered beforehand")
+    # the gather route's 4-byte reads each move a 32-byte sector: the
+    # distinct sectors of a (row, slot)'s K columns, over the chunk
+    sec = torch.sort((((torch.arange(R * chunk, device=dev, dtype=torch.int64)
+                        .view(R, chunk, 1) * Kf + cols3[:, None, :]) * 4)
+                      >> 5), dim=2)[0]
+    sectors = float(R * chunk + (sec.diff(dim=2) != 0).sum().item())
+    del sec
+    s_rec.update(
+        fleet_ms=cuda_ms(lambda: H.sim_chunk_alpha_rr_svc(*fa), reps=10,
+                         batch=10),
+        fleet_bulk_ms=cuda_ms(lambda: H.sim_chunk_alpha_rr_svc(*pre3),
+                              reps=10, batch=10),
+        fleet_sectors_per_slot=sectors / (R * chunk),
+        fleet_sector_bound_ms=(sectors * 32 + nbytes(
+            fslab_c, *stf.values(), *accf.values())) / PEAK_BYTES * 1e3,
+        fleet_plain_ms=fplain_ms,
+        fleet_bound_ms=max(nbytes(
+            *fa[0].values(), fa[1], fa[2], fa[3], *fa[5][0].values(),
+            *fa[5][1].values(), fa[6], H.gather_svc(fa[7], fa[8]), fa[8],
+            *stf.values(), *accf.values()) / PEAK_BYTES,
+            R * chunk * (11 * 3 + 9) / PEAK_OPS) * 1e3,
+        shape=f"R={N_SEEDS} chunk={T}, a lane of K = 8 gathering its "
+              f"columns of the study's {Kf}-level slab, with its trace (the "
+              f"study's call); fleet_*: R={R} chunk={chunk}, a lane of K = "
+              f"3 of {Kf}, no trace; bytes count the gathered columns; "
+              f"{n_cmp['sim_chunk_alpha_rr_svc wide']} calls compared")
+    for name, r in (("model2_service_chunk wide", m2),
+                    ("sim_chunk_alpha_rr_svc wide", s_rec)):
+        log(f"{name} timed: {r['ms']:.4f} ms at the study's shape (plain "
+            f"{r['plain_ms']:.1f} ms), {r['fleet_ms']:.4f} ms at fleet "
+            f"width (bound {r['fleet_bound_ms']:.4f} ms"
+            + (f", integer pipe {r['fleet_int_pipe_bound_ms']:.4f}, K = 3 "
+               f"{r['fleet_k3_ms']:.4f} ms" if "fleet_k3_ms" in r else "")
+            + f"; plain {r['fleet_plain_ms']:.1f} ms)"
+            + (f"; at fleet width by K: "
+               f"{ {k: round(v, 4) for k, v in r['fleet_ms_by_k'].items()} }"
+               if "fleet_ms_by_k" in r else "")
+            + (f"; on the lane's columns gathered beforehand (the bulk "
+               f"route) {r['bulk_ms']:.4f} / {r['fleet_bulk_ms']:.4f} ms; "
+               f"the policy's chain {r['chain_ops']} ops a slot: latency "
+               f"bound {r['latency_bound_ms']:.4f} ms at the study's shape; "
+               f"{r['fleet_sectors_per_slot']:.3f} 32-byte sectors a slot "
+               f"at fleet width: {r['fleet_sector_bound_ms']:.4f} ms"
+               if "bulk_ms" in r else ""))
+    return {"model2_service_chunk wide": m2,
+            "sim_chunk_alpha_rr_svc wide": s_rec}
 
 
 # ----------------------------------------------------------------------
@@ -1900,6 +2484,17 @@ FIG_KERNELS = {
     "fig17_22": ("ge_bernoulli_chunk", "slot_uniform", "poisson_chunk",
                  "model2_service_chunk", "normal_chunk", "arma_rents_chunk",
                  "sim_chunk_alpha_rr_svc", "sim_chunk_table_svc"),
+    # the recorded path (Bernoulli, spot rents on one row), its playback
+    # with the service draws at one request a slot, S on the slab, D for
+    # Fig 25's OPT frontiers
+    "fig23_25": ("bernoulli_arrivals_chunk", "normal_chunk",
+                 "arma_rents_chunk", "model2_service_chunk",
+                 "sim_chunk_alpha_rr_svc", "dp_fwd_model2"),
+    # the service draws on the 31-level union slab, S for its 26 lanes
+    "beyond_knapsack": ("bernoulli_arrivals_chunk", "normal_chunk",
+                        "arma_rents_chunk", "model2_service_chunk",
+                        "model2_service_chunk wide", "sim_chunk_alpha_rr_svc",
+                        "sim_chunk_alpha_rr_svc wide"),
 }
 # (module, fleet rows at the defaults: grid points x 4 seeds, T)
 FIGURES = {"fig01_02": (fig01_02_alpha_sweep, 40, 10000),
@@ -1907,7 +2502,15 @@ FIGURES = {"fig01_02": (fig01_02_alpha_sweep, 40, 10000),
            "fig07_08": (fig07_08_multiple_rr, 20, 8000),
            "fig10_11": (fig10_11_trace, 40, 8000),
            "fig12_15": (fig12_15_poisson_model2, 76, 6000),
-           "fig17_22": (fig17_22_markov_mdp, 84, 3000)}
+           "fig17_22": (fig17_22_markov_mdp, 84, 3000),
+           "fig23_25": (fig23_25_geolife, 76, GCURVE_T),
+           "beyond_knapsack": (beyond_knapsack_levels, 4, GCURVE_T)}
+# the rows a module returns where they are not its fleet rows over the
+# seeds: Figs 23-25's 20 curve points, 19 Fig 24 points and 5 Fig 25
+# points; the study's 8 grids
+FIG_RESULT_ROWS = {"fig23_25": 44, "beyond_knapsack": 8}
+# the modules whose slabs hold more than 16 levels
+FIG_WIDE = ("beyond_knapsack",)
 
 
 def fanout_results_equal(a, b, fields=("total", "rent", "service", "fetch",
@@ -1976,13 +2579,16 @@ def figures(dev, timings):
             mod.check(rows)
         except AssertionError as e:
             raise RuntimeError(f"{name}: check(rows) failed: {e}") from e
-        require(len(rows) * N_SEEDS == n_rows
+        require(len(rows) == FIG_RESULT_ROWS.get(name, n_rows // N_SEEDS)
                 and all(np.isfinite(v).all() for r in rows
-                        for k, v in r.items() if k != "regime"
-                        and k != "fig"),
+                        for v in r.values() if not isinstance(v, str)),
                 f"{name}: rows not finite / wrong count")
         for k in FIG_KERNELS[name]:
             require(launched[k] > 0, f"{name}: {k} never launched")
+        wide = [k for k, v in launched.items() if k.endswith(" wide") and v]
+        require(bool(wide) == (name in FIG_WIDE),
+                f"{name}: launches on slabs of more than {H.DPF_MAX_K} "
+                f"levels: {wide}")
         require(launched["dp_minplus"] == 0 and not any(plain.values()),
                 f"{name}: D on a finished w or plain code ran: {plain}")
         log(f"{name}: {len(rows)} rows ({n_rows} fleet rows, T={T}), "
@@ -1992,6 +2598,23 @@ def figures(dev, timings):
             f"{ {k: v for k, v in launched.items() if v} }")
         counts.append(launched)
     return counts
+
+
+def gcurve_card_vs_cpu(dev):
+    """Card == CPU for the g-curve modules at ``run(T=400, n_seeds=2)``:
+    every column of every row but the wall clock (``_us_per_slot``)."""
+    for mod in (fig23_25_geolife, beyond_knapsack_levels):
+        rows = mod.run(T=400, n_seeds=2, device=dev)
+        t = time.perf_counter()
+        want = mod.run(T=400, n_seeds=2, device="cpu")
+        wall = time.perf_counter() - t
+        require(len(rows) == len(want) and all(
+            set(r) == set(w) and all(r[k] == w[k] for k in w
+                                     if k != "_us_per_slot")
+            for r, w in zip(rows, want)),
+            f"card != CPU: {mod.__name__.rsplit('.', 1)[-1]}")
+        log(f"card == CPU: {mod.__name__.rsplit('.', 1)[-1]}, {len(rows)} "
+            f"rows at T=400, 2 seeds ({wall:.1f} s on the CPU)")
 
 
 def fanout_leg(dev, timings):
@@ -2201,11 +2824,13 @@ def markov_fanout_leg(dev, timings):
 # ----------------------------------------------------------------------
 
 def launch_counts():
-    """Every kernel's launches, and (``poisson_chunk rejection``) the
-    Poisson launches in which the kernel drew an item on Hormann's
-    branch, as the kernel counts them."""
+    """Every kernel's launches, (``poisson_chunk rejection``) the Poisson
+    launches in which the kernel drew an item on Hormann's branch, as the
+    kernel counts them, and (``... wide``) the launches on a Model-2 slab
+    of more than ``H.DPF_MAX_K`` levels."""
     return {**{k.__name__: k.launches for k in ops.KERNELS},
-            "poisson_chunk rejection": H.poisson_rejection_launches()}
+            "poisson_chunk rejection": H.poisson_rejection_launches(),
+            **{f"{k.__name__} wide": k.wide_launches for k in ops.WIDE}}
 
 
 def card_calls():
@@ -2472,6 +3097,7 @@ def main() -> int:
     # path adds its launches
     fanout_checks(dev)
     fig_counts = figures(dev, timings)
+    gcurve_card_vs_cpu(dev)
     legs = [fanout_leg(dev, timings), model2_fanout_leg(dev, timings),
             markov_fanout_leg(dev, timings)]
     for counts in fig_counts + legs:
@@ -2486,10 +3112,11 @@ def main() -> int:
         require((counts[rej] > 0) == on and counts[rej] <= counts[
             "poisson_chunk"], f"{name}: {counts[rej]} Poisson launches on "
                               f"Hormann's branch of {counts['poisson_chunk']}")
-    for k in (H.normal_chunk, H.arma_rents_chunk, H.poisson_chunk,
-              H.model2_service_chunk, H.dp_fwd_model2,
-              H.sim_chunk_alpha_rr_svc, H.sim_chunk_table_svc):
-        require(launches[k.__name__] > 0, f"{k.__name__} never launched")
+    for name in ("normal_chunk", "arma_rents_chunk", "poisson_chunk",
+                 "model2_service_chunk", "dp_fwd_model2",
+                 "sim_chunk_alpha_rr_svc", "sim_chunk_table_svc",
+                 "model2_service_chunk wide", "sim_chunk_alpha_rr_svc wide"):
+        require(launches[name] > 0, f"{name} never launched")
 
     # phase 11: F and M against their plain versions
     rec.update(lm_kernel_checks(dev))
@@ -2525,7 +3152,14 @@ def main() -> int:
                     "cols_ms", "cols_plain_ms", "mean_rounds",
                     "alu_ops_per_block",
                     "live_requests_per_slot", "live_slots_share",
-                    "pass_fill", "lgamma_share", "float_work_ms", "abc_ms",
+                    "pass_fill", "lgamma_share", "alu_pipe_bound_ms",
+                    "fma_pipe_bound_ms", "xu_pipe_bound_ms",
+                    "pipe_bound_ms", "bound_pipe", "hash_pipe_ops",
+                    "round_pipe_ops", "slow_pipe_ops", "five_blocks_ratio",
+                    "abc_ms", "fleet_ms",
+                    "fleet_plain_ms", "fleet_plain_rows", "fleet_bound_ms",
+                    "fleet_int_pipe_bound_ms", "fleet_k3_ms",
+                    "fleet_ms_by_k", "lane_k",
                     "markov_ms", "markov_plain_ms", "markov_plain_rows",
                     "markov_live_requests_per_slot",
                     "markov_int_pipe_bound_ms",
@@ -2533,7 +3167,9 @@ def main() -> int:
                     "alu_ops_per_slot", "ops_per_slot", "int_pipe_bound_ms",
                     "issue_bound_ms", "salt_ms", "salt_alu_ops_per_slot",
                     "salt_ops_per_slot", "salt_int_pipe_bound_ms",
-                    "salt_issue_bound_ms", "latency_bound_ms"):
+                    "salt_issue_bound_ms", "latency_bound_ms", "chain_ops",
+                    "bulk_ms", "fleet_bulk_ms", "fleet_sectors_per_slot",
+                    "fleet_sector_bound_ms"):
             if key in r:
                 entry[key] = r[key]
         kernels.append(entry)

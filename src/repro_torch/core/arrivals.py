@@ -1,15 +1,44 @@
-"""Request-arrival processes (the port of the part of
-``repro/core/arrivals.py`` that the figures read): ``GilbertElliot``, the
-two-state Markov-modulated arrival chain, with its stationary law and its
-fleet stream.  The whole-horizon array builders of the reference
-(``bernoulli``, ``poisson``, ``cluster_trace_like``, the adversarial
-constructions) come with the rest of ``arrivals.py`` (ROADMAP.md, Queue
-1 items 2 and 12)."""
+"""Request-arrival processes (the port of ``repro/core/arrivals.py``).
+
+ - Bernoulli(p)                    (Assumptions 1/2, Figs 1-6)
+ - Poisson(lam)                    (Model 2 synthetic, Figs 12-15)
+ - Gilbert-Elliot 2-state Markov   (Figs 7/8 and 17-22) with Bernoulli or
+   Poisson emissions per state
+ - bursty "cluster-trace-like" generator standing in for the Google
+   cluster trace [14]
+
+The generation lives in ``core.scenarios.streams`` as counter-keyed
+``Stream``s (kernel P on the card); the functions here are the
+whole-horizon materialisations of those streams, bitwise the reference's
+under the same key and threefry layout, kept for the array-building API.
+Each materialises a B = 1 stream on ``device`` (the card by default) and
+returns one row as numpy: int32 arrivals, int32 chain states.  The
+adversarial constructions of Theorem 4 come with the rest of the sampler
+slice (ROADMAP.md, Queue 1 item 3).
+"""
 from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.core.scenarios import base as _base
 from repro_torch.core.scenarios import streams as _streams
+
+
+def _mat1(stream, T: int):
+    """Materialise a B = 1 arrival stream over ``T`` slots: its ``(x,
+    side)`` rows."""
+    x, side = _base.materialize_stream(stream, int(T))
+    return x[0], side[0]
+
+
+def bernoulli(key, p: float, T: int, device=None):
+    return _mat1(_streams.bernoulli_arrivals(key, p, B=1, device=device),
+                 T)[0]
+
+
+def poisson(key, lam: float, T: int, device=None):
+    return _mat1(_streams.poisson_arrivals(key, lam, B=1, device=device),
+                 T)[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,3 +70,23 @@ class GilbertElliot:
         return _streams.ge_arrivals(key, self.p_hl, self.p_lh, self.rate_h,
                                     self.rate_l, B=B, emission=self.emission,
                                     device=device)
+
+    def sample(self, key, T: int, return_states: bool = False, device=None):
+        x, states = _mat1(self.stream(key, device=device), T)
+        if return_states:
+            return x, states
+        return x
+
+
+def cluster_trace_like(key, T: int, base_rate: float = 2.0,
+                       burst_rate: float = 20.0, burst_p: float = 0.05,
+                       diurnal_period: int = 0, device=None):
+    """Synthetic stand-in for the Google cluster-usage trace [14]: a
+    low-intensity Poisson background with geometric-length bursts (the
+    diurnal modulation, ``diurnal_period != 0``, raises: ROADMAP.md, Queue
+    1 item 17)."""
+    return _mat1(_streams.bursty_arrivals(key, B=1, base_rate=base_rate,
+                                          burst_rate=burst_rate,
+                                          burst_p=burst_p,
+                                          diurnal_period=diurnal_period,
+                                          device=device), T)[0]

@@ -46,7 +46,7 @@ rotates and xors (``csrc/hosting.cu``).
   theirs ends; a GE-Poisson chunk runs the chain on ``ge_bernoulli_chunk``
   first (``emit=False``: the states only).  ``bursty_arrivals`` with a
   diurnal period (XLA's ``sin``) is not ported and raises (ROADMAP.md,
-  Queue 1 items 2 and 12, the rest of ``arrivals.py``).
+  Queue 1 item 17).
 * ``_model2_chunk_fn`` (a shaped ``uniform(k, (R,))`` a slot, compared
   with every level's g) -> ``model2_service_chunk``, which draws only the
   slot's live requests.
@@ -180,8 +180,7 @@ def bursty_arrivals(key, B: int, base_rate=2.0, burst_rate=20.0,
     if diurnal_period:
         raise NotImplementedError(
             "bursty_arrivals(diurnal_period != 0) draws through XLA's sin, "
-            "which is not ported: ROADMAP.md, Queue 1 items 2 and 12 (the "
-            "rest of arrivals.py)")
+            "which is not ported: ROADMAP.md, Queue 1 item 17")
     ge = ge_arrivals(key, p_hl=BURSTY_EXIT_P, p_lh=burst_p,
                      rate_h=burst_rate, rate_l=base_rate, B=B, device=device)
     return Stream("bursty", "arrivals", _ge_init, _bursty_chunk, ge.params)

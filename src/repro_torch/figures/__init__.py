@@ -13,4 +13,8 @@ on the CPU; ``check(rows)`` is a copy of the reference module's check.
   histograms and cost vs M and vs the rent.
 * ``fig17_22_markov_mdp`` -- Model-2 service under GE-Poisson arrivals:
   alpha-RR and RR against the MDP and ABC baselines in three regimes.
+* ``fig23_25_geolife`` -- the measured g-curve of the shortest-path
+  service, cost vs cache fraction and vs M at the best alpha.
+* ``beyond_knapsack_levels`` -- multi-level grids picked from that curve
+  (26 lanes of 2 to 8 levels on one 31-level Model-2 slab).
 """

@@ -17,7 +17,10 @@ Flags per library:
   ``--fmad=false``, because those kernels
   are held bit for bit against the reference, which fixes which
   multiply-adds are one FMA (written as ``__fmaf_rn``) and which are two
-  rounded operations.
+  rounded operations; ``-lineinfo``, line tables that leave the code as
+  it is and let ``nvdisasm -gi`` name each instruction's source lines
+  (``chip_smoke.py`` counts Hormann's round in ``poisson_kernel``'s SASS
+  that way).
 * ``flash_attention`` (F: the wgmma and the FMA kernel) and ``ssd_scan``
   (M: the mma.sync and the FMA kernel): nvcc's default contraction; they
   are held to a stated tolerance, not to bits.
@@ -44,7 +47,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # (pointers and the stream are c_void_p: ctypes would otherwise pass them
 # as 32-bit ints)
 LIBRARIES = {
-    "hosting": (_COMMON + ("--fmad=false",), {
+    "hosting": (_COMMON + ("--fmad=false", "-lineinfo"), {
         # kind, keys, tids, a, b, flip, out, R, chunk, salt,
         # partitionable, stream
         "launch_counter_stream": (_I,) + (_P,) * 6 + (_I,) * 4 + (_P,),

@@ -609,9 +609,12 @@ struct ArmaArgs {
   uint32_t one;
 };
 
-// How XLA orders a dot of n terms in the scan: kDotFma2 is n == 2,
-// fma(a1, b1, a0 * b0); kDotSum a left-to-right sum of rounded products
-enum DotOrder { kDotSum = 0, kDotFma2 = 2 };
+// How XLA orders a dot of n terms in the scan.  On a batch of rows:
+// kDotFma2 is n == 2, fma(a1, b1, a0 * b0); kDotSum a left-to-right sum of
+// rounded products.  On a single row (R == 1, a dot of two vectors):
+// kDotChain, every term after the first an FMA into the sum, for the AR
+// dot as for the MA one.
+enum DotOrder { kDotSum = 0, kDotChain = 1, kDotFma2 = 2 };
 
 // the dot of a[0 .. n) and b[0 .. n) in XLA's order (n >= 2; N the
 // arrays' compile-time length, n <= N)
@@ -622,12 +625,14 @@ __device__ __forceinline__ float xla_dot(const float (&a)[N],
   if (ORDER == kDotFma2) return __fmaf_rn(a[1], b[1], x);
 #pragma unroll
   for (int i = 1; i < N; ++i)
-    if (i < n) x = x + a[i] * b[i];
+    if (i < n) x = ORDER == kDotChain ? __fmaf_rn(a[i], b[i], x)
+                                      : x + a[i] * b[i];
   return x;
 }
 
-// P: the AR order (the walker's chain unrolls over registers); MA: the MA
-// dot's order (q == 2, or q >= 3 up to kArmaMaxQ); ROWS: rows a block
+// P: the AR order (the walker's chain unrolls over registers); MA: the
+// dots' order (kDotFma2: q == 2; kDotSum: q >= 3 up to kArmaMaxQ;
+// kDotChain: one row, any q, the AR dot a chain too); ROWS: rows a block
 template <int P, int MA, int ROWS>
 __global__ void __launch_bounds__(ArmaShape<ROWS>::kThreads)
     arma_rents_kernel(const ArmaArgs p) {
@@ -710,7 +715,8 @@ __global__ void __launch_bounds__(ArmaShape<ROWS>::kThreads)
     } else {
       x = ph[0] * h[0];
 #pragma unroll
-      for (int i = 1; i < P; ++i) x = x + ph[i] * h[i];
+      for (int i = 1; i < P; ++i)
+        x = MA == kDotChain ? __fmaf_rn(ph[i], h[i], x) : x + ph[i] * h[i];
       x = x + e;
     }
     x = x + xla_dot<MA>(th, ep, p.Q);
@@ -1167,6 +1173,24 @@ __global__ void __launch_bounds__(32 * kPoisWarps)
 //  - Store: a lane turns its 4 slots' buckets into prefix sums and picks
 //    level k's count at lo_k in registers; the span's [slot][k] floats
 //    leave as one contiguous run, 16-byte stores where aligned.
+//  - More than 5 levels (Figs 12-16's K = 16 sweep; beyond_knapsack_levels'
+//    union slab: K = 31): a span's histogram holds 128 (K + 1) words, so
+//    a 4-warp block needs 77,824 bytes at K = 32, past the 48 KiB of
+//    static shared memory from K = 19, and the register store's K^2
+//    selects and strided floats grow with K.  K <= 5 keeps one
+//    instantiation a K (static spans; up to K = 4 a lane's 4 K counts
+//    leave as 16-byte stores); K = 6 .. 32 runs one of four bands (K <= 8,
+//    16, 24, 32) with a run-time K and its spans in dynamic shared memory
+//    sized for that K;
+//    a level past K ranks nothing.  A band's store turns a slot's buckets
+//    into prefix sums in place (K adds) and writes the span's [slot][K]
+//    floats as one contiguous run, a float a lane a pass; the span rule
+//    counts the warps an SM holds at that K (occupancy query).  A band's
+//    slot holds an odd number of buckets (K + 1, or K + 2): at K = 31 a
+//    stride of 32 words put bucket r of every slot in bank r (the 31-level
+//    study slab took 8.3 ms at 4,096 x 4,096 where 32 evenly spread levels
+//    took 4.3).  Its time against K at 4,096 x 4,096 (chip_smoke.py's
+//    fleet_ms_by_k) is in PERF.md.
 // Measured (tools/compare_hosting.py, H100 80GB HBM3, 700 W, 4,096 x
 // 4,096, K = 3, partitionable): 0.3985 / 0.3965 ms against the one
 // thread a slot design's 0.5496 / 0.5493 in the same call, 62% of the
@@ -1183,6 +1207,17 @@ constexpr int kM2Span = 128;               // slots a span holds at most
 constexpr int kM2Window = 128;             // passes whose starts are marked
 // n_max at most: a span's items fit an int, a count a float exactly
 constexpr int kM2MaxRequests = 1 << 23;
+// levels a Model-2 service slab holds at most: this kernel's K and the
+// slab width Kf that S's svc variant takes (kernels/hosting.py: M2_MAX_K)
+constexpr int kM2MaxK = 32;
+// one instantiation a K up to here (static shared memory; 16-byte stores
+// of a lane's 4 K counts up to K = 4); above it the bands K <= 8, 16, 24
+// and 32, each with a run-time K and dynamic shared memory.  K = 5 stays
+// static: the first band ranks each word against 8 levels, and took
+// 0.5866 ms where the instance took 0.5374 (PERF.md, 4,096 x 4,096)
+constexpr int kM2StaticMaxK = 5;
+constexpr int kM2BandStep = 8;
+static_assert(kM2MaxK == 4 * kM2BandStep, "four bands cover kM2MaxK");
 
 struct Model2Args {
   const long long* keys;   // [R, 2]
@@ -1191,6 +1226,7 @@ struct Model2Args {
   const float* g;          // [R, K]
   float* out;              // [R, chunk, K]
   int R, chunk, n_max, partitionable;
+  int K;                   // levels (a band kernel's run-time K)
   int span;                // slots a span (32, 64 or kM2Span)
   int spans_per_row;       // ceil(chunk / span)
   long long n_spans;       // R * spans_per_row: one a warp
@@ -1198,15 +1234,29 @@ struct Model2Args {
   uint32_t one;
 };
 
-// a warp's span in shared memory
-template <int K>
-struct M2Span {
+// a warp's span in shared memory: its head, then its histogram, [slot]
+// [rank], K + 1 ranks a slot (a band pads them to an odd count): rank K,
+// or no item, discarded
+struct M2Head {
   // the live slots in order: key (x, y), first item (z), n << 7 | the
   // slot's place in the span (w)
   uint4 live[kM2Span];
-  unsigned starts[kM2Window];  // the window's start bits, a word a pass
-  int hist[kM2Span * (K + 1)]; // [slot][rank]: rank K, or no item, discarded
+  // the window's start bits, a word a pass (a band kernel's store reads
+  // each level's lo here after the walk)
+  unsigned starts[kM2Window];
 };
+
+template <int K>
+struct M2Span {
+  M2Head head;
+  int hist[kM2Span * (K + 1)];
+};
+
+// a band's words a slot at K levels, and its dynamic shared memory a warp
+__host__ __device__ constexpr int m2_band_stride(int K) { return (K + 1) | 1; }
+__host__ __device__ constexpr int m2_band_bytes(int K) {
+  return (int)sizeof(M2Head) + 4 * kM2Span * m2_band_stride(K);
+}
 
 // T = ceil(g * 2^23), the level's threshold on m = bits >> 9: u < g iff
 // m < T (g > 1 counts every request, g <= 0 or NaN none)
@@ -1216,13 +1266,14 @@ __device__ __forceinline__ uint32_t m2_threshold(float g) {
 
 // a word's rank: the levels whose threshold its m reaches, m >= T iff
 // bits > lim = T * 512 - 1; r0 counts the levels at T = 0 (lim 2^32 - 1,
-// as for T = 2^23, which no m reaches)
-template <int K>
+// as for T = 2^23, which no m reaches; a band's unused levels take that
+// lim too, and are not in r0)
+template <int KM>
 __device__ __forceinline__ int m2_rank(uint32_t bits,
-                                       const uint32_t (&lim)[K], int r0) {
+                                       const uint32_t (&lim)[KM], int r0) {
   int r = r0;
 #pragma unroll
-  for (int k = 0; k < K; ++k) r += bits > lim[k] ? 1 : 0;
+  for (int k = 0; k < KM; ++k) r += bits > lim[k] ? 1 : 0;
   return r;
 }
 
@@ -1246,12 +1297,14 @@ __device__ __forceinline__ void m2_counts(const int* h, const int (&lo)[K],
   }
 }
 
-// the passes over a staged span's W items (L live slots); the starts of
+// the passes over a staged span's W items (L live slots) into K + 1
+// buckets a slot, a slot's buckets ``stride`` words apart; the starts of
 // the first window are marked
-template <int K, bool PART>
-__device__ __forceinline__ void m2_walk(const Model2Args& p, M2Span<K>& S,
-                                        int L, int W,
-                                        const uint32_t (&lim)[K], int r0,
+template <int KM, bool PART>
+__device__ __forceinline__ void m2_walk(const Model2Args& p, M2Head& S,
+                                        int* hist0, int K, int stride, int L,
+                                        int W,
+                                        const uint32_t (&lim)[KM], int r0,
                                         int lane) {
   const unsigned upto = (2u << lane) - 1u;    // this lane and those before
   const int h = (p.n_max + 1) / 2;
@@ -1277,7 +1330,7 @@ __device__ __forceinline__ void m2_walk(const Model2Args& p, M2Span<K>& S,
       const int i = f - (int)r.z;              // the item within its slot
       // a lane past W, and the original layout's second word past n, add
       // to the discarded bucket K
-      int* hist = S.hist + (r.w & (kM2Span - 1)) * (K + 1);
+      int* hist = hist0 + (r.w & (kM2Span - 1)) * stride;
       if (PART) {
         uint32_t b0 = 0u, b1 = (uint32_t)i;
         threefry2x32(r.x, r.y, b0, b1, p.one);
@@ -1296,14 +1349,36 @@ __device__ __forceinline__ void m2_walk(const Model2Args& p, M2Span<K>& S,
   }
 }
 
-template <int K>
+// KM <= kM2StaticMaxK: K = KM levels, spans in static shared memory.  KM
+// a band (a multiple of kM2BandStep): K = p.K levels at run time, KM -
+// kM2BandStep < K <= KM, spans in dynamic shared memory (m2_band_bytes(K)
+// a warp).
+template <int KM>
 __global__ void __launch_bounds__(32 * kM2Warps)
     model2_service_kernel(const Model2Args p) {
-  __shared__ M2Span<K> spans[kM2Warps];
+  constexpr bool kBand = KM > kM2StaticMaxK;
+  const int K = kBand ? p.K : KM;
+  // a slot's buckets: K + 1, a band's padded to an odd count, so that a
+  // pass's consecutive slots spread its atomics over the banks and the
+  // store's prefix sums (a lane's slots 4 apart) fall in 8 banks, not in
+  // one (a stride of 32 at K = 31 put every slot's bucket r in bank r)
+  const int stride = kBand ? m2_band_stride(K) : KM + 1;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  M2Head* head;
+  int* hist;
+  if constexpr (kBand) {
+    extern __shared__ __align__(128) unsigned char smem_buf[];
+    unsigned char* base = smem_buf + warp * m2_band_bytes(K);
+    head = reinterpret_cast<M2Head*>(base);
+    hist = reinterpret_cast<int*>(base + sizeof(M2Head));
+  } else {
+    __shared__ M2Span<KM> spans[kM2Warps];
+    head = &spans[warp].head;
+    hist = spans[warp].hist;
+  }
   const long long t = (long long)blockIdx.x * kM2Warps + warp;
   if (t >= p.n_spans) return;
-  M2Span<K>& S = spans[warp];
+  M2Head& S = *head;
   const long long row = t / p.spans_per_row;
   const int j0 = (int)(t - row * p.spans_per_row) * p.span;
   const int ns = min(p.span, p.chunk - j0);
@@ -1352,9 +1427,9 @@ __global__ void __launch_bounds__(32 * kM2Warps)
   for (int q = lane; q < min((W + 31) >> 5, kM2Window); q += 32)
     S.starts[q] = 0u;
   if (sb < ns) {
-    int4* hz = reinterpret_cast<int4*>(S.hist + sb * (K + 1));
-#pragma unroll
-    for (int r = 0; r <= K; ++r) hz[r] = make_int4(0, 0, 0, 0);
+    // 4 stride ints from a multiple of 16 bytes (sb % 4 == 0)
+    int4* hz = reinterpret_cast<int4*>(hist + sb * stride);
+    for (int r = 0; r < stride; ++r) hz[r] = make_int4(0, 0, 0, 0);
   }
   __syncwarp();
   // this lane's live slots, compacted in order: key, first item, start bit
@@ -1374,54 +1449,90 @@ __global__ void __launch_bounds__(32 * kM2Warps)
     }
   }
   // the row's thresholds: lim and r0 rank a word, lo[k] (the levels with
-  // a threshold below level k's) says which ranks level k counts
-  uint32_t thr[K], lim[K];
-  int lo[K], r0 = 0;
+  // a threshold below level k's) says which ranks level k counts; a
+  // band's levels past K rank nothing
+  uint32_t thr[KM], lim[KM];
+  int lo[KM], r0 = 0;
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    thr[k] = m2_threshold(p.g[row * K + k]);
+  for (int k = 0; k < KM; ++k) {
+    thr[k] = k < K ? m2_threshold(p.g[row * K + k]) : 0u;
     lim[k] = thr[k] == 0u ? kFullMask : thr[k] * 512u - 1u;
-    r0 += thr[k] == 0u ? 1 : 0;
+    r0 += k < K && thr[k] == 0u ? 1 : 0;
   }
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
+  for (int k = 0; k < KM; ++k) {
     lo[k] = 0;
 #pragma unroll
-    for (int q = 0; q < K; ++q) lo[k] += thr[q] < thr[k] ? 1 : 0;
+    for (int q = 0; q < KM; ++q) lo[k] += q < K && thr[q] < thr[k] ? 1 : 0;
   }
   __syncwarp();
   if (part)
-    m2_walk<K, true>(p, S, L, W, lim, r0, lane);
+    m2_walk<KM, true>(p, S, hist, K, stride, L, W, lim, r0, lane);
   else
-    m2_walk<K, false>(p, S, L, W, lim, r0, lane);
-  // store: this lane's slots' counts, [slot][k] from out[o + sb]
-  if (sb >= ns) return;
-  float* dst = p.out + (o + sb) * K;
-  if (K <= 4 && p.vec) {
-    // 4 K consecutive floats, 16-byte aligned (o is a multiple of 4)
-    int hv[4 * (K + 1)];
-    float cv[4 * K];
-#pragma unroll
-    for (int q = 0; q <= K; ++q) {
-      const int4 v = reinterpret_cast<const int4*>(S.hist + sb * (K + 1))[q];
-      hv[4 * q] = v.x, hv[4 * q + 1] = v.y, hv[4 * q + 2] = v.z,
-      hv[4 * q + 3] = v.w;
+    m2_walk<KM, false>(p, S, hist, K, stride, L, W, lim, r0, lane);
+  if constexpr (kBand) {
+    // store: each lane turns its slots' buckets into prefix sums in
+    // place; lane k < K leaves level k's lo in S.starts; then the span's
+    // [slot][k] counts leave as one contiguous run, a float a lane a pass
+    if (sb < ns) {
+      for (int j = 0; j < 4 && sb + j < ns; ++j) {
+        int* hj = hist + (sb + j) * stride;
+        int acc = 0;
+        for (int r = 0; r < K; ++r) {
+          acc += hj[r];
+          hj[r] = acc;
+        }
+      }
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      m2_counts<K>(hv + j * (K + 1), lo, cv + j * K);
-#pragma unroll
-    for (int q = 0; q < K; ++q)
-      reinterpret_cast<float4*>(dst)[q] = make_float4(
-          cv[4 * q], cv[4 * q + 1], cv[4 * q + 2], cv[4 * q + 3]);
+    for (int k = 0; k < KM; ++k)
+      if (k == lane && k < K) S.starts[k] = (unsigned)lo[k];
+    __syncwarp();
+    float* dst = p.out + o * K;
+    // q = slot * K + k; a pass moves q by 32 = dq K + dk
+    const int dq = 32 / K, dk = 32 - dq * K;
+    int slot = lane / K, k = lane - slot * K;
+    for (int q = lane; q < ns * K; q += 32) {
+      dst[q] = (float)hist[slot * stride + (int)S.starts[k]];
+      slot += dq;
+      k += dk;
+      if (k >= K) {
+        k -= K;
+        ++slot;
+      }
+    }
+    return;
   } else {
+    // store: this lane's slots' counts, [slot][k] from out[o + sb]
+    if (sb >= ns) return;
+    float* dst = p.out + (o + sb) * K;
+    if (KM <= 4 && p.vec) {
+      // 4 K consecutive floats, 16-byte aligned (o is a multiple of 4)
+      int hv[4 * (KM + 1)];
+      float cv[4 * KM];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (sb + j < ns) {
-        float cv[K];
-        m2_counts<K>(S.hist + (sb + j) * (K + 1), lo, cv);
+      for (int q = 0; q <= KM; ++q) {
+        const int4 v =
+            reinterpret_cast<const int4*>(hist + sb * (KM + 1))[q];
+        hv[4 * q] = v.x, hv[4 * q + 1] = v.y, hv[4 * q + 2] = v.z,
+        hv[4 * q + 3] = v.w;
+      }
 #pragma unroll
-        for (int k = 0; k < K; ++k) dst[j * K + k] = cv[k];
+      for (int j = 0; j < 4; ++j)
+        m2_counts<KM>(hv + j * (KM + 1), lo, cv + j * KM);
+#pragma unroll
+      for (int q = 0; q < KM; ++q)
+        reinterpret_cast<float4*>(dst)[q] = make_float4(
+            cv[4 * q], cv[4 * q + 1], cv[4 * q + 2], cv[4 * q + 3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (sb + j < ns) {
+          float cv[KM];
+          m2_counts<KM>(hist + (sb + j) * (KM + 1), lo, cv);
+#pragma unroll
+          for (int k = 0; k < KM; ++k) dst[j * KM + k] = cv[k];
+        }
       }
     }
   }
@@ -2500,6 +2611,10 @@ int bulk_route(const void* c, const void* x, const void* svc, int Kf,
              : bulk_ok(c, x, chunk);
 }
 
+// the fused D's levels, and its Model-2 slab's, at most (kernels/
+// hosting.py: DPF_MAX_K); S takes slabs of up to kM2MaxK
+constexpr int kDpfMaxK = 16;
+
 // the inputs of the fused D (x, g: Model 1; svc, cols, Kf: SVC)
 struct DpfArgs {
   const void *J, *c, *x, *g, *svc, *cols;
@@ -2524,7 +2639,8 @@ int launch_dpf(const DpfArgs& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// the fused D at a runtime K (1..16), with or without the argmin table
+// the fused D at a runtime K (1..kDpfMaxK), with or without the argmin
+// table
 template <bool SVC>
 int launch_dpf_any(const DpfArgs& a, int K, cudaStream_t st) {
   if (a.R <= 0) return (int)cudaGetLastError();
@@ -2687,7 +2803,10 @@ int launch_arma_rents(const void* keys, const void* tids, const void* hist_in,
         <<<grid, ArmaShape<N>::kThreads, 0, st>>>(args);
 #define REPRO_ARMA_CASE(PP)                                                \
   case PP:                                                                 \
-    if (Q == 2) {                                                          \
+    if (R == 1) {                                                          \
+      arma_rents_kernel<PP, kDotChain, N>                                  \
+          <<<grid, ArmaShape<N>::kThreads, 0, st>>>(args);                 \
+    } else if (Q == 2) {                                                   \
       REPRO_ARMA_ROWS(PP, kDotFma2)                                        \
     } else {                                                               \
       REPRO_ARMA_ROWS(PP, kDotSum)                                         \
@@ -2725,7 +2844,7 @@ int launch_dp_fwd(const void* J, const void* c, const void* x, const void* g,
                   const void* kmask, const void* fetch, const void* T_len,
                   void* Jout, void* args, int R, int chunk, int K, int Kf,
                   int t0, void* stream) {
-  if (Kf < 1 || Kf > 16) return (int)cudaErrorInvalidValue;
+  if (Kf < 1 || Kf > kDpfMaxK) return (int)cudaErrorInvalidValue;
   const DpfArgs a{J, c, x, g, svc, cols, Kf, lv, kmask, fetch,
                   T_len, Jout, args, R, chunk, t0};
   return svc ? launch_dpf_any<true>(a, K, (cudaStream_t)stream)
@@ -2745,7 +2864,7 @@ int launch_sim_alpha_rr(const void* plv, const void* mask, const void* pM,
                         int Kf, int include_final_fetch, void* r_out,
                         void* S_out, void* age_out, void* sums_out,
                         void* counts_out, void* r_hist, void* stream) {
-  if (Kf < 1 || Kf > 16) return (int)cudaErrorInvalidValue;
+  if (Kf < 1 || Kf > kM2MaxK) return (int)cudaErrorInvalidValue;
   const SimArgs a{plv,     mask,    pM,      nullptr, nullptr, lv,
                   g,       M,       T_len,   r_in,    S_in,    age_in,
                   sums_in, counts_in, x,     c,       svc,     cols,
@@ -2770,7 +2889,7 @@ int launch_sim_table(const void* pi, const void* thr, const void* lv,
                      int obs, int S, int t0, int chunk, int R, int K, int Kf,
                      int include_final_fetch, void* r_out, void* sums_out,
                      void* counts_out, void* r_hist, void* stream) {
-  if (Kf < 1 || Kf > 16 || S < 1 || S > kTableMaxS || obs < kObsNone
+  if (Kf < 1 || Kf > kM2MaxK || S < 1 || S > kTableMaxS || obs < kObsNone
       || obs > kObsX || (obs == kObsSide && !o) || (obs == kObsX && !thr)
       || (svc && obs == kObsX && !o) || (!svc && (!x || !g)))
     return (int)cudaErrorInvalidValue;
@@ -2839,21 +2958,51 @@ int launch_poisson(const void* keys, const void* tids, const void* lam,
   return (int)cudaGetLastError();
 }
 
-// the Model-2 service costs of one chunk (1 <= K <= 16, 0 <= n_max <=
-// 2^23)
+// the Model-2 service costs of one chunk (1 <= K <= kM2MaxK, 0 <= n_max
+// <= 2^23)
 int launch_model2_service(const void* keys, const void* tids, const void* x,
                           const void* g, void* out, int R, int chunk, int K,
                           int n_max, int partitionable, void* stream) {
-  if (K < 1 || K > 16 || n_max < 0 || n_max > kM2MaxRequests)
+  if (K < 1 || K > kM2MaxK || n_max < 0 || n_max > kM2MaxRequests)
     return (int)cudaErrorInvalidValue;
   if (R <= 0 || chunk <= 0) return (int)cudaGetLastError();
   int n_sm = 0;
-  const cudaError_t e = sm_count(&n_sm);
+  cudaError_t e = sm_count(&n_sm);
   if (e != cudaSuccess) return (int)e;
-  // the longest span that still gives each SM 32 warps (down to 32 slots)
+  // the instance: one a K up to kM2StaticMaxK, else the band of run-time
+  // K with its spans in dynamic shared memory sized for K
+  using M2Kernel = void (*)(Model2Args);
+  static const M2Kernel bands[kM2MaxK / kM2BandStep] = {
+      model2_service_kernel<kM2BandStep>,
+      model2_service_kernel<2 * kM2BandStep>,
+      model2_service_kernel<3 * kM2BandStep>,
+      model2_service_kernel<4 * kM2BandStep>};
+  M2Kernel kern = nullptr;
+  int smem = 0;
+  if (K > kM2StaticMaxK) {
+    const int band = (K - 1) / kM2BandStep;
+    kern = bands[band];
+    smem = kM2Warps * m2_band_bytes(K);
+    // the band's ceiling: the spans of its largest K
+    e = allow_smem(kern, kM2Warps * m2_band_bytes((band + 1) * kM2BandStep));
+    if (e != cudaSuccess) return (int)e;
+  }
+  // the longest span that still gives each SM 32 warps, or as many as it
+  // holds of a band at K (down to 32 slots)
+  long long sm_warps = 32;
+  if (kern) {
+    static std::atomic<int> held[kM2MaxK + 1][kMaxDevices];
+    int per_sm = 0;
+    e = per_device(held[K], &per_sm, [kern, smem](int, int* v) {
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          v, kern, 32 * kM2Warps, smem);
+    });
+    if (e != cudaSuccess) return (int)e;
+    sm_warps = std::min(sm_warps, (long long)std::max(per_sm, 1) * kM2Warps);
+  }
   int span = kM2Span;
   while (span > 32 && (long long)R * ((chunk + span - 1) / span)
-                          < 32LL * n_sm)
+                          < sm_warps * n_sm)
     span /= 2;
   const int spr = (chunk + span - 1) / span;
   const long long n_spans = (long long)R * spr;
@@ -2863,18 +3012,21 @@ int launch_model2_service(const void* keys, const void* tids, const void* x,
                   && (uintptr_t)tids % 16 == 0 && (uintptr_t)out % 16 == 0;
   const Model2Args a{(const long long*)keys, (const int*)tids, (const int*)x,
                      (const float*)g, (float*)out, R, chunk, n_max,
-                     partitionable, span, spr, n_spans, vec, 1u};
+                     partitionable, K, span, spr, n_spans, vec, 1u};
   cudaStream_t st = (cudaStream_t)stream;
+  if (kern) {
+    kern<<<(unsigned)blocks, 32 * kM2Warps, smem, st>>>(a);
+    return (int)cudaGetLastError();
+  }
 #define REPRO_M2_CASE(KK)                                           \
   case KK:                                                          \
     model2_service_kernel<KK>                                       \
         <<<(unsigned)blocks, 32 * kM2Warps, 0, st>>>(a);            \
     break;
+  static_assert(kM2StaticMaxK == 5, "one case a static K");
   switch (K) {
     REPRO_M2_CASE(1) REPRO_M2_CASE(2) REPRO_M2_CASE(3) REPRO_M2_CASE(4)
-    REPRO_M2_CASE(5) REPRO_M2_CASE(6) REPRO_M2_CASE(7) REPRO_M2_CASE(8)
-    REPRO_M2_CASE(9) REPRO_M2_CASE(10) REPRO_M2_CASE(11) REPRO_M2_CASE(12)
-    REPRO_M2_CASE(13) REPRO_M2_CASE(14) REPRO_M2_CASE(15) REPRO_M2_CASE(16)
+    REPRO_M2_CASE(5)
   }
 #undef REPRO_M2_CASE
   return (int)cudaGetLastError();

@@ -69,7 +69,13 @@ _PARITY = 0x1BD11BDA
 #: the largest level count the kernels take (S and the fused D: a template
 #: argument each; D on a finished w: one warp)
 SIM_MAX_K = 16
+#: the fused D's levels and its Model-2 slab's (hosting.cu: kDpfMaxK); a
+#: Model-2 slab of more levels is wide, and the svc wrappers'
+#: ``wide_launches`` count their launches on one
 DPF_MAX_K = 16
+#: the levels of a Model-2 service slab on the card: P's service draws
+#: and the slab that S's svc variants read (hosting.cu: kM2MaxK)
+M2_MAX_K = 32
 #: model2_service_chunk's n_max at most on the card (hosting.cu:
 #: kM2MaxRequests): a span's requests fit an int32, a count a float32
 M2_MAX_REQUESTS = 2 ** 23
@@ -532,13 +538,16 @@ def normal_chunk_plain(keys, tids, sigma,
 
 
 def _xla_dot(a, b):
-    """Row-wise ``a . b`` as XLA:CPU's small batched dot computes it inside
-    the ARMA scan: two terms are one FMA, ``fma(a1, b1, a0 * b0)``; three
-    or more a left-to-right sum of rounded products."""
+    """Row-wise ``a . b`` as XLA:CPU computes the dot inside the ARMA scan.
+    On a batch of rows (a small batched dot) two terms are one FMA,
+    ``fma(a1, b1, a0 * b0)``, and three or more a left-to-right sum of
+    rounded products; on a single row (a dot of two vectors, a loop whose
+    multiply-adds LLVM contracts) every term after the first is an FMA
+    into the sum, ``fma(a2, b2, fma(a1, b1, a0 * b0))``."""
+    chain = a.shape[0] == 1 or a.shape[1] == 2
     x = a[:, 0] * b[:, 0]
     for i in range(1, a.shape[1]):
-        x = (fma32(a[:, i], b[:, i], x) if a.shape[1] == 2
-             else x + a[:, i] * b[:, i])
+        x = fma32(a[:, i], b[:, i], x) if chain else x + a[:, i] * b[:, i]
     return x
 
 
@@ -547,8 +556,9 @@ def arma_rents_chunk_plain(keys, tids, hist, eps, phi, th, sigma, mean,
     """Plain version of kernel P's ARMA(p, q) rents over one chunk:
     innovations ``e_t = (sigma * sqrt(2)) * erf_inv(u)`` at counter ``t +
     q``, then per slot ``x = (phi . hist + e_t) + th . eps`` with each dot
-    in the order of ``_xla_dot`` (for p = 1 the product is fused into the
-    add: ``fma(phi0, h0, e_t)``), the histories shifted (newest first),
+    in the order of ``_xla_dot`` (a single row's dots are FMA chains; for
+    p = 1 the product is fused into the add: ``fma(phi0, h0, e_t)``), the
+    histories shifted (newest first),
     and ``clip(mean + x, c_min, c_max)``.  ``hist`` [R, p] and ``eps`` [R,
     q] carry the state in; ``phi`` / ``th`` [R, p] / [R, q] and the [R]
     params are float32; q >= 2 (the MA(1) order of XLA's scan is not
@@ -953,15 +963,16 @@ poisson_chunk.launches = 0
 def model2_service_chunk(keys, tids, x, g, n_max: int,
                          partitionable: Optional[bool] = None):
     """Kernel P's Model-2 service draws (arguments as
-    ``model2_service_chunk_plain``; K <= 16, n_max <= 2**23), bitwise the
-    plain version."""
+    ``model2_service_chunk_plain``; K <= 32, n_max <= 2**23), bitwise the
+    plain version.  ``wide_launches`` counts the launches on a wide slab
+    (more than ``DPF_MAX_K`` levels)."""
     if keys.device.type == "cpu":
         return model2_service_chunk_plain(keys, tids, x, g, n_max,
                                           partitionable)
     R, chunk = _row_params(keys, tids)
     K = g.shape[1] if g.dim() == 2 else -1
-    if not 1 <= K <= DPF_MAX_K or not 0 <= n_max <= M2_MAX_REQUESTS:
-        raise ValueError(f"model2_service_chunk takes 1 <= K <= {DPF_MAX_K} "
+    if not 1 <= K <= M2_MAX_K or not 0 <= n_max <= M2_MAX_REQUESTS:
+        raise ValueError(f"model2_service_chunk takes 1 <= K <= {M2_MAX_K} "
                          f"and 0 <= n_max <= {M2_MAX_REQUESTS}, got K={K}, "
                          f"n_max={n_max}")
     _build.check_tensor("x", x, torch.int32, (R, chunk), keys.device)
@@ -973,10 +984,12 @@ def model2_service_chunk(keys, tids, x, g, n_max: int,
         _build.stream(keys.device))
     _build.raise_on(err, "model2_service")
     model2_service_chunk.launches += 1
+    model2_service_chunk.wide_launches += K > DPF_MAX_K
     return out
 
 
 model2_service_chunk.launches = 0
+model2_service_chunk.wide_launches = 0
 
 
 # ----------------------------------------------------------------------
@@ -1068,7 +1081,9 @@ def _dp_fwd(name, J, c, lv, kmask, fetch, T_len, t0, with_args, x=None,
         ins += [("x", x, torch.int32, (R, chunk)), ("g", g, f32, (R, K))]
     for arg in ins:
         _build.check_tensor(*arg, dev)
-    Kf = K if svc is None else _check_svc(svc, svc_cols, R, chunk, K, dev)
+    Kf = K if svc is None else _check_svc(
+        name, svc, svc_cols, R, chunk, K, dev, DPF_MAX_K,
+        ": wider slabs wait for the joint DP (ROADMAP.md, Queue 1 item 11)")
     Jout = torch.empty((R, K), dtype=f32, device=dev)
     args = (torch.empty((R, chunk, K), dtype=torch.int32, device=dev)
             if with_args else None)
@@ -1110,9 +1125,10 @@ def gather_svc(svc, svc_cols):
     return torch.gather(svc, 2, idx)
 
 
-def _check_svc(svc, svc_cols, R, chunk, K, dev):
-    """Check a Model-2 service slab and its optional column map for a
-    K-level lane; returns the slab's level count."""
+def _check_svc(name, svc, svc_cols, R, chunk, K, dev, kf_max, why=""):
+    """Check a Model-2 service slab of at most ``kf_max`` levels and its
+    optional column map for a K-level lane; returns the slab's level
+    count."""
     Kf = svc.shape[2] if svc.dim() == 3 else -1
     _build.check_tensor("svc", svc, torch.float32, (R, chunk, Kf), dev)
     if svc_cols is None:
@@ -1121,8 +1137,9 @@ def _check_svc(svc, svc_cols, R, chunk, K, dev):
                              f"svc_cols")
     else:
         _build.check_tensor("svc_cols", svc_cols, torch.int32, (R, K), dev)
-    if not 1 <= Kf <= DPF_MAX_K:
-        raise ValueError(f"svc takes 1 <= K <= {DPF_MAX_K} levels, got {Kf}")
+    if not 1 <= Kf <= kf_max:
+        raise ValueError(f"{name} takes a slab of 1 <= K <= {kf_max} "
+                         f"levels, got {Kf}{why}")
     return Kf
 
 
@@ -1208,7 +1225,8 @@ def _sim_alpha_rr(name, params, lv, M, T_len, t0, carry, c,
     for arg in ins:
         if svc is None or arg[0] not in ("g", "x"):
             _build.check_tensor(*arg, dev)
-    Kf = K if svc is None else _check_svc(svc, svc_cols, R, chunk, K, dev)
+    Kf = K if svc is None else _check_svc(name, svc, svc_cols, R, chunk, K,
+                                          dev, M2_MAX_K)
     new_state = {k: torch.empty_like(state[k]) for k in ("r", "S", "age")}
     new_acc = {k: torch.empty_like(acc[k]) for k in ("sums", "counts")}
     r_hist = (torch.empty((R, chunk), dtype=i32, device=dev)
@@ -1264,7 +1282,8 @@ def sim_chunk_alpha_rr_svc(params, lv, M, T_len, t0: int, carry, c, svc,
                            collect_trace: bool = True):
     """Kernel S under Model-2 service (arguments as
     ``sim_chunk_alpha_rr_svc_plain``; 2 <= K <= 16 levels, the slab 1 to
-    16), bitwise ``sim_chunk_alpha_rr_svc_plain``."""
+    32), bitwise ``sim_chunk_alpha_rr_svc_plain``.  ``wide_launches``
+    counts the launches on a wide slab (more than ``DPF_MAX_K`` levels)."""
     if c.device.type == "cpu":
         return sim_chunk_alpha_rr_svc_plain(params, lv, M, T_len, t0, carry,
                                             c, svc, svc_cols,
@@ -1274,10 +1293,12 @@ def sim_chunk_alpha_rr_svc(params, lv, M, T_len, t0: int, carry, c, svc,
                         carry, c, include_final_fetch, collect_trace, svc=svc,
                         svc_cols=svc_cols)
     sim_chunk_alpha_rr_svc.launches += 1
+    sim_chunk_alpha_rr_svc.wide_launches += svc.shape[2] > DPF_MAX_K
     return out
 
 
 sim_chunk_alpha_rr_svc.launches = 0
+sim_chunk_alpha_rr_svc.wide_launches = 0
 
 
 # ----------------------------------------------------------------------
@@ -1386,7 +1407,8 @@ def _sim_table(name, pi, obs, thr, lv, M, T_len, t0, carry, x, c, side,
         ins.append(("x_threshold", thr, f32, (R,)))
     for arg in ins:
         _build.check_tensor(*arg, dev)
-    Kf = K if svc is None else _check_svc(svc, svc_cols, R, chunk, K, dev)
+    Kf = K if svc is None else _check_svc(name, svc, svc_cols, R, chunk, K,
+                                          dev, M2_MAX_K)
     # the observation slab the producer stages besides c and x / svc: the
     # side channel, or the arrivals on a Model-2 slab (Model 1 stages x)
     o = side if obs == "side" else (x if obs == "x" and svc is not None
@@ -1431,8 +1453,9 @@ def sim_chunk_table_svc(pi, obs, x_threshold, lv, M, T_len, t0: int, carry,
                         include_final_fetch: bool = True,
                         collect_trace: bool = True):
     """Kernel S's table variant on a Model-2 service slab (arguments as
-    ``sim_chunk_table_svc_plain``; 2 <= K <= 16 levels, the slab 1 to 16),
-    bitwise ``sim_chunk_table_svc_plain``."""
+    ``sim_chunk_table_svc_plain``; 2 <= K <= 16 levels, the slab 1 to 32),
+    bitwise ``sim_chunk_table_svc_plain``.  ``wide_launches`` counts the
+    launches on a wide slab (more than ``DPF_MAX_K`` levels)."""
     if c.device.type == "cpu":
         return sim_chunk_table_svc_plain(pi, obs, x_threshold, lv, M, T_len,
                                          t0, carry, x, c, side, svc, svc_cols,
@@ -1441,7 +1464,9 @@ def sim_chunk_table_svc(pi, obs, x_threshold, lv, M, T_len, t0: int, carry,
                      T_len, t0, carry, x, c, side, include_final_fetch,
                      collect_trace, svc=svc, svc_cols=svc_cols)
     sim_chunk_table_svc.launches += 1
+    sim_chunk_table_svc.wide_launches += svc.shape[2] > DPF_MAX_K
     return out
 
 
 sim_chunk_table_svc.launches = 0
+sim_chunk_table_svc.wide_launches = 0

@@ -11,8 +11,9 @@ nothing is padded here.
 
 ``KERNELS`` lists the launcher of every CUDA kernel, whose ``launches``
 counters a run reads; ``DISPATCHERS`` the wrappers that pick one of two
-kernels (F, M) and count the launches of both; ``PLAIN_ON_CARD`` the plain
-code whose calls on the card a run counts.  ``reset_launches`` sets every
+kernels (F, M) and count the launches of both; ``WIDE`` those that count
+their launches on a Model-2 slab of more than 16 levels too;
+``PLAIN_ON_CARD`` the plain code whose calls on the card a run counts.  ``reset_launches`` sets every
 counter to 0.
 """
 from __future__ import annotations
@@ -67,6 +68,10 @@ KERNELS = (hosting.slot_uniform, hosting.bernoulli_arrivals_chunk,
            _fa.flash_attention_wgmma, _fa.flash_attention_fma,
            _ssd.ssd_scan_mma, _ssd.ssd_scan_fma)
 DISPATCHERS = (_fa.flash_attention, _ssd.ssd_scan)
+#: the launchers that also count their launches on a wide Model-2 slab
+#: (``wide_launches``: more than ``hosting.DPF_MAX_K`` levels)
+WIDE = (hosting.model2_service_chunk, hosting.sim_chunk_alpha_rr_svc,
+        hosting.sim_chunk_table_svc)
 #: plain code that counts its calls on the card (``card_calls``): the
 #: float64 FMA emulation (every plain D and alpha-RR S calls it), the
 #: per-slot GE and ARMA loops, the Poisson rounds, the Model-2 counts and
@@ -81,9 +86,12 @@ PLAIN_ON_CARD = (hosting.fma32, hosting.ge_bernoulli_chunk_plain,
 
 def reset_launches():
     """Set every launch counter (the Poisson launches on Hormann's branch
-    too), and every ``card_calls`` count, to 0."""
+    and the wide-slab launches too), and every ``card_calls`` count, to
+    0."""
     for k in KERNELS + DISPATCHERS:
         k.launches = 0
+    for k in WIDE:
+        k.wide_launches = 0
     hosting.reset_poisson_rejection_launches()
     for f in PLAIN_ON_CARD:
         f.card_calls = 0

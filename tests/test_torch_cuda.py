@@ -1,6 +1,7 @@
 """Kernels F, M, the fused D and S (alpha-RR and the table variant, under
-Model 1 and on a Model-2 service slab), P's Poisson (both branches) and
-Model-2 variants, and the serving engine, on the card:
+Model 1 and on a Model-2 service slab, of up to 32 levels), P's Poisson
+(both branches), Model-2 variants (up to 32 levels) and ARMA rents on one
+row, and the serving engine, on the card:
 held against their plain versions (the ``cuda`` tests skip without a card;
 run them on the card with ``python -m pytest -m cuda
 tests/test_torch_cuda.py``).  D and S are held bit for bit
@@ -635,6 +636,31 @@ def test_arma_kernel_matches_plain(pq, part):
         assert H.arma_rents_chunk.launches == before + len(chunks)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", [True, False])
+@pytest.mark.parametrize("pq", [(4, 2), (1, 2), (2, 3), (3, 3), (8, 8)])
+def test_arma_kernel_on_one_row_matches_plain(pq, part):
+    """One row (R = 1: XLA's dots are FMA chains there, the kernel's
+    kDotChain instances): Figs 23-25's 4,000 slots in one chunk, then a
+    ragged chunk and one slot, the state carried."""
+    dev = _card()
+    p, q = pq
+    d = _arma_inputs(dev, 1, p, q, seed=p * 10 + q)
+    k_state = p_state = (d["hist"], d["eps"])
+    for t0, chunk in ((0, 4000), (4000, 999), (4999, 1)):
+        tids = torch.arange(t0, t0 + chunk, dtype=torch.int32, device=dev)
+        k = H.arma_rents_chunk(d["keys"], tids, *k_state, d["phi"], d["th"],
+                               d["sigma"], d["mean"], d["c_min"],
+                               d["c_max"], part)
+        torch.cuda.synchronize()
+        pl = H.arma_rents_chunk_plain(d["keys"], tids, *p_state, d["phi"],
+                                      d["th"], d["sigma"], d["mean"],
+                                      d["c_min"], d["c_max"], part)
+        for a, b in zip(k, pl):
+            assert torch.equal(a, b), (t0, chunk)
+        k_state, p_state = k[:2], pl[:2]
+
+
 # ----------------------------------------------------------------------
 # Kernel P's Poisson and Model-2 service variants, and D and S on a
 # Model-2 service slab, bit for bit.
@@ -854,6 +880,137 @@ def test_svc_dp_and_sim_kernels_match_plain(case, with_args):
     assert (rk is None and rp is None) or torch.equal(rk, rp)
     assert (H.dp_fwd_model2.launches, H.sim_chunk_alpha_rr_svc.launches) \
         == (before[0] + 1, before[1] + 1)
+
+
+# ----------------------------------------------------------------------
+# Model-2 slabs of more than 16 levels (up to hosting.M2_MAX_K): P's
+# service draws on its bands of a run-time K, S's svc variants by their
+# gather route; D refuses them.  Bit for bit.
+# ----------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", [True, False])
+@pytest.mark.parametrize("K", [6, 8, 9, 16, 17, 24, 25, 31, 32])
+@pytest.mark.parametrize("case", [
+    # (R, t0, chunk): beyond_knapsack_levels' chunk (4 rows x 4,000 slots,
+    # aligned), a ragged slab from an odd start, one slot at the top of the
+    # counters
+    (4, 0, 4000), (253, 61441, 1001), (300, 0x7FFFFFFF, 1)])
+def test_wide_model2_service_kernel_matches_plain(case, K, part):
+    """K levels, unsorted with 0.0 and 1.0 among them, at each end of the
+    kernel's bands of a run-time K (K <= 8, 16, 24, 32): at most one
+    request a slot on Bernoulli arrivals, then 24 and 100 on arrivals in
+    [-5, 120] with rows of empty slots and rows past the cap; the launches
+    past DPF_MAX_K levels count as wide."""
+    dev = _card()
+    R, t0, chunk = case
+    rng = np.random.default_rng(R + K + chunk)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    tids = torch.arange(t0, t0 + chunk, dtype=torch.int64).to(
+        torch.int32).to(dev)
+    keys = t(rng.integers(0, 2 ** 32, (R, 2), dtype=np.uint64)
+             .astype(np.int64))
+    g = t(_unsorted_levels(rng, R, K))
+    x1 = t(rng.integers(0, 2, (R, chunk)).astype(np.int32))
+    x_wide = t(_wide_arrivals(rng, R, chunk))
+    before = (H.model2_service_chunk.launches,
+              H.model2_service_chunk.wide_launches)
+    for x, n_max in ((x1, 1), (x_wide, 24), (x_wide, 100)):
+        m = H.model2_service_chunk(keys, tids, x, g, n_max, part)
+        torch.cuda.synchronize()
+        assert m.shape == (R, chunk, K)
+        assert torch.equal(m, H.model2_service_chunk_plain(
+            keys, tids, x, g, n_max, part)), n_max
+    wide = 3 if K > H.DPF_MAX_K else 0
+    assert (H.model2_service_chunk.launches,
+            H.model2_service_chunk.wide_launches) == (before[0] + 3,
+                                                      before[1] + wide)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (R, chunk, K, Kf): slabs whose rows are 16-byte aligned (where the
+    # bulk route's alignment test passes and the width sends S to its
+    # gather route) and ragged ones; lanes of 2 to 16 levels gathering
+    # their columns (beyond_knapsack_levels' lanes hold 2 to 8 of 31)
+    (1024, 1024, 2, 17), (1021, 1001, 3, 31), (96, 336, 8, 32),
+    (4, 4000, 8, 31), (253, 999, 16, 17), (1024, 1, 2, 32),
+    (96, 333, 5, 24)])
+def test_wide_svc_sim_kernels_match_plain(case):
+    """alpha-RR's S (with and without the trace and the final fetch) and
+    the table variant (MDP) on a slab of Kf > 16 levels through a column
+    map, each == its plain version; D refuses the slab, naming the
+    ROADMAP item that widens it."""
+    from repro_torch.core.policies.alpha_rr import alpha_rr_init
+    from repro_torch.core.policies.offline_opt import dp_fetch_matrix
+    from repro_torch.core.simulator import sim_acc0
+    dev = _card()
+    R, chunk, K, Kf = case
+    h = _hosting_case(dev, R, chunk, K, K > 3, True, seed=R + chunk + K)
+    d = _svc_inputs(dev, R, chunk, K, Kf, seed=R + K)
+    params = {"levels": h["lv"], "mask": h["kmask"], "M": h["M"]}
+    before = (H.sim_chunk_alpha_rr_svc.launches,
+              H.sim_chunk_alpha_rr_svc.wide_launches,
+              H.sim_chunk_table_svc.launches,
+              H.sim_chunk_table_svc.wide_launches)
+    for flag in (False, True):
+        carry = (alpha_rr_init(params), sim_acc0(R, K, dev))
+        sargs = (params, h["lv"], h["M"], h["T_len"], h["t0"], carry,
+                 h["c"], d["svc"], d["cols"], flag, flag)
+        (sk, ak), rk = H.sim_chunk_alpha_rr_svc(*sargs)
+        torch.cuda.synchronize()
+        (sp, ap), rp = H.sim_chunk_alpha_rr_svc_plain(*sargs)
+        for a, b in ((sk, sp), (ak, ap)):
+            for key in a:
+                assert torch.equal(a[key], b[key]), (flag, key)
+        assert (rk is None and rp is None) or torch.equal(rk, rp)
+    tab = table_form(*_table_case(dev, R, chunk, K, "mdp", seed=R + K), K)
+    side = torch.from_numpy(h["rng"].integers(-1, 3, (R, chunk)).astype(
+        np.int32)).to(dev)
+    targs = (*tab, h["lv"], h["M"], h["T_len"], h["t0"],
+             ({"r": torch.zeros(R, dtype=torch.int32, device=dev)},
+              sim_acc0(R, K, dev)), h["x"], h["c"], side, d["svc"],
+             d["cols"], True, True)
+    (sk, ak), rk = H.sim_chunk_table_svc(*targs)
+    torch.cuda.synchronize()
+    (sp, ap), rp = H.sim_chunk_table_svc_plain(*targs)
+    assert torch.equal(sk["r"], sp["r"]) and torch.equal(rk, rp)
+    for key in ap:
+        assert torch.equal(ak[key], ap[key]), key
+    assert (H.sim_chunk_alpha_rr_svc.launches,
+            H.sim_chunk_alpha_rr_svc.wide_launches,
+            H.sim_chunk_table_svc.launches,
+            H.sim_chunk_table_svc.wide_launches) == (
+                before[0] + 2, before[1] + 2, before[2] + 1, before[3] + 1)
+    dargs = (torch.zeros((R, K), device=dev), h["c"], d["svc"], h["lv"],
+             h["kmask"], dp_fetch_matrix(h["M"], h["lv"]), h["T_len"],
+             h["t0"], d["cols"])
+    with pytest.raises(ValueError, match="Queue 1 item 11"):
+        H.dp_fwd_model2(*dargs)
+
+
+@pytest.mark.cuda
+def test_wide_slab_limits_are_the_launchers():
+    """The wrappers' limits are the launchers': the service launcher, and
+    S's, take M2_MAX_K levels and refuse one more (cudaErrorInvalidValue,
+    1) when called past the wrappers' checks; the wrappers raise first."""
+    dev = _card()
+    lib = _build.library("hosting")
+    R, chunk = 2, 8
+    tids = torch.arange(chunk, dtype=torch.int32, device=dev)
+    keys = torch.zeros((R, 2), dtype=torch.int64, device=dev)
+    x = torch.ones((R, chunk), dtype=torch.int32, device=dev)
+    for K, want in ((H.M2_MAX_K, 0), (H.M2_MAX_K + 1, 1)):
+        g = torch.full((R, K), 0.5, device=dev)
+        out = torch.empty((R, chunk, K), device=dev)
+        err = lib.launch_model2_service(
+            keys.data_ptr(), tids.data_ptr(), x.data_ptr(), g.data_ptr(),
+            out.data_ptr(), R, chunk, K, 1, 1, _build.stream(dev))
+        torch.cuda.synchronize()
+        assert err == want, K
+    with pytest.raises(ValueError, match=f"K <= {H.M2_MAX_K}"):
+        H.model2_service_chunk(keys, tids, x, torch.full(
+            (R, H.M2_MAX_K + 1), 0.5, device=dev), 1)
 
 
 # ----------------------------------------------------------------------

@@ -139,7 +139,7 @@ def test_unported_poisson_parts_raise():
                 out = ps.materialize_stream(got, 90, 40)
                 for w, o in zip(want, out):
                     assert np.array_equal(o, np.asarray(w)), (part, ref.name)
-    with pytest.raises(NotImplementedError, match="items 2 and 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
         ps.bursty_arrivals(k, B, base_rate=0.5, burst_rate=2.0,
                            diurnal_period=24, device=CPU)
     assert ps.BURSTY_EXIT_P == J_EXIT_P

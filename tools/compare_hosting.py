@@ -3,6 +3,7 @@
 one CUDA card.
 
     python3 tools/compare_hosting.py PARENT . . PARENT
+    python3 tools/compare_hosting.py --only "P service,P Poisson" PARENT . . PARENT
 
 Each ROOT is the root of a checkout (a ``git archive`` of another commit
 unpacked into a git-ignored directory, say).  For each, in the order
@@ -21,7 +22,8 @@ the Model-2 fan-out's slab (Poisson arrivals, spot rents, Model-2
 service) for alpha-RR's own columns and RR's endpoint columns, one
 chunk of that fan-out's Poisson arrivals (rates cycled over {2, 4, 8})
 and one of its Model-2 service (K = 3, 24 requests a slot at most, on
-those arrivals);
+those arrivals; the same at K = 16, and at each K of ``SERVICE_KS``
+(evenly spread levels) that the checkout takes);
 where the checkout has it, one chunk of kernel P's ARMA rents (the spot
 stream, p = 4, q = 2) at the fleet's shape; where the checkout has the
 Markov leg, one chunk of its Poisson draws on Hormann's branch (the GE
@@ -32,7 +34,9 @@ beside each, the cycles a slot at the SM clock nvidia-smi reads while
 the card runs it.  Last, the host wall of each figure module's ``run()``
 at the reference's default size (its warm-up and timed fan-outs, as
 ``chip_smoke.py`` times it), the median of five after one untimed run.
-One JSON line per root, then a table.
+One JSON line per root, then a table.  ``--only`` takes
+comma-separated prefixes of the timings' names, times only those and
+skips the figure walls.
 """
 from __future__ import annotations
 
@@ -43,7 +47,12 @@ import time
 from pathlib import Path
 
 
-def _one(root: Path) -> dict:
+# the service draws' level counts timed at the fleet's shape: the static
+# instances end at K = 5, the bands of a run-time K start at 6, 9, 17, 25
+SERVICE_KS = (3, 4, 5, 6, 7, 8, 9, 12, 16, 17, 24, 25, 31, 32)
+
+
+def _one(root: Path, only=()) -> dict:
     sys.path[:0] = [str(root / "src"), str(root)]
     import numpy as np
     import torch
@@ -80,6 +89,9 @@ def _one(root: Path) -> dict:
         torch.cuda.synchronize()
         return {"ms": ms, "sm_clock_mhz": clock,
                 "cycles_per_slot": ms * 1e-3 * clock * 1e6 / chunk}
+
+    def want(name):
+        return not only or any(name.startswith(p) for p in only)
 
     dev, chunk = "cuda", cs.CHUNK
     R = cs.N_M * cs.N_ALPHA * cs.N_SEEDS
@@ -126,24 +138,28 @@ def _one(root: Path) -> dict:
                                      emission="bernoulli", device=dev)}
     stream_ms = {}
     for name, st in streams.items():
+        if not want(name):
+            continue
         st = sc.replicate_seeds(st, S, antithetic=True)
         state = st.init_fn(st.params)
         slow = name == "P GE chunk" and not hasattr(H, "ge_bernoulli_chunk")
         stream_ms[name] = ms_and_clock(
             lambda st=st, state=state: st.chunk_fn(st.params, state, tids),
             batch=1 if slow else 10, reps=3 if slow else 5)
+    timed = {"P uniforms": lambda: ms_and_clock(lambda: H.slot_uniform(
+                 scen.params["arr"]["key"], tids)),
+             "S": lambda: ms_and_clock(lambda: H.sim_chunk_alpha_rr(
+                 *sim, collect_trace=False)),
+             "S with trace": lambda: ms_and_clock(
+                 lambda: H.sim_chunk_alpha_rr(*sim)),
+             "DP chunk": lambda: dict(ms_and_clock(dp_chunk[1], batch=3),
+                                      route=dp_chunk[0]),
+             "D on a finished w": lambda: ms_and_clock(
+                 lambda: H.dp_minplus(J, w, fetch, valid), batch=3)}
     out = {"root": str(root), "card": torch.cuda.get_device_name(0),
-           "P uniforms": ms_and_clock(lambda: H.slot_uniform(
-               scen.params["arr"]["key"], tids)),
            **stream_ms,
-           "S": ms_and_clock(lambda: H.sim_chunk_alpha_rr(
-               *sim, collect_trace=False)),
-           "S with trace": ms_and_clock(lambda: H.sim_chunk_alpha_rr(*sim)),
-           "DP chunk": dict(ms_and_clock(dp_chunk[1], batch=3),
-                            route=dp_chunk[0]),
-           "D on a finished w": ms_and_clock(
-               lambda: H.dp_minplus(J, w, fetch, valid), batch=3)}
-    if hasattr(H, "arma_rents_chunk"):
+           **{name: fn() for name, fn in timed.items() if want(name)}}
+    if hasattr(H, "arma_rents_chunk") and want("P ARMA chunk"):
         spot = cs.spot_params(B, dev)
         eps0 = H.normal_chunk(spot["key"], sc.base.chunk_tids(0, 2, dev)
                               .flip(0), spot["sigma"])
@@ -157,13 +173,29 @@ def _one(root: Path) -> dict:
             cs.model2_scenario(cs.fleet_grid(cs.N_M, cs.N_ALPHA, dev), dev),
             cs.N_SEEDS)
         arr = m2.params["arr"]
-        out["P Poisson chunk"] = ms_and_clock(
-            lambda: H.poisson_chunk(arr["key"], tids, arr["lam"]), batch=5)
+        if want("P Poisson chunk"):
+            out["P Poisson chunk"] = ms_and_clock(
+                lambda: H.poisson_chunk(arr["key"], tids, arr["lam"]),
+                batch=5)
         sv = m2.params["svc"]
         x_m2 = H.poisson_chunk(arr["key"], tids, arr["lam"])
-        out["P service chunk"] = ms_and_clock(
-            lambda: H.model2_service_chunk(sv["key"], tids, x_m2, sv["g"],
-                                           cs.M2_MAX), batch=5)
+        if want("P service chunk"):
+            out["P service chunk"] = ms_and_clock(
+                lambda: H.model2_service_chunk(sv["key"], tids, x_m2,
+                                               sv["g"], cs.M2_MAX), batch=5)
+            g16 = cs.k16_grid(cs.N_M * cs.N_ALPHA, dev).repeat_rows(
+                cs.N_SEEDS).g
+            out["P service chunk, K = 16"] = ms_and_clock(
+                lambda: H.model2_service_chunk(sv["key"], tids, x_m2, g16,
+                                               cs.M2_MAX), batch=5)
+            for K in SERVICE_KS:
+                if K > getattr(H, "M2_MAX_K", 16):
+                    continue
+                gk = torch.linspace(1.0, 0.0, K, device=dev).expand(
+                    R, K).contiguous()
+                out[f"P service chunk, spread K = {K}"] = ms_and_clock(
+                    lambda gk=gk: H.model2_service_chunk(
+                        sv["key"], tids, x_m2, gk, cs.M2_MAX), batch=3)
         _, sl = m2.chunk_fn(m2.params, m2.init_fn(m2.params), tids)
         for name, lane, cols, P in (
                 ("alpha-RR", grid, None, AlphaRR),
@@ -176,11 +208,13 @@ def _one(root: Path) -> dict:
             s = (p.params, lane.levels, lane.M, T_len, t0,
                  (alpha_rr_init(p.params), sim_acc0(R, lane.K, dev)), sl.c,
                  sl.svc, cols, True, False)
-            out[f"D on a Model-2 slab, {name}"] = ms_and_clock(
-                lambda d=d: H.dp_fwd_model2(*d))
-            out[f"S on a Model-2 slab, {name}"] = ms_and_clock(
-                lambda s=s: H.sim_chunk_alpha_rr_svc(*s))
-    if hasattr(cs, "markov_scenario"):
+            if want(f"D on a Model-2 slab, {name}"):
+                out[f"D on a Model-2 slab, {name}"] = ms_and_clock(
+                    lambda d=d: H.dp_fwd_model2(*d))
+            if want(f"S on a Model-2 slab, {name}"):
+                out[f"S on a Model-2 slab, {name}"] = ms_and_clock(
+                    lambda s=s: H.sim_chunk_alpha_rr_svc(*s))
+    if hasattr(cs, "markov_scenario") and want("P Poisson chunk, Hormann"):
         costs, ges, cms = cs.markov_instances(cs.N_M * cs.N_ALPHA)
         mk = sc.replicate_seeds(cs.markov_scenario(
             cs.HostingGrid.from_costs(costs, device=dev), ges, cms, dev),
@@ -191,7 +225,8 @@ def _one(root: Path) -> dict:
         out["P Poisson chunk, Hormann"] = ms_and_clock(
             lambda: H.poisson_chunk(*p_args), batch=5)
     walls = {}
-    for name, (mod, _, _) in cs.FIGURES.items():
+    for name, entry in ([] if only else cs.FIGURES.items()):
+        mod = entry[0]
         mod.run(device=dev)
         times = []
         for _ in range(5):
@@ -206,10 +241,14 @@ def _one(root: Path) -> dict:
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        print(json.dumps(_one(Path(sys.argv[2]).resolve())), flush=True)
+    args = sys.argv[1:]
+    only = []
+    if args[:1] == ["--only"] and len(args) > 1:
+        only, args = args[1].split(","), args[2:]
+    if len(args) == 2 and args[0] == "--one":
+        print(json.dumps(_one(Path(args[1]).resolve(), only)), flush=True)
         return 0
-    roots = sys.argv[1:]
+    roots = args
     if not roots:
         print(__doc__, file=sys.stderr)
         return 2
@@ -219,7 +258,9 @@ def main() -> int:
     print(smi, flush=True)
     rows = []
     for root in roots:
-        run = subprocess.run([sys.executable, __file__, "--one", root],
+        run = subprocess.run([sys.executable, __file__,
+                              *(["--only", ",".join(only)] if only else []),
+                              "--one", root],
                              capture_output=True, text=True, timeout=900)
         if run.returncode != 0:
             print(run.stderr[-3000:], file=sys.stderr)

@@ -2,7 +2,7 @@
 """Where the time of the port's main paths goes on one CUDA card.
 
     python3 tools/profile_main_path.py [--T 16384]
-        [--path fleet|figures|serving|both]
+        [--path fleet|figures|serving|both] [--only FIGURE ...]
 
 Fleet path: the ``chip_smoke.py`` workload at full width (4,096 rows, K = 3,
 chunks of 4,096) for a shorter horizon under ``torch.profiler``: alpha-RR
@@ -20,7 +20,8 @@ service, RR gathering its endpoint columns) and its Markov leg (phase 10:
 GE-Poisson arrivals at 200 / 10, spot rents, service at 260 requests a
 slot; the alpha-RR / RR fan-out, then MDP and ABC) at horizon T; the
 device time is grouped as for the fleet path, the ARMA, Poisson and
-service kernels each on their own.
+service kernels each on their own.  ``--only`` names the figure modules
+(``chip_smoke.FIGURES``' keys) to profile, without the legs.
 
 Serving path: zamba2-1.2b at full width and depth in bf16 (seeded random
 weights), one ``serve_slot`` of 8 prompts of 2,048 tokens under the full
@@ -136,10 +137,14 @@ def profile_fleet(T, dev):
                                collect_trace=False, **kw), groups=FLEET_GROUPS)
 
 
-def profile_figures(T, dev):
+def profile_figures(T, dev, only=None):
     for name, (mod, n_rows, T_fig) in cs.FIGURES.items():
+        if only and name not in only:
+            continue
         profiled(f"{name} run(), {n_rows} fleet rows, T={T_fig}",
                  lambda: mod.run(device=dev), top=12, groups=FLEET_GROUPS)
+    if only:
+        return
     fleet = FleetBatch.for_scenario(cs.fleet_grid(cs.N_M, cs.N_ALPHA, dev), T)
     lanes = [AlphaRR.fleet_lane(fleet), RetroRenting.fleet_lane(fleet)]
     sc = cs.bernoulli_spot(fleet.B, dev)
@@ -197,6 +202,9 @@ def main() -> int:
     ap.add_argument("--T", type=int, default=16384)
     ap.add_argument("--path", choices=("fleet", "figures", "serving", "both"),
                     default="both")
+    ap.add_argument("--only", nargs="*", choices=tuple(cs.FIGURES),
+                    help="with --path figures: these figure modules only, "
+                         "none of the fan-out legs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_main_path: no CUDA card available", file=sys.stderr)
@@ -212,7 +220,7 @@ def main() -> int:
     if args.path in ("fleet", "both"):
         profile_fleet(args.T, dev)
     if args.path == "figures":
-        profile_figures(args.T, dev)
+        profile_figures(args.T, dev, args.only)
     if args.path in ("serving", "both"):
         profile_serving(dev)
     return 0
