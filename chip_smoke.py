@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one CUDA card -- the fleet
-path, the paper's figures on it, and LM serving -- and check them.
+path (scenario-fused and obs-backed, with the backtracked OPT schedule),
+the paper's figures and theorem checks on it, and LM serving -- and check
+them.
 
     python3 chip_smoke.py
 
@@ -75,6 +77,16 @@ Phases (any failure exits non-zero, and no result line is printed):
    4,096 x 4,096, S also on its lane's columns gathered beforehand (its
    bulk route), against the policy's latency bound and the gather's
    32-byte sectors.
+   The backtracked schedule's kernels: D's ARGS route (the argmin table
+   written) timed at the fleet's shape; B (the backtrack) on D's own table
+   of a fleet chunk, on R - 3 rows x 1,001 slots and on a random K = 32
+   table; E (schedule pricing) on the backtracked schedule at the fleet's
+   shape, on a ragged slab from an odd t0 with levels out of range, on a
+   5-level Model-2 slab through a column map and at K = 32, each with its
+   sums' products fused and not; B and E timed at the fleet's shape; S
+   with the rent fused (S, then E's rent pass over S's trace) on one
+   alpha-RR row and three static rows (the reference's small batches,
+   ``simulator.xla_acc_fma``).
 3. The fleet path at full width: 1,024 instances (32 M x 32 (alpha, g)) x 4
    seeds = 4,096 rows, T = 65,536, chunks of 4,096: alpha-RR and RR through
    ``run_fleet``, alpha-OPT and OPT through ``offline_opt_fleet``
@@ -137,13 +149,29 @@ Phases (any failure exits non-zero, and no result line is printed):
    run one launch each of P's GE, Poisson, service and ARMA variants,
    two of S for the fan-out and one of S's table variant for MDP and for
    ABC, none of the plain code; each lane == its standalone run; card ==
-   CPU at 16 instances x 4 seeds, T = 1,024.  A kernel's ``launches`` in
-   the last lines add up phases 3, 4, 7, 8, 9 and 10 (and the serving
-   path's for F and M); the Poisson variant's Hormann record counts the
-   launches in which the kernel drew an item on Hormann's branch (the
-   kernel counts them), which must be those of Figs 17-22 and phase 10
-   only.
-11. Kernels F (flash attention) and M (SSD scan) against their plain
+   CPU at 16 instances x 4 seeds, T = 1,024.
+11. Obs-backed fleets at the fleet leg's width: 1,024 instances x 4 seeds
+   = 4,096 rows, T = 16,384 in chunks of 4,096, Bernoulli(0.35) arrivals
+   and U[0.15, 0.55] rents, the seed-replicated scenario materialised
+   (0.54 GB on the host) into ``FleetBatch.from_dense``; alpha-RR, RR and
+   OPT on four routes (cost only, materialised, checkpointed with the
+   schedule, ``stream=True``), each run three times (counters over the
+   first): S, D (its ARGS route on the schedule routes), B and E once a
+   chunk and route, no P, no plain code; every route == the
+   scenario-fused run (``n_seeds=4``) bit for bit, the three schedules
+   one, their price == ``evaluate_schedule_fleet(scenario=)``.  Then
+   ``offline_opt_batch`` on the first 2,048 slots (D on a finished w, B,
+   E) == the CPU on 64 rows; the Model-2 leg's scenario on 256 rows, T =
+   2,048, obs-backed (RR on ``restrict_to_endpoints()``) == fused.
+12. ``figures.theorems.run()`` on the card (Thm 2's 120 mixed-horizon
+   instances as one obs-backed fleet) == on the CPU, ``check`` passes.
+   A kernel's ``launches`` in the last lines add up phases 3, 4, 7 to 12
+   (and the serving path's for F and M); D's ARGS route, B, E and D on a
+   finished w launch in phases 11-12 only; the Poisson variant's Hormann
+   record counts the launches in which the kernel drew an item on
+   Hormann's branch (the kernel counts them), which must be those of Figs
+   17-22 and phase 10 only.
+13. Kernels F (flash attention) and M (SSD scan) against their plain
    versions on the card, each within a stated tolerance.  Each has two
    kernels, chosen by an explicit dispatch: F's wgmma kernel (bf16, hd 64 /
    128) and its fp32-FMA kernel (the rest), M's mma.sync kernel (bf16, dh /
@@ -156,7 +184,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    and a ragged length, the scheduler's 8-token chunk, ds = 128, a chunk of
    256, fp32.  Each variant requires that the dispatch launched the kernel
    it names.  The FMA kernels are also timed on the main bf16 input.
-12. The LM serving path at full width and depth: zamba2-1.2b in bf16 from
+14. The LM serving path at full width and depth: zamba2-1.2b in bf16 from
    a seeded generator (38 Mamba2 layers, 6 shared-attention
    applications), ``ServingEngine.serve_slot`` under each plan (none,
    layer prefix at alpha 0.4 = 5 segments, full) on 8 prompts of 2,048
@@ -164,7 +192,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    just before and read just after; per full forward F's wgmma kernel runs
    6 times and M's mma kernel 38 times, per prefix forward 3 and 12; the
    FMA kernels never run there.
-13. Card == CPU for the serving path at zamba2's tiny fp32 config with the
+15. Card == CPU for the serving path at zamba2's tiny fp32 config with the
    same weights: logits within 1e-4, argmax tokens equal where the CPU's
    top-2 margin is wider.
 
@@ -190,7 +218,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import (FleetBatch, HostingCosts, HostingGrid,  # noqa: E402
-                              mc_summary, offline_opt_fleet, run_fleet)
+                              evaluate_schedule_fleet, mc_summary,
+                              offline_opt_fleet, run_fleet)
 from repro_torch.core import scenarios as sc  # noqa: E402
 from repro_torch.core.arrivals import GilbertElliot  # noqa: E402
 from repro_torch.core.policies import (ABCPolicy, AlphaRR,  # noqa: E402
@@ -204,11 +233,13 @@ from repro_torch.figures import fig12_15_poisson_model2  # noqa: E402
 from repro_torch.figures import fig17_22_markov_mdp  # noqa: E402
 from repro_torch.figures import fig23_25_geolife  # noqa: E402
 from repro_torch.figures import beyond_knapsack_levels  # noqa: E402
+from repro_torch.figures import theorems  # noqa: E402
 from repro_torch.core import arrivals, rentcosts  # noqa: E402
 from repro_torch.core.policies.alpha_rr import alpha_rr_init  # noqa: E402
 from repro_torch.core.policies.baselines import table_form  # noqa: E402
 from repro_torch.core.policies.offline_opt import (dp_fetch_matrix,  # noqa: E402
-                                                   dp_frontier0)
+                                                   dp_frontier0,
+                                                   offline_opt_batch)
 from repro_torch.core.simulator import sim_acc0  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -261,7 +292,11 @@ KERNEL_SYMBOLS = {
                                  "run-time K at 17 to 32 levels)",
     "dp_fwd_model1": "dp_fwd_kernel<K, ARGS, false>",
     "dp_fwd_model2": "dp_fwd_kernel<K, ARGS, true>",
+    "dp_fwd_model1 args": "dp_fwd_kernel<K, true, false> (the ARGS route: "
+                          "the argmin table written)",
     "dp_minplus": "dp_minplus_kernel",
+    "dp_backtrack": "dp_backtrack_kernel",
+    "schedule_chunk": "schedule_kernel<SVC, FMA>",
     "sim_chunk_alpha_rr": "sim_kernel<K, false, false>",
     "sim_chunk_alpha_rr_svc": "sim_kernel<K, true, false>",
     "sim_chunk_alpha_rr_svc wide": "sim_kernel<K, true, false> (a slab of "
@@ -864,6 +899,18 @@ def kernel_checks(dev):
         f"table), old route {old_ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"{rec['dp_fwd_model1']['cycles_per_slot']:.1f} cycles a slot at "
         f"{clock:.0f} MHz")
+    # the same kernel's ARGS route (the materialised DP and the backtrack's
+    # replays): the [R, chunk, K] argmin table written besides
+    args_plain_ms, kp = timed_once(lambda: H.dp_fwd_model1_plain(*fused,
+                                                                 True))
+    require(tree_equal(k, kp), "fused D's argmin table differs from its "
+                               "plain version")
+    rec["dp_fwd_model1 args"] = dict(
+        replaces="src/repro/kernels/hosting.py:116", ms=args_ms,
+        plain_ms=args_plain_ms, max_abs_err=tree_max_abs(k, kp), ops=ops,
+        nbytes=nbytes(J, c, x, grid.g, lv32, kmask, fetch, T_len, *k),
+        shape=f"R={R} chunk={chunk} K={K}, writing the argmin table "
+              f"(with_args=True)")
 
     # kernel D on a finished w (offline_opt_batch's; off the fleet path)
     wck = torch.where(kmask[:, None, :],
@@ -951,6 +998,140 @@ def kernel_checks(dev):
     cycles = rec["sim_chunk_alpha_rr"]["cycles_per_slot"]
     log(f"S timed: {ms:.4f} ms ({trace_ms:.4f} ms with the trace), plain "
         f"{plain_ms:.3f} ms, {cycles:.1f} cycles a slot at {clock:.0f} MHz")
+    return rec
+
+
+def schedule_kernel_checks(dev):
+    """Kernels B (the DP's backtrack) and E (schedule pricing) against
+    their plain versions, bit for bit, at the fleet's shape (4,096 rows x
+    4,096 slots, K = 3: the fused D's own argmin table of a scenario chunk
+    walked back, the schedule it gives priced, E with its sums' products
+    fused and not), on ragged slabs (R - 3 rows, 1,001 slots, an odd t0),
+    at K = 32 (a random table; E on levels out of range too) and on a
+    Model-2 slab through a column map; then S with the rent fused (one
+    alpha-RR row, three static rows: the reference's small batches).
+    Returns the records of B and E (timed at the fleet's shape)."""
+    R, chunk, K = N_M * N_ALPHA * N_SEEDS, CHUNK, 3
+    grid = fleet_grid(N_M, N_ALPHA, dev).repeat_rows(N_SEEDS)
+    scen = sc.replicate_seeds(bernoulli_uniform(N_M * N_ALPHA, dev), N_SEEDS)
+    t0 = T_MAIN - chunk
+    _, slab = scen.chunk_fn(scen.params, scen.init_fn(scen.params),
+                            sc.base.chunk_tids(t0, chunk, dev))
+    x, c = slab.x, slab.c
+    T_len = torch.full((R,), T_MAIN, dtype=torch.int32, device=dev)
+    T_len[::7] = t0 + 1000                      # horizons inside the chunk
+    fetch = dp_fetch_matrix(grid.M, grid.levels)
+    J, args = H.dp_fwd_model1(dp_frontier0(R, K, dev), c, x, grid.g,
+                              grid.levels, grid.mask, fetch, T_len, t0, True)
+    k = torch.argmin(J, dim=1).to(torch.int32)
+    rng = np.random.default_rng(22)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    rec = {}
+
+    # B
+    cases = [("fleet slab", k, args),
+             ("R - 3 rows, 1,001 slots", k[:R - 3].contiguous(),
+              args[:R - 3, :1001].contiguous()),
+             ("K = 32, 65 rows", t(rng.integers(0, 32, 65).astype(np.int32)),
+              t(rng.integers(0, 32, (65, 777, 32)).astype(np.int32)))]
+    for name, kk, aa in cases:
+        kb = H.dp_backtrack(kk, aa)
+        pb = H.dp_backtrack_plain(kk, aa)
+        torch.cuda.synchronize()
+        require(tree_equal(kb, pb), f"B differs from its plain version "
+                                    f"({name})")
+        log(f"B ok: {name}")
+    ms = cuda_ms(lambda: H.dp_backtrack(k, args), reps=10, batch=10)
+    plain_ms, _ = timed_once(lambda: H.dp_backtrack_plain(k, args))
+    kb, r = H.dp_backtrack(k, args)
+    rec["dp_backtrack"] = dict(
+        replaces="src/repro/core/policies/offline_opt.py:162 (no TPU "
+                 "kernel: the reverse lax.scan of dp_backtrack_chunk)",
+        ms=ms, plain_ms=plain_ms, max_abs_err=0.0, ops=R * chunk,
+        nbytes=nbytes(k, args, kb, r),
+        shape=f"R={R} chunk={chunk} K={K}: D's table of a fleet chunk")
+    log(f"B timed: {ms:.4f} ms, plain {plain_ms:.1f} ms")
+
+    # E
+    sums = t((rng.random((R, 3)) * 100).astype(np.float32))
+    carry = (t(rng.integers(0, K, R).astype(np.int32)),
+             {"sums": sums, "counts": t(rng.integers(0, 50, (R, K))
+                                        .astype(np.int32))})
+    svc = t((rng.integers(0, 8, (R, 1001, 5)) / 2).astype(np.float32))
+    cols = t(np.tile(np.int32([0, 2, 4]), (R, 1)))
+    r_odd = t(rng.integers(-1, K + 1, (R, 1001)).astype(np.int32))
+    k32 = HostingGrid.from_costs([HostingCosts(
+        M=4.0, levels=tuple(np.linspace(0, 1, 32)),
+        g=tuple(1 - np.linspace(0, 1, 32)))] * 65, device=dev)
+    ecases = [
+        ("fleet slab", (grid.levels, grid.M, T_len, t0, carry, r, c),
+         dict(x=x, g=grid.g)),
+        ("R - 3 rows, 1,001 slots, odd t0", sub_rows(
+            (grid.levels, grid.M, T_len), R - 3) + (t0 + 1, tuple(
+                sub_rows((carry[0],), R - 3)) + ({
+                    k_: v[:R - 3].contiguous() for k_, v in carry[1].items()},
+                ), r_odd[:R - 3].contiguous(), c[:R - 3, :1001].contiguous()),
+         dict(x=x[:R - 3, :1001].contiguous(), g=grid.g[:R - 3].contiguous())),
+        ("Model-2 slab of 5 levels, a column map", (
+            grid.levels, grid.M, T_len, t0, carry, r_odd,
+            c[:, :1001].contiguous()), dict(svc=svc, svc_cols=cols)),
+        ("K = 32, 65 rows", (k32.levels, k32.M, T_len[:65], t0, (
+            carry[0][:65].contiguous(), {
+                "sums": sums[:65].contiguous(), "counts": t(rng.integers(
+                    0, 9, (65, 32)).astype(np.int32))}), t(rng.integers(
+                        -1, 33, (65, 777)).astype(np.int32)),
+            c[:65, :777].contiguous()),
+         dict(x=x[:65, :777].contiguous(), g=k32.g))]
+    for name, a, kw in ecases:
+        for fma in (False, True):
+            ke = H.schedule_chunk(*a, **kw, acc_fma=fma)
+            pe = H.schedule_chunk_plain(*a, **kw, acc_fma=fma)
+            torch.cuda.synchronize()
+            require(tree_equal(ke, pe), f"E differs from its plain version "
+                                        f"({name}, fused sums {fma})")
+        log(f"E ok: {name}, the sums' products fused and not")
+    a, kw = ecases[0][1], ecases[0][2]
+    ms = cuda_ms(lambda: H.schedule_chunk(*a, **kw), reps=10, batch=10)
+    plain_ms, _ = timed_once(lambda: H.schedule_chunk_plain(*a, **kw))
+    out = H.schedule_chunk(*a, **kw)
+    # per row and slot: the two level selects, the fetch (sub, max, mul),
+    # the rent and the service products, three adds, the count
+    rec["schedule_chunk"] = dict(
+        replaces="src/repro/core/simulator.py:390 (no TPU kernel: the "
+                 "lax.scan of schedule_chunk_core)",
+        ms=ms, plain_ms=plain_ms, max_abs_err=0.0, ops=R * chunk * 10,
+        nbytes=nbytes(grid.levels, grid.M, T_len, carry[0], *carry[1].values(),
+                      r, c, x, grid.g, out[0], *out[1].values()),
+        shape=f"R={R} chunk={chunk} K={K}: a backtracked schedule priced "
+              f"under Model 1")
+    log(f"E timed: {ms:.4f} ms, plain {plain_ms:.1f} ms")
+
+    # S with the rent fused: one alpha-RR row, three static rows
+    from repro_torch.core.policies.baselines import static_step
+    for name, rows in (("alpha-RR", 1), ("static", 3)):
+        gg = HostingGrid.from_costs([HostingCosts(
+            M=5.0, levels=(0.0, 0.3, 0.7, 1.0), g=(1.0, 0.5, 0.2, 0.0))]
+            * rows, device=dev)
+        xs, cs_ = x[:rows].contiguous(), c[:rows].contiguous()
+        acc = sim_acc0(rows, 4, dev)
+        if name == "alpha-RR":
+            params = AlphaRR.batch(gg).params
+            sa = (params, gg.levels, gg.g, gg.M, T_len[:rows].contiguous(),
+                  t0, (alpha_rr_init(params), acc), xs, cs_, True, True,
+                  True)
+            kern, plain = H.sim_chunk_alpha_rr, H.sim_chunk_alpha_rr_plain
+        else:
+            tab = table_form(static_step, {"level_idx": torch.full(
+                (rows,), 2, dtype=torch.int32, device=dev)}, 4)
+            sa = (*tab, gg.levels, gg.g, gg.M, T_len[:rows].contiguous(), t0,
+                  ({"r": torch.zeros(rows, dtype=torch.int32, device=dev)},
+                   acc), xs, cs_, None, True, True, True)
+            kern, plain = H.sim_chunk_table, H.sim_chunk_table_plain
+        ks, ps = kern(*sa), plain(*sa)
+        torch.cuda.synchronize()
+        require(tree_equal(ks, ps), f"S with the rent fused differs from "
+                                    f"its plain version ({name})")
+        log(f"S ok: {name}, {rows} row(s), the rent fused")
     return rec
 
 
@@ -2823,14 +3004,210 @@ def markov_fanout_leg(dev, timings):
 # Phases 12 and 13: the LM serving path.
 # ----------------------------------------------------------------------
 
+# the obs leg: the fleet leg's instances and seeds at this horizon
+T_OBS = 16384
+# the reduced Model-2 obs leg: instances (x 4 seeds = 256 rows), horizon,
+# chunk
+M2_OBS_INSTANCES, T_M2_OBS, M2_OBS_CHUNK = 64, 2048, 1024
+
+
+def same_sim(a, b):
+    """The sums and the level counts of two results, bit for bit."""
+    return fanout_results_equal(a, b, ("total", "rent", "service", "fetch",
+                                       "level_slots"))
+
+
+def obs_leg(dev, timings):
+    """Obs-backed fleets at the fleet leg's width: 1,024 instances x 4
+    seeds = 4,096 rows, T = 16,384 in chunks of 4,096, Bernoulli(0.35)
+    arrivals and U[0.15, 0.55] rents; the seed-replicated scenario
+    materialised on the card (``replicate_seeds``, ``materialize``: 0.54 GB
+    of host observations) into ``FleetBatch.from_dense`` on the
+    ``repeat_rows(4)`` grid.  Counted, each REPEATS times: alpha-RR and RR
+    ``run_fleet``; ``offline_opt_fleet`` on four routes (cost only,
+    materialised, checkpointed with the schedule, ``stream=True``).  The
+    obs runs equal the scenario-fused ones bit for bit (``run_fleet(n_seeds
+    =4)``, the fused cost), the three schedules are one, and their priced
+    schedule is ``evaluate_schedule_fleet(scenario=)``'s.  Then
+    ``offline_opt_batch`` (D on a finished w, B, E) on the first 2,048
+    slots, == its CPU run on 64 rows.  Returns the launch counts of the
+    counted runs' first pass."""
+    B = N_M * N_ALPHA
+    grid = fleet_grid(N_M, N_ALPHA, dev)
+    scen = bernoulli_uniform(B, dev)
+    fused = FleetBatch.for_scenario(grid, T_OBS)
+    t = time.perf_counter()
+    x, c, _, _ = sc.materialize(sc.replicate_seeds(scen, N_SEEDS), T_OBS,
+                                CHUNK)
+    obs = FleetBatch.from_dense(grid.repeat_rows(N_SEEDS), x, c)
+    log(f"obs leg: {x.shape[0]} x {x.shape[1]} observations materialised "
+        f"({(x.nbytes + c.nbytes) / 1e9:.2f} GB on the host) in "
+        f"{time.perf_counter() - t:.1f} s")
+    ends = obs.restrict_to_endpoints()
+    kw = dict(chunk_size=CHUNK, device=dev)
+    runs = {
+        "alpha-RR": lambda: run_fleet(AlphaRR.fleet(obs), obs,
+                                      collect_trace=False, **kw),
+        "RR": lambda: run_fleet(RetroRenting.fleet(obs), ends,
+                                collect_trace=False, **kw),
+        "OPT cost": lambda: offline_opt_fleet(
+            obs, checkpointed=True, collect_schedule=False, **kw),
+        "OPT materialised": lambda: offline_opt_fleet(obs, **kw),
+        "OPT checkpointed": lambda: offline_opt_fleet(obs, checkpointed=True,
+                                                      **kw),
+        "OPT stream": lambda: offline_opt_fleet(obs, checkpointed=True,
+                                                stream=True, **kw)}
+    ops.reset_launches()
+    out, (launched, plain) = timed_passes(runs, dev, "obs", timings,
+                                          counted=True)
+    n = T_OBS // CHUNK
+    want = {"sim_chunk_alpha_rr": 2 * n, "dp_fwd_model1": 6 * n,
+            "dp_fwd_model1 args": 3 * n, "dp_backtrack": 3 * n,
+            "schedule_chunk": 3 * n}
+    got = {k_: v for k_, v in launched.items() if v}
+    require(got == want and not any(plain.values()),
+            f"obs leg launched {got}, expected {want}; plain {plain}")
+    fkw = dict(scenario=scen, n_seeds=N_SEEDS, **kw)
+    a_rr = run_fleet(AlphaRR.fleet(fused), fused, collect_trace=False, **fkw)
+    rr = run_fleet(RetroRenting.fleet(fused), fused.restrict_to_endpoints(),
+                   collect_trace=False, **fkw)
+    cost = offline_opt_fleet(fused, checkpointed=True,
+                             collect_schedule=False, **fkw).cost
+    require(same_sim(out["alpha-RR"], a_rr) and same_sim(out["RR"], rr),
+            "obs-backed alpha-RR / RR differ from the scenario-fused runs")
+    opts = [out[k_] for k_ in ("OPT materialised", "OPT checkpointed",
+                               "OPT stream")]
+    for name in ("OPT cost", "OPT materialised", "OPT checkpointed",
+                 "OPT stream"):
+        require(np.array_equal(out[name].cost, cost),
+                f"obs {name} differs from the scenario-fused cost")
+    require(all(np.array_equal(o.r_hist, opts[0].r_hist) for o in opts)
+            and all(same_sim(o.sim, opts[0].sim) for o in opts),
+            "the three schedule routes differ")
+    sim = evaluate_schedule_fleet(fused, opts[0].r_hist, **fkw)
+    require(same_sim(opts[0].sim, sim),
+            "the schedule's price differs from evaluate_schedule_fleet("
+            "scenario=)")
+    tol = 1e-3 * T_OBS
+    require(np.isfinite(cost).all() and (a_rr.total >= cost - tol).all()
+            and (opts[0].sim.total >= cost - tol).all()
+            and (opts[0].r_hist.shape == (B * N_SEEDS, T_OBS)),
+            "obs leg: results not finite or out of order")
+    log(f"obs leg: {B * N_SEEDS} rows, T={T_OBS}: == the fused runs on "
+        f"every route; us a run (median of {REPEATS}): " + ", ".join(
+            f"{k_} {median_us(timings, 'obs/' + k_):.1f}" for k_ in runs)
+        + f"; launches {got}")
+    # offline_opt_batch: w with two roundings, D on a finished w, B, E
+    Tb = 2048
+    rows = grid.repeat_rows(N_SEEDS)
+    ops.reset_launches()
+    batch = offline_opt_batch(rows, x[:, :Tb], c[:, :Tb])
+    torch.cuda.synchronize()
+    batch_counts = launch_counts()
+    require(batch_counts["dp_minplus"] == 1
+            and batch_counts["dp_backtrack"] == 1
+            and batch_counts["schedule_chunk"] == 1
+            and not any(card_calls().values()),
+            f"offline_opt_batch launched {batch_counts}")
+    # the first 64 rows: the first 16 instances x 4 seeds
+    small = offline_opt_batch(fleet_grid(1, 16, "cpu").repeat_rows(N_SEEDS),
+                              x[:64, :Tb], c[:64, :Tb])
+    require(np.array_equal(batch.cost[:64], small.cost)
+            and np.array_equal(batch.r_hist[:64], small.r_hist)
+            and all(np.array_equal(getattr(batch.sim, f)[:64],
+                                   getattr(small.sim, f))
+                    for f in ("total", "rent", "service", "fetch",
+                              "level_slots"))
+            and np.isfinite(batch.cost).all(),
+            "offline_opt_batch: card != CPU")
+    log(f"offline_opt_batch: {batch.cost.shape[0]} rows x {Tb} slots on "
+        f"D (a finished w), B and E; == the CPU on 64 rows")
+    for k_ in launched:
+        launched[k_] += batch_counts[k_]
+    return launched
+
+
+def model2_obs_leg(dev):
+    """The Model-2 leg's scenario (Poisson rates {2, 4, 8}, spot rents,
+    Model-2 service) on 64 instances x 4 seeds = 256 rows, T = 2,048 in
+    chunks of 1,024, materialised into an obs-backed fleet with ``svc``:
+    alpha-RR, RR on ``restrict_to_endpoints()`` (the slab's endpoint
+    columns gathered on the host) and OPT (materialised, with the schedule)
+    equal the scenario-fused runs bit for bit (RR's on a service stream
+    drawn on the endpoint grid, the fused cost).  Returns the launch
+    counts of the obs runs."""
+    grid = fleet_grid(2, M2_OBS_INSTANCES // 2, dev)
+    fused = FleetBatch.for_scenario(grid, T_M2_OBS)
+    ends = fused.restrict_to_endpoints()
+    scen, scen_e = model2_scenario(grid, dev), model2_scenario(ends.grid, dev)
+    x, c, svc, _ = sc.materialize(sc.replicate_seeds(scen, N_SEEDS),
+                                  T_M2_OBS, M2_OBS_CHUNK)
+    obs = FleetBatch.from_dense(grid.repeat_rows(N_SEEDS), x, c, svc=svc)
+    kw = dict(chunk_size=M2_OBS_CHUNK, device=dev)
+    ops.reset_launches()
+    got = [run_fleet(AlphaRR.fleet(obs), obs, **kw),
+           run_fleet(RetroRenting.fleet(obs), obs.restrict_to_endpoints(),
+                     **kw),
+           offline_opt_fleet(obs, **kw)]
+    torch.cuda.synchronize()
+    launched, plain = launch_counts(), card_calls()
+    require(not any(plain.values()) and launched["dp_fwd_model2 args"] > 0
+            and launched["sim_chunk_alpha_rr_svc"] > 0,
+            f"Model-2 obs leg launched {launched}; plain {plain}")
+    want = [run_fleet(AlphaRR.fleet(fused), fused, scenario=scen,
+                      n_seeds=N_SEEDS, **kw),
+            run_fleet(RetroRenting.fleet(fused), ends, scenario=scen_e,
+                      n_seeds=N_SEEDS, **kw),
+            offline_opt_fleet(fused, scenario=scen, n_seeds=N_SEEDS,
+                              checkpointed=True, collect_schedule=False,
+                              **kw)]
+    require(same_sim(got[0], want[0]) and same_sim(got[1], want[1])
+            and np.array_equal(got[0].r_hist, want[0].r_hist)
+            and np.array_equal(got[1].r_hist, want[1].r_hist)
+            and np.array_equal(got[2].cost, want[2].cost),
+            "Model-2 obs leg differs from the scenario-fused runs")
+    log(f"Model-2 obs leg: {obs.B} rows, T={T_M2_OBS}: alpha-RR, RR on the "
+        f"endpoint columns and OPT == the fused runs")
+    return launched
+
+
+def theorems_card_vs_cpu(dev, timings):
+    """``figures.theorems.run()`` on the card (REPEATS times, counted over
+    the first) == on the CPU, row for row, and its ``check`` passes.
+    Returns the launch counts of the card's first run."""
+    ops.reset_launches()
+    out, (launched, plain) = timed_passes(
+        {"run": lambda: theorems.run(device=dev)}, dev, "theorems", timings,
+        counted=True)
+    rows = out["run"]
+    t = time.perf_counter()
+    want = theorems.run(device="cpu")
+    wall = time.perf_counter() - t
+    require(rows == want, f"card != CPU: theorems ({rows} vs {want})")
+    try:
+        theorems.check(rows)
+    except AssertionError as e:
+        raise RuntimeError(f"theorems: check(rows) failed: {e}") from e
+    require(not any(plain.values()) and launched["dp_backtrack"] > 0
+            and launched["schedule_chunk"] > 0,
+            f"theorems launched {launched}; plain {plain}")
+    d = {r["check"]: r["value"] for r in rows}
+    log(f"theorems: card == CPU ({wall:.1f} s on the CPU), check passed, "
+        f"{median_us(timings, 'theorems/run'):.1f} us a run; "
+        f"{json.dumps(d)}")
+    return launched
+
+
 def launch_counts():
     """Every kernel's launches, (``poisson_chunk rejection``) the Poisson
     launches in which the kernel drew an item on Hormann's branch, as the
-    kernel counts them, and (``... wide``) the launches on a Model-2 slab
-    of more than ``H.DPF_MAX_K`` levels."""
+    kernel counts them, (``... wide``) the launches on a Model-2 slab of
+    more than ``H.DPF_MAX_K`` levels and (``... args``) D's launches that
+    write the argmin table."""
     return {**{k.__name__: k.launches for k in ops.KERNELS},
             "poisson_chunk rejection": H.poisson_rejection_launches(),
-            **{f"{k.__name__} wide": k.wide_launches for k in ops.WIDE}}
+            **{f"{k.__name__} wide": k.wide_launches for k in ops.WIDE},
+            **{f"{k.__name__} args": k.args_launches for k in ops.ARGS}}
 
 
 def card_calls():
@@ -3009,6 +3386,7 @@ def main() -> int:
 
     # phase 2
     rec = kernel_checks(dev)
+    rec.update(schedule_kernel_checks(dev))
     log("kernels == plain versions on the card")
 
     # phase 3: the fleet path at full width; counters read around it only
@@ -3117,18 +3495,31 @@ def main() -> int:
                  "sim_chunk_alpha_rr_svc", "sim_chunk_table_svc",
                  "model2_service_chunk wide", "sim_chunk_alpha_rr_svc wide"):
         require(launches[name] > 0, f"{name} never launched")
+    # phases 11-12: the obs-backed fleets, the backtracked schedule and
+    # theorems; no earlier path launched B, E, D's ARGS route or D on a
+    # finished w
+    for name in ("dp_backtrack", "schedule_chunk", "dp_minplus",
+                 "dp_fwd_model1 args", "dp_fwd_model2 args"):
+        require(launches[name] == 0, f"{name} ran before the obs phase")
+    for counts in (obs_leg(dev, timings), model2_obs_leg(dev),
+                   theorems_card_vs_cpu(dev, timings)):
+        for k in launches:
+            launches[k] += counts[k]
+    for name in ("dp_backtrack", "schedule_chunk", "dp_minplus",
+                 "dp_fwd_model1 args"):
+        require(launches[name] > 0, f"{name} never launched")
 
-    # phase 11: F and M against their plain versions
+    # phase 13: F and M against their plain versions
     rec.update(lm_kernel_checks(dev))
 
-    # phase 12: the LM serving path at full width and depth
+    # phase 14: the LM serving path at full width and depth
     serve_launches = serving_path(dev, timings)
     log(f"serving path launches: {serve_launches}")
     for k in (FA.flash_attention_wgmma, FA.flash_attention_fma,
               SSD.ssd_scan_mma, SSD.ssd_scan_fma):
         launches[k.__name__] = serve_launches[k.__name__]
 
-    # phase 13: card == CPU for the serving path
+    # phase 15: card == CPU for the serving path
     serving_card_vs_cpu(dev)
     log(f"timings (us; a card run the median of {REPEATS} passes, a CPU "
         f"run and the serving path one): " + json.dumps(

@@ -3,10 +3,12 @@ cost model, counter-keyed scenarios, policies, the per-slot simulator, the
 offline DP and the fleet drivers."""
 from repro_torch.core.costs import HostingCosts, HostingGrid
 from repro_torch.core.fleet import (FleetBatch, FleetOfflineResult,
-                                    FleetResult, mc_stats, mc_summary,
-                                    offline_opt_fleet, run_fleet)
+                                    FleetResult, evaluate_schedule_fleet,
+                                    mc_stats, mc_summary, offline_opt_fleet,
+                                    run_fleet)
 
 __all__ = [
     "HostingCosts", "HostingGrid", "FleetBatch", "FleetOfflineResult",
-    "FleetResult", "mc_stats", "mc_summary", "offline_opt_fleet", "run_fleet",
+    "FleetResult", "evaluate_schedule_fleet", "mc_stats", "mc_summary",
+    "offline_opt_fleet", "run_fleet",
 ]

@@ -9,9 +9,10 @@ Per-slot cost of holding level ``r`` in slot ``t`` and switching to ``r'``:
 
 ``HostingCosts`` is a plain host-side description of one instance;
 ``HostingGrid`` stacks B of them into float32 tensors on a device, padded
-to a common K.  Matrix-valued ``M`` (joint multi-service grids) and
-``ServiceSet`` come with the service-axis slice (ROADMAP.md, Queue 1
-item 11).
+to a common K; the per-slot cost pieces (``fetch_cost`` ..
+``per_slot_cost_matrix``) are the reference's, vectorised over the level
+axis.  Matrix-valued ``M`` (joint multi-service grids) and ``ServiceSet``
+come with the service-axis slice (ROADMAP.md, Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -22,6 +23,17 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+
+
+def default_float_dtype() -> torch.dtype:
+    """The float dtype of the cost model: float32.  The reference runs
+    float64 under ``jax_enable_x64``; the port has no x64 path yet, so a
+    float64 default dtype raises (ROADMAP.md, Queue 1 item 1)."""
+    if torch.get_default_dtype() == torch.float64:
+        raise NotImplementedError(
+            "the port is float32 only; the x64 path comes with ROADMAP.md, "
+            "Queue 1 item 1")
+    return torch.float32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,3 +212,70 @@ class HostingGrid:
         no-partial policy sees on the same sample path."""
         idx = self.endpoint_columns().to(torch.int64)[:, None, :]
         return torch.gather(svc, 2, idx.expand(-1, svc.shape[1], -1))
+
+
+# ----------------------------------------------------------------------
+# Per-slot cost pieces (vectorised over the level axis K), and the
+# per-slot holding-cost matrix of the one-instance DP.
+# ----------------------------------------------------------------------
+
+def fetch_cost(levels, r_from, r_to, M):
+    """Actual fetch cost ``M * (levels[r_to] - levels[r_from])^+``
+    (indices)."""
+    return M * torch.clamp_min(levels[r_to] - levels[r_from], 0.0)
+
+
+def retro_fetch_cost(levels, r_from, M):
+    """Algorithm 1's retrospective charge ``M * |levels[j] -
+    levels[r_from]|`` for every candidate level j ([K]): evictions are
+    charged too, the hysteresis behind RetroRenting's ratio."""
+    return M * torch.abs(levels - levels[r_from])
+
+
+def rent_cost(levels, c_t):
+    """Rent at every level for one slot: ``c_t * levels`` ([K])."""
+    return c_t * levels
+
+
+def service_cost_model1(g, x_t):
+    """Model-1 service cost at every level: ``g[k] * x_t`` ([K])."""
+    return g * x_t
+
+
+def service_cost_model2_coupled(g, uniforms, x_t):
+    """Model-2 realized service cost at every level with coupled
+    randomness: request i (of the ``R`` uniforms, the first ``x_t`` live)
+    is forwarded at level k iff ``u_i < g[k]``.  Returns [K] float32."""
+    R = uniforms.shape[0]
+    live = (torch.arange(R, device=uniforms.device) < x_t)[None, :]
+    fwd = uniforms[None, :] < g[:, None]
+    return torch.where(live & fwd, 1.0, 0.0).sum(dim=1)
+
+
+def as_tensor(a, device, dtype=None) -> torch.Tensor:
+    """A numpy array, a sequence or a tensor as a tensor on ``device``
+    (cast to ``dtype`` when given: float64 to float32 rounds to nearest, as
+    ``jnp.asarray(a, float32)`` does)."""
+    t = (a if isinstance(a, torch.Tensor)
+         else torch.from_numpy(np.ascontiguousarray(np.asarray(a))))
+    t = t.to(device)
+    return t if dtype is None else t.to(dtype)
+
+
+def per_slot_cost_matrix(costs: HostingCosts, x, c, svc=None,
+                         device=None) -> torch.Tensor:
+    """``w[t, k]``, the rent + service cost of holding level k in slot t:
+    ``x`` [T] arrivals, ``c`` [T] rents, ``svc`` an optional [T, K]
+    Model-2 service matrix (None: Model 1, ``g[k] * x_t``).  Two roundings,
+    rent then the add, as the reference's eager ops give; [T, K] float32
+    on ``device`` (None: the card)."""
+    dev = resolve_device(device)
+    f32 = torch.float32
+    lv = torch.tensor(costs.levels, dtype=f32, device=dev)
+    rentm = as_tensor(c, dev, f32)[:, None] * lv[None, :]
+    if svc is None:
+        gv = torch.tensor(costs.g, dtype=f32, device=dev)
+        svcm = as_tensor(x, dev, torch.int32)[:, None].to(f32) * gv[None, :]
+    else:
+        svcm = as_tensor(svc, dev, f32)
+    return rentm + svcm

@@ -11,7 +11,13 @@ relaxation runs as kernel D on a finished ``w`` (``kernels.ops.dp_minplus``:
 the kernel on the card, its plain version on the CPU).  Under Model-1
 service ``x * g`` the scenario-fused fleet runs the same chunk as
 ``kernels.hosting.dp_fwd_model1``, which assembles ``w`` itself.
-``dp_backtrack_chunk`` walks an argmin table back.
+``dp_backtrack_chunk`` walks an argmin table back (kernel B).
+
+The per-instance and batched OPT (``offline_opt``, ``offline_opt_batch``,
+``offline_opt_no_partial``) build a finished ``w`` with two roundings
+(rent, then the add), as the reference's eager ops do -- unlike the fleet
+DP, whose ``c * lv + svc`` is one FMA -- run it through D on a finished
+``w`` (K <= 32), backtrack with B and price the schedule with kernel E.
 """
 from __future__ import annotations
 
@@ -20,11 +26,21 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.costs import HostingGrid
-from repro_torch.core.simulator import (BatchSimResult,
-                                        evaluate_schedule_batch, model1_svc)
-from repro_torch.kernels import ops
+from repro_torch._device import resolve_device
+from repro_torch.core.costs import (HostingCosts, HostingGrid,
+                                    per_slot_cost_matrix)
+from repro_torch.core.simulator import (BatchSimResult, SimResult, _batch_obs,
+                                        evaluate_schedule,
+                                        evaluate_schedule_batch)
+from repro_torch.kernels import hosting, ops
 from repro_torch.kernels.hosting import fma32
+
+
+@dataclasses.dataclass
+class OfflineResult:
+    cost: float
+    r_hist: np.ndarray        # [T] int64
+    sim: SimResult
 
 
 @dataclasses.dataclass
@@ -32,6 +48,10 @@ class BatchOfflineResult:
     cost: np.ndarray          # [B]
     r_hist: np.ndarray        # [B, T]
     sim: BatchSimResult
+
+
+def _eval(costs, r_hist, x, c, svc=None, device=None) -> SimResult:
+    return evaluate_schedule(costs, r_hist, x, c, svc, device=device)
 
 
 def dp_frontier0(R: int, K: int, device) -> torch.Tensor:
@@ -68,42 +88,106 @@ def dp_fwd_chunk(J, tids, cck, sck, lv32, kmask, fetch_mat, T_len):
 
 
 def dp_backtrack_chunk(k, args):
-    """Backtrack [R, chunk, K] argmin tables from terminal levels ``k``
-    [R]: returns ``(k at chunk entry, r_hist [R, chunk])``."""
-    chunk = args.shape[1]
-    r = torch.empty(args.shape[:2], dtype=torch.int32, device=args.device)
-    for t in range(chunk - 1, -1, -1):
-        r[:, t] = k
-        k = torch.gather(args[:, t], 1, k[:, None].to(torch.int64))[:, 0]
-    return k, r
+    """Backtrack [R, chunk, K] argmin tables from the levels ``k`` [R] int32
+    at the chunk's end (kernel B): returns ``(k at chunk entry, r_hist [R,
+    chunk] int32)``.  Chained right to left over chunks it gives the
+    whole-table walk's bits."""
+    return hosting.dp_backtrack(k, args)
+
+
+def dp_terminal(J_T):
+    """``(cost [R], k_T [R] int32)``: the terminal min and its first
+    minimising level (an all-``+inf`` frontier gives 0)."""
+    return torch.amin(J_T, dim=1), torch.argmin(J_T, dim=1).to(torch.int32)
 
 
 def dp_backtrack(J_T, args):
     """Terminal min + whole-table backtrack: ``(cost [R], r_hist)``."""
-    k_T = torch.argmin(J_T, dim=1).to(torch.int32)
-    _, r_hist = dp_backtrack_chunk(k_T, args)
-    return torch.amin(J_T, dim=1), r_hist
+    cost, k_T = dp_terminal(J_T)
+    _, r_hist = dp_backtrack_chunk(k_T, args.contiguous())
+    return cost, r_hist
 
 
-def offline_opt_batch(grid: HostingGrid, x, c) -> BatchOfflineResult:
-    """Batched alpha-OPT on materialized Model-1 observations: ``x``/``c``
-    [B, T] tensors on the grid's device.  One whole-horizon relaxation,
-    then the backtracked schedule is evaluated."""
-    B, K = grid.B, grid.K
-    T = x.shape[1]
-    lv32 = grid.levels.to(torch.float32)
-    g = grid.g.to(torch.float32)
-    # unlike the fused drivers (dp_fwd_chunk), the reference assembles this
-    # w in its own XLA fusion with two roundings: rent, then + svc
-    w = c[:, :, None] * lv32[:, None, :] + model1_svc(x, g)
-    w = torch.where(grid.mask[:, None, :], w, float("inf"))
-    valid = torch.ones((B, T), dtype=torch.bool, device=grid.device)
-    J_T, args = ops.dp_minplus(dp_frontier0(B, K, grid.device), w,
-                               dp_fetch_matrix(grid.M.to(torch.float32), lv32),
+def _dp_whole(M32, lv32, w):
+    """The one-horizon DP of ``w`` [R, T, K] (``+inf`` on padded levels):
+    kernel D on the finished ``w``, then B -> ``(cost [R], r_hist [R, T]
+    int32)``."""
+    R, T, K = w.shape
+    valid = torch.ones((R, T), dtype=torch.bool, device=w.device)
+    J_T, args = ops.dp_minplus(dp_frontier0(R, K, w.device), w.contiguous(),
+                               dp_fetch_matrix(M32, lv32).contiguous(),
                                valid)
-    cost, r_hist = dp_backtrack(J_T, args)
-    sim = evaluate_schedule_batch(lv32, g, grid.M.to(torch.float32), r_hist,
-                                  x, c)
+    return dp_backtrack(J_T, args)
+
+
+def offline_opt_batch(grid: HostingGrid, x, c, svc=None) -> BatchOfflineResult:
+    """Batched alpha-OPT on materialised observations (``x``/``c`` [T] or
+    [B, T], ``svc`` an optional [B, T, K] Model-2 matrix; numpy or tensors),
+    on the grid's device: the whole-horizon DP, the backtracked schedule
+    and its cost (``evaluate_schedule_batch``).  Padded levels are priced
+    ``+inf``.  Bitwise the reference's ``offline_opt_batch``."""
+    x, c, svc_t, _ = _batch_obs(grid, x, c, svc, None)
+    lv32 = grid.levels.to(torch.float32)
+    s = (x[:, :, None].to(torch.float32) * grid.g[:, None, :]
+         if svc_t is None else svc_t)
+    # unlike the fused drivers (dp_fwd_chunk), the reference assembles this
+    # w in eager ops with two roundings: rent, then + svc
+    w = c[:, :, None] * lv32[:, None, :] + s
+    w = torch.where(grid.mask[:, None, :], w, float("inf"))
+    cost, r_hist = _dp_whole(grid.M.to(torch.float32), lv32, w)
+    sim = evaluate_schedule_batch(grid, r_hist, x, c, svc_t)
     return BatchOfflineResult(cost=cost.cpu().numpy().astype(np.float64),
                               r_hist=r_hist.cpu().numpy().astype(np.int64),
                               sim=sim)
+
+
+def offline_opt(costs: HostingCosts, x, c, svc=None,
+                device=None) -> OfflineResult:
+    """Exact alpha-OPT of one instance (``x``/``c`` [T], ``svc`` an optional
+    [T, K]) and its argmin schedule, on ``device`` (None: the card).
+    Bitwise the reference's ``offline_opt``."""
+    dev = resolve_device(device)
+    w = per_slot_cost_matrix(costs, x, c, svc, device=dev)
+    lv = torch.tensor(costs.levels, dtype=torch.float32, device=dev)[None]
+    M = torch.tensor([costs.M], dtype=torch.float32, device=dev)
+    cost, r_hist = _dp_whole(M, lv, w[None])
+    r = r_hist[0].cpu().numpy().astype(np.int64)
+    return OfflineResult(cost=float(cost[0]), r_hist=r,
+                         sim=_eval(costs, r, x, c, svc, dev))
+
+
+def offline_opt_no_partial(costs: HostingCosts, x, c, svc=None,
+                           device=None) -> OfflineResult:
+    """OPT of [22]: the offline optimum restricted to levels {0, 1}."""
+    c2 = HostingCosts.two_level(costs.M, costs.c_min, costs.c_max)
+    svc2 = None
+    if svc is not None:
+        svc2 = svc[:, [0, costs.K - 1]]
+    return offline_opt(c2, x, c, svc2, device=device)
+
+
+def brute_force_opt(costs: HostingCosts, x, c, svc=None,
+                    device=None) -> OfflineResult:
+    """Exhaustive search over all K^T schedules (tests only; tiny T): every
+    schedule priced in one ``evaluate_schedule_batch``, then the
+    reference's scan for the first total below the best by more than
+    1e-9."""
+    x = np.asarray(x)
+    T, K = len(x), costs.K
+    codes = np.arange(K ** T)
+    seqs = np.stack([(codes // K ** (T - 1 - t)) % K for t in range(T)],
+                    axis=1).astype(np.int64)
+    grid = HostingGrid.from_costs([costs] * len(seqs), device=device)
+    rep = lambda a: None if a is None else np.broadcast_to(
+        np.asarray(a)[None], (len(seqs),) + np.shape(a))
+    res = evaluate_schedule_batch(grid, seqs, rep(x), rep(c), rep(svc))
+    best, best_i = np.inf, None
+    for i in range(len(seqs)):
+        # the one-instance total, summed as evaluate_schedule sums it
+        tot = (float(res.rent[i]) + float(res.service[i])
+               + float(res.fetch[i]) + 0.0)
+        if tot < best - 1e-9:
+            best, best_i = tot, i
+    seq = seqs[best_i]
+    return OfflineResult(cost=best, r_hist=seq,
+                         sim=_eval(costs, seq, x, c, svc, device))

@@ -17,4 +17,7 @@ on the CPU; ``check(rows)`` is a copy of the reference module's check.
   service, cost vs cache fraction and vs M at the best alpha.
 * ``beyond_knapsack_levels`` -- multi-level grids picked from that curve
   (26 lanes of 2 to 8 levels on one 31-level Model-2 slab).
+* ``theorems`` -- the theorem checks: Thm 2's worst ratio over 120 random
+  instances of mixed horizons (one obs-backed fleet; ``run(seed,
+  device)``), and the bounds of Thms 4-5 and Corollary 3.
 """

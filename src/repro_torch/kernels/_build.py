@@ -13,7 +13,8 @@ Flags per library:
 
 * ``hosting`` (kernel P's stream variants, the ARMA, Poisson and Model-2
   service kernels, D (fused, under both service models, and on a finished
-  w), S (alpha-RR and the table variant, under both)):
+  w), S (alpha-RR and the table variant, under both), B (the DP's
+  backtrack) and E (schedule pricing)):
   ``--fmad=false``, because those kernels
   are held bit for bit against the reference, which fixes which
   multiply-adds are one FMA (written as ``__fmaf_rn``) and which are two
@@ -76,6 +77,12 @@ LIBRARIES = {
         "launch_poisson": (_P,) * 7 + (_I,) * 4 + (_P,),
         # keys, tids, x, g, out, R, chunk, K, n_max, partitionable, stream
         "launch_model2_service": (_P,) * 5 + (_I,) * 5 + (_P,),
+        # k_in, args, k_out, r, R, chunk, K, stream
+        "launch_dp_backtrack": (_P,) * 4 + (_I,) * 3 + (_P,),
+        # lv, g, M, T_len, prev, sums, counts, r, c, x, svc, cols (g / x or
+        # svc / cols NULL), prev_out, sums_out, counts_out, R, chunk, K,
+        # Kf, t0, fma (bit 0 the rent, bit 1 the fetch), stream
+        "launch_schedule": (_P,) * 15 + (_I,) * 6 + (_P,),
     }),
     "flash_attention": (_COMMON, {
         # q, k, v, out, B, Sq, Skv, Hq, Hkv, hd, causal, q_offset, stream

@@ -23,6 +23,10 @@
 //                          Model 1 (dp_fwd_model1) or a Model-2 service
 //                          slab (dp_fwd_model2)
 //      dp_minplus          the same recursion on a finished w (K <= 32)
+//   B  dp_backtrack_kernel  one chunk's argmin table walked back to the
+//                          schedule (the backtracked OPT, K <= 32)
+//   E  schedule_kernel<SVC, FMA>  given schedules priced over one chunk, fetches
+//                          charged on entry (Model 1 or a Model-2 slab)
 //   S  sim_kernel<K, SVC, TABLE>  one chunk of the per-slot simulation,
 //                          alpha-RR (sim_chunk_alpha_rr) or a table policy
 //                          (static, MDP, ABC: sim_chunk_table), under
@@ -2557,6 +2561,206 @@ __global__ void __launch_bounds__(96) sim_kernel(
   }
 }
 
+// ---------------------------------------------------------------------
+// B: dp_backtrack_kernel.  No TPU counterpart: the reference backtracks
+// the DP's argmin table with a reverse lax.scan (dp_backtrack_chunk,
+// src/repro/core/policies/offline_opt.py:162), which XLA runs as a loop.
+//
+// Per row, right to left over the chunk: r[t] = k; k = args[t, k].  It
+// returns k at the chunk's entry and r [R, chunk].
+//
+// Bound: bytes -- it reads the table (4 K bytes a slot) and writes r (4).
+// Design: a block owns kRows = 32 rows.  The walk is a chain of dependent
+// loads, one row per lane of warp 0; a row-major table read a slot at a
+// time by each lane would be one uncoalesced load per slot, so the block's
+// four warps first copy a tile of the rows' table segments (each row's
+// tile is contiguous in global memory) into shared memory, lanes over
+// consecutive words, then warp 0 walks the tile and the block writes the
+// tile's r back, lanes over slots.  Tiles go right to left; a row's
+// shared-memory stride is odd, so the walking lanes hit distinct banks.
+// ---------------------------------------------------------------------
+
+constexpr int kTileRowWords = 224;      // shared words a row's tile, B or E
+constexpr int kBeThreads = 128;          // B's and E's block
+
+__global__ void __launch_bounds__(kBeThreads) dp_backtrack_kernel(
+    const int* __restrict__ k_in, const int* __restrict__ args,
+    int* __restrict__ k_out, int* __restrict__ r_out, int R, int chunk,
+    int K, int ts) {
+  extern __shared__ int be_smem[];
+  const int row0 = blockIdx.x * kRows;
+  const int nrows = min(kRows, R - row0);
+  const int as = ts * K + 1;                   // a row's table words, odd
+  const int rs = ts + 1;                       // a row's r words
+  int* at = be_smem;                           // [kRows][as]
+  int* rt = be_smem + kRows * as;              // [kRows][rs]
+  const int lane = threadIdx.x;                // warp 0's lanes walk
+  const bool walker = threadIdx.x < 32 && lane < nrows;
+  int k = walker ? k_in[row0 + lane] : 0;
+  for (int end = chunk; end > 0; end -= ts) {
+    const int j0 = max(0, end - ts);
+    const int n = end - j0;
+    const int seg = n * K;
+    for (int i = threadIdx.x; i < nrows * seg; i += kBeThreads) {
+      const int r = i / seg, o = i - r * seg;
+      at[r * as + o] =
+          args[((long long)(row0 + r) * chunk + j0) * K + o];
+    }
+    __syncthreads();
+    if (walker) {
+      const int* a = at + lane * as;
+      int* rr = rt + lane * rs;
+      for (int j = n - 1; j >= 0; --j) {
+        rr[j] = k;
+        k = a[j * K + k];
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < nrows * n; i += kBeThreads) {
+      const int r = i / n, j = i - r * n;
+      r_out[(long long)(row0 + r) * chunk + j0 + j] = rt[r * rs + j];
+    }
+    __syncthreads();
+  }
+  if (walker) k_out[row0 + lane] = k;
+}
+
+// ---------------------------------------------------------------------
+// E: schedule_kernel<SVC, FMA>.  No TPU counterpart: the reference prices a
+// given schedule with the lax.scan of schedule_chunk_core
+// (src/repro/core/simulator.py:390), which XLA runs as a loop.
+//
+// Per row and slot t of the chunk, entered from the held level prev: the
+// fetch M * (lv[r_t] - lv[prev])^+ is charged on entry; rent c_t * lv[r_t]
+// and the service of r_t (Model 1: float(x_t) * g[r_t]; SVC: the slab's
+// column of r_t, through the row's column map when given) are added to
+// the sums slot by slot, each term its own rounded add, masked to 0 past
+// the row's horizon; counts[r_t] += valid; prev = valid ? r_t : prev.  A
+// level index outside [0, K) selects nothing (0), as the reference's
+// one-hot sums do.  Unlike S there is no step and no final fetch.  The
+// bits of FMA fuse the rent's (1) and the fetch's (2) products into their
+// adds, as the reference's vmapped scans contract them on a small batch
+// (simulator.xla_acc_fma); FMA = 1 over S's trace gives S's rent so fused.
+// FMA is a template argument: as a run-time flag its branches cost the
+// walk 28% at the fleet's shape (a 4,096 x 4,096 chunk, H100).
+//
+// Bound: bytes -- it reads r, c and x (12 bytes a slot) or r, c and the
+// slab (8 + 4 Kf).  Design: B's tiling -- the block's warps copy a tile
+// of the 32 rows' r, c and x (or svc) into shared memory, lanes over
+// consecutive words of a row, and warp 0 walks it, a row a lane, its
+// counts in shared memory (K is a run-time value, up to 32).
+// ---------------------------------------------------------------------
+
+template <bool SVC, int FMA>
+__global__ void __launch_bounds__(kBeThreads) schedule_kernel(
+    const float* __restrict__ lv_g, const float* __restrict__ g_g,
+    const float* __restrict__ M_g, const int* __restrict__ Tlen_g,
+    const int* __restrict__ prev_in, const float* __restrict__ sums_in,
+    const int* __restrict__ counts_in, const int* __restrict__ r_g,
+    const float* __restrict__ c_g, const int* __restrict__ x_g,
+    const float* __restrict__ svc_g, const int* __restrict__ cols_g,
+    int* __restrict__ prev_out, float* __restrict__ sums_out,
+    int* __restrict__ counts_out, int R, int chunk, int K, int Kf, int t0,
+    int ts) {
+  extern __shared__ int be_smem[];
+  const int row0 = blockIdx.x * kRows;
+  const int nrows = min(kRows, R - row0);
+  const int ks = K + 1;                          // a row's level words
+  const int vs = ts + 1;                         // a row's r / c / x words
+  const int ss = ts * Kf + 1;                    // a row's slab words
+  float* lv = (float*)be_smem;                   // [kRows][ks]
+  float* gk = lv + kRows * ks;                   // Model 1: g
+  int* cl = (int*)(gk + kRows * ks);             // SVC: the column map
+  int* cnt = cl + kRows * ks;                    // [kRows][ks]
+  int* rt = cnt + kRows * ks;                    // [kRows][vs]
+  float* ct = (float*)(rt + kRows * vs);         // [kRows][vs]
+  int* xt = (int*)(ct + kRows * vs);             // Model 1: [kRows][vs]
+  float* st = (float*)(xt + kRows * vs);         // SVC: [kRows][ss]
+  for (int i = threadIdx.x; i < nrows * K; i += kBeThreads) {
+    const int r = i / K, k = i - r * K;
+    const long long gi = (long long)(row0 + r) * K + k;
+    lv[r * ks + k] = lv_g[gi];
+    cnt[r * ks + k] = counts_in[gi];
+    if (SVC) cl[r * ks + k] = cols_g ? cols_g[gi] : k;
+    else gk[r * ks + k] = g_g[gi];
+  }
+  const int lane = threadIdx.x;
+  const bool walker = threadIdx.x < 32 && lane < nrows;
+  const int row = row0 + lane;
+  int prev = 0, T_len = 0;
+  float M = 0.0f, s_rent = 0.0f, s_svc = 0.0f, s_fetch = 0.0f;
+  if (walker) {
+    prev = prev_in[row];
+    T_len = Tlen_g[row];
+    M = M_g[row];
+    s_rent = sums_in[row * 3 + 0];
+    s_svc = sums_in[row * 3 + 1];
+    s_fetch = sums_in[row * 3 + 2];
+  }
+  for (int j0 = 0; j0 < chunk; j0 += ts) {
+    const int n = min(ts, chunk - j0);
+    for (int i = threadIdx.x; i < nrows * n; i += kBeThreads) {
+      const int r = i / n, j = i - r * n;
+      const long long gi = (long long)(row0 + r) * chunk + j0 + j;
+      rt[r * vs + j] = r_g[gi];
+      ct[r * vs + j] = c_g[gi];
+      if (!SVC) xt[r * vs + j] = x_g[gi];
+    }
+    if (SVC) {
+      const int seg = n * Kf;
+      for (int i = threadIdx.x; i < nrows * seg; i += kBeThreads) {
+        const int r = i / seg, o = i - r * seg;
+        st[r * ss + o] = svc_g[((long long)(row0 + r) * chunk + j0) * Kf + o];
+      }
+    }
+    __syncthreads();
+    if (walker) {
+      const float* lvr = lv + lane * ks;
+      int* cr = cnt + lane * ks;
+      for (int j = 0; j < n; ++j) {
+        const int r_t = rt[lane * vs + j];
+        const bool in = r_t >= 0 && r_t < K;
+        const bool pin = prev >= 0 && prev < K;
+        const bool valid = t0 + j0 + j < T_len;
+        const float lv_t = in ? lvr[r_t] : 0.0f;
+        const float lv_prev = pin ? lvr[prev] : 0.0f;
+        const float fetch = M * fmaxf(lv_t - lv_prev, 0.0f);
+        const float rent = ct[lane * vs + j] * lv_t;
+        float svc_t = 0.0f;
+        if (in) {
+          if (SVC)
+            svc_t = st[lane * ss + j * Kf + cl[lane * ks + r_t]];
+          else
+            svc_t = (float)xt[lane * vs + j] * gk[lane * ks + r_t];
+        }
+        if (FMA & 1)
+          s_rent = valid ? __fmaf_rn(ct[lane * vs + j], lv_t, s_rent) : s_rent;
+        else
+          s_rent = s_rent + (valid ? rent : 0.0f);
+        if (FMA & 2)
+          s_fetch = valid ? __fmaf_rn(M, fmaxf(lv_t - lv_prev, 0.0f), s_fetch)
+                          : s_fetch;
+        else
+          s_fetch = s_fetch + (valid ? fetch : 0.0f);
+        s_svc = s_svc + (valid ? svc_t : 0.0f);
+        if (valid && in) cr[r_t] += 1;
+        prev = valid ? r_t : prev;
+      }
+    }
+    __syncthreads();
+  }
+  if (walker) {
+    prev_out[row] = prev;
+    sums_out[row * 3 + 0] = s_rent;
+    sums_out[row * 3 + 1] = s_svc;
+    sums_out[row * 3 + 2] = s_fetch;
+  }
+  for (int i = threadIdx.x; i < nrows * K; i += kBeThreads) {
+    const int r = i / K, k = i - r * K;
+    counts_out[(long long)(row0 + r) * K + k] = cnt[r * ks + k];
+  }
+}
+
 inline unsigned n_blocks(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
@@ -2722,6 +2926,30 @@ int launch_stream(StreamArgs a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// E's inputs (schedule_kernel's arguments but the tile's slots)
+struct ScheduleArgs {
+  const float *lv, *g, *M;
+  const int *T_len, *prev_in;
+  const float* sums_in;
+  const int *counts_in, *r;
+  const float* c;
+  const int* x;
+  const float* svc;
+  const int* cols;
+  int* prev_out;
+  float* sums_out;
+  int* counts_out;
+  int R, chunk, K, Kf, t0, ts;
+};
+
+template <bool SVC, int FMA>
+void launch_sched(const ScheduleArgs& a, size_t bytes, cudaStream_t st) {
+  schedule_kernel<SVC, FMA><<<n_blocks(a.R, kRows), kBeThreads, bytes, st>>>(
+      a.lv, a.g, a.M, a.T_len, a.prev_in, a.sums_in, a.counts_in, a.r, a.c,
+      a.x, a.svc, a.cols, a.prev_out, a.sums_out, a.counts_out, a.R, a.chunk,
+      a.K, a.Kf, a.t0, a.ts);
+}
+
 }  // namespace
 
 extern "C" {
@@ -2832,6 +3060,70 @@ int launch_dp_minplus(const void* J, const void* wck, const void* fetch,
                         (cudaStream_t)stream>>>(
         (const float*)J, (const float*)wck, (const float*)fetch,
         (const bool*)valid, (float*)Jout, (int*)args, R, chunk, K);
+  return (int)cudaGetLastError();
+}
+
+// B: one chunk's argmin table [R, chunk, K] (1 <= K <= 32) walked back
+// from k_in [R]; k_out [R] the level at the chunk's entry, r [R, chunk]
+int launch_dp_backtrack(const void* k_in, const void* args, void* k_out,
+                        void* r, int R, int chunk, int K, void* stream) {
+  if (K < 1 || K > 32 || chunk < 1) return (int)cudaErrorInvalidValue;
+  if (R <= 0) return (int)cudaGetLastError();
+  // a row's tile: ts * K + 1 table words and ts + 1 of r
+  const int ts = std::max(1, std::min(chunk, (kTileRowWords - 2) / (K + 1)));
+  const size_t bytes =
+      (size_t)kRows * ((ts * K + 1) + (ts + 1)) * sizeof(int);
+  dp_backtrack_kernel<<<n_blocks(R, kRows), kBeThreads, bytes,
+                        (cudaStream_t)stream>>>(
+      (const int*)k_in, (const int*)args, (int*)k_out, (int*)r, R, chunk, K,
+      ts);
+  return (int)cudaGetLastError();
+}
+
+// E: given schedules r [R, chunk] priced over one chunk (1 <= K <= 32),
+// under Model 1 (x, g; svc and cols NULL) or on a Model-2 slab svc [R,
+// chunk, Kf] (1 <= Kf <= 32; x and g NULL) with cols [R, K] (NULL: the
+// identity, Kf == K); fma: bit 0 fuses the rent's multiply-add, bit 1
+// the fetch's
+int launch_schedule(const void* lv, const void* g, const void* M,
+                    const void* T_len, const void* prev_in,
+                    const void* sums_in, const void* counts_in,
+                    const void* r, const void* c, const void* x,
+                    const void* svc, const void* cols, void* prev_out,
+                    void* sums_out, void* counts_out, int R, int chunk,
+                    int K, int Kf, int t0, int fma, void* stream) {
+  if (K < 1 || K > 32 || chunk < 1 || fma < 0 || fma > 3
+      || (svc && (Kf < 1 || Kf > 32)) || (!svc && (!x || !g)))
+    return (int)cudaErrorInvalidValue;
+  if (R <= 0) return (int)cudaGetLastError();
+  // a row's tile: r, c and x (ts + 1 words each), or r and c and the
+  // slab's ts * Kf + 1 words; its levels' words besides (at most 45 KB a
+  // block, under the default 48 KB of shared memory)
+  const int ts = std::max(1, std::min(
+      chunk, svc ? (kTileRowWords - 3) / (2 + Kf) : (kTileRowWords - 3) / 3));
+  const size_t words = (size_t)kRows * (4 * (K + 1) + 3 * (ts + 1)
+                                        + (svc ? ts * Kf + 1 : 0));
+  const ScheduleArgs a{(const float*)lv, (const float*)g, (const float*)M,
+                       (const int*)T_len, (const int*)prev_in,
+                       (const float*)sums_in, (const int*)counts_in,
+                       (const int*)r, (const float*)c, (const int*)x,
+                       (const float*)svc, (const int*)cols, (int*)prev_out,
+                       (float*)sums_out, (int*)counts_out, R, chunk, K,
+                       svc ? Kf : K, t0, ts};
+  const size_t bytes = words * sizeof(int);
+  cudaStream_t st = (cudaStream_t)stream;
+#define REPRO_SCHED_CASE(FF)                                                \
+  case FF:                                                                  \
+    if (svc)                                                                \
+      launch_sched<true, FF>(a, bytes, st);                                 \
+    else                                                                    \
+      launch_sched<false, FF>(a, bytes, st);                                \
+    break;
+  switch (fma) {
+    REPRO_SCHED_CASE(0) REPRO_SCHED_CASE(1) REPRO_SCHED_CASE(2)
+    REPRO_SCHED_CASE(3)
+  }
+#undef REPRO_SCHED_CASE
   return (int)cudaGetLastError();
 }
 

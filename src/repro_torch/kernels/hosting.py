@@ -30,6 +30,10 @@ PyTorch versions.
 * ``dp_minplus`` (kernel D on a finished ``w``) — the same recursion for
   callers that assemble ``w`` themselves (``offline_opt_batch``) and for K
   up to 32.
+* ``dp_backtrack`` (kernel **B**) -- a chunk's argmin table walked back
+  from the levels at its end: the backtracked OPT schedule.
+* ``schedule_chunk`` (kernel **E**) -- given schedules priced over one
+  chunk, fetches charged on entry, under Model 1 or on a Model-2 slab.
 * ``sim_chunk_alpha_rr`` (kernel **S**) — one chunk of the per-slot
   alpha-RR simulation, the reference's ``lax.scan`` of
   ``simulator.sim_chunk_core`` over ``alpha_rr_step`` fused into one pass;
@@ -1101,17 +1105,20 @@ def dp_fwd_model1(J, c, x, g, lv, kmask, fetch, T_len, t0: int,
     """Kernel D with the cost assembly fused in (arguments as
     ``dp_fwd_model1_plain``; 1 <= K <= 16), bitwise
     ``dp_fwd_model1_plain``.  The argmin table is written only when
-    ``with_args``; J is the same either way."""
+    ``with_args`` (the ``ARGS`` route; ``args_launches`` counts those
+    launches); J is the same either way."""
     if J.device.type == "cpu":
         return dp_fwd_model1_plain(J, c, x, g, lv, kmask, fetch, T_len, t0,
                                    with_args)
     out = _dp_fwd("dp_fwd_model1", J, c, lv, kmask, fetch, T_len, t0,
                   with_args, x=x, g=g)
     dp_fwd_model1.launches += 1
+    dp_fwd_model1.args_launches += bool(with_args)
     return out
 
 
 dp_fwd_model1.launches = 0
+dp_fwd_model1.args_launches = 0
 
 
 def gather_svc(svc, svc_cols):
@@ -1165,17 +1172,66 @@ def dp_fwd_model2(J, c, svc, lv, kmask, fetch, T_len, t0: int, svc_cols=None,
                   with_args: bool = False):
     """Kernel D on a Model-2 service slab, the cost assembly fused in
     (arguments as ``dp_fwd_model2_plain``; 1 <= K <= 16 levels, and the
-    slab too), bitwise ``dp_fwd_model2_plain``."""
+    slab too), bitwise ``dp_fwd_model2_plain``; ``args_launches`` as in
+    ``dp_fwd_model1``."""
     if J.device.type == "cpu":
         return dp_fwd_model2_plain(J, c, svc, lv, kmask, fetch, T_len, t0,
                                    svc_cols, with_args)
     out = _dp_fwd("dp_fwd_model2", J, c, lv, kmask, fetch, T_len, t0,
                   with_args, svc=svc, svc_cols=svc_cols)
     dp_fwd_model2.launches += 1
+    dp_fwd_model2.args_launches += bool(with_args)
     return out
 
 
 dp_fwd_model2.launches = 0
+dp_fwd_model2.args_launches = 0
+
+
+# ----------------------------------------------------------------------
+# B: dp_backtrack.
+# ----------------------------------------------------------------------
+
+def dp_backtrack_plain(k, args):
+    """Plain version of kernel B: walk a chunk's argmin table ``args`` [R,
+    chunk, K] int32 back from the levels ``k`` [R] int32 at its end:
+    ``r[t] = k; k = args[t, k]`` from the last slot to the first.  Returns
+    ``(k at the chunk's entry, r [R, chunk] int32)``.  ``card_calls``
+    counts its calls on the card (its slot loop is what B replaces)."""
+    if args.is_cuda:
+        dp_backtrack_plain.card_calls += 1
+    r = torch.empty(args.shape[:2], dtype=torch.int32, device=args.device)
+    for t in range(args.shape[1] - 1, -1, -1):
+        r[:, t] = k
+        k = torch.gather(args[:, t], 1, k[:, None].to(torch.int64))[:, 0]
+    return k, r
+
+
+dp_backtrack_plain.card_calls = 0
+
+
+def dp_backtrack(k, args):
+    """Kernel B (arguments as ``dp_backtrack_plain``; K <= 32), bitwise
+    ``dp_backtrack_plain``."""
+    if args.device.type == "cpu":
+        return dp_backtrack_plain(k, args)
+    R, chunk, K = args.shape
+    dev = args.device
+    if not 1 <= K <= DP_MAX_K:
+        raise ValueError(f"dp_backtrack takes 1 <= K <= {DP_MAX_K}, got {K}")
+    _build.check_tensor("k", k, torch.int32, (R,), dev)
+    _build.check_tensor("args", args, torch.int32, (R, chunk, K), dev)
+    k_out = torch.empty_like(k)
+    r = torch.empty((R, chunk), dtype=torch.int32, device=dev)
+    err = _build.library("hosting").launch_dp_backtrack(
+        k.data_ptr(), args.data_ptr(), k_out.data_ptr(), r.data_ptr(), R,
+        chunk, K, _build.stream(dev))
+    _build.raise_on(err, "dp_backtrack")
+    dp_backtrack.launches += 1
+    return k_out, r
+
+
+dp_backtrack.launches = 0
 
 
 # ----------------------------------------------------------------------
@@ -1184,19 +1240,22 @@ dp_fwd_model2.launches = 0
 
 def sim_chunk_alpha_rr_plain(params, lv, g, M, T_len, t0: int, carry, x, c,
                              include_final_fetch: bool = True,
-                             collect_trace: bool = True):
+                             collect_trace: bool = True,
+                             rent_fma: bool = False):
     """Plain version of kernel S: ``simulator.sim_chunk_core`` stepping
     ``alpha_rr_step`` over slots ``[t0, t0 + chunk)`` of R rows under
     Model-1 service ``x * g``.  ``params`` are the alpha-RR params
     (``levels``, ``mask``, ``M``); ``lv``/``g``/``M`` the accounting grid;
-    ``carry = (state, acc)``.  Returns ``(carry', r_hist [R, chunk] int32
-    or None)``."""
+    ``carry = (state, acc)``; ``rent_fma`` accumulates the rent as one FMA
+    (``simulator.xla_acc_fma``).  Returns ``(carry', r_hist [R, chunk]
+    int32 or None)``."""
     # the plain version IS the simulator's slot loop (imported here: the
     # simulator dispatches to this module, so a top-level import would cycle)
     from repro_torch.core.policies.alpha_rr import alpha_rr_step
     from repro_torch.core.simulator import model1_svc, sim_chunk_core
     carry, r = sim_chunk_core(alpha_rr_step, include_final_fetch, params, lv,
-                              M, T_len, t0, carry, x, c, model1_svc(x, g))
+                              M, T_len, t0, carry, x, c, model1_svc(x, g),
+                              rent_fma=rent_fma)
     return carry, (r if collect_trace else None)
 
 
@@ -1243,18 +1302,19 @@ def _sim_alpha_rr(name, params, lv, M, T_len, t0, carry, c,
 
 def sim_chunk_alpha_rr(params, lv, g, M, T_len, t0: int, carry, x, c,
                        include_final_fetch: bool = True,
-                       collect_trace: bool = True):
+                       collect_trace: bool = True, rent_fma: bool = False):
     """Kernel S (arguments as ``sim_chunk_alpha_rr_plain``; 2 <= K <= 16),
     bitwise ``sim_chunk_alpha_rr_plain``."""
     if x.device.type == "cpu":
         return sim_chunk_alpha_rr_plain(params, lv, g, M, T_len, t0, carry,
                                         x, c, include_final_fetch,
-                                        collect_trace)
+                                        collect_trace, rent_fma)
     out = _sim_alpha_rr("sim_chunk_alpha_rr", params, lv, M, T_len, t0,
-                        carry, c, include_final_fetch, collect_trace, x=x,
-                        g=g)
+                        carry, c, include_final_fetch,
+                        collect_trace or rent_fma, x=x, g=g)
     sim_chunk_alpha_rr.launches += 1
-    return out
+    return _fused_rent(out, rent_fma, collect_trace, lv, M, T_len, t0,
+                       carry[1], c, x=x, g=g)
 
 
 sim_chunk_alpha_rr.launches = 0
@@ -1263,7 +1323,8 @@ sim_chunk_alpha_rr.launches = 0
 def sim_chunk_alpha_rr_svc_plain(params, lv, M, T_len, t0: int, carry, c,
                                  svc, svc_cols=None,
                                  include_final_fetch: bool = True,
-                                 collect_trace: bool = True):
+                                 collect_trace: bool = True,
+                                 rent_fma: bool = False):
     """Plain version of kernel S under Model-2 service: the same chunk as
     ``sim_chunk_alpha_rr_plain`` on a realized service slab ``svc`` [R,
     chunk, K_svc], gathered to the rows' K levels through ``svc_cols`` [R,
@@ -1273,13 +1334,14 @@ def sim_chunk_alpha_rr_svc_plain(params, lv, M, T_len, t0: int, carry, c,
     from repro_torch.core.simulator import sim_chunk_core
     carry, r = sim_chunk_core(alpha_rr_step, include_final_fetch, params, lv,
                               M, T_len, t0, carry, None, c,
-                              gather_svc(svc, svc_cols))
+                              gather_svc(svc, svc_cols), rent_fma=rent_fma)
     return carry, (r if collect_trace else None)
 
 
 def sim_chunk_alpha_rr_svc(params, lv, M, T_len, t0: int, carry, c, svc,
                            svc_cols=None, include_final_fetch: bool = True,
-                           collect_trace: bool = True):
+                           collect_trace: bool = True,
+                           rent_fma: bool = False):
     """Kernel S under Model-2 service (arguments as
     ``sim_chunk_alpha_rr_svc_plain``; 2 <= K <= 16 levels, the slab 1 to
     32), bitwise ``sim_chunk_alpha_rr_svc_plain``.  ``wide_launches``
@@ -1288,13 +1350,15 @@ def sim_chunk_alpha_rr_svc(params, lv, M, T_len, t0: int, carry, c, svc,
         return sim_chunk_alpha_rr_svc_plain(params, lv, M, T_len, t0, carry,
                                             c, svc, svc_cols,
                                             include_final_fetch,
-                                            collect_trace)
+                                            collect_trace, rent_fma)
     out = _sim_alpha_rr("sim_chunk_alpha_rr_svc", params, lv, M, T_len, t0,
-                        carry, c, include_final_fetch, collect_trace, svc=svc,
+                        carry, c, include_final_fetch,
+                        collect_trace or rent_fma, svc=svc,
                         svc_cols=svc_cols)
     sim_chunk_alpha_rr_svc.launches += 1
     sim_chunk_alpha_rr_svc.wide_launches += svc.shape[2] > DPF_MAX_K
-    return out
+    return _fused_rent(out, rent_fma, collect_trace, lv, M, T_len, t0,
+                       carry[1], c, svc=svc, svc_cols=svc_cols)
 
 
 sim_chunk_alpha_rr_svc.launches = 0
@@ -1333,7 +1397,8 @@ def table_step(params, state, obs):
 
 def sim_chunk_table_plain(pi, obs, x_threshold, lv, g, M, T_len, t0: int,
                           carry, x, c, side, include_final_fetch: bool = True,
-                          collect_trace: bool = True):
+                          collect_trace: bool = True,
+                          rent_fma: bool = False):
     """Plain version of kernel S's table variant: ``simulator.
     sim_chunk_core`` stepping ``table_step`` on the table ``pi`` [R, S, K]
     int32 (S = 1 or 2) read at the observation ``obs`` (``"none"``,
@@ -1347,7 +1412,8 @@ def sim_chunk_table_plain(pi, obs, x_threshold, lv, g, M, T_len, t0: int,
         sim_chunk_table_plain.card_calls += 1
     params = {"pi": pi, "obs": obs, "x_threshold": x_threshold}
     carry, r = sim_chunk_core(table_step, include_final_fetch, params, lv, M,
-                              T_len, t0, carry, x, c, model1_svc(x, g), side)
+                              T_len, t0, carry, x, c, model1_svc(x, g), side,
+                              rent_fma)
     return carry, (r if collect_trace else None)
 
 
@@ -1357,7 +1423,8 @@ sim_chunk_table_plain.card_calls = 0
 def sim_chunk_table_svc_plain(pi, obs, x_threshold, lv, M, T_len, t0: int,
                               carry, x, c, side, svc, svc_cols=None,
                               include_final_fetch: bool = True,
-                              collect_trace: bool = True):
+                              collect_trace: bool = True,
+                              rent_fma: bool = False):
     """Plain version of kernel S's table variant on a Model-2 service slab
     ``svc`` [R, chunk, K_svc], gathered to the rows' K levels through
     ``svc_cols`` [R, K] int32 when given (other arguments as
@@ -1368,7 +1435,7 @@ def sim_chunk_table_svc_plain(pi, obs, x_threshold, lv, M, T_len, t0: int,
     params = {"pi": pi, "obs": obs, "x_threshold": x_threshold}
     carry, r = sim_chunk_core(table_step, include_final_fetch, params, lv, M,
                               T_len, t0, carry, x, c,
-                              gather_svc(svc, svc_cols), side)
+                              gather_svc(svc, svc_cols), side, rent_fma)
     return carry, (r if collect_trace else None)
 
 
@@ -1431,18 +1498,20 @@ def _sim_table(name, pi, obs, thr, lv, M, T_len, t0, carry, x, c, side,
 
 def sim_chunk_table(pi, obs, x_threshold, lv, g, M, T_len, t0: int, carry,
                     x, c, side, include_final_fetch: bool = True,
-                    collect_trace: bool = True):
+                    collect_trace: bool = True, rent_fma: bool = False):
     """Kernel S's table variant (arguments as ``sim_chunk_table_plain``; 2
     <= K <= 16, tables of 1 or 2 rows), bitwise ``sim_chunk_table_plain``."""
     if c.device.type == "cpu":
         return sim_chunk_table_plain(pi, obs, x_threshold, lv, g, M, T_len,
                                      t0, carry, x, c, side,
-                                     include_final_fetch, collect_trace)
+                                     include_final_fetch, collect_trace,
+                                     rent_fma)
     out = _sim_table("sim_chunk_table", pi, obs, x_threshold, lv, M, T_len,
                      t0, carry, x, c, side, include_final_fetch,
-                     collect_trace, g=g)
+                     collect_trace or rent_fma, g=g)
     sim_chunk_table.launches += 1
-    return out
+    return _fused_rent(out, rent_fma, collect_trace, lv, M, T_len, t0,
+                       carry[1], c, x=x, g=g)
 
 
 sim_chunk_table.launches = 0
@@ -1451,7 +1520,7 @@ sim_chunk_table.launches = 0
 def sim_chunk_table_svc(pi, obs, x_threshold, lv, M, T_len, t0: int, carry,
                         x, c, side, svc, svc_cols=None,
                         include_final_fetch: bool = True,
-                        collect_trace: bool = True):
+                        collect_trace: bool = True, rent_fma: bool = False):
     """Kernel S's table variant on a Model-2 service slab (arguments as
     ``sim_chunk_table_svc_plain``; 2 <= K <= 16 levels, the slab 1 to 32),
     bitwise ``sim_chunk_table_svc_plain``.  ``wide_launches`` counts the
@@ -1459,14 +1528,140 @@ def sim_chunk_table_svc(pi, obs, x_threshold, lv, M, T_len, t0: int, carry,
     if c.device.type == "cpu":
         return sim_chunk_table_svc_plain(pi, obs, x_threshold, lv, M, T_len,
                                          t0, carry, x, c, side, svc, svc_cols,
-                                         include_final_fetch, collect_trace)
+                                         include_final_fetch, collect_trace,
+                                         rent_fma)
     out = _sim_table("sim_chunk_table_svc", pi, obs, x_threshold, lv, M,
                      T_len, t0, carry, x, c, side, include_final_fetch,
-                     collect_trace, svc=svc, svc_cols=svc_cols)
+                     collect_trace or rent_fma, svc=svc, svc_cols=svc_cols)
     sim_chunk_table_svc.launches += 1
     sim_chunk_table_svc.wide_launches += svc.shape[2] > DPF_MAX_K
-    return out
+    return _fused_rent(out, rent_fma, collect_trace, lv, M, T_len, t0,
+                       carry[1], c, svc=svc, svc_cols=svc_cols)
 
 
 sim_chunk_table_svc.launches = 0
 sim_chunk_table_svc.wide_launches = 0
+
+
+# ----------------------------------------------------------------------
+# E: schedule_chunk.
+# ----------------------------------------------------------------------
+
+def schedule_chunk_plain(lv, M, T_len, t0: int, carry, r, c, x=None, g=None,
+                         svc=None, svc_cols=None, acc_fma: bool = False):
+    """Plain version of kernel E: the cost of given schedules ``r`` [R,
+    chunk] int32 over slots ``[t0, t0 + chunk)``, entered from ``carry[0]``
+    [R] int32 (the level held before the chunk) with ``carry[1] = {"sums":
+    [R, 3], "counts": [R, K]}``.  Per slot: the fetch ``M * (lv[r_t] -
+    lv[prev])^+`` charged on entry, rent ``c_t * lv[r_t]`` and the service
+    of ``r_t`` (Model 1: ``x`` [R, chunk] int32 times ``g`` [R, K]; Model
+    2: ``svc`` [R, chunk, K_svc] through ``svc_cols`` [R, K]) added to the
+    sums slot by slot, zero past the row's horizon ``T_len`` (``acc_fma``:
+    the rent's and the fetch's products fused into their adds,
+    ``simulator.xla_acc_fma``).
+    Returns the carry'.  ``card_calls`` counts its calls on the card."""
+    if c.is_cuda:
+        schedule_chunk_plain.card_calls += 1
+    # the simulator's one-hot selects (imported here: the simulator
+    # dispatches to this module, so a top-level import would cycle)
+    from repro_torch.core.simulator import _fetch_between, _select, model1_svc
+    s = model1_svc(x, g) if svc is None else gather_svc(svc, svc_cols)
+    prev, acc = carry
+    sums, counts = acc["sums"], acc["counts"]
+    levels = torch.arange(lv.shape[1], device=lv.device)[None, :]
+    for j in range(r.shape[1]):
+        valid = T_len > t0 + j
+        r_t = r[:, j]
+        onehot_t = levels == r_t[:, None]
+        lv_t = _select(onehot_t, lv)
+        lv_prev = _select(levels == prev[:, None], lv)
+        fetch_t = _fetch_between(M, lv_prev, lv_t)
+        rent_t = c[:, j] * lv_t
+        svc_cost_t = _select(onehot_t, s[:, j])
+        vec = torch.stack([rent_t, svc_cost_t, fetch_t], dim=1)
+        new = sums + torch.where(valid[:, None], vec, 0.0)
+        if acc_fma:
+            new[:, 0] = torch.where(valid, fma32(c[:, j], lv_t, sums[:, 0]),
+                                    sums[:, 0])
+            new[:, 2] = torch.where(valid, fma32(
+                M, torch.clamp_min(lv_t - lv_prev, 0.0), sums[:, 2]),
+                sums[:, 2])
+        sums = new
+        counts = counts + torch.where(valid[:, None], onehot_t.to(torch.int32),
+                                      0)
+        prev = torch.where(valid, r_t, prev).to(torch.int32)
+    return (prev, {"sums": sums, "counts": counts})
+
+
+schedule_chunk_plain.card_calls = 0
+
+
+def schedule_chunk(lv, M, T_len, t0: int, carry, r, c, x=None, g=None,
+                   svc=None, svc_cols=None, acc_fma: bool = False):
+    """Kernel E (arguments as ``schedule_chunk_plain``; K <= 32 levels, a
+    Model-2 slab of up to 32), bitwise ``schedule_chunk_plain``."""
+    if c.device.type == "cpu":
+        return schedule_chunk_plain(lv, M, T_len, t0, carry, r, c, x, g, svc,
+                                    svc_cols, acc_fma)
+    return _schedule(lv, M, T_len, t0, carry, r, c, x, g, svc, svc_cols,
+                     3 if acc_fma else 0)
+
+
+def _schedule(lv, M, T_len, t0, carry, r, c, x, g, svc, svc_cols, fma):
+    """Check kernel E's inputs and launch it; ``fma``: bit 0 fuses the
+    rent's products into its sum, bit 1 the fetch's."""
+    prev, acc = carry
+    R, K = lv.shape
+    chunk = c.shape[1]
+    dev = c.device
+    if not 1 <= K <= DP_MAX_K:
+        raise ValueError(f"schedule_chunk takes 1 <= K <= {DP_MAX_K}, "
+                         f"got {K}")
+    if not 0 <= int(t0) < 2 ** 31:
+        raise ValueError(f"t0 must lie in [0, 2**31), got {t0}")
+    f32, i32 = torch.float32, torch.int32
+    ins = [("lv", lv, f32, (R, K)), ("M", M, f32, (R,)),
+           ("T_len", T_len, i32, (R,)), ("prev", prev, i32, (R,)),
+           ("sums", acc["sums"], f32, (R, 3)),
+           ("counts", acc["counts"], i32, (R, K)),
+           ("r", r, i32, (R, chunk)), ("c", c, f32, (R, chunk))]
+    if svc is None:
+        ins += [("x", x, i32, (R, chunk)), ("g", g, f32, (R, K))]
+    for arg in ins:
+        _build.check_tensor(*arg, dev)
+    Kf = K if svc is None else _check_svc("schedule_chunk", svc, svc_cols, R,
+                                          chunk, K, dev, DP_MAX_K)
+    prev_out = torch.empty_like(prev)
+    new_acc = {k: torch.empty_like(acc[k]) for k in ("sums", "counts")}
+    err = _build.library("hosting").launch_schedule(
+        lv.data_ptr(), _ptr(None if svc is not None else g), M.data_ptr(),
+        T_len.data_ptr(), prev.data_ptr(), acc["sums"].data_ptr(),
+        acc["counts"].data_ptr(), r.data_ptr(), c.data_ptr(),
+        _ptr(None if svc is not None else x), _ptr(svc), _ptr(svc_cols),
+        prev_out.data_ptr(), new_acc["sums"].data_ptr(),
+        new_acc["counts"].data_ptr(), R, chunk, K, Kf, int(t0), fma,
+        _build.stream(dev))
+    _build.raise_on(err, "schedule_chunk")
+    schedule_chunk.launches += 1
+    return (prev_out, new_acc)
+
+
+schedule_chunk.launches = 0
+
+
+def _fused_rent(out, rent_fma, collect_trace, lv, M, T_len, t0, acc_in, c,
+                x=None, g=None, svc=None, svc_cols=None):
+    """An S chunk's result ``out`` (run with its trace when ``rent_fma``)
+    with, under ``rent_fma``, the rent sum redone with each product fused
+    into its add, as the reference's vmapped scan does on a small batch
+    (``simulator.xla_acc_fma``): kernel E over S's trace from the carried
+    sums, its rent bit only; S's other sums and counts stand.  Keeping the
+    fused rent out of S keeps S's own loop as it was."""
+    if not rent_fma:
+        return out
+    (state, acc), r_hist = out
+    prev = torch.zeros_like(r_hist[:, 0])
+    _, fused = _schedule(lv, M, T_len, t0, (prev, acc_in), r_hist, c, x, g,
+                         svc, svc_cols, 1)
+    acc["sums"][:, 0] = fused["sums"][:, 0]
+    return (state, acc), (r_hist if collect_trace else None)

@@ -12,7 +12,8 @@ nothing is padded here.
 ``KERNELS`` lists the launcher of every CUDA kernel, whose ``launches``
 counters a run reads; ``DISPATCHERS`` the wrappers that pick one of two
 kernels (F, M) and count the launches of both; ``WIDE`` those that count
-their launches on a Model-2 slab of more than 16 levels too;
+their launches on a Model-2 slab of more than 16 levels too; ``ARGS``
+those that count the launches writing D's argmin table too;
 ``PLAIN_ON_CARD`` the plain code whose calls on the card a run counts.  ``reset_launches`` sets every
 counter to 0.
 """
@@ -55,16 +56,18 @@ def ssd_scan(x, dt, A, B, C, h0=None, chunk: int = 128):
 #: every kernel's launcher: P (uniforms, Bernoulli arrivals, uniform
 #: rents, NA rents, normals, the GE chunk, the ARMA chunk, Poisson draws,
 #: Model-2 service), D (fused under Model 1 and Model 2, and on a finished
-#: w), S (alpha-RR and the table variant, each under Model 1 and Model 2),
-#: F (tensor-core and fma), M (tensor-core and fma)
+#: w), B (the DP's backtrack), S (alpha-RR and the table variant, each
+#: under Model 1 and Model 2), E (schedule pricing), F (tensor-core and
+#: fma), M (tensor-core and fma)
 KERNELS = (hosting.slot_uniform, hosting.bernoulli_arrivals_chunk,
            hosting.uniform_rents_chunk, hosting.na_rents_chunk,
            hosting.normal_chunk, hosting.ge_bernoulli_chunk,
            hosting.arma_rents_chunk, hosting.poisson_chunk,
            hosting.model2_service_chunk, hosting.dp_fwd_model1,
-           hosting.dp_fwd_model2, hosting.dp_minplus,
+           hosting.dp_fwd_model2, hosting.dp_minplus, hosting.dp_backtrack,
            hosting.sim_chunk_alpha_rr, hosting.sim_chunk_alpha_rr_svc,
            hosting.sim_chunk_table, hosting.sim_chunk_table_svc,
+           hosting.schedule_chunk,
            _fa.flash_attention_wgmma, _fa.flash_attention_fma,
            _ssd.ssd_scan_mma, _ssd.ssd_scan_fma)
 DISPATCHERS = (_fa.flash_attention, _ssd.ssd_scan)
@@ -72,26 +75,32 @@ DISPATCHERS = (_fa.flash_attention, _ssd.ssd_scan)
 #: (``wide_launches``: more than ``hosting.DPF_MAX_K`` levels)
 WIDE = (hosting.model2_service_chunk, hosting.sim_chunk_alpha_rr_svc,
         hosting.sim_chunk_table_svc)
+#: the launchers that also count their launches that write D's argmin
+#: table (``args_launches``: the ``ARGS`` route)
+ARGS = (hosting.dp_fwd_model1, hosting.dp_fwd_model2)
 #: plain code that counts its calls on the card (``card_calls``): the
 #: float64 FMA emulation (every plain D and alpha-RR S calls it), the
-#: per-slot GE and ARMA loops, the Poisson rounds, the Model-2 counts and
-#: the table policies' slot loops, which the card's path replaces with
-#: kernels
+#: per-slot GE and ARMA loops, the Poisson rounds, the Model-2 counts,
+#: the table policies' slot loops, the backtrack's and the schedule
+#: pricing's slot loops, which the card's path replaces with kernels
 PLAIN_ON_CARD = (hosting.fma32, hosting.ge_bernoulli_chunk_plain,
                  hosting.arma_rents_chunk_plain, hosting.poisson_chunk_plain,
                  hosting.model2_service_chunk_plain,
                  hosting.sim_chunk_table_plain,
-                 hosting.sim_chunk_table_svc_plain)
+                 hosting.sim_chunk_table_svc_plain,
+                 hosting.dp_backtrack_plain, hosting.schedule_chunk_plain)
 
 
 def reset_launches():
-    """Set every launch counter (the Poisson launches on Hormann's branch
-    and the wide-slab launches too), and every ``card_calls`` count, to
-    0."""
+    """Set every launch counter (the Poisson launches on Hormann's branch,
+    the wide-slab and the argmin-table launches too), and every
+    ``card_calls`` count, to 0."""
     for k in KERNELS + DISPATCHERS:
         k.launches = 0
     for k in WIDE:
         k.wide_launches = 0
+    for k in ARGS:
+        k.args_launches = 0
     hosting.reset_poisson_rejection_launches()
     for f in PLAIN_ON_CARD:
         f.card_calls = 0

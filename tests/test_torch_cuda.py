@@ -1177,3 +1177,154 @@ def test_table_wrappers_take_the_plain_version_only_on_the_cpu():
     assert [k.launches for k in counters] == before
     assert (H.sim_chunk_table_plain.card_calls,
             H.sim_chunk_table_svc_plain.card_calls) == calls
+
+
+# ----------------------------------------------------------------------
+# B (the DP's backtrack), E (schedule pricing) and S with the rent fused
+# (the reference's small batches, simulator.xla_acc_fma).  Bit for bit.
+# ----------------------------------------------------------------------
+
+def _table(dev, R, chunk, K, seed):
+    """A random argmin table [R, chunk, K] int32 (entries in [0, K)) and
+    the levels ``k`` [R] at its end."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    return (t(rng.integers(0, K, R).astype(np.int32)),
+            t(rng.integers(0, K, (R, chunk, K)).astype(np.int32)))
+
+
+def _schedule_args(dev, R, chunk, K, svc_kind, seed):
+    """E's inputs: the grid, horizons inside the chunk, a carry in mid-run
+    (held level, sums, counts), schedules with levels out of [0, K) too,
+    and Model-1 arrivals or a Model-2 slab (with a column map)."""
+    h = _hosting_case(dev, R, chunk, K, K > 3, False, seed)
+    rng = h["rng"]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    carry = (t(rng.integers(0, K, R).astype(np.int32)),
+             {"sums": t((rng.random((R, 3)) * 100).astype(np.float32)),
+              "counts": t(rng.integers(0, 50, (R, K)).astype(np.int32))})
+    r = t(rng.integers(-1, K + 1, (R, chunk)).astype(np.int32))
+    kw = dict(x=h["x"], g=h["g"])
+    if svc_kind != "model1":
+        Kf = 5 if svc_kind == "model2-cols" else K
+        d = _svc_inputs(dev, R, chunk, K, Kf, seed)
+        kw = dict(svc=d["svc"],
+                  svc_cols=d["cols"] if svc_kind == "model2-cols" else None)
+    return (h["lv"], h["M"], h["T_len"], h["t0"], carry, r, h["c"]), kw
+
+
+def test_backtrack_and_schedule_wrappers_take_the_plain_version_on_the_cpu():
+    """On CPU tensors B's and E's wrappers are their plain versions: no
+    launch, no card call counted; B chained over two halves of a table is
+    the whole table's walk."""
+    k, args = _table("cpu", 7, 40, 3, 0)
+    counters = (H.dp_backtrack, H.schedule_chunk)
+    before = [c.launches for c in counters]
+    calls = (H.dp_backtrack_plain.card_calls,
+             H.schedule_chunk_plain.card_calls)
+    k0, r = H.dp_backtrack(k, args)
+    k1, r2 = H.dp_backtrack_plain(k, args[:, 20:].contiguous())
+    k2, r1 = H.dp_backtrack_plain(k1, args[:, :20].contiguous())
+    assert torch.equal(k0, k2) and torch.equal(r, torch.cat([r1, r2], 1))
+    for kind in ("model1", "model2-cols"):
+        a, kw = _schedule_args("cpu", 9, 33, 3, kind, 1)
+        for fma in (False, True):
+            p1, acc1 = H.schedule_chunk(*a, **kw, acc_fma=fma)
+            p2, acc2 = H.schedule_chunk_plain(*a, **kw, acc_fma=fma)
+            assert torch.equal(p1, p2) and torch.equal(acc1["sums"],
+                                                       acc2["sums"])
+    assert [c.launches for c in counters] == before
+    assert (H.dp_backtrack_plain.card_calls,
+            H.schedule_chunk_plain.card_calls) == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (R, chunk, K): the fleet's K = 3 at full width; ragged rows and a
+    # ragged, odd chunk; K = 16 (the fused D's widest); K = 32 (D on a
+    # finished w); one slot; one row
+    (4096, 4096, 3), (4093, 1001, 2), (300, 999, 16), (65, 17, 32),
+    (4096, 1, 3), (1, 300, 4)])
+def test_backtrack_kernel_matches_plain(case):
+    """B == its plain version: the level at the chunk's entry and the
+    schedule, on random tables (every entry a live level)."""
+    dev = _card()
+    R, chunk, K = case
+    k, args = _table(dev, R, chunk, K, seed=R + chunk + K)
+    before = H.dp_backtrack.launches
+    kk, rk = H.dp_backtrack(k, args)
+    torch.cuda.synchronize()
+    assert H.dp_backtrack.launches == before + 1
+    kp, rp = H.dp_backtrack_plain(k, args)
+    assert torch.equal(kk, kp) and torch.equal(rk, rp)
+    assert bool((rk != rk[:, :1]).any()) or chunk == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acc_fma", [False, True])
+@pytest.mark.parametrize("case", [
+    # (R, chunk, K, service): Model 1 at the fleet's width and K = 3, a
+    # ragged slab, K = 16 and 32, one slot; Model 2 on the slab's own
+    # levels and through a column map of a 5-level slab
+    (4096, 4096, 3, "model1"), (4093, 1001, 2, "model1"),
+    (300, 999, 16, "model1"), (65, 333, 32, "model1"),
+    (4096, 1, 3, "model1"), (1024, 1024, 3, "model2"),
+    (1021, 1001, 3, "model2-cols"), (6, 300, 3, "model2-cols")])
+def test_schedule_kernel_matches_plain(case, acc_fma):
+    """E == its plain version: a carry in mid-run, horizons inside the
+    chunk, levels out of range priced nothing, with and without the sums'
+    products fused."""
+    dev = _card()
+    R, chunk, K, kind = case
+    a, kw = _schedule_args(dev, R, chunk, K, kind, seed=R + chunk + K)
+    before = H.schedule_chunk.launches
+    pk, ak = H.schedule_chunk(*a, **kw, acc_fma=acc_fma)
+    torch.cuda.synchronize()
+    assert H.schedule_chunk.launches == before + 1
+    pp, ap = H.schedule_chunk_plain(*a, **kw, acc_fma=acc_fma)
+    assert torch.equal(pk, pp)
+    for key in ap:
+        assert torch.equal(ak[key], ap[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (R, chunk, K, policy): one alpha-RR row (the reference fuses the
+    # rent there), three static rows, and the same at fleet width; K = 4,
+    # whose levels 1/3 and 2/3 make the rent's products inexact
+    (1, 2048, 4, "alpha-rr"), (3, 999, 4, "static"),
+    (4096, 1024, 4, "alpha-rr"), (4093, 1001, 4, "static")])
+def test_sim_kernel_with_the_rent_fused_matches_plain(case):
+    """S (alpha-RR and the table variant) with ``rent_fma``: == its plain
+    version, and (over thousands of rows) the fused rent really differs
+    from the two roundings somewhere."""
+    from repro_torch.core.policies.alpha_rr import alpha_rr_init
+    from repro_torch.core.simulator import sim_acc0
+    dev = _card()
+    R, chunk, K, policy = case
+    h = _hosting_case(dev, R, chunk, K, False, False, seed=R + chunk + K)
+    sums = []
+    for fma in (True, False):
+        if policy == "alpha-rr":
+            params = {"levels": h["lv"], "mask": h["kmask"], "M": h["M"]}
+            args = (params, h["lv"], h["g"], h["M"], h["T_len"], h["t0"],
+                    (alpha_rr_init(params), sim_acc0(R, K, dev)), h["x"],
+                    h["c"], True, True, fma)
+            kern, plain = H.sim_chunk_alpha_rr, H.sim_chunk_alpha_rr_plain
+        else:
+            tab = table_form(*_table_case(dev, R, chunk, K, policy, R), K)
+            args = (*tab, h["lv"], h["g"], h["M"], h["T_len"], h["t0"],
+                    ({"r": torch.zeros(R, dtype=torch.int32, device=dev)},
+                     sim_acc0(R, K, dev)), h["x"], h["c"], None, True, True,
+                    fma)
+            kern, plain = H.sim_chunk_table, H.sim_chunk_table_plain
+        (sk, ak), rk = kern(*args)
+        torch.cuda.synchronize()
+        (sp, ap), rp = plain(*args)
+        for key in ap:
+            assert torch.equal(ak[key], ap[key]), (fma, key)
+        assert torch.equal(rk, rp)
+        sums.append(ak["sums"])
+    assert torch.equal(sums[0][:, 1:], sums[1][:, 1:])
+    if R >= 1000:
+        assert not torch.equal(sums[0][:, 0], sums[1][:, 0])

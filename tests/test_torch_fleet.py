@@ -131,24 +131,39 @@ def test_static_and_chunking_match():
 
 
 def test_unported_arguments_raise():
+    """What the port does not take yet raises ``NotImplementedError``
+    naming its ROADMAP.md item: ``async_ingest`` (item 10), ``gather`` and
+    a mesh (item 15) on every fleet driver, matrix-valued ``M`` (item 11);
+    a column map without a service channel and ``antithetic`` without
+    seeds are the reference's ``ValueError``s."""
+    import torch
+    from repro_torch.core.fleet import evaluate_schedule_fleet
+    from repro_torch.core.policies.offline_opt import dp_fetch_matrix
     _, pf = _fleets()
     _, psc = _scenarios("bernoulli")
     pol = AlphaRR.fleet(pf)
-    for kw in (dict(stream=True), dict(async_ingest=True),
-               dict(gather=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            run_fleet(pol, pf, scenario=psc, device=CPU, **kw)
+    r = np.zeros((pf.B, pf.T_max), np.int32)
+    drivers = (lambda **kw: run_fleet(pol, pf, scenario=psc, device=CPU,
+                                      **kw),
+               lambda **kw: offline_opt_fleet(pf, scenario=psc, device=CPU,
+                                              **kw),
+               lambda **kw: evaluate_schedule_fleet(pf, r, scenario=psc,
+                                                    device=CPU, **kw))
+    for i, call in enumerate(drivers):
+        for kw, item in ((dict(async_ingest=True), "Queue 1 item 10"),
+                         (dict(gather=True), "Queue 1 item 15"),
+                         (dict(mesh=object()), "Queue 1 item 15")):
+            if i == 2 and "async_ingest" in kw:
+                continue                  # the reference takes none there
+            with pytest.raises(NotImplementedError, match=item):
+                call(**kw)
     # a Model-2 column map needs a service channel in the stream
     lane = PolicyLane(pol, grid=pf.grid,
                       svc_cols=np.zeros((pf.B, pf.K), np.int32))
     with pytest.raises(ValueError, match="no Model-2 service channel"):
         run_fleet([lane], pf, scenario=psc, device=CPU)
-    with pytest.raises(NotImplementedError, match="obs-backed"):
-        run_fleet(pol, pf, device=CPU)
-    for kw in (dict(checkpointed=False, collect_schedule=False),
-               dict(checkpointed=True, collect_schedule=True)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            offline_opt_fleet(pf, scenario=psc, device=CPU, **kw)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        dp_fetch_matrix(torch.zeros((pf.B, 3, 3)), pf.grid.levels)
     with pytest.raises(ValueError, match="antithetic"):
         run_fleet(pol, pf, scenario=psc, antithetic=True, device=CPU)
 
