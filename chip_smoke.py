@@ -79,14 +79,24 @@ Phases (any failure exits non-zero, and no result line is printed):
    32-byte sectors.
    The backtracked schedule's kernels: D's ARGS route (the argmin table
    written) timed at the fleet's shape; B (the backtrack) on D's own table
-   of a fleet chunk, on R - 3 rows x 1,001 slots and on a random K = 32
-   table; E (schedule pricing) on the backtracked schedule at the fleet's
-   shape, on a ragged slab from an odd t0 with levels out of range, on a
-   5-level Model-2 slab through a column map and at K = 32, each with its
-   sums' products fused and not; B and E timed at the fleet's shape; S
-   with the rent fused (S, then E's rent pass over S's trace) on one
-   alpha-RR row and three static rows (the reference's small batches,
-   ``simulator.xla_acc_fma``).
+   of a fleet chunk (also one word off a 16-byte boundary: the 4-byte
+   cp.async route), on R - 3 rows x 1,001 slots, a slot either side of a
+   tile and of the ring's worth of tiles, a bulk chunk of 33 rows, and on
+   random tables at K = 32, 1 and 2; E (schedule pricing) on the
+   backtracked schedule at the fleet's shape (also on its 4-byte route),
+   on a ragged slab from an odd t0 with levels out of range, at the same
+   tile and ring edges, on Model-2 slabs of 5 and 32 levels through a
+   column map, on a schedule that changes level every slot and on one
+   that never does, and at K = 32, each with its sums' products fused and
+   not (carried sums of -0 in every fifth row); B and E timed at the
+   fleet's shape on both routes (the log prints the old design's time
+   beside the new, ``PREV_MS``, and each one's share of its byte bound),
+   B also on one block of 32 rows (its whole kernel) beside its walk's
+   assumed floor (``B_STEP_CYCLES``), with its walk's shared-memory
+   wavefronts a step modelled from the stage layout at K = 3 and K = 32
+   (both in the log only); S with the rent fused (S, then E's rent pass over
+   S's trace) on one alpha-RR row and three static rows (the reference's
+   small batches, ``simulator.xla_acc_fma``).
 3. The fleet path at full width: 1,024 instances (32 M x 32 (alpha, g)) x 4
    seeds = 4,096 rows, T = 65,536, chunks of 4,096: alpha-RR and RR through
    ``run_fleet``, alpha-OPT and OPT through ``offline_opt_fleet``
@@ -295,8 +305,8 @@ KERNEL_SYMBOLS = {
     "dp_fwd_model1 args": "dp_fwd_kernel<K, true, false> (the ARGS route: "
                           "the argmin table written)",
     "dp_minplus": "dp_minplus_kernel",
-    "dp_backtrack": "dp_backtrack_kernel",
-    "schedule_chunk": "schedule_kernel<SVC, FMA>",
+    "dp_backtrack": "dp_backtrack_kernel<BULK>",
+    "schedule_chunk": "schedule_kernel<SVC, FMA, BULK>",
     "sim_chunk_alpha_rr": "sim_kernel<K, false, false>",
     "sim_chunk_alpha_rr_svc": "sim_kernel<K, true, false>",
     "sim_chunk_alpha_rr_svc wide": "sim_kernel<K, true, false> (a slab of "
@@ -578,7 +588,12 @@ def sim_chain_ops(K):
 # (PERF.md section 6; NVIDIA H100 80GB HBM3, 700 W): the log prints old ->
 # new
 PREV_MS = {"poisson_chunk": 1.8543, "arma_rents_chunk": 0.2784,
-           "model2_service_chunk": 0.5514}
+           "model2_service_chunk": 0.5514, "dp_backtrack": 0.7466,
+           "schedule_chunk": 0.5994}
+# B's walk, cycles a slot and row: one dependent shared load (~30-33
+# cycles on sm_90, assumed, not measured here) and the add of its
+# address: the walk's floor, beside one block's whole kernel measured
+B_STEP_CYCLES = 35
 # the consumer code of the reference that each variant finishes in-kernel
 P_CONSUMER = {
     "slot_uniform": None,
@@ -1001,16 +1016,49 @@ def kernel_checks(dev):
     return rec
 
 
+def bt_wavefronts(r, K, chunk):
+    """The shared-memory wavefronts of each of B's walk steps, averaged:
+    at slot j a walker warp's 8 rows (a lane each, rows 8w .. 8w + 7 of a
+    32-row block) load word rl * as + jl * K + r[row, j] of their stage
+    (rl the row in the block, jl the slot in its tile, as the row stride);
+    a step takes as many wavefronts as the most rows one bank serves.
+    Rows past a whole block of 32 are left out.  The tile and the row
+    stride are the library's (hosting.cu: be_tile, be_stride)."""
+    lib = _build.library("hosting")
+    ts = lib.be_tile_slots(K, chunk, 0)
+    rows = r.shape[0] // 32 * 32
+    j = torch.arange(chunk, device=r.device)
+    tile = (chunk - 1 - j) // ts
+    jl = j - torch.clamp(chunk - (tile + 1) * ts, min=0)
+    rl = torch.arange(rows, device=r.device) % 32
+    bank = (rl[:, None] * lib.be_row_stride(ts * K) + jl[None, :] * K
+            + r[:rows].long()) % 32
+    hits = torch.zeros((rows // 8, chunk, 32), dtype=torch.int32,
+                       device=r.device)
+    hits.scatter_add_(2, bank.view(rows // 8, 8, chunk).transpose(1, 2),
+                      torch.ones((rows // 8, chunk, 8), dtype=torch.int32,
+                                 device=r.device))
+    return float(hits.amax(dim=2).float().mean())
+
+
 def schedule_kernel_checks(dev):
     """Kernels B (the DP's backtrack) and E (schedule pricing) against
-    their plain versions, bit for bit, at the fleet's shape (4,096 rows x
-    4,096 slots, K = 3: the fused D's own argmin table of a scenario chunk
-    walked back, the schedule it gives priced, E with its sums' products
-    fused and not), on ragged slabs (R - 3 rows, 1,001 slots, an odd t0),
-    at K = 32 (a random table; E on levels out of range too) and on a
-    Model-2 slab through a column map; then S with the rent fused (one
-    alpha-RR row, three static rows: the reference's small batches).
-    Returns the records of B and E (timed at the fleet's shape)."""
+    their plain versions, bit for bit, on both routes (bulk copies; and
+    4-byte copies, on ragged chunks and on the fleet's shape with one
+    input a word off a 16-byte boundary): at the fleet's shape (4,096 rows
+    x 4,096 slots, K = 3: the fused D's own argmin table of a scenario
+    chunk walked back, the schedule it gives priced, E with its sums'
+    products fused and not), on ragged slabs (R - 3 rows, 1,001 slots, an
+    odd t0), a slot either side of a tile and of the ring's worth of
+    tiles, a bulk chunk of odd R, at K = 1, 2 and 32 (random tables; E on
+    levels out of range too), and E on Model-2 slabs through a column map
+    (5 and 32 levels), on a schedule that changes level every slot and on
+    one that never does; then S with the rent fused (one alpha-RR row,
+    three static rows: the reference's small batches).  Returns the
+    records of B and E, timed at the fleet's shape on both routes, B also
+    on one block of 32 rows (its whole kernel); the log adds B's walk's
+    assumed floor and its bank wavefronts a step, modelled from the stage
+    layout at K = 3 and 32."""
     R, chunk, K = N_M * N_ALPHA * N_SEEDS, CHUNK, 3
     grid = fleet_grid(N_M, N_ALPHA, dev).repeat_rows(N_SEEDS)
     scen = sc.replicate_seeds(bernoulli_uniform(N_M * N_ALPHA, dev), N_SEEDS)
@@ -1026,14 +1074,36 @@ def schedule_kernel_checks(dev):
     k = torch.argmin(J, dim=1).to(torch.int32)
     rng = np.random.default_rng(22)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    lib = _build.library("hosting")
+    bt = lib.be_tile_slots(K, chunk, 0)
+    ring = lib.be_ring_stages() * bt
     rec = {}
 
     # B
+    def d_table(rows, n):                       # D's own table, cut
+        return k[:rows].contiguous(), args[:rows, :n].contiguous()
+
+    def random_table(rows, n, KK):
+        return (t(rng.integers(0, KK, rows).astype(np.int32)),
+                t(rng.integers(0, KK, (rows, n, KK)).astype(np.int32)))
+
+    b1 = lib.be_tile_slots(1, 1 << 20, 0)
     cases = [("fleet slab", k, args),
-             ("R - 3 rows, 1,001 slots", k[:R - 3].contiguous(),
-              args[:R - 3, :1001].contiguous()),
-             ("K = 32, 65 rows", t(rng.integers(0, 32, 65).astype(np.int32)),
-              t(rng.integers(0, 32, (65, 777, 32)).astype(np.int32)))]
+             ("fleet slab, 4-byte route", k, H.misaligned(args)),
+             ("R - 3 rows, 1,001 slots", *d_table(R - 3, 1001)),
+             (f"a tile - 1 ({bt - 1} slots)", *d_table(R - 3, bt - 1)),
+             (f"a tile + 1 ({bt + 1})", *d_table(R - 3, bt + 1)),
+             (f"the ring - 1 ({ring - 1}), 300 rows",
+              *d_table(300, ring - 1)),
+             (f"the ring + 1 ({ring + 1}), 300 rows",
+              *d_table(300, ring + 1)),
+             (f"33 rows, the ring + 4 ({ring + 4}): bulk",
+              *d_table(33, ring + 4)),
+             ("K = 32, 65 rows", *random_table(65, 777, 32)),
+             (f"K = 1, 65 rows, {4 * b1 + 1} slots",
+              *random_table(65, 4 * b1 + 1, 1)),
+             ("K = 2, 257 rows, 999 slots", *random_table(257, 999, 2))]
+    walks = {}
     for name, kk, aa in cases:
         kb = H.dp_backtrack(kk, aa)
         pb = H.dp_backtrack_plain(kk, aa)
@@ -1041,40 +1111,106 @@ def schedule_kernel_checks(dev):
         require(tree_equal(kb, pb), f"B differs from its plain version "
                                     f"({name})")
         log(f"B ok: {name}")
+        if name in ("fleet slab", "K = 32, 65 rows"):
+            walks[aa.shape[2]] = bt_wavefronts(kb[1], aa.shape[2],
+                                               aa.shape[1])
     ms = cuda_ms(lambda: H.dp_backtrack(k, args), reps=10, batch=10)
+    a_narrow = H.misaligned(args)
+    narrow_ms = cuda_ms(lambda: H.dp_backtrack(k, a_narrow), reps=10,
+                        batch=10)
+    k32, a32 = d_table(32, chunk)
+    one_block_ms = cuda_ms(lambda: H.dp_backtrack(k32, a32), reps=10,
+                           batch=10)
+    clock = sm_clock_mhz(lambda: H.dp_backtrack(k, args), ms)
     plain_ms, _ = timed_once(lambda: H.dp_backtrack_plain(k, args))
     kb, r = H.dp_backtrack(k, args)
+    b_bytes = nbytes(k, args, kb, r)
     rec["dp_backtrack"] = dict(
         replaces="src/repro/core/policies/offline_opt.py:162 (no TPU "
                  "kernel: the reverse lax.scan of dp_backtrack_chunk)",
-        ms=ms, plain_ms=plain_ms, max_abs_err=0.0, ops=R * chunk,
-        nbytes=nbytes(k, args, kb, r),
-        shape=f"R={R} chunk={chunk} K={K}: D's table of a fleet chunk")
-    log(f"B timed: {ms:.4f} ms, plain {plain_ms:.1f} ms")
+        ms=ms, prev_ms=PREV_MS["dp_backtrack"], plain_ms=plain_ms,
+        narrow_ms=narrow_ms, one_block_ms=one_block_ms,
+        one_block_cycles_per_slot=one_block_ms * clock * 1e3 / chunk,
+        sm_clock_mhz=clock, cycles_per_slot=ms * clock * 1e3 / chunk,
+        max_abs_err=0.0, ops=R * chunk, nbytes=b_bytes,
+        shape=f"R={R} chunk={chunk} K={K}: D's table of a fleet chunk "
+              f"(bulk route; narrow_ms: the 4-byte route; one_block_ms: "
+              f"its first 32 rows, one block's whole kernel, copies "
+              f"included)")
+    b = rec["dp_backtrack"]
+    b_bound = b_bytes / PEAK_BYTES * 1e3
+    log(f"B timed: {b['prev_ms']:.4f} -> {ms:.4f} ms ({b_bound / ms:.1%} "
+        f"of its byte bound {b_bound:.4f} ms; {b['cycles_per_slot']:.1f} "
+        f"cycles a slot at {clock:.0f} MHz); the 4-byte route "
+        f"{narrow_ms:.4f} ms; one block of 32 rows (its whole kernel, "
+        f"copies included) {one_block_ms:.4f} ms, "
+        f"{b['one_block_cycles_per_slot']:.1f} cycles a slot; the walk's "
+        f"floor {chunk * B_STEP_CYCLES / (clock * 1e3):.4f} ms "
+        f"({B_STEP_CYCLES} cycles a slot, assumed, not measured); bank "
+        f"wavefronts a walk step, from a model of the stage layout (not "
+        f"counted on the card): {walks[3]:.3f} at K = 3 (D's table), "
+        f"{walks[32]:.3f} at K = 32 (a random table); plain "
+        f"{plain_ms:.1f} ms")
 
     # E
-    sums = t((rng.random((R, 3)) * 100).astype(np.float32))
+    et = lib.be_tile_slots(3, chunk, 1)
+    ering = lib.be_ring_stages() * et
+    sums = (rng.random((R, 3)) * 100).astype(np.float32)
+    sums[::5] = -0.0                    # x + 0 is +0: masked slots count
+    sums = t(sums)
     carry = (t(rng.integers(0, K, R).astype(np.int32)),
              {"sums": sums, "counts": t(rng.integers(0, 50, (R, K))
                                         .astype(np.int32))})
     svc = t((rng.integers(0, 8, (R, 1001, 5)) / 2).astype(np.float32))
     cols = t(np.tile(np.int32([0, 2, 4]), (R, 1)))
+    svc32 = t((rng.integers(0, 8, (300, 333, 32)) / 2).astype(np.float32))
+    cols32 = t(np.tile(np.int32([0, 13, 31]), (300, 1)))
     r_odd = t(rng.integers(-1, K + 1, (R, 1001)).astype(np.int32))
+    r_every = t(np.tile((np.arange(1001) % K).astype(np.int32), (R, 1)))
+    r_never = t(np.repeat(rng.integers(0, K, (R, 1)).astype(np.int32),
+                          1001, axis=1))
     k32 = HostingGrid.from_costs([HostingCosts(
         M=4.0, levels=tuple(np.linspace(0, 1, 32)),
         g=tuple(1 - np.linspace(0, 1, 32)))] * 65, device=dev)
+
+    def e_case(rows, n, rr, tt0=t0, model2=None):
+        """E's arguments on the fleet's first rows and slots, schedule rr
+        (Model 1; model2: (svc, cols) instead)."""
+        a_ = (grid.levels[:rows].contiguous(), grid.M[:rows].contiguous(),
+              T_len[:rows].contiguous(), tt0, (
+                  carry[0][:rows].contiguous(),
+                  {k_: v[:rows].contiguous() for k_, v in carry[1].items()}),
+              rr[:rows, :n].contiguous(), c[:rows, :n].contiguous())
+        if model2 is not None:
+            return a_, dict(svc=model2[0][:rows, :n].contiguous(),
+                            svc_cols=model2[1][:rows].contiguous())
+        return a_, dict(x=x[:rows, :n].contiguous(),
+                        g=grid.g[:rows].contiguous())
+
+    fleet = ((grid.levels, grid.M, T_len, t0, carry, r, c),
+             dict(x=x, g=grid.g))
     ecases = [
-        ("fleet slab", (grid.levels, grid.M, T_len, t0, carry, r, c),
-         dict(x=x, g=grid.g)),
-        ("R - 3 rows, 1,001 slots, odd t0", sub_rows(
-            (grid.levels, grid.M, T_len), R - 3) + (t0 + 1, tuple(
-                sub_rows((carry[0],), R - 3)) + ({
-                    k_: v[:R - 3].contiguous() for k_, v in carry[1].items()},
-                ), r_odd[:R - 3].contiguous(), c[:R - 3, :1001].contiguous()),
-         dict(x=x[:R - 3, :1001].contiguous(), g=grid.g[:R - 3].contiguous())),
-        ("Model-2 slab of 5 levels, a column map", (
-            grid.levels, grid.M, T_len, t0, carry, r_odd,
-            c[:, :1001].contiguous()), dict(svc=svc, svc_cols=cols)),
+        ("fleet slab",) + fleet,
+        ("fleet slab, 4-byte route", fleet[0][:5] + (H.misaligned(r), c),
+         fleet[1]),
+        ("R - 3 rows, 1,001 slots, odd t0",
+         *e_case(R - 3, 1001, r_odd, t0 + 1)),
+        ("Model-2 slab of 5 levels, a column map",
+         *e_case(R, 1001, r_odd, model2=(svc, cols))),
+        ("Model-2 slab of 32 levels, a column map, 300 rows",
+         *e_case(300, 333, r_odd, model2=(svc32, cols32))),
+        (f"a tile - 1 ({et - 1} slots)", *e_case(R - 3, et - 1, r)),
+        (f"a tile + 1 ({et + 1})", *e_case(R - 3, et + 1, r)),
+        (f"the ring - 1 ({ering - 1}), 300 rows",
+         *e_case(300, ering - 1, r_odd)),
+        (f"the ring + 1 ({ering + 1}), 300 rows",
+         *e_case(300, ering + 1, r_odd)),
+        (f"33 rows, the ring + 4 ({ering + 4}): bulk",
+         *e_case(33, ering + 4, r_odd)),
+        ("a new level every slot, 1,001 slots",
+         *e_case(R, 1001, r_every)),
+        ("one level a row throughout, 1,000 slots",
+         *e_case(R, 1000, r_never)),
         ("K = 32, 65 rows", (k32.levels, k32.M, T_len[:65], t0, (
             carry[0][:65].contiguous(), {
                 "sums": sums[:65].contiguous(), "counts": t(rng.integers(
@@ -1092,19 +1228,32 @@ def schedule_kernel_checks(dev):
         log(f"E ok: {name}, the sums' products fused and not")
     a, kw = ecases[0][1], ecases[0][2]
     ms = cuda_ms(lambda: H.schedule_chunk(*a, **kw), reps=10, batch=10)
+    a_narrow, kw_narrow = ecases[1][1], ecases[1][2]
+    narrow_ms = cuda_ms(lambda: H.schedule_chunk(*a_narrow, **kw_narrow),
+                        reps=10, batch=10)
+    clock = sm_clock_mhz(lambda: H.schedule_chunk(*a, **kw), ms)
     plain_ms, _ = timed_once(lambda: H.schedule_chunk_plain(*a, **kw))
     out = H.schedule_chunk(*a, **kw)
+    e_bytes = nbytes(grid.levels, grid.M, T_len, carry[0],
+                     *carry[1].values(), r, c, x, grid.g, out[0],
+                     *out[1].values())
     # per row and slot: the two level selects, the fetch (sub, max, mul),
     # the rent and the service products, three adds, the count
     rec["schedule_chunk"] = dict(
         replaces="src/repro/core/simulator.py:390 (no TPU kernel: the "
                  "lax.scan of schedule_chunk_core)",
-        ms=ms, plain_ms=plain_ms, max_abs_err=0.0, ops=R * chunk * 10,
-        nbytes=nbytes(grid.levels, grid.M, T_len, carry[0], *carry[1].values(),
-                      r, c, x, grid.g, out[0], *out[1].values()),
+        ms=ms, prev_ms=PREV_MS["schedule_chunk"], plain_ms=plain_ms,
+        narrow_ms=narrow_ms, sm_clock_mhz=clock,
+        cycles_per_slot=ms * clock * 1e3 / chunk, max_abs_err=0.0,
+        ops=R * chunk * 10, nbytes=e_bytes,
         shape=f"R={R} chunk={chunk} K={K}: a backtracked schedule priced "
-              f"under Model 1")
-    log(f"E timed: {ms:.4f} ms, plain {plain_ms:.1f} ms")
+              f"under Model 1 (bulk route; narrow_ms: the 4-byte route)")
+    e = rec["schedule_chunk"]
+    e_bound = e_bytes / PEAK_BYTES * 1e3
+    log(f"E timed: {e['prev_ms']:.4f} -> {ms:.4f} ms ({e_bound / ms:.1%} "
+        f"of its byte bound {e_bound:.4f} ms; {e['cycles_per_slot']:.1f} "
+        f"cycles a slot at {clock:.0f} MHz); the 4-byte route "
+        f"{narrow_ms:.4f} ms; plain {plain_ms:.1f} ms")
 
     # S with the rent fused: one alpha-RR row, three static rows
     from repro_torch.core.policies.baselines import static_step
@@ -3560,7 +3709,8 @@ def main() -> int:
                     "salt_ops_per_slot", "salt_int_pipe_bound_ms",
                     "salt_issue_bound_ms", "latency_bound_ms", "chain_ops",
                     "bulk_ms", "fleet_bulk_ms", "fleet_sectors_per_slot",
-                    "fleet_sector_bound_ms"):
+                    "fleet_sector_bound_ms", "narrow_ms", "one_block_ms",
+                    "one_block_cycles_per_slot"):
             if key in r:
                 entry[key] = r[key]
         kernels.append(entry)

@@ -83,6 +83,9 @@ LIBRARIES = {
         # svc / cols NULL), prev_out, sums_out, counts_out, R, chunk, K,
         # Kf, t0, fma (bit 0 the rent, bit 1 the fetch), stream
         "launch_schedule": (_P,) * 15 + (_I,) * 6 + (_P,),
+        # B's and E's layout: words a slot, chunk, box; none; words
+        "be_tile_slots": (_I,) * 3, "be_ring_stages": (),
+        "be_row_stride": (_I,),
     }),
     "flash_attention": (_COMMON, {
         # q, k, v, out, B, Sq, Skv, Hq, Hkv, hd, causal, q_offset, stream

@@ -49,6 +49,7 @@
 // Each entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -2562,72 +2563,237 @@ __global__ void __launch_bounds__(96) sim_kernel(
 }
 
 // ---------------------------------------------------------------------
-// B: dp_backtrack_kernel.  No TPU counterpart: the reference backtracks
-// the DP's argmin table with a reverse lax.scan (dp_backtrack_chunk,
-// src/repro/core/policies/offline_opt.py:162), which XLA runs as a loop.
+// B and E: a producer warp and a ring of tiles.
+//
+// A block owns kRows = 32 rows.  The first warps produce: they stage a
+// tile of ts slots of the rows (ts a multiple of 4: be_tile) into a
+// ring of kBeStages stages, by bulk
+// copies completed on the stage's mbarrier by transaction count when every
+// row is 16-byte aligned (chunk % 4 == 0 and aligned pointers: the BULK
+// instances, one producer warp; B one cp.async.bulk a row, E one 2D
+// tensor copy an array), else by 4-byte cp.async from several producer
+// warps, whose lanes each hand their completion to the same mbarrier
+// (cp.async.mbarrier.arrive.noinc).  The other warps
+// walk tile i while the tiles after it land, and release each stage on
+// its empty mbarrier.  A stage's rows are 16-byte aligned with an odd
+// stride in 16-byte units, so that 8 consecutive rows start on 8 distinct
+// groups of 4 banks.
+// ---------------------------------------------------------------------
+
+constexpr int kBeStages = 4;                     // tiles in the ring
+constexpr int kBeBarBytes = 2 * kBeStages * 8;   // full[], empty[]
+// a row's segment of a stage: at most kBeRowWords words and kBeMaxTile
+// slots; a row of one of E's arrays at most kBeMaxBox words (a tensor
+// copy's box)
+constexpr int kBeRowWords = 320, kBeMaxTile = 256, kBeMaxBox = 256;
+
+// a stage row's words for `words` words of payload
+__host__ __device__ constexpr int be_stride(int words) {
+  return 4 * (((words + 3) / 4) | 1);
+}
+
+// the slots of one tile of B (words = K, box 0) or E (words 3, box 1
+// under Model 1; 2 + Kf and Kf on a Model-2 slab): whole 4-slot groups
+// (bulk copies move whole 16-byte groups), within kBeRowWords and
+// kBeMaxTile, no more than the chunk needs; E's also keep a row of each
+// array within a box and hold an odd number of groups (E lays a row at a
+// pitch of the tile, where a quarter warp's 16-byte loads of 8 rows then
+// hit the 32 banks once)
+inline int be_tile(int words, int chunk, int box) {
+  int g = std::min(std::min(kBeRowWords / words, kBeMaxTile),
+                   std::min(kBeMaxBox / std::max(box, 1),
+                            (chunk + 3) / 4 * 4)) / 4;
+  if (box && g % 2 == 0) --g;
+  return 4 * std::max(1, g);
+}
+
+__device__ __forceinline__ void bulk_s2g(void* dst, const void* src,
+                                         uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// this thread's bulk groups but the newest N have read their source
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// this thread's bulk groups are complete
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// the ring's barriers: full[s] (one expect_tx arrival on the bulk route,
+// a cp.async arrival a lane of the P producer warps otherwise), empty[s]
+// (one arrival a warp that reads the stage)
+template <bool BULK, int P>
+__device__ __forceinline__ void be_init_ring(uint64_t* full, uint64_t* empty,
+                                             int readers) {
+  for (int s = 0; s < kBeStages; ++s) {
+    mbar_init(&full[s], BULK ? 1u : 32u * P);
+    mbar_init(&empty[s], (uint32_t)readers);
+  }
+  fence_mbar_init();
+}
+
+// a walker warp is done reading stage s: order its reads before the
+// producer's next (async-proxy) copy into it, then one arrival
+__device__ __forceinline__ void be_release(uint64_t* empty, int lane) {
+  fence_proxy_async();
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty);
+}
+
+// ---------------------------------------------------------------------
+// B: dp_backtrack_kernel<BULK>.  No TPU counterpart: the reference
+// backtracks the DP's argmin table with a reverse lax.scan
+// (dp_backtrack_chunk, src/repro/core/policies/offline_opt.py:162), which
+// XLA runs as a loop.
 //
 // Per row, right to left over the chunk: r[t] = k; k = args[t, k].  It
 // returns k at the chunk's entry and r [R, chunk].
 //
-// Bound: bytes -- it reads the table (4 K bytes a slot) and writes r (4).
-// Design: a block owns kRows = 32 rows.  The walk is a chain of dependent
-// loads, one row per lane of warp 0; a row-major table read a slot at a
-// time by each lane would be one uncoalesced load per slot, so the block's
-// four warps first copy a tile of the rows' table segments (each row's
-// tile is contiguous in global memory) into shared memory, lanes over
-// consecutive words, then warp 0 walks the tile and the block writes the
-// tile's r back, lanes over slots.  Tiles go right to left; a row's
-// shared-memory stride is odd, so the walking lanes hit distinct banks.
+// Bound: bytes -- it reads the table (4 K bytes a slot) and writes r (4);
+// below that, the walk: one dependent shared load a slot and row.
+// Design: the ring fills from the chunk's end (tile i covers the slots
+// chunk - (i + 1) ts .. chunk - i ts, the ragged tile leftmost, so that on
+// the bulk route every tile starts on a 4-slot boundary).  Four walker
+// warps walk 8 rows each, a row a lane: 8 rows' segments start on 8
+// distinct bank groups, so a step's loads (an offset k < 4 into the slot's
+// K words) meet no bank conflict for K <= 4.  BULK: a lane keeps four
+// slots of r and stores them with one 16-byte store into its row of a
+// double buffer, and sends the tile's r with one cp.async.bulk shared ->
+// global (bulk_group; read back before the buffer is reused two tiles
+// later, complete before the kernel ends).  Otherwise each step stores its
+// slot of r to global memory itself.
 // ---------------------------------------------------------------------
 
-constexpr int kTileRowWords = 224;      // shared words a row's tile, B or E
-constexpr int kBeThreads = 128;          // B's and E's block
+constexpr int kBtWalkers = 4;                        // B's walker warps
+constexpr int kBtRowsPerWalker = kRows / kBtWalkers;
+// producer warps: one issues a tile's bulk copies; one warp's 4-byte
+// cp.async keep too few bytes in flight, so that route takes four (the
+// 4-byte route of a fleet chunk: 0.2882 ms with one, 0.1337 with four,
+// 0.1390 with eight; H100 80GB HBM3, 700 W, tools/compare_hosting.py)
+template <bool BULK>
+constexpr int kBtProducers = BULK ? 1 : 4;
+template <bool BULK>
+constexpr int kBtThreads = 32 * (kBtProducers<BULK> + kBtWalkers);
 
-__global__ void __launch_bounds__(kBeThreads) dp_backtrack_kernel(
+// B's dynamic shared memory: barriers, the ring, r's double buffer
+inline size_t bt_smem_bytes(int ts, int K) {
+  const int row_words = kBeStages * be_stride(ts * K) + 2 * be_stride(ts);
+  return kBeBarBytes + sizeof(int) * (size_t)kRows * row_words;
+}
+
+template <bool BULK>
+__global__ void __launch_bounds__(kBtThreads<BULK>) dp_backtrack_kernel(
     const int* __restrict__ k_in, const int* __restrict__ args,
     int* __restrict__ k_out, int* __restrict__ r_out, int R, int chunk,
     int K, int ts) {
-  extern __shared__ int be_smem[];
+  extern __shared__ __align__(128) unsigned char be_smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(be_smem);
+  uint64_t* empty = full + kBeStages;
+  const int as = be_stride(ts * K), rs = be_stride(ts);
+  int* ring = reinterpret_cast<int*>(be_smem + kBeBarBytes);  // [s][row][as]
+  int* rbuf = ring + kBeStages * kRows * as;                  // [2][row][rs]
   const int row0 = blockIdx.x * kRows;
   const int nrows = min(kRows, R - row0);
-  const int as = ts * K + 1;                   // a row's table words, odd
-  const int rs = ts + 1;                       // a row's r words
-  int* at = be_smem;                           // [kRows][as]
-  int* rt = be_smem + kRows * as;              // [kRows][rs]
-  const int lane = threadIdx.x;                // warp 0's lanes walk
-  const bool walker = threadIdx.x < 32 && lane < nrows;
-  int k = walker ? k_in[row0 + lane] : 0;
-  for (int end = chunk; end > 0; end -= ts) {
-    const int j0 = max(0, end - ts);
-    const int n = end - j0;
-    const int seg = n * K;
-    for (int i = threadIdx.x; i < nrows * seg; i += kBeThreads) {
-      const int r = i / seg, o = i - r * seg;
-      at[r * as + o] =
-          args[((long long)(row0 + r) * chunk + j0) * K + o];
-    }
-    __syncthreads();
-    if (walker) {
-      const int* a = at + lane * as;
-      int* rr = rt + lane * rs;
-      for (int j = n - 1; j >= 0; --j) {
-        rr[j] = k;
-        k = a[j * K + k];
+  const int ntiles = (chunk + ts - 1) / ts;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int P = kBtProducers<BULK>;
+  if (threadIdx.x == 0) be_init_ring<BULK, P>(full, empty, kBtWalkers);
+  __syncthreads();
+
+  if (warp < P) {                                // a producer
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % kBeStages;
+      const int end = chunk - i * ts, j0 = max(0, end - ts), n = end - j0;
+      if (i >= kBeStages)
+        mbar_wait(&empty[s], (uint32_t)(((i / kBeStages) - 1) & 1));
+      int* st = ring + s * kRows * as;
+      if constexpr (BULK) {
+        if (lane == 0)
+          mbar_arrive_expect_tx(&full[s], (uint32_t)(nrows * n * K * 4));
+        __syncwarp();
+        if (lane < nrows)
+          bulk_g2s(st + lane * as,
+                   args + ((long long)(row0 + lane) * chunk + j0) * K,
+                   (uint32_t)(n * K * 4), &full[s]);
+      } else {                                   // rows warp, warp + P, ..
+        const int seg = n * K;
+        for (int r = warp; r < nrows; r += P) {
+          const int* src = args + ((long long)(row0 + r) * chunk + j0) * K;
+          for (int o = lane; o < seg; o += 32) cp_async4(st + r * as + o,
+                                                         src + o);
+        }
+        cp_async_arrive_noinc(&full[s]);
       }
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < nrows * n; i += kBeThreads) {
-      const int r = i / n, j = i - r * n;
-      r_out[(long long)(row0 + r) * chunk + j0 + j] = rt[r * rs + j];
-    }
-    __syncthreads();
+    if constexpr (!BULK) cp_async_wait_all();
+    return;
   }
-  if (walker) k_out[row0 + lane] = k;
+
+  // a walker lane: row rl of the block (lanes past kBtRowsPerWalker idle)
+  const int rl = (warp - P) * kBtRowsPerWalker + lane;
+  const bool live = lane < kBtRowsPerWalker && rl < nrows;
+  const long long roff = (long long)(row0 + rl) * chunk;
+  int k = live ? k_in[row0 + rl] : 0;
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % kBeStages;
+    const int end = chunk - i * ts, j0 = max(0, end - ts), n = end - j0;
+    mbar_wait(&full[s], (uint32_t)((i / kBeStages) & 1));
+    if (live) {
+      const int* a = ring + (s * kRows + rl) * as;
+      if constexpr (BULK) {                      // n % 4 == 0
+        int* rr = rbuf + ((i & 1) * kRows + rl) * rs;
+        if (i >= 2) bulk_wait_read<1>();         // tile i - 2's copy out
+        for (int q = n / 4 - 1; q >= 0; --q) {
+          const int* aq = a + 4 * q * K;
+          int4 v;
+          v.w = k;
+          k = aq[3 * K + k];
+          v.z = k;
+          k = aq[2 * K + k];
+          v.y = k;
+          k = aq[K + k];
+          v.x = k;
+          k = aq[k];
+          *reinterpret_cast<int4*>(rr + 4 * q) = v;
+        }
+        fence_proxy_async();                     // rr's stores, then the copy
+        bulk_s2g(r_out + roff + j0, rr, (uint32_t)(n * 4));
+        bulk_commit();
+      } else {
+        int* ro = r_out + roff + j0;
+        for (int j = n - 1; j >= 0; --j) {
+          ro[j] = k;
+          k = a[j * K + k];
+        }
+      }
+    }
+    be_release(&empty[s], lane);
+  }
+  if (live) {
+    if constexpr (BULK) bulk_wait_all();
+    k_out[row0 + rl] = k;
+  }
 }
 
 // ---------------------------------------------------------------------
-// E: schedule_kernel<SVC, FMA>.  No TPU counterpart: the reference prices a
-// given schedule with the lax.scan of schedule_chunk_core
+// E: schedule_kernel<SVC, FMA, BULK>.  No TPU counterpart: the reference
+// prices a given schedule with the lax.scan of schedule_chunk_core
 // (src/repro/core/simulator.py:390), which XLA runs as a loop.
 //
 // Per row and slot t of the chunk, entered from the held level prev: the
@@ -2642,17 +2808,72 @@ __global__ void __launch_bounds__(kBeThreads) dp_backtrack_kernel(
 // adds, as the reference's vmapped scans contract them on a small batch
 // (simulator.xla_acc_fma); FMA = 1 over S's trace gives S's rent so fused.
 // FMA is a template argument: as a run-time flag its branches cost the
-// walk 28% at the fleet's shape (a 4,096 x 4,096 chunk, H100).
+// walk 28% at the fleet's shape (a 4,096 x 4,096 chunk, H100 80GB HBM3,
+// 700 W).
 //
 // Bound: bytes -- it reads r, c and x (12 bytes a slot) or r, c and the
-// slab (8 + 4 Kf).  Design: B's tiling -- the block's warps copy a tile
-// of the 32 rows' r, c and x (or svc) into shared memory, lanes over
-// consecutive words of a row, and warp 0 walks it, a row a lane, its
-// counts in shared memory (K is a run-time value, up to 32).
+// slab (8 + 4 Kf).  Design: the producer stages a tile of r, c and x (or
+// the slab's [slot][Kf] words) of the block's 32 rows left to right, on
+// the bulk route one 2D tensor copy (cp.async.bulk.tensor) an array and
+// tile: a bulk copy a row and array, ~400 bytes each, cost ~20 cycles
+// apiece beside their bytes, and E's copies alone took 0.1102 ms a fleet
+// chunk that way, 0.0683 ms as tensor copies (H100 80GB HBM3, 700 W;
+// tools/compare_hosting.py).  The walker warp walks a row a lane, four
+// slots of r, c and x a 16-byte load each (conflict-free: a quarter warp's
+// 8 rows cover the 32 banks); the level value held (lv[prev], or 0) is
+// carried from the slot before, and the valid slots, a prefix of the row,
+// are walked without masks, so the walk stores nothing to shared memory
+// and has no branch a slot.  It is software-pipelined: four slots are
+// priced while the next four's level words and r, c and x of the four
+// after are loaded.  The counts are order-free integers: a third warp, a
+// row a lane, counts each valid slot's level, levels 0 to 3 in registers
+// (added to the row's counts at the chunk's end) and, when K > 4, higher
+// levels by a shared atomicAdd whose result nothing waits for (an atomic,
+// or a branch, a slot made the counter the slowest warp).  The rows'
+// levels, g (or column map) and counts lie in shared memory with an odd
+// row stride.
 // ---------------------------------------------------------------------
 
-template <bool SVC, int FMA>
-__global__ void __launch_bounds__(kBeThreads) schedule_kernel(
+// producer warps as B's (E's 4-byte route of a fleet chunk: 0.4989 ms
+// with one, 0.1704 with four, 0.1244 with eight; the same card and
+// script), the walker, the counter
+template <bool BULK>
+constexpr int kScProducers = BULK ? 1 : 8;
+template <bool BULK>
+constexpr int kScThreads = 32 * (kScProducers<BULK> + 2);
+
+// E's stage, a row pitch of ts words (ts / 4 odd: a quarter warp's
+// 16-byte loads of 8 rows hit the 32 banks once) for r and c and x, of
+// ts * Kf for the slab: each array one tensor copy's box of kRows rows
+struct ScShape {
+  int xw, ks, stage;
+  __host__ __device__ ScShape(int ts, int K, int Kf, bool svc)
+      : xw(svc ? Kf : 1), ks((K + 1) | 1),
+        stage(kRows * ts * (2 + (svc ? Kf : 1))) {}
+};
+
+// E's dynamic shared memory: the ring (128-byte aligned, as the tensor
+// copies want it), the rows' level words, the barriers
+inline size_t sc_smem_bytes(int ts, int K, int Kf, bool svc) {
+  const ScShape sh(ts, K, Kf, svc);
+  return kBeBarBytes + sizeof(int) * ((size_t)kBeStages * sh.stage
+                                      + (size_t)3 * kRows * sh.ks);
+}
+
+// a 2D tensor copy of one box into shared memory, completed on bar by
+// transaction count: inner coordinate c0 (words), outer c1 (rows)
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
+                                       int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+template <bool SVC, int FMA, bool BULK>
+__global__ void __launch_bounds__(kScThreads<BULK>) schedule_kernel(
     const float* __restrict__ lv_g, const float* __restrict__ g_g,
     const float* __restrict__ M_g, const int* __restrict__ Tlen_g,
     const int* __restrict__ prev_in, const float* __restrict__ sums_in,
@@ -2661,22 +2882,25 @@ __global__ void __launch_bounds__(kBeThreads) schedule_kernel(
     const float* __restrict__ svc_g, const int* __restrict__ cols_g,
     int* __restrict__ prev_out, float* __restrict__ sums_out,
     int* __restrict__ counts_out, int R, int chunk, int K, int Kf, int t0,
-    int ts) {
-  extern __shared__ int be_smem[];
+    int ts, const __grid_constant__ CUtensorMap tm_r,
+    const __grid_constant__ CUtensorMap tm_c,
+    const __grid_constant__ CUtensorMap tm_x) {
+  extern __shared__ __align__(128) unsigned char be_smem[];
+  const ScShape sh(ts, K, Kf, SVC);
+  const int xw = sh.xw, ks = sh.ks;
+  int* ring = reinterpret_cast<int*>(be_smem);   // [s]: r, c, x or slab
+  float* lv = reinterpret_cast<float*>(ring + kBeStages * sh.stage);
+  float* gk = lv + kRows * ks;                   // Model 1: g
+  int* cl = reinterpret_cast<int*>(gk);          // SVC: the column map
+  int* cnt = reinterpret_cast<int*>(gk + kRows * ks);
+  uint64_t* full = reinterpret_cast<uint64_t*>(cnt + kRows * ks);
+  uint64_t* empty = full + kBeStages;
   const int row0 = blockIdx.x * kRows;
   const int nrows = min(kRows, R - row0);
-  const int ks = K + 1;                          // a row's level words
-  const int vs = ts + 1;                         // a row's r / c / x words
-  const int ss = ts * Kf + 1;                    // a row's slab words
-  float* lv = (float*)be_smem;                   // [kRows][ks]
-  float* gk = lv + kRows * ks;                   // Model 1: g
-  int* cl = (int*)(gk + kRows * ks);             // SVC: the column map
-  int* cnt = cl + kRows * ks;                    // [kRows][ks]
-  int* rt = cnt + kRows * ks;                    // [kRows][vs]
-  float* ct = (float*)(rt + kRows * vs);         // [kRows][vs]
-  int* xt = (int*)(ct + kRows * vs);             // Model 1: [kRows][vs]
-  float* st = (float*)(xt + kRows * vs);         // SVC: [kRows][ss]
-  for (int i = threadIdx.x; i < nrows * K; i += kBeThreads) {
+  const int ntiles = (chunk + ts - 1) / ts;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int P = kScProducers<BULK>;
+  for (int i = threadIdx.x; i < nrows * K; i += kScThreads<BULK>) {
     const int r = i / K, k = i - r * K;
     const long long gi = (long long)(row0 + r) * K + k;
     lv[r * ks + k] = lv_g[gi];
@@ -2684,80 +2908,218 @@ __global__ void __launch_bounds__(kBeThreads) schedule_kernel(
     if (SVC) cl[r * ks + k] = cols_g ? cols_g[gi] : k;
     else gk[r * ks + k] = g_g[gi];
   }
-  const int lane = threadIdx.x;
-  const bool walker = threadIdx.x < 32 && lane < nrows;
+  if (threadIdx.x == 0) be_init_ring<BULK, P>(full, empty, 2);
+  __syncthreads();
+
+  if (warp < P) {                                // a producer
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % kBeStages;
+      const int j0 = i * ts, n = min(ts, chunk - j0);
+      if (i >= kBeStages)
+        mbar_wait(&empty[s], (uint32_t)(((i / kBeStages) - 1) & 1));
+      int* rt = ring + s * sh.stage;
+      int* ct = rt + kRows * ts;
+      int* xt = ct + kRows * ts;                 // x, or the slab
+      if constexpr (BULK) {
+        // three boxes of kRows rows (those past R, and the slots past the
+        // chunk, filled with zeros and counted all the same)
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[s], (uint32_t)(sh.stage * 4));
+          tma_2d(rt, &tm_r, j0, row0, &full[s]);
+          tma_2d(ct, &tm_c, j0, row0, &full[s]);
+          tma_2d(xt, &tm_x, j0 * xw, row0, &full[s]);
+        }
+      } else {
+        const int* xsrc = SVC ? reinterpret_cast<const int*>(svc_g) : x_g;
+        for (int r = warp; r < nrows; r += P) {  // rows warp, warp + P, ..
+          const long long off = (long long)(row0 + r) * chunk + j0;
+          for (int jj = lane; jj < n; jj += 32) {
+            cp_async4(rt + r * ts + jj, r_g + off + jj);
+            cp_async4(ct + r * ts + jj, c_g + off + jj);
+          }
+          for (int o = lane; o < n * xw; o += 32)
+            cp_async4(xt + r * ts * xw + o, xsrc + off * xw + o);
+        }
+        cp_async_arrive_noinc(&full[s]);
+      }
+    }
+    if constexpr (!BULK) cp_async_wait_all();
+    return;
+  }
+
+  if (warp == P + 1) {                           // the counter: a row a lane
+    const bool live = lane < nrows;
+    const int T_len = live ? Tlen_g[row0 + lane] : 0;
+    int* cr = cnt + lane * ks;
+    int c0 = 0, c1 = 0, c2 = 0, c3 = 0;          // levels 0 .. 3
+    // a slot's level: levels 0 to 3 in registers (those at or past K are
+    // dropped at the end), higher ones (WIDE: K > 4) by a shared atomic
+    auto count = [&](int r_t, auto wide) {
+      c0 += r_t == 0;
+      c1 += r_t == 1;
+      c2 += r_t == 2;
+      c3 += r_t == 3;
+      if constexpr (decltype(wide)::value)
+        if (r_t >= 4 && r_t < K) atomicAdd(&cr[r_t], 1);
+    };
+    auto count_tile = [&](const int* rt, int nv, auto wide) {
+      int j = 0;
+      for (; j + 4 <= nv; j += 4) {
+        const int4 r4 = *reinterpret_cast<const int4*>(rt + j);
+        count(r4.x, wide);
+        count(r4.y, wide);
+        count(r4.z, wide);
+        count(r4.w, wide);
+      }
+      for (; j < nv; ++j) count(rt[j], wide);
+    };
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % kBeStages;
+      const int j0 = i * ts, n = min(ts, chunk - j0);
+      mbar_wait(&full[s], (uint32_t)((i / kBeStages) & 1));
+      if (live) {
+        const int* rt = ring + s * sh.stage + lane * ts;
+        const int nv = min(n, T_len - (t0 + j0));   // the valid slots
+        if (K > 4)
+          count_tile(rt, nv, std::true_type{});
+        else
+          count_tile(rt, nv, std::false_type{});
+      }
+      be_release(&empty[s], lane);
+    }
+    if (live) {
+      const int cl4[4] = {c0, c1, c2, c3};
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (k < K) cr[k] += cl4[k];
+    }
+    __syncwarp();
+    for (int i = lane; i < nrows * K; i += 32) {
+      const int r = i / K, k = i - r * K;
+      counts_out[(long long)(row0 + r) * K + k] = cnt[r * ks + k];
+    }
+    return;
+  }
+
+  // the walker: one row a lane.  The valid slots are a prefix of the row
+  // (t < T_len), so the walk prices the tile's first nv slots unmasked; a
+  // masked slot would add 0 to each unfused sum (and leave the rest as
+  // they are), which the tile's x + 0 once stands for (it changes only a
+  // sum of -0 into +0).
+  const bool live = lane < nrows;
   const int row = row0 + lane;
+  const float* lvr = lv + lane * ks;
+  const float* gkr = gk + lane * ks;
+  const int* clr = cl + lane * ks;
   int prev = 0, T_len = 0;
   float M = 0.0f, s_rent = 0.0f, s_svc = 0.0f, s_fetch = 0.0f;
-  if (walker) {
+  float lv_prev = 0.0f;           // pin ? lv[prev] : 0, carried slot to slot
+  if (live) {
     prev = prev_in[row];
     T_len = Tlen_g[row];
     M = M_g[row];
     s_rent = sums_in[row * 3 + 0];
     s_svc = sums_in[row * 3 + 1];
     s_fetch = sums_in[row * 3 + 2];
+    lv_prev = prev >= 0 && prev < K ? lvr[prev] : 0.0f;
   }
-  for (int j0 = 0; j0 < chunk; j0 += ts) {
-    const int n = min(ts, chunk - j0);
-    for (int i = threadIdx.x; i < nrows * n; i += kBeThreads) {
-      const int r = i / n, j = i - r * n;
-      const long long gi = (long long)(row0 + r) * chunk + j0 + j;
-      rt[r * vs + j] = r_g[gi];
-      ct[r * vs + j] = c_g[gi];
-      if (!SVC) xt[r * vs + j] = x_g[gi];
-    }
-    if (SVC) {
-      const int seg = n * Kf;
-      for (int i = threadIdx.x; i < nrows * seg; i += kBeThreads) {
-        const int r = i / seg, o = i - r * seg;
-        st[r * ss + o] = svc_g[((long long)(row0 + r) * chunk + j0) * Kf + o];
-      }
-    }
-    __syncthreads();
-    if (walker) {
-      const float* lvr = lv + lane * ks;
-      int* cr = cnt + lane * ks;
-      for (int j = 0; j < n; ++j) {
-        const int r_t = rt[lane * vs + j];
-        const bool in = r_t >= 0 && r_t < K;
-        const bool pin = prev >= 0 && prev < K;
-        const bool valid = t0 + j0 + j < T_len;
-        const float lv_t = in ? lvr[r_t] : 0.0f;
-        const float lv_prev = pin ? lvr[prev] : 0.0f;
-        const float fetch = M * fmaxf(lv_t - lv_prev, 0.0f);
-        const float rent = ct[lane * vs + j] * lv_t;
-        float svc_t = 0.0f;
-        if (in) {
-          if (SVC)
-            svc_t = st[lane * ss + j * Kf + cl[lane * ks + r_t]];
-          else
-            svc_t = (float)xt[lane * vs + j] * gk[lane * ks + r_t];
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % kBeStages;
+    const int j0 = i * ts, n = min(ts, chunk - j0);
+    mbar_wait(&full[s], (uint32_t)((i / kBeStages) & 1));
+    if (live) {
+      const int* rt = ring + s * sh.stage + lane * ts;
+      const float* ct =
+          reinterpret_cast<const float*>(ring + s * sh.stage + kRows * ts)
+          + lane * ts;
+      const int* xt = ring + s * sh.stage + 2 * kRows * ts + lane * ts * xw;
+      const int nv = max(0, min(n, T_len - (t0 + j0)));
+      // slot j of the row: r_t, c_t, x_t, and the level words at r_t (the
+      // level value; Model 1: g, SVC: the slab's word)
+      auto price = [&](int r_t, float c_t, int x_t, float lv_w, float sv_w) {
+        const bool in = (unsigned)r_t < (unsigned)K;
+        const float lv_t = in ? lv_w : 0.0f;
+        float sv = sv_w;
+        if constexpr (!SVC) sv = (float)x_t * sv_w;
+        const float d = fmaxf(lv_t - lv_prev, 0.0f);
+        if constexpr ((FMA & 1) != 0)
+          s_rent = __fmaf_rn(c_t, lv_t, s_rent);
+        else
+          s_rent = s_rent + c_t * lv_t;
+        if constexpr ((FMA & 2) != 0)
+          s_fetch = __fmaf_rn(M, d, s_fetch);
+        else
+          s_fetch = s_fetch + M * d;
+        s_svc = s_svc + (in ? sv : 0.0f);
+        lv_prev = lv_t;
+        prev = r_t;
+      };
+      auto level_words = [&](int r_t, int j, float& lv_w, float& sv_w) {
+        const int ri = (unsigned)r_t < (unsigned)K ? r_t : 0;
+        lv_w = lvr[ri];
+        if constexpr (SVC)
+          sv_w = __int_as_float(xt[j * Kf + clr[ri]]);
+        else
+          sv_w = gkr[ri];
+      };
+      // groups of four slots, software-pipelined: group q is priced while
+      // the level words of q + 1 and r, c and x of q + 2 are loaded (loads
+      // past the valid slots stay inside the row and go unused)
+      struct Group {
+        int r[4], x[4];
+        float c[4], lv[4], sv[4];
+      };
+      auto load_rcx = [&](int j, Group& G) {
+        const int4 r4 = *reinterpret_cast<const int4*>(rt + j);
+        const float4 c4 = *reinterpret_cast<const float4*>(ct + j);
+        int4 x4 = make_int4(0, 0, 0, 0);
+        if constexpr (!SVC) x4 = *reinterpret_cast<const int4*>(xt + j);
+        G.r[0] = r4.x, G.r[1] = r4.y, G.r[2] = r4.z, G.r[3] = r4.w;
+        G.c[0] = c4.x, G.c[1] = c4.y, G.c[2] = c4.z, G.c[3] = c4.w;
+        G.x[0] = x4.x, G.x[1] = x4.y, G.x[2] = x4.z, G.x[3] = x4.w;
+      };
+      auto load_levels = [&](int j, Group& G) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          level_words(G.r[u], j + u, G.lv[u], G.sv[u]);
+      };
+      const int jl = ts - 4;                     // the row's last group
+      int j = 0;
+      if (nv >= 4) {
+        Group cur, nxt;
+        load_rcx(0, cur);
+        load_levels(0, cur);
+        load_rcx(min(4, jl), nxt);
+#pragma unroll 3
+        for (; j + 4 <= nv; j += 4) {
+          Group nn;
+          load_rcx(min(j + 8, jl), nn);
+          load_levels(min(j + 4, jl), nxt);
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            price(cur.r[u], cur.c[u], cur.x[u], cur.lv[u], cur.sv[u]);
+          cur = nxt;
+          nxt = nn;
         }
-        if (FMA & 1)
-          s_rent = valid ? __fmaf_rn(ct[lane * vs + j], lv_t, s_rent) : s_rent;
-        else
-          s_rent = s_rent + (valid ? rent : 0.0f);
-        if (FMA & 2)
-          s_fetch = valid ? __fmaf_rn(M, fmaxf(lv_t - lv_prev, 0.0f), s_fetch)
-                          : s_fetch;
-        else
-          s_fetch = s_fetch + (valid ? fetch : 0.0f);
-        s_svc = s_svc + (valid ? svc_t : 0.0f);
-        if (valid && in) cr[r_t] += 1;
-        prev = valid ? r_t : prev;
+      }
+      for (; j < nv; ++j) {                      // the valid slots' last few
+        float lv_w, sv_w;
+        level_words(rt[j], j, lv_w, sv_w);
+        price(rt[j], ct[j], SVC ? 0 : xt[j], lv_w, sv_w);
+      }
+      if (nv < n) {                              // masked slots: x + 0
+        if constexpr ((FMA & 1) == 0) s_rent = s_rent + 0.0f;
+        if constexpr ((FMA & 2) == 0) s_fetch = s_fetch + 0.0f;
+        s_svc = s_svc + 0.0f;
       }
     }
-    __syncthreads();
+    be_release(&empty[s], lane);
   }
-  if (walker) {
+  if (live) {
     prev_out[row] = prev;
     sums_out[row * 3 + 0] = s_rent;
     sums_out[row * 3 + 1] = s_svc;
     sums_out[row * 3 + 2] = s_fetch;
-  }
-  for (int i = threadIdx.x; i < nrows * K; i += kBeThreads) {
-    const int r = i / K, k = i - r * K;
-    counts_out[(long long)(row0 + r) * K + k] = cnt[r * ks + k];
   }
 }
 
@@ -2926,7 +3288,7 @@ int launch_stream(StreamArgs a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// E's inputs (schedule_kernel's arguments but the tile's slots)
+// E's inputs (schedule_kernel's arguments)
 struct ScheduleArgs {
   const float *lv, *g, *M;
   const int *T_len, *prev_in;
@@ -2942,12 +3304,84 @@ struct ScheduleArgs {
   int R, chunk, K, Kf, t0, ts;
 };
 
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query (the library links no libcuda)
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline cudaError_t encode_tiled(EncodeTiled* fn) {
+  static std::atomic<void*> cached{nullptr};
+  void* f = cached.load(std::memory_order_relaxed);
+  if (!f) {
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess) return e;
+    if (q != cudaDriverEntryPointSuccess || !f) return cudaErrorNotSupported;
+    cached.store(f, std::memory_order_relaxed);
+  }
+  *fn = reinterpret_cast<EncodeTiled>(f);
+  return cudaSuccess;
+}
+
+// a [rows, width] matrix of 32-bit words (16-byte aligned, width % 4 ==
+// 0) seen in boxes of kRows rows x box words (box % 4 == 0, <= 256); a box
+// past the matrix's edge reads zeros
+inline cudaError_t row_map(CUtensorMap* map, const void* base, int rows,
+                           long long width, int box) {
+  EncodeTiled fn = nullptr;
+  const cudaError_t e = encode_tiled(&fn);
+  if (e != cudaSuccess) return e;
+  const cuuint64_t dim[2] = {(cuuint64_t)width, (cuuint64_t)rows};
+  const cuuint64_t stride[1] = {(cuuint64_t)width * 4};
+  const cuuint32_t boxd[2] = {(cuuint32_t)box, (cuuint32_t)kRows};
+  const cuuint32_t step[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, const_cast<void*>(base),
+            dim, stride, boxd, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+template <bool SVC, int FMA, bool BULK>
+int launch_sched(const ScheduleArgs& a, const CUtensorMap (&maps)[3],
+                 cudaStream_t st) {
+  const size_t bytes = sc_smem_bytes(a.ts, a.K, a.Kf, SVC);
+  const cudaError_t e = allow_smem(schedule_kernel<SVC, FMA, BULK>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  constexpr int threads = kScThreads<BULK>;
+  schedule_kernel<SVC, FMA, BULK>
+      <<<n_blocks(a.R, kRows), threads, bytes, st>>>(
+          a.lv, a.g, a.M, a.T_len, a.prev_in, a.sums_in, a.counts_in, a.r,
+          a.c, a.x, a.svc, a.cols, a.prev_out, a.sums_out, a.counts_out, a.R,
+          a.chunk, a.K, a.Kf, a.t0, a.ts, maps[0], maps[1], maps[2]);
+  return (int)cudaGetLastError();
+}
+
+// E's route: tensor copies when every row of r, c and x (or the slab) is
+// 16-byte aligned, else 4-byte cp.async
 template <bool SVC, int FMA>
-void launch_sched(const ScheduleArgs& a, size_t bytes, cudaStream_t st) {
-  schedule_kernel<SVC, FMA><<<n_blocks(a.R, kRows), kBeThreads, bytes, st>>>(
-      a.lv, a.g, a.M, a.T_len, a.prev_in, a.sums_in, a.counts_in, a.r, a.c,
-      a.x, a.svc, a.cols, a.prev_out, a.sums_out, a.counts_out, a.R, a.chunk,
-      a.K, a.Kf, a.t0, a.ts);
+int launch_sched_route(const ScheduleArgs& a, cudaStream_t st) {
+  const void* xs = SVC ? (const void*)a.svc : (const void*)a.x;
+  const int xw = SVC ? a.Kf : 1;
+  CUtensorMap maps[3] = {};                      // unused on the 4-byte route
+  if (!bulk_ok(a.r, a.c, a.chunk) || (uintptr_t)xs % 16 != 0)
+    return launch_sched<SVC, FMA, false>(a, maps, st);
+  cudaError_t e = row_map(&maps[0], a.r, a.R, a.chunk, a.ts);
+  if (e == cudaSuccess) e = row_map(&maps[1], a.c, a.R, a.chunk, a.ts);
+  if (e == cudaSuccess)
+    e = row_map(&maps[2], xs, a.R, (long long)a.chunk * xw, a.ts * xw);
+  if (e != cudaSuccess) return (int)e;
+  return launch_sched<SVC, FMA, true>(a, maps, st);
 }
 
 }  // namespace
@@ -3069,12 +3503,15 @@ int launch_dp_backtrack(const void* k_in, const void* args, void* k_out,
                         void* r, int R, int chunk, int K, void* stream) {
   if (K < 1 || K > 32 || chunk < 1) return (int)cudaErrorInvalidValue;
   if (R <= 0) return (int)cudaGetLastError();
-  // a row's tile: ts * K + 1 table words and ts + 1 of r
-  const int ts = std::max(1, std::min(chunk, (kTileRowWords - 2) / (K + 1)));
-  const size_t bytes =
-      (size_t)kRows * ((ts * K + 1) + (ts + 1)) * sizeof(int);
-  dp_backtrack_kernel<<<n_blocks(R, kRows), kBeThreads, bytes,
-                        (cudaStream_t)stream>>>(
+  const int ts = be_tile(K, chunk, 0);
+  const size_t bytes = bt_smem_bytes(ts, K);
+  const bool bulk = bulk_ok(args, r, chunk);
+  void (*kern)(const int*, const int*, int*, int*, int, int, int, int) =
+      bulk ? dp_backtrack_kernel<true> : dp_backtrack_kernel<false>;
+  const cudaError_t e = allow_smem(kern, bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int threads = bulk ? kBtThreads<true> : kBtThreads<false>;
+  kern<<<n_blocks(R, kRows), threads, bytes, (cudaStream_t)stream>>>(
       (const int*)k_in, (const int*)args, (int*)k_out, (int*)r, R, chunk, K,
       ts);
   return (int)cudaGetLastError();
@@ -3096,36 +3533,36 @@ int launch_schedule(const void* lv, const void* g, const void* M,
       || (svc && (Kf < 1 || Kf > 32)) || (!svc && (!x || !g)))
     return (int)cudaErrorInvalidValue;
   if (R <= 0) return (int)cudaGetLastError();
-  // a row's tile: r, c and x (ts + 1 words each), or r and c and the
-  // slab's ts * Kf + 1 words; its levels' words besides (at most 45 KB a
-  // block, under the default 48 KB of shared memory)
-  const int ts = std::max(1, std::min(
-      chunk, svc ? (kTileRowWords - 3) / (2 + Kf) : (kTileRowWords - 3) / 3));
-  const size_t words = (size_t)kRows * (4 * (K + 1) + 3 * (ts + 1)
-                                        + (svc ? ts * Kf + 1 : 0));
   const ScheduleArgs a{(const float*)lv, (const float*)g, (const float*)M,
                        (const int*)T_len, (const int*)prev_in,
                        (const float*)sums_in, (const int*)counts_in,
                        (const int*)r, (const float*)c, (const int*)x,
                        (const float*)svc, (const int*)cols, (int*)prev_out,
                        (float*)sums_out, (int*)counts_out, R, chunk, K,
-                       svc ? Kf : K, t0, ts};
-  const size_t bytes = words * sizeof(int);
+                       svc ? Kf : K, t0,
+                       svc ? be_tile(2 + Kf, chunk, Kf)
+                           : be_tile(3, chunk, 1)};
   cudaStream_t st = (cudaStream_t)stream;
 #define REPRO_SCHED_CASE(FF)                                                \
   case FF:                                                                  \
-    if (svc)                                                                \
-      launch_sched<true, FF>(a, bytes, st);                                 \
-    else                                                                    \
-      launch_sched<false, FF>(a, bytes, st);                                \
-    break;
+    return svc ? launch_sched_route<true, FF>(a, st)                        \
+               : launch_sched_route<false, FF>(a, st);
   switch (fma) {
     REPRO_SCHED_CASE(0) REPRO_SCHED_CASE(1) REPRO_SCHED_CASE(2)
     REPRO_SCHED_CASE(3)
   }
 #undef REPRO_SCHED_CASE
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
+
+// B's and E's layout, for the checks that pick their edge shapes: the
+// slots of a tile (be_tile's words and box), the tiles in the ring, and
+// a stage row's words for `words` words of payload (B's rows)
+int be_tile_slots(int words, int chunk, int box) {
+  return be_tile(words, chunk, box);
+}
+int be_ring_stages() { return kBeStages; }
+int be_row_stride(int words) { return be_stride(words); }
 
 // the fused D under Model 1 (x, g; svc and cols NULL) or on a Model-2
 // service slab svc [R, chunk, Kf] (x and g NULL) with cols [R, K] (NULL:

@@ -86,6 +86,20 @@ M2_MAX_REQUESTS = 2 ** 23
 DP_MAX_K = 32
 
 
+def misaligned(t):
+    """A contiguous copy of ``t`` whose storage starts one word past a
+    16-byte boundary: on it B and E take their 4-byte cp.async route (the
+    card's checks time and hold that route on data that would take the
+    bulk one)."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    skip = (1 - buf.data_ptr() // t.element_size()) % 4
+    out = buf[skip:skip + t.numel()].view(t.shape)
+    out.copy_(t)
+    if out.data_ptr() % 16 == 0 or not out.is_contiguous():
+        raise RuntimeError("the misaligned copy is aligned")
+    return out
+
+
 # ----------------------------------------------------------------------
 # threefry2x32 (plain, int64 words) and the layout flag.
 # ----------------------------------------------------------------------

@@ -29,6 +29,8 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import hosting as H
 from repro_torch.kernels import ssd_scan as SSD
 
+import _be_tiles as T
+
 TOL_F32, TOL_STATE, RTOL_BF16 = 1e-5, 1e-4, 2.0 ** -7
 
 
@@ -1193,24 +1195,63 @@ def _table(dev, R, chunk, K, seed):
             t(rng.integers(0, K, (R, chunk, K)).astype(np.int32)))
 
 
-def _schedule_args(dev, R, chunk, K, svc_kind, seed):
+def _schedule_args(dev, R, chunk, K, svc_kind, seed, sched="random"):
     """E's inputs: the grid, horizons inside the chunk, a carry in mid-run
-    (held level, sums, counts), schedules with levels out of [0, K) too,
-    and Model-1 arrivals or a Model-2 slab (with a column map)."""
+    (held level, sums, -0 in every fifth row, counts), schedules (``sched``: "random", with
+    levels out of [0, K) too; "every", a new level every slot; "never",
+    one level a row throughout), and Model-1 arrivals or a Model-2 slab
+    ("model2": the slab's own K levels; "model2-cols": a column map of a
+    5-level slab, "model2-cols32" of a 32-level one)."""
     h = _hosting_case(dev, R, chunk, K, K > 3, False, seed)
     rng = h["rng"]
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    sums = (rng.random((R, 3)) * 100).astype(np.float32)
+    sums[::5] = -0.0                    # x + 0 is +0: masked slots count
     carry = (t(rng.integers(0, K, R).astype(np.int32)),
-             {"sums": t((rng.random((R, 3)) * 100).astype(np.float32)),
+             {"sums": t(sums),
               "counts": t(rng.integers(0, 50, (R, K)).astype(np.int32))})
-    r = t(rng.integers(-1, K + 1, (R, chunk)).astype(np.int32))
+    r = rng.integers(-1, K + 1, (R, chunk)).astype(np.int32)
+    if sched == "every":
+        r = np.broadcast_to((np.arange(chunk) % K).astype(np.int32),
+                            (R, chunk))
+    elif sched == "never":
+        r = np.broadcast_to(rng.integers(0, K, (R, 1)).astype(np.int32),
+                            (R, chunk))
     kw = dict(x=h["x"], g=h["g"])
     if svc_kind != "model1":
-        Kf = 5 if svc_kind == "model2-cols" else K
+        Kf = {"model2-cols": 5, "model2-cols32": 32}.get(svc_kind, K)
         d = _svc_inputs(dev, R, chunk, K, Kf, seed)
         kw = dict(svc=d["svc"],
-                  svc_cols=d["cols"] if svc_kind == "model2-cols" else None)
-    return (h["lv"], h["M"], h["T_len"], h["t0"], carry, r, h["c"]), kw
+                  svc_cols=None if svc_kind == "model2" else d["cols"])
+    return (h["lv"], h["M"], h["T_len"], h["t0"], carry, t(r), h["c"]), kw
+
+
+# B's and E's tiles at K = 3 under Model 1 (slots) and their rings
+_BT, _ET = T.B_TILE[3], T.E_TILE
+_BT_RING, _ET_RING = T.STAGES * _BT, T.STAGES * _ET
+
+
+@pytest.mark.cuda
+def test_be_tiles_fit_the_kernels_ring():
+    """The library's tiles (``be_tile``) are whole groups of 4 slots, no
+    longer than the chunk needs, a row's segment within its words; E's
+    hold an odd number of groups and a row of each array within a tensor
+    copy's box of 256 words; and the tiles and the ring depth are the
+    ones the tests put their edge shapes around (``_be_tiles.py``)."""
+    _card()
+    lib = _build.library("hosting")
+    for words, box in ((1, 0), (2, 0), (3, 0), (16, 0), (32, 0), (3, 1),
+                       (5, 3), (7, 5), (15, 13), (34, 32)):
+        for chunk in (1, 3, 4, 5, 8, 103, 4096, 100_000):
+            ts = lib.be_tile_slots(words, chunk, box)
+            assert ts % 4 == 0 and 4 <= ts <= max(4, -(-chunk // 4) * 4)
+            assert ts * words <= max(320, 4 * words)
+            if box:
+                assert (ts // 4) % 2 == 1 and ts * box <= 256
+    big = 1 << 20
+    assert {K: lib.be_tile_slots(K, big, 0) for K in T.B_TILE} == T.B_TILE
+    assert (lib.be_tile_slots(3, big, 1), lib.be_tile_slots(34, big, 32),
+            lib.be_ring_stages()) == (T.E_TILE, T.E_TILE_SLAB32, T.STAGES)
 
 
 def test_backtrack_and_schedule_wrappers_take_the_plain_version_on_the_cpu():
@@ -1244,20 +1285,35 @@ def test_backtrack_and_schedule_wrappers_take_the_plain_version_on_the_cpu():
     # ragged, odd chunk; K = 16 (the fused D's widest); K = 32 (D on a
     # finished w); one slot; one row
     (4096, 4096, 3), (4093, 1001, 2), (300, 999, 16), (65, 17, 32),
-    (4096, 1, 3), (1, 300, 4)])
+    (4096, 1, 3), (1, 300, 4),
+    # the ring's edges at K = 3: a slot either side of a tile and of a
+    # ring's worth of tiles (chunk * K % 4 of 1 and 3: the 4-byte route),
+    # and a chunk of whole 16-byte groups either side (the bulk route)
+    (4093, _BT - 1, 3), (4093, _BT + 1, 3), (300, _BT_RING - 1, 3),
+    (300, _BT_RING + 1, 3), (300, _BT_RING - 4, 3), (300, _BT_RING + 4, 3),
+    # chunk * K % 4 of 2; K = 1 and K = 32 at their tiles' edges
+    (257, 999, 2), (65, 4 * T.B_TILE[1] + 1, 1),
+    (65, 4 * T.B_TILE[32] - 1, 32),
+    # a bulk-aligned chunk of odd R, and (R, chunk, K, "4-byte") the same
+    # shapes with the table one word off a 16-byte boundary
+    (33, _BT_RING + 4, 3), (33, _BT_RING + 4, 3, "4-byte"),
+    (4096, 4096, 3, "4-byte")])
 def test_backtrack_kernel_matches_plain(case):
     """B == its plain version: the level at the chunk's entry and the
-    schedule, on random tables (every entry a live level)."""
+    schedule, on random tables (every entry a live level), on its bulk
+    and its 4-byte route."""
     dev = _card()
-    R, chunk, K = case
+    R, chunk, K = case[:3]
     k, args = _table(dev, R, chunk, K, seed=R + chunk + K)
+    if case[3:] == ("4-byte",):
+        args = H.misaligned(args)
     before = H.dp_backtrack.launches
     kk, rk = H.dp_backtrack(k, args)
     torch.cuda.synchronize()
     assert H.dp_backtrack.launches == before + 1
     kp, rp = H.dp_backtrack_plain(k, args)
     assert torch.equal(kk, kp) and torch.equal(rk, rp)
-    assert bool((rk != rk[:, :1]).any()) or chunk == 1
+    assert bool((rk != rk[:, :1]).any()) or chunk == 1 or K == 1
 
 
 @pytest.mark.cuda
@@ -1269,14 +1325,34 @@ def test_backtrack_kernel_matches_plain(case):
     (4096, 4096, 3, "model1"), (4093, 1001, 2, "model1"),
     (300, 999, 16, "model1"), (65, 333, 32, "model1"),
     (4096, 1, 3, "model1"), (1024, 1024, 3, "model2"),
-    (1021, 1001, 3, "model2-cols"), (6, 300, 3, "model2-cols")])
+    (1021, 1001, 3, "model2-cols"), (6, 300, 3, "model2-cols"),
+    # the ring's edges under Model 1: a slot either side of a tile and of
+    # a ring's worth of tiles (the 4-byte route), whole 16-byte groups
+    # either side of the ring (the bulk route), of odd R
+    (4093, _ET - 1, 3, "model1"), (4093, _ET + 1, 3, "model1"),
+    (300, _ET_RING - 1, 3, "model1"), (300, _ET_RING + 1, 3, "model1"),
+    (33, _ET_RING - 4, 3, "model1"), (33, _ET_RING + 4, 3, "model1"),
+    # a Model-2 slab of 32 levels: its own, and a column map of K = 3
+    (300, 4 * T.E_TILE_SLAB32 + 4, 32, "model2"),
+    (300, 4 * T.E_TILE_SLAB32 + 1, 32, "model2"),
+    (257, 333, 3, "model2-cols32"), (257, 336, 3, "model2-cols32"),
+    # (..., schedule, route): a new level every slot, one level throughout;
+    # the fleet's shape with r one word off a 16-byte boundary
+    (4093, 1001, 3, "model1", "every"), (1024, 1024, 3, "model1", "never"),
+    (1021, 1000, 5, "model2-cols", "every"),
+    (4096, 4096, 3, "model1", "random", "4-byte"),
+    (1021, 1000, 3, "model2-cols", "random", "4-byte")])
 def test_schedule_kernel_matches_plain(case, acc_fma):
     """E == its plain version: a carry in mid-run, horizons inside the
     chunk, levels out of range priced nothing, with and without the sums'
-    products fused."""
+    products fused, on its bulk and its 4-byte route."""
     dev = _card()
-    R, chunk, K, kind = case
-    a, kw = _schedule_args(dev, R, chunk, K, kind, seed=R + chunk + K)
+    R, chunk, K, kind = case[:4]
+    sched = case[4] if len(case) > 4 else "random"
+    a, kw = _schedule_args(dev, R, chunk, K, kind, seed=R + chunk + K,
+                           sched=sched)
+    if case[5:] == ("4-byte",):
+        a = a[:5] + (H.misaligned(a[5]),) + a[6:]
     before = H.schedule_chunk.launches
     pk, ak = H.schedule_chunk(*a, **kw, acc_fma=acc_fma)
     torch.cuda.synchronize()

@@ -27,7 +27,14 @@ those arrivals; the same at K = 16, and at each K of ``SERVICE_KS``
 where the checkout has it, one chunk of kernel P's ARMA rents (the spot
 stream, p = 4, q = 2) at the fleet's shape; where the checkout has the
 Markov leg, one chunk of its Poisson draws on Hormann's branch (the GE
-chain's states at rates 200 / 10, salt 1).  Times are
+chain's states at rates 200 / 10, salt 1); where the checkout has them,
+kernel B walking back the fused D's own argmin table of that chunk
+(``dp_fwd_model1(..., with_args=True)``) and kernel E pricing the
+schedule it gives under Model 1 ("B", "E"), each also with its table or
+schedule one word off a 16-byte boundary ("B, 4-byte route", "E, 4-byte
+route": the redesigned kernels' cp.async route), and E on a schedule of
+levels out of range and on horizons that end before the chunk (its
+parts: nothing counted; the copies alone).  Times are
 CUDA-event medians of batches of back-to-back calls, each batch queued
 behind ~10 ms of ``torch.cuda._sleep`` so that it runs back to back;
 beside each, the cycles a slot at the SM clock nvidia-smi reads while
@@ -224,6 +231,35 @@ def _one(root: Path, only=()) -> dict:
         p_args = (arr["key"], tids, arr["rate_l"], 1, sl.side, arr["rate_h"])
         out["P Poisson chunk, Hormann"] = ms_and_clock(
             lambda: H.poisson_chunk(*p_args), batch=5)
+    if hasattr(H, "dp_backtrack") and (want("B") or want("E")):
+        J1, args = H.dp_fwd_model1(J, c, x, grid.g, lv, grid.mask, fetch,
+                                   T_len, t0, True)
+        k = torch.argmin(J1, 1).to(torch.int32)
+        r = H.dp_backtrack(k, args)[1]
+        sched = (lv, grid.M, T_len, t0,
+                 (torch.zeros_like(k), sim_acc0(R, grid.K, dev)))
+        # the 4-byte route where the checkout's B and E have one (its
+        # inputs one word off 16 bytes)
+        routes = [("", args, r)] + ([(", 4-byte route", H.misaligned(args),
+                                      H.misaligned(r))]
+                                    if hasattr(H, "misaligned") else [])
+        for suffix, a, rr in routes:
+            if want("B" + suffix):
+                out["B" + suffix] = ms_and_clock(
+                    lambda a=a: H.dp_backtrack(k, a))
+            if want("E" + suffix):
+                out["E" + suffix] = ms_and_clock(
+                    lambda rr=rr: H.schedule_chunk(*sched, rr, c, x=x,
+                                                   g=grid.g))
+        # E's parts: no level in range (nothing counted, every term 0), no
+        # slot in its horizon (the copies alone)
+        r_out = torch.full_like(r, -1)
+        before = (lv, grid.M, torch.full_like(T_len, t0)) + sched[3:]
+        for name, a in (("E, levels out of range", sched + (r_out,)),
+                        ("E, horizons before the chunk", before + (r,))):
+            if want(name):
+                out[name] = ms_and_clock(
+                    lambda a=a: H.schedule_chunk(*a, c, x=x, g=grid.g))
     walls = {}
     for name, entry in ([] if only else cs.FIGURES.items()):
         mod = entry[0]
