@@ -96,7 +96,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    wavefronts a step modelled from the stage layout at K = 3 and K = 32
    (both in the log only); S with the rent fused (S, then E's rent pass over
    S's trace) on one alpha-RR row and three static rows (the reference's
-   small batches, ``simulator.xla_acc_fma``).
+   small batches, ``simulator.xla_acc_fma``).  Then S's table variant and
+   D's ARGS route where their tiles and rings turn over (the library's
+   ``sim_tile_slots`` / ``sim_ring_stages`` / ``dp_tile_slots`` /
+   ``dp_args_stages``): a slot either side of a tile and of the ring,
+   whole 16-byte groups either side of the ring, one slot, R - 3 rows,
+   chunks of 1,001; the table variant at K = 2, 3, 5 and 16 for the
+   static, MDP and ABC tables (side channels of -1 .. 2) under Model 1 and
+   on Model-2 slabs with and without a column map, with and without the
+   trace and the final fetch; D at K = 3, 5 and 16 with and without a
+   column map; and the table variant with the rent and the fetch fused
+   (MDP / ABC on small batches, ``simulator.xla_fetch_fma``).  D's ARGS
+   route is timed at the fleet's shape (old -> new in the log, its cycles
+   a slot and its share of the byte bound) and on the Model-2 fan-out's
+   slab; S's table variant on the Markov leg's slab with its parts (no
+   slot in the horizon, the static table, the trace).
 3. The fleet path at full width: 1,024 instances (32 M x 32 (alpha, g)) x 4
    seeds = 4,096 rows, T = 65,536, chunks of 4,096: alpha-RR and RR through
    ``run_fleet``, alpha-OPT and OPT through ``offline_opt_fleet``
@@ -304,6 +318,8 @@ KERNEL_SYMBOLS = {
     "dp_fwd_model2": "dp_fwd_kernel<K, ARGS, true>",
     "dp_fwd_model1 args": "dp_fwd_kernel<K, true, false> (the ARGS route: "
                           "the argmin table written)",
+    "dp_fwd_model2 args": "dp_fwd_kernel<K, true, true> (the ARGS route on "
+                          "a Model-2 slab)",
     "dp_minplus": "dp_minplus_kernel",
     "dp_backtrack": "dp_backtrack_kernel<BULK>",
     "schedule_chunk": "schedule_kernel<SVC, FMA, BULK>",
@@ -589,7 +605,8 @@ def sim_chain_ops(K):
 # new
 PREV_MS = {"poisson_chunk": 1.8543, "arma_rents_chunk": 0.2784,
            "model2_service_chunk": 0.5514, "dp_backtrack": 0.7466,
-           "schedule_chunk": 0.5994}
+           "schedule_chunk": 0.5994, "sim_chunk_table_svc": 0.3011,
+           "sim_chunk_table": 0.2539, "dp_fwd_model1 args": 0.5082}
 # B's walk, cycles a slot and row: one dependent shared load (~30-33
 # cycles on sm_90, assumed, not measured here) and the add of its
 # address: the walk's floor, beside one block's whole kernel measured
@@ -920,12 +937,19 @@ def kernel_checks(dev):
                                                                  True))
     require(tree_equal(k, kp), "fused D's argmin table differs from its "
                                "plain version")
-    rec["dp_fwd_model1 args"] = dict(
+    a_rec = rec["dp_fwd_model1 args"] = dict(
         replaces="src/repro/kernels/hosting.py:116", ms=args_ms,
-        plain_ms=args_plain_ms, max_abs_err=tree_max_abs(k, kp), ops=ops,
+        prev_ms=PREV_MS["dp_fwd_model1 args"], plain_ms=args_plain_ms,
+        max_abs_err=tree_max_abs(k, kp), ops=ops, sm_clock_mhz=clock,
+        cycles_per_slot=args_ms * 1e-3 * clock * 1e6 / chunk,
         nbytes=nbytes(J, c, x, grid.g, lv32, kmask, fetch, T_len, *k),
         shape=f"R={R} chunk={chunk} K={K}, writing the argmin table "
               f"(with_args=True)")
+    a_bound = a_rec["nbytes"] / PEAK_BYTES * 1e3
+    log(f"D's ARGS route timed: {a_rec['prev_ms']:.4f} -> {args_ms:.4f} ms "
+        f"({a_rec['cycles_per_slot']:.1f} cycles a slot at {clock:.0f} MHz; "
+        f"{a_bound / args_ms:.1%} of its byte bound {a_bound:.4f} ms; "
+        f"{args_ms / ms:.3f} x the route without the table)")
 
     # kernel D on a finished w (offline_opt_batch's; off the fleet path)
     wck = torch.where(kmask[:, None, :],
@@ -1039,6 +1063,171 @@ def bt_wavefronts(r, K, chunk):
                       torch.ones((rows // 8, chunk, 8), dtype=torch.int32,
                                  device=r.device))
     return float(hits.amax(dim=2).float().mean())
+
+
+def table_and_args_edges(dev):
+    """S's table variant and D's ARGS route against their plain versions,
+    bit for bit, where their redesign's tiles and rings turn over (the
+    library's own sizes: ``sim_tile_slots`` / ``sim_ring_stages``,
+    ``dp_tile_slots`` / ``dp_args_stages``): a slot either side of a tile
+    and of the ring's worth of tiles (chunk % 4 != 0: the 4-byte routes),
+    whole 16-byte groups either side of the ring (S's tensor copies, D's
+    bulk write-back), one slot, R - 3 rows; S at K = 2, 3, 5 and 16 for
+    the static (one table row), MDP and ABC tables (two), side channels
+    of -1 .. 2 (clipped), thresholds inside the arrivals' range, with and
+    without the trace and the final fetch, under Model 1 and on Model-2
+    slabs with and without a column map; D at K = 3, 5 and 16, with and
+    without a column map; and S's small batches with the rent and the
+    fetch fused (E passes over its trace).  Returns the count of calls
+    compared."""
+    lib = _build.library("hosting")
+    gen = np.random.default_rng(24)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    t0 = 8192
+    n_cmp = 0
+
+    def inputs(R, chunk, K, Kf):
+        lv = np.sort(gen.random((R, K)).astype(np.float32), axis=1)
+        lv[:, 0] = 0.0
+        d = dict(lv=t(lv), g=t(np.clip(0.9 - lv, 0, 1).astype(np.float32)),
+                 M=t((gen.random(R) * 20 + 0.5).astype(np.float32)),
+                 T_len=t(gen.integers(t0 - 3, t0 + chunk + 3, R)
+                         .astype(np.int32)),
+                 c=t((gen.random((R, chunk)) * 1.5).astype(np.float32)),
+                 x=t(gen.integers(0, 30, (R, chunk)).astype(np.int32)),
+                 side=t(gen.integers(-1, 3, (R, chunk)).astype(np.int32)),
+                 svc=t((gen.integers(0, 8, (R, chunk, Kf)) / 2)
+                       .astype(np.float32)),
+                 cols=t(np.sort(gen.permuted(np.tile(np.arange(Kf), (R, 1)),
+                                             axis=1)[:, :K], 1)
+                        .astype(np.int32)))
+        return d
+
+    def table(policy, R, K):
+        if policy == "static":
+            return (t(np.repeat(gen.integers(0, K, (R, 1, 1)), K, 2)
+                      .astype(np.int32)), "none", None)
+        pi = t(gen.integers(0, K, (R, 2, K)).astype(np.int32))
+        if policy == "mdp":
+            return pi, "side", None
+        return pi, "x", t(gen.choice(np.float32([0.5, 1.5, 14.5]), R))
+
+    def same(what, k, p):
+        nonlocal n_cmp
+        torch.cuda.synchronize()
+        require(tree_equal(k, p), f"{what} differs from its plain version")
+        n_cmp += 1
+
+    # S: (R, chunk, K, service) around its tiles and rings
+    cases = []
+    for K, svc in ((3, "model1"), (3, "model2"), (2, "model1"),
+                   (5, "model2"), (16, "model2"), (16, "model1")):
+        tile = lib.sim_tile_slots(K, svc != "model1")
+        ring = lib.sim_ring_stages(K, svc != "model1") * tile
+        require(tile > 0 and tile % 16 == 0 and ring >= 2 * tile,
+                f"S's table tile at K = {K}: {tile} slots, ring {ring}")
+        if K == 3:
+            cases += [(4093, n, K, svc) for n in (tile - 1, tile + 1,
+                                                  ring - 1, ring + 1,
+                                                  ring - 4, ring + 4)]
+            cases += [(37, 1, K, svc), (4093, 1001, K, svc)]
+        else:
+            cases += [(61, 2 * ring + 1, K, svc), (64, 2 * ring + 4, K, svc)]
+    cases += [(4093, lib.sim_ring_stages(3, 1)
+               * lib.sim_tile_slots(3, 1) + 4, 3, "model2-cols")]
+    for i, (R, chunk, K, svc) in enumerate(cases):
+        d = inputs(R, chunk, K, 5 if svc == "model2-cols" else K)
+        for j, policy in enumerate(("static", "mdp", "abc")):
+            trace, iff = (i + j) % 2 == 0, (i + j) % 3 != 0
+            carry = ({"r": t(gen.integers(0, K, R).astype(np.int32))},
+                     {"sums": t((gen.random((R, 3)) * 100)
+                                .astype(np.float32)),
+                      "counts": t(gen.integers(0, 50, (R, K))
+                                  .astype(np.int32))})
+            tab = table(policy, R, K)
+            if svc == "model1":
+                a = (*tab, d["lv"], d["g"], d["M"], d["T_len"], t0, carry,
+                     d["x"], d["c"], d["side"], iff, trace)
+                kern, plain = H.sim_chunk_table, H.sim_chunk_table_plain
+            else:
+                a = (*tab, d["lv"], d["M"], d["T_len"], t0, carry, d["x"],
+                     d["c"], d["side"], d["svc"],
+                     d["cols"] if svc == "model2-cols" else None, iff, trace)
+                kern = H.sim_chunk_table_svc
+                plain = H.sim_chunk_table_svc_plain
+            same(f"S's table variant ({R} rows, {chunk} slots, K = {K}, "
+                 f"{svc}, {policy}, trace {trace}, final fetch {iff})",
+                 kern(*a), plain(*a))
+    log(f"S's table variant == its plain version at its tiles' and rings' "
+        f"edges: {len(cases) * 3} cases")
+
+    # D's ARGS route: (R, chunk, K, service) around its tiles and rings
+    cases = []
+    for K in (3, 5, 16):
+        tile = lib.dp_tile_slots(K)
+        ring = lib.dp_args_stages(K, 0) * tile
+        require(tile > 0 and tile % 16 == 0 and lib.dp_args_stages(K, 1) >= 1
+                and ring >= tile, f"D's tile at K = {K}: {tile} slots")
+        if K == 3:
+            cases += [(4093, n, K, "model1") for n in (
+                tile - 1, tile + 1, ring - 1, ring + 1, ring - 4, ring + 4,
+                1, 1001)]
+            cases += [(4093, ring + 4, K, "model2"),
+                      (4093, ring - 1, K, "model2-cols"),
+                      (37, ring + 4, K, "model2-cols")]
+        else:
+            cases += [(61, 2 * ring + 1, K, "model1"),
+                      (64, 2 * ring + 4, K, "model2")]
+    for R, chunk, K, svc in cases:
+        d = inputs(R, chunk, K, 5 if svc == "model2-cols" else K)
+        kmask = t(gen.random((R, K)) < 0.85)
+        kmask[:, 0] = True
+        J = (gen.random((R, K)) * 3).astype(np.float32)
+        J[0::7] = np.inf
+        J = torch.where(kmask, t(J), float("inf"))
+        fetch = dp_fetch_matrix(d["M"], d["lv"])
+        if svc == "model1":
+            a = (J, d["c"], d["x"], d["g"], d["lv"], kmask, fetch,
+                 d["T_len"], t0, True)
+            same(f"D's ARGS route ({R} rows, {chunk} slots, K = {K})",
+                 H.dp_fwd_model1(*a), H.dp_fwd_model1_plain(*a))
+        else:
+            cols = d["cols"] if svc == "model2-cols" else None
+            a = (J, d["c"], d["svc"], d["lv"], kmask, fetch, d["T_len"], t0,
+                 cols, True)
+            same(f"D's ARGS route ({R} rows, {chunk} slots, K = {K}, "
+                 f"{svc})", H.dp_fwd_model2(*a), H.dp_fwd_model2_plain(*a))
+    log(f"D's ARGS route == its plain version at its tiles' and rings' "
+        f"edges: {len(cases)} cases")
+
+    # S's table variant with the rent and the fetch fused (MDP / ABC on
+    # a small batch, simulator.xla_fetch_fma), with and without the trace
+    for R, K, policy, svc in ((5, 3, "mdp", "model1"), (2, 12, "abc", "model1"),
+                              (3, 6, "mdp", "model2")):
+        d = inputs(R, 777, K, K)
+        for trace in (False, True):
+            carry = ({"r": t(gen.integers(0, K, R).astype(np.int32))},
+                     {"sums": t((gen.random((R, 3)) * 100)
+                                .astype(np.float32)),
+                      "counts": t(gen.integers(0, 50, (R, K))
+                                  .astype(np.int32))})
+            tab = table(policy, R, K)
+            if svc == "model1":
+                a = (*tab, d["lv"], d["g"], d["M"], d["T_len"], t0, carry,
+                     d["x"], d["c"], d["side"], True, trace, True, True)
+                kern, plain = H.sim_chunk_table, H.sim_chunk_table_plain
+            else:
+                a = (*tab, d["lv"], d["M"], d["T_len"], t0, carry, d["x"],
+                     d["c"], d["side"], d["svc"], None, True, trace, True,
+                     True)
+                kern = H.sim_chunk_table_svc
+                plain = H.sim_chunk_table_svc_plain
+            same(f"S's table variant, the rent and the fetch fused ({R} "
+                 f"rows, K = {K}, {policy}, {svc}, trace {trace})",
+                 kern(*a), plain(*a))
+    log("S's table variant with the rent and the fetch fused == its plain "
+        "version (small batches)")
+    return n_cmp
 
 
 def schedule_kernel_checks(dev):
@@ -1434,7 +1623,7 @@ def svc_kernel_checks(dev, clock, n_sm, sass):
              ("253 rows, odd t0, 1,001 slots", rows - 3, t0 + 1, 1001),
              ("256 rows, one slot", rows, 2 ** 31 - 1, 1)]
     names = ("poisson_chunk", "model2_service_chunk", "dp_fwd_model2",
-             "sim_chunk_alpha_rr_svc")
+             "dp_fwd_model2 args", "sim_chunk_alpha_rr_svc")
     err = {k: 0.0 for k in names}
     n_cmp = {k: 0 for k in names}
 
@@ -1645,6 +1834,21 @@ def svc_kernel_checks(dev, clock, n_sm, sass):
               f"the same slab (both by bulk copies); "
               f"{n_cmp['dp_fwd_model2']} calls compared, these two "
               f"included")
+    # the ARGS route on the same slab: the argmin table written besides
+    da = d_args[:-1] + (True,)
+    ka = H.dp_fwd_model2(*da)
+    a_plain_ms, pa = timed_once(lambda: H.dp_fwd_model2_plain(*da))
+    same("dp_fwd_model2 args", ka, pa, f"{fleet}, alpha-RR, argmin table")
+    a_ms = rec["dp_fwd_model2"]["args_ms"]
+    rec["dp_fwd_model2 args"] = dict(
+        replaces="src/repro/kernels/hosting.py:116", ms=a_ms,
+        plain_ms=a_plain_ms, sm_clock_mhz=clock,
+        cycles_per_slot=a_ms * 1e-3 * clock * 1e6 / chunk,
+        ops=rec["dp_fwd_model2"]["ops"], nbytes=nbytes(*d_args[:7], *ka),
+        shape=f"R={R} chunk={chunk} K={K}, no column map, writing the "
+              f"argmin table (with_args=True): the Model-2 obs leg's "
+              f"materialised OPT")
+    del ka, pa
     (st, acc), _ = outs["s"]
     ms = cuda_ms(lambda: H.sim_chunk_alpha_rr_svc(*s_args), reps=10,
                  batch=10)
@@ -2143,6 +2347,22 @@ def markov_kernel_checks(dev, clock, n_sm, sass):
     same("sim_chunk_table", k1, p1, f"{fleet}, MDP, Model 1")
     ms1 = cuda_ms(lambda: H.sim_chunk_table(*a1_), reps=10, batch=10)
     K = rgrid.K
+    # the table variant's parts on the same slab: no slot in its horizon
+    # (the staging alone), the static table (no observation staged), the
+    # trace written; Model 1 with the trace
+    from repro_torch.core.policies.baselines import static_step
+    a_mdp = recs["MDP"]["args"]
+    stat = table_form(static_step, {"level_idx": torch.full(
+        (R,), K - 1, dtype=torch.int32, device=dev)}, K)
+    parts = {"horizons before the chunk": a_mdp[:5] + (
+                 torch.full_like(T_len, t0),) + a_mdp[6:],
+             "static": stat + a_mdp[3:],
+             "with the trace": a_mdp[:14] + (True,)}
+    parts_ms = {name: cuda_ms(lambda a=a: H.sim_chunk_table_svc(*a),
+                              reps=10, batch=10)
+                for name, a in parts.items()}
+    trace1_ms = cuda_ms(lambda: H.sim_chunk_table(*(a1_[:13] + (True,))),
+                        reps=10, batch=10)
     for name, r_, args, carry, out, extra in (
             ("sim_chunk_table_svc", recs["MDP"], recs["MDP"]["args"],
              recs["MDP"]["args"][7], recs["MDP"]["out"], (slab.svc,)),
@@ -2152,7 +2372,8 @@ def markov_kernel_checks(dev, clock, n_sm, sass):
         pi = args[0]
         rec[name] = dict(
             replaces="src/repro/core/simulator.py:147", ms=r_["ms"],
-            plain_ms=r_["plain_ms"], sm_clock_mhz=clock,
+            prev_ms=PREV_MS[name], plain_ms=r_["plain_ms"],
+            sm_clock_mhz=clock,
             cycles_per_slot=r_["ms"] * 1e-3 * clock * 1e6 / chunk,
             ops=N * TABLE_STEP_OPS,
             nbytes=nbytes(pi, rgrid.levels, rgrid.M, T_len,
@@ -2162,9 +2383,17 @@ def markov_kernel_checks(dev, clock, n_sm, sass):
             shape=f"R={R} chunk={chunk} K={K}, MDP (the side channel), no "
                   f"trace; {n_cmp[name]} calls compared, this one included")
     rec["sim_chunk_table_svc"]["abc_ms"] = recs["ABC"]["ms"]
+    rec["sim_chunk_table_svc"]["parts_ms"] = parts_ms
+    rec["sim_chunk_table"]["parts_ms"] = {"with the trace": trace1_ms}
     for name, r in rec.items():
         r["max_abs_err"] = 0.0
-        log(f"{name} timed: {r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms"
+        log(f"{name} timed: "
+            + (f"{r['prev_ms']:.4f} -> " if "prev_ms" in r else "")
+            + f"{r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms"
+            + (f" ({r['cycles_per_slot']:.1f} cycles a slot at "
+               f"{r['sm_clock_mhz']:.0f} MHz; "
+               f"{r['nbytes'] / PEAK_BYTES * 1e3 / r['ms']:.1%} of its "
+               f"byte bound)" if "prev_ms" in r else "")
             + (f", integer-pipe bound of its blocks "
                f"{r['int_pipe_bound_ms']:.4f} ms; pipes from the SASS (ALU "
                f"{r['alu_pipe_bound_ms']:.4f}, FMA "
@@ -2177,7 +2406,9 @@ def markov_kernel_checks(dev, clock, n_sm, sass):
                f"{r['round_pipe_ops']}, of a slow round "
                f"{r['slow_pipe_ops']}"
                if "pipe_bound_ms" in r else "")
-            + (f", ABC {r['abc_ms']:.4f} ms" if "abc_ms" in r else ""))
+            + (f", ABC {r['abc_ms']:.4f} ms" if "abc_ms" in r else "")
+            + "".join(f", {k} {v:.4f} ms"
+                      for k, v in r.get("parts_ms", {}).items()))
     pr = rec["poisson_chunk rejection"]
     log(f"   Poisson (Hormann): {pr['mean_rounds']:.4f} rounds a draw, "
         f"{pr['lgamma_share']:.4f} of them reach lgamma; service at "
@@ -3536,6 +3767,7 @@ def main() -> int:
     # phase 2
     rec = kernel_checks(dev)
     rec.update(schedule_kernel_checks(dev))
+    table_and_args_edges(dev)
     log("kernels == plain versions on the card")
 
     # phase 3: the fleet path at full width; counters read around it only
@@ -3696,7 +3928,7 @@ def main() -> int:
                     "fma_pipe_bound_ms", "xu_pipe_bound_ms",
                     "pipe_bound_ms", "bound_pipe", "hash_pipe_ops",
                     "round_pipe_ops", "slow_pipe_ops", "five_blocks_ratio",
-                    "abc_ms", "fleet_ms",
+                    "abc_ms", "parts_ms", "fleet_ms",
                     "fleet_plain_ms", "fleet_plain_rows", "fleet_bound_ms",
                     "fleet_int_pipe_bound_ms", "fleet_k3_ms",
                     "fleet_ms_by_k", "lane_k",

@@ -69,7 +69,7 @@ from repro_torch.core.scenarios.base import (ObsSlab, Scenario,
                                              materialize, tree_map)
 from repro_torch.core.scenarios.combinators import replicate_seeds
 from repro_torch.core.simulator import (SimResult, sim_acc0, sim_chunk,
-                                        xla_acc_fma)
+                                        xla_acc_fma, xla_fetch_fma)
 from repro_torch.kernels.hosting import (dp_fwd_model1, dp_fwd_model2,
                                          schedule_chunk)
 
@@ -578,16 +578,18 @@ class _Lane:
         B, K = self.grid.B, self.grid.K
         self.carry = (self.policy.init_fn(self.policy.params),
                       sim_acc0(B, K, dev))
-        self.rent_fma = xla_acc_fma(lane.fns.step_fn, B, K)
         self.r_parts = []
         self.dp = _DpLane(self.grid, dev) if with_opt else None
 
     def step(self, include_final_fetch, T_len, t0, slab, collect_trace,
              feed: _Feed):
         g = self.grid
+        # the sums fused as the reference's vmapped scan fuses them
+        fused = (self.policy.step_fn, g.B, g.K, include_final_fetch)
         self.carry, r = sim_chunk(self.policy, include_final_fetch, g.levels,
                                   g.g, g.M, T_len, t0, self.carry, slab,
-                                  collect_trace, self.cols, self.rent_fma)
+                                  collect_trace, self.cols,
+                                  xla_acc_fma(*fused), xla_fetch_fma(*fused))
         if collect_trace:
             self.r_parts.append(feed.to_host(r))
         if self.dp is not None:

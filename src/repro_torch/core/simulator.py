@@ -32,7 +32,8 @@ from repro_torch._device import resolve_device
 from repro_torch.core.costs import HostingCosts, HostingGrid, as_tensor
 from repro_torch.core.policies.alpha_rr import alpha_rr_step
 from repro_torch.core.policies.base import PolicyFns, SlotObs, freeze_invalid
-from repro_torch.core.policies.baselines import (TABLE_STEPS, static_step,
+from repro_torch.core.policies.baselines import (TABLE_STEPS, abc_step,
+                                                 mdp_step, static_step,
                                                  table_form)
 from repro_torch.core.scenarios.base import ObsSlab
 from repro_torch.kernels.hosting import (fma32, gather_svc, schedule_chunk,
@@ -107,7 +108,8 @@ def _fetch_between(M, lv_from, lv_to):
     return M * torch.clamp_min(lv_to - lv_from, 0.0)
 
 
-def xla_acc_fma(step_fn, R: int, K: int) -> bool:
+def xla_acc_fma(step_fn, R: int, K: int,
+                include_final_fetch: bool = True) -> bool:
     """Whether the reference's vmapped scan over R rows of K levels fuses
     a sum's product into its add, ``sum = fma(a, b, sum)``, instead of a
     rounded product and a rounded add.  XLA:CPU contracts them on small
@@ -117,28 +119,51 @@ def xla_acc_fma(step_fn, R: int, K: int) -> bool:
     * schedule pricing (``step_fn`` None): the rent ``c * lv_r`` and the
       fetch ``M * (lv_r - lv_prev)^+``, while R * (K + 3) <= 40;
     * the static policy: the rent, while R * (K + 3) <= 40;
+    * MDP and ABC: the rent (and the fetch, ``xla_fetch_fma``), while R *
+      (K + 3) <= 30;
     * alpha-RR / RR: the rent on one row of at most 8 levels (never the
-      fetch).
+      fetch);
+    * a policy run without the final fetch (``include_final_fetch=False``,
+      the last slot's fetch masked): nothing.
 
-    MDP and ABC are not pinned (no probe split them); one instance run
-    outside a vmap (``run_policy``, ``evaluate_schedule``) never
-    contracts."""
-    if step_fn is None or step_fn is static_step:
+    One instance run outside a vmap (``run_policy``,
+    ``evaluate_schedule``) never contracts."""
+    if step_fn is None:
         return R * (K + 3) <= 40
+    if not include_final_fetch:
+        return False
+    if step_fn is static_step:
+        return R * (K + 3) <= 40
+    if step_fn is mdp_step or step_fn is abc_step:
+        return R * (K + 3) <= 30
     if step_fn is alpha_rr_step:
         return R == 1 and K <= 8
     return False
 
 
+def xla_fetch_fma(step_fn, R: int, K: int,
+                  include_final_fetch: bool = True) -> bool:
+    """Whether the reference's vmapped scan over R rows of K levels also
+    fuses the fetch's product into its sum, ``fma(M, (lv_r' - lv_r)^+,
+    fetch)``, in a policy's accounting (``xla_acc_fma`` for the rent and
+    for schedule pricing): MDP and ABC while R * (K + 3) <= 30, with the
+    final fetch; pinned by test on jax 0.9.0
+    (``tests/test_torch_obs_fleet.py``)."""
+    return (include_final_fetch and (step_fn is mdp_step
+                                     or step_fn is abc_step)
+            and R * (K + 3) <= 30)
+
+
 def sim_chunk_core(step_fn, include_final_fetch: bool, params, lv, M, T_len,
                    t0: int, carry, x, c, svc, side=None,
-                   rent_fma: bool = False):
+                   rent_fma: bool = False, fetch_fma: bool = False):
     """Step slots ``[t0, t0 + chunk)`` of R rows: ``lv`` [R, K], ``M`` [R],
     ``T_len`` [R] int32, ``x`` / ``c`` / ``side`` [R, chunk], ``svc``
     [R, chunk, K] (``x`` may be None for a policy that reads only the
     service costs).  Returns ``(carry', r_hist [R, chunk] int32)``; the
     sums accumulate slot by slot, in the reference's order (the rent as
-    one FMA with ``rent_fma``, ``xla_acc_fma``)."""
+    one FMA with ``rent_fma``, ``xla_acc_fma``; the fetch with
+    ``fetch_fma``, ``xla_fetch_fma``)."""
     R, K = lv.shape
     chunk = c.shape[1]
     state, acc = carry
@@ -165,6 +190,10 @@ def sim_chunk_core(step_fn, include_final_fetch: bool, params, lv, M, T_len,
         if rent_fma:
             new[:, 0] = torch.where(valid, fma32(c[:, j], lv_t, sums[:, 0]),
                                     sums[:, 0])
+        if fetch_fma:
+            keep = valid if include_final_fetch else valid & (T_len - 1 != t)
+            new[:, 2] = torch.where(keep, fma32(M, torch.clamp_min(
+                lv_next - lv_t, 0.0), sums[:, 2]), sums[:, 2])
         sums = new
         counts = counts + torch.where(valid[:, None], onehot_t.to(torch.int32),
                                       0)
@@ -175,7 +204,8 @@ def sim_chunk_core(step_fn, include_final_fetch: bool, params, lv, M, T_len,
 
 def sim_chunk(policy: PolicyFns, include_final_fetch: bool, lv, g, M, T_len,
               t0: int, carry, slab, collect_trace: bool = True,
-              svc_cols=None, rent_fma: bool = False):
+              svc_cols=None, rent_fma: bool = False,
+              fetch_fma: bool = False):
     """One chunk of one fleet simulation on a generated ``ObsSlab``.
     alpha-RR runs as kernel S (the kernel on the card, its plain version on
     the CPU): under Model-1 service ``kernels.hosting.sim_chunk_alpha_rr``,
@@ -184,7 +214,8 @@ def sim_chunk(policy: PolicyFns, include_final_fetch: bool, lv, g, M, T_len,
     policies run as S's table variant (``sim_chunk_table`` /
     ``sim_chunk_table_svc`` on their ``table_form``).  Any other policy
     runs the plain loop.  ``rent_fma``: the rent accumulated as one FMA
-    (``xla_acc_fma``)."""
+    (``xla_acc_fma``); ``fetch_fma``: the fetch too (``xla_fetch_fma``:
+    MDP and ABC on small batches)."""
     step = policy.step_fn
     if slab.side is None and step is not alpha_rr_step:
         # the reference's engines read a zero side channel when none is given
@@ -205,16 +236,16 @@ def sim_chunk(policy: PolicyFns, include_final_fetch: bool, lv, g, M, T_len,
             return sim_chunk_table(*table, lv, g, M, T_len, t0, carry,
                                    slab.x, slab.c, slab.side,
                                    include_final_fetch, collect_trace,
-                                   rent_fma)
+                                   rent_fma, fetch_fma)
         return sim_chunk_table_svc(*table, lv, M, T_len, t0, carry, slab.x,
                                    slab.c, slab.side, slab.svc, svc_cols,
                                    include_final_fetch, collect_trace,
-                                   rent_fma)
+                                   rent_fma, fetch_fma)
     svc = (model1_svc(slab.x, g) if slab.svc is None
            else gather_svc(slab.svc, svc_cols))
     carry, r = sim_chunk_core(policy.step_fn, include_final_fetch,
                               policy.params, lv, M, T_len, t0, carry, slab.x,
-                              slab.c, svc, slab.side, rent_fma)
+                              slab.c, svc, slab.side, rent_fma, fetch_fma)
     return carry, (r if collect_trace else None)
 
 
@@ -281,10 +312,11 @@ def _run_rows(policy: PolicyFns, grid: HostingGrid, x, c, svc, side,
     B, T = x.shape
     T_len = torch.full((B,), T, dtype=torch.int32, device=grid.device)
     carry = (policy.init_fn(policy.params), sim_acc0(B, grid.K, grid.device))
-    fma = vmapped and xla_acc_fma(policy.step_fn, B, grid.K)
+    fused = (policy.step_fn, B, grid.K, include_final_fetch)
     (_, acc), r = sim_chunk(policy, include_final_fetch, grid.levels, grid.g,
                             grid.M, T_len, 0, carry, ObsSlab(x, c, svc, side),
-                            rent_fma=fma)
+                            rent_fma=vmapped and xla_acc_fma(*fused),
+                            fetch_fma=vmapped and xla_fetch_fma(*fused))
     return _batch_result(acc, r)
 
 

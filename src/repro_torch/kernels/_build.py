@@ -86,6 +86,10 @@ LIBRARIES = {
         # B's and E's layout: words a slot, chunk, box; none; words
         "be_tile_slots": (_I,) * 3, "be_ring_stages": (),
         "be_row_stride": (_I,),
+        # S's table variant's layout at K: tile, cooked stages (K, svc);
+        # D's tile (K), the argmin table's stages (K, svc)
+        "sim_tile_slots": (_I,) * 2, "sim_ring_stages": (_I,) * 2,
+        "dp_tile_slots": (_I,), "dp_args_stages": (_I,) * 2,
     }),
     "flash_attention": (_COMMON, {
         # q, k, v, out, B, Sq, Skv, Hq, Hkv, hd, causal, q_offset, stream

@@ -1626,6 +1626,14 @@ constexpr int kRows = 32;        // rows per CTA: one consumer lane each
 constexpr int kRawStages = 2;
 constexpr int kSmemMax = 227 * 1024;   // dynamic shared memory a CTA, sm_90
 
+// a stage row's words for `words` words of payload: 16-byte aligned, at an
+// odd stride in 16-byte units, so that a quarter warp's 16-byte accesses
+// of 8 consecutive rows hit 8 distinct groups of 4 banks (D's argmin
+// tiles, B's and E's rings)
+__host__ __device__ constexpr int be_stride(int words) {
+  return 4 * (((words + 3) / 4) | 1);
+}
+
 // slots per tile: the cooked ring holds K + 2 words per (row, slot)
 template <int K>
 struct TileOf {
@@ -1672,6 +1680,18 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
       : "memory");
 }
 
+// a 2D tensor copy of one box into shared memory, completed on bar by
+// transaction count: inner coordinate c0 (words), outer c1 (rows)
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
+                                       int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
                    smem_u32(dst)),
@@ -1691,6 +1711,34 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
+__device__ __forceinline__ void bulk_s2g(void* dst, const void* src,
+                                         uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// this thread's bulk groups but the newest N have read their source
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// this thread's bulk groups are complete
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
 // The ring's barriers: raw_full[s] (copies landed; one expect_tx arrival
 // for the bulk route, 32 cp.async arrivals otherwise), full[s] (cooked,
 // 32 producer lanes), empty[s] (the last reader of a cooked stage, 32
@@ -1705,18 +1753,42 @@ __device__ void init_ring(Sm& sm, int bulk) {
   }
 }
 
+// the tensor maps of a producer's route 2 (one 2D tensor copy an array
+// and tile): c's, then x's (Model 1) or the slab's, then the observation
+// slab's
+struct StageMaps {
+  CUtensorMap m[3];
+};
+
 // Producer, one warp: copy tile j0 .. j0 + n of rows row0 .. row0 + nrows
 // of c and x (and, OBS and given, of the observation slab o) into a raw
-// stage.
-template <int TILE, bool OBS = false>
+// stage.  bulk: 0, 4-byte cp.async; 1, one cp.async.bulk a row and
+// array; 2 (TMA: S, and D's ARGS route), one 2D tensor copy an array
+// (tm: c's, x's and o's maps, boxes of kRows rows x TILE + 4 words, the
+// padded rows of the stage; rows past R and slots past the chunk read
+// zeros).
+template <int TILE, bool OBS = false, bool TMA = false>
 __device__ __forceinline__ void stage_raw(RawStage<TILE, OBS>& st,
                                           uint64_t* bar,
                                           const float* __restrict__ c,
                                           const int* __restrict__ x,
                                           int row0, int nrows, int chunk,
                                           int j0, int n, int bulk, int lane,
-                                          const int* __restrict__ o) {
+                                          const int* __restrict__ o,
+                                          const CUtensorMap* tm) {
   const bool with_o = OBS && o != nullptr;
+  if constexpr (TMA)
+    if (bulk == 2) {
+      if (lane == 0) {
+        mbar_arrive_expect_tx(
+            bar, (uint32_t)(kRows * (TILE + 4) * 4 * (with_o ? 3 : 2)));
+        tma_2d(&st.c[0][0], &tm[0], j0, row0, bar);
+        tma_2d(&st.x[0][0], &tm[1], j0, row0, bar);
+        if constexpr (OBS)
+          if (with_o) tma_2d(&st.o[0][0], &tm[2], j0, row0, bar);
+      }
+      return;
+    }
   if (bulk) {
     if (lane == 0)
       mbar_arrive_expect_tx(bar, (uint32_t)(nrows * n * (with_o ? 12 : 8)));
@@ -1750,16 +1822,20 @@ __device__ __forceinline__ void stage_raw(RawStage<TILE, OBS>& st,
 // field f of the (row, slot) at out[f * kRows] (OBS: cook(out, c, x, o),
 // o the observation slab's word, 0 without one).  Lanes past R cook
 // whatever the raw stage holds, and nobody reads it.
-template <int TILE, int SS, bool OBS = false, class Sm, class Cook>
-__device__ void produce(Sm& sm, const float* __restrict__ c,
-                        const int* __restrict__ x, int row0, int nrows,
-                        int chunk, int bulk, int lane, Cook cook,
-                        const int* __restrict__ o = nullptr) {
+template <int TILE, int SS, bool OBS = false, bool TMA = false, class Sm,
+          class Cook>
+__device__ __forceinline__ void produce(Sm& sm, const float* __restrict__ c,
+                                        const int* __restrict__ x, int row0,
+                                        int nrows, int chunk, int bulk,
+                                        int lane, Cook cook,
+                                        const int* __restrict__ o = nullptr,
+                                        const CUtensorMap* tm = nullptr) {
   const int ntiles = (chunk + TILE - 1) / TILE;
   for (int i = 0; i < ntiles && i < kRawStages; ++i)
-    stage_raw<TILE, OBS>(sm.raw[i], &sm.raw_full[i], c, x, row0, nrows,
-                         chunk, i * TILE, min(TILE, chunk - i * TILE), bulk,
-                         lane, o);
+    stage_raw<TILE, OBS, TMA>(sm.raw[i], &sm.raw_full[i], c, x, row0,
+                              nrows, chunk, i * TILE,
+                              min(TILE, chunk - i * TILE), bulk, lane, o,
+                              tm);
   for (int i = 0; i < ntiles; ++i) {
     const int s = i % kRawStages, cs = i % Sm::NC;
     const int n = min(TILE, chunk - i * TILE);
@@ -1802,9 +1878,10 @@ __device__ void produce(Sm& sm, const float* __restrict__ c,
     __syncwarp();
     const int nxt = i + kRawStages;
     if (nxt < ntiles)
-      stage_raw<TILE, OBS>(sm.raw[s], &sm.raw_full[s], c, x, row0, nrows,
-                           chunk, nxt * TILE, min(TILE, chunk - nxt * TILE),
-                           bulk, lane, o);
+      stage_raw<TILE, OBS, TMA>(sm.raw[s], &sm.raw_full[s], c, x, row0,
+                                nrows, chunk, nxt * TILE,
+                                min(TILE, chunk - nxt * TILE), bulk, lane,
+                                o, tm);
     mbar_arrive(&sm.full[cs]);
   }
 }
@@ -1847,13 +1924,26 @@ union RawSvcStage {
 // memory), and (OBS and given) of the observation slab o, into a raw
 // stage, by the bulk route (one copy per row and array) or the gather
 // route (lanes over slots, a row at a time).
-template <int TILE, int K, bool OBS = false>
+template <int TILE, int K, bool OBS = false, bool TMA = false>
 __device__ __forceinline__ void stage_raw_svc(
     RawSvcStage<TILE, K, OBS>& st, uint64_t* bar,
     const float* __restrict__ c, const float* __restrict__ svc, int Kf,
     int (*cols)[K], int row0, int nrows, int chunk, int j0, int n, int bulk,
-    int lane, const int* __restrict__ o) {
+    int lane, const int* __restrict__ o, const CUtensorMap* tm) {
   const bool with_o = OBS && o != nullptr;
+  if constexpr (TMA)
+    if (bulk == 2) {          // tm: c's, the slab's (Kf * TILE + 4), o's
+      if (lane == 0) {
+        mbar_arrive_expect_tx(
+            bar, (uint32_t)(kRows * ((TILE + 4) * (with_o ? 2 : 1)
+                                     + Kf * TILE + 4) * 4));
+        tma_2d(&st.b.c[0][0], &tm[0], j0, row0, bar);
+        tma_2d(&st.b.s[0][0], &tm[1], j0 * Kf, row0, bar);
+        if constexpr (OBS)
+          if (with_o) tma_2d(&st.b.o[0][0], &tm[2], j0, row0, bar);
+      }
+      return;
+    }
   if (bulk) {
     if (lane == 0)
       mbar_arrive_expect_tx(
@@ -1897,21 +1987,23 @@ __device__ __forceinline__ void stage_raw_svc(
 // (a bulk stage's rows start 16-byte aligned, so one word of all 32 rows
 // falls in only 8 banks; rotated, with Kf odd, in 32).  OBS: cook(out, c,
 // s[K], o), o the observation slab's word (0 without one).
-template <int TILE, int SS, int K, bool OBS = false, class Sm, class Cook>
-__device__ void produce_svc(Sm& sm, const float* __restrict__ c,
-                            const float* __restrict__ svc, int Kf, int row0,
-                            int nrows, int chunk, int bulk, bool ident,
-                            int lane, Cook cook,
-                            const int* __restrict__ o = nullptr) {
+template <int TILE, int SS, int K, bool OBS = false, bool TMA = false,
+          class Sm, class Cook>
+__device__ __forceinline__ void produce_svc(
+    Sm& sm, const float* __restrict__ c, const float* __restrict__ svc,
+    int Kf, int row0, int nrows, int chunk, int bulk, bool ident, int lane,
+    Cook cook, const int* __restrict__ o = nullptr,
+    const CUtensorMap* tm = nullptr) {
   const int ntiles = (chunk + TILE - 1) / TILE;
   const int step = bulk ? Kf : 1, skew = lane >> 3;
   int at[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) at[k] = bulk ? sm.cols[lane][k] : k * TILE;
   for (int i = 0; i < ntiles && i < kRawStages; ++i)
-    stage_raw_svc<TILE, K, OBS>(sm.raw[i], &sm.raw_full[i], c, svc, Kf,
-                                sm.cols, row0, nrows, chunk, i * TILE,
-                                min(TILE, chunk - i * TILE), bulk, lane, o);
+    stage_raw_svc<TILE, K, OBS, TMA>(sm.raw[i], &sm.raw_full[i], c, svc,
+                                     Kf, sm.cols, row0, nrows, chunk,
+                                     i * TILE, min(TILE, chunk - i * TILE),
+                                     bulk, lane, o, tm);
   for (int i = 0; i < ntiles; ++i) {
     const int s = i % kRawStages, cs = i % Sm::NC;
     const int n = min(TILE, chunk - i * TILE);
@@ -1921,6 +2013,11 @@ __device__ void produce_svc(Sm& sm, const float* __restrict__ c,
     float* ck = sm.cooked[cs] + lane;
     const float* rc = bulk ? sm.raw[s].b.c[lane] : sm.raw[s].g.c[lane];
     const float* rs = bulk ? sm.raw[s].b.s[lane] : sm.raw[s].g.s[lane];
+    // a tensor copy lays the rows at a pitch of Kf * TILE + 4 (selected at
+    // run time in every instance, that pitch cost alpha-RR's S on a
+    // Model-2 slab 23% on an H100: 40 registers instead of 48)
+    if constexpr (TMA)
+      if (bulk == 2) rs = &sm.raw[s].b.s[0][0] + lane * (Kf * TILE + 4);
     const int* ro = nullptr;
     if constexpr (OBS) ro = bulk ? sm.raw[s].b.o[lane] : sm.raw[s].g.o[lane];
     if (bulk && ident) {                 // n % 4 == 0 on the bulk route
@@ -1980,10 +2077,11 @@ __device__ void produce_svc(Sm& sm, const float* __restrict__ c,
     __syncwarp();
     const int nxt = i + kRawStages;
     if (nxt < ntiles)
-      stage_raw_svc<TILE, K, OBS>(sm.raw[s], &sm.raw_full[s], c, svc, Kf,
-                                  sm.cols, row0, nrows, chunk, nxt * TILE,
-                                  min(TILE, chunk - nxt * TILE), bulk, lane,
-                                  o);
+      stage_raw_svc<TILE, K, OBS, TMA>(sm.raw[s], &sm.raw_full[s], c, svc,
+                                       Kf, sm.cols, row0, nrows, chunk,
+                                       nxt * TILE,
+                                       min(TILE, chunk - nxt * TILE), bulk,
+                                       lane, o, tm);
     mbar_arrive(&sm.full[cs]);
   }
 }
@@ -2025,49 +2123,76 @@ __device__ __forceinline__ float select_k(const float (&a)[K], int i) {
 // J[k] = min + w[k]; a slot at or past T_len freezes J and writes args =
 // k.  args is written only when asked for.
 //
-// Bound: bytes -- c and x (8 bytes per row-slot) and the frontier; its
-// floor for one recursion is chunk x the per-slot dependent chain (K-1
-// compare-selects and two adds).  Design: warp 0 stages c / x by bulk
-// async copies and cooks w (kmask applied) into the ring; warp 1 holds a
-// row per lane, J and fetch in registers (fetch in shared memory past K =
-// 8), and walks the min-plus chain reading only w.  Asked-for args are
-// staged per tile in shared memory and stored as whole row segments.
-// With R = 4,096 rows a CTA of 32 rows lands on each SM, so each SM runs
-// one consumer warp: its in-order issue of the per-slot chain is what the
-// kernel's time is (~110 cycles a slot on an H100, chip_smoke.py;
-// unrolling, fminf for the min, 3 cooked stages and spinning waits
-// measured no faster).
+// Bound: bytes -- c and x (8 bytes per row-slot) and the frontier, and
+// on the ARGS route the argmin table (4 K bytes a row-slot).  Design:
+// warp 0 stages c / x by bulk async copies and cooks w (kmask applied)
+// into the ring; warp 1 holds a row per lane, J and fetch in registers
+// (fetch in shared memory past K = 8), and walks the min-plus chain
+// reading only w.  With R = 4,096 rows a CTA of 32 rows lands on each
+// SM.  The producer sets the pace of the instances without args (~108
+// cycles a slot, 0.2245 ms a 4,096 x 4,096 chunk at K = 3, and as much on
+// horizons that end before the chunk, where the chain walks nothing;
+// NVIDIA H100 80GB HBM3, 700 W, tools/compare_hosting.py): its per-row
+// bulk copies, 64 a tile, and the cooking.  The ARGS instances stage by
+// one 2D tensor copy an array and tile (the producer's route 2, where a
+// row of the slab's tile fits a box); their chain keeps four slots' args
+// in registers and stores them as K 16-byte stores into its row of a ring
+// of args tiles (rows at an odd number of 16-byte units, be_stride), and
+// a third warp, the writer, fills the frozen identity past the chain's
+// last group of valid slots and sends each row's tile segment by one
+// cp.async.bulk (4-byte stores when chunk % 4 != 0), so the chain never
+// writes global memory: 0.5082 -> 0.1462 ms at that shape (the same
+// card; PERF.md section 6).
 // ---------------------------------------------------------------------
+
+// the fused D's threads: the producer and the chain, and on the ARGS
+// instances the argmin table's writer
+template <bool ARGS>
+constexpr int kDpThreads = ARGS ? 96 : 64;
 
 template <int K, bool ARGS, bool SVC>
 struct DpSmem {
   static constexpr int TILE = TileOf<K>::value;
   static constexpr int SS = K * kRows + 1;     // words per cooked slot
-  static constexpr int AS = TILE * K + 1;      // args staging row stride
+  static constexpr int AS = be_stride(TILE * K);  // words per args tile row
   static constexpr bool kFetchSmem = K > 8;
   static constexpr int NC = 2;                 // cooked stages
-  typename std::conditional<SVC, RawSvcStage<TILE, K>,
-                            RawStage<TILE>>::type raw[kRawStages];
+  using Raw = typename std::conditional<SVC, RawSvcStage<TILE, K>,
+                                        RawStage<TILE>>::type;
+  static constexpr int kBase = kRawStages * (int)sizeof(Raw)
+                               + (SVC ? kRows * K * 4 : 4)
+                               + NC * TILE * SS * 4
+                               + (kFetchSmem ? K * K * kRows * 4 : 4) + 512;
+  // args tiles in the ring: three where they fit the SM's shared memory
+  static constexpr int NA =
+      !ARGS ? 1
+            : kBase + 3 * kRows * AS * 4 <= kSmemMax
+                  ? 3
+                  : (kBase + 2 * kRows * AS * 4 <= kSmemMax ? 2 : 1);
+  Raw raw[kRawStages];
   int cols[SVC ? kRows : 1][K];                // SVC: each row's columns
   float cooked[NC][TILE * SS];
   float fetch[kFetchSmem ? K * K * kRows : 1];
-  int abuf[ARGS ? kRows * AS : 1];
+  alignas(16) int abuf[ARGS ? NA * kRows * AS : 4];  // [stage][row][AS]
   uint64_t raw_full[kRawStages];
   uint64_t full[NC];
   uint64_t empty[NC];
+  uint64_t afull[NA];                          // args tile staged (32 lanes)
+  uint64_t aempty[NA];                         // args tile sent (the writer)
 };
 
 template <int K, bool ARGS, bool SVC>
-__global__ void __launch_bounds__(64) dp_fwd_kernel(
+__global__ void __launch_bounds__(kDpThreads<ARGS>) dp_fwd_kernel(
     const float* __restrict__ J, const float* __restrict__ c,
     const int* __restrict__ x, const float* __restrict__ g,
     const float* __restrict__ svc, const int* __restrict__ cols, int Kf,
     const float* __restrict__ lv, const bool* __restrict__ kmask,
     const float* __restrict__ fetch, const int* __restrict__ Tlen,
     float* __restrict__ Jout, int* __restrict__ args, int R, int chunk,
-    int t0, int bulk) {
+    int t0, int bulk, int abulk, const __grid_constant__ StageMaps maps) {
   using Sm = DpSmem<K, ARGS, SVC>;
-  constexpr int TILE = Sm::TILE, SS = Sm::SS;
+  static_assert(sizeof(Sm) <= kSmemMax, "D's tiles fit shared memory");
+  constexpr int TILE = Sm::TILE, SS = Sm::SS, NA = Sm::NA;
   extern __shared__ __align__(128) unsigned char smem_buf[];
   Sm& sm = *reinterpret_cast<Sm*>(smem_buf);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -2077,6 +2202,11 @@ __global__ void __launch_bounds__(64) dp_fwd_kernel(
   const bool live = lane < nrows;
   if (threadIdx.x == 0) {
     init_ring(sm, bulk);
+    if constexpr (ARGS)
+      for (int s = 0; s < NA; ++s) {
+        mbar_init(&sm.afull[s], 32u);
+        mbar_init(&sm.aempty[s], 1u);
+      }
     fence_mbar_init();
   }
   __syncthreads();
@@ -2092,33 +2222,82 @@ __global__ void __launch_bounds__(64) dp_fwd_kernel(
     }
     if constexpr (SVC) {
       load_cols<K>(sm.cols, cols, row, live, lane);
-      produce_svc<TILE, SS, K>(
+      produce_svc<TILE, SS, K, false, ARGS>(
           sm, c, svc, Kf, row0, nrows, chunk, bulk, cols == nullptr, lane,
           [&](float* out, float cv, const float(&sv)[K]) {
 #pragma unroll
             for (int k = 0; k < K; ++k)
               out[k * kRows] = mr[k] ? __fmaf_rn(cv, lvr[k], sv[k]) : INF;
-          });
+          },
+          nullptr, maps.m);
     } else {
       float gr[K];
 #pragma unroll
       for (int k = 0; k < K; ++k)
         gr[k] = live ? g[(long long)row * K + k] : 0.0f;
-      produce<TILE, SS>(sm, c, x, row0, nrows, chunk, bulk, lane,
-                        [&](float* out, float cv, int xv) {
-                          const float xf = (float)xv;
+      produce<TILE, SS, false, ARGS>(
+          sm, c, x, row0, nrows, chunk, bulk, lane,
+          [&](float* out, float cv, int xv) {
+            const float xf = (float)xv;
 #pragma unroll
-                          for (int k = 0; k < K; ++k) {
-                            const float s = xf * gr[k];      // Model 1
-                            out[k * kRows] =
-                                mr[k] ? __fmaf_rn(cv, lvr[k], s) : INF;
-                          }
-                        });
+            for (int k = 0; k < K; ++k) {
+              const float s = xf * gr[k];      // Model 1
+              out[k * kRows] = mr[k] ? __fmaf_rn(cv, lvr[k], s) : INF;
+            }
+          },
+          nullptr, maps.m);
     }
     return;
   }
+  const int Tl = live ? Tlen[row] : 0;
+  const int ntiles = (chunk + TILE - 1) / TILE;
 
-  // consumer: one row per lane
+  if constexpr (ARGS) {
+    if (warp == 2) {
+      // the writer: each tile's args rows to global memory, past the
+      // chain's last group of valid slots the frozen identity first
+      for (int i = 0; i < ntiles; ++i) {
+        const int as = i % NA, j0 = i * TILE;
+        const int n = min(TILE, chunk - j0);
+        mbar_wait(&sm.afull[as], (uint32_t)((i / NA) & 1));
+        int* ab = sm.abuf + (as * kRows + lane) * Sm::AS;
+        if (live) {
+          const int nv = max(0, min(n, Tl - t0 - j0));
+          for (int jj = (nv + 3) & ~3; jj < n; jj += 4)
+#pragma unroll
+            for (int q = 0; q < K; ++q) {
+              int v[4];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) v[e] = (4 * q + e) % K;
+              *reinterpret_cast<int4*>(ab + jj * K + 4 * q) =
+                  make_int4(v[0], v[1], v[2], v[3]);
+            }
+        }
+        if (abulk) {                             // n % 4 == 0
+          fence_proxy_async();                   // the identity, then the copy
+          if (live) {
+            bulk_s2g(args + ((long long)row * chunk + j0) * K, ab,
+                     (uint32_t)(n * K * 4));
+            bulk_commit();
+            bulk_wait_read<0>();                 // the tile read: reusable
+          }
+        } else {
+          __syncwarp();
+          for (int r = 0; r < nrows; ++r) {
+            int* dst = args + ((long long)(row0 + r) * chunk + j0) * K;
+            const int* src = sm.abuf + (as * kRows + r) * Sm::AS;
+            for (int e = lane; e < n * K; e += 32) dst[e] = src[e];
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&sm.aempty[as]);
+      }
+      if (abulk && live) bulk_wait_all();
+      return;
+    }
+  }
+
+  // the chain: one row per lane
   float Jr[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) Jr[k] = live ? J[(long long)row * K + k] : 0.0f;
@@ -2137,59 +2316,113 @@ __global__ void __launch_bounds__(64) dp_fwd_kernel(
     else
       return freg[kp * K + k];
   };
-  const int Tl = live ? Tlen[row] : 0;
-  const int ntiles = (chunk + TILE - 1) / TILE;
-  for (int i = 0; i < ntiles; ++i) {
-    const int cs = i % Sm::NC, j0 = i * TILE;
-    const int n = min(TILE, chunk - j0);
-    mbar_wait(&sm.full[cs], (uint32_t)((i / Sm::NC) & 1));
-    const float* ck = sm.cooked[cs] + lane;
-    int* ab = sm.abuf + lane * Sm::AS;
-    // slots jj < nv are valid; the rest of the tile is past T_len
-    const int nv = max(0, min(n, Tl - t0 - j0));
-    float wn[K];                                 // the next slot's w
+  if constexpr (ARGS) {
+    // four slots' args held in registers, then K 16-byte stores into the
+    // lane's row of an args tile; the writer warp sends the tile
+    for (int i = 0; i < ntiles; ++i) {
+      const int cs = i % Sm::NC, as = i % NA, j0 = i * TILE;
+      const int n = min(TILE, chunk - j0);
+      mbar_wait(&sm.full[cs], (uint32_t)((i / Sm::NC) & 1));
+      if (i >= NA) mbar_wait(&sm.aempty[as], (uint32_t)(((i / NA) - 1) & 1));
+      const float* ck = sm.cooked[cs] + lane;
+      int* ab = sm.abuf + (as * kRows + lane) * Sm::AS;
+      // slots jj < nv are valid; the rest of the tile is past T_len
+      const int nv = max(0, min(n, Tl - t0 - j0));
+      float wn[K];                               // the next slot's w
 #pragma unroll
-    for (int k = 0; k < K; ++k) wn[k] = ck[k * kRows];
-    for (int jj = 0; jj < nv; ++jj) {
-      float w[K];
-      const int nx = min(jj + 1, n - 1);
+      for (int k = 0; k < K; ++k) wn[k] = ck[k * kRows];
+      // slot jj: J advanced, its args into a[0..K-1]
+      auto step = [&](int jj, int* a) {
+        float w[K];
+        const int nx = min(jj + 1, n - 1);
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        w[k] = wn[k];
-        wn[k] = ck[nx * SS + k * kRows];
-      }
-      float Jn[K];
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        float best = Jr[0] + F(0, k);
-        int a = 0;
-#pragma unroll
-        for (int kp = 1; kp < K; ++kp) {
-          const float tr = Jr[kp] + F(kp, k);
-          if (tr < best) {
-            best = tr;
-            a = kp;
-          }
+        for (int k = 0; k < K; ++k) {
+          w[k] = wn[k];
+          wn[k] = ck[nx * SS + k * kRows];
         }
-        Jn[k] = best + w[k];
-        if constexpr (ARGS) ab[jj * K + k] = a;
-      }
+        float Jn[K];
 #pragma unroll
-      for (int k = 0; k < K; ++k) Jr[k] = Jn[k];
+        for (int k = 0; k < K; ++k) {
+          float best = Jr[0] + F(0, k);
+          int am = 0;
+#pragma unroll
+          for (int kp = 1; kp < K; ++kp) {
+            const float tr = Jr[kp] + F(kp, k);
+            if (tr < best) {
+              best = tr;
+              am = kp;
+            }
+          }
+          Jn[k] = best + w[k];
+          a[k] = am;
+        }
+#pragma unroll
+        for (int k = 0; k < K; ++k) Jr[k] = Jn[k];
+      };
+      auto store4 = [&](int jj, const int* a, int q) {
+        *reinterpret_cast<int4*>(ab + jj * K + 4 * q) =
+            make_int4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
+      };
+      int jj = 0;
+      for (; jj + 4 <= nv; jj += 4) {
+        int a[4 * K];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          step(jj + u, a + u * K);
+#pragma unroll
+          for (int q = 0; q < K; ++q)            // the words now complete
+            if (4 * q + 3 >= u * K && 4 * q + 3 < (u + 1) * K)
+              store4(jj, a, q);
+        }
+      }
+      if (jj < nv) {                             // the last, partial group:
+        int a[4 * K];                            // frozen slots the identity
+#pragma unroll
+        for (int e = 0; e < 4 * K; ++e) a[e] = e % K;
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (jj + u < nv) step(jj + u, a + u * K);
+#pragma unroll
+        for (int q = 0; q < K; ++q) store4(jj, a, q);
+      }
+      mbar_arrive(&sm.empty[cs]);
+      fence_proxy_async();                       // the args, then the copy
+      mbar_arrive(&sm.afull[as]);
     }
-    if constexpr (ARGS)                          // frozen: the identity
-      for (int jj = nv; jj < n; ++jj)
+  } else {
+    for (int i = 0; i < ntiles; ++i) {
+      const int cs = i % Sm::NC, j0 = i * TILE;
+      const int n = min(TILE, chunk - j0);
+      mbar_wait(&sm.full[cs], (uint32_t)((i / Sm::NC) & 1));
+      const float* ck = sm.cooked[cs] + lane;
+      // slots jj < nv are valid; the rest of the tile is past T_len
+      const int nv = max(0, min(n, Tl - t0 - j0));
+      float wn[K];                               // the next slot's w
 #pragma unroll
-        for (int k = 0; k < K; ++k) ab[jj * K + k] = k;
-    mbar_arrive(&sm.empty[cs]);
-    if constexpr (ARGS) {
-      __syncwarp();
-      for (int r = 0; r < nrows; ++r) {
-        int* dst = args + ((long long)(row0 + r) * chunk + j0) * K;
-        const int* src = sm.abuf + r * Sm::AS;
-        for (int e = lane; e < n * K; e += 32) dst[e] = src[e];
+      for (int k = 0; k < K; ++k) wn[k] = ck[k * kRows];
+      for (int jj = 0; jj < nv; ++jj) {
+        float w[K];
+        const int nx = min(jj + 1, n - 1);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          w[k] = wn[k];
+          wn[k] = ck[nx * SS + k * kRows];
+        }
+        float Jn[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          float best = Jr[0] + F(0, k);
+#pragma unroll
+          for (int kp = 1; kp < K; ++kp) {
+            const float tr = Jr[kp] + F(kp, k);
+            if (tr < best) best = tr;
+          }
+          Jn[k] = best + w[k];
+        }
+#pragma unroll
+        for (int k = 0; k < K; ++k) Jr[k] = Jn[k];
       }
-      __syncwarp();
+      mbar_arrive(&sm.empty[cs]);
     }
   }
   if (live) {
@@ -2225,16 +2458,35 @@ __global__ void __launch_bounds__(64) dp_fwd_kernel(
 // (zeroed on the last slot without include_final_fetch), sequential
 // float32 adds into sums, frozen past T_len, the level counts.
 //
-// Bound: latency -- a dependency chain of chunk slots per row, with only R
-// rows in flight.  Design: three warps a CTA of 32 rows, each on its own
-// scheduler.  Warp 0 stages x / c (or c and the slab's rows, and the
-// observation) by bulk async copies and cooks each slot's state-free
-// fields into the ring.  Warp 1 walks only the policy's recurrence, a row
-// per lane (alpha-RR: select w_r, S, margins, argmin, switch; a table:
-// one shared-memory lookup a slot), and writes the level held in each
-// slot into a per-stage ring.  Warp 2 does the accounting from that ring
-// (rent, service, fetch in slot order, the counts) off the policy's
-// chain, and stores r_hist as whole row segments.
+// Bound: bytes (c, the observation and x or the slab's words) for the
+// table variant; alpha-RR's is its policy's chain, a dependency chain of
+// chunk slots per row with only R rows in flight.  Design: a CTA of 32
+// rows, each warp on its own scheduler.  Warp 0 stages x / c (or c and
+// the slab's rows, and the observation) and cooks each slot's state-free
+// fields into the ring: one cp.async.bulk a row and array (4-byte
+// cp.async on ragged chunks); the table variant's by one 2D tensor copy
+// an array and tile into rows padded to an odd number of 16-byte units
+// (route 2) where a row of the slab's tile fits a box.  Warp 1 walks only
+// the policy's recurrence, a row per lane (alpha-RR: select w_r, S,
+// margins, argmin, switch; a table: the row's table packed a byte a
+// level in registers, one prmt a step at K <= 8, the cooked state read a
+// slot ahead), and writes the level held in each slot into a per-stage
+// ring.  alpha-RR's warp 2 does the accounting from that ring (rent,
+// service, fetch in slot order, the counts, the trace).  The table
+// variant splits it: warp 2 sums the rent, service and fetch, the held
+// level and its lv / g carried from the slot before, the valid prefix
+// walked unmasked (one x + 0 after it), four slots priced while the
+// next four's level words and the four after's levels, c and x load;
+// warp 3 counts the levels (a byte a level in one register while K <= 4)
+// and sends the trace, a row's tile by one cp.async.bulk from a
+// [row][slot] buffer (4-byte stores on ragged chunks).  On a 4,096 x
+// 4,096 chunk at K = 3, MDP on the Markov leg's Model-2 slab (NVIDIA H100
+// 80GB HBM3, 700 W; tools/compare_hosting.py, PERF.md section 6): 0.30 ms
+// for three warps, its per-row bulk copies (96 a tile) the slowest part
+// at ~140 cycles a slot; 0.13 ms as above, the staging still the slowest
+// part (~63 cycles a slot, 77% of the byte bound).  The split warps made
+// alpha-RR's chain 26% slower there (0.29 -> 0.37 ms, its loop's code
+// the same), so alpha-RR keeps three.
 // ---------------------------------------------------------------------
 
 // the observation a table step indexes its table with (TableObs)
@@ -2253,7 +2505,8 @@ struct SimSmem {
   static constexpr int TILE = TileOf<NF - 2 < 1 ? 1 : NF - 2>::value;
   static constexpr int SS = NF * kRows + 1;    // words per cooked slot
   static constexpr int RS = kRows + 1;         // words per slot of rb
-  static constexpr int PS = kTableMaxS * K + 1;  // words per row of pi
+  static constexpr int LS = (K + 1) | 1;       // words per row of lvt, gt
+  static constexpr int TS = be_stride(TILE);   // words per row of tb
   using Raw = typename std::conditional<SVC, RawSvcStage<TILE, K, TABLE>,
                                         RawStage<TILE, TABLE>>::type;
   // three cooked stages let the policy warp run a tile further ahead of
@@ -2261,17 +2514,27 @@ struct SimSmem {
   // three would not fit the SM's shared memory
   static constexpr int NC =
       kRawStages * sizeof(Raw) + 3 * (TILE * SS + (TILE + 1) * RS) * 4
-              + 1024 <= kSmemMax ? 3 : 2;
+              + (TABLE ? kRows * (2 * LS + TS) * 4 : 0) + 1024 <= kSmemMax
+          ? 3
+          : 2;
   Raw raw[kRawStages];
   int cols[SVC ? kRows : 1][K];                // SVC: each row's columns
   float cooked[NC][TILE * SS];
   int rb[NC][(TILE + 1) * RS];                 // level held in each slot
-  int pi[TABLE ? kRows : 1][TABLE ? PS : 1];   // TABLE: each row's table
+  // TABLE: each row's level values and g (Model 1), the trace [row][slot]
+  float lvt[TABLE ? kRows * LS : 1];
+  float gt[TABLE && !SVC ? kRows * LS : 1];
+  alignas(16) int tb[TABLE ? kRows * TS : 4];
   uint64_t raw_full[kRawStages];
   uint64_t full[NC];
   uint64_t rfull[NC];                          // rb written (32 lanes)
-  uint64_t empty[NC];
+  uint64_t empty[NC];                          // read: the accounting
 };
+
+// S's threads: producer, policy and accounting warps, and on the table
+// variant a fourth, the counts and the trace split off the sums
+template <bool TABLE>
+constexpr int kSimThreads = TABLE ? 128 : 96;
 
 // the inputs of S: alpha-RR's policy params (plv, mask, pM) and state (S,
 // age), or a table policy's (pi [R, S, K], thr [R], the observation kind
@@ -2285,8 +2548,38 @@ struct SimArgs {
   void *r_out, *S_out, *age_out, *sums_out, *counts_out, *r_hist;
 };
 
+// byte sel of {b, a} (prmt.b32's default mode: a selector nibble's low 3
+// bits pick one of the 8 bytes, its msb replicates that byte's sign)
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
+                                         uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+// a table row of K <= 16 levels packed a byte a level: word q holds
+// levels 4q .. 4q + 3
+template <int K>
+constexpr int kTableWords = K <= 4 ? 1 : (K <= 8 ? 2 : 4);
+
+// one table step r' = T[r] on the packed row w.  Only the low nibble of r
+// is read, and only the low nibble of r' is exact (its other bits are
+// whatever the permute leaves there): byte 0 of prmt(w0, w1, r) is byte
+// (r & 7) of the row while r < 8, and 0 (the sign of a byte < 128) when
+// bit 3 of r is set; K <= 8 is one permute a step.
+template <int K>
+__device__ __forceinline__ uint32_t table_next(
+    const uint32_t (&w)[kTableWords<K>], uint32_t r) {
+  if constexpr (K <= 4)
+    return prmt(w[0], w[0], r);
+  else if constexpr (K <= 8)
+    return prmt(w[0], w[1], r);
+  else
+    return prmt(w[0], w[1], r) | prmt(w[2], w[3], r ^ 8u);
+}
+
 template <int K, bool SVC, bool TABLE>
-__global__ void __launch_bounds__(96) sim_kernel(
+__global__ void __launch_bounds__(kSimThreads<TABLE>) sim_kernel(
     const float* __restrict__ plv_g, const bool* __restrict__ mask_g,
     const float* __restrict__ pM_g, const int* __restrict__ pi_g,
     const float* __restrict__ thr_g, const float* __restrict__ lv_g,
@@ -2300,9 +2593,11 @@ __global__ void __launch_bounds__(96) sim_kernel(
     int R, int Kf, int include_final_fetch, int* __restrict__ r_out,
     float* __restrict__ S_out, int* __restrict__ age_out,
     float* __restrict__ sums_out, int* __restrict__ counts_out,
-    int* __restrict__ r_hist, int bulk) {
+    int* __restrict__ r_hist, int bulk,
+    const __grid_constant__ StageMaps maps) {
   using Sm = SimSmem<K, SVC, TABLE>;
-  constexpr int TILE = Sm::TILE, SS = Sm::SS, RS = Sm::RS;
+  static_assert(sizeof(Sm) <= kSmemMax, "S's tiles fit shared memory");
+  constexpr int TILE = Sm::TILE, SS = Sm::SS, RS = Sm::RS, LS = Sm::LS;
   constexpr int FC = Sm::FC, FX = Sm::FX;
   extern __shared__ __align__(128) unsigned char smem_buf[];
   Sm& sm = *reinterpret_cast<Sm*>(smem_buf);
@@ -2312,9 +2607,20 @@ __global__ void __launch_bounds__(96) sim_kernel(
   const int row = row0 + lane;                   // this lane's row
   const bool live = lane < nrows;
   const long long rk = (long long)row * K;
+  if constexpr (TABLE)
+    for (int i = threadIdx.x; i < nrows * K; i += blockDim.x) {
+      const int r = i / K, k = i - r * K;
+      sm.lvt[r * LS + k] = lv_g[(long long)row0 * K + i];
+      if constexpr (!SVC) sm.gt[r * LS + k] = g_g[(long long)row0 * K + i];
+    }
   if (threadIdx.x == 0) {
-    init_ring(sm, bulk);
-    for (int s = 0; s < Sm::NC; ++s) mbar_init(&sm.rfull[s], 32u);
+    for (int s = 0; s < kRawStages; ++s)
+      mbar_init(&sm.raw_full[s], bulk ? 1u : 32u);
+    for (int s = 0; s < Sm::NC; ++s) {
+      mbar_init(&sm.full[s], 32u);
+      mbar_init(&sm.rfull[s], 32u);
+      mbar_init(&sm.empty[s], TABLE ? 64u : 32u);
+    }
     fence_mbar_init();
   }
   __syncthreads();
@@ -2335,7 +2641,7 @@ __global__ void __launch_bounds__(96) sim_kernel(
       };
       if constexpr (SVC) {
         load_cols<K>(sm.cols, cols_g, row, live, lane);
-        produce_svc<TILE, SS, K, true>(
+        produce_svc<TILE, SS, K, true, true>(
             sm, c_g, svc_g, Kf, row0, nrows, chunk, bulk,
             cols_g == nullptr, lane,
             [&](float* out, float cv, const float(&sv)[K], int ov) {
@@ -2345,16 +2651,16 @@ __global__ void __launch_bounds__(96) sim_kernel(
 #pragma unroll
               for (int k = 0; k < K; ++k) out[(FX + k) * kRows] = sv[k];
             },
-            o_g);
+            o_g, maps.m);
       } else {
-        produce<TILE, SS, true>(
+        produce<TILE, SS, true, true>(
             sm, c_g, x_g, row0, nrows, chunk, bulk, lane,
             [&](float* out, float cv, int xv, int ov) {
               out[0] = state(xv, ov);
               out[FC * kRows] = cv;
               out[FX * kRows] = (float)xv;
             },
-            o_g);
+            o_g, maps.m);
       }
     } else {
       float plr[K];
@@ -2397,13 +2703,23 @@ __global__ void __launch_bounds__(96) sim_kernel(
   const int ntiles = (chunk + TILE - 1) / TILE;
 
   if (warp == 1) {
-    int r = live ? r_in[row] : 0;
     if constexpr (TABLE) {
       // ---- a table step: r' = pi[row][s][r], frozen past T_len ----
-      int* pr = sm.pi[lane];
-      for (int i = 0; i < S_rows * K; ++i)
-        pr[i] = live ? pi_g[(long long)row * S_rows * K + i] : 0;
-      __syncwarp();
+      // the row's two table rows (one for S = 1) packed in registers
+      constexpr int NW = kTableWords<K>;
+      uint32_t tw0[NW], tw1[NW];
+#pragma unroll
+      for (int q = 0; q < NW; ++q) tw0[q] = tw1[q] = 0u;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const long long at = (long long)row * S_rows * K + k;
+        const uint32_t v0 = live ? (uint32_t)pi_g[at] & 0xFFu : 0u;
+        const uint32_t v1 =
+            live && S_rows > 1 ? (uint32_t)pi_g[at + K] & 0xFFu : v0;
+        tw0[k / 4] |= v0 << (8 * (k % 4));
+        tw1[k / 4] |= v1 << (8 * (k % 4));
+      }
+      uint32_t r = live ? (uint32_t)r_in[row] : 0u;
       for (int i = 0; i < ntiles; ++i) {
         const int cs = i % Sm::NC, j0 = i * TILE;
         const int n = min(TILE, chunk - j0);
@@ -2412,18 +2728,25 @@ __global__ void __launch_bounds__(96) sim_kernel(
         int* rb = sm.rb[cs] + lane;
         // slots jj < nv are valid; the state is frozen past T_len
         const int nv = max(0, min(n, Tl - t0 - j0));
+        int sn = __float_as_int(ck[0]);          // the next slot's state
         for (int jj = 0; jj < nv; ++jj) {
-          rb[jj * RS] = r;
-          r = pr[__float_as_int(ck[jj * SS]) * K + r];
+          const int st = sn;
+          sn = __float_as_int(ck[min(jj + 1, n - 1) * SS]);
+          rb[jj * RS] = (int)(r & 15u);
+          uint32_t w[NW];
+#pragma unroll
+          for (int q = 0; q < NW; ++q) w[q] = st ? tw1[q] : tw0[q];
+          r = table_next<K>(w, r);
         }
-        for (int jj = nv; jj < n; ++jj) rb[jj * RS] = r;
-        rb[n * RS] = r;                        // held after the tile
+        r &= 15u;
+        for (int jj = nv; jj <= n; ++jj) rb[jj * RS] = (int)r;  // and after
         mbar_arrive(&sm.rfull[cs]);
       }
-      if (live) r_out[row] = r;
+      if (live) r_out[row] = (int)r;
       return;
     } else {
       // ---- the policy: alpha_rr_step, state frozen past T_len ----
+      int r = live ? r_in[row] : 0;
       const float BIG = (float)3.4e38;   // alpha_rr._BIG
       const float EPS = (float)1e-6;     // alpha_rr._TIE_EPS
       float plv[K], S[K];
@@ -2502,63 +2825,245 @@ __global__ void __launch_bounds__(96) sim_kernel(
     }
   }
 
-  // ---- warp 2: the accounting of sim_chunk_core, in slot order ----
-  float lv[K], g[K];
-  int cnt[K];
+  if constexpr (!TABLE) {
+    // ---- warp 2 of alpha-RR: the accounting of sim_chunk_core in slot
+    // order, the counts and the trace with it (alpha-RR's policy chain
+    // sets its pace, and the table variant's split sums and counts made
+    // that chain slower, PERF.md section 6)
+    float lv[K], g[K];
+    int cnt[K];
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    lv[k] = live ? lv_g[rk + k] : 0.0f;
-    g[k] = live && !SVC ? g_g[rk + k] : 0.0f;
-    cnt[k] = live ? counts_in[rk + k] : 0;
-  }
-  const float M = live ? M_g[row] : 0.0f;
-  float s_rent = live ? sums_in[row * 3 + 0] : 0.0f;
-  float s_svc = live ? sums_in[row * 3 + 1] : 0.0f;
-  float s_fetch = live ? sums_in[row * 3 + 2] : 0.0f;
-  for (int i = 0; i < ntiles; ++i) {
-    const int cs = i % Sm::NC, j0 = i * TILE;
-    const int n = min(TILE, chunk - j0);
-    mbar_wait(&sm.rfull[cs], (uint32_t)((i / Sm::NC) & 1));
-    const float* ck = sm.cooked[cs] + lane;
-    const int* rb = sm.rb[cs] + lane;
-    const int tv = Tl - t0 - j0;
+    for (int k = 0; k < K; ++k) {
+      lv[k] = live ? lv_g[rk + k] : 0.0f;
+      g[k] = live && !SVC ? g_g[rk + k] : 0.0f;
+      cnt[k] = live ? counts_in[rk + k] : 0;
+    }
+    const float M = live ? M_g[row] : 0.0f;
+    float s_rent = live ? sums_in[row * 3 + 0] : 0.0f;
+    float s_svc = live ? sums_in[row * 3 + 1] : 0.0f;
+    float s_fetch = live ? sums_in[row * 3 + 2] : 0.0f;
+    for (int i = 0; i < ntiles; ++i) {
+      const int cs = i % Sm::NC, j0 = i * TILE;
+      const int n = min(TILE, chunk - j0);
+      mbar_wait(&sm.rfull[cs], (uint32_t)((i / Sm::NC) & 1));
+      const float* ck = sm.cooked[cs] + lane;
+      const int* rb = sm.rb[cs] + lane;
+      const int tv = Tl - t0 - j0;
 #pragma unroll 2
-    for (int jj = 0; jj < n; ++jj) {
-      const int rt = rb[jj * RS];
-      const int rn = rb[(jj + 1) * RS];        // the level after the slot
-      const float c = ck[jj * SS + FC * kRows];
-      const bool valid = jj < tv;
-      const bool last = jj == tv - 1;
-      const float lv_t = select_k<K>(lv, rt);
-      const float rent = c * lv_t;
-      // the held level's service: its slab column (SVC), or x * g
-      const float svc_t = SVC ? ck[jj * SS + (FX + rt) * kRows]
-                              : ck[jj * SS + FX * kRows]
-                                    * select_k<K>(g, rt);
-      const float lv_next = select_k<K>(lv, rn);
-      float fetch = M * fmaxf(lv_next - lv_t, 0.0f);
-      if (!include_final_fetch && last) fetch = 0.0f;
-      s_rent = s_rent + (valid ? rent : 0.0f);
-      s_svc = s_svc + (valid ? svc_t : 0.0f);
-      s_fetch = s_fetch + (valid ? fetch : 0.0f);
+      for (int jj = 0; jj < n; ++jj) {
+        const int rt = rb[jj * RS];
+        const int rn = rb[(jj + 1) * RS];        // the level after the slot
+        const float c = ck[jj * SS + FC * kRows];
+        const bool valid = jj < tv;
+        const bool last = jj == tv - 1;
+        const float lv_t = select_k<K>(lv, rt);
+        const float rent = c * lv_t;
+        // the held level's service: its slab column (SVC), or x * g
+        const float svc_t = SVC ? ck[jj * SS + (FX + rt) * kRows]
+                                : ck[jj * SS + FX * kRows]
+                                      * select_k<K>(g, rt);
+        const float lv_next = select_k<K>(lv, rn);
+        float fetch = M * fmaxf(lv_next - lv_t, 0.0f);
+        if (!include_final_fetch && last) fetch = 0.0f;
+        s_rent = s_rent + (valid ? rent : 0.0f);
+        s_svc = s_svc + (valid ? svc_t : 0.0f);
+        s_fetch = s_fetch + (valid ? fetch : 0.0f);
 #pragma unroll
-      for (int k = 0; k < K; ++k) cnt[k] += (valid && k == rt) ? 1 : 0;
-    }
-    if (r_hist) {
-      for (int r = 0; r < nrows; ++r) {
-        int* dst = r_hist + (long long)(row0 + r) * chunk + j0;
-        const int* src = sm.rb[cs] + r;
-        for (int jj = lane; jj < n; jj += 32) dst[jj] = src[jj * RS];
+        for (int k = 0; k < K; ++k) cnt[k] += (valid && k == rt) ? 1 : 0;
       }
+      if (r_hist) {
+        for (int r = 0; r < nrows; ++r) {
+          int* dst = r_hist + (long long)(row0 + r) * chunk + j0;
+          const int* src = sm.rb[cs] + r;
+          for (int jj = lane; jj < n; jj += 32) dst[jj] = src[jj * RS];
+        }
+      }
+      mbar_arrive(&sm.empty[cs]);
     }
-    mbar_arrive(&sm.empty[cs]);
-  }
-  if (live) {
-    sums_out[row * 3 + 0] = s_rent;
-    sums_out[row * 3 + 1] = s_svc;
-    sums_out[row * 3 + 2] = s_fetch;
+    if (live) {
+      sums_out[row * 3 + 0] = s_rent;
+      sums_out[row * 3 + 1] = s_svc;
+      sums_out[row * 3 + 2] = s_fetch;
 #pragma unroll
-    for (int k = 0; k < K; ++k) counts_out[rk + k] = cnt[k];
+      for (int k = 0; k < K; ++k) counts_out[rk + k] = cnt[k];
+    }
+  } else {
+    if (warp == 3) {
+      // ---- the counts (order-free integers) and the trace, off the sums;
+      // the trace by bulk copies where its rows' tile segments are 16-byte
+      // aligned
+      const bool tbulk = r_hist && chunk % 4 == 0
+                         && (uintptr_t)r_hist % 16 == 0;
+      int cnt[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) cnt[k] = live ? counts_in[rk + k] : 0;
+      for (int i = 0; i < ntiles; ++i) {
+        const int cs = i % Sm::NC, j0 = i * TILE;
+        const int n = min(TILE, chunk - j0);
+        mbar_wait(&sm.rfull[cs], (uint32_t)((i / Sm::NC) & 1));
+        const int* rb = sm.rb[cs] + lane;
+        const int nv = max(0, min(n, Tl - t0 - j0));
+        if constexpr (K <= 4) {
+          // a byte a level, TILE < 256 slots a tile
+          uint32_t pk = 0u;
+#pragma unroll 4
+          for (int jj = 0; jj < nv; ++jj) pk += 1u << (8 * rb[jj * RS]);
+#pragma unroll
+          for (int k = 0; k < K; ++k) cnt[k] += (int)((pk >> (8 * k)) & 0xFFu);
+        } else {
+#pragma unroll 2
+          for (int jj = 0; jj < nv; ++jj) {
+            const int rt = rb[jj * RS];
+#pragma unroll
+            for (int k = 0; k < K; ++k) cnt[k] += rt == k ? 1 : 0;
+          }
+        }
+        if (tbulk) {                               // n % 4 == 0
+          // the row's levels four slots a 16-byte store into a buffer,
+          // sent by one cp.async.bulk (read before the next tile's stores)
+          int* tr = sm.tb + lane * Sm::TS;
+          if (i >= 1) bulk_wait_read<0>();
+#pragma unroll 4
+          for (int jj = 0; jj < n; jj += 4)
+            *reinterpret_cast<int4*>(tr + jj) =
+                make_int4(rb[jj * RS], rb[(jj + 1) * RS], rb[(jj + 2) * RS],
+                          rb[(jj + 3) * RS]);
+          fence_proxy_async();
+          if (live)
+            bulk_s2g(r_hist + (long long)row * chunk + j0, tr,
+                     (uint32_t)(n * 4));
+          bulk_commit();
+        } else if (r_hist) {
+          for (int r = 0; r < nrows; ++r) {
+            int* dst = r_hist + (long long)(row0 + r) * chunk + j0;
+            const int* src = sm.rb[cs] + r;
+            for (int jj = lane; jj < n; jj += 32) dst[jj] = src[jj * RS];
+          }
+        }
+        mbar_arrive(&sm.empty[cs]);
+      }
+      if (tbulk) bulk_wait_all();
+      if (live) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) counts_out[rk + k] = cnt[k];
+      }
+      return;
+    }
+
+    // ---- warp 2: the sums of sim_chunk_core, in slot order.  The valid
+    // slots are a prefix of the row (t < T_len), priced unmasked; a masked
+    // slot adds 0 to each sum, which one x + 0 after them stands for (it
+    // changes only a sum of -0 into +0).  The level held (rt, its lv and g)
+    // is carried from the slot before; loads are software-pipelined: four
+    // slots are priced while the next four's level words and the four
+    // after's levels, c and x are loaded.
+    const float* lvr = sm.lvt + lane * LS;
+    const float* gtr = sm.gt + (SVC ? 0 : lane * LS);
+    const float M = live ? M_g[row] : 0.0f;
+    float s_rent = live ? sums_in[row * 3 + 0] : 0.0f;
+    float s_svc = live ? sums_in[row * 3 + 1] : 0.0f;
+    float s_fetch = live ? sums_in[row * 3 + 2] : 0.0f;
+    struct SlotsA {                                // four slots' loads
+      int rn[4];                                   // the level after the slot
+      float c[4], x[4];                            // c, float(x) (Model 1)
+    };
+    struct SlotsB {                                // their level words
+      float lvn[4], gn[4], sv[4];                  // lv[rn], g[rn]; svc[r]
+    };
+    for (int i = 0; i < ntiles; ++i) {
+      const int cs = i % Sm::NC, j0 = i * TILE;
+      const int n = min(TILE, chunk - j0);
+      mbar_wait(&sm.rfull[cs], (uint32_t)((i / Sm::NC) & 1));
+      const float* ck = sm.cooked[cs] + lane;
+      const int* rb = sm.rb[cs] + lane;
+      const int tv = Tl - t0 - j0;
+      const int nv = max(0, min(n, tv));
+      // the slots priced with their fetch: all valid ones, but the row's
+      // last when the final fetch is dropped
+      const int nf = !include_final_fetch && tv >= 1 && tv <= n ? nv - 1 : nv;
+      int rt = rb[0];
+      float lv_t = lvr[rt], g_t = SVC ? 0.0f : gtr[rt];
+      auto load_a = [&](int j, SlotsA& A) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          A.rn[u] = rb[(j + u + 1) * RS];
+          A.c[u] = ck[(j + u) * SS + FC * kRows];
+          A.x[u] = SVC ? 0.0f : ck[(j + u) * SS + FX * kRows];
+        }
+      };
+      auto load_b = [&](int j, const SlotsA& A, int r0, SlotsB& B) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          B.lvn[u] = lvr[A.rn[u]];
+          if constexpr (SVC) {
+            const int r_u = u ? A.rn[u - 1] : r0;  // the level held in slot
+            B.sv[u] = ck[(j + u) * SS + (FX + r_u) * kRows];
+          } else {
+            B.gn[u] = gtr[A.rn[u]];
+          }
+        }
+      };
+      // one slot: rent c * lv[r], the service (the slab's column of r, or
+      // float(x) * g[r]), the fetch M * (lv[r'] - lv[r])^+
+      auto price = [&](float c, float xs, float lv_n, float g_n, int rn) {
+        const float rent = c * lv_t;
+        const float sv = SVC ? xs : xs * g_t;
+        const float fetch = M * fmaxf(lv_n - lv_t, 0.0f);
+        s_rent = s_rent + rent;
+        s_svc = s_svc + sv;
+        s_fetch = s_fetch + fetch;
+        lv_t = lv_n;
+        g_t = g_n;
+        rt = rn;
+      };
+      int j = 0;
+      if (nf >= 4) {
+        const int jl = n - 4;                      // the tile's last group
+        SlotsA a0, a1;
+        SlotsB b0;
+        load_a(0, a0);
+        load_b(0, a0, rt, b0);
+        load_a(min(4, jl), a1);
+#pragma unroll 2
+        for (; j + 4 <= nf; j += 4) {
+          SlotsA a2;
+          SlotsB b1;
+          load_a(min(j + 8, jl), a2);
+          load_b(min(j + 4, jl), a1, a0.rn[3], b1);
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            price(a0.c[u], SVC ? b0.sv[u] : a0.x[u], b0.lvn[u],
+                  SVC ? 0.0f : b0.gn[u], a0.rn[u]);
+          a0 = a1;
+          a1 = a2;
+          b0 = b1;
+        }
+      }
+      for (; j < nf; ++j) {                        // the priced slots' last few
+        const int rn = rb[(j + 1) * RS];
+        const float xs = SVC ? ck[j * SS + (FX + rt) * kRows]
+                             : ck[j * SS + FX * kRows];
+        price(ck[j * SS + FC * kRows], xs, lvr[rn], SVC ? 0.0f : gtr[rn], rn);
+      }
+      if (nf < nv) {                               // the row's last slot, no
+        const float c = ck[nf * SS + FC * kRows];  // final fetch
+        s_rent = s_rent + c * lv_t;
+        s_svc = s_svc + (SVC ? ck[nf * SS + (FX + rt) * kRows]
+                             : ck[nf * SS + FX * kRows] * g_t);
+        s_fetch = s_fetch + 0.0f;
+      }
+      if (nv < n) {                                // masked slots: x + 0
+        s_rent = s_rent + 0.0f;
+        s_svc = s_svc + 0.0f;
+        s_fetch = s_fetch + 0.0f;
+      }
+      mbar_arrive(&sm.empty[cs]);
+    }
+    if (live) {
+      sums_out[row * 3 + 0] = s_rent;
+      sums_out[row * 3 + 1] = s_svc;
+      sums_out[row * 3 + 2] = s_fetch;
+    }
   }
 }
 
@@ -2587,11 +3092,6 @@ constexpr int kBeBarBytes = 2 * kBeStages * 8;   // full[], empty[]
 // copy's box)
 constexpr int kBeRowWords = 320, kBeMaxTile = 256, kBeMaxBox = 256;
 
-// a stage row's words for `words` words of payload
-__host__ __device__ constexpr int be_stride(int words) {
-  return 4 * (((words + 3) / 4) | 1);
-}
-
 // the slots of one tile of B (words = K, box 0) or E (words 3, box 1
 // under Model 1; 2 + Kf and Kf on a Model-2 slab): whole 4-slot groups
 // (bulk copies move whole 16-byte groups), within kBeRowWords and
@@ -2605,34 +3105,6 @@ inline int be_tile(int words, int chunk, int box) {
                             (chunk + 3) / 4 * 4)) / 4;
   if (box && g % 2 == 0) --g;
   return 4 * std::max(1, g);
-}
-
-__device__ __forceinline__ void bulk_s2g(void* dst, const void* src,
-                                         uint32_t bytes) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
-          dst),
-      "r"(smem_u32(src)), "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-// this thread's bulk groups but the newest N have read their source
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
-}
-
-// this thread's bulk groups are complete
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
 // the ring's barriers: full[s] (one expect_tx arrival on the bulk route,
@@ -2860,17 +3332,6 @@ inline size_t sc_smem_bytes(int ts, int K, int Kf, bool svc) {
                                       + (size_t)3 * kRows * sh.ks);
 }
 
-// a 2D tensor copy of one box into shared memory, completed on bar by
-// transaction count: inner coordinate c0 (words), outer c1 (rows)
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
-                                       int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-      "r"(smem_u32(bar))
-      : "memory");
-}
 
 template <bool SVC, int FMA, bool BULK>
 __global__ void __launch_bounds__(kScThreads<BULK>) schedule_kernel(
@@ -3167,6 +3628,54 @@ cudaError_t allow_smem(Kern kern, size_t bytes) {
                               (int)bytes);
 }
 
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query (the library links no libcuda)
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline cudaError_t encode_tiled(EncodeTiled* fn) {
+  static std::atomic<void*> cached{nullptr};
+  void* f = cached.load(std::memory_order_relaxed);
+  if (!f) {
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess) return e;
+    if (q != cudaDriverEntryPointSuccess || !f) return cudaErrorNotSupported;
+    cached.store(f, std::memory_order_relaxed);
+  }
+  *fn = reinterpret_cast<EncodeTiled>(f);
+  return cudaSuccess;
+}
+
+// a [rows, width] matrix of 32-bit words (16-byte aligned, width % 4 ==
+// 0) seen in boxes of kRows rows x box words (box % 4 == 0, <= 256); a box
+// past the matrix's edge reads zeros
+inline cudaError_t row_map(CUtensorMap* map, const void* base, int rows,
+                           long long width, int box) {
+  EncodeTiled fn = nullptr;
+  const cudaError_t e = encode_tiled(&fn);
+  if (e != cudaSuccess) return e;
+  const cuuint64_t dim[2] = {(cuuint64_t)width, (cuuint64_t)rows};
+  const cuuint64_t stride[1] = {(cuuint64_t)width * 4};
+  const cuuint32_t boxd[2] = {(cuuint32_t)box, (cuuint32_t)kRows};
+  const cuuint32_t step[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, const_cast<void*>(base),
+            dim, stride, boxd, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
 // D's and S's producer route: bulk copies when the row segments are
 // contiguous and 16-byte aligned (Model 1: c and x; SVC: c and svc, and
 // the slab's columns fit a bulk stage)
@@ -3175,6 +3684,20 @@ int bulk_route(const void* c, const void* x, const void* svc, int Kf,
                int chunk) {
   return SVC ? Kf <= svc_bulk_cols<TILE, K>() && bulk_ok(c, svc, chunk)
              : bulk_ok(c, x, chunk);
+}
+
+// the maps of a producer's route 2 for tiles of `tile` slots: c [R,
+// chunk], the second array [R, chunk * w] (x, w = 1; or the slab, w =
+// Kf) and the observation slab o [R, chunk] (NULL: none), in boxes of
+// kRows rows x tile * w + 4 words, the raw stage's padded rows
+inline cudaError_t stage_maps(StageMaps* maps, const void* c, const void* x,
+                              const void* o, int R, int chunk, int w,
+                              int tile) {
+  cudaError_t e = row_map(&maps->m[0], c, R, chunk, tile + 4);
+  if (e == cudaSuccess)
+    e = row_map(&maps->m[1], x, R, (long long)chunk * w, tile * w + 4);
+  if (e == cudaSuccess && o) e = row_map(&maps->m[2], o, R, chunk, tile + 4);
+  return e;
 }
 
 // the fused D's levels, and its Model-2 slab's, at most (kernels/
@@ -3195,13 +3718,27 @@ int launch_dpf(const DpfArgs& a, cudaStream_t st) {
   const size_t bytes = sizeof(DpSmem<K, ARGS, SVC>);
   const cudaError_t e = allow_smem(dp_fwd_kernel<K, ARGS, SVC>, bytes);
   if (e != cudaSuccess) return (int)e;
-  dp_fwd_kernel<K, ARGS, SVC><<<n_blocks(a.R, kRows), 64, bytes, st>>>(
-      (const float*)a.J, (const float*)a.c, (const int*)a.x,
-      (const float*)a.g, (const float*)a.svc, (const int*)a.cols, a.Kf,
-      (const float*)a.lv, (const bool*)a.kmask, (const float*)a.fetch,
-      (const int*)a.T_len, (float*)a.Jout, (int*)a.args, a.R, a.chunk, a.t0,
-      bulk_route<SVC, DpSmem<K, ARGS, SVC>::TILE, K>(a.c, a.x, a.svc, a.Kf,
-                                                     a.chunk));
+  // the argmin table goes back by bulk copies when its rows' tile
+  // segments are 16-byte aligned; the ARGS route stages by tensor copies
+  // (route 2) where the bulk route holds and a row of the slab's tile
+  // fits a box
+  constexpr int TILE = DpSmem<K, ARGS, SVC>::TILE;
+  const int abulk = a.chunk % 4 == 0 && (uintptr_t)a.args % 16 == 0;
+  int bulk = bulk_route<SVC, TILE, K>(a.c, a.x, a.svc, a.Kf, a.chunk);
+  StageMaps maps = {};
+  if (ARGS && bulk && (!SVC || a.Kf * TILE + 4 <= kBeMaxBox)) {
+    const cudaError_t me = stage_maps(&maps, a.c, SVC ? a.svc : a.x, nullptr,
+                                      a.R, a.chunk, SVC ? a.Kf : 1, TILE);
+    if (me != cudaSuccess) return (int)me;
+    bulk = 2;
+  }
+  dp_fwd_kernel<K, ARGS, SVC>
+      <<<n_blocks(a.R, kRows), kDpThreads<ARGS>, bytes, st>>>(
+          (const float*)a.J, (const float*)a.c, (const int*)a.x,
+          (const float*)a.g, (const float*)a.svc, (const int*)a.cols, a.Kf,
+          (const float*)a.lv, (const bool*)a.kmask, (const float*)a.fetch,
+          (const int*)a.T_len, (float*)a.Jout, (int*)a.args, a.R, a.chunk,
+          a.t0, bulk, abulk, maps);
   return (int)cudaGetLastError();
 }
 
@@ -3232,11 +3769,22 @@ int launch_sim(const SimArgs& a, cudaStream_t st) {
   const size_t bytes = sizeof(Sm);
   const cudaError_t e = allow_smem(sim_kernel<K, SVC, TABLE>, bytes);
   if (e != cudaSuccess) return (int)e;
-  // the bulk route needs the observation slab's rows aligned too
-  const int bulk = bulk_route<SVC, Sm::TILE, K>(a.c, a.x, a.svc, a.Kf,
-                                                a.chunk)
-                   && (uintptr_t)a.o % 16 == 0;
-  sim_kernel<K, SVC, TABLE><<<n_blocks(a.R, kRows), 96, bytes, st>>>(
+  // the bulk routes need the observation slab's rows aligned too; then
+  // the table variant takes one 2D tensor copy an array and tile (route
+  // 2) where a row of the slab's tile fits a box, else one bulk copy a row
+  // and array (route 1)
+  constexpr int TILE = Sm::TILE;
+  int bulk = bulk_route<SVC, TILE, K>(a.c, a.x, a.svc, a.Kf, a.chunk)
+             && (uintptr_t)a.o % 16 == 0;
+  StageMaps maps = {};
+  if (TABLE && bulk && (!SVC || a.Kf * TILE + 4 <= kBeMaxBox)) {
+    const cudaError_t me = stage_maps(&maps, a.c, SVC ? a.svc : a.x, a.o,
+                                      a.R, a.chunk, SVC ? a.Kf : 1, TILE);
+    if (me != cudaSuccess) return (int)me;
+    bulk = 2;
+  }
+  sim_kernel<K, SVC, TABLE>
+      <<<n_blocks(a.R, kRows), kSimThreads<TABLE>, bytes, st>>>(
       (const float*)a.plv, (const bool*)a.mask, (const float*)a.pM,
       (const int*)a.pi, (const float*)a.thr, (const float*)a.lv,
       (const float*)a.g, (const float*)a.M, (const int*)a.T_len,
@@ -3246,7 +3794,7 @@ int launch_sim(const SimArgs& a, cudaStream_t st) {
       (const int*)a.o, a.obs, a.S, a.t0, a.chunk, a.R, a.Kf,
       a.include_final_fetch, (int*)a.r_out, (float*)a.S_out,
       (int*)a.age_out, (float*)a.sums_out, (int*)a.counts_out,
-      (int*)a.r_hist, bulk);
+      (int*)a.r_hist, bulk, maps);
   return (int)cudaGetLastError();
 }
 
@@ -3304,54 +3852,6 @@ struct ScheduleArgs {
   int R, chunk, K, Kf, t0, ts;
 };
 
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
-// query (the library links no libcuda)
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-inline cudaError_t encode_tiled(EncodeTiled* fn) {
-  static std::atomic<void*> cached{nullptr};
-  void* f = cached.load(std::memory_order_relaxed);
-  if (!f) {
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    if (e != cudaSuccess) return e;
-    if (q != cudaDriverEntryPointSuccess || !f) return cudaErrorNotSupported;
-    cached.store(f, std::memory_order_relaxed);
-  }
-  *fn = reinterpret_cast<EncodeTiled>(f);
-  return cudaSuccess;
-}
-
-// a [rows, width] matrix of 32-bit words (16-byte aligned, width % 4 ==
-// 0) seen in boxes of kRows rows x box words (box % 4 == 0, <= 256); a box
-// past the matrix's edge reads zeros
-inline cudaError_t row_map(CUtensorMap* map, const void* base, int rows,
-                           long long width, int box) {
-  EncodeTiled fn = nullptr;
-  const cudaError_t e = encode_tiled(&fn);
-  if (e != cudaSuccess) return e;
-  const cuuint64_t dim[2] = {(cuuint64_t)width, (cuuint64_t)rows};
-  const cuuint64_t stride[1] = {(cuuint64_t)width * 4};
-  const cuuint32_t boxd[2] = {(cuuint32_t)box, (cuuint32_t)kRows};
-  const cuuint32_t step[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, const_cast<void*>(base),
-            dim, stride, boxd, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
-             ? cudaSuccess
-             : cudaErrorInvalidValue;
-}
-
 template <bool SVC, int FMA, bool BULK>
 int launch_sched(const ScheduleArgs& a, const CUtensorMap (&maps)[3],
                  cudaStream_t st) {
@@ -3382,6 +3882,33 @@ int launch_sched_route(const ScheduleArgs& a, cudaStream_t st) {
     e = row_map(&maps[2], xs, a.R, (long long)a.chunk * xw, a.ts * xw);
   if (e != cudaSuccess) return (int)e;
   return launch_sched<SVC, FMA, true>(a, maps, st);
+}
+
+// f(std::integral_constant<int, K>) at a run-time K of 1..kDpfMaxK
+template <class F>
+int with_k(int K, F f) {
+  switch (K) {
+#define REPRO_K_CASE(KK) \
+  case KK:               \
+    return f(std::integral_constant<int, KK>{});
+    REPRO_K_CASE(1) REPRO_K_CASE(2) REPRO_K_CASE(3) REPRO_K_CASE(4)
+    REPRO_K_CASE(5) REPRO_K_CASE(6) REPRO_K_CASE(7) REPRO_K_CASE(8)
+    REPRO_K_CASE(9) REPRO_K_CASE(10) REPRO_K_CASE(11) REPRO_K_CASE(12)
+    REPRO_K_CASE(13) REPRO_K_CASE(14) REPRO_K_CASE(15) REPRO_K_CASE(16)
+#undef REPRO_K_CASE
+    default:
+      return -1;
+  }
+}
+
+// S's table variant at K levels: its tile in slots (what = 0) or its
+// cooked stages
+template <bool SVC>
+int sim_table_shape(int K, int what) {
+  return with_k(K, [=](auto k) {
+    using Sm = SimSmem<decltype(k)::value, SVC, true>;
+    return what ? Sm::NC : Sm::TILE;
+  });
 }
 
 }  // namespace
@@ -3563,6 +4090,28 @@ int be_tile_slots(int words, int chunk, int box) {
 }
 int be_ring_stages() { return kBeStages; }
 int be_row_stride(int words) { return be_stride(words); }
+
+// S's table variant's and D's layout at K levels (1..16; -1 past them),
+// for the checks that pick their edge shapes: the table variant's tile in
+// slots and its cooked stages (under Model 1 or on a Model-2 slab), D's
+// tile and the argmin table's stages on its ARGS route
+int sim_tile_slots(int K, int svc) {
+  return svc ? sim_table_shape<true>(K, 0) : sim_table_shape<false>(K, 0);
+}
+int sim_ring_stages(int K, int svc) {
+  return svc ? sim_table_shape<true>(K, 1) : sim_table_shape<false>(K, 1);
+}
+int dp_tile_slots(int K) {
+  return with_k(K, [](auto k) {
+    return DpSmem<decltype(k)::value, true, false>::TILE;
+  });
+}
+int dp_args_stages(int K, int svc) {
+  return with_k(K, [=](auto k) {
+    constexpr int KK = decltype(k)::value;
+    return svc ? DpSmem<KK, true, true>::NA : DpSmem<KK, true, false>::NA;
+  });
+}
 
 // the fused D under Model 1 (x, g; svc and cols NULL) or on a Model-2
 // service slab svc [R, chunk, Kf] (x and g NULL) with cols [R, K] (NULL:

@@ -1412,22 +1412,24 @@ def table_step(params, state, obs):
 def sim_chunk_table_plain(pi, obs, x_threshold, lv, g, M, T_len, t0: int,
                           carry, x, c, side, include_final_fetch: bool = True,
                           collect_trace: bool = True,
-                          rent_fma: bool = False):
+                          rent_fma: bool = False, fetch_fma: bool = False):
     """Plain version of kernel S's table variant: ``simulator.
     sim_chunk_core`` stepping ``table_step`` on the table ``pi`` [R, S, K]
     int32 (S = 1 or 2) read at the observation ``obs`` (``"none"``,
     ``"side"``, or ``"x"`` against ``x_threshold`` [R]) over slots ``[t0,
     t0 + chunk)`` of R rows under Model-1 service ``x * g``; ``side`` [R,
     chunk] int32 is the side channel.  Returns ``(carry', r_hist [R,
-    chunk] int32 or None)``.  ``card_calls`` counts its calls on the card
-    (its slot loop is what the kernel replaces)."""
+    chunk] int32 or None)``; ``rent_fma`` / ``fetch_fma`` fuse the rent's
+    / the fetch's product into its sum (``simulator.xla_acc_fma``,
+    ``xla_fetch_fma``).  ``card_calls`` counts its calls on the card (its
+    slot loop is what the kernel replaces)."""
     from repro_torch.core.simulator import model1_svc, sim_chunk_core
     if c.is_cuda:
         sim_chunk_table_plain.card_calls += 1
     params = {"pi": pi, "obs": obs, "x_threshold": x_threshold}
     carry, r = sim_chunk_core(table_step, include_final_fetch, params, lv, M,
                               T_len, t0, carry, x, c, model1_svc(x, g), side,
-                              rent_fma)
+                              rent_fma, fetch_fma)
     return carry, (r if collect_trace else None)
 
 
@@ -1438,7 +1440,8 @@ def sim_chunk_table_svc_plain(pi, obs, x_threshold, lv, M, T_len, t0: int,
                               carry, x, c, side, svc, svc_cols=None,
                               include_final_fetch: bool = True,
                               collect_trace: bool = True,
-                              rent_fma: bool = False):
+                              rent_fma: bool = False,
+                              fetch_fma: bool = False):
     """Plain version of kernel S's table variant on a Model-2 service slab
     ``svc`` [R, chunk, K_svc], gathered to the rows' K levels through
     ``svc_cols`` [R, K] int32 when given (other arguments as
@@ -1449,7 +1452,8 @@ def sim_chunk_table_svc_plain(pi, obs, x_threshold, lv, M, T_len, t0: int,
     params = {"pi": pi, "obs": obs, "x_threshold": x_threshold}
     carry, r = sim_chunk_core(table_step, include_final_fetch, params, lv, M,
                               T_len, t0, carry, x, c,
-                              gather_svc(svc, svc_cols), side, rent_fma)
+                              gather_svc(svc, svc_cols), side, rent_fma,
+                              fetch_fma)
     return carry, (r if collect_trace else None)
 
 
@@ -1512,20 +1516,22 @@ def _sim_table(name, pi, obs, thr, lv, M, T_len, t0, carry, x, c, side,
 
 def sim_chunk_table(pi, obs, x_threshold, lv, g, M, T_len, t0: int, carry,
                     x, c, side, include_final_fetch: bool = True,
-                    collect_trace: bool = True, rent_fma: bool = False):
+                    collect_trace: bool = True, rent_fma: bool = False,
+                    fetch_fma: bool = False):
     """Kernel S's table variant (arguments as ``sim_chunk_table_plain``; 2
     <= K <= 16, tables of 1 or 2 rows), bitwise ``sim_chunk_table_plain``."""
     if c.device.type == "cpu":
         return sim_chunk_table_plain(pi, obs, x_threshold, lv, g, M, T_len,
                                      t0, carry, x, c, side,
                                      include_final_fetch, collect_trace,
-                                     rent_fma)
+                                     rent_fma, fetch_fma)
     out = _sim_table("sim_chunk_table", pi, obs, x_threshold, lv, M, T_len,
                      t0, carry, x, c, side, include_final_fetch,
-                     collect_trace or rent_fma, g=g)
+                     collect_trace or rent_fma or fetch_fma, g=g)
     sim_chunk_table.launches += 1
     return _fused_rent(out, rent_fma, collect_trace, lv, M, T_len, t0,
-                       carry[1], c, x=x, g=g)
+                       carry[1], c, x=x, g=g, fetch_fma=fetch_fma,
+                       include_final_fetch=include_final_fetch)
 
 
 sim_chunk_table.launches = 0
@@ -1534,7 +1540,8 @@ sim_chunk_table.launches = 0
 def sim_chunk_table_svc(pi, obs, x_threshold, lv, M, T_len, t0: int, carry,
                         x, c, side, svc, svc_cols=None,
                         include_final_fetch: bool = True,
-                        collect_trace: bool = True, rent_fma: bool = False):
+                        collect_trace: bool = True, rent_fma: bool = False,
+                        fetch_fma: bool = False):
     """Kernel S's table variant on a Model-2 service slab (arguments as
     ``sim_chunk_table_svc_plain``; 2 <= K <= 16 levels, the slab 1 to 32),
     bitwise ``sim_chunk_table_svc_plain``.  ``wide_launches`` counts the
@@ -1543,14 +1550,17 @@ def sim_chunk_table_svc(pi, obs, x_threshold, lv, M, T_len, t0: int, carry,
         return sim_chunk_table_svc_plain(pi, obs, x_threshold, lv, M, T_len,
                                          t0, carry, x, c, side, svc, svc_cols,
                                          include_final_fetch, collect_trace,
-                                         rent_fma)
+                                         rent_fma, fetch_fma)
     out = _sim_table("sim_chunk_table_svc", pi, obs, x_threshold, lv, M,
                      T_len, t0, carry, x, c, side, include_final_fetch,
-                     collect_trace or rent_fma, svc=svc, svc_cols=svc_cols)
+                     collect_trace or rent_fma or fetch_fma, svc=svc,
+                     svc_cols=svc_cols)
     sim_chunk_table_svc.launches += 1
     sim_chunk_table_svc.wide_launches += svc.shape[2] > DPF_MAX_K
     return _fused_rent(out, rent_fma, collect_trace, lv, M, T_len, t0,
-                       carry[1], c, svc=svc, svc_cols=svc_cols)
+                       carry[1], c, svc=svc, svc_cols=svc_cols,
+                       fetch_fma=fetch_fma,
+                       include_final_fetch=include_final_fetch)
 
 
 sim_chunk_table_svc.launches = 0
@@ -1664,18 +1674,33 @@ schedule_chunk.launches = 0
 
 
 def _fused_rent(out, rent_fma, collect_trace, lv, M, T_len, t0, acc_in, c,
-                x=None, g=None, svc=None, svc_cols=None):
-    """An S chunk's result ``out`` (run with its trace when ``rent_fma``)
-    with, under ``rent_fma``, the rent sum redone with each product fused
-    into its add, as the reference's vmapped scan does on a small batch
-    (``simulator.xla_acc_fma``): kernel E over S's trace from the carried
-    sums, its rent bit only; S's other sums and counts stand.  Keeping the
-    fused rent out of S keeps S's own loop as it was."""
-    if not rent_fma:
+                x=None, g=None, svc=None, svc_cols=None,
+                fetch_fma: bool = False, include_final_fetch: bool = True):
+    """An S chunk's result ``out`` (run with its trace when ``rent_fma``
+    or ``fetch_fma``) with, under ``rent_fma``, the rent sum redone with
+    each product fused into its add, as the reference's vmapped scan does
+    on a small batch (``simulator.xla_acc_fma``): kernel E over S's trace
+    from the carried sums, its rent bit only; and under ``fetch_fma``
+    (``xla_fetch_fma``) the fetch sum so redone: S's fetch of slot t
+    prices the move from its level to the next, which is E's fetch on
+    entry over the trace a slot later (the level after the chunk last),
+    entered from the chunk's first level, its fetch bit only, the row's
+    last slot dropped with the final fetch.  S's other sums and counts
+    stand.  Keeping the fused sums out of S keeps S's own loop as it
+    was."""
+    if not (rent_fma or fetch_fma):
         return out
     (state, acc), r_hist = out
-    prev = torch.zeros_like(r_hist[:, 0])
-    _, fused = _schedule(lv, M, T_len, t0, (prev, acc_in), r_hist, c, x, g,
-                         svc, svc_cols, 1)
-    acc["sums"][:, 0] = fused["sums"][:, 0]
+    if rent_fma:
+        prev = torch.zeros_like(r_hist[:, 0])
+        _, fused = _schedule(lv, M, T_len, t0, (prev, acc_in), r_hist, c, x,
+                             g, svc, svc_cols, 1)
+        acc["sums"][:, 0] = fused["sums"][:, 0]
+    if fetch_fma:
+        nxt = torch.cat([r_hist[:, 1:], state["r"][:, None]], 1).contiguous()
+        T = T_len if include_final_fetch else T_len - 1
+        _, fused = _schedule(lv, M, T, t0, (r_hist[:, 0].contiguous(),
+                                            acc_in), nxt, c, x, g, svc,
+                             svc_cols, 2)
+        acc["sums"][:, 2] = fused["sums"][:, 2]
     return (state, acc), (r_hist if collect_trace else None)

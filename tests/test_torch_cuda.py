@@ -30,6 +30,7 @@ from repro_torch.kernels import hosting as H
 from repro_torch.kernels import ssd_scan as SSD
 
 import _be_tiles as T
+import _table_tiles as TT
 
 TOL_F32, TOL_STATE, RTOL_BF16 = 1e-5, 1e-4, 2.0 ** -7
 
@@ -1404,3 +1405,186 @@ def test_sim_kernel_with_the_rent_fused_matches_plain(case):
     assert torch.equal(sums[0][:, 1:], sums[1][:, 1:])
     if R >= 1000:
         assert not torch.equal(sums[0][:, 0], sums[1][:, 0])
+
+
+# ----------------------------------------------------------------------
+# S's table variant and D's ARGS route at their redesign's tile and ring
+# edges (the sizes in _table_tiles.py; the CPU side holds the plain
+# versions to the reference at the same shapes,
+# tests/test_torch_table_edges.py).  Bit for bit.
+# ----------------------------------------------------------------------
+
+_MT, _ST = TT.SIM_TILE[(3, "model1")], TT.SIM_TILE[(3, "model2")]
+_MR = TT.SIM_STAGES[(3, "model1")] * _MT
+_SR = TT.SIM_STAGES[(3, "model2")] * _ST
+_DT = TT.DP_TILE[3]
+_DR = TT.DP_ARGS_STAGES[(3, "model1")] * _DT
+
+
+@pytest.mark.cuda
+def test_table_and_args_tiles_are_the_librarys():
+    """The library's tiles and ring depths of S's table variant and of
+    D's ARGS route (``sim_tile_slots``, ``sim_ring_stages``,
+    ``dp_tile_slots``, ``dp_args_stages``) are the ones the edge shapes
+    are placed around (``_table_tiles.py``): whole 16-slot groups, at
+    least two cooked stages, at least one args stage."""
+    _card()
+    lib = _build.library("hosting")
+    svc = {"model1": 0, "model2": 1}
+    for (K, kind), tile in TT.SIM_TILE.items():
+        assert lib.sim_tile_slots(K, svc[kind]) == tile, (K, kind)
+        assert tile % 16 == 0
+    for (K, kind), stages in TT.SIM_STAGES.items():
+        assert lib.sim_ring_stages(K, svc[kind]) == stages, (K, kind)
+        assert stages >= 2
+    for K, tile in TT.DP_TILE.items():
+        assert lib.dp_tile_slots(K) == tile, K
+    for (K, kind), stages in TT.DP_ARGS_STAGES.items():
+        assert lib.dp_args_stages(K, svc[kind]) == stages, (K, kind)
+        assert stages >= 1
+    assert lib.sim_tile_slots(17, 0) == -1 and lib.dp_tile_slots(0) == -1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["static", "mdp", "abc"])
+@pytest.mark.parametrize("case", [
+    # (R, chunk, K, service, include_final_fetch, collect_trace): a slot
+    # either side of a tile and of the ring (the 4-byte route), whole
+    # 16-byte groups either side of the ring at R - 3 rows (tensor
+    # copies), one slot, K = 2, 5 and 16, a column map
+    (4093, _MT - 1, 3, "model1", True, False),
+    (4093, _MT + 1, 3, "model1", False, True),
+    (4093, _MR - 4, 3, "model1", False, False),
+    (4093, _MR + 4, 3, "model1", True, True),
+    (4093, _ST - 1, 3, "model2", False, True),
+    (4093, _SR + 1, 3, "model2", True, False),
+    (4093, _SR - 4, 3, "model2", True, True),
+    (4093, _SR + 4, 3, "model2-cols", False, False),
+    (37, 1, 3, "model1", True, True),
+    (61, 2 * _MT + 4, 2, "model1", True, False),
+    (64, 4 * TT.SIM_TILE[(5, "model2")] + 4, 5, "model2", False, True),
+    (61, 3 * TT.SIM_TILE[(16, "model2")] + 1, 16, "model2", True, True),
+    (64, TT.SIM_TILE[(16, "model1")] + 4, 16, "model1", False, False)])
+def test_table_kernel_at_its_tiles_edges(case, policy):
+    """S's table variant == its plain version where its tiles and rings
+    turn over: a carried-in level, sums and counts, side channels of -1 ..
+    2 (clipped), horizons inside the chunk."""
+    from repro_torch.core.simulator import sim_acc0
+    dev = _card()
+    R, chunk, K, service, iff, trace = case
+    h = _hosting_case(dev, R, chunk, K, False, False, seed=R + 3 * chunk + K)
+    tab = table_form(*_table_case(dev, R, chunk, K, policy, seed=R + K), K)
+    rng = h["rng"]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    side = t(rng.integers(-1, 3, (R, chunk)).astype(np.int32))
+    x = t(rng.integers(0, 30, (R, chunk)).astype(np.int32))
+    acc = sim_acc0(R, K, dev)
+    acc["sums"] += t((rng.random((R, 3)) * 100).astype(np.float32))
+    acc["counts"] += t(rng.integers(0, 50, (R, K)).astype(np.int32))
+    carry = ({"r": t(rng.integers(0, K, R).astype(np.int32))}, acc)
+    if service == "model1":
+        args = (*tab, h["lv"], h["g"], h["M"], h["T_len"], h["t0"], carry,
+                x, h["c"], side, iff, trace)
+        kern, plain = H.sim_chunk_table, H.sim_chunk_table_plain
+    else:
+        Kf = 5 if service == "model2-cols" else K
+        d = _svc_inputs(dev, R, chunk, K, Kf, seed=R + K)
+        cols = d["cols"] if service == "model2-cols" else None
+        args = (*tab, h["lv"], h["M"], h["T_len"], h["t0"], carry, x,
+                h["c"], side, d["svc"], cols, iff, trace)
+        kern, plain = H.sim_chunk_table_svc, H.sim_chunk_table_svc_plain
+    before = kern.launches
+    (sk, ak), rk = kern(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    (sp, ap), rp = plain(*args)
+    assert torch.equal(sk["r"], sp["r"])
+    for key in ap:
+        assert torch.equal(ak[key], ap[key]), key
+    assert (rk is None and rp is None) or torch.equal(rk, rp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (R, chunk, K, service): a slot either side of a tile and of the
+    # argmin table's ring (the 4-byte write-back), whole 16-byte groups
+    # either side of the ring (bulk copies), one slot, K = 5 and 16, a
+    # column map
+    (4093, _DT - 1, 3, "model1"), (4093, _DT + 1, 3, "model1"),
+    (4093, _DR - 4, 3, "model1"), (4093, _DR + 4, 3, "model1"),
+    (4093, _DR + 1, 3, "model2"), (4093, _DR - 4, 3, "model2-cols"),
+    (37, 1, 3, "model1"), (61, 4 * TT.DP_TILE[5] + 4, 5, "model1"),
+    (64, 3 * TT.DP_TILE[16] + 4, 16, "model2"),
+    (61, 2 * TT.DP_TILE[16] + 1, 16, "model1")])
+def test_args_route_at_its_tiles_edges(case):
+    """D's ARGS route == its plain version (the frontier and the argmin
+    table, the identity past each row's horizon) where its tiles and the
+    argmin table's ring turn over."""
+    from repro_torch.core.policies.offline_opt import dp_fetch_matrix
+    dev = _card()
+    R, chunk, K, service = case
+    d = _hosting_case(dev, R, chunk, K, K > 3, False, seed=R + chunk + K)
+    J = (d["rng"].random((R, K)) * 3).astype(np.float32)
+    J[0::7] = np.inf
+    J = torch.from_numpy(np.where(d["kmask"].cpu().numpy(), J, np.inf)
+                         .astype(np.float32)).to(dev)
+    fetch = dp_fetch_matrix(d["M"], d["lv"])
+    if service == "model1":
+        args = (J, d["c"], d["x"], d["g"], d["lv"], d["kmask"], fetch,
+                d["T_len"], d["t0"], True)
+        kern, plain = H.dp_fwd_model1, H.dp_fwd_model1_plain
+    else:
+        Kf = 5 if service == "model2-cols" else K
+        s = _svc_inputs(dev, R, chunk, K, Kf, seed=R + K)
+        args = (J, d["c"], s["svc"], d["lv"], d["kmask"], fetch, d["T_len"],
+                d["t0"], s["cols"] if service == "model2-cols" else None,
+                True)
+        kern, plain = H.dp_fwd_model2, H.dp_fwd_model2_plain
+    before = kern.args_launches
+    Jk, ak = kern(*args)
+    torch.cuda.synchronize()
+    assert kern.args_launches == before + 1
+    Jp, ap = plain(*args)
+    assert torch.equal(Jk, Jp) and torch.equal(ak, ap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (R, K, policy, service, include_final_fetch): MDP and ABC on the
+    # reference's small batches (simulator.xla_fetch_fma)
+    (5, 3, "mdp", "model1", True), (2, 12, "abc", "model1", True),
+    (3, 6, "mdp", "model2", True), (5, 3, "abc", "model2", False)])
+def test_table_kernel_with_the_sums_fused_matches_plain(case):
+    """S's table variant with the rent and the fetch fused into their sums
+    (E passes over its trace, the fetch over the trace a slot later) ==
+    its plain version, with and without the trace."""
+    from repro_torch.core.simulator import sim_acc0
+    dev = _card()
+    R, K, policy, service, iff = case
+    chunk = 777
+    h = _hosting_case(dev, R, chunk, K, False, False, seed=R + K)
+    tab = table_form(*_table_case(dev, R, chunk, K, policy, seed=R), K)
+    rng = h["rng"]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    side = t(rng.integers(-1, 3, (R, chunk)).astype(np.int32))
+    x = t(rng.integers(0, 30, (R, chunk)).astype(np.int32))
+    for trace in (False, True):
+        acc = sim_acc0(R, K, dev)
+        acc["sums"] += t((rng.random((R, 3)) * 100).astype(np.float32))
+        carry = ({"r": t(rng.integers(0, K, R).astype(np.int32))}, acc)
+        if service == "model1":
+            args = (*tab, h["lv"], h["g"], h["M"], h["T_len"], h["t0"],
+                    carry, x, h["c"], side, iff, trace, True, True)
+            kern, plain = H.sim_chunk_table, H.sim_chunk_table_plain
+        else:
+            d = _svc_inputs(dev, R, chunk, K, K, seed=R + K)
+            args = (*tab, h["lv"], h["M"], h["T_len"], h["t0"], carry, x,
+                    h["c"], side, d["svc"], None, iff, trace, True, True)
+            kern, plain = H.sim_chunk_table_svc, H.sim_chunk_table_svc_plain
+        (sk, ak), rk = kern(*args)
+        torch.cuda.synchronize()
+        (sp, ap), rp = plain(*args)
+        assert torch.equal(sk["r"], sp["r"])
+        for key in ap:
+            assert torch.equal(ak[key], ap[key]), (trace, key)
+        assert (rk is None and rp is None) or torch.equal(rk, rp)

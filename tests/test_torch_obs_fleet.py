@@ -517,18 +517,47 @@ def _small(seed, B, K, T=300):
             x, c, r)
 
 
-# (family, rows, levels): on both sides of each pinned threshold
+# (family, rows, levels): on both sides of each pinned threshold; MDP and
+# ABC also at one row and at R * (K + 3) of 40 and 44 (unfused: their
+# bound is 30, not the static policy's 40)
 SHAPES = [("schedule", 6, 3), ("schedule", 7, 3), ("schedule", 5, 5),
           ("schedule", 6, 5), ("schedule", 3, 10), ("schedule", 4, 8),
           ("alpha-RR", 1, 4), ("alpha-RR", 1, 8), ("alpha-RR", 1, 9),
           ("alpha-RR", 2, 3), ("static", 3, 10), ("static", 3, 11),
-          ("static", 4, 6), ("static", 4, 8)]
+          ("static", 4, 6), ("static", 4, 8),
+          ("mdp", 1, 3), ("mdp", 5, 3), ("mdp", 4, 5), ("mdp", 5, 5),
+          ("mdp", 4, 8), ("abc", 1, 5), ("abc", 2, 12), ("abc", 2, 13),
+          ("abc", 4, 6), ("abc", 4, 8)]
+
+# the fusion bound of each family's R * (K + 3) (alpha-RR: one row of at
+# most 8 levels)
+_FUSE_BOUND = {"schedule": 40, "static": 40, "mdp": 30, "abc": 30}
 
 
-def _fused_case(family, B, K, seed):
+def _table_policies(family, jg, pg, B):
+    """MDP or ABC on the grids of ``_small`` (the reference's and the
+    port's), solved for one GE chain and a mean rent (the observation:
+    the side channel, or arrivals of 0 / 1 against a threshold of 0.6)."""
+    from repro.core.policies import ABCPolicy as JABC
+    from repro_torch.core.policies import ABCPolicy
+    spec = [(float(m), tuple(map(float, lv)), tuple(map(float, g)))
+            for m, lv, g in zip(np.asarray(jg.M), np.asarray(jg.levels),
+                                np.asarray(jg.g))]
+    ge = dict(p_hl=0.3, p_lh=0.2, rate_h=1.0, rate_l=0.2)
+    JP, PP = (JMDP, MDPPolicy) if family == "mdp" else (JABC, ABCPolicy)
+    return (JP.batch(jg, [JCosts(*c) for c in spec], [JGE(**ge)] * B,
+                     [0.35] * B),
+            PP.batch(pg, [HostingCosts(*c) for c in spec],
+                     [GilbertElliot(**ge)] * B, [0.35] * B))
+
+
+def _fused_case(family, B, K, seed, include_final_fetch=True):
     """One seed of ``test_small_batches_fuse_the_sums_as_the_reference``:
     checks the port against the reference and returns whether the other
-    rounding of the fused sums would have differed from the reference."""
+    rounding of the fused sums would have differed from the reference
+    (``include_final_fetch``: the policy's run with or without the final
+    fetch)."""
+    iff = include_final_fetch
     from repro.core import simulator as jsim
     from repro.core.policies import StaticPolicy as JStatic
     from repro_torch.core import simulator as psim
@@ -549,23 +578,31 @@ def _fused_case(family, B, K, seed):
             t(c), x=t(x), g=pg.g, acc_fma=not fma)
         fields = (0, 2)
     else:
-        J, P = ((JAlphaRR.batch(jg), AlphaRR.batch(pg))
-                if family == "alpha-RR" else
-                (JStatic.batch(jg, np.full(B, K // 2)),
-                 StaticPolicy.batch(pg, np.full(B, K // 2))))
-        want = jsim.run_policy_batch(J, jg, x, c)
-        got = psim.run_policy_batch(P, pg, x, c)
-        fma = psim.xla_acc_fma(P.step_fn, B, K)
+        side = np.zeros_like(x)
+        if family in ("mdp", "abc"):
+            J, P = _table_policies(family, jg, pg, B)
+            side = np.random.default_rng(seed + 7).integers(
+                0, 2, x.shape).astype(np.int32)
+        elif family == "alpha-RR":
+            J, P = JAlphaRR.batch(jg), AlphaRR.batch(pg)
+        else:
+            J, P = (JStatic.batch(jg, np.full(B, K // 2)),
+                    StaticPolicy.batch(pg, np.full(B, K // 2)))
+        want = jsim.run_policy_batch(J, jg, x, c, side=side,
+                                     include_final_fetch=iff)
+        got = psim.run_policy_batch(P, pg, x, c, side=side,
+                                    include_final_fetch=iff)
+        fma = psim.xla_acc_fma(P.step_fn, B, K, iff)
         (_, acc), _ = psim.sim_chunk(
-            P, True, pg.levels, pg.g, pg.M, T_len, 0,
+            P, iff, pg.levels, pg.g, pg.M, T_len, 0,
             (P.init_fn(P.params), acc0),
-            ObsSlab(t(x), t(c), None, torch.zeros_like(t(x))),
-            rent_fma=not fma)
+            ObsSlab(t(x), t(c), None, t(side)), rent_fma=not fma)
         fields = (0,)
     for f in ("total", "rent", "service", "fetch", "r_hist", "level_slots"):
         np.testing.assert_array_equal(getattr(want, f), getattr(got, f))
-    assert fma == ((B * (K + 3) <= 40) if family != "alpha-RR"
-                   else (B == 1 and K <= 8))
+    assert fma == (((B * (K + 3) <= _FUSE_BOUND[family])
+                    if family != "alpha-RR" else (B == 1 and K <= 8))
+                   and (iff or family == "schedule"))
     ref_sums = np.stack([want.rent, want.service, want.fetch], 1)
     other = acc["sums"].numpy().astype(np.float64)
     return any((other[:, k] != ref_sums[:, k]).any() for k in fields)
@@ -576,12 +613,26 @@ def test_small_batches_fuse_the_sums_as_the_reference(family, B, K):
     """On a small batch the reference's vmapped scan fuses a sum's product
     into its add (``simulator.xla_acc_fma``): ``evaluate_schedule_batch``
     the rent and the fetch while R * (K + 3) <= 40, the static policy the
-    rent under the same bound, alpha-RR the rent on one row of at most 8
-    levels.  The port follows on both sides of each threshold, seed after
-    seed, until a seed where the other rounding would differ from the
-    reference (a product's rounding moves a float32 sum of ~100 only now
-    and then, so one seed may not tell the two apart)."""
+    rent under the same bound, MDP and ABC the rent and the fetch while R
+    * (K + 3) <= 30, alpha-RR the rent on one row of at most 8 levels.
+    The port follows on both sides of each threshold, seed after seed,
+    until a seed where the other rounding would differ from the reference
+    (a product's rounding moves a float32 sum of ~100 only now and then,
+    so one seed may not tell the two apart)."""
     told = [_fused_case(family, B, K, 1000 * i + B * 100 + K)
+            for i in range(6)]
+    assert any(told)
+
+
+@pytest.mark.parametrize("family,B,K", [("static", 3, 6), ("alpha-RR", 1, 4),
+                                        ("mdp", 2, 3), ("abc", 1, 5)])
+def test_small_batches_without_the_final_fetch_fuse_nothing(family, B, K):
+    """A policy's run without the final fetch (its last slot's fetch
+    masked) fuses no sum on a small batch, where the same run with it
+    would: the port's rent and fetch stay two roundings there
+    (``simulator.xla_acc_fma``, ``xla_fetch_fma``), seed after seed,
+    until one where the fused rent would differ from the reference."""
+    told = [_fused_case(family, B, K, 1000 * i + B * 100 + K, False)
             for i in range(6)]
     assert any(told)
 

@@ -4,6 +4,7 @@ one CUDA card.
 
     python3 tools/compare_hosting.py PARENT . . PARENT
     python3 tools/compare_hosting.py --only "P service,P Poisson" PARENT . . PARENT
+    python3 tools/compare_hosting.py --only "S table,DP chunk,S" PARENT . . PARENT
 
 Each ROOT is the root of a checkout (a ``git archive`` of another commit
 unpacked into a git-ignored directory, say).  For each, in the order
@@ -34,7 +35,14 @@ schedule it gives under Model 1 ("B", "E"), each also with its table or
 schedule one word off a 16-byte boundary ("B, 4-byte route", "E, 4-byte
 route": the redesigned kernels' cp.async route), and E on a schedule of
 levels out of range and on horizons that end before the chunk (its
-parts: nothing counted; the copies alone).  Times are
+parts: nothing counted; the copies alone); D's ARGS route at the fleet's
+shape ("DP chunk, argmin table"), and D with and without the table on
+horizons that end before the chunk (its staging and the identity
+alone); alpha-RR's S on such horizons ("S, horizons before the
+chunk"); where the checkout has S's table variant and the Markov leg,
+the table variant on that leg's chunk (``TABLE_TIMINGS``: MDP, ABC and
+the static table on its Model-2 slab, with the trace, on horizons
+before the chunk, under Model 1) and D's ARGS route on its slab.  Times are
 CUDA-event medians of batches of back-to-back calls, each batch queued
 behind ~10 ms of ``torch.cuda._sleep`` so that it runs back to back;
 beside each, the cycles a slot at the SM clock nvidia-smi reads while
@@ -231,6 +239,28 @@ def _one(root: Path, only=()) -> dict:
         p_args = (arr["key"], tids, arr["rate_l"], 1, sl.side, arr["rate_h"])
         out["P Poisson chunk, Hormann"] = ms_and_clock(
             lambda: H.poisson_chunk(*p_args), batch=5)
+    if hasattr(H, "dp_fwd_model1"):
+        # D's ARGS route: the argmin table written besides (the
+        # materialised DP's call), and on horizons that end before the
+        # chunk (the frozen identity written, no slot walked)
+        ahead = fused[:7] + (torch.full_like(T_len, t0), t0)
+        for name, a, w in (
+                ("DP chunk, argmin table", fused, True),
+                ("DP chunk, argmin table, horizons before the chunk", ahead,
+                 True),
+                ("DP chunk, horizons before the chunk", ahead, False)):
+            if want(name):
+                out[name] = ms_and_clock(
+                    lambda a=a, w=w: H.dp_fwd_model1(*a, w), batch=3)
+    if want("S, horizons before the chunk"):
+        # alpha-RR's S with no slot in its horizon: its staging alone
+        before = sim[:4] + (torch.full_like(T_len, t0),) + sim[5:]
+        out["S, horizons before the chunk"] = ms_and_clock(
+            lambda: H.sim_chunk_alpha_rr(*before, collect_trace=False))
+    if (hasattr(H, "sim_chunk_table_svc") and hasattr(cs, "markov_scenario")
+            and any(want(n) for n in TABLE_TIMINGS)):
+        out.update(_table_timings(cs, H, dev, t0, tids, T_len, ms_and_clock,
+                                  want))
     if hasattr(H, "dp_backtrack") and (want("B") or want("E")):
         J1, args = H.dp_fwd_model1(J, c, x, grid.g, lv, grid.mask, fetch,
                                    T_len, t0, True)
@@ -274,6 +304,74 @@ def _one(root: Path, only=()) -> dict:
         walls[name] = float(np.median(times)) * 1e3
     out["figure walls ms"] = walls
     return out
+
+
+# S's table variant on the Markov leg's chunk (chip_smoke.markov_scenario:
+# 4,096 rows, K = 3, a Model-2 slab of up to 260 requests a slot), MDP
+# reading the side channel without the trace unless named otherwise, and
+# its parts; D's ARGS route on that leg's slab for alpha-RR's columns
+TABLE_TIMINGS = ("S table", "S table, ABC", "S table, static",
+                 "S table, with trace", "S table, horizons before the chunk",
+                 "S table, Model 1", "S table, Model 1, with trace",
+                 "D on a Model-2 slab, argmin table")
+
+
+def _table_timings(cs, H, dev, t0, tids, T_len, ms_and_clock, want):
+    import torch
+
+    from repro_torch.core import scenarios as sc
+    from repro_torch.core.policies import ABCPolicy, MDPPolicy
+    from repro_torch.core.policies.baselines import static_step, table_form
+    from repro_torch.core.policies.offline_opt import (dp_fetch_matrix,
+                                                       dp_frontier0)
+    from repro_torch.core.simulator import sim_acc0
+    costs, ges, cms = cs.markov_instances(cs.N_M * cs.N_ALPHA)
+    grid = cs.HostingGrid.from_costs(costs, device=dev)
+    scen = sc.replicate_seeds(cs.markov_scenario(grid, ges, cms, dev),
+                              cs.N_SEEDS)
+    _, sl = scen.chunk_fn(scen.params, scen.init_fn(scen.params), tids)
+    rg = grid.repeat_rows(cs.N_SEEDS)
+    R, K = rg.levels.shape
+
+    def rep(t):
+        return t.repeat_interleave(cs.N_SEEDS, dim=0)
+
+    pols = {}
+    for name, P in (("MDP", MDPPolicy), ("ABC", ABCPolicy)):
+        p = P.batch(grid, costs, ges, cms)
+        pols[name] = table_form(p.step_fn, {k: rep(v) for k, v in
+                                            p.params.items()}, K)
+    pols["static"] = table_form(static_step, {"level_idx": torch.full(
+        (R,), K - 1, dtype=torch.int32, device=dev)}, K)
+    r0 = {"r": torch.zeros(R, dtype=torch.int32, device=dev)}
+
+    def svc_args(tab, T, trace):
+        return (*tab, rg.levels, rg.M, T, t0, (r0, sim_acc0(R, K, dev)),
+                sl.x, sl.c, sl.side, sl.svc, None, True, trace)
+
+    before = torch.full_like(T_len, t0)
+    m1 = (*pols["MDP"], rg.levels, rg.g, rg.M, T_len, t0,
+          (r0, sim_acc0(R, K, dev)), sl.x, sl.c, sl.side, True)
+    calls = {
+        "S table": (H.sim_chunk_table_svc, svc_args(pols["MDP"], T_len,
+                                                    False)),
+        "S table, ABC": (H.sim_chunk_table_svc, svc_args(pols["ABC"], T_len,
+                                                         False)),
+        "S table, static": (H.sim_chunk_table_svc,
+                            svc_args(pols["static"], T_len, False)),
+        "S table, with trace": (H.sim_chunk_table_svc,
+                                svc_args(pols["MDP"], T_len, True)),
+        "S table, horizons before the chunk": (
+            H.sim_chunk_table_svc, svc_args(pols["MDP"], before, False)),
+        "S table, Model 1": (H.sim_chunk_table, m1 + (False,)),
+        "S table, Model 1, with trace": (H.sim_chunk_table, m1 + (True,)),
+        "D on a Model-2 slab, argmin table": (
+            H.dp_fwd_model2, (dp_frontier0(R, K, dev), sl.c, sl.svc,
+                              rg.levels, rg.mask,
+                              dp_fetch_matrix(rg.M, rg.levels), T_len, t0,
+                              None, True))}
+    return {name: ms_and_clock(lambda f=f, a=a: f(*a))
+            for name, (f, a) in calls.items() if want(name)}
 
 
 def main() -> int:
