@@ -30,7 +30,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    of 1,000, 1,001 and 1, K = 16, each with and without the argmin table;
    +inf-padded levels, frozen slots, all-+inf frontiers), also against
    the route it replaces (float64 ``fma32`` assembly + kernel D on the
-   finished w) on the same slab; D on a finished w; S (alpha-RR on K = 3
+   finished w) on the same slab; D on a finished w (the fleet's K = 3
+   chunk, then K = 16 and 32 at 4,096 x 4,096 on random w, each timed
+   against its bound, the log printing the previous design's time, then
+   at its tiles' edges: K of 1 to 32, a slot either side of its tile,
+   1,000, 1,001 and one slot, 1, 31 and 33 rows, prefix masks and masks
+   with holes, and its 4-byte route on an aligned chunk); S (alpha-RR on K = 3
    and on a mixed K = 5 grid, RR on K = 2, ragged slabs, K = 16, with and
    without the final fetch and the trace).  D and S report cycles per
    slot at the SM clock nvidia-smi reads while they run.  Model 2 (reduced
@@ -76,7 +81,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    31 levels and S on the 31-level slab timed at the study's shape and at
    4,096 x 4,096, S also on its lane's columns gathered beforehand (its
    bulk route), against the policy's latency bound and the gather's
-   32-byte sectors.
+   32-byte sectors, and at the study's call its parts (no trace; horizons
+   before the chunk: no policy step; the lanes of 2 and 3 levels); S's
+   gather route on few rows (1, 4, 5, 31, and a row either side of its
+   few-rows route's one wave) bit for bit, half on a grid of values.
    The backtracked schedule's kernels: D's ARGS route (the argmin table
    written) timed at the fleet's shape; B (the backtrack) on D's own table
    of a fleet chunk (also one word off a 16-byte boundary: the 4-byte
@@ -593,6 +601,74 @@ ARMA_STEP_FLOPS = 4 + 3 + 1 + 3 + 1 + 3
 ARMA_CHAIN_OPS, FP32_LATENCY = 6, 4
 
 
+def minplus_ops(R, chunk, K):
+    """D on a finished w, per row and slot: K*K adds, K*(K-1) compares, K
+    adds of w."""
+    return R * chunk * (K * K + K * (K - 1) + K)
+
+
+def finished_w(R, chunk, K, device, seed=0):
+    """D's inputs on a finished w at K levels: random w in [0, 2), the
+    fetch of K evenly spread levels (M = 8), a zero frontier, every slot
+    valid."""
+    gen = torch.Generator(device=device).manual_seed(seed + K)
+    lv = torch.linspace(0.0, 1.0, K, device=device).expand(R, K)
+    return (torch.zeros((R, K), device=device),
+            torch.rand((R, chunk, K), generator=gen, device=device) * 2,
+            dp_fetch_matrix(torch.full((R,), 8.0, device=device),
+                            lv.contiguous()),
+            torch.ones((R, chunk), dtype=torch.bool, device=device))
+
+
+# D on a finished w at its tiles' edges: these K (its instances of one K,
+# the first of its bands and the bands' edges), a slot either side of its
+# tile (hosting.cu: dpm_tile), 1,000 and 1,001 slots and one, on 1, 31 and
+# 33 rows in turns, with prefix masks and masks with holes
+MINPLUS_EDGE_KS = (1, 2, 3, 4, 5, 8, 9, 16, 17, 31, 32)
+
+
+def minplus_edges(dev):
+    """D on a finished w == its plain version, bit for bit, at its tiles'
+    edges (``MINPLUS_EDGE_KS``): costs on a coarse grid (ties in trans),
+    all-+inf frontiers, levels priced +inf; once on inputs one word off 16
+    bytes (the 4-byte route on an aligned chunk)."""
+    lib = _build.library("hosting")
+    n = 0
+    for ki, K in enumerate(MINPLUS_EDGE_KS):
+        tile = lib.dp_minplus_tile_slots(K)
+        for ci, chunk in enumerate((1, tile - 1, tile, tile + 1, 1000, 1001,
+                                    16 * tile)):
+            R = (1, 31, 33)[(ki + ci) % 3]
+            gen = torch.Generator(device="cpu").manual_seed(R * chunk + K)
+            lv = torch.sort(torch.randint(0, 9, (R, K), generator=gen) / 8,
+                            dim=1)[0]
+            M = torch.randint(1, 4, (R,), generator=gen).float()
+            J = torch.randint(0, 8, (R, K), generator=gen) / 2
+            J[1::5], J[2::5, 1:] = float("inf"), float("inf")
+            w = torch.randint(0, 6, (R, chunk, K), generator=gen) / 4
+            w[(torch.rand((R, 1, K), generator=gen) < 0.15).expand(
+                R, chunk, K)] = float("inf")
+            for holes in (False, True):
+                valid = (torch.rand((R, chunk), generator=gen) < 0.7
+                         if holes else torch.arange(chunk)[None, :]
+                         < torch.randint(0, chunk + 2, (R, 1),
+                                         generator=gen))
+                args = tuple(t.to(dev) for t in (
+                    J, w, dp_fetch_matrix(M, lv), valid))
+                require(tree_equal(H.dp_minplus(*args),
+                                   H.dp_minplus_plain(*args)),
+                        f"D on a finished w differs from its plain version "
+                        f"at R={R} chunk={chunk} K={K} holes={holes}")
+                n += 1
+        args = tuple(H.misaligned(t) for t in finished_w(33, 16 * tile, K,
+                                                         dev))
+        require(tree_equal(H.dp_minplus(*args), H.dp_minplus_plain(*args)),
+                f"D on a finished w differs from its plain version on its "
+                f"4-byte route at K={K}")
+        n += 1
+    log(f"D on a finished w ok at its tiles' edges: {n} calls compared")
+
+
 def sim_chain_ops(K):
     """The dependent ops a slot on alpha-RR's chain in S's policy warp
     (hosting.cu: sim_kernel): the select of w_r (K - 1 selects after its
@@ -606,7 +682,8 @@ def sim_chain_ops(K):
 PREV_MS = {"poisson_chunk": 1.8543, "arma_rents_chunk": 0.2784,
            "model2_service_chunk": 0.5514, "dp_backtrack": 0.7466,
            "schedule_chunk": 0.5994, "sim_chunk_table_svc": 0.3011,
-           "sim_chunk_table": 0.2539, "dp_fwd_model1 args": 0.5082}
+           "sim_chunk_table": 0.2539, "dp_fwd_model1 args": 0.5082,
+           "dp_minplus": 3.2147, "sim_chunk_alpha_rr_svc wide": 1.0761}
 # B's walk, cycles a slot and row: one dependent shared load (~30-33
 # cycles on sm_90, assumed, not measured here) and the add of its
 # address: the walk's floor, beside one block's whole kernel measured
@@ -951,7 +1028,9 @@ def kernel_checks(dev):
         f"{a_bound / args_ms:.1%} of its byte bound {a_bound:.4f} ms; "
         f"{args_ms / ms:.3f} x the route without the table)")
 
-    # kernel D on a finished w (offline_opt_batch's; off the fleet path)
+    # kernel D on a finished w (offline_opt_batch's; off the fleet path):
+    # the fleet's K = 3 chunk, then K = 16 and 32 on random w, each
+    # against its byte bound, then its tiles' edges
     wck = torch.where(kmask[:, None, :],
                       fma32(c[:, :, None], lv32[:, None, :],
                             x[:, :, None].float() * grid.g[:, None, :]),
@@ -963,16 +1042,41 @@ def kernel_checks(dev):
     ms = cuda_ms(lambda: H.dp_minplus(J, wck, fetch, valid), batch=3)
     plain_ms = cuda_ms(lambda: H.dp_minplus_plain(J, wck, fetch, valid),
                        reps=3)
-    # per row and slot: K*K adds, K*(K-1) compares, K adds of w
-    ops = R * chunk * (K * K + K * (K - 1) + K)
     rec["dp_minplus"] = dict(
         replaces="src/repro/kernels/hosting.py:116", ms=ms, plain_ms=plain_ms,
-        max_abs_err=tree_max_abs(k, p), ops=ops,
-        nbytes=nbytes(J, wck, fetch, valid, *k),
+        max_abs_err=tree_max_abs(k, p), ops=minplus_ops(R, chunk, K),
+        nbytes=nbytes(J, wck, fetch, valid, *k), sm_clock_mhz=clock,
+        cycles_per_slot=ms * 1e-3 * clock * 1e6 / chunk,
         shape=f"R={R} chunk={chunk} K={K}; a finished w (offline_opt_batch), "
-              f"off the fleet path")
-    log(f"D (finished w) ok: {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    del wck
+              f"off the fleet path; by_k: K = 16 and 32 on random w, every "
+              f"slot valid")
+    del wck, k, p
+    by_k = {}
+    for KK in (16, 32):
+        args = finished_w(R, chunk, KK, dev)
+        k = H.dp_minplus(*args)
+        p = H.dp_minplus_plain(*args)
+        torch.cuda.synchronize()
+        require(tree_equal(k, p), f"D differs from its plain version at K "
+                                  f"= {KK}")
+        t_bytes = nbytes(*args, *k) / PEAK_BYTES * 1e3
+        t_ops = minplus_ops(R, chunk, KK) / PEAK_OPS * 1e3
+        by_k[KK] = dict(ms=cuda_ms(lambda: H.dp_minplus(*args), batch=3),
+                        bound_ms=max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops
+                        else "operations")
+        del args, k, p
+    rec["dp_minplus"]["by_k"] = by_k
+    r = rec["dp_minplus"]
+    bound = r["nbytes"] / PEAK_BYTES * 1e3
+    log(f"D (finished w) timed: K = 3 {PREV_MS['dp_minplus']:.4f} -> "
+        f"{ms:.4f} ms ({bound / ms:.1%} of its byte bound {bound:.4f} ms; "
+        f"{r['cycles_per_slot']:.1f} cycles a slot at {clock:.0f} MHz), "
+        + ", ".join(f"K = {KK} {v['ms']:.4f} ms ({v['bound_ms'] / v['ms']:.1%}"
+                    f" of its bound {v['bound_ms']:.4f} ms, {v['bound_by']})"
+                    for KK, v in by_k.items())
+        + f"; plain {plain_ms:.3f} ms")
+    minplus_edges(dev)
 
     # S: alpha-RR on K = 3 (timed), a mixed K = 5 grid, RR on K = 2, each
     # from a non-trivial carry (one kernel chunk first); then ragged slabs
@@ -2728,6 +2832,18 @@ def gcurve_kernel_checks(dev, clock, n_sm, sass):
                       *a8[5][0].values(), *a8[5][1].values(), a8[6],
                       H.gather_svc(a8[7], a8[8]), a8[8], *st8.values(),
                       *acc8.values()))
+    # its parts at the same call: without the trace, on horizons that end
+    # before the chunk (no step of the policy: the staging, the cook, the
+    # accounting and the trace), the study's lanes of 2 and 3 levels
+    before8 = a8[:3] + (torch.zeros_like(a8[3]),) + a8[4:]
+    s_rec["parts_ms"] = {
+        name: cuda_ms(lambda a=a: H.sim_chunk_alpha_rr_svc(*a), reps=10,
+                      batch=10)
+        for name, a in (("no_trace", a8[:10] + (False,)),
+                        ("horizons_before_the_chunk", before8),
+                        ("k2_lane", study_lanes[2]),
+                        ("k3_lane", study_lanes[3]))}
+    gather_edges(dev, n_sm)
     del slab, svc31
     fslab_c = (torch.rand((R, chunk), generator=gen) * 3).to(dev)
     T_lenR = torch.full((R,), T_MAIN, dtype=torch.int32, device=dev)
@@ -2770,6 +2886,11 @@ def gcurve_kernel_checks(dev, clock, n_sm, sass):
               f"study's call); fleet_*: R={R} chunk={chunk}, a lane of K = "
               f"3 of {Kf}, no trace; bytes count the gathered columns; "
               f"{n_cmp['sim_chunk_alpha_rr_svc wide']} calls compared")
+    log(f"sim_chunk_alpha_rr_svc wide at the study's call: "
+        f"{PREV_MS['sim_chunk_alpha_rr_svc wide']:.4f} -> {s_rec['ms']:.4f} "
+        f"ms ({s_rec['ms'] * 1e-3 * clock * 1e6 / T:.1f} cycles a slot); "
+        f"its parts " + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                  s_rec["parts_ms"].items()))
     for name, r in (("model2_service_chunk wide", m2),
                     ("sim_chunk_alpha_rr_svc wide", s_rec)):
         log(f"{name} timed: {r['ms']:.4f} ms at the study's shape (plain "
@@ -2790,6 +2911,62 @@ def gcurve_kernel_checks(dev, clock, n_sm, sass):
                if "bulk_ms" in r else ""))
     return {"model2_service_chunk wide": m2,
             "sim_chunk_alpha_rr_svc wide": s_rec}
+
+
+def gather_edges(dev, n_sm):
+    """alpha-RR's S on a 31-level slab (the gather route) == its plain
+    version, bit for bit, on few rows: 1, 4, 5 and 31 rows (its few-rows
+    instances from 4 levels) and a row either side of that route's one
+    wave at K = 8; lanes of 2, 3 and 8 levels gathering their columns, the
+    trace on and off, the final fetch kept and dropped, ragged chunks from
+    an odd t0, horizons inside the chunk, from a carry in mid-run, half the
+    cases on a grid of values (ties between margins)."""
+    Kf, t0 = 31, 4001
+    cases = [(R, K, trace, (1, 17, 333, 1001)[(ri + ki) % 4])
+             for ri, R in enumerate((1, 4, 5, 31))
+             for ki, K in enumerate((2, 3, 8)) for trace in (True, False)]
+    cases += [(4 * n_sm, 8, True, 333), (4 * n_sm + 1, 8, False, 333)]
+    for i, (R, K, trace, chunk) in enumerate(cases):
+        gen = torch.Generator(device="cpu").manual_seed(i)
+
+        def rand(*shape, scale=1.0, shift=0.0):
+            """uniform draws, or (odd cases) on a grid: ties in the
+            margins, where the first index must win"""
+            if i % 2:
+                return (torch.randint(0, 9, shape, generator=gen) / 8 * scale
+                        + shift)
+            return torch.rand(shape, generator=gen) * scale + shift
+
+        lv = torch.sort(rand(R, K), dim=1)[0]
+        lv[:, 0], lv[:, -1] = 0.0, 1.0
+        mid = torch.argsort(torch.rand((R, Kf - 2), generator=gen),
+                            dim=1)[:, :K - 2] + 1
+        cols = torch.sort(torch.cat([torch.zeros((R, 1), dtype=torch.int64),
+                                     mid, torch.full((R, 1), Kf - 1)], 1),
+                          dim=1)[0].to(torch.int32)
+        S = torch.where(torch.rand((R, K), generator=gen) < 0.3,
+                        torch.tensor(3.4e38), rand(R, K, scale=4, shift=-2))
+        t = (lv, rand(R, scale=20, shift=0.5),
+             torch.randint(t0 - 3, t0 + chunk + 3, (R,), generator=gen,
+                           dtype=torch.int32),
+             torch.randint(0, K, (R,), generator=gen, dtype=torch.int32), S,
+             torch.randint(0, 4, (R,), generator=gen, dtype=torch.int32),
+             torch.rand((R, 3), generator=gen) * 100,
+             torch.randint(0, 50, (R, K), generator=gen, dtype=torch.int32),
+             rand(R, chunk, scale=1.5), rand(R, chunk, Kf, scale=3), cols)
+        lv, M, T_len, r, S, age, sums, counts, c, slab, cols = (
+            a.to(dev) for a in t)
+        params = {"levels": lv, "mask": torch.ones_like(lv, dtype=torch.bool),
+                  "M": M}
+        args = (params, lv, M, T_len, t0,
+                ({"r": r, "S": S, "age": age},
+                 {"sums": sums, "counts": counts}), c, slab, cols,
+                i % 2 == 0, trace)
+        require(tree_equal(H.sim_chunk_alpha_rr_svc(*args),
+                           H.sim_chunk_alpha_rr_svc_plain(*args)),
+                f"S's gather route differs from its plain version at R={R} "
+                f"K={K} chunk={chunk} trace={trace}")
+    log(f"S's gather route ok on few rows: {len(cases)} calls compared")
 
 
 # ----------------------------------------------------------------------
@@ -3942,6 +4119,7 @@ def main() -> int:
                     "salt_issue_bound_ms", "latency_bound_ms", "chain_ops",
                     "bulk_ms", "fleet_bulk_ms", "fleet_sectors_per_slot",
                     "fleet_sector_bound_ms", "narrow_ms", "one_block_ms",
+                    "by_k",
                     "one_block_cycles_per_slot"):
             if key in r:
                 entry[key] = r[key]

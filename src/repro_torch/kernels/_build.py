@@ -90,6 +90,8 @@ LIBRARIES = {
         # D's tile (K), the argmin table's stages (K, svc)
         "sim_tile_slots": (_I,) * 2, "sim_ring_stages": (_I,) * 2,
         "dp_tile_slots": (_I,), "dp_args_stages": (_I,) * 2,
+        # D's tile on a finished w (K)
+        "dp_minplus_tile_slots": (_I,),
     }),
     "flash_attention": (_COMMON, {
         # q, k, v, out, B, Sq, Skv, Hq, Hkv, hd, causal, q_offset, stream

@@ -22,7 +22,7 @@
 //                          with the cost assembly fused in (the fleet DP):
 //                          Model 1 (dp_fwd_model1) or a Model-2 service
 //                          slab (dp_fwd_model2)
-//      dp_minplus          the same recursion on a finished w (K <= 32)
+//      dp_minplus_kernel   the same recursion on a finished w (K <= 32)
 //   B  dp_backtrack_kernel  one chunk's argmin table walked back to the
 //                          schedule (the backtracked OPT, K <= 32)
 //   E  schedule_kernel<SVC, FMA>  given schedules priced over one chunk, fetches
@@ -1544,67 +1544,6 @@ __global__ void __launch_bounds__(32 * kM2Warps)
 }
 
 // ---------------------------------------------------------------------
-// D (finished w): dp_minplus.  Replaces the Pallas kernel dp_minplus_kc
-// (src/repro/kernels/hosting.py:116, body :96, pallas_call at :138) for
-// callers that hand in a finished w (offline_opt_batch, whose w the
-// reference rounds twice) and for K up to 32; the fleet DP runs
-// dp_fwd_model1_kernel below.
-//
-// Per row and slot t: trans[kp, k] = J[kp] + fetch[kp, k];
-// args[t, k] = first kp minimising trans[:, k] (an all-+inf column gives 0);
-// J[k] = min_kp trans[kp, k] + w[t, k]; on an invalid slot J is frozen and
-// args[t, k] = k.
-//
-// Bound: bytes -- it reads w and writes args, 8 bytes per (slot, level).
-// Design: one warp per row, lane k owns J[k] and column k of fetch (in
-// registers); each slot broadcasts J with __shfl_sync and scans kp upward
-// with a strict <, which is jnp.argmin's first-index rule.  K <= 32.
-// ---------------------------------------------------------------------
-
-__global__ void dp_minplus_kernel(const float* __restrict__ J,
-                                  const float* __restrict__ wck,
-                                  const float* __restrict__ fetch,
-                                  const bool* __restrict__ valid,
-                                  float* __restrict__ Jout,
-                                  int* __restrict__ args, int R, int chunk,
-                                  int K) {
-  const int row = (int)(((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
-  const int k = threadIdx.x & 31;
-  if (row >= R) return;                          // warp-uniform exit
-  const bool act = k < K;
-  float f[32];
-#pragma unroll
-  for (int kp = 0; kp < 32; ++kp)
-    f[kp] = (act && kp < K) ? fetch[((long long)row * K + kp) * K + k] : 0.0f;
-  float Jk = act ? J[(long long)row * K + k] : 0.0f;
-  const float* w = wck + (long long)row * chunk * K;
-  const bool* v = valid + (long long)row * chunk;
-  int* a = args + (long long)row * chunk * K;
-  for (int t = 0; t < chunk; ++t) {
-    float best = __shfl_sync(kFullMask, Jk, 0) + f[0];
-    int arg = 0;
-#pragma unroll
-    for (int kp = 1; kp < 32; ++kp) {
-      if (kp < K) {                              // K is warp-uniform
-        const float tr = __shfl_sync(kFullMask, Jk, kp) + f[kp];
-        if (tr < best) {
-          best = tr;
-          arg = kp;
-        }
-      }
-    }
-    if (act) {
-      const bool vt = v[t];
-      const float Jn = best + w[(long long)t * K + k];
-      Jk = vt ? Jn : Jk;
-      a[(long long)t * K + k] = vt ? arg : k;
-    }
-  }
-  if (act) Jout[(long long)row * K + k] = Jk;
-}
-
-
-// ---------------------------------------------------------------------
 // Asynchronous staging shared by D (dp_fwd_model1) and S.
 //
 // A CTA owns kRows = 32 consecutive rows; warp 0 is its producer.  The
@@ -2432,6 +2371,359 @@ __global__ void __launch_bounds__(kDpThreads<ARGS>) dp_fwd_kernel(
 }
 
 // ---------------------------------------------------------------------
+// D (finished w): dp_minplus_kernel<KB, CW>.  Replaces the Pallas kernel
+// dp_minplus_kc (src/repro/kernels/hosting.py:116, body :96, pallas_call
+// at :138) for callers that hand in a finished w (offline_opt_batch, whose
+// w the reference rounds twice, and offline_opt) and for K up to 32; the
+// fleet DP runs dp_fwd_kernel above.
+//
+// Per row and slot t: trans[kp, k] = J[kp] + fetch[kp, k]; args[t, k] =
+// the first kp minimising trans[:, k] (strict <, kp upward; an all-+inf
+// column gives 0); J[k] = min + w[t, k]; a slot whose valid byte is 0
+// freezes J and writes args[t, k] = k.  valid is any mask.
+//
+// Bound: bytes -- w read and args written, 8 bytes a (row, slot, level),
+// and valid's byte a (row, slot).  Design: a CTA of kRows = 32 rows.  Warp
+// 0 stages each tile of TILE slots (dpm_tile) of w, a [32, TILE * K + 4]
+// box whose rows are an odd number of 16-byte units, and of valid by one
+// 2D tensor copy each into a ring of kDpmStages stages (when chunk % 16 ==
+// 0 and every pointer is 16-byte aligned; else 4-byte cp.async for w and
+// byte loads for valid).  The consumer warps walk the chain a row per
+// lane, reading w straight from the stage (there is nothing to cook), and
+// store the argmin table into a ring of kDpmArgs args tiles with the same
+// row pitch, which the last warp sends to global memory by one
+// cp.async.bulk a row (4-byte stores on the 4-byte route).  K <= 8 (CW =
+// 1): one consumer warp, J and fetch in registers, four slots' w read as K
+// 16-byte loads and their args stored as K 16-byte stores, the next four
+// slots' w loaded while these are walked.  K = 9 .. 32 (bands KB = 12, 16,
+// .., 32 of a run-time K, CW = KB / 4 consumer warps of NCOL = 4 columns;
+// two columns a warp on twice the warps was slower at K = 16): consumer
+// warp c takes columns NCOL c .. NCOL c + NCOL - 1 of every row, its fetch
+// columns in registers, each column's argmin a tree over groups of four
+// predecessors merged in order (2 + KB / 4 dependent steps, not KB); the
+// frontier goes through shared memory, two buffers and one named barrier
+// a slot, its levels past K held at +inf with fetch 0, so that they never
+// win a strict <.  The old design, one warp a row reading w a slot at a
+// time, took 3.2147 ms at R = chunk = 4,096, K = 3 (NVIDIA H100 80GB
+// HBM3, 700 W; PERF.md section 6).
+// ---------------------------------------------------------------------
+
+constexpr int kDpmStages = 3;              // w / valid stages in the ring
+constexpr int kDpmArgs = 3;                // args tiles in the ring
+
+// slots a tile: a multiple of 4 with TILE * K <= 252 (the box, TILE * K +
+// 4 words, within the 256 a tensor copy takes) and TILE * K % 8 == 0 (so
+// that a row, TILE * K + 4 words, is an odd number of 16-byte units)
+__host__ __device__ constexpr int dpm_tile(int K) {
+  const int t = (252 / K < 128 ? 252 / K : 128) & ~3;
+  return (t * K) % 8 ? t - 4 : t;
+}
+
+__host__ __device__ constexpr int up128(int bytes) {
+  return (bytes + 127) & ~127;
+}
+
+// the shared memory of a launch at K levels: the w stages [stage][row][ws
+// words], the valid stages [stage][row][vs bytes] (a tile's valid bytes
+// from byte j0 & 15 of its row: a tensor copy's box must start 16-byte
+// aligned, at j0 & ~15; an odd number of 16-byte units a row), the args
+// tiles [tile][row][ws words], the frontier's two buffers [2][row][js
+// words] (CW > 1), the barriers
+struct DpmLayout {
+  int tile, ws, vs, js, w_off, v_off, a_off, j_off, bar_off, bytes;
+};
+
+__host__ __device__ inline DpmLayout dpm_layout(int K, int KB, int CW) {
+  DpmLayout L{};
+  L.tile = dpm_tile(K);
+  L.ws = L.tile * K + 4;                        // == be_stride(TILE * K)
+  L.vs = 16 * (((L.tile + 12 + 15) / 16) | 1);
+  L.js = CW > 1 ? 4 * ((KB / 4) | 1) : 0;
+  L.w_off = 0;
+  L.v_off = up128(L.w_off + kDpmStages * kRows * L.ws * 4);
+  L.a_off = up128(L.v_off + kDpmStages * kRows * L.vs);
+  L.j_off = up128(L.a_off + kDpmArgs * kRows * L.ws * 4);
+  L.bar_off = up128(L.j_off + 2 * kRows * L.js * 4);
+  L.bytes = L.bar_off + 8 * 2 * (kDpmStages + kDpmArgs);
+  return L;
+}
+
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// KB: K itself (CW == 1) or the band's largest K (CW consumer warps)
+template <int KB, int CW>
+__global__ void __launch_bounds__(32 * (CW + 2), 1) dp_minplus_kernel(
+    const float* __restrict__ J, const float* __restrict__ w,
+    const float* __restrict__ fetch, const uint8_t* __restrict__ valid,
+    float* __restrict__ Jout, int* __restrict__ args, int R, int chunk,
+    int K, int tma, const __grid_constant__ StageMaps maps) {
+  // a consumer warp's columns (CW > 1)
+  constexpr int NCOL = CW == 1 ? KB : 4;
+  static_assert(CW == 1 ? KB <= 8 : KB == NCOL * CW && KB <= 32,
+                "D's bands");
+  if constexpr (CW == 1) K = KB;
+  extern __shared__ __align__(128) unsigned char smem_buf[];
+  const DpmLayout L = dpm_layout(K, KB, CW);
+  float* wst = reinterpret_cast<float*>(smem_buf + L.w_off);
+  uint8_t* vst = smem_buf + L.v_off;
+  int* abuf = reinterpret_cast<int*>(smem_buf + L.a_off);
+  float* jx = reinterpret_cast<float*>(smem_buf + L.j_off);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_buf + L.bar_off);
+  uint64_t* empty = full + kDpmStages;
+  uint64_t* afull = empty + kDpmStages;        // args tile stored
+  uint64_t* aempty = afull + kDpmArgs;         // args tile sent
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = blockIdx.x * kRows;
+  const int nrows = min(kRows, R - row0);
+  const int row = row0 + lane;                   // this lane's row
+  const bool live = lane < nrows;
+  const int TILE = L.tile, ntiles = (chunk + TILE - 1) / TILE;
+  const float INF = __int_as_float(0x7f800000);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDpmStages; ++s) {
+      mbar_init(&full[s], tma ? 1u : 64u);
+      mbar_init(&empty[s], 32u * CW);
+    }
+    for (int s = 0; s < kDpmArgs; ++s) {
+      mbar_init(&afull[s], 32u * CW);
+      mbar_init(&aempty[s], 1u);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    // the producer: tile i into stage i % kDpmStages once its readers
+    // have released it
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % kDpmStages, j0 = i * TILE;
+      const int n = min(TILE, chunk - j0);
+      if (i >= kDpmStages)
+        mbar_wait(&empty[s], (uint32_t)(((i / kDpmStages) - 1) & 1));
+      float* ws = wst + s * kRows * L.ws;
+      uint8_t* vs = vst + s * kRows * L.vs;
+      if (tma) {
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[s],
+                                (uint32_t)(kRows * (L.ws * 4 + L.vs)));
+          tma_2d(ws, &maps.m[0], j0 * K, row0, &full[s]);
+          tma_2d(vs, &maps.m[1], j0 & ~15, row0, &full[s]);
+        }
+      } else {
+        for (int r = 0; r < nrows; ++r) {
+          const long long at = (long long)(row0 + r) * chunk + j0;
+          const float* src = w + at * K;
+          for (int e = lane; e < n * K; e += 32)
+            cp_async4(ws + r * L.ws + e, src + e);
+          for (int e = lane; e < n; e += 32)
+            vs[r * L.vs + (j0 & 15) + e] = valid[at + e];
+        }
+        cp_async_arrive_noinc(&full[s]);         // the copies, and
+        mbar_arrive(&full[s]);                   // the valid bytes stored
+      }
+    }
+    return;
+  }
+
+  if (warp == CW + 1) {
+    // the writer: each args tile's rows to global memory
+    for (int i = 0; i < ntiles; ++i) {
+      const int as = i % kDpmArgs, j0 = i * TILE;
+      const int n = min(TILE, chunk - j0);
+      mbar_wait(&afull[as], (uint32_t)((i / kDpmArgs) & 1));
+      if (tma) {                                 // n * K % 4 == 0
+        if (live) {
+          bulk_s2g(args + ((long long)row * chunk + j0) * K,
+                   abuf + (as * kRows + lane) * L.ws, (uint32_t)(n * K * 4));
+          bulk_commit();
+          bulk_wait_read<0>();                   // the tile read: reusable
+        }
+      } else {
+        for (int r = 0; r < nrows; ++r) {
+          int* dst = args + ((long long)(row0 + r) * chunk + j0) * K;
+          const int* src = abuf + (as * kRows + r) * L.ws;
+          for (int e = lane; e < n * K; e += 32) dst[e] = src[e];
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&aempty[as]);
+    }
+    if (tma && live) bulk_wait_all();
+    return;
+  }
+
+  if constexpr (CW == 1) {
+    // ---- one consumer warp: J and fetch in registers ----
+    constexpr int KK = KB;
+    float Jr[KK], f[KK * KK];
+#pragma unroll
+    for (int k = 0; k < KK; ++k)
+      Jr[k] = live ? J[(long long)row * KK + k] : 0.0f;
+#pragma unroll
+    for (int e = 0; e < KK * KK; ++e)
+      f[e] = live ? fetch[(long long)row * KK * KK + e] : 0.0f;
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % kDpmStages, as = i % kDpmArgs, j0 = i * TILE;
+      const int n = min(TILE, chunk - j0);
+      mbar_wait(&full[s], (uint32_t)((i / kDpmStages) & 1));
+      if (i >= kDpmArgs)
+        mbar_wait(&aempty[as], (uint32_t)(((i / kDpmArgs) - 1) & 1));
+      const float* ws = wst + (s * kRows + lane) * L.ws;
+      const uint8_t* vs = vst + (s * kRows + lane) * L.vs + (j0 & 15);
+      int* ab = abuf + (as * kRows + lane) * L.ws;
+      const int last = (n - 1) & ~3;             // the tile's last group
+      // four slots' w (word u * K + k: slot u, level k) and valid bytes
+      float4 cur[KK], nxt[KK];
+      uint32_t vcur, vnxt;
+      auto load = [&](int jj, float4 (&wv)[KK], uint32_t& vb) {
+#pragma unroll
+        for (int q = 0; q < KK; ++q)
+          wv[q] = *reinterpret_cast<const float4*>(ws + jj * KK + 4 * q);
+        vb = *reinterpret_cast<const uint32_t*>(vs + jj);
+      };
+      load(0, cur, vcur);
+      for (int jj = 0; jj < n; jj += 4) {
+        load(min(jj + 4, last), nxt, vnxt);
+        float wf[4 * KK];
+#pragma unroll
+        for (int q = 0; q < KK; ++q) {
+          wf[4 * q] = cur[q].x;
+          wf[4 * q + 1] = cur[q].y;
+          wf[4 * q + 2] = cur[q].z;
+          wf[4 * q + 3] = cur[q].w;
+        }
+        int a[4 * KK];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const bool vt = ((vcur >> (8 * u)) & 0xFFu) != 0u && jj + u < n;
+          float Jn[KK];
+#pragma unroll
+          for (int k = 0; k < KK; ++k) {
+            float best = Jr[0] + f[k];
+            int am = 0;
+#pragma unroll
+            for (int kp = 1; kp < KK; ++kp) {
+              const float tr = Jr[kp] + f[kp * KK + k];
+              if (tr < best) {
+                best = tr;
+                am = kp;
+              }
+            }
+            Jn[k] = best + wf[u * KK + k];
+            a[u * KK + k] = vt ? am : k;
+          }
+#pragma unroll
+          for (int k = 0; k < KK; ++k) Jr[k] = vt ? Jn[k] : Jr[k];
+        }
+#pragma unroll
+        for (int q = 0; q < KK; ++q)
+          *reinterpret_cast<int4*>(ab + jj * KK + 4 * q) =
+              make_int4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
+#pragma unroll
+        for (int q = 0; q < KK; ++q) cur[q] = nxt[q];
+        vcur = vnxt;
+      }
+      mbar_arrive(&empty[s]);
+      fence_proxy_async();                       // the args, then the copy
+      mbar_arrive(&afull[as]);
+    }
+    if (live) {
+#pragma unroll
+      for (int k = 0; k < KK; ++k) Jout[(long long)row * KK + k] = Jr[k];
+    }
+  } else {
+    // ---- CW consumer warps, warp c on columns NCOL c .. NCOL c + NCOL - 1
+    const int c = warp - 1, k0 = NCOL * c;
+    bool kin[NCOL];
+    float Jo[NCOL], f[KB][NCOL];
+#pragma unroll
+    for (int q = 0; q < NCOL; ++q) {
+      const int k = k0 + q;
+      kin[q] = k < K;
+      Jo[q] = live && kin[q] ? J[(long long)row * K + k] : INF;
+#pragma unroll
+      for (int kp = 0; kp < KB; ++kp)
+        f[kp][q] = live && kin[q] && kp < K
+                       ? fetch[((long long)row * K + kp) * K + k]
+                       : 0.0f;
+    }
+    float* jb[2] = {jx + lane * L.js, jx + (kRows + lane) * L.js};
+    auto put = [&](float* dst) {                 // this warp's columns of J
+#pragma unroll
+      for (int q = 0; q < NCOL; ++q) dst[k0 + q] = Jo[q];
+    };
+    put(jb[0]);                                  // levels past K: +inf
+    put(jb[1]);
+    named_bar_sync(1, 32 * CW);
+    int p = 0;
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % kDpmStages, as = i % kDpmArgs, j0 = i * TILE;
+      const int n = min(TILE, chunk - j0);
+      mbar_wait(&full[s], (uint32_t)((i / kDpmStages) & 1));
+      if (i >= kDpmArgs)
+        mbar_wait(&aempty[as], (uint32_t)(((i / kDpmArgs) - 1) & 1));
+      const float* ws = wst + (s * kRows + lane) * L.ws + k0;
+      const uint8_t* vs = vst + (s * kRows + lane) * L.vs + (j0 & 15);
+      int* ab = abuf + (as * kRows + lane) * L.ws + k0;
+      for (int jj = 0; jj < n; ++jj) {
+        const float* jr = jb[p];
+        float best[NCOL];
+        int am[NCOL];
+        // the first minimum of each column: a tree over each group of
+        // four predecessors, the groups merged in order (the right side
+        // wins only when strictly less, so the leftmost of the minima
+        // wins, as in a strict < scan upward)
+#pragma unroll
+        for (int b = 0; b < KB / 4; ++b) {
+          const float4 j4 = *reinterpret_cast<const float4*>(jr + 4 * b);
+          const float jv[4] = {j4.x, j4.y, j4.z, j4.w};
+#pragma unroll
+          for (int q = 0; q < NCOL; ++q) {
+            float t[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) t[e] = jv[e] + f[4 * b + e][q];
+            const bool p1 = t[1] < t[0], p3 = t[3] < t[2];
+            const float a = p1 ? t[1] : t[0], c2 = p3 ? t[3] : t[2];
+            const int ia = p1 ? 1 : 0, ic = p3 ? 3 : 2;
+            const bool pc = c2 < a;
+            const float g = pc ? c2 : a;
+            const int ig = 4 * b + (pc ? ic : ia);
+            if (b == 0) {
+              best[q] = g;
+              am[q] = ig;
+            } else if (g < best[q]) {
+              best[q] = g;
+              am[q] = ig;
+            }
+          }
+        }
+        const bool vt = vs[jj] != 0;
+#pragma unroll
+        for (int q = 0; q < NCOL; ++q)
+          if (kin[q]) {
+            const float Jn = best[q] + ws[jj * K + q];
+            Jo[q] = vt ? Jn : Jo[q];
+            ab[jj * K + q] = vt ? am[q] : k0 + q;
+          }
+        p ^= 1;
+        put(jb[p]);
+        named_bar_sync(1, 32 * CW);
+      }
+      mbar_arrive(&empty[s]);
+      fence_proxy_async();                       // the args, then the copy
+      mbar_arrive(&afull[as]);
+    }
+    if (live) {
+#pragma unroll
+      for (int q = 0; q < NCOL; ++q)
+        if (kin[q]) Jout[(long long)row * K + k0 + q] = Jo[q];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
 // S: sim_kernel<K, SVC, TABLE> -- one chunk of the per-slot simulation,
 // the reference's XLA lax.scan of sim_chunk_core
 // (src/repro/core/simulator.py:147-227); no Pallas kernel covered it.
@@ -2487,6 +2779,20 @@ __global__ void __launch_bounds__(kDpThreads<ARGS>) dp_fwd_kernel(
 // part (~63 cycles a slot, 77% of the byte bound).  The split warps made
 // alpha-RR's chain 26% slower there (0.29 -> 0.37 ms, its loop's code
 // the same), so alpha-RR keeps three.
+// On few rows of a slab of more than 16 levels (4 <= K <= 8, the launch
+// one wave of CTAs of kFewRows = 4 rows), the host picks the FEW
+// instances.  Their producer stages whole slab rows, one cp.async.bulk a
+// row and tile, up to four tiles in flight (the gather's 4-byte copies,
+// ~9 cycles each on the one SM of beyond_knapsack_levels' call, had set
+// a pace of ~5,000 cycles a tile), and cooks with all 32 lanes over
+// (row, slot).  The policy warp takes kFewLevels = 2 levels a lane, 2 or
+// 4 lanes a row (one level a lane, or four, and blocks of four slots
+// walked speculatively, were slower).  The accounting warp takes a row's
+// 8 lanes over its slots (each slot's masked rent, service and fetch
+// into its spent w fields, one lane a row adding them in slot order).  At that call (4 rows, a K = 8 lane of its
+// 31-level slab, 4,000 slots) one lane a row had left 28 of 32 lanes
+// idle: the policy took 533 cycles a slot, the rest 338 (NVIDIA H100 80GB
+// HBM3, 700 W; PERF.md section 6).
 // ---------------------------------------------------------------------
 
 // the observation a table step indexes its table with (TableObs)
@@ -2517,6 +2823,7 @@ struct SimSmem {
               + (TABLE ? kRows * (2 * LS + TS) * 4 : 0) + 1024 <= kSmemMax
           ? 3
           : 2;
+  static constexpr int NR = kRawStages;        // raw stages
   Raw raw[kRawStages];
   int cols[SVC ? kRows : 1][K];                // SVC: each row's columns
   float cooked[NC][TILE * SS];
@@ -2578,7 +2885,45 @@ __device__ __forceinline__ uint32_t table_next(
     return prmt(w[0], w[1], r) | prmt(w[2], w[3], r ^ 8u);
 }
 
-template <int K, bool SVC, bool TABLE>
+// alpha-RR's S on few rows of a wide slab (FEW): kFewRows rows a CTA
+constexpr int kFewRows = 4;
+// levels a lane of the few-rows policy
+constexpr int kFewLevels = 2;
+template <int K, bool FEW>
+constexpr int kSimRows = FEW ? kFewRows : kRows;
+
+// FEW's shared memory: SimSmem<K, true, false>'s cooked ring, and raw
+// stages of whole slab rows (up to kM2MaxK words a slot) of kFewRows rows,
+// as many (up to 4) as fit.  (A ring laid out for the 4 rows, in tiles of
+// 64 slots, was slower: 0.69 ms at beyond_knapsack_levels' call.)
+template <int K>
+struct SimFewSmem {
+  using B = SimSmem<K, true, false>;
+  static constexpr int FC = B::FC, FX = B::FX, NF = B::NF, LS = B::LS;
+  static constexpr int TILE = B::TILE, NC = B::NC;
+  static constexpr int SS = B::SS, RS = B::RS;
+  struct Raw {
+    float c[kFewRows][TILE + 4];
+    float s[kFewRows][kM2MaxK * TILE + 4];     // [slot][Kf] within a row
+  };
+  static constexpr int kRing = NC * (TILE * SS + (TILE + 1) * RS) * 4 + 1024;
+  static constexpr int NR =
+      4 * (int)sizeof(Raw) + kRing <= kSmemMax ? 4
+      : (3 * (int)sizeof(Raw) + kRing <= kSmemMax ? 3 : 2);
+  Raw raw[NR];
+  float cooked[NC][TILE * SS];
+  int rb[NC][(TILE + 1) * RS];
+  uint64_t raw_full[NR];
+  uint64_t full[NC];
+  uint64_t rfull[NC];
+  uint64_t empty[NC];
+};
+
+template <int K, bool SVC, bool TABLE, bool FEW>
+using SimSmemOf = typename std::conditional<FEW, SimFewSmem<K>,
+                                            SimSmem<K, SVC, TABLE>>::type;
+
+template <int K, bool SVC, bool TABLE, bool FEW = false>
 __global__ void __launch_bounds__(kSimThreads<TABLE>) sim_kernel(
     const float* __restrict__ plv_g, const bool* __restrict__ mask_g,
     const float* __restrict__ pM_g, const int* __restrict__ pi_g,
@@ -2595,15 +2940,18 @@ __global__ void __launch_bounds__(kSimThreads<TABLE>) sim_kernel(
     float* __restrict__ sums_out, int* __restrict__ counts_out,
     int* __restrict__ r_hist, int bulk,
     const __grid_constant__ StageMaps maps) {
-  using Sm = SimSmem<K, SVC, TABLE>;
+  using Sm = SimSmemOf<K, SVC, TABLE, FEW>;
   static_assert(sizeof(Sm) <= kSmemMax, "S's tiles fit shared memory");
+  static_assert(!FEW || (SVC && !TABLE && K >= 4 && K <= 8),
+                "FEW: alpha-RR on a slab, 4 <= K <= 8");
   constexpr int TILE = Sm::TILE, SS = Sm::SS, RS = Sm::RS, LS = Sm::LS;
   constexpr int FC = Sm::FC, FX = Sm::FX;
+  constexpr int ROWS = kSimRows<K, FEW>;
   extern __shared__ __align__(128) unsigned char smem_buf[];
   Sm& sm = *reinterpret_cast<Sm*>(smem_buf);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = blockIdx.x * kRows;
-  const int nrows = min(kRows, R - row0);
+  const int row0 = blockIdx.x * ROWS;
+  const int nrows = min(ROWS, R - row0);
   const int row = row0 + lane;                   // this lane's row
   const bool live = lane < nrows;
   const long long rk = (long long)row * K;
@@ -2614,7 +2962,7 @@ __global__ void __launch_bounds__(kSimThreads<TABLE>) sim_kernel(
       if constexpr (!SVC) sm.gt[r * LS + k] = g_g[(long long)row0 * K + i];
     }
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kRawStages; ++s)
+    for (int s = 0; s < Sm::NR; ++s)
       mbar_init(&sm.raw_full[s], bulk ? 1u : 32u);
     for (int s = 0; s < Sm::NC; ++s) {
       mbar_init(&sm.full[s], 32u);
@@ -2661,6 +3009,75 @@ __global__ void __launch_bounds__(kSimThreads<TABLE>) sim_kernel(
               out[FX * kRows] = (float)xv;
             },
             o_g, maps.m);
+      }
+    } else if constexpr (FEW) {
+      // few rows: each tile of the rows' c and whole slab rows (Kf words
+      // a slot) by one cp.async.bulk a row and array (bulk; else 4-byte
+      // cp.async, lanes over a row's words), NR tiles in flight; the
+      // lanes cook over (row, slot): lane r + kFewRows * p takes row r's
+      // slots p, p + 8, ..
+      constexpr int NR = Sm::NR, SL = 32 / kFewRows;
+      const int ntiles = (chunk + TILE - 1) / TILE;
+      const int r = lane % kFewRows, ph = lane / kFewRows, rw = row0 + r;
+      const bool rl = r < nrows;
+      float plr[K];
+      int at[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        plr[k] = rl ? plv_g[(long long)rw * K + k] : 0.0f;
+        at[k] = rl && cols_g ? cols_g[(long long)rw * K + k] : k;
+      }
+      auto stage = [&](int i) {
+        const int s = i % NR, j0 = i * TILE;
+        const int n = min(TILE, chunk - j0);
+        auto& st = sm.raw[s];
+        if (bulk) {                              // n % 4 == 0
+          if (lane == 0)
+            mbar_arrive_expect_tx(&sm.raw_full[s],
+                                  (uint32_t)(nrows * n * (Kf + 1) * 4));
+          __syncwarp();
+          if (lane < nrows) {
+            const long long off = (long long)(row0 + lane) * chunk + j0;
+            bulk_g2s(&st.c[lane][0], c_g + off, (uint32_t)(n * 4),
+                     &sm.raw_full[s]);
+            bulk_g2s(&st.s[lane][0], svc_g + off * Kf,
+                     (uint32_t)(n * Kf * 4), &sm.raw_full[s]);
+          }
+        } else {
+          for (int q = 0; q < nrows; ++q) {
+            const long long off = (long long)(row0 + q) * chunk + j0;
+            for (int e = lane; e < n; e += 32)
+              cp_async4(&st.c[q][e], c_g + off + e);
+            for (int e = lane; e < n * Kf; e += 32)
+              cp_async4(&st.s[q][e], svc_g + off * Kf + e);
+          }
+          cp_async_arrive_noinc(&sm.raw_full[s]);
+        }
+      };
+      for (int i = 0; i < ntiles && i < NR; ++i) stage(i);
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % NR, cs = i % Sm::NC, j0 = i * TILE;
+        const int n = min(TILE, chunk - j0);
+        mbar_wait(&sm.raw_full[s], (uint32_t)((i / NR) & 1));
+        if (i >= Sm::NC)
+          mbar_wait(&sm.empty[cs], (uint32_t)(((i / Sm::NC) - 1) & 1));
+        float* ck = sm.cooked[cs] + r;
+        const float* rc = sm.raw[s].c[r];
+        const float* rs = sm.raw[s].s[r];
+        for (int jj = ph; jj < n; jj += SL) {
+          const float cv = rc[jj];
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            const float sv = rs[jj * Kf + at[k]];
+            ck[jj * SS + k * kRows] = __fmaf_rn(cv, plr[k], sv);
+            ck[jj * SS + (FX + k) * kRows] = sv;
+          }
+          ck[jj * SS + FC * kRows] = cv;
+        }
+        fence_proxy_async();                     // the reads, then the copy
+        __syncwarp();
+        if (i + NR < ntiles) stage(i + NR);
+        mbar_arrive(&sm.full[cs]);
       }
     } else {
       float plr[K];
@@ -2744,6 +3161,149 @@ __global__ void __launch_bounds__(kSimThreads<TABLE>) sim_kernel(
       }
       if (live) r_out[row] = (int)r;
       return;
+    } else if constexpr (FEW) {
+      // ---- the policy on few rows: a row's KL lanes, lane h holding LP
+      // levels h LP .. h LP + LP - 1 (w, S, level, mask), r, age and M in
+      // each.  w_r and lv_r come by shuffles from the lane holding r; each
+      // lane takes the first-index argmin of its levels and its margin, a
+      // butterfly over the row's lanes the row's (levels past K price BIG
+      // + EPS and never win: lane r's prices 0).  The next slot's step up
+      // to its butterfly is walked beside this slot's butterfly as if no
+      // row switched, and walked again when one did (every ~20 slots at
+      // the study's call), so the butterflies are not one chain.  The walk
+      // runs to the warp's longest valid prefix, each row frozen past its
+      // own.
+      constexpr int LP = kFewLevels;
+      constexpr int KL = (K + LP - 1) / LP <= 2 ? 2
+                         : ((K + LP - 1) / LP <= 4 ? 4 : 8);
+      const float BIG = (float)3.4e38;   // alpha_rr._BIG
+      const float EPS = (float)1e-6;     // alpha_rr._TIE_EPS
+      const int rr = lane / KL, h = lane % KL, base = rr * KL, kb = h * LP;
+      const int rw = row0 + rr;
+      const bool rlive = rr < nrows;
+      int r = rlive ? r_in[rw] : 0;
+      int age = rlive ? age_in[rw] : 0;
+      const float pM = rlive ? pM_g[rw] : 0.0f;
+      const int Tr = rlive ? Tlen_g[rw] : 0;
+      float S[LP], plv[LP];
+      bool mk[LP];
+#pragma unroll
+      for (int i2 = 0; i2 < LP; ++i2) {
+        const bool in = rlive && kb + i2 < K;
+        const long long at = (long long)rw * K + kb + i2;
+        S[i2] = in ? S_in[at] : 0.0f;
+        plv[i2] = in ? plv_g[at] : 0.0f;
+        mk[i2] = in ? mask_g[at] : false;
+      }
+      float plv_r = plv[0];                    // the level of r
+#pragma unroll
+      for (int i2 = 1; i2 < LP; ++i2) plv_r = (kb + i2 == r) ? plv[i2] : plv_r;
+      plv_r = __shfl_sync(kFullMask, plv_r, base + r / LP);
+      for (int i = 0; i < ntiles; ++i) {
+        const int cs = i % Sm::NC, j0 = i * TILE;
+        const int n = min(TILE, chunk - j0);
+        mbar_wait(&sm.full[cs], (uint32_t)((i / Sm::NC) & 1));
+        const float* ck = sm.cooked[cs] + rr;   // rr < 32: the ring's rows
+        int* rb = sm.rb[cs] + rr;
+        const int nv = max(0, min(n, Tr - t0 - j0));
+        const int nw = __reduce_max_sync(kFullMask, nv);
+        float wn[LP];                          // the next slot's w
+#pragma unroll
+        for (int i2 = 0; i2 < LP; ++i2)
+          wn[i2] = ck[min(kb + i2, K - 1) * kRows];
+        // lane r / LP's word of level r, which a shuffle fetches
+        auto own = [&](const float (&a)[LP], int rr2) {
+          float o = a[0];
+#pragma unroll
+          for (int i2 = 1; i2 < LP; ++i2) o = (kb + i2 == rr2) ? a[i2] : o;
+          return o;
+        };
+        // a slot's step up to the butterfly, from the state before it:
+        // Sn (S after it, unswitched), age + 1, and the lane's argmin v,
+        // js and its margin
+        struct Pre {
+          float Sn[LP], v, marg;
+          int js, age1;
+        };
+        auto pre = [&](const float (&w)[LP], float w_r, const float (&S0)[LP],
+                       int age0) {
+          Pre P;
+          P.age1 = age0 + 1;
+          const bool gate = P.age1 >= 2;
+          P.v = 0.0f;
+          P.marg = 0.0f;
+          P.js = kb;
+#pragma unroll
+          for (int i2 = 0; i2 < LP; ++i2) {
+            const int k = kb + i2;
+            const float s_new = (w[i2] - w_r) + fminf(0.0f, S0[i2]);
+            P.Sn[i2] = gate ? s_new : S0[i2];
+            float m = __fmaf_rn(pM, fabsf(plv[i2] - plv_r),
+                                gate ? s_new : BIG);
+            m = mk[i2] ? m : BIG;
+            const float mg = (k == r) ? 0.0f : m;
+            const float vk = (k == r) ? 0.0f : m + EPS;
+            if (i2 == 0 || vk < P.v) {
+              P.v = vk;
+              P.js = k;
+              P.marg = mg;
+            }
+          }
+          return P;
+        };
+        Pre P = pre(wn, __shfl_sync(kFullMask, own(wn, r), base + r / LP), S,
+                    age);
+        for (int jj = 0; jj < nw; ++jj) {
+          const int nx = min(jj + 1, n - 1);
+#pragma unroll
+          for (int i2 = 0; i2 < LP; ++i2)
+            wn[i2] = ck[nx * SS + min(kb + i2, K - 1) * kRows];
+          if (h == 0) rb[jj * RS] = r;
+          const bool act = jj < nv;
+          float v = P.v, marg = P.marg;
+          int js = P.js;
+#pragma unroll
+          for (int off = KL / 2; off >= 1; off /= 2) {
+            const float ov = __shfl_xor_sync(kFullMask, v, off);
+            const int oj = __shfl_xor_sync(kFullMask, js, off);
+            const float om = __shfl_xor_sync(kFullMask, marg, off);
+            const bool take = ov < v || (ov == v && oj < js);
+            v = take ? ov : v;
+            js = take ? oj : js;
+            marg = take ? om : marg;
+          }
+          const bool sw = act && marg < -0.0f;
+          // the next slot's step as if no row switched, beside the
+          // butterfly; walked again below when one did
+          float S1[LP];
+#pragma unroll
+          for (int i2 = 0; i2 < LP; ++i2) S1[i2] = act ? P.Sn[i2] : S[i2];
+          const int age1 = act ? P.age1 : age;
+          const Pre Q = pre(
+              wn, __shfl_sync(kFullMask, own(wn, r), base + r / LP), S1, age1);
+#pragma unroll
+          for (int i2 = 0; i2 < LP; ++i2) S[i2] = sw ? BIG : S1[i2];
+          age = sw ? 0 : age1;
+          r = sw ? js : r;
+          P = Q;
+          if (__any_sync(kFullMask, sw)) {       // a switch: r's w and level
+            plv_r = __shfl_sync(kFullMask, own(plv, r), base + r / LP);
+            P = pre(wn, __shfl_sync(kFullMask, own(wn, r), base + r / LP), S,
+                    age);
+          }
+        }
+        if (h == 0)
+          for (int t = nw; t <= n; ++t) rb[t * RS] = r;  // and after
+        mbar_arrive(&sm.rfull[cs]);
+      }
+#pragma unroll
+      for (int i2 = 0; i2 < LP; ++i2)
+        if (rlive && kb + i2 < K) S_out[(long long)rw * K + kb + i2] = S[i2];
+      if (rlive && h == 0) {
+        r_out[rw] = r;
+        age_out[rw] = age;
+      }
+      return;
     } else {
       // ---- the policy: alpha_rr_step, state frozen past T_len ----
       int r = live ? r_in[row] : 0;
@@ -2825,7 +3385,82 @@ __global__ void __launch_bounds__(kSimThreads<TABLE>) sim_kernel(
     }
   }
 
-  if constexpr (!TABLE) {
+  if constexpr (FEW) {
+    // ---- warp 2 on few rows: a row's KL lanes price its slots q, q + KL,
+    // .. (rent, service and fetch, each masked as below) into the slot's
+    // w fields 0..2 (K >= 4: spent once the policy is past the tile), and
+    // count its levels; one lane a row then adds the terms to the sums in
+    // slot order; the counts are summed at the end
+    constexpr int KL = 32 / kFewRows;            // lanes a row
+    const int rr = lane / KL, q = lane % KL, rw = row0 + rr;
+    const bool rlive = rr < nrows;
+    float lv[K];
+    int cnt[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      lv[k] = rlive ? lv_g[(long long)rw * K + k] : 0.0f;
+      cnt[k] = rlive && q == 0 ? counts_in[(long long)rw * K + k] : 0;
+    }
+    const float M = rlive ? M_g[rw] : 0.0f;
+    const int Tr = rlive ? Tlen_g[rw] : 0;
+    float s_rent = rlive ? sums_in[rw * 3 + 0] : 0.0f;
+    float s_svc = rlive ? sums_in[rw * 3 + 1] : 0.0f;
+    float s_fetch = rlive ? sums_in[rw * 3 + 2] : 0.0f;
+    for (int i = 0; i < ntiles; ++i) {
+      const int cs = i % Sm::NC, j0 = i * TILE;
+      const int n = min(TILE, chunk - j0);
+      mbar_wait(&sm.rfull[cs], (uint32_t)((i / Sm::NC) & 1));
+      float* ck = sm.cooked[cs] + rr;
+      const int* rb = sm.rb[cs] + rr;
+      const int tv = Tr - t0 - j0;
+      for (int jj = q; jj < n; jj += KL) {
+        const int rt = rb[jj * RS];
+        const int rn = rb[(jj + 1) * RS];        // the level after the slot
+        const float c = ck[jj * SS + FC * kRows];
+        const bool valid = jj < tv;
+        const bool last = jj == tv - 1;
+        const float lv_t = select_k<K>(lv, rt);
+        const float svc_t = ck[jj * SS + (FX + rt) * kRows];
+        const float lv_next = select_k<K>(lv, rn);
+        float fetch = M * fmaxf(lv_next - lv_t, 0.0f);
+        if (!include_final_fetch && last) fetch = 0.0f;
+        ck[jj * SS] = valid ? c * lv_t : 0.0f;
+        ck[jj * SS + kRows] = valid ? svc_t : 0.0f;
+        ck[jj * SS + 2 * kRows] = valid ? fetch : 0.0f;
+#pragma unroll
+        for (int k = 0; k < K; ++k) cnt[k] += (valid && k == rt) ? 1 : 0;
+      }
+      __syncwarp();
+      if (q == 0)
+#pragma unroll 4
+        for (int jj = 0; jj < n; ++jj) {
+          s_rent = s_rent + ck[jj * SS];
+          s_svc = s_svc + ck[jj * SS + kRows];
+          s_fetch = s_fetch + ck[jj * SS + 2 * kRows];
+        }
+      if (r_hist) {
+        for (int r = 0; r < nrows; ++r) {
+          int* dst = r_hist + (long long)(row0 + r) * chunk + j0;
+          const int* src = sm.rb[cs] + r;
+          for (int jj = lane; jj < n; jj += 32) dst[jj] = src[jj * RS];
+        }
+      }
+      __syncwarp();
+      mbar_arrive(&sm.empty[cs]);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int off = KL / 2; off >= 1; off /= 2)
+        cnt[k] += __shfl_xor_sync(kFullMask, cnt[k], off);
+    if (rlive && q == 0) {
+      sums_out[rw * 3 + 0] = s_rent;
+      sums_out[rw * 3 + 1] = s_svc;
+      sums_out[rw * 3 + 2] = s_fetch;
+#pragma unroll
+      for (int k = 0; k < K; ++k) counts_out[(long long)rw * K + k] = cnt[k];
+    }
+  } else if constexpr (!TABLE) {
     // ---- warp 2 of alpha-RR: the accounting of sim_chunk_core in slot
     // order, the counts and the trace with it (alpha-RR's policy chain
     // sets its pace, and the table variant's split sums and counts made
@@ -3658,17 +4293,21 @@ inline cudaError_t encode_tiled(EncodeTiled* fn) {
 
 // a [rows, width] matrix of 32-bit words (16-byte aligned, width % 4 ==
 // 0) seen in boxes of kRows rows x box words (box % 4 == 0, <= 256); a box
-// past the matrix's edge reads zeros
+// past the matrix's edge reads zeros.  bytes: a matrix of bytes instead
+// (width % 16 == 0, box % 16 == 0)
 inline cudaError_t row_map(CUtensorMap* map, const void* base, int rows,
-                           long long width, int box) {
+                           long long width, int box, bool bytes = false) {
   EncodeTiled fn = nullptr;
   const cudaError_t e = encode_tiled(&fn);
   if (e != cudaSuccess) return e;
   const cuuint64_t dim[2] = {(cuuint64_t)width, (cuuint64_t)rows};
-  const cuuint64_t stride[1] = {(cuuint64_t)width * 4};
+  const cuuint64_t stride[1] = {(cuuint64_t)width * (bytes ? 1 : 4)};
   const cuuint32_t boxd[2] = {(cuuint32_t)box, (cuuint32_t)kRows};
   const cuuint32_t step[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, const_cast<void*>(base),
+  return fn(map,
+            bytes ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                  : CU_TENSOR_MAP_DATA_TYPE_INT32,
+            2, const_cast<void*>(base),
             dim, stride, boxd, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
@@ -3763,19 +4402,54 @@ int launch_dpf_any(const DpfArgs& a, int K, cudaStream_t st) {
 #undef REPRO_DPF_CASE
 }
 
-template <int K, bool SVC, bool TABLE>
+// the inputs of D on a finished w
+struct DpmArgs {
+  const void *J, *w, *fetch, *valid;
+  void *Jout, *args;
+  int R, chunk, K;
+};
+
+// D on a finished w: tensor copies when chunk % 16 == 0 and w, valid and
+// args are 16-byte aligned (w's rows, chunk * K words, then are too), else
+// the 4-byte route
+template <int KB, int CW>
+int launch_dpm(const DpmArgs& a, cudaStream_t st) {
+  const DpmLayout L = dpm_layout(a.K, KB, CW);
+  const cudaError_t e = allow_smem(dp_minplus_kernel<KB, CW>, L.bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int tma = a.chunk > 0 && a.chunk % 16 == 0
+                  && bulk_ok(a.w, a.valid, a.chunk)
+                  && (uintptr_t)a.args % 16 == 0;
+  StageMaps maps = {};
+  if (tma) {
+    cudaError_t me = row_map(&maps.m[0], a.w, a.R,
+                             (long long)a.chunk * a.K, L.tile * a.K + 4);
+    if (me == cudaSuccess)
+      me = row_map(&maps.m[1], a.valid, a.R, a.chunk, L.vs, true);
+    if (me != cudaSuccess) return (int)me;
+  }
+  dp_minplus_kernel<KB, CW><<<n_blocks(a.R, kRows), 32 * (CW + 2), L.bytes,
+                              st>>>(
+      (const float*)a.J, (const float*)a.w, (const float*)a.fetch,
+      (const uint8_t*)a.valid, (float*)a.Jout, (int*)a.args, a.R, a.chunk,
+      a.K, tma, maps);
+  return (int)cudaGetLastError();
+}
+
+template <int K, bool SVC, bool TABLE, bool FEW = false>
 int launch_sim(const SimArgs& a, cudaStream_t st) {
-  using Sm = SimSmem<K, SVC, TABLE>;
+  using Sm = SimSmemOf<K, SVC, TABLE, FEW>;
   const size_t bytes = sizeof(Sm);
-  const cudaError_t e = allow_smem(sim_kernel<K, SVC, TABLE>, bytes);
+  const cudaError_t e = allow_smem(sim_kernel<K, SVC, TABLE, FEW>, bytes);
   if (e != cudaSuccess) return (int)e;
   // the bulk routes need the observation slab's rows aligned too; then
   // the table variant takes one 2D tensor copy an array and tile (route
   // 2) where a row of the slab's tile fits a box, else one bulk copy a row
   // and array (route 1)
   constexpr int TILE = Sm::TILE;
-  int bulk = bulk_route<SVC, TILE, K>(a.c, a.x, a.svc, a.Kf, a.chunk)
-             && (uintptr_t)a.o % 16 == 0;
+  int bulk = FEW ? bulk_ok(a.c, a.svc, a.chunk)   // whole slab rows
+                 : bulk_route<SVC, TILE, K>(a.c, a.x, a.svc, a.Kf, a.chunk)
+                       && (uintptr_t)a.o % 16 == 0;
   StageMaps maps = {};
   if (TABLE && bulk && (!SVC || a.Kf * TILE + 4 <= kBeMaxBox)) {
     const cudaError_t me = stage_maps(&maps, a.c, SVC ? a.svc : a.x, a.o,
@@ -3783,8 +4457,8 @@ int launch_sim(const SimArgs& a, cudaStream_t st) {
     if (me != cudaSuccess) return (int)me;
     bulk = 2;
   }
-  sim_kernel<K, SVC, TABLE>
-      <<<n_blocks(a.R, kRows), kSimThreads<TABLE>, bytes, st>>>(
+  sim_kernel<K, SVC, TABLE, FEW>
+      <<<n_blocks(a.R, kSimRows<K, FEW>), kSimThreads<TABLE>, bytes, st>>>(
       (const float*)a.plv, (const bool*)a.mask, (const float*)a.pM,
       (const int*)a.pi, (const float*)a.thr, (const float*)a.lv,
       (const float*)a.g, (const float*)a.M, (const int*)a.T_len,
@@ -3798,12 +4472,25 @@ int launch_sim(const SimArgs& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// alpha-RR's S on few rows of a wide slab (Kf past kDpfMaxK, 4 <= K <=
+// 8) takes the FEW instances when their CTAs of kFewRows rows fit one
+// wave, one a SM
+template <int K>
+int sim_few(const SimArgs& a) {
+  int n_sm = 0;
+  return K >= 4 && K <= 8 && a.Kf > kDpfMaxK
+         && sm_count(&n_sm) == cudaSuccess
+         && (long long)n_blocks(a.R, kFewRows) <= n_sm;
+}
+
 // S at a runtime K (2..16)
 template <bool SVC, bool TABLE>
 int launch_sim_any(const SimArgs& a, int K, cudaStream_t st) {
   if (a.R <= 0) return (int)cudaGetLastError();
-#define REPRO_SIM_CASE(KK) \
-  case KK:                 \
+#define REPRO_SIM_CASE(KK)                                         \
+  case KK:                                                         \
+    if constexpr (SVC && !TABLE && KK >= 4 && KK <= 8)             \
+      if (sim_few<KK>(a)) return launch_sim<KK, SVC, TABLE, true>(a, st); \
     return launch_sim<KK, SVC, TABLE>(a, st);
   switch (K) {
     REPRO_SIM_CASE(2) REPRO_SIM_CASE(3) REPRO_SIM_CASE(4) REPRO_SIM_CASE(5)
@@ -4014,15 +4701,30 @@ int launch_arma_rents(const void* keys, const void* tids, const void* hist_in,
 int launch_dp_minplus(const void* J, const void* wck, const void* fetch,
                       const void* valid, void* Jout, void* args, int R,
                       int chunk, int K, void* stream) {
-  const int threads = 128;                       // 4 rows per block
   if (K < 1 || K > 32) return (int)cudaErrorInvalidValue;
-  if (R > 0)
-    dp_minplus_kernel<<<n_blocks((long long)R * 32, threads), threads, 0,
-                        (cudaStream_t)stream>>>(
-        (const float*)J, (const float*)wck, (const float*)fetch,
-        (const bool*)valid, (float*)Jout, (int*)args, R, chunk, K);
-  return (int)cudaGetLastError();
+  if (R <= 0) return (int)cudaGetLastError();
+  const DpmArgs a{J, wck, fetch, valid, Jout, args, R, chunk, K};
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (K <= 8 ? K : 6 + (K + 3) / 4) {       // K itself, or its band
+    case 1: return launch_dpm<1, 1>(a, st);
+    case 2: return launch_dpm<2, 1>(a, st);
+    case 3: return launch_dpm<3, 1>(a, st);
+    case 4: return launch_dpm<4, 1>(a, st);
+    case 5: return launch_dpm<5, 1>(a, st);
+    case 6: return launch_dpm<6, 1>(a, st);
+    case 7: return launch_dpm<7, 1>(a, st);
+    case 8: return launch_dpm<8, 1>(a, st);
+    case 9: return launch_dpm<12, 3>(a, st);
+    case 10: return launch_dpm<16, 4>(a, st);
+    case 11: return launch_dpm<20, 5>(a, st);
+    case 12: return launch_dpm<24, 6>(a, st);
+    case 13: return launch_dpm<28, 7>(a, st);
+    default: return launch_dpm<32, 8>(a, st);
+  }
 }
+
+// D on a finished w at K levels: its tile in slots (-1 past 1..32)
+int dp_minplus_tile_slots(int K) { return K < 1 || K > 32 ? -1 : dpm_tile(K); }
 
 // B: one chunk's argmin table [R, chunk, K] (1 <= K <= 32) walked back
 // from k_in [R]; k_out [R] the level at the chunk's entry, r [R, chunk]

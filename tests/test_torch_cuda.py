@@ -1588,3 +1588,161 @@ def test_table_kernel_with_the_sums_fused_matches_plain(case):
         for key in ap:
             assert torch.equal(ak[key], ap[key]), (trace, key)
         assert (rk is None and rp is None) or torch.equal(rk, rp)
+
+
+# ----------------------------------------------------------------------
+# D on a finished w (dp_minplus_kernel) at its tiles' edges: a slot either
+# side of a tile (the sizes in _table_tiles.py), 1,000 and 1,001 slots
+# (the 4-byte route), whole 16-slot groups (the tensor copies), rows
+# ragged against the CTA's 32, prefix masks and masks with holes, ties
+# and all-+inf columns.  Bit for bit.
+# ----------------------------------------------------------------------
+
+_DPM_KS = tuple(TT.DPM_TILE)
+
+
+def _minplus_case(dev, R, chunk, K, seed, holes):
+    """Inputs of D on a finished w on a half-integer grid (ties between
+    predecessors are common): fetch = M * max(lv[k] - lv[kp], 0), rows
+    whose frontier is all +inf, levels priced +inf (masked), and a valid
+    mask with holes or a prefix of each row."""
+    rng = np.random.default_rng(seed)
+    lv = np.sort(rng.integers(0, 9, (R, K)) / 8, axis=1).astype(np.float32)
+    M = rng.integers(1, 4, R).astype(np.float32)
+    fetch = (M[:, None, None] * np.maximum(lv[:, None, :] - lv[:, :, None],
+                                           0)).astype(np.float32)
+    J = (rng.integers(0, 8, (R, K)) / 2).astype(np.float32)
+    J[0::5] = np.inf
+    J[1::5, 1:] = np.inf
+    w = (rng.integers(0, 6, (R, chunk, K)) / 4).astype(np.float32)
+    w[rng.random((R, K))[:, None, :].repeat(chunk, 1) < 0.15] = np.inf
+    if holes:
+        valid = rng.random((R, chunk)) < 0.7
+    else:
+        valid = np.arange(chunk)[None, :] < rng.integers(0, chunk + 2,
+                                                         R)[:, None]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    return t(J), t(w), t(fetch), t(valid)
+
+
+@pytest.mark.cuda
+def test_dp_minplus_tiles_are_the_librarys():
+    """The library's tile of D on a finished w (``dp_minplus_tile_slots``)
+    is the one the edge shapes are placed around (``_table_tiles.py``): a
+    multiple of 4, at most 252 words a row's tile, an odd number of
+    16-byte units a staged row."""
+    _card()
+    lib = _build.library("hosting")
+    for K in range(1, H.DP_MAX_K + 1):
+        tile = lib.dp_minplus_tile_slots(K)
+        assert tile % 4 == 0 and 4 <= tile * K <= 252, K
+        assert ((tile * K + 4) // 4) % 2 == 1, K
+        if K in TT.DPM_TILE:
+            assert tile == TT.DPM_TILE[K], K
+    assert lib.dp_minplus_tile_slots(0) == -1
+    assert lib.dp_minplus_tile_slots(H.DP_MAX_K + 1) == -1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", _DPM_KS)
+def test_dp_minplus_kernel_at_its_tiles_edges(K):
+    """D on a finished w == its plain version (the frontier and the argmin
+    table, the identity on invalid slots) a slot either side of its tile,
+    at 1,000, 1,001 and whole 16-slot groups of slots, on 1, 31 and 33
+    rows, with prefix masks and masks with holes; once more with every
+    input one word off 16 bytes (the 4-byte route on an aligned chunk)."""
+    dev = _card()
+    tile = TT.DPM_TILE[K]
+    chunks = (1, tile - 1, tile, tile + 1, 1000, 1001, 16 * tile, 4096)
+    for chunk in chunks:
+        for R in (1, 31, 33):
+            for holes in (False, True):
+                args = _minplus_case(dev, R, chunk, K, R * chunk + K, holes)
+                before = H.dp_minplus.launches
+                Jk, ak = H.dp_minplus(*args)
+                torch.cuda.synchronize()
+                assert H.dp_minplus.launches == before + 1
+                Jp, ap = H.dp_minplus_plain(*args)
+                assert torch.equal(Jk, Jp), (chunk, R, holes)
+                assert torch.equal(ak, ap), (chunk, R, holes)
+    args = _minplus_case(dev, 33, 16 * tile, K, K, True)
+    Jk, ak = H.dp_minplus(*(H.misaligned(a) for a in args))
+    Jp, ap = H.dp_minplus_plain(*args)
+    assert torch.equal(Jk, Jp) and torch.equal(ak, ap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [3, 16, 32])
+def test_dp_minplus_kernel_at_fleet_width(K):
+    """D on a finished w at the fleet's width (4,093 rows, ragged against
+    the CTA's 32) == its plain version, on both routes."""
+    dev = _card()
+    for chunk in (1024, 1001):
+        args = _minplus_case(dev, 4093, chunk, K, chunk + K, chunk % 2 == 1)
+        Jk, ak = H.dp_minplus(*args)
+        torch.cuda.synchronize()
+        Jp, ap = H.dp_minplus_plain(*args)
+        assert torch.equal(Jk, Jp) and torch.equal(ak, ap), chunk
+
+
+# ----------------------------------------------------------------------
+# S's gather route on few rows (its few-rows instances: 4 to 8 levels of a
+# slab of more than 16, up to 4 x the SM count rows) at the CPU edge
+# tests' shapes (tests/test_torch_minplus_edges.py).  Bit for bit.
+# ----------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [2, 3, 8])
+@pytest.mark.parametrize("R", [1, 4, 5, 31])
+def test_gather_route_on_few_rows_matches_plain(R, K):
+    """alpha-RR's S on a 31-level slab through a lane of K levels' column
+    map == its plain version: ragged chunks from an odd t0, the trace on
+    and off, the final fetch kept and dropped, horizons inside the chunk,
+    from a carry in mid-run, on a grid of eighths (ties between margins)
+    and on uniform draws; and a row either side of the few-rows route's
+    one wave at K = 8."""
+    dev = _card()
+    Kf, t0 = 31, 4001
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [(R, chunk, grid) for chunk in (1, 17, 333, 1001)
+             for grid in (False, True)]
+    if (R, K) == (4, 8):
+        cases += [(4 * n_sm, 333, True), (4 * n_sm + 1, 333, False)]
+    for i, (RR, chunk, grid) in enumerate(cases):
+        rng = np.random.default_rng(RR * 1000 + chunk + K + grid)
+
+        def draw(*shape):
+            if grid:
+                return (rng.integers(0, 9, shape) / 8).astype(np.float32)
+            return rng.random(shape).astype(np.float32)
+
+        lv = np.sort(draw(RR, K), axis=1)
+        lv[:, 0], lv[:, -1] = 0.0, 1.0
+        cols = np.stack([np.sort(np.concatenate(
+            ([0, Kf - 1], rng.choice(np.arange(1, Kf - 1), K - 2,
+                                     replace=False))))
+            for _ in range(RR)]).astype(np.int32)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+        S = np.where(rng.random((RR, K)) < 0.3, np.float32(3.4e38),
+                     (draw(RR, K) * 4 - 2).astype(np.float32))
+        params = {"levels": t(lv), "mask": t(np.ones((RR, K), bool)),
+                  "M": t((draw(RR) * 20 + 0.5).astype(np.float32))}
+        carry = ({"r": t(rng.integers(0, K, RR).astype(np.int32)),
+                  "S": t(S), "age": t(rng.integers(0, 4, RR).astype(
+                      np.int32))},
+                 {"sums": t((rng.random((RR, 3)) * 100).astype(np.float32)),
+                  "counts": t(rng.integers(0, 50, (RR, K)).astype(
+                      np.int32))})
+        T_len = t(rng.integers(t0 - 3, t0 + chunk + 3, RR).astype(np.int32))
+        for trace in (True, False):
+            args = (params, params["levels"], params["M"], T_len, t0, carry,
+                    t((draw(RR, chunk) * 1.5).astype(np.float32)),
+                    t((draw(RR, chunk, Kf) * 3).astype(np.float32)),
+                    t(cols), i % 2 == 0, trace)
+            (sk, ak), rk = H.sim_chunk_alpha_rr_svc(*args)
+            torch.cuda.synchronize()
+            (sp, ap), rp = H.sim_chunk_alpha_rr_svc_plain(*args)
+            for a, b in ((sk, sp), (ak, ap)):
+                for key in a:
+                    assert torch.equal(a[key], b[key]), (RR, chunk, key)
+            assert (rk is None and rp is None) or torch.equal(rk, rp)

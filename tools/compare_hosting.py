@@ -5,6 +5,7 @@ one CUDA card.
     python3 tools/compare_hosting.py PARENT . . PARENT
     python3 tools/compare_hosting.py --only "P service,P Poisson" PARENT . . PARENT
     python3 tools/compare_hosting.py --only "S table,DP chunk,S" PARENT . . PARENT
+    python3 tools/compare_hosting.py --only "D on a finished w,S wide" PARENT . . PARENT
 
 Each ROOT is the root of a checkout (a ``git archive`` of another commit
 unpacked into a git-ignored directory, say).  For each, in the order
@@ -49,6 +50,9 @@ beside each, the cycles a slot at the SM clock nvidia-smi reads while
 the card runs it.  Last, the host wall of each figure module's ``run()``
 at the reference's default size (its warm-up and timed fan-outs, as
 ``chip_smoke.py`` times it), the median of five after one untimed run.
+Also kernel D on a finished w at K = 16 and 32 (random w, every slot
+valid) and S's gather route at ``beyond_knapsack_levels``' call and its
+parts (``STUDY_TIMINGS``; cycles a slot over its 4,000 slots).
 One JSON line per root, then a table.  ``--only`` takes
 comma-separated prefixes of the timings' names, times only those and
 skips the figure walls.
@@ -81,7 +85,7 @@ def _one(root: Path, only=()) -> dict:
     from repro_torch.core.simulator import sim_acc0
     from repro_torch.kernels import hosting as H
 
-    def ms_and_clock(fn, batch=10, reps=5):
+    def ms_and_clock(fn, batch=10, reps=5, slots=None):
         fn()
         times = []
         for _ in range(reps):
@@ -103,7 +107,7 @@ def _one(root: Path, only=()) -> dict:
             text=True, check=True, timeout=60).stdout.split()[0])
         torch.cuda.synchronize()
         return {"ms": ms, "sm_clock_mhz": clock,
-                "cycles_per_slot": ms * 1e-3 * clock * 1e6 / chunk}
+                "cycles_per_slot": ms * 1e-3 * clock * 1e6 / (slots or chunk)}
 
     def want(name):
         return not only or any(name.startswith(p) for p in only)
@@ -261,6 +265,14 @@ def _one(root: Path, only=()) -> dict:
             and any(want(n) for n in TABLE_TIMINGS)):
         out.update(_table_timings(cs, H, dev, t0, tids, T_len, ms_and_clock,
                                   want))
+    for K in (16, 32):
+        name = f"D on a finished w, K = {K}"
+        if want(name):
+            out[name] = ms_and_clock(
+                lambda K=K: H.dp_minplus(*_finished_w(R, chunk, K, dev)),
+                batch=3)
+    if any(want(n) for n in STUDY_TIMINGS):
+        out.update(_study_timings(cs, H, dev, ms_and_clock, want))
     if hasattr(H, "dp_backtrack") and (want("B") or want("E")):
         J1, args = H.dp_fwd_model1(J, c, x, grid.g, lv, grid.mask, fetch,
                                    T_len, t0, True)
@@ -372,6 +384,116 @@ def _table_timings(cs, H, dev, t0, tids, T_len, ms_and_clock, want):
                               None, True))}
     return {name: ms_and_clock(lambda f=f, a=a: f(*a))
             for name, (f, a) in calls.items() if want(name)}
+
+
+_FINISHED_W = {}
+
+
+def _finished_w(R, chunk, K, dev):
+    """D's inputs on a finished w at K levels, made once: random w in [0,
+    2), the fetch of K evenly spread levels (M = 8), a zero frontier, every
+    slot valid."""
+    import torch
+
+    from repro_torch.core.policies.offline_opt import dp_fetch_matrix
+    if K not in _FINISHED_W:
+        _FINISHED_W.clear()
+        gen = torch.Generator(device=dev).manual_seed(K)
+        lv = torch.linspace(0.0, 1.0, K, device=dev).expand(R, K)
+        _FINISHED_W[K] = (
+            torch.zeros((R, K), device=dev),
+            torch.rand((R, chunk, K), generator=gen, device=dev) * 2,
+            dp_fetch_matrix(torch.full((R,), 8.0, device=dev),
+                            lv.contiguous()),
+            torch.ones((R, chunk), dtype=torch.bool, device=dev))
+    return _FINISHED_W[K]
+
+
+# S's gather route (alpha-RR on a slab of 17 to 32 levels, a lane
+# gathering its columns): at beyond_knapsack_levels' own call (its K = 8
+# lane of the 31-level union slab, 4 rows x 4,000 slots, with the trace)
+# and its parts -- without the trace, on the lane's columns gathered
+# beforehand (the bulk route's staging), on horizons that end before the
+# chunk (the staging, the cook, the accounting and the trace: no step of
+# the policy), the study's lanes of 2, 3, 4 and 6 levels (its 26 lanes: 19
+# of 3 levels, one of 2, two each of 4, 6 and 8); at fleet width (a K =
+# 3 lane of that slab at 4,096 x 4,096, the Model-2 leg's arrivals at up
+# to 24 requests a slot), also on its columns gathered beforehand
+STUDY_TIMINGS = ("S wide", "S wide, no trace",
+                 "S wide, columns gathered beforehand",
+                 "S wide, horizons before the chunk", "S wide, K = 2 lane",
+                 "S wide, K = 3 lane", "S wide, K = 4 lane",
+                 "S wide, K = 6 lane", "S wide, fleet width",
+                 "S wide, fleet width, columns gathered beforehand")
+
+
+def _study_timings(cs, H, dev, ms_and_clock, want):
+    import numpy as np
+    import torch
+
+    from repro_torch.core import scenarios as sc
+    from repro_torch.core.policies import AlphaRR
+    from repro_torch.core.policies.alpha_rr import alpha_rr_init
+    from repro_torch.core.simulator import sim_acc0
+    from repro_torch.figures import beyond_knapsack_levels as bk
+    T, seeds = cs.GCURVE_T, cs.N_SEEDS
+    curve_pts, _, lanes, ugrid, usc = bk.candidates(0, dev)
+    scen = sc.replicate_seeds(usc, seeds)
+    _, slab = scen.chunk_fn(scen.params, scen.init_fn(scen.params),
+                            sc.base.chunk_tids(0, T, dev))
+
+    def lane_args(lane, c, svc, T_len, rows, cols=None, trace=True):
+        reps = rows // lane.grid.B
+        g = lane.grid.repeat_rows(reps)
+        if cols is None:
+            cols = torch.as_tensor(np.repeat(lane.svc_cols, reps, axis=0),
+                                   dtype=torch.int32, device=dev)
+        pol = AlphaRR.batch(g)
+        return (pol.params, g.levels, g.M, T_len, 0,
+                (alpha_rr_init(pol.params), sim_acc0(rows, g.K, dev)), c,
+                svc, cols, True, trace)
+
+    def gathered(a):
+        return a[:7] + (H.gather_svc(a[7], a[8]), None) + a[9:]
+
+    T4 = torch.full((seeds,), T, dtype=torch.int32, device=dev)
+    a8 = lane_args(lanes[-2], slab.c, slab.svc, T4, seeds)
+    calls = {
+        "S wide": a8,
+        "S wide, no trace": a8[:10] + (False,),
+        "S wide, columns gathered beforehand": gathered(a8),
+        "S wide, horizons before the chunk": lane_args(
+            lanes[-2], slab.c, slab.svc, torch.zeros_like(T4), seeds),
+        **{f"S wide, K = {lane.grid.K} lane": lane_args(
+            lane, slab.c, slab.svc, T4, seeds)
+           for lane in (lanes[len(curve_pts)], lanes[0], lanes[-6],
+                        lanes[-4])}}
+    out = {name: ms_and_clock(lambda a=a: H.sim_chunk_alpha_rr_svc(*a),
+                              reps=10, slots=T)
+           for name, a in calls.items() if want(name)}
+    fleet = ("S wide, fleet width",
+             "S wide, fleet width, columns gathered beforehand")
+    if any(want(n) for n in fleet):
+        R, chunk = cs.N_M * cs.N_ALPHA * seeds, cs.CHUNK
+        Kf = ugrid.g.shape[1]
+        fk = sc.split_keys(sc.prng_key(33, dev), R)
+        ftids = sc.base.chunk_tids(cs.T_MAIN - chunk, chunk, dev)
+        fx = H.poisson_chunk(fk, ftids, torch.from_numpy(np.resize(
+            np.float32(cs.M2_LAMS), R)).to(dev))
+        fsvc = H.model2_service_chunk(fk, ftids, fx, ugrid.g.expand(
+            R, Kf).contiguous(), cs.M2_MAX)
+        gen = torch.Generator(device="cpu").manual_seed(29)
+        fc = (torch.rand((R, chunk), generator=gen) * 3).to(dev)
+        cols3 = torch.as_tensor(np.repeat(lanes[0].svc_cols, R, axis=0),
+                                dtype=torch.int32, device=dev)
+        fa = lane_args(lanes[0], fc, fsvc, torch.full(
+            (R,), cs.T_MAIN, dtype=torch.int32, device=dev), R, cols3,
+            trace=False)
+        for name, a in zip(fleet, (fa, gathered(fa))):
+            if want(name):
+                out[name] = ms_and_clock(
+                    lambda a=a: H.sim_chunk_alpha_rr_svc(*a), reps=10)
+    return out
 
 
 def main() -> int:
