@@ -25,7 +25,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    rows, in both layouts, timed at the fleet's shape against the
    integer-pipe bound of its normals and the latency bound of its
    recursion (the log prints the Poisson and ARMA kernels' previous
-   design's time beside each, ``PREV_MS``); D with the cost assembly fused in
+   design's time beside each, ``PREV_MS``); the same chunk at q = 1 (the
+   composed leg's ARMA(2, 1): 4,096 rows over 4,096, 1,001 and one slot,
+   R - 3 rows with per-instance coefficients, one row), timed at 4,096 x
+   4,096; P's shaped uniform of one key at n = 1,024 (``jax.random.
+   choice``'s draw), 1, 2 and 6,001 x 7 (``model2_service_matrix``'s, T *
+   R odd), and that matrix card == CPU, both layouts, timed at 1,024 and
+   42,007; D with the cost assembly fused in
    (the fleet's kernel: K = 3 and 2, ragged slabs of R - 3 rows and chunks
    of 1,000, 1,001 and 1, K = 16, each with and without the argmin table;
    +inf-padded levels, frozen slots, all-+inf frontiers), also against
@@ -197,13 +203,28 @@ Phases (any failure exits non-zero, and no result line is printed):
    2,048, obs-backed (RR on ``restrict_to_endpoints()``) == fused.
 12. ``figures.theorems.run()`` on the card (Thm 2's 120 mixed-horizon
    instances as one obs-backed fleet) == on the CPU, ``check`` passes.
-   A kernel's ``launches`` in the last lines add up phases 3, 4, 7 to 12
+   A kernel's ``launches`` in the last lines add up phases 3, 4, 7 to 13
    (and the serving path's for F and M); D's ARGS route, B, E and D on a
-   finished w launch in phases 11-12 only; the Poisson variant's Hormann
+   finished w launch in phases 11-13 only, the shaped uniform and ARMA at
+   q = 1 in phase 13 only; the Poisson variant's Hormann
    record counts the launches in which the kernel drew an item on
    Hormann's branch (the kernel counts them), which must be those of Figs
    17-22 and phase 10 only.
-13. Kernels F (flash attention) and M (SSD scan) against their plain
+13. A composed scenario at the fleet leg's width: 1,024 instances x 4
+   antithetic seeds = 4,096 rows, T = 16,384 in chunks of 4,096; arrivals
+   ``mixture_from_weights`` (0.5, 0.3, 0.2) of Bernoulli(0.35), Poisson(2)
+   and GE-Bernoulli, rents ``regime_switch`` from U[0.15, 0.55] to ARMA(2,
+   1) at slot 6,000; the alpha-RR / RR fan-out and ``offline_opt_fleet``
+   with the backtracked schedule, each run three times, counted from the
+   scenario's construction (the mixture's choice: one launch of P's
+   shaped uniform) through the first pass: every stream once a chunk and
+   run, ARMA at q = 1 among them, S, D's ARGS route, B and E, no plain
+   code.  Its observations materialised and replayed through
+   ``trace_scenario`` give the fan-out's bits; ``with_prng_backend(
+   "pallas")`` draws the slot uniforms (the Bernoulli rows, the uniform
+   regime) as the original layout and the rest as the default one; card ==
+   CPU on one instance of each component x 4 seeds, T = 6,144.
+14. Kernels F (flash attention) and M (SSD scan) against their plain
    versions on the card, each within a stated tolerance.  Each has two
    kernels, chosen by an explicit dispatch: F's wgmma kernel (bf16, hd 64 /
    128) and its fp32-FMA kernel (the rest), M's mma.sync kernel (bf16, dh /
@@ -216,7 +237,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    and a ragged length, the scheduler's 8-token chunk, ds = 128, a chunk of
    256, fp32.  Each variant requires that the dispatch launched the kernel
    it names.  The FMA kernels are also timed on the main bf16 input.
-14. The LM serving path at full width and depth: zamba2-1.2b in bf16 from
+15. The LM serving path at full width and depth: zamba2-1.2b in bf16 from
    a seeded generator (38 Mamba2 layers, 6 shared-attention
    applications), ``ServingEngine.serve_slot`` under each plan (none,
    layer prefix at alpha 0.4 = 5 segments, full) on 8 prompts of 2,048
@@ -224,7 +245,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    just before and read just after; per full forward F's wgmma kernel runs
    6 times and M's mma kernel 38 times, per prefix forward 3 and 12; the
    FMA kernels never run there.
-15. Card == CPU for the serving path at zamba2's tiny fp32 config with the
+16. Card == CPU for the serving path at zamba2's tiny fp32 config with the
    same weights: logits within 1e-4, argmax tokens equal where the CPU's
    top-2 margin is wider.
 
@@ -266,7 +287,7 @@ from repro_torch.figures import fig17_22_markov_mdp  # noqa: E402
 from repro_torch.figures import fig23_25_geolife  # noqa: E402
 from repro_torch.figures import beyond_knapsack_levels  # noqa: E402
 from repro_torch.figures import theorems  # noqa: E402
-from repro_torch.core import arrivals, rentcosts  # noqa: E402
+from repro_torch.core import arrivals, rentcosts, simulator  # noqa: E402
 from repro_torch.core.policies.alpha_rr import alpha_rr_init  # noqa: E402
 from repro_torch.core.policies.baselines import table_form  # noqa: E402
 from repro_torch.core.policies.offline_opt import (dp_fetch_matrix,  # noqa: E402
@@ -317,6 +338,9 @@ KERNEL_SYMBOLS = {
     "normal_chunk": "counter_stream_kernel<kNormal>",
     "ge_bernoulli_chunk": "ge_chain_kernel<EMIT>",
     "arma_rents_chunk": "arma_rents_kernel",
+    "arma_rents_chunk ma1": "arma_rents_kernel<P, kMa1Sum / kMa1Chain, ROWS> "
+                            "(an MA order of 1)",
+    "shaped_uniform": "shaped_uniform_kernel",
     "poisson_chunk": "poisson_kernel<SALT, STATES>",
     "poisson_chunk rejection": "poisson_kernel<SALT, STATES> (Hormann)",
     "model2_service_chunk": "model2_service_kernel",
@@ -447,6 +471,16 @@ def fleet_grid(n_m, n_alpha, device):
     return HostingGrid.from_costs(costs, device=device)
 
 
+def fleet_instances(idx, device):
+    """``fleet_grid``'s instances ``idx`` as a grid of their own."""
+    Ms = np.geomspace(2.0, 50.0, N_M)
+    alphas = np.linspace(0.1, 0.7, N_ALPHA)
+    costs = [HostingCosts.three_level(
+        float(Ms[i // N_ALPHA]), float(alphas[i % N_ALPHA]),
+        float(np.clip(0.9 - alphas[i % N_ALPHA], 0.0, 1.0))) for i in idx]
+    return HostingGrid.from_costs(costs, device=device)
+
+
 def k16_grid(B, device):
     """B instances on 16 levels (g = 1 - level), M log-spaced in [2, 50]."""
     lv = np.linspace(0.0, 1.0, 16)
@@ -480,6 +514,33 @@ def ge_na(B, device):
         sc.ge_arrivals(sc.prng_key(2, device), 0.3, 0.2, 0.9, 0.2, B,
                        emission="bernoulli", device=device),
         sc.na_rents(sc.prng_key(3, device), 0.35, 0.2, B, device=device))
+
+
+# the composed leg: the fleet leg's instances, its horizon, the regime
+# switch's slot (mid-chunk) and the mixture weights; the CPU's row subset
+# (one instance of each component) runs this horizon and chunk (the switch
+# falls in its last chunk)
+COMPOSED_B, COMPOSED_T, COMPOSED_SWITCH = N_M * N_ALPHA, 16384, 6000
+COMPOSED_WEIGHTS = (0.5, 0.3, 0.2)
+COMPOSED_SUB_T, COMPOSED_SUB_CHUNK = 6144, 2048
+
+
+def composed_scenario(B, device):
+    """The composed workload: arrivals a weighted mixture (0.5, 0.3, 0.2)
+    of Bernoulli(0.35), Poisson(2) and the GE + NA leg's GE chain with
+    Bernoulli emissions; rents a regime switch at slot 6,000 from
+    U[0.15, 0.55] to ARMA(2, 1) rents around 0.35 (q = 1)."""
+    k = lambda s: sc.prng_key(s, device)  # noqa: E731
+    arr = sc.mixture_from_weights(
+        [sc.bernoulli_arrivals(k(9), 0.35, B, device=device),
+         sc.poisson_arrivals(k(10), 2.0, B, device=device),
+         sc.ge_arrivals(k(11), 0.3, 0.2, 0.9, 0.2, B, emission="bernoulli",
+                        device=device)], COMPOSED_WEIGHTS, k(12), B)
+    rent = sc.regime_switch(
+        [sc.uniform_rents(k(13), 0.35, 0.2, B, device=device),
+         sc.arma_rents(k(14), 0.35, B, ar=(0.55, 0.2), ma=(0.4,),
+                       device=device)], [COMPOSED_SWITCH])
+    return sc.combine(arr, rent)
 
 
 # the Model-2 fan-out: Poisson rates cycled over the instances, spot rents
@@ -599,6 +660,10 @@ ARMA_STEP_FLOPS = 4 + 3 + 1 + 3 + 1 + 3
 # adds of the AR dot, + e, + the MA dot; at an assumed 4 cycles a
 # dependent float32 instruction on sm_90
 ARMA_CHAIN_OPS, FP32_LATENCY = 6, 4
+# the composed leg's ARMA(2, 1) step (an FMA counts 2): phi0 * h0, the
+# second AR term's FMA, + e, the MA term's FMA, + mean, the clip; its
+# dependent chain through x_{t-1}: phi0 * h0, the FMA, + e, the MA FMA
+ARMA1_STEP_FLOPS, ARMA1_CHAIN_OPS = 1 + 2 + 1 + 2 + 1 + 2, 4
 
 
 def minplus_ops(R, chunk, K):
@@ -911,6 +976,8 @@ def kernel_checks(dev):
 
     rec["arma_rents_chunk"] = arma_checks(dev, R, chunk, clock, n_sm,
                                           sass["normal_chunk"])
+    rec.update(composed_kernel_checks(dev, R, chunk, clock, n_sm,
+                                      sass["normal_chunk"]))
     rec.update(svc_kernel_checks(dev, clock, n_sm, sass))
     mrec, markov_svc = markov_kernel_checks(dev, clock, n_sm, sass)
     rec.update(mrec)
@@ -1649,6 +1716,133 @@ def arma_checks(dev, R, chunk, clock, n_sm, normal_sass):
         f"{r['latency_bound_ms']:.4f} ms ({ARMA_CHAIN_OPS} dependent ops "
         f"x {FP32_LATENCY} cycles a slot at {clock:.0f} MHz)")
     return r
+
+
+def composed_kernel_checks(dev, R, chunk, clock, n_sm, normal_sass):
+    """The composed leg's two P variants against their plain versions, bit
+    for bit, in both layouts.  ARMA at q = 1 (the leg's ARMA(2, 1) rents,
+    per-instance coefficients on the second check): its 4,096 rows over a
+    chunk of 4,096 from t0 = 0, then 1,001 slots and one, the state
+    carried; on one row (the kMa1Chain instance) over 4,000, 999 and one
+    slot.  The shaped uniform of one key: ``jax.random.choice``'s (1,024,)
+    draw and ``model2_service_matrix``'s (6,001, 7) one (T * R odd: the
+    original layout appends a 0 counter), and that matrix on the card ==
+    on the CPU.  Returns their records, timed at the leg's shapes."""
+    rep = sc.replicate_seeds(composed_scenario(N_M * N_ALPHA, dev), N_SEEDS,
+                             antithetic=True)
+    arma = rep.params["rent"]["subs"][1]
+    require(arma["th"].shape == (R, 1), "the composed leg's ARMA is q = 1")
+    g = torch.Generator(device="cpu").manual_seed(17)
+    err = 0.0
+    for rows, chunks, per_row in ((R, ((0, chunk), (chunk, 1001),
+                                       (chunk + 1001, 1)), False),
+                                  (R - 3, ((5, 999), (1004, 64)), True),
+                                  (1, ((0, 4000), (4000, 999), (4999, 1)),
+                                   True)):
+        keys, sig, mean, lo, hi, phi, th = (arma[k][:rows].contiguous() for k
+                                           in ("key", "sigma", "mean",
+                                               "c_min", "c_max", "phi",
+                                               "th"))
+        if per_row:
+            phi = (torch.rand((rows, 2), generator=g) * 0.4).to(dev)
+            th = (torch.rand((rows, 1), generator=g) * 0.6).to(dev)
+        for part in (True, False):
+            eps0 = sig[:, None] * H.normal_chunk(
+                keys, sc.base.chunk_tids(0, 1, dev), torch.ones_like(sig),
+                part)
+            k_state = p_state = (torch.zeros((rows, 2), device=dev), eps0)
+            for t0, n in chunks:
+                tids = sc.base.chunk_tids(t0, n, dev)
+                before = H.arma_rents_chunk.ma1_launches
+                k = H.arma_rents_chunk(keys, tids, *k_state, phi, th, sig,
+                                       mean, lo, hi, part)
+                pl = H.arma_rents_chunk_plain(keys, tids, *p_state, phi, th,
+                                              sig, mean, lo, hi, part)
+                torch.cuda.synchronize()
+                require(H.arma_rents_chunk.ma1_launches == before + 1,
+                        "ARMA at q = 1 did not count its launch")
+                require(tree_equal(k, pl), f"ARMA q = 1 differs from its "
+                                           f"plain version ({rows} rows, "
+                                           f"t0={t0}, {n} slots, layout "
+                                           f"{part})")
+                err = max(err, tree_max_abs(k, pl))
+                k_state, p_state = k[:2], pl[:2]
+        log(f"P arma_rents_chunk q = 1 ok: {rows} rows, {len(chunks)} "
+            f"chunks, state carried, both layouts")
+    tids = sc.base.chunk_tids(0, chunk, dev)
+    eps0 = arma["sigma"][:, None] * H.normal_chunk(
+        arma["key"], sc.base.chunk_tids(0, 1, dev),
+        torch.ones_like(arma["sigma"]))
+    args = (arma["key"], tids, torch.zeros((R, 2), device=dev), eps0,
+            arma["phi"], arma["th"], arma["sigma"], arma["mean"],
+            arma["c_min"], arma["c_max"])
+    ms = cuda_ms(lambda: H.arma_rents_chunk(*args), reps=7, batch=10)
+    plain_ms, _ = timed_once(lambda: H.arma_rents_chunk_plain(*args))
+    out = H.arma_rents_chunk(*args)
+    alu, total = normal_sass
+    recs = {"arma_rents_chunk ma1": dict(
+        replaces="src/repro/core/scenarios/streams.py:330", ms=ms,
+        plain_ms=plain_ms, max_abs_err=err, sm_clock_mhz=clock,
+        cycles_per_slot=ms * 1e-3 * clock * 1e6 / chunk,
+        int_pipe_bound_ms=R * chunk * alu / (64 * n_sm * clock * 1e3),
+        issue_bound_ms=R * chunk * total / (128 * n_sm * clock * 1e3),
+        latency_bound_ms=chunk * ARMA1_CHAIN_OPS * FP32_LATENCY
+        / (clock * 1e3),
+        ops=R * chunk * (2 * 79 + 5 + NORMAL_FLOPS + ARMA1_STEP_FLOPS),
+        nbytes=nbytes(*args, *out),
+        shape=f"R={R} chunk={chunk} p=2 q=1 (the composed leg's rents), "
+              f"partitionable layout; 8 chunks x 2 layouts compared (R, "
+              f"R - 3 and 1 rows)")}
+    log(f"P arma_rents_chunk q = 1 timed: {ms:.4f} ms, plain "
+        f"{plain_ms:.1f} ms; bounds: integer pipe (the normals' hashes) "
+        f"{recs['arma_rents_chunk ma1']['int_pipe_bound_ms']:.4f} ms, the "
+        f"recursion's latency "
+        f"{recs['arma_rents_chunk ma1']['latency_bound_ms']:.4f} ms")
+
+    key = sc.prng_key(12, dev)
+    for part in (True, False):
+        for n in (COMPOSED_B, 1, 2, 6001 * 7):
+            k = H.shaped_uniform(key, n, part)
+            p = H.shaped_uniform_plain(key, n, part)
+            torch.cuda.synchronize()
+            require(torch.equal(k, p), f"the shaped uniform differs from its "
+                                       f"plain version (n={n}, layout "
+                                       f"{part})")
+        gx = torch.Generator(device="cpu").manual_seed(3)
+        x = torch.randint(0, 8, (6001,), generator=gx, dtype=torch.int32)
+        costs = HostingCosts(M=4.0, levels=(0.0, 0.3, 0.7, 1.0),
+                             g=(1.0, 0.6, 0.2, 0.0))
+        with H.threefry_partitionable(part):
+            m_card = simulator.model2_service_matrix(key, costs, x, 7,
+                                                     device=dev)
+            m_cpu = simulator.model2_service_matrix(key.cpu(), costs, x, 7,
+                                                    device="cpu")
+        require(torch.equal(m_card.cpu(), m_cpu),
+                f"model2_service_matrix: card != CPU (layout {part})")
+    log("P shaped_uniform ok: n = 1,024, 1, 2 and 6,001 x 7, both layouts; "
+        "model2_service_matrix (6,001 x 7 requests, 4 levels) card == CPU")
+    for name, n, shape in (
+            ("shaped_uniform", COMPOSED_B,
+             f"n={COMPOSED_B} (jax.random.choice's draw in "
+             f"mixture_from_weights), partitionable layout; also n = 6,001 "
+             f"x 7 (model2_service_matrix) and 1, 2, both layouts"),
+            ("shaped_uniform model2", 6001 * 7, None)):
+        ms = cuda_ms(lambda: H.shaped_uniform(key, n), reps=7, batch=20)
+        plain_ms, out = timed_once(lambda: H.shaped_uniform_plain(key, n))
+        r = dict(ms=ms, plain_ms=plain_ms,
+                 ops=n * (79 + 5), nbytes=nbytes(key, out))
+        log(f"P {name} timed: {ms:.4f} ms (n = {n}), plain {plain_ms:.3f} ms")
+        if shape is None:
+            recs["shaped_uniform"].update(
+                model2_ms=ms, model2_plain_ms=plain_ms, model2_n=n,
+                model2_bound_ms=max(r["nbytes"] / PEAK_BYTES,
+                                    r["ops"] / PEAK_OPS) * 1e3)
+            continue
+        r.update(replaces="src/repro/core/scenarios/combinators.py:212",
+                 consumer="src/repro/core/simulator.py:499", max_abs_err=0.0,
+                 shape=shape)
+        recs[name] = r
+    return recs
 
 
 # ----------------------------------------------------------------------
@@ -3755,16 +3949,150 @@ def theorems_card_vs_cpu(dev, timings):
     return launched
 
 
+def composed_runs(grid, scen, T, chunk, dev):
+    """The composed leg's runs on ``grid``: the alpha-RR / RR fan-out and
+    the OPT with the backtracked schedule, 4 antithetic seed replicas."""
+    fleet = FleetBatch.for_scenario(grid, T)
+    lanes = [AlphaRR.fleet_lane(fleet), RetroRenting.fleet_lane(fleet)]
+    kw = dict(scenario=scen, chunk_size=chunk, n_seeds=N_SEEDS,
+              antithetic=True, device=dev)
+    return {"fan-out": lambda: run_fleet(lanes, fleet, collect_trace=False,
+                                         **kw),
+            "OPT": lambda: offline_opt_fleet(fleet, **kw)}
+
+
+def composed_leg(dev, timings):
+    """A composed scenario at the fleet leg's width: 1,024 instances (the
+    K = 3 grid) x 4 antithetic seed replicas = 4,096 rows, T = 16,384 in
+    chunks of 4,096; arrivals ``mixture_from_weights`` of Bernoulli,
+    Poisson and GE-Bernoulli, rents a ``regime_switch`` from uniform to
+    ARMA(2, 1) rents at slot 6,000 (``composed_scenario``).  Counted from
+    the scenario's construction (the mixture's choice: one shaped-uniform
+    launch) through the first pass of the alpha-RR / RR fan-out and the
+    OPT with the backtracked schedule, each run REPEATS times.  Then: the
+    seed-replicated scenario materialised and replayed through
+    ``trace_scenario`` gives the fan-out's bits; ``with_prng_backend(
+    "pallas")`` draws the slot uniforms (Bernoulli rows' arrivals, the
+    uniform regime's rents) as the original layout does and the rest (the
+    Poisson rows, the ARMA regime) as the default one; card == CPU on 3
+    instances (one of each component) x 4 seeds, T = 6,144 in chunks of
+    2,048.  Returns the launch counts of the counted pass."""
+    B, T = COMPOSED_B, COMPOSED_T
+    grid = fleet_grid(N_M, N_ALPHA, dev)
+    ops.reset_launches()
+    scen = composed_scenario(B, dev)
+    out, (launched, plain) = timed_passes(
+        composed_runs(grid, scen, T, CHUNK, dev), dev, "composed", timings,
+        counted=True)
+    n = T // CHUNK
+    # the fan-out, OPT's forward pass and its schedule's pricing each draw
+    # the scenario: every stream once a chunk, the GE chain's initial draw
+    # and the ARMA's initial innovation once a run
+    want = {"shaped_uniform": 1, "slot_uniform": 3, "normal_chunk": 3,
+            "bernoulli_arrivals_chunk": 3 * n, "poisson_chunk": 3 * n,
+            "ge_bernoulli_chunk": 3 * n, "uniform_rents_chunk": 3 * n,
+            "arma_rents_chunk": 3 * n, "arma_rents_chunk ma1": 3 * n,
+            "sim_chunk_alpha_rr": 2 * n, "dp_fwd_model1": n,
+            "dp_fwd_model1 args": n, "dp_backtrack": n, "schedule_chunk": n}
+    got = {k: v for k, v in launched.items() if v}
+    require(got == want and not any(plain.values()),
+            f"composed leg launched {got}, expected {want}; plain {plain}")
+    fan, opt = out["fan-out"], out["OPT"]
+    comp = scen.params["arr"]["component"].cpu().numpy()
+    tot = fan.policy_view(fan.total)
+    tol = 1e-3 * T
+    require(np.isfinite(tot).all() and np.isfinite(opt.cost).all()
+            and (tot >= opt.cost - tol).all()
+            and (fan.level_slots.sum(1) == T).all()
+            and np.array_equal(opt.sim.total.shape, opt.cost.shape)
+            and (np.abs(opt.sim.total - opt.cost) <= tol).all(),
+            "composed leg: results not finite or out of order")
+    log(f"composed leg: {fan.B // 2} rows x 2 lanes and OPT with the "
+        f"schedule, T={T}, components {np.bincount(comp, minlength=3)}: "
+        f"fan-out {median_us(timings, 'composed/fan-out'):.1f} us, OPT "
+        f"{median_us(timings, 'composed/OPT'):.1f} us a run (median of "
+        f"{REPEATS}); launches {got}; per-slot means alpha-RR / RR / OPT "
+        f"{[round(float(a.mean()) / T, 6) for a in (*tot, opt.cost)]}")
+
+    # the observations materialised and replayed through trace_scenario
+    rep = sc.replicate_seeds(scen, N_SEEDS, antithetic=True)
+    x, c, _, side = sc.materialize(rep, T, CHUNK)
+    trace = sc.trace_scenario(x, c, side=side, device=dev)
+    rfleet = FleetBatch.for_scenario(grid.repeat_rows(N_SEEDS), T)
+    replay = run_fleet([AlphaRR.fleet_lane(rfleet),
+                        RetroRenting.fleet_lane(rfleet)], rfleet,
+                       scenario=trace, chunk_size=CHUNK, collect_trace=False,
+                       device=dev)
+    for f in ("total", "rent", "service", "fetch", "level_slots"):
+        require(np.array_equal(getattr(fan, f), getattr(replay, f)),
+                f"composed leg: the trace replay's {f} differs")
+    log(f"composed leg: its {x.shape[0]} x {x.shape[1]} observations "
+        f"replayed through trace_scenario == the fused fan-out, bit for bit")
+
+    # the PRNG backend switch: "pallas" draws the slot uniforms in the
+    # original layout and the rest in the active one
+    pal = sc.materialize(sc.with_prng_backend(rep, "pallas"), T, CHUNK)
+    with H.threefry_partitionable(False):
+        orig = sc.materialize(rep, T, CHUNK)
+    rows = np.repeat(comp, N_SEEDS)
+    sw = COMPOSED_SWITCH
+    for label, a, b in (
+            ("Bernoulli rows' arrivals == original layout",
+             pal[0][rows == 0], orig[0][rows == 0]),
+            ("Poisson rows' arrivals == default layout",
+             pal[0][rows == 1], x[rows == 1]),
+            ("uniform regime's rents == original layout",
+             pal[1][:, :sw], orig[1][:, :sw]),
+            ("ARMA regime's rents == default layout",
+             pal[1][:, sw:], c[:, sw:])):
+        require(np.array_equal(a, b), f"composed leg, prng_backend: {label}")
+    require(not np.array_equal(pal[1][:, :sw], c[:, :sw]),
+            "composed leg: the pallas backend drew the default layout")
+    log("composed leg: with_prng_backend(\"pallas\") draws the slot "
+        "uniforms as the original layout, the Poisson and ARMA draws as "
+        "the default one")
+
+    # card == CPU on a row subset: the first instance of each component
+    idx = torch.as_tensor([int(np.flatnonzero(comp == i)[0])
+                           for i in range(3)])
+    res = []
+    for d in (dev, "cpu"):
+        sub = scen._replace(params=sc.base.tree_map(
+            lambda a: a[idx.to(a.device)].to(d), scen.params))
+        t0 = time.perf_counter()
+        res.append({k: f() for k, f in composed_runs(
+            fleet_instances(idx.tolist(), d), sub, COMPOSED_SUB_T,
+            COMPOSED_SUB_CHUNK, d).items()})
+        if d == "cpu":
+            log(f"composed leg on the CPU: {len(idx) * N_SEEDS} rows, "
+                f"T={COMPOSED_SUB_T}: {time.perf_counter() - t0:.1f} s")
+    a, b = res
+    for f in ("total", "rent", "service", "fetch", "level_slots"):
+        require(np.array_equal(getattr(a["fan-out"], f),
+                               getattr(b["fan-out"], f)),
+                f"composed leg: card != CPU, fan-out {f}")
+        require(np.array_equal(getattr(a["OPT"].sim, f),
+                               getattr(b["OPT"].sim, f)),
+                f"composed leg: card != CPU, the schedule's {f}")
+    require(np.array_equal(a["OPT"].cost, b["OPT"].cost)
+            and np.array_equal(a["OPT"].r_hist, b["OPT"].r_hist),
+            "composed leg: card != CPU, OPT")
+    log(f"composed leg: card == CPU on {len(idx) * N_SEEDS} rows, "
+        f"T={COMPOSED_SUB_T}")
+    return launched
+
+
 def launch_counts():
     """Every kernel's launches, (``poisson_chunk rejection``) the Poisson
     launches in which the kernel drew an item on Hormann's branch, as the
     kernel counts them, (``... wide``) the launches on a Model-2 slab of
-    more than ``H.DPF_MAX_K`` levels and (``... args``) D's launches that
-    write the argmin table."""
+    more than ``H.DPF_MAX_K`` levels, (``... args``) D's launches that
+    write the argmin table and (``... ma1``) the ARMA launches at q = 1."""
     return {**{k.__name__: k.launches for k in ops.KERNELS},
             "poisson_chunk rejection": H.poisson_rejection_launches(),
             **{f"{k.__name__} wide": k.wide_launches for k in ops.WIDE},
-            **{f"{k.__name__} args": k.args_launches for k in ops.ARGS}}
+            **{f"{k.__name__} args": k.args_launches for k in ops.ARGS},
+            **{f"{k.__name__} ma1": k.ma1_launches for k in ops.MA1}}
 
 
 def card_calls():
@@ -4066,18 +4394,25 @@ def main() -> int:
     for name in ("dp_backtrack", "schedule_chunk", "dp_minplus",
                  "dp_fwd_model1 args"):
         require(launches[name] > 0, f"{name} never launched")
+    # phase 13: the composed scenario at the fleet leg's width; no earlier
+    # path drew a shaped uniform or ARMA rents at q = 1
+    for name in ("shaped_uniform", "arma_rents_chunk ma1"):
+        require(launches[name] == 0, f"{name} ran before the composed leg")
+    counts = composed_leg(dev, timings)
+    for k in launches:
+        launches[k] += counts[k]
 
-    # phase 13: F and M against their plain versions
+    # phase 14: F and M against their plain versions
     rec.update(lm_kernel_checks(dev))
 
-    # phase 14: the LM serving path at full width and depth
+    # phase 15: the LM serving path at full width and depth
     serve_launches = serving_path(dev, timings)
     log(f"serving path launches: {serve_launches}")
     for k in (FA.flash_attention_wgmma, FA.flash_attention_fma,
               SSD.ssd_scan_mma, SSD.ssd_scan_fma):
         launches[k.__name__] = serve_launches[k.__name__]
 
-    # phase 15: card == CPU for the serving path
+    # phase 16: card == CPU for the serving path
     serving_card_vs_cpu(dev)
     log(f"timings (us; a card run the median of {REPEATS} passes, a CPU "
         f"run and the serving path one): " + json.dumps(
@@ -4119,7 +4454,8 @@ def main() -> int:
                     "salt_issue_bound_ms", "latency_bound_ms", "chain_ops",
                     "bulk_ms", "fleet_bulk_ms", "fleet_sectors_per_slot",
                     "fleet_sector_bound_ms", "narrow_ms", "one_block_ms",
-                    "by_k",
+                    "by_k", "model2_ms", "model2_plain_ms", "model2_n",
+                    "model2_bound_ms",
                     "one_block_cycles_per_slot"):
             if key in r:
                 entry[key] = r[key]

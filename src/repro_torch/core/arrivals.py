@@ -4,6 +4,7 @@
  - Poisson(lam)                    (Model 2 synthetic, Figs 12-15)
  - Gilbert-Elliot 2-state Markov   (Figs 7/8 and 17-22) with Bernoulli or
    Poisson emissions per state
+ - adversarial worst-case sequences (Theorem 4's constructions)
  - bursty "cluster-trace-like" generator standing in for the Google
    cluster trace [14]
 
@@ -12,9 +13,7 @@ The generation lives in ``core.scenarios.streams`` as counter-keyed
 whole-horizon materialisations of those streams, bitwise the reference's
 under the same key and threefry layout, kept for the array-building API.
 Each materialises a B = 1 stream on ``device`` (the card by default) and
-returns one row as numpy: int32 arrivals, int32 chain states.  The
-adversarial constructions of Theorem 4 come with the rest of the sampler
-slice (ROADMAP.md, Queue 1 item 3).
+returns one row as numpy: int32 arrivals, int32 chain states.
 """
 from __future__ import annotations
 
@@ -90,3 +89,23 @@ def cluster_trace_like(key, T: int, base_rate: float = 2.0,
                                           burst_p=burst_p,
                                           diurnal_period=diurnal_period,
                                           device=device), T)[0]
+
+
+# ----------------------------------------------------------------------
+# Adversarial constructions (proof of Theorem 4)
+# ----------------------------------------------------------------------
+
+def adversarial_fetch_bait(tau: int, T: int, device=None):
+    """Arrivals every slot until slot ``tau`` (when the online policy is
+    goaded into fetching), then silence: the Theorem-4 lower-bound
+    construction for a policy starting at r = 0."""
+    return _mat1(_streams.adversarial_fetch_bait(tau, B=1, device=device),
+                 T)[0]
+
+
+def adversarial_evict_bait(tau_bar: int, tau: int, T: int, device=None):
+    """No arrivals until the policy evicts (slot ``tau_bar``), then arrivals
+    every slot until ``tau_bar + tau``, then silence (the second
+    construction in the proof of Theorem 4)."""
+    return _mat1(_streams.adversarial_evict_bait(tau_bar, tau, B=1,
+                                                 device=device), T)[0]

@@ -64,10 +64,12 @@ from repro_torch.core.policies.base import (PolicyFns, PolicyLane,
 from repro_torch.core.policies.offline_opt import (dp_backtrack_chunk,
                                                    dp_fetch_matrix,
                                                    dp_frontier0, dp_terminal)
-from repro_torch.core.scenarios.base import (ObsSlab, Scenario,
-                                             chunk_geometry, chunk_tids,
-                                             materialize, tree_map)
-from repro_torch.core.scenarios.combinators import replicate_seeds
+from repro_torch.core.scenarios.base import (PRNG_BACKENDS, ObsSlab,
+                                             Scenario, chunk_geometry,
+                                             chunk_tids, materialize,
+                                             tree_map)
+from repro_torch.core.scenarios.combinators import (replicate_seeds,
+                                                    with_prng_backend)
 from repro_torch.core.simulator import (SimResult, sim_acc0, sim_chunk,
                                         xla_acc_fma, xla_fetch_fma)
 from repro_torch.kernels.hosting import (dp_fwd_model1, dp_fwd_model2,
@@ -345,12 +347,20 @@ def _refuse_later(**given):
 
 
 def _prepare(fleet: FleetBatch, scenario: Optional[Scenario], device,
-             n_seeds: Optional[int], antithetic: bool):
+             n_seeds: Optional[int], antithetic: bool,
+             prng_backend: str = "xla"):
     """Check the fleet against its source, move the grid (and a scenario's
     params) to the device, and expand to the [B*S] Monte-Carlo replication
     (instance-major, seed-minor; a scenario's seed folded into every
-    stream key), unchanged when ``n_seeds`` is None.  Returns ``(fleet,
-    scenario, S, device)``."""
+    stream key), unchanged when ``n_seeds`` is None; the scenario draws
+    through ``prng_backend`` (``scenarios.with_prng_backend``).  Returns
+    ``(fleet, scenario, S, device)``."""
+    if prng_backend not in PRNG_BACKENDS:
+        raise ValueError(f"prng_backend must be one of {PRNG_BACKENDS}, "
+                         f"got {prng_backend!r}")
+    if prng_backend != "xla" and scenario is None:
+        raise ValueError("prng_backend= needs scenario=: materialized "
+                         "observations draw no slot uniforms to reroute")
     if n_seeds is None and antithetic:
         raise ValueError("antithetic=True needs n_seeds=")
     if scenario is None:
@@ -375,12 +385,15 @@ def _prepare(fleet: FleetBatch, scenario: Optional[Scenario], device,
         scenario = scenario._replace(
             params=tree_map(lambda a: a.to(dev), scenario.params))
     if n_seeds is None:
-        return fleet, scenario, 1, dev
-    S = int(n_seeds)
-    rfleet = FleetBatch(grid=fleet.grid.repeat_rows(S),
-                        T=np.repeat(fleet.T, S))
-    return (rfleet, replicate_seeds(scenario, S, antithetic=antithetic), S,
-            dev)
+        S = 1
+    else:
+        S = int(n_seeds)
+        fleet = FleetBatch(grid=fleet.grid.repeat_rows(S),
+                           T=np.repeat(fleet.T, S))
+        scenario = replicate_seeds(scenario, S, antithetic=antithetic)
+    if scenario is not None:
+        scenario = with_prng_backend(scenario, prng_backend)
+    return fleet, scenario, S, dev
 
 
 def _cut(a, sl, dev):
@@ -458,6 +471,7 @@ def run_fleet(policy, fleet: FleetBatch, *,
               collect_trace: bool = True,
               n_seeds: Optional[int] = None,
               antithetic: bool = False,
+              prng_backend: str = "xla",
               device=None,
               stream: bool = False,
               with_opt_forward: bool = False,
@@ -482,6 +496,8 @@ def run_fleet(policy, fleet: FleetBatch, *,
       n_seeds / antithetic: S Monte-Carlo replicas of every instance (see
         the module docstring; a scenario only); ``antithetic`` pairs them
         on flip-capable streams.
+      prng_backend: the scenario's PRNG backend (``"xla"`` or
+        ``"pallas"``, ``scenarios.with_prng_backend``; a scenario only).
       device: None means the CUDA card (raises without one); ``"cpu"``
         runs the plain PyTorch versions of the kernels.
       stream: drive the chunks from the host (needs ``chunk_size``): an
@@ -501,7 +517,7 @@ def run_fleet(policy, fleet: FleetBatch, *,
                else scenario.has_svc)
     _check_lanes(lanes, fleet, has_svc)
     fleet, scenario, S, dev = _prepare(fleet, scenario, device, n_seeds,
-                                       antithetic)
+                                       antithetic, prng_backend)
     T_max = fleet.T_max
     n_chunks, T_pad = _geometry(fleet, chunk_size, stream)
     feed = _Feed(fleet, scenario, dev, n_chunks, T_pad, stream)
@@ -638,6 +654,7 @@ def offline_opt_fleet(fleet: FleetBatch, *,
                       chunk_size: Optional[int] = None,
                       n_seeds: Optional[int] = None,
                       antithetic: bool = False,
+                      prng_backend: str = "xla",
                       checkpointed: bool = False,
                       collect_schedule: bool = True,
                       device=None,
@@ -673,7 +690,7 @@ def offline_opt_fleet(fleet: FleetBatch, *,
     if not collect_schedule and not checkpointed:
         raise ValueError("collect_schedule=False requires checkpointed=True")
     fleet, scenario, S, dev = _prepare(fleet, scenario, device, n_seeds,
-                                       antithetic)
+                                       antithetic, prng_backend)
     n_chunks, T_pad = _geometry(fleet, chunk_size, stream)
     feed = _Feed(fleet, scenario, dev, n_chunks, T_pad, stream)
     chunk = feed.chunk
@@ -717,7 +734,7 @@ def _schedule_result(fleet: FleetBatch, feed: _Feed, r_pad, T_len,
     g, dev = fleet.grid, feed.dev
     carry = (torch.zeros((g.B,), dtype=torch.int32, device=dev),
              sim_acc0(g.B, g.K, dev))
-    fma = xla_acc_fma(None, g.B, g.K)
+    fma = xla_acc_fma(None, g.B, g.K, fleet=True)
     gen = feed.gen0()
     for i in range(feed.n_chunks):
         gen, slab = feed.slab(i, gen)
@@ -744,6 +761,7 @@ def evaluate_schedule_fleet(fleet: FleetBatch, r_hist, *,
                             chunk_size: Optional[int] = None,
                             n_seeds: Optional[int] = None,
                             antithetic: bool = False,
+                            prng_backend: str = "xla",
                             device=None,
                             stream: bool = False,
                             gather: bool = False,
@@ -757,7 +775,7 @@ def evaluate_schedule_fleet(fleet: FleetBatch, r_hist, *,
     _refuse_later(gather=gather, mesh=mesh)
     B_orig = fleet.B
     fleet, scenario, S, dev = _prepare(fleet, scenario, device, n_seeds,
-                                       antithetic)
+                                       antithetic, prng_backend)
     n_chunks, T_pad = _geometry(fleet, chunk_size, stream)
     r = np.asarray(r_hist, np.int32)
     if S > 1 and r.shape[0] == B_orig:

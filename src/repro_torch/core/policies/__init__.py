@@ -1,6 +1,7 @@
 """Online and offline hosting policies (the port of ``repro.core.policies``)."""
 from repro_torch.core.policies.alpha_rr import (AlphaRR, RetroRenting,
                                                 alpha_rr_grid_params,
+                                                alpha_rr_hosting,
                                                 alpha_rr_init,
                                                 alpha_rr_literal,
                                                 alpha_rr_params,
@@ -16,7 +17,8 @@ from repro_torch.core.policies.baselines import (ABCPolicy, MDPPolicy,
                                                  static_step, table_init)
 
 __all__ = [
-    "AlphaRR", "RetroRenting", "alpha_rr_grid_params", "alpha_rr_init",
+    "AlphaRR", "RetroRenting", "alpha_rr_grid_params", "alpha_rr_hosting",
+    "alpha_rr_init",
     "alpha_rr_literal", "alpha_rr_params", "alpha_rr_step",
     "alpha_rr_step_eager", "OnlinePolicy", "PolicyFns", "PolicyLane",
     "SlotObs", "as_policy_lanes", "freeze_invalid", "StaticPolicy",

@@ -213,3 +213,13 @@ def alpha_rr_literal(costs: HostingCosts, x: np.ndarray, c: np.ndarray,
             r = j_star
             t_recent = t
     return r_hist
+
+
+def alpha_rr_hosting(costs: HostingCosts, x, c, svc=None,
+                     device=None) -> np.ndarray:
+    """Run alpha-RR over one instance's whole arrays; returns its r_hist
+    [T] (``simulator.run_policy``, kernel S on ``device``, the card by
+    default)."""
+    from repro_torch.core.simulator import run_policy
+    return run_policy(AlphaRR(costs), costs, x, c, svc,
+                      device=device).r_hist

@@ -17,9 +17,20 @@ a stream is invariant to how the horizon is cut into chunks, and the port's
 draws are bitwise jax's under the same threefry layout
 (``kernels.hosting.threefry_partitionable``).  PRNG keys are [B, 2] int64
 tensors of 32-bit words.
+
+``slot_uniform`` is also the reference's PRNG backend dispatch point
+(``PRNG_BACKENDS``, ``prng_dispatch``): under "pallas" the reference draws
+it through its Pallas kernel, which implements only jax's original
+threefry layout, so the port draws it (and the stream kernels that finish
+its draws: Bernoulli arrivals, uniform and NA rents, the GE chain and its
+Bernoulli emissions) in that layout, whichever is active
+(``slot_layout``).  Every other draw (Poisson, normals, ARMA, Model-2
+service, the GE chain's initial state) stays on the active layout, as in
+the reference.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Callable, NamedTuple, Optional
 
@@ -162,12 +173,53 @@ def fold_in(key, data: int) -> torch.Tensor:
     return fold_keys(key[None], d)[0]
 
 
+def slot_keys(keys, tids) -> torch.Tensor:
+    """[B, chunk, 2] counter-based per-slot keys: ``fold_in(keys[i],
+    tids[j])``."""
+    t = (tids.to(torch.int64) & MASK32)[None, :]
+    y0, y1 = threefry_fold(keys[:, 0:1], keys[:, 1:2], t)
+    return torch.stack([y0, y1], dim=2)
+
+
+#: Valid PRNG backends, as the reference names them: "xla" draws
+#: ``slot_uniform`` in the active threefry layout, "pallas" in jax's
+#: original layout (the reference's Pallas PRNG kernel implements only
+#: that one).  Both run kernel P on the card.  Selected per scenario by
+#: ``combinators.with_prng_backend`` or the fleet drivers' ``prng_backend=``.
+PRNG_BACKENDS = ("xla", "pallas")
+
+# the backend stack; ``slot_layout`` consults the top
+_PRNG_BACKEND = ["xla"]
+
+
+@contextlib.contextmanager
+def prng_dispatch(backend: str):
+    """Route ``slot_uniform`` (and the stream kernels that finish its
+    draws) through ``backend`` inside the block."""
+    if backend not in PRNG_BACKENDS:
+        raise ValueError(f"prng backend must be one of {PRNG_BACKENDS}, "
+                         f"got {backend!r}")
+    _PRNG_BACKEND.append(backend)
+    try:
+        yield
+    finally:
+        _PRNG_BACKEND.pop()
+
+
+def slot_layout() -> Optional[bool]:
+    """The threefry layout of ``slot_uniform``'s draws under the current
+    backend: None (the active layout) under "xla", False (the original
+    layout) under "pallas"."""
+    return False if _PRNG_BACKEND[-1] == "pallas" else None
+
+
 def slot_uniform(keys, tids, salt: Optional[int] = None) -> torch.Tensor:
     """[B, chunk] independent U(0,1) float32 draws, one per global slot
     index: ``fold_in(key, t)`` (then the optional salt fold) and jax's
-    scalar uniform.  THE counter-keyed primitive every stream draws
-    through — kernel P on the card, its plain version on the CPU."""
-    return ops.counter_uniforms(keys, tids, salt)
+    scalar uniform, in the backend's layout (``slot_layout``).  THE
+    counter-keyed primitive every stream draws through — kernel P on the
+    card, its plain version on the CPU."""
+    return ops.counter_uniforms(keys, tids, salt, slot_layout())
 
 
 # ----------------------------------------------------------------------

@@ -4,11 +4,12 @@
 Arrival streams: ``bernoulli_arrivals``, ``poisson_arrivals``,
 ``ge_arrivals`` (Gilbert-Elliot, side = chain state; Bernoulli or Poisson
 emissions), ``bursty_arrivals`` (the cluster-trace stand-in, GE-Poisson),
-``trace_arrivals``.
+``adversarial_fetch_bait`` / ``adversarial_evict_bait`` (Theorem-4
+constructions), ``trace_arrivals``.
 Rent streams: ``uniform_rents``, ``na_rents`` (antithetic time-pairs,
-Assumption 7), ``constant_rents``, ``trace_rents``, ``arma_rents`` and
-``spot_rents`` (AWS-spot-like ARMA(4, 2) rents; ``spot_bounds`` gives
-their clip rails).
+Assumption 7), ``constant_rents``, ``trace_rents``, ``arma_rents`` (ARMA(p,
+q), any q >= 1) and ``spot_rents`` (AWS-spot-like ARMA(4, 2) rents;
+``spot_bounds`` gives their clip rails).
 Service streams: ``model2_service`` (coupled per-request uniforms).
 
 Every random draw is kernel P's (``kernels/hosting.py``), which draws and
@@ -25,7 +26,9 @@ code after it in ``repro/core/scenarios/streams.py``:
 * ``_ge_chunk_bernoulli`` (``_ge_states`` + ``_ge_emit``) ->
   ``ge_bernoulli_chunk``: the chain runs as a warp scan of its 2-state
   maps, not slot by slot;
-* ``_ge_init``'s one draw -> ``slot_uniform``;
+* ``_ge_init``'s one draw -> ``ops.counter_uniforms`` (``jax.random.
+  uniform`` there, not ``slot_uniform``: the active layout under either
+  PRNG backend);
 * ``_arma_chunk`` (``jax.random.normal`` on per-slot keys, then the
   ``lax.scan`` of the ARMA recursion) -> ``arma_rents_chunk``: the
   innovations drawn slot-parallel, each row's recursion walked by one
@@ -53,7 +56,12 @@ rotates and xors (``csrc/hosting.cu``).
 
 ``bernoulli_arrivals`` and ``uniform_rents`` carry a boolean ``flip`` param
 (default False) mapping each slot uniform ``u -> 1 - u``: the hook that
-antithetic seed replication (``combinators.replicate_seeds``) uses.
+antithetic pairing (``combinators.antithetic_pairing``, and the seed axis
+of ``combinators.replicate_seeds``) uses.
+
+The streams whose draws go through the reference's ``slot_uniform``
+(Bernoulli arrivals, uniform and NA rents, the GE chain and its Bernoulli
+emissions) draw in ``base.slot_layout()``, the PRNG backend's layout.
 """
 from __future__ import annotations
 
@@ -65,8 +73,9 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.rentcosts import DEFAULT_AR, DEFAULT_MA
-from repro_torch.core.scenarios.base import Stream, as_keys, bcast, slot_uniform
-from repro_torch.kernels import hosting
+from repro_torch.core.scenarios.base import (Stream, as_keys, bcast,
+                                             slot_layout)
+from repro_torch.kernels import hosting, ops
 
 # Salt for draws that must not collide with any per-slot counter (slot
 # counters are the nonnegative slot indices).
@@ -89,7 +98,7 @@ def _zeros_side(x):
 
 def _bernoulli_chunk(params, state, tids):
     x = hosting.bernoulli_arrivals_chunk(params["key"], tids, params["p"],
-                                         params["flip"])
+                                         params["flip"], slot_layout())
     return state, (x, _zeros_side(x))
 
 
@@ -106,24 +115,24 @@ def _ge_init(params):
     ph = params["p_lh"] / (params["p_lh"] + params["p_hl"])
     key = params["key"]
     t = torch.full((1,), _INIT_SALT, dtype=_I32, device=key.device)
-    u0 = slot_uniform(key, t)[:, 0]
+    u0 = ops.counter_uniforms(key, t)[:, 0]
     return {"s": (u0 < ph).to(_I32)}
 
 
 def _ge_chunk_bernoulli(params, state, tids):
     s, states, x = hosting.ge_bernoulli_chunk(
         params["key"], tids, state["s"], params["p_hl"], params["p_lh"],
-        params["rate_h"], params["rate_l"])
+        params["rate_h"], params["rate_l"], slot_layout())
     return {"s": s}, (x, states)
 
 
 def _ge_chunk_poisson(params, state, tids):
-    # the chain on kernel P's GE variant (without its Bernoulli emissions),
-    # the Poisson emissions at the per-slot rates, salt 1, on its Poisson
-    # variant
+    # the chain on kernel P's GE variant (without its Bernoulli emissions,
+    # in the backend's layout), the Poisson emissions at the per-slot
+    # rates, salt 1, on its Poisson variant (in the active layout)
     s, states, _ = hosting.ge_bernoulli_chunk(
         params["key"], tids, state["s"], params["p_hl"], params["p_lh"],
-        params["rate_h"], params["rate_l"], emit=False)
+        params["rate_h"], params["rate_l"], slot_layout(), emit=False)
     x = hosting.poisson_chunk(params["key"], tids, params["rate_l"], salt=1,
                               states=states, lam_h=params["rate_h"])
     return {"s": s}, (x, states)
@@ -186,6 +195,34 @@ def bursty_arrivals(key, B: int, base_rate=2.0, burst_rate=20.0,
     return Stream("bursty", "arrivals", _ge_init, _bursty_chunk, ge.params)
 
 
+def _fetch_bait_chunk(params, state, tids):
+    x = (tids[None, :] < params["tau"][:, None]).to(_I32)
+    return state, (x, _zeros_side(x))
+
+
+def adversarial_fetch_bait(tau, B: int, device=None) -> Stream:
+    """Arrivals every slot until ``tau``, then silence (Theorem 4)."""
+    dev = resolve_device(device)
+    return Stream("fetch-bait", "arrivals", _no_state, _fetch_bait_chunk,
+                  {"tau": bcast(tau, B, _I32, dev)})
+
+
+def _evict_bait_chunk(params, state, tids):
+    lo = params["tau_bar"][:, None]
+    hi = lo + params["tau"][:, None]
+    t = tids[None, :]
+    x = ((t >= lo) & (t < hi)).to(_I32)
+    return state, (x, _zeros_side(x))
+
+
+def adversarial_evict_bait(tau_bar, tau, B: int, device=None) -> Stream:
+    """Silence until ``tau_bar``, arrivals for ``tau`` slots, silence."""
+    dev = resolve_device(device)
+    return Stream("evict-bait", "arrivals", _no_state, _evict_bait_chunk,
+                  {"tau_bar": bcast(tau_bar, B, _I32, dev),
+                   "tau": bcast(tau, B, _I32, dev)})
+
+
 def _slice_trace(trace, tids):
     # clipped gather: tail slots past the trace (horizon padded to a chunk
     # multiple) repeat the last sample, keeping values a function of tids
@@ -225,7 +262,8 @@ def trace_arrivals(x, B: Optional[int] = None, side=None,
 
 def _uniform_rents_chunk(params, state, tids):
     return state, hosting.uniform_rents_chunk(
-        params["key"], tids, params["lo"], params["hi"], params["flip"])
+        params["key"], tids, params["lo"], params["hi"], params["flip"],
+        slot_layout())
 
 
 def uniform_rents(key, c_mean, half_width, B: int, c_min=1e-3,
@@ -245,7 +283,7 @@ def _na_rents_chunk(params, state, tids):
     # antithetic time-pairs: slots (2m, 2m+1) share the pair counter m and
     # see (u_m, 1 - u_m) — negatively associated (Assumption 7)
     return state, hosting.na_rents_chunk(params["key"], tids, params["lo"],
-                                         params["hi"])
+                                         params["hi"], slot_layout())
 
 
 def na_rents(key, c_mean, half_width, B: int, device=None) -> Stream:
@@ -287,9 +325,16 @@ def _arma_init(params):
     key = params["key"]
     # eps holds (eps_{-1}, ..., eps_{-q}): counters q-1 .. 0
     tids = torch.arange(q - 1, -1, -1, dtype=_I32, device=key.device)
+    sigma = params["sigma"]
+    if q == 1:
+        # XLA folds sigma into the normal's sqrt(2) for q >= 2, but rounds
+        # sigma * (sqrt(2) * erf_inv(u)) twice for the one draw at q = 1
+        eps = sigma[:, None] * hosting.normal_chunk(key, tids,
+                                                    torch.ones_like(sigma))
+    else:
+        eps = hosting.normal_chunk(key, tids, sigma)
     return {"hist": torch.zeros((key.shape[0], p), dtype=_F32,
-                                device=key.device),
-            "eps": hosting.normal_chunk(key, tids, params["sigma"])}
+                                device=key.device), "eps": eps}
 
 
 def _arma_chunk(params, state, tids):
@@ -314,15 +359,14 @@ def arma_rents(key, mean, B: int, ar=None, ma=None, sigma=0.05, c_min=0.05,
     q`` (counters [0, q) seed the pre-horizon innovations in ``init_fn``),
     so any chunking replays the same series.  ``ar`` / ``ma`` default to
     ``rentcosts.DEFAULT_AR`` / ``DEFAULT_MA``; every coefficient may be
-    per-instance [B, p] / [B, q]; 1 <= p <= 8 and 2 <= q <= 8 (XLA's op
+    per-instance [B, p] / [B, q]; 1 <= p <= 8 and 1 <= q <= 8 (XLA's op
     order is pinned for those; the reference itself fails at q = 0)."""
     dev = resolve_device(device)
     phi = _coefs(DEFAULT_AR if ar is None else ar, B, dev)
     th = _coefs(DEFAULT_MA if ma is None else ma, B, dev)
-    if th.shape[1] < 2:
-        raise NotImplementedError(
-            "arma_rents takes an MA order q >= 2: the op order of XLA's scan "
-            "at q = 1 is not pinned")
+    if th.shape[1] < 1:
+        raise ValueError("arma_rents takes an MA order q >= 1 (the "
+                         "reference fails at q = 0)")
     return Stream("arma", "rents", _arma_init, _arma_chunk,
                   {"key": as_keys(key, B, dev),
                    "mean": bcast(mean, B, _F32, dev), "phi": phi, "th": th,

@@ -17,9 +17,14 @@ and ABC policies to kernel S's table variant, under Model-1 service and on
 a Model-2 slab alike.  A given schedule is priced by kernel E
 (``kernels.hosting.schedule_chunk``).
 
+``sim_chunk_lanes`` steps several policy lanes over one shared slab, each
+lane one ``sim_chunk`` (kernel S on the card) on its own service costs.
+
 The per-instance entry points (``run_policy``, ``run_policy_batch``,
 ``evaluate_schedule``, ``evaluate_schedule_batch``) are the one-chunk,
 one-horizon case of the same kernels: one instance is a one-row grid.
+``model2_service_matrix`` draws a Model-2 service matrix from one key
+(kernel P's shaped uniform).
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ from repro_torch.core.policies.baselines import (TABLE_STEPS, abc_step,
                                                  table_form)
 from repro_torch.core.scenarios.base import ObsSlab
 from repro_torch.kernels.hosting import (fma32, gather_svc, schedule_chunk,
-                                         sim_chunk_alpha_rr,
+                                         shaped_uniform, sim_chunk_alpha_rr,
                                          sim_chunk_alpha_rr_svc,
                                          sim_chunk_table, sim_chunk_table_svc)
 
@@ -109,15 +114,20 @@ def _fetch_between(M, lv_from, lv_to):
 
 
 def xla_acc_fma(step_fn, R: int, K: int,
-                include_final_fetch: bool = True) -> bool:
+                include_final_fetch: bool = True,
+                fleet: bool = False) -> bool:
     """Whether the reference's vmapped scan over R rows of K levels fuses
     a sum's product into its add, ``sum = fma(a, b, sum)``, instead of a
     rounded product and a rounded add.  XLA:CPU contracts them on small
     batches only, by a threshold that depends on the scan body; pinned by
-    test on jax 0.9.0 (``tests/test_torch_obs_fleet.py``):
+    test on jax 0.9.0 (``tests/test_torch_obs_fleet.py``,
+    ``tests/test_torch_combinators.py``):
 
     * schedule pricing (``step_fn`` None): the rent ``c * lv_r`` and the
-      fetch ``M * (lv_r - lv_prev)^+``, while R * (K + 3) <= 40;
+      fetch ``M * (lv_r - lv_prev)^+``, while R * (K + 3) <= 40
+      (``evaluate_schedule_batch``), or while R * (K + 4) <= 40 in the
+      fleet drivers' pricing core (``fleet``: ``evaluate_schedule_fleet``
+      and ``offline_opt_fleet``'s schedule, scenario-fused or obs-backed);
     * the static policy: the rent, while R * (K + 3) <= 40;
     * MDP and ABC: the rent (and the fetch, ``xla_fetch_fma``), while R *
       (K + 3) <= 30;
@@ -129,7 +139,7 @@ def xla_acc_fma(step_fn, R: int, K: int,
     One instance run outside a vmap (``run_policy``,
     ``evaluate_schedule``) never contracts."""
     if step_fn is None:
-        return R * (K + 3) <= 40
+        return R * (K + (4 if fleet else 3)) <= 40
     if not include_final_fetch:
         return False
     if step_fn is static_step:
@@ -247,6 +257,33 @@ def sim_chunk(policy: PolicyFns, include_final_fetch: bool, lv, g, M, T_len,
                               policy.params, lv, M, T_len, t0, carry, slab.x,
                               slab.c, svc, slab.side, rent_fma, fetch_fma)
     return carry, (r if collect_trace else None)
+
+
+def sim_chunk_lanes(step_fns, include_final_fetch: bool, lane_params,
+                    lane_lv, lane_M, T_len, t0: int, carries, x, c,
+                    lane_svc, side):
+    """Step P heterogeneous policy lanes over ONE shared ``[R, chunk]``
+    slab: ``carries`` a tuple of per-lane ``(state, acc)``, ``lane_lv[p]``
+    [R, K_p], ``lane_M[p]`` [R], ``lane_svc[p]`` [R, chunk, K_p] the lane's
+    own service costs (Model-1 prices ``x * g`` from its g, or its columns
+    of a Model-2 slab); ``x``, ``c``, ``side`` the one stream.  Each lane is
+    one ``sim_chunk`` on its service costs (kernel S on the card), its sums
+    fused as the reference's vmapped scan fuses them (``xla_acc_fma``,
+    ``xla_fetch_fma``), so lane p is bitwise its standalone chunk.
+    Returns ``(carries', r_hists)``, tuples of per-lane results."""
+    new_carries, r_hists = [], []
+    for step_fn, params, lv, M, carry, svc in zip(
+            step_fns, lane_params, lane_lv, lane_M, carries, lane_svc):
+        R, K = lv.shape
+        fused = (step_fn, R, K, include_final_fetch)
+        carry, r = sim_chunk(PolicyFns("lane", None, step_fn, params),
+                             include_final_fetch, lv, None, M, T_len, t0,
+                             carry, ObsSlab(x, c, svc, side),
+                             rent_fma=xla_acc_fma(*fused),
+                             fetch_fma=xla_fetch_fma(*fused))
+        new_carries.append(carry)
+        r_hists.append(r)
+    return tuple(new_carries), tuple(r_hists)
 
 
 # ----------------------------------------------------------------------
@@ -380,3 +417,24 @@ def evaluate_schedule(costs: HostingCosts, r_hist, x, c, svc=None,
     grid = HostingGrid.from_costs([costs], device=resolve_device(device))
     return _one(_price_rows(grid, _row(r_hist), _row(x), _row(c), _row(svc),
                             False))
+
+
+def model2_service_matrix(key, costs: HostingCosts, x,
+                          max_per_slot: int | None = None, device=None):
+    """Realized Model-2 service costs, coupled across levels: the [T, R]
+    request uniforms ``uniform(key, (T, R))`` of one [2] key (kernel P's
+    shaped uniform on the card), request ``i`` of slot ``t`` live while
+    ``i < x[t]`` and forwarded at level k iff ``u < g[k]``; returns the [T,
+    K] float32 counts on ``device`` (the card by default).  ``R`` is
+    ``max_per_slot``, or the largest arrival count (at least 1)."""
+    dev = resolve_device(device)
+    x = as_tensor(x, dev, torch.int32)
+    T = int(x.shape[0])
+    R = int(max_per_slot if max_per_slot is not None
+            else max(int(x.max()), 1))
+    key = torch.as_tensor(key, dtype=torch.int64, device=dev)
+    u = shaped_uniform(key, T * R).reshape(T, R)
+    gv = torch.as_tensor(np.asarray(costs.g, np.float32), device=dev)
+    live = torch.arange(R, device=dev)[None, :] < x[:, None]      # [T, R]
+    fwd = u[:, :, None] < gv[None, None, :]                       # [T, R, K]
+    return (live[:, :, None] & fwd).sum(dim=1).to(torch.float32)

@@ -55,6 +55,8 @@ LIBRARIES = {
         # keys, tids, s_in, p_hl, p_lh, rate_h, rate_l, s_out, states, x,
         # R, chunk, partitionable, stream
         "launch_ge_chain": (_P,) * 10 + (_I,) * 3 + (_P,),
+        # key, out, n, partitionable, stream
+        "launch_shaped_uniform": (_P, _P, _I, _I, _P),
         # keys, tids, hist_in, eps_in, phi, th, sigma, mean, c_min, c_max,
         # hist_out, eps_out, c, R, chunk, P, Q, partitionable, stream
         "launch_arma_rents": (_P,) * 13 + (_I,) * 5 + (_P,),

@@ -399,6 +399,59 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------------
+// P: shaped_uniform_kernel, jax.random.uniform(key, (n,)) of ONE key: the
+// draws of jax.random.choice(key, n_inputs, (B,), p=w) in
+// mixture_from_weights (src/repro/core/scenarios/combinators.py :212) and
+// the [T, R] request uniforms of simulator.model2_service_matrix
+// (src/repro/core/simulator.py :499).  No TPU kernel: the reference draws
+// these through XLA's threefry (jax/_src/random.py: _random_bits), not
+// through slot_uniform_tc.
+//  - partitionable layout: word i hashes the counter (0, i) and is the xor
+//    of the block's two output words;
+//  - original layout: the counters 0 .. n - 1, a 0 appended when n is odd,
+//    cut into halves x0 = [0, h) and x1 = [h, 2h), h = ceil(n / 2); block i
+//    hashes (x0[i], x1[i]), word i is its first output and word h + i its
+//    second.
+// Then the uniform's mapping: the top 23 bits spliced into [1, 2), minus 1.
+//
+// Bound: integer operations, one threefry block a word (partitionable) or
+// half a block a word (original); 4 bytes a word written.
+// Design: a thread a block (one word, or two in the original layout), the
+// key in registers; the draws are few (B or T * R words a call), so the
+// kernel is a plain grid over the blocks.
+// ---------------------------------------------------------------------
+
+struct ShapedArgs {
+  const long long* key;    // [2] key words in [0, 2**32)
+  float* out;              // [n]
+  int n, partitionable;
+  uint32_t one;            // 1, opaque to the compiler (add32)
+};
+
+__global__ void __launch_bounds__(256)
+    shaped_uniform_kernel(const ShapedArgs p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const uint32_t k0 = (uint32_t)p.key[0], k1 = (uint32_t)p.key[1];
+  auto word = [](uint32_t bits) {
+    return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+  };
+  if (p.partitionable) {
+    if (i >= p.n) return;
+    uint32_t x0 = 0u, x1 = (uint32_t)i;
+    threefry2x32(k0, k1, x0, x1, p.one);
+    p.out[i] = word(x0 ^ x1);
+    return;
+  }
+  const int h = (p.n + 1) >> 1;
+  if (i >= h) return;
+  const int j = h + i;                     // == n only for odd n: counter 0
+  uint32_t x0 = (uint32_t)i, x1 = j < p.n ? (uint32_t)j : 0u;
+  threefry2x32(k0, k1, x0, x1, p.one);
+  p.out[i] = word(x0);
+  if (j < p.n) p.out[j] = word(x1);
+}
+
+// ---------------------------------------------------------------------
 // P: ge_chain_kernel, the Gilbert-Elliot chain with Bernoulli emissions.
 // Replaces slot_uniform_tc's two salted draws a slot plus the reference's
 // lax.scan of the chain (src/repro/core/scenarios/streams.py: _ge_states,
@@ -538,7 +591,9 @@ __global__ void __launch_bounds__(32 * kGeWarps)
 // fold_in(key, t + q), sigma) and, in XLA's order inside its scan,
 //   x = (phi . hist + e) + th . eps      (p = 1: x = fma(phi0, h0, e))
 // where a two-term dot is fma(a1, b1, a0 * b0) and a longer one a
-// left-to-right sum of rounded products; then hist <- (x, hist[:-1]),
+// left-to-right sum of rounded products, and at q = 1 the MA term is one
+// FMA into the rest, x = fma(th0, eps0, phi . hist + e); then hist <- (x,
+// hist[:-1]),
 // eps <- (e, eps[:-1]) and c = min(max(mean + x, c_min), c_max).  The
 // state (hist [R, p], eps [R, q]) comes in and goes out.
 //
@@ -618,8 +673,11 @@ struct ArmaArgs {
 // kDotFma2 is n == 2, fma(a1, b1, a0 * b0); kDotSum a left-to-right sum of
 // rounded products.  On a single row (R == 1, a dot of two vectors):
 // kDotChain, every term after the first an FMA into the sum, for the AR
-// dot as for the MA one.
-enum DotOrder { kDotSum = 0, kDotChain = 1, kDotFma2 = 2 };
+// dot as for the MA one.  At q = 1 the MA term th0 * eps0 is one FMA into
+// the AR part and the innovation: kMa1Sum on a batch (the AR dot as
+// kDotSum past two terms), kMa1Chain on one row (the AR dot a chain).
+enum DotOrder { kDotSum = 0, kDotChain = 1, kDotFma2 = 2, kMa1Sum = 3,
+                kMa1Chain = 4 };
 
 // the dot of a[0 .. n) and b[0 .. n) in XLA's order (n >= 2; N the
 // arrays' compile-time length, n <= N)
@@ -637,12 +695,15 @@ __device__ __forceinline__ float xla_dot(const float (&a)[N],
 
 // P: the AR order (the walker's chain unrolls over registers); MA: the
 // dots' order (kDotFma2: q == 2; kDotSum: q >= 3 up to kArmaMaxQ;
-// kDotChain: one row, any q, the AR dot a chain too); ROWS: rows a block
+// kDotChain: one row, q >= 2, the AR dot a chain too; kMa1Sum /
+// kMa1Chain: q == 1 on a batch / on one row); ROWS: rows a block
 template <int P, int MA, int ROWS>
 __global__ void __launch_bounds__(ArmaShape<ROWS>::kThreads)
     arma_rents_kernel(const ArmaArgs p) {
   constexpr int NPROD = ArmaShape<ROWS>::kProducers;
-  constexpr int QN = MA == kDotFma2 ? 2 : kArmaMaxQ;   // the MA registers
+  constexpr bool MA1 = MA == kMa1Sum || MA == kMa1Chain;
+  constexpr bool CHAIN = MA == kDotChain || MA == kMa1Chain;
+  constexpr int QN = MA == kDotFma2 ? 2 : MA1 ? 1 : kArmaMaxQ;  // MA regs
   constexpr int DRAWS = ROWS / NPROD;                   // a thread a tile
   __shared__ __align__(16) float eps_s[kArmaStages][ROWS][kArmaStride];
   __shared__ uint32_t key_s[ROWS][2];
@@ -721,10 +782,13 @@ __global__ void __launch_bounds__(ArmaShape<ROWS>::kThreads)
       x = ph[0] * h[0];
 #pragma unroll
       for (int i = 1; i < P; ++i)
-        x = MA == kDotChain ? __fmaf_rn(ph[i], h[i], x) : x + ph[i] * h[i];
+        x = CHAIN ? __fmaf_rn(ph[i], h[i], x) : x + ph[i] * h[i];
       x = x + e;
     }
-    x = x + xla_dot<MA>(th, ep, p.Q);
+    if constexpr (MA1)
+      x = __fmaf_rn(th[0], ep[0], x);
+    else
+      x = x + xla_dot<MA>(th, ep, p.Q);
 #pragma unroll
     for (int i = P - 1; i > 0; --i) h[i] = h[i - 1];
     h[0] = x;
@@ -4624,6 +4688,19 @@ int launch_counter_stream(int kind, const void* keys, const void* tids,
   }
 }
 
+// uniform(key, (n,)) of one [2] key in the given layout (n < 2**31)
+int launch_shaped_uniform(const void* key, void* out, int n,
+                          int partitionable, void* stream) {
+  const ShapedArgs args{(const long long*)key, (float*)out, n, partitionable,
+                        1u};
+  const long long blocks = partitionable ? n : (n + 1LL) / 2;
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  if (blocks > 0)
+    shaped_uniform_kernel<<<n_blocks(blocks, 256), 256, 0,
+                            (cudaStream_t)stream>>>(args);
+  return (int)cudaGetLastError();
+}
+
 int launch_ge_chain(const void* keys, const void* tids, const void* s_in,
                     const void* p_hl, const void* p_lh, const void* rate_h,
                     const void* rate_l, void* s_out, void* states, void* x,
@@ -4643,14 +4720,14 @@ int launch_ge_chain(const void* keys, const void* tids, const void* s_in,
   return (int)cudaGetLastError();
 }
 
-// the ARMA rents of one chunk (1 <= P <= 8, 2 <= Q <= 8)
+// the ARMA rents of one chunk (1 <= P <= 8, 1 <= Q <= 8)
 int launch_arma_rents(const void* keys, const void* tids, const void* hist_in,
                       const void* eps_in, const void* phi, const void* th,
                       const void* sigma, const void* mean, const void* c_min,
                       const void* c_max, void* hist_out, void* eps_out,
                       void* c, int R, int chunk, int P, int Q,
                       int partitionable, void* stream) {
-  if (P < 1 || P > kArmaMaxP || Q < 2 || Q > kArmaMaxQ || chunk < 1)
+  if (P < 1 || P > kArmaMaxP || Q < 1 || Q > kArmaMaxQ || chunk < 1)
     return (int)cudaErrorInvalidValue;
   if (R <= 0) return (int)cudaGetLastError();
   int n_sm = 0;
@@ -4680,8 +4757,14 @@ int launch_arma_rents(const void* keys, const void* tids, const void* hist_in,
 #define REPRO_ARMA_CASE(PP)                                                \
   case PP:                                                                 \
     if (R == 1) {                                                          \
-      arma_rents_kernel<PP, kDotChain, N>                                  \
-          <<<grid, ArmaShape<N>::kThreads, 0, st>>>(args);                 \
+      if (Q == 1)                                                          \
+        arma_rents_kernel<PP, kMa1Chain, N>                                \
+            <<<grid, ArmaShape<N>::kThreads, 0, st>>>(args);               \
+      else                                                                 \
+        arma_rents_kernel<PP, kDotChain, N>                                \
+            <<<grid, ArmaShape<N>::kThreads, 0, st>>>(args);               \
+    } else if (Q == 1) {                                                   \
+      REPRO_ARMA_ROWS(PP, kMa1Sum)                                         \
     } else if (Q == 2) {                                                   \
       REPRO_ARMA_ROWS(PP, kDotFma2)                                        \
     } else {                                                               \

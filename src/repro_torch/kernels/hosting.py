@@ -14,6 +14,9 @@ PyTorch versions.
   transcribed op for op) runs ``counter_stream_kernel`` too, and
   ``arma_rents_chunk`` runs ``arma_rents_kernel`` (the ARMA rents: the
   normals drawn slot-parallel, each row's recursion walked by one thread);
+  ``shaped_uniform`` (``jax.random.uniform(key, (n,))`` of one key: the
+  draws of ``jax.random.choice`` and of ``model2_service_matrix``) runs
+  ``shaped_uniform_kernel``;
   ``poisson_chunk`` (``jax.random.poisson``, Knuth's branch below rate 10
   and Hormann's rejection at and above it, at a per-row rate or the GE
   states' per-slot rates) runs ``poisson_kernel`` and
@@ -70,8 +73,8 @@ from repro_torch.kernels import _build
 MASK32 = 0xFFFFFFFF
 _ROTS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
-#: the largest level count the kernels take (S and the fused D: a template
-#: argument each; D on a finished w: one warp)
+#: the largest level count S and the fused D take (a template argument
+#: each); D on a finished w takes up to ``DP_MAX_K``
 SIM_MAX_K = 16
 #: the fused D's levels and its Model-2 slab's (hosting.cu: kDpfMaxK); a
 #: Model-2 slab of more levels is wide, and the svc wrappers'
@@ -83,6 +86,8 @@ M2_MAX_K = 32
 #: model2_service_chunk's n_max at most on the card (hosting.cu:
 #: kM2MaxRequests): a span's requests fit an int32, a count a float32
 M2_MAX_REQUESTS = 2 ** 23
+#: the levels of D on a finished w (``dp_minplus``): an instance a K up to
+#: 8, bands of a run-time K above (hosting.cu: dp_minplus_kernel<KB, CW>)
 DP_MAX_K = 32
 
 
@@ -575,25 +580,24 @@ def arma_rents_chunk_plain(keys, tids, hist, eps, phi, th, sigma, mean,
     innovations ``e_t = (sigma * sqrt(2)) * erf_inv(u)`` at counter ``t +
     q``, then per slot ``x = (phi . hist + e_t) + th . eps`` with each dot
     in the order of ``_xla_dot`` (a single row's dots are FMA chains; for
-    p = 1 the product is fused into the add: ``fma(phi0, h0, e_t)``), the
+    p = 1 the product is fused into the add: ``fma(phi0, h0, e_t)``; for
+    q = 1 the MA term too: ``fma(th0, eps0, phi . hist + e_t)``), the
     histories shifted (newest first),
     and ``clip(mean + x, c_min, c_max)``.  ``hist`` [R, p] and ``eps`` [R,
     q] carry the state in; ``phi`` / ``th`` [R, p] / [R, q] and the [R]
-    params are float32; q >= 2 (the MA(1) order of XLA's scan is not
-    pinned).  Returns ``(hist', eps', c [R, chunk])``.  ``card_calls``
-    counts its calls on the card (its slot loop is what the kernel
-    replaces)."""
+    params are float32.  Returns ``(hist', eps', c [R, chunk])``.
+    ``card_calls`` counts its calls on the card (its slot loop is what the
+    kernel replaces)."""
     if keys.is_cuda:
         arma_rents_chunk_plain.card_calls += 1
     p, q = phi.shape[1], th.shape[1]
-    if q < 2:
-        raise NotImplementedError(f"ARMA rents take q >= 2, got q={q}")
     e = normal_chunk_plain(keys, tids + q, sigma, partitionable)
     devs = torch.empty_like(e)
     for j in range(e.shape[1]):
         x = (fma32(phi[:, 0], hist[:, 0], e[:, j]) if p == 1
              else _xla_dot(phi, hist) + e[:, j])
-        x = x + _xla_dot(th, eps)
+        x = (fma32(th[:, 0], eps[:, 0], x) if q == 1
+             else x + _xla_dot(th, eps))
         hist = torch.cat([x[:, None], hist[:, :p - 1]], dim=1)
         eps = torch.cat([e[:, j:j + 1], eps[:, :q - 1]], dim=1)
         devs[:, j] = x
@@ -626,7 +630,8 @@ def arma_rents_chunk(keys, tids, hist, eps, phi, th, sigma, mean, c_min,
                      c_max, partitionable: Optional[bool] = None):
     """Kernel P's ARMA rents, the innovations and the recursion in one
     launch (arguments and results as ``arma_rents_chunk_plain``; 1 <= p <=
-    8, 2 <= q <= 8), bitwise the plain version."""
+    8, 1 <= q <= 8), bitwise the plain version.  ``ma1_launches`` counts
+    the launches at q = 1."""
     if keys.device.type == "cpu":
         return arma_rents_chunk_plain(keys, tids, hist, eps, phi, th, sigma,
                                       mean, c_min, c_max, partitionable)
@@ -634,9 +639,9 @@ def arma_rents_chunk(keys, tids, hist, eps, phi, th, sigma, mean, c_min,
     R, chunk = _row_params(keys, tids, sigma=(sigma, f32), mean=(mean, f32),
                            c_min=(c_min, f32), c_max=(c_max, f32))
     p, q = phi.shape[1], th.shape[1]
-    if not (1 <= p <= ARMA_MAX_P and 2 <= q <= ARMA_MAX_Q):
+    if not (1 <= p <= ARMA_MAX_P and 1 <= q <= ARMA_MAX_Q):
         raise ValueError(f"arma_rents_chunk takes 1 <= p <= {ARMA_MAX_P} and "
-                         f"2 <= q <= {ARMA_MAX_Q}, got p={p}, q={q}")
+                         f"1 <= q <= {ARMA_MAX_Q}, got p={p}, q={q}")
     dev = keys.device
     for name, t, shape in (("hist", hist, (R, p)), ("eps", eps, (R, q)),
                            ("phi", phi, (R, p)), ("th", th, (R, q))):
@@ -652,10 +657,12 @@ def arma_rents_chunk(keys, tids, hist, eps, phi, th, sigma, mean, c_min,
         _build.stream(dev))
     _build.raise_on(err, "arma_rents")
     arma_rents_chunk.launches += 1
+    arma_rents_chunk.ma1_launches += q == 1
     return hist_out, eps_out, c
 
 
 arma_rents_chunk.launches = 0
+arma_rents_chunk.ma1_launches = 0
 
 
 # ----------------------------------------------------------------------
@@ -917,6 +924,36 @@ def model2_service_chunk_plain(keys, tids, x, g, n_max: int,
 
 
 model2_service_chunk_plain.card_calls = 0
+
+
+def shaped_uniform_plain(key, n: int, partitionable: Optional[bool] = None):
+    """Plain version of kernel P's shaped uniform: ``jax.random.uniform(key,
+    (n,))`` of one [2] int64 key, [n] float32, in the current (or the
+    given) threefry layout (``shaped_bits``' words)."""
+    return uniform_from_bits(shaped_bits(key[0], key[1], int(n),
+                                         partitionable))
+
+
+def shaped_uniform(key, n: int, partitionable: Optional[bool] = None):
+    """Kernel P's shaped uniform (arguments as ``shaped_uniform_plain``;
+    n < 2**31), bitwise the plain version: the draws of
+    ``jax.random.choice`` (``combinators.mixture_from_weights``) and of
+    ``simulator.model2_service_matrix``."""
+    if key.device.type == "cpu":
+        return shaped_uniform_plain(key, n, partitionable)
+    _build.check_tensor("key", key, torch.int64, (2,), key.device)
+    if not 0 <= int(n) < 2 ** 31:
+        raise ValueError(f"shaped_uniform takes 0 <= n < 2**31, got {n}")
+    out = torch.empty((int(n),), dtype=torch.float32, device=key.device)
+    err = _build.library("hosting").launch_shaped_uniform(
+        key.data_ptr(), out.data_ptr(), int(n), int(_layout(partitionable)),
+        _build.stream(key.device))
+    _build.raise_on(err, "shaped_uniform")
+    shaped_uniform.launches += 1
+    return out
+
+
+shaped_uniform.launches = 0
 
 
 # the Poisson kernel's work words a (device, stream): the ticket counter

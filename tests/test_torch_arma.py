@@ -86,12 +86,14 @@ def test_spot_bounds_and_default_coefficients_match():
 
 
 def test_arma_orders_outside_the_pinned_ones_raise():
-    """q < 2 is refused (XLA's MA(1) order is not pinned; the reference
-    fails at q = 0); the state has the default orders' shapes."""
+    """q = 0 is refused (the reference fails there; MA(1) is pinned since
+    and held in tests/test_torch_streams_rest.py); the state has the
+    orders' shapes, the default ARMA(4, 2) and an ARMA(1, 1)."""
     key = ps.prng_key(0, CPU)
-    with pytest.raises(NotImplementedError, match="q >= 2"):
-        ps.arma_rents(key, 0.35, 2, ar=(0.5,), ma=(0.3,), device=CPU)
-    s = ps.arma_rents(key, 0.35, 2, device=CPU)
-    st = s.init_fn(s.params)
-    assert st["hist"].shape == (2, 4) and st["eps"].shape == (2, 2)
-    assert torch.equal(st["hist"], torch.zeros((2, 4)))
+    with pytest.raises(ValueError, match="q >= 1"):
+        ps.arma_rents(key, 0.35, 2, ar=(0.5,), ma=(), device=CPU)
+    for kw, p, q in (({}, 4, 2), (dict(ar=(0.5,), ma=(0.3,)), 1, 1)):
+        s = ps.arma_rents(key, 0.35, 2, device=CPU, **kw)
+        st = s.init_fn(s.params)
+        assert st["hist"].shape == (2, p) and st["eps"].shape == (2, q)
+        assert torch.equal(st["hist"], torch.zeros((2, p)))

@@ -1,7 +1,8 @@
 """Kernels F, M, the fused D and S (alpha-RR and the table variant, under
 Model 1 and on a Model-2 service slab, of up to 32 levels), P's Poisson
-(both branches), Model-2 variants (up to 32 levels) and ARMA rents on one
-row, and the serving engine, on the card:
+(both branches), Model-2 variants (up to 32 levels), ARMA rents (at q = 1
+too, and on one row), the shaped uniform of one key, and the serving
+engine, on the card:
 held against their plain versions (the ``cuda`` tests skip without a card;
 run them on the card with ``python -m pytest -m cuda
 tests/test_torch_cuda.py``).  D and S are held bit for bit
@@ -606,7 +607,8 @@ def test_normal_kernel_matches_plain(case, part):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("part", [True, False])
-@pytest.mark.parametrize("pq", [(4, 2), (1, 2), (2, 3), (8, 8)])
+@pytest.mark.parametrize("pq", [(4, 2), (1, 2), (2, 3), (8, 8), (1, 1),
+                                (2, 1), (4, 1)])
 def test_arma_kernel_matches_plain(pq, part):
     """Chunks in a row, the state carried.  R = 301 (8 rows a block, R off
     the block's rows): a ragged chunk (not a tile multiple, chunk % 4 !=
@@ -637,11 +639,13 @@ def test_arma_kernel_matches_plain(pq, part):
                 assert torch.equal(a, b), (R, t0, chunk)
             k_state, p_state = k[:2], pl[:2]
         assert H.arma_rents_chunk.launches == before + len(chunks)
+    assert H.arma_rents_chunk.ma1_launches >= (q == 1) * 7
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("part", [True, False])
-@pytest.mark.parametrize("pq", [(4, 2), (1, 2), (2, 3), (3, 3), (8, 8)])
+@pytest.mark.parametrize("pq", [(4, 2), (1, 2), (2, 3), (3, 3), (8, 8),
+                                (1, 1), (2, 1), (3, 1)])
 def test_arma_kernel_on_one_row_matches_plain(pq, part):
     """One row (R = 1: XLA's dots are FMA chains there, the kernel's
     kDotChain instances): Figs 23-25's 4,000 slots in one chunk, then a
@@ -662,6 +666,40 @@ def test_arma_kernel_on_one_row_matches_plain(pq, part):
         for a, b in zip(k, pl):
             assert torch.equal(a, b), (t0, chunk)
         k_state, p_state = k[:2], pl[:2]
+
+
+def test_shaped_uniform_takes_the_plain_version_only_on_the_cpu():
+    """``jax.random.uniform(key, (n,))`` of one key: on the CPU the wrapper
+    is its plain version and counts no launch.  In the original layout n =
+    7 hashes the counter pairs (0, 4), (1, 5), (2, 6) and (3, 0) (a 0
+    appended), n = 8 the same but (3, 7): the two draws differ in word 3
+    alone."""
+    key = torch.tensor([0, 17], dtype=torch.int64)
+    before = H.shaped_uniform.launches
+    for part in (True, False):
+        for n in (1, 2, 7, 1024):
+            assert torch.equal(H.shaped_uniform(key, n, part),
+                               H.shaped_uniform_plain(key, n, part))
+    assert H.shaped_uniform.launches == before
+    even, odd = (H.shaped_uniform_plain(key, n, False) for n in (8, 7))
+    same = even[:7] == odd
+    assert same[[0, 1, 2, 4, 5, 6]].all() and not same[3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", [True, False])
+@pytest.mark.parametrize("n", [1, 2, 3, 1024, 6001 * 7, 2 ** 20 + 1])
+def test_shaped_uniform_kernel_matches_plain(n, part):
+    """The shaped uniform of one key: ``jax.random.choice``'s (1,024,)
+    draw, ``model2_service_matrix``'s (6,001, 7) one (T * R odd), a
+    million words and one more, one, two and three words."""
+    dev = _card()
+    key = torch.tensor([7, 2 ** 32 - 3], dtype=torch.int64, device=dev)
+    before = H.shaped_uniform.launches
+    k = H.shaped_uniform(key, n, part)
+    torch.cuda.synchronize()
+    assert H.shaped_uniform.launches == before + 1
+    assert torch.equal(k, H.shaped_uniform_plain(key, n, part))
 
 
 # ----------------------------------------------------------------------

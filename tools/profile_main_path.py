@@ -2,7 +2,7 @@
 """Where the time of the port's main paths goes on one CUDA card.
 
     python3 tools/profile_main_path.py [--T 16384]
-        [--path fleet|figures|serving|both] [--only FIGURE ...]
+        [--path fleet|figures|serving|composed|both] [--only FIGURE ...]
 
 Fleet path: the ``chip_smoke.py`` workload at full width (4,096 rows, K = 3,
 chunks of 4,096) for a shorter horizon under ``torch.profiler``: alpha-RR
@@ -22,6 +22,12 @@ slot; the alpha-RR / RR fan-out, then MDP and ABC) at horizon T; the
 device time is grouped as for the fleet path, the ARMA, Poisson and
 service kernels each on their own.  ``--only`` names the figure modules
 (``chip_smoke.FIGURES``' keys) to profile, without the legs.
+
+Composed leg (``--path composed``): ``chip_smoke.py``'s phase 13 at
+horizon T, the alpha-RR / RR fan-out and the OPT with its backtracked
+schedule over the weighted mixture of arrivals and the regime-switched
+rents; grouped as the fleet path, kernels B and E and the shaped uniform
+each on their own.
 
 Serving path: zamba2-1.2b at full width and depth in bf16 (seeded random
 weights), one ``serve_slot`` of 8 prompts of 2,048 tokens under the full
@@ -79,7 +85,10 @@ FLEET_GROUPS = (
     ("kernel P (GE chain)", ("ge_chain_kernel",)),
     ("kernel P (ARMA)", ("arma_rents_kernel",)),
     ("kernel P (Poisson)", ("poisson_kernel",)),
-    ("kernel P (Model-2 service)", ("model2_service_kernel",)))
+    ("kernel P (Model-2 service)", ("model2_service_kernel",)),
+    ("kernel P (shaped uniform)", ("shaped_uniform_kernel",)),
+    ("kernel B (backtrack)", ("dp_backtrack_kernel",)),
+    ("kernel E (schedule pricing)", ("schedule_kernel",)))
 
 
 def profiled(label, fn, top=10, groups=()):
@@ -181,6 +190,14 @@ def profile_figures(T, dev, only=None):
              top=12, groups=FLEET_GROUPS)
 
 
+def profile_composed(T, dev):
+    grid = cs.fleet_grid(cs.N_M, cs.N_ALPHA, dev)
+    scen = cs.composed_scenario(cs.COMPOSED_B, dev)
+    for name, fn in cs.composed_runs(grid, scen, T, cs.CHUNK, dev).items():
+        profiled(f"composed leg: {name}, T={T}", fn, top=12,
+                 groups=FLEET_GROUPS)
+
+
 def profile_serving(dev):
     spec = get_arch("zamba2-1.2b")
     eng = cs.ServingEngine(spec, generator=torch.Generator(dev).manual_seed(0),
@@ -200,8 +217,8 @@ def profile_serving(dev):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--T", type=int, default=16384)
-    ap.add_argument("--path", choices=("fleet", "figures", "serving", "both"),
-                    default="both")
+    ap.add_argument("--path", choices=("fleet", "figures", "serving",
+                                       "composed", "both"), default="both")
     ap.add_argument("--only", nargs="*", choices=tuple(cs.FIGURES),
                     help="with --path figures: these figure modules only, "
                          "none of the fan-out legs")
@@ -221,6 +238,8 @@ def main() -> int:
         profile_fleet(args.T, dev)
     if args.path == "figures":
         profile_figures(args.T, dev, args.only)
+    if args.path == "composed":
+        profile_composed(args.T, dev)
     if args.path in ("serving", "both"):
         profile_serving(dev)
     return 0
