@@ -274,6 +274,8 @@ from repro_torch.core import (FleetBatch, HostingCosts, HostingGrid,  # noqa: E4
                               evaluate_schedule_fleet, mc_summary,
                               offline_opt_fleet, run_fleet)
 from repro_torch.core import scenarios as sc  # noqa: E402
+from repro_torch.core import services as SV  # noqa: E402
+from repro_torch.core.costs import ServiceSet, joint_hosting_grid  # noqa: E402
 from repro_torch.core.arrivals import GilbertElliot  # noqa: E402
 from repro_torch.core.policies import (ABCPolicy, AlphaRR,  # noqa: E402
                                        MDPPolicy, RetroRenting,
@@ -354,7 +356,16 @@ KERNEL_SYMBOLS = {
                           "a Model-2 slab)",
     "dp_minplus": "dp_minplus_kernel",
     "dp_backtrack": "dp_backtrack_kernel<BULK>",
-    "schedule_chunk": "schedule_kernel<SVC, FMA, BULK>",
+    "schedule_chunk": "schedule_kernel<SVC, FMA, BULK, false>",
+    "schedule_chunk matrix": "schedule_kernel<SVC, FMA, BULK, true> (a "
+                             "joint grid's explicit fetch matrix)",
+    "joint_slab": "joint_slab_kernel<SVC>",
+    "joint_slab w": "joint_slab_kernel<true> (the w route: w = fma(c, lv, "
+                    "svc) on a slab of 17 to 32 states)",
+    "dp_fwd_model2 joint": "dp_fwd_kernel<K, ARGS, true> (a joint grid's "
+                           "slab and fetch matrices)",
+    "dp_minplus joint": "dp_minplus_kernel<KB, CW> (a joint grid's fetch "
+                        "matrices, 17 to 32 states, on G's w)",
     "sim_chunk_alpha_rr": "sim_kernel<K, false, false>",
     "sim_chunk_alpha_rr_svc": "sim_kernel<K, true, false>",
     "sim_chunk_alpha_rr_svc wide": "sim_kernel<K, true, false> (a slab of "
@@ -2212,21 +2223,28 @@ POISSON_GE_SASS = "poisson_kernelILb1ELb1E"
 def sass_with_lines(frag):
     """[(opcode, [hosting.cu lines])] of the built hosting library's
     kernel whose mangled name holds ``frag``, in order: ``nvdisasm -c -gi``
-    on the library's cubin (``cuobjdump -xelf``) gives each instruction's
+    on the library's cubins (``cuobjdump -xelf`` of each part's object,
+    ``_build.library_objects``) gives each instruction's
     source line and the lines it is inlined at, a comment a frame,
     innermost first (lines of other files, the CUDA headers', are
     dropped).  Subroutines reached by
     CALL, placed after the kernel's own code (the divisions' and square
     roots' slow paths), are left out."""
     bin_dir = Path(_build._nvcc()).parent
+    texts = []
     with tempfile.TemporaryDirectory() as tmp:
-        subprocess.run([str(bin_dir / "cuobjdump"), "-xelf", "all",
-                        str(_build.library_path("hosting"))], cwd=tmp,
-                       capture_output=True, check=True, timeout=300)
-        texts = [subprocess.run([str(bin_dir / "nvdisasm"), "-c", "-gi",
-                                 str(c)], capture_output=True, text=True,
-                                check=True, timeout=600).stdout
-                 for c in sorted(Path(tmp).glob("*.cubin"))]
+        # a directory an object: the parts' cubins share one name
+        for i, obj in enumerate(_build.library_objects("hosting")):
+            d = Path(tmp) / str(i)
+            d.mkdir()
+            subprocess.run([str(bin_dir / "cuobjdump"), "-xelf", "all",
+                            str(obj)], cwd=d, capture_output=True,
+                           check=True, timeout=300)
+            texts += [subprocess.run([str(bin_dir / "nvdisasm"), "-c", "-gi",
+                                      str(c)], capture_output=True,
+                                     text=True, check=True,
+                                     timeout=600).stdout
+                      for c in sorted(d.glob("*.cubin"))]
     bodies = []
     for text in texts:
         lines = text.splitlines()
@@ -4082,17 +4100,577 @@ def composed_leg(dev, timings):
     return launched
 
 
+# ----------------------------------------------------------------------
+# Phase 14: the service axis (core/services.py): N services sharing one
+# edge's storage; kernel G, E's matrix route, D on joint grids.
+# ----------------------------------------------------------------------
+
+# benchmarks/kernel_bench.py:multi_service's sets and scenario at the width
+# users run: instance i's N services three_level(4 + i + n, 0.3, 0.4) at
+# capacity 1.0 (J = 6 at N = 2, 19 at N = 4); GE-Poisson arrivals (0.3,
+# 0.2, 2.0, 0.2), spot rents at mean 0.5, Model-2 service of up to 6
+# requests a slot
+SVC_B, SVC_N, SVC_T = 2048, 2, 16384
+SVC_WIDE_B, SVC_WIDE_N, SVC_WIDE_T, SVC_WIDE_CHUNK = 1024, 4, 4096, 2048
+SVC_MAX = 6
+# card == CPU: each leg's first instances, at this horizon and chunk
+SVC_SUB_B, SVC_SUB_T, SVC_SUB_CHUNK = 2, 1024, 512
+# G's cases past the legs' own slabs: (instances, N, chunk, sub-slab
+# levels, J, side channel): one slot, J = 16 and 17 (the fused D's edge),
+# 19, 27, 32 (D on a finished w's), ragged rows and chunks
+G_CASES = ((1, 1, 1, 2, 1, True), (255, 2, 1001, 4, 16, False),
+           (253, 2, 999, 5, 17, True), (1021, 4, 2047, 3, 19, True),
+           (31, 3, 333, 3, 27, False), (33, 4, 97, 3, 32, True),
+           (7, 1, 4097, 32, 32, True))
+
+
+def service_sets(B, N):
+    """kernel_bench.multi_service's sets: B instances of N three-level
+    services at capacity 1.0."""
+    return [ServiceSet(tuple(HostingCosts.three_level(4.0 + i + n, 0.3, 0.4)
+                             for n in range(N)), capacity=1.0)
+            for i in range(B)]
+
+
+def joint_sets(J):
+    """A one-instance set with J joint states: two four-level services
+    (16), two five-level ones at capacity 1 (17), four three-level ones at
+    capacity 1.5 (32), or ``service_sets``' (6 and 19)."""
+    k4 = dict(levels=(0.0, 0.2, 0.45, 1.0), g=(1.0, 0.61, 0.33, 0.0))
+    k5 = dict(levels=(0.0, 0.1, 0.3, 0.55, 1.0), g=(1.0, 0.8, 0.5, 0.21, 0.0))
+    ss = {6: lambda: service_sets(1, 2)[0],
+          16: lambda: ServiceSet((HostingCosts(M=5.0, **k4),
+                                  HostingCosts(M=6.0, **k4))),
+          17: lambda: ServiceSet((HostingCosts(M=5.0, **k5),
+                                  HostingCosts(M=7.0, **k5)), capacity=1.0),
+          19: lambda: service_sets(1, 4)[0],
+          32: lambda: ServiceSet(service_sets(1, 4)[0].services,
+                                 capacity=1.5)}[J]()
+    require(ss.J == J, f"the set of {J} joint states has {ss.J}")
+    return ss
+
+
+def service_scenario_of(sf, device, seed=40):
+    """The [B]-row scenario of a ``ServiceFleet``: the drivers tile it over
+    the services (``tile_services``: each service's arrival and service
+    keys salted, the rent shared)."""
+    B = sf.B
+    g = sf.lane_grid(device).g[::sf.N].contiguous()
+    return sc.combine(
+        sc.ge_arrivals(sc.split_keys(sc.prng_key(seed, device), B), 0.3,
+                       0.2, 2.0, 0.2, B, device=device),
+        sc.spot_rents(sc.prng_key(seed + 1, device), 0.5, B, device=device),
+        svc=sc.model2_service(sc.prng_key(seed + 2, device), g, B, SVC_MAX,
+                              device=device))
+
+
+def joint_case(dev, B, N, chunk, K, J, model2, side, seed):
+    """G's inputs: x (0 .. 9), rents, a side channel (-1 .. 2) or None,
+    idx levels in [0, K); a Model-2 sub-slab on a half-integer grid, or
+    Model 1's g_lane."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    BN = B * N
+    x = t(rng.integers(0, 10, (BN, chunk)).astype(np.int32))
+    c = t(rng.random((BN, chunk)).astype(np.float32))
+    sd = (t(rng.integers(-1, 3, (BN, chunk)).astype(np.int32)) if side
+          else None)
+    idx = t(rng.integers(0, K, (B, N, J)).astype(np.int32))
+    if model2:
+        return (x, c, sd, t((rng.integers(0, 13, (BN, chunk, K)) / 2)
+                            .astype(np.float32)), None, idx)
+    return x, c, sd, None, t(rng.random((B, N, J)).astype(np.float32)), idx
+
+
+def joint_dp_case(dev, J, R, chunk, t0, seed):
+    """D's chunk on R rows of the joint grid of J states: rents and a
+    joint slab on a half-integer grid (ties between the states that share
+    a total level), horizons inside the chunk, every other row's frontier
+    +inf past state 0."""
+    grid = joint_hosting_grid([joint_sets(J)] * R, device=dev)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    c = t((rng.integers(0, 5, (R, chunk)) / 2).astype(np.float32))
+    svc = t((rng.integers(0, 9, (R, chunk, J)) / 2).astype(np.float32))
+    T_len = t(rng.integers(t0 - 3, t0 + chunk + 3, R).astype(np.int32))
+    J0 = torch.zeros((R, J), dtype=torch.float32, device=dev)
+    J0[1::2, 1:] = float("inf")
+    return (J0, c, svc, grid.levels, grid.mask, grid.M, T_len, t0)
+
+
+def d_joint_check(args, label):
+    """D on a joint slab == its plain version, with and without the argmin
+    table."""
+    for with_args in (False, True):
+        kd = H.dp_fwd_model2(*args, with_args=with_args)
+        torch.cuda.synchronize()
+        pd = H.dp_fwd_model2_plain(*args, with_args=with_args)
+        require(tree_equal(kd, pd), f"D on a joint grid differs from its "
+                                    f"plain version ({label}, args "
+                                    f"{with_args})")
+
+
+def service_kernel_checks(dev):
+    """Kernel G, D on joint grids and E's matrix route against their plain
+    versions, bit for bit.  G (``joint_slab``) on the service leg's own
+    tiled slab (2,048 instances x 2 services, 4,096 slots, J = 6) under
+    Model 2 and Model 1, on the wide leg's (1,024 x 4 services, J = 19),
+    and on ``G_CASES`` under both; G's w route (``slab_w``) on the wide
+    leg's joint slab and at 17 to 32 levels with and without a column map.
+    D on the leg's joint slab (the fused D, J = 6, with and without the
+    argmin table: joint fetch matrices are not monotone in the level and
+    tie), on half-integer slabs at J = 1 .. 32 (the fused D to 16, G's w
+    and D on a finished w from 17); J = 33 raises ``ValueError`` on the
+    card.  E's matrix route on the joint schedule D and B give for the
+    leg's chunk (bulk and 4-byte routes), at its tile and ring edges, under
+    Model 1, at J = 16, 17 and 32 with levels out of range, each with the
+    rent's product fused and not.  Returns the records of G, G's w route,
+    the fused D on the joint slab, the wide route and E's matrix route,
+    each timed at its leg's shape."""
+    rec = {}
+    lib = _build.library("hosting")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+
+    # G on random cases
+    for case in G_CASES:
+        for model2 in (True, False):
+            a = joint_case(dev, *case[:5], model2, case[5], sum(case[:5]))
+            kg = H.joint_slab(*a)
+            torch.cuda.synchronize()
+            require(tree_equal(kg, H.joint_slab_plain(*a)),
+                    f"G differs from its plain version ({case}, Model "
+                    f"{2 if model2 else 1})")
+    log(f"G ok: {len(G_CASES)} cases (J = 1 .. 32, ragged), Model 1 and 2")
+
+    # G on the service leg's own slab
+    sf = SV.service_fleet(service_sets(SVC_B, SVC_N), SVC_T)
+    scen = service_scenario_of(sf, dev)
+    tiled, jsc = SV.service_scenario(sf, scen), SV.joint_scenario(sf, scen)
+    t0 = SVC_T - CHUNK
+    _, slab = tiled.chunk_fn(tiled.params, tiled.init_fn(tiled.params),
+                             sc.base.chunk_tids(t0, CHUNK, dev))
+    idx, g_lane = jsc.params["idx"], jsc.params["g_lane"]
+    g2 = (slab.x, slab.c, slab.side, slab.svc, None, idx)
+    g1 = (slab.x, slab.c, slab.side, None, g_lane, idx)
+    for label, a in (("Model 2", g2), ("Model 1", g1)):
+        kg = H.joint_slab(*a)
+        torch.cuda.synchronize()
+        require(tree_equal(kg, H.joint_slab_plain(*a)),
+                f"G differs from its plain version (the service leg's slab, "
+                f"{label})")
+    ms = cuda_ms(lambda: H.joint_slab(*g2), reps=10, batch=10)
+    m1_ms = cuda_ms(lambda: H.joint_slab(*g1), reps=10, batch=10)
+    plain_ms, _ = timed_once(lambda: H.joint_slab_plain(*g2))
+    x_j, c_j, side_j, svc_j = H.joint_slab(*g2)
+    B, N, J = idx.shape
+    rec["joint_slab"] = dict(
+        replaces="src/repro/core/services.py:251-270 (no TPU kernel: the "
+                 "XLA reduction of _joint_fns' chunk_fn)",
+        ms=ms, plain_ms=plain_ms, model1_ms=m1_ms, max_abs_err=0.0,
+        ops=B * CHUNK * (N * J + N), nbytes=nbytes(*g2[:4], idx, x_j, c_j,
+                                                   side_j, svc_j),
+        shape=f"B={B} N={N} chunk={CHUNK} sub-slab K={slab.svc.shape[2]} "
+              f"J={J}: the service leg's tiled slab, Model 2 (model1_ms: "
+              f"Model 1's g_lane)")
+    log(f"G timed: {ms:.4f} ms (Model 1 {m1_ms:.4f}), byte bound "
+        f"{rec['joint_slab']['nbytes'] / PEAK_BYTES * 1e3:.4f} ms; plain "
+        f"{plain_ms:.1f} ms")
+
+    # the fused D on the leg's joint slab, B on its table, E's matrix route
+    jg = sf.joint_grid(dev)
+    T_len = torch.full((B,), SVC_T, dtype=torch.int32, device=dev)
+    T_len[::7] = t0 + 1000                      # horizons inside the chunk
+    dargs = (dp_frontier0(B, J, dev), c_j, svc_j, jg.levels, jg.mask, jg.M,
+             T_len, t0)
+    d_joint_check(dargs, f"the service leg's slab, J = {J}")
+    ms = cuda_ms(lambda: H.dp_fwd_model2(*dargs), reps=10, batch=10)
+    args_ms = cuda_ms(lambda: H.dp_fwd_model2(*dargs, with_args=True),
+                      reps=10, batch=10)
+    plain_ms, _ = timed_once(lambda: H.dp_fwd_model2_plain(*dargs))
+    Jk, targs = H.dp_fwd_model2(*dargs, with_args=True)
+    rec["dp_fwd_model2 joint"] = dict(
+        replaces="src/repro/kernels/hosting.py:116 (pallas_call :138): "
+                 "dp_minplus_kc with an explicit joint fetch matrix",
+        ms=ms, args_ms=args_ms, plain_ms=plain_ms, max_abs_err=0.0,
+        ops=minplus_ops(B, CHUNK, J) + 2 * B * CHUNK * J,
+        nbytes=nbytes(*dargs[:7], Jk),
+        shape=f"R={B} chunk={CHUNK} J={J}: the service leg's joint slab "
+              f"and fetch matrices (args_ms: the argmin table written)")
+    log(f"D on the joint slab timed: {ms:.4f} ms, with the argmin table "
+        f"{args_ms:.4f}; byte bound "
+        f"{rec['dp_fwd_model2 joint']['nbytes'] / PEAK_BYTES * 1e3:.4f} ms; "
+        f"plain {plain_ms:.1f} ms")
+    for JJ, R, n in ((1, 5, 3), (6, 1021, 1001), (16, 1021, 1001),
+                     (17, 253, 999), (19, 1024, 4096), (32, 33, 97)):
+        if JJ == 1:
+            a = joint_dp_case(dev, 16, R, n, 4096, JJ + R)
+            a = (a[0][:, :1].contiguous(), a[1], a[2][:, :, :1].contiguous(),
+                 a[3][:, :1].contiguous(), a[4][:, :1].contiguous(),
+                 a[5][:, :1, :1].contiguous(), *a[6:])
+        else:
+            a = joint_dp_case(dev, JJ, R, n, 4096, JJ + R)
+        d_joint_check(a, f"J = {JJ}, {R} x {n}, half-integer ties")
+    log("D ok on joint grids: the fused D at J = 1, 6 and 16, G's w and D "
+        "on a finished w at 17, 19 and 32, with and without the argmin "
+        "table")
+    big = joint_hosting_grid([joint_sets(19)], J=33, device=dev)
+    for fn in (lambda: H.dp_fwd_model2(
+            torch.zeros((1, 33), device=dev), c_j[:1].contiguous(),
+            torch.zeros((1, CHUNK, 33), device=dev), big.levels, big.mask,
+            big.M, T_len[:1].contiguous(), t0),
+            lambda: H.joint_slab(slab.x[:4].contiguous(),
+                                 slab.c[:4].contiguous(), None,
+                                 slab.svc[:4].contiguous(), None,
+                                 torch.zeros((1, 4, 33), dtype=torch.int32,
+                                             device=dev))):
+        try:
+            fn()
+        except ValueError:
+            continue
+        raise RuntimeError("33 joint states did not raise ValueError")
+    log("J = 33: D and G raise ValueError on the card")
+
+    k = torch.argmin(Jk, dim=1).to(torch.int32)
+    _, r = H.dp_backtrack(k, targs)
+    rng = np.random.default_rng(28)
+    carry = (t(rng.integers(0, J, B).astype(np.int32)),
+             {"sums": t((rng.random((B, 3)) * 100).astype(np.float32)),
+              "counts": t(rng.integers(0, 50, (B, J)).astype(np.int32))})
+    et = lib.be_tile_slots(2 + J, CHUNK, J)
+    ering = lib.be_ring_stages() * et
+    r_odd = t(rng.integers(-1, J + 1, (B, 1001)).astype(np.int32))
+
+    def e_case(rows, n, rr, tt0=t0, model1=False):
+        a_ = (jg.levels[:rows].contiguous(), jg.M[:rows].contiguous(),
+              T_len[:rows].contiguous(), tt0,
+              (carry[0][:rows].contiguous(),
+               {k_: v[:rows].contiguous() for k_, v in carry[1].items()}),
+              rr[:rows, :n].contiguous(), c_j[:rows, :n].contiguous())
+        if model1:
+            return a_, dict(x=x_j[:rows, :n].contiguous(),
+                            g=jg.g[:rows].contiguous())
+        return a_, dict(svc=svc_j[:rows, :n].contiguous())
+
+    def e_wide(JJ, R, n, seed):
+        a = joint_dp_case(dev, JJ, R, n, 4096, seed)
+        rg = np.random.default_rng(seed)
+        cr = (t(rg.integers(0, JJ, R).astype(np.int32)),
+              {"sums": t((rg.random((R, 3)) * 100).astype(np.float32)),
+               "counts": t(rg.integers(0, 9, (R, JJ)).astype(np.int32))})
+        return ((a[3], a[5], a[6], 4096, cr, t(rg.integers(
+            -1, JJ + 1, (R, n)).astype(np.int32)), a[1]), dict(svc=a[2]))
+
+    leg = ((jg.levels, jg.M, T_len, t0, carry, r, c_j), dict(svc=svc_j))
+    ecases = [
+        ("the service leg's joint schedule",) + leg,
+        ("the same, 4-byte route", leg[0][:5] + (H.misaligned(r), c_j),
+         leg[1]),
+        ("R - 3 rows, 1,001 slots, odd t0, levels out of range",
+         *e_case(B - 3, 1001, r_odd, t0 + 1)),
+        (f"a tile - 1 ({et - 1} slots)", *e_case(B - 3, et - 1, r)),
+        (f"a tile + 1 ({et + 1})", *e_case(B - 3, et + 1, r)),
+        (f"the ring - 1 ({ering - 1}), 300 rows",
+         *e_case(300, ering - 1, r)),
+        (f"the ring + 1 ({ering + 1}), 300 rows",
+         *e_case(300, ering + 1, r)),
+        (f"33 rows, the ring + 4 ({ering + 4}): bulk",
+         *e_case(33, ering + 4, r)),
+        ("Model 1, 1,001 slots", *e_case(B, 1001, r_odd, model1=True)),
+        ("J = 16, 1,021 rows x 1,001", *e_wide(16, 1021, 1001, 16)),
+        ("J = 17, 253 rows x 999", *e_wide(17, 253, 999, 17)),
+        ("J = 32, 300 rows x 777", *e_wide(32, 300, 777, 32))]
+    for name, a, kw in ecases:
+        for fma in (False, True):
+            before = H.schedule_chunk.matrix_launches
+            ke = H.schedule_chunk(*a, **kw, acc_fma=fma)
+            torch.cuda.synchronize()
+            require(H.schedule_chunk.matrix_launches == before + 1,
+                    f"E's matrix route did not launch ({name})")
+            require(tree_equal(ke, H.schedule_chunk_plain(*a, **kw,
+                                                          acc_fma=fma)),
+                    f"E's matrix route differs from its plain version "
+                    f"({name}, the rent fused {fma})")
+        log(f"E's matrix route ok: {name}, the rent fused and not")
+    a, kw = ecases[0][1], ecases[0][2]
+    ms = cuda_ms(lambda: H.schedule_chunk(*a, **kw), reps=10, batch=10)
+    a_n, kw_n = ecases[1][1], ecases[1][2]
+    narrow_ms = cuda_ms(lambda: H.schedule_chunk(*a_n, **kw_n), reps=10,
+                        batch=10)
+    plain_ms, _ = timed_once(lambda: H.schedule_chunk_plain(*a, **kw))
+    out = H.schedule_chunk(*a, **kw)
+    rec["schedule_chunk matrix"] = dict(
+        replaces="src/repro/core/simulator.py:390 (no TPU kernel: the "
+                 "lax.scan of schedule_chunk_core, _fetch_between on a "
+                 "matrix M, :131)",
+        ms=ms, narrow_ms=narrow_ms, plain_ms=plain_ms, max_abs_err=0.0,
+        ops=B * CHUNK * 8,
+        nbytes=nbytes(jg.levels, jg.M, T_len, carry[0], *carry[1].values(),
+                      r, c_j, svc_j, out[0], *out[1].values()),
+        shape=f"R={B} chunk={CHUNK} J={J}: the joint OPT's schedule priced "
+              f"on its joint slab (bulk route; narrow_ms: the 4-byte "
+              f"route)")
+    log(f"E's matrix route timed: {ms:.4f} ms, the 4-byte route "
+        f"{narrow_ms:.4f}; byte bound "
+        f"{rec['schedule_chunk matrix']['nbytes'] / PEAK_BYTES * 1e3:.4f} "
+        f"ms; plain {plain_ms:.1f} ms")
+
+    # the wide leg's joint slab: G (N = 4, J = 19), its w route, the wide D
+    wsf = SV.service_fleet(service_sets(SVC_WIDE_B, SVC_WIDE_N), SVC_WIDE_T)
+    wscen = service_scenario_of(wsf, dev, seed=50)
+    wjs, wtiled = (SV.joint_scenario(wsf, wscen),
+                   SV.service_scenario(wsf, wscen))
+    wt0 = SVC_WIDE_T - SVC_WIDE_CHUNK
+    _, wsub = wtiled.chunk_fn(wtiled.params, wtiled.init_fn(wtiled.params),
+                              sc.base.chunk_tids(wt0, SVC_WIDE_CHUNK, dev))
+    for model2 in (True, False):
+        a = (wsub.x, wsub.c, wsub.side, wsub.svc if model2 else None,
+             None if model2 else wjs.params["g_lane"], wjs.params["idx"])
+        kg = H.joint_slab(*a)
+        torch.cuda.synchronize()
+        require(tree_equal(kg, H.joint_slab_plain(*a)),
+                f"G differs from its plain version (the wide leg's slab, "
+                f"Model {2 if model2 else 1})")
+    wx, wc, _, wsvc = H.joint_slab(wsub.x, wsub.c, wsub.side, wsub.svc, None,
+                                   wjs.params["idx"])
+    wg = wsf.joint_grid(dev)
+    WB, WJ = wg.B, wg.K
+    wT = torch.full((WB,), SVC_WIDE_T, dtype=torch.int32, device=dev)
+    wT[::7] = wt0 + 1000
+    wargs = (dp_frontier0(WB, WJ, dev), wc, wsvc, wg.levels, wg.mask, wg.M,
+             wT, wt0)
+    d_joint_check(wargs, f"the wide leg's slab, J = {WJ}")
+    sw = (wc, wsvc, wg.levels, wg.mask)
+    ok = tree_equal(H.slab_w(*sw), H.slab_w_plain(*sw))
+    for R, n, K, Kf, cols in ((300, 333, 32, 32, False),
+                              (257, 97, 17, 31, True), (1, 1, 32, 32, False)):
+        rg = np.random.default_rng(R + K)
+        a = (t(rg.random((R, n)).astype(np.float32)),
+             t((rg.integers(0, 13, (R, n, Kf)) / 2).astype(np.float32)),
+             t(np.sort(rg.random((R, K)), axis=1).astype(np.float32)),
+             t(rg.random((R, K)) < 0.9),
+             t(np.sort(rg.integers(0, Kf, (R, K)), axis=1)
+               .astype(np.int32)) if cols else None)
+        ok = ok and tree_equal(H.slab_w(*a), H.slab_w_plain(*a))
+    torch.cuda.synchronize()
+    require(ok, "G's w route differs from its plain version")
+    log("G's w route ok: the wide leg's slab, 17 to 32 levels, a column map")
+    ms = cuda_ms(lambda: H.slab_w(*sw), reps=10, batch=10)
+    plain_ms, _ = timed_once(lambda: H.slab_w_plain(*sw))
+    w = H.slab_w(*sw)
+    rec["joint_slab w"] = dict(
+        replaces="src/repro/core/policies/offline_opt.py:138 (no TPU "
+                 "kernel: the w assembly before dp_minplus_kc, on a slab "
+                 "of more than 16 states)",
+        ms=ms, plain_ms=plain_ms, max_abs_err=0.0, ops=2 * WB *
+        SVC_WIDE_CHUNK * WJ, nbytes=nbytes(*sw, w),
+        shape=f"R={WB} chunk={SVC_WIDE_CHUNK} K={WJ}: the wide leg's joint "
+              f"slab")
+    # the wide route's D: D on G's finished w, the wide leg's valid slots
+    tids = torch.arange(wt0, wt0 + SVC_WIDE_CHUNK, dtype=torch.int32,
+                        device=dev)
+    dm = (wargs[0], w, wg.M, tids[None, :] < wT[:, None])
+    k, p = H.dp_minplus(*dm), H.dp_minplus_plain(*dm)
+    torch.cuda.synchronize()
+    require(tree_equal(k, p), "D on the wide leg's finished w differs from "
+                              "its plain version")
+    ms = cuda_ms(lambda: H.dp_minplus(*dm), reps=10, batch=10)
+    plain_ms, _ = timed_once(lambda: H.dp_minplus_plain(*dm))
+    rec["dp_minplus joint"] = dict(
+        replaces="src/repro/kernels/hosting.py:116 (pallas_call :138): "
+                 "dp_minplus_kc at 17 to 32 joint states",
+        ms=ms, plain_ms=plain_ms, max_abs_err=0.0,
+        ops=minplus_ops(WB, SVC_WIDE_CHUNK, WJ), nbytes=nbytes(*dm, *k),
+        shape=f"R={WB} chunk={SVC_WIDE_CHUNK} K={WJ}: the wide leg's joint "
+              f"fetch matrices on G's finished w (the argmin table written)")
+    for name in ("joint_slab w", "dp_minplus joint"):
+        e = rec[name]
+        log(f"{name} timed: {e['ms']:.4f} ms, byte bound "
+            f"{e['nbytes'] / PEAK_BYTES * 1e3:.4f} ms; plain "
+            f"{e['plain_ms']:.1f} ms")
+    return rec
+
+
+def service_runs(sf, scen, T, chunk, dev, wide=False):
+    """The service axis' runs: the joint OPT materialised with its
+    schedule and (not ``wide``) checkpointed cost only, alpha-RR on every
+    service's lane (its schedules kept) and the per-service OPT with its
+    schedule."""
+    kw = dict(scenario=scen, chunk_size=chunk, device=dev)
+    runs = {"joint OPT": lambda: SV.offline_opt_services(sf, **kw)}
+    if wide:
+        return runs
+    pol = SV.alpha_rr_per_service(sf, dev)
+    runs.update({
+        "joint OPT checkpointed": lambda: SV.offline_opt_services(
+            sf, checkpointed=True, collect_schedule=False, **kw),
+        "alpha-RR lanes": lambda: SV.run_fleet_services(pol, sf, **kw),
+        "OPT lanes": lambda: SV.offline_opt_per_service(sf, **kw)})
+    return runs
+
+
+def check_service_runs(out, sf, T, label):
+    """Finite results of the expected shape, the joint OPT's schedules
+    within the capacity and priced at its cost, checkpointed == its cost,
+    the per-service OPT below alpha-RR and its sum over the services below
+    the joint OPT.  Returns the share of alpha-RR's slots over the
+    capacity."""
+    tol = 1e-3 * T
+    jo = out["joint OPT"]
+    sched = jo.service_schedules()
+    require(jo.cost.shape == (sf.B,) and np.isfinite(jo.cost).all()
+            and sched.shape == (sf.B, sf.N, T)
+            and (np.abs(jo.joint.sim.total - jo.cost) <= tol).all(),
+            f"{label}: the joint OPT not finite / wrong shape / mispriced")
+    require(not SV.capacity_overflow(sf, sched).any(),
+            f"{label}: the joint OPT's schedules exceed the capacity")
+    if "alpha-RR lanes" not in out:
+        return None
+    require(np.array_equal(out["joint OPT checkpointed"].cost, jo.cost),
+            f"{label}: checkpointed joint OPT != materialised")
+    lanes, opt = out["alpha-RR lanes"], out["OPT lanes"]
+    tot = lanes.fleet.total
+    require(tot.shape == (sf.B * sf.N,) and np.isfinite(tot).all()
+            and np.isfinite(opt.cost).all()
+            and (tot >= opt.cost - tol).all()
+            and (lanes.fleet.level_slots.sum(1) == T).all(),
+            f"{label}: lanes not finite / out of order")
+    require((opt.cost.reshape(sf.B, sf.N).sum(1) <= jo.cost + tol).all(),
+            f"{label}: the per-service OPT's sum above the joint OPT")
+    over = SV.capacity_overflow(sf, lanes.fleet.r_hist)
+    require(over.shape == (sf.B, T) and (over >= 0).all(),
+            f"{label}: capacity_overflow shape / sign")
+    return float((over > 0).mean())
+
+
+def same_service_runs(a, b, label):
+    """``service_runs``' results ``a`` and ``b`` equal bit for bit: the
+    lanes' sums and schedules, each OPT's cost, schedule and its price."""
+    sim_fields = ("total", "rent", "service", "fetch", "level_slots")
+    for k in a:
+        ra, rb = a[k], b[k]
+        if k == "alpha-RR lanes":
+            ra, rb = ra.fleet, rb.fleet
+            fields = sim_fields + ("r_hist",)
+        else:
+            if k != "OPT lanes":
+                ra, rb = ra.joint, rb.joint
+            fields = ("cost", "r_hist")
+            require((ra.sim is None) == (rb.sim is None), f"{label}: {k}")
+            for f in sim_fields if ra.sim is not None else ():
+                require(np.array_equal(getattr(ra.sim, f),
+                                       getattr(rb.sim, f)),
+                        f"{label}: {k} sim {f}")
+        for f in fields:
+            va, vb = getattr(ra, f), getattr(rb, f)
+            require((va is None and vb is None) or np.array_equal(va, vb),
+                    f"{label}: {k} {f}")
+
+
+def service_leg(dev, timings):
+    """The service axis at the width users run (``kernel_bench.
+    multi_service``'s sets and scenario): 2,048 instances x 2 services =
+    4,096 lanes, T = 16,384 in chunks of 4,096: alpha-RR per service (its
+    schedules' ``capacity_overflow``), ``offline_opt_per_service`` with its
+    schedule, the joint OPT (J = 6) materialised with its schedule and
+    checkpointed cost only; then the wide joint OPT, 1,024 instances x 4
+    services (J = 19), T = 4,096 in chunks of 2,048, through G's w, D on a
+    finished w, B and E's matrix route.  Each run three times, counted over
+    the first pass; card == CPU on each leg's first 2 instances, T = 1,024
+    in chunks of 512.  Returns the launch counts of the counted passes and
+    those of the joint rows: the fused D's launches on the J = 6 slab, D's
+    on the wide leg's finished w."""
+    sf = SV.service_fleet(service_sets(SVC_B, SVC_N), SVC_T)
+    wsf = SV.service_fleet(service_sets(SVC_WIDE_B, SVC_WIDE_N), SVC_WIDE_T)
+    ops.reset_launches()
+    scen = service_scenario_of(sf, dev)
+    out, (launched, plain) = timed_passes(
+        service_runs(sf, scen, SVC_T, CHUNK, dev), dev, "service", timings,
+        counted=True)
+    n = SVC_T // CHUNK
+    # every run draws the 4 streams a chunk (GE's chain and its Poisson
+    # emissions, ARMA rents, service); G reduces them for the joint runs;
+    # the materialised runs draw again to price the schedule
+    want = {"joint_slab": 3 * n, "dp_fwd_model2": 3 * n,
+            "dp_fwd_model2 args": 2 * n, "dp_backtrack": 2 * n,
+            "schedule_chunk": 2 * n, "schedule_chunk matrix": n,
+            "sim_chunk_alpha_rr_svc": n, "model2_service_chunk": 6 * n,
+            "ge_bernoulli_chunk": 6 * n, "poisson_chunk": 6 * n,
+            "arma_rents_chunk": 6 * n, "joint_slab w": 0, "dp_minplus": 0}
+    got = {k: launched[k] for k in want}
+    require(got == want and not any(plain.values()),
+            f"service leg launched {got}, expected {want}; plain {plain}")
+    over = check_service_runs(out, sf, SVC_T, "service leg")
+    joint_d = launched["dp_fwd_model2"] - n       # the lanes' OPT: n
+    log(f"service leg: {sf.B} instances x {sf.N} services, J = "
+        f"{sf.joint_grid('cpu').K}, T={SVC_T}: " + ", ".join(
+            f"{k} {median_us(timings, 'service/' + k):.1f} us"
+            for k in out) + f" a run (median of {REPEATS}); alpha-RR's "
+        f"slots over the capacity {over:.4f}; per-slot means joint OPT / "
+        f"the per-service OPT's sum / alpha-RR's sum "
+        f"{float(out['joint OPT'].cost.mean()) / SVC_T:.6f} / "
+        f"{float(out['OPT lanes'].cost.mean()) * SVC_N / SVC_T:.6f} / "
+        f"{float(out['alpha-RR lanes'].fleet.total.mean()) * SVC_N / SVC_T:.6f}"
+        f"; launches {launched}")
+
+    before = launch_counts()
+    wscen = service_scenario_of(wsf, dev, seed=50)
+    wout, (wl, wplain) = timed_passes(
+        service_runs(wsf, wscen, SVC_WIDE_T, SVC_WIDE_CHUNK, dev, wide=True),
+        dev, "service wide", timings, counted=True)
+    wl = {k: wl[k] - before[k] for k in wl}
+    wn = SVC_WIDE_T // SVC_WIDE_CHUNK
+    wwant = {"joint_slab": 3 * wn, "joint_slab w": wn, "dp_minplus": wn,
+             "dp_fwd_model2": 0, "dp_backtrack": wn,
+             "schedule_chunk matrix": wn}
+    wgot = {k: wl[k] for k in wwant}
+    require(wgot == wwant and not any(wplain.values()),
+            f"wide service leg launched {wgot}, expected {wwant}; plain "
+            f"{wplain}")
+    check_service_runs(wout, wsf, SVC_WIDE_T, "wide service leg")
+    log(f"wide service leg: {wsf.B} instances x {wsf.N} services, J = "
+        f"{wsf.joint_grid('cpu').K}, T={SVC_WIDE_T}: joint OPT "
+        f"{median_us(timings, 'service wide/joint OPT'):.1f} us a run; "
+        f"per-slot mean {float(wout['joint OPT'].cost.mean()) / SVC_WIDE_T:.6f}"
+        f"; launches {wgot}")
+    launched = {k: launched[k] + wl[k] for k in launched}
+
+    # card == CPU on each leg's first instances
+    for lsf, lscen, label, wide in ((sf, scen, "service", False),
+                                    (wsf, wscen, "wide service", True)):
+        res = []
+        for d in (dev, "cpu"):
+            sub_sf = SV.service_fleet(lsf.sets[:SVC_SUB_B], SVC_SUB_T)
+            sub = lscen._replace(params=sc.base.tree_map(
+                lambda a: a[:SVC_SUB_B].to(d), lscen.params))
+            t0 = time.perf_counter()
+            res.append({k: f() for k, f in service_runs(
+                sub_sf, sub, SVC_SUB_T, SVC_SUB_CHUNK, d, wide).items()})
+            if d == "cpu":
+                log(f"{label} leg on the CPU: {SVC_SUB_B} instances, "
+                    f"T={SVC_SUB_T}: {time.perf_counter() - t0:.1f} s")
+        same_service_runs(*res, f"{label} leg: card != CPU")
+        log(f"{label} leg: card == CPU on {SVC_SUB_B} instances, "
+            f"T={SVC_SUB_T}")
+    return launched, {"dp_fwd_model2 joint": joint_d,
+                      "dp_minplus joint": wl["dp_minplus"]}
+
+
 def launch_counts():
     """Every kernel's launches, (``poisson_chunk rejection``) the Poisson
     launches in which the kernel drew an item on Hormann's branch, as the
     kernel counts them, (``... wide``) the launches on a Model-2 slab of
     more than ``H.DPF_MAX_K`` levels, (``... args``) D's launches that
-    write the argmin table and (``... ma1``) the ARMA launches at q = 1."""
+    write the argmin table, (``... ma1``) the ARMA launches at q = 1,
+    (``... matrix``) E's launches on a matrix-M grid and (``... w``) G's
+    launches that write only a DP's w."""
     return {**{k.__name__: k.launches for k in ops.KERNELS},
             "poisson_chunk rejection": H.poisson_rejection_launches(),
             **{f"{k.__name__} wide": k.wide_launches for k in ops.WIDE},
             **{f"{k.__name__} args": k.args_launches for k in ops.ARGS},
-            **{f"{k.__name__} ma1": k.ma1_launches for k in ops.MA1}}
+            **{f"{k.__name__} ma1": k.ma1_launches for k in ops.MA1},
+            **{f"{k.__name__} matrix": k.matrix_launches
+               for k in ops.MATRIX},
+            **{f"{k.__name__} w": k.w_launches for k in ops.W}}
 
 
 def card_calls():
@@ -4251,6 +4829,14 @@ def main() -> int:
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    phase_s, t_phase = {}, [t_start]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        phase_s[name] = round(now - t_phase[0], 1)
+        t_phase[0] = now
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+
     dev = DEVICE
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4267,13 +4853,17 @@ def main() -> int:
     t = time.perf_counter()
     _build.build_all()
     log(f"kernel build: {time.perf_counter() - t:.1f} s (nvcc seconds per "
-        f"library, run together: {_build.BUILD_SECONDS})")
+        f"library, run together: {_build.BUILD_SECONDS}; the hosting "
+        f"library's parts: {_build.BUILD_PART_SECONDS})")
+    phase_done("1 build")
 
     # phase 2
     rec = kernel_checks(dev)
     rec.update(schedule_kernel_checks(dev))
     table_and_args_edges(dev)
+    rec.update(service_kernel_checks(dev))
     log("kernels == plain versions on the card")
+    phase_done("2 kernels")
 
     # phase 3: the fleet path at full width; counters read around it only
     timings = {}
@@ -4304,6 +4894,7 @@ def main() -> int:
         log(f"main {name}: {median_us(timings, 'main/' + name):.1f} us "
             f"(median of {REPEATS}); per-slot seed means of instances 0..3: "
             f"{np.round(s[key][:4] / T_MAIN, 6).tolist()}")
+    phase_done("3 fleet")
 
     # phase 4: GE arrivals, NA rents, antithetic seeds; counters read
     # around it only: per run and chunk one GE and one NA launch, per run
@@ -4335,6 +4926,7 @@ def main() -> int:
             f"{np.round(s[key][:4] / T_GE, 6).tolist()}")
     # the fleet path's launches: both legs
     launches = {k: main_launches[k] + ge_launches[k] for k in main_launches}
+    phase_done("4 GE leg")
 
     # phase 5: card == CPU on reduced legs
     for label, make in (("main", bernoulli_uniform), ("ge", ge_na)):
@@ -4354,16 +4946,20 @@ def main() -> int:
         log(f"card == CPU: {label} leg, {N_SEEDS * SMALL_INSTANCES} rows, "
             f"T={T_SMALL} ({timings[f'small-{label}-cpu/alpha-RR'][0]:.1f} "
             f"s alpha-RR on the CPU)")
+    phase_done("5 card == CPU")
 
     # phases 6 to 10: the policy fan-out on the card, the paper's Figs
     # 1-8, 10-15 and 17-22, the fan-out at the fleet leg's width, the
     # Model-2 fan-out and the Markov fan-out at that width; each counted
     # path adds its launches
     fanout_checks(dev)
+    phase_done("6 fan-out")
     fig_counts = figures(dev, timings)
     gcurve_card_vs_cpu(dev)
+    phase_done("7 figures")
     legs = [fanout_leg(dev, timings), model2_fanout_leg(dev, timings),
             markov_fanout_leg(dev, timings)]
+    phase_done("8-10 fan-out legs")
     for counts in fig_counts + legs:
         for k in launches:
             launches[k] += counts[k]
@@ -4394,6 +4990,7 @@ def main() -> int:
     for name in ("dp_backtrack", "schedule_chunk", "dp_minplus",
                  "dp_fwd_model1 args"):
         require(launches[name] > 0, f"{name} never launched")
+    phase_done("11-12 obs legs")
     # phase 13: the composed scenario at the fleet leg's width; no earlier
     # path drew a shaped uniform or ARMA rents at q = 1
     for name in ("shaped_uniform", "arma_rents_chunk ma1"):
@@ -4401,19 +4998,38 @@ def main() -> int:
     counts = composed_leg(dev, timings)
     for k in launches:
         launches[k] += counts[k]
+    phase_done("13 composed")
 
-    # phase 14: F and M against their plain versions
+    # phase 14: the service axis; no earlier path launched G, E's matrix
+    # route or the wide route's D, and no plain code runs on the card
+    # there (fma32 among it)
+    for name in ("joint_slab", "joint_slab w", "schedule_chunk matrix"):
+        require(launches[name] == 0, f"{name} ran before the service leg")
+    counts, joint = service_leg(dev, timings)
+    for k in counts:
+        launches[k] += counts[k]
+    launches.update(joint)
+    for name in ("joint_slab", "joint_slab w", "schedule_chunk matrix",
+                 "dp_minplus joint", "dp_fwd_model2 joint"):
+        require(launches[name] > 0, f"{name} never launched")
+    phase_done("14 service")
+
+    # phase 15: F and M against their plain versions
     rec.update(lm_kernel_checks(dev))
+    phase_done("15 F and M")
 
-    # phase 15: the LM serving path at full width and depth
+    # phase 16: the LM serving path at full width and depth
     serve_launches = serving_path(dev, timings)
     log(f"serving path launches: {serve_launches}")
     for k in (FA.flash_attention_wgmma, FA.flash_attention_fma,
               SSD.ssd_scan_mma, SSD.ssd_scan_fma):
         launches[k.__name__] = serve_launches[k.__name__]
 
-    # phase 16: card == CPU for the serving path
+    phase_done("16 serving")
+
+    # phase 17: card == CPU for the serving path
     serving_card_vs_cpu(dev)
+    phase_done("17 serving card == CPU")
     log(f"timings (us; a card run the median of {REPEATS} passes, a CPU "
         f"run and the serving path one): " + json.dumps(
             {k: round(median_us(timings, k), 1) for k in timings}))
@@ -4440,7 +5056,7 @@ def main() -> int:
                     "fma_pipe_bound_ms", "xu_pipe_bound_ms",
                     "pipe_bound_ms", "bound_pipe", "hash_pipe_ops",
                     "round_pipe_ops", "slow_pipe_ops", "five_blocks_ratio",
-                    "abc_ms", "parts_ms", "fleet_ms",
+                    "abc_ms", "parts_ms", "fleet_ms", "model1_ms",
                     "fleet_plain_ms", "fleet_plain_rows", "fleet_bound_ms",
                     "fleet_int_pipe_bound_ms", "fleet_k3_ms",
                     "fleet_ms_by_k", "lane_k",
@@ -4460,6 +5076,7 @@ def main() -> int:
             if key in r:
                 entry[key] = r[key]
         kernels.append(entry)
+    log(f"phase seconds: {json.dumps(phase_s)}")
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,6 +1,7 @@
 """Carry the reference's numpy parameters across to the port's tensors:
-``tree_from_numpy`` for the hosting engine's nests, ``params_from_jax``
-for a model's parameter tree."""
+``tree_from_numpy`` for the hosting engine's nests, ``grid_from_jax`` and
+``service_set_from_jax`` for its grids (a matrix ``M`` too) and
+multi-service sets, ``params_from_jax`` for a model's parameter tree."""
 from __future__ import annotations
 
 import numpy as np
@@ -59,3 +60,24 @@ def params_from_jax(tree, device=None):
         return _leaf_to_tensor(t, dev)
 
     return carry(tree)
+
+
+def grid_from_jax(grid, device=None):
+    """The reference's ``HostingGrid`` (any object with ``M``, ``levels``,
+    ``g`` and ``mask`` arrays; ``M`` [B] or a joint grid's [B, J, J]
+    fetch matrices) as the port's, the same values and dtypes, on
+    ``device`` (None: the card)."""
+    from repro_torch.core.costs import HostingGrid
+    dev = resolve_device(device)
+    return HostingGrid(*(_leaf_to_tensor(getattr(grid, f), dev)
+                         for f in ("M", "levels", "g", "mask")))
+
+
+def service_set_from_jax(sset):
+    """The reference's ``ServiceSet`` (its services' ``HostingCosts``
+    fields and the capacity) as the port's."""
+    from repro_torch.core.costs import HostingCosts, ServiceSet
+    return ServiceSet(tuple(
+        HostingCosts(M=cc.M, levels=tuple(cc.levels), g=tuple(cc.g),
+                     c_min=cc.c_min, c_max=cc.c_max)
+        for cc in sset.services), capacity=sset.capacity)

@@ -11,8 +11,13 @@ Per-slot cost of holding level ``r`` in slot ``t`` and switching to ``r'``:
 ``HostingGrid`` stacks B of them into float32 tensors on a device, padded
 to a common K; the per-slot cost pieces (``fetch_cost`` ..
 ``per_slot_cost_matrix``) are the reference's, vectorised over the level
-axis.  Matrix-valued ``M`` (joint multi-service grids) and ``ServiceSet``
-come with the service-axis slice (ROADMAP.md, Queue 1 item 11).
+axis.
+
+``ServiceSet`` is N services sharing one edge's storage under a capacity on
+the sum of their hosted fractions (arXiv 2107.10446): its feasible joint
+states become the states of a ``HostingGrid`` whose ``M`` is an explicit
+[B, J, J] fetch matrix (``joint_hosting_grid``), which the offline DP and
+schedule pricing take as they take a scalar ``M``.
 """
 from __future__ import annotations
 
@@ -119,10 +124,19 @@ class HostingGrid:
     ``False`` in ``mask``, so the policies and the DP never select them.
 
     Attributes:
-      M:      [B]    fetch costs.
+      M:      [B]    fetch costs -- or [B, K, K] explicit fetch matrices
+              (joint multi-service grids).
       levels: [B, K] hosting levels (padded).
       g:      [B, K] service costs per level (padded).
       mask:   [B, K] True on real levels.
+
+    With a matrix ``M``, entry ``M[b, j, j']`` is the fetch cost of the
+    transition j -> j' instead of ``M * (lv[j'] - lv[j])^+``: the joint
+    grids of ``ServiceSet``, whose ``levels`` hold each joint state's total
+    hosted fraction (so the rent ``c_t * levels[j]`` prices the whole
+    edge).  The offline DP and schedule pricing take such grids; the
+    online policies need the rank-one form and refuse them (run each
+    service as its own fleet lane instead, ``core.services``).
     """
 
     M: torch.Tensor
@@ -163,6 +177,11 @@ class HostingGrid:
     @property
     def K(self) -> int:
         return self.levels.shape[1]
+
+    @property
+    def matrix_m(self) -> bool:
+        """Whether ``M`` holds explicit [K, K] fetch matrices."""
+        return self.M.dim() > 1
 
     @property
     def device(self) -> torch.device:
@@ -212,6 +231,145 @@ class HostingGrid:
         no-partial policy sees on the same sample path."""
         idx = self.endpoint_columns().to(torch.int64)[:, None, :]
         return torch.gather(svc, 2, idx.expand(-1, svc.shape[1], -1))
+
+
+# ----------------------------------------------------------------------
+# Multi-service sets: N services sharing one edge node's storage under a
+# capacity on the sum of their hosted fractions (Online Service Caching
+# and Routing at the Edge, arXiv 2107.10446).
+# ----------------------------------------------------------------------
+
+#: Feasibility slack of the capacity constraint: a state whose hosted
+#: fractions sum exactly to the capacity is feasible even when the float64
+#: sum lands an ulp above it (0.1 + 0.2 against 0.3); a real excess is not.
+CAPACITY_EPS = 1e-9
+
+
+@dataclasses.dataclass(frozen=True)
+class ServiceSet:
+    """N hosting services sharing ONE edge node's storage.
+
+    Each service keeps its own ``HostingCosts``; the edge bounds the sum of
+    the hosted fractions by ``capacity`` (None: N, unconstrained).  The
+    joint problem's states are the feasible tuples of per-service level
+    indices in ``np.ndindex`` order, so state 0 is all-off, the engine's
+    start; ``joint_grid`` lowers the problem to a ``HostingGrid`` with a
+    matrix ``M``.
+    """
+
+    services: Tuple[HostingCosts, ...]
+    capacity: Optional[float] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "services", tuple(self.services))
+        if not self.services:
+            raise ValueError("need at least one service")
+        if self.capacity is not None and self.capacity < 0:
+            raise ValueError(f"capacity must be >= 0, got {self.capacity}")
+        if not self.joint_states().size:
+            raise ValueError(
+                f"capacity {self.capacity} excludes even the all-off state")
+
+    @property
+    def N(self) -> int:
+        return len(self.services)
+
+    @property
+    def cap(self) -> float:
+        """The effective capacity (None means N: unconstrained)."""
+        return float(self.N) if self.capacity is None else float(self.capacity)
+
+    def joint_states(self) -> np.ndarray:
+        """[J, N] int32 per-service level indices of every feasible joint
+        state, row-major (all-off first): feasible iff the float64 sum of
+        the hosted fractions is ``<= capacity + CAPACITY_EPS``.  Computed
+        once a set and returned read-only (a fleet's grid and scenario
+        read it several times a set)."""
+        st = self.__dict__.get("_joint_states")
+        if st is None:
+            Ks = tuple(cc.K for cc in self.services)
+            idx = np.array(list(np.ndindex(*Ks)), np.int32).reshape(
+                -1, len(Ks))
+            frac = np.zeros((idx.shape[0],), np.float64)
+            for n, cc in enumerate(self.services):
+                frac += np.asarray(cc.levels, np.float64)[idx[:, n]]
+            st = idx[frac <= self.cap + CAPACITY_EPS]
+            st.flags.writeable = False
+            object.__setattr__(self, "_joint_states", st)
+        return st
+
+    @property
+    def J(self) -> int:
+        """The number of feasible joint states."""
+        return self.joint_states().shape[0]
+
+    def joint_levels(self) -> np.ndarray:
+        """[J] float32 total hosted fraction of each joint state, summed in
+        float32 in ascending n (at N = 1 the service's own levels)."""
+        idx = self.joint_states()
+        tot = np.zeros((idx.shape[0],), np.float32)
+        for n, cc in enumerate(self.services):
+            tot = tot + np.asarray(cc.levels, np.float32)[idx[:, n]]
+        return tot
+
+    def joint_g(self) -> np.ndarray:
+        """[J] float32 summed service-cost curve ``sum_n g_n(lv_n[j])``, in
+        ascending n: a joint state's Model-1 price under one common
+        arrival stream."""
+        idx = self.joint_states()
+        g = np.zeros((idx.shape[0],), np.float32)
+        for n, cc in enumerate(self.services):
+            g = g + np.asarray(cc.g, np.float32)[idx[:, n]]
+        return g
+
+    def joint_fetch_matrix(self) -> np.ndarray:
+        """[J, J] float32 explicit fetch matrix ``sum_n M_n * (lv_n[j'] -
+        lv_n[j])^+``: the per-service terms in ascending n, each in float32
+        in ``dp_fetch_matrix``'s op order, so at N = 1 it is bitwise the
+        rank-one matrix the single-service DP builds."""
+        idx = self.joint_states()
+        fm = None
+        for n, cc in enumerate(self.services):
+            lvn = np.asarray(cc.levels, np.float32)[idx[:, n]]
+            term = np.float32(cc.M) * np.maximum(
+                lvn[None, :] - lvn[:, None], np.float32(0.0))
+            fm = term if fm is None else fm + term
+        return fm
+
+    def joint_grid(self, device=None) -> "HostingGrid":
+        """This set's joint problem as a one-row matrix-``M`` grid."""
+        return joint_hosting_grid([self], device=device)
+
+
+def joint_hosting_grid(sets: Sequence[ServiceSet], J: Optional[int] = None,
+                       device=None) -> HostingGrid:
+    """B ``ServiceSet`` joint problems stacked into one matrix-``M``
+    ``HostingGrid``, mixed state counts padded to a common J (or to
+    ``J=``): a padded state repeats its set's last feasible state's level
+    and g with ``mask=False`` and zero fetch rows and columns (the DP
+    prices it ``+inf``, so it is never reached)."""
+    if not sets:
+        raise ValueError("need at least one service set")
+    dev = resolve_device(device)
+    J_min = max(ss.J for ss in sets)
+    J = J_min if J is None else int(J)
+    if J < J_min:
+        raise ValueError(f"J={J} < max set J {J_min}")
+    B = len(sets)
+    M = np.zeros((B, J, J), np.float32)
+    lv = np.ones((B, J), np.float32)
+    g = np.zeros((B, J), np.float32)
+    mask = np.zeros((B, J), bool)
+    for i, ss in enumerate(sets):
+        Ji = ss.J
+        M[i, :Ji, :Ji] = ss.joint_fetch_matrix()
+        lv[i, :Ji] = ss.joint_levels()
+        lv[i, Ji:] = lv[i, Ji - 1]
+        g[i, :Ji] = ss.joint_g()
+        g[i, Ji:] = g[i, Ji - 1]
+        mask[i, :Ji] = True
+    t = lambda a: torch.from_numpy(a).to(dev)     # noqa: E731
+    return HostingGrid(M=t(M), levels=t(lv), g=t(g), mask=t(mask))
 
 
 # ----------------------------------------------------------------------

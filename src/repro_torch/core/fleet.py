@@ -734,7 +734,7 @@ def _schedule_result(fleet: FleetBatch, feed: _Feed, r_pad, T_len,
     g, dev = fleet.grid, feed.dev
     carry = (torch.zeros((g.B,), dtype=torch.int32, device=dev),
              sim_acc0(g.B, g.K, dev))
-    fma = xla_acc_fma(None, g.B, g.K, fleet=True)
+    fma = xla_acc_fma(None, g.B, g.K, fleet=True, matrix=g.matrix_m)
     gen = feed.gen0()
     for i in range(feed.n_chunks):
         gen, slab = feed.slab(i, gen)

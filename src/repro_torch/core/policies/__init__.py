@@ -15,6 +15,15 @@ from repro_torch.core.policies.baselines import (ABCPolicy, MDPPolicy,
                                                  mdp_step, solve_abc,
                                                  solve_mdp, static_init,
                                                  static_step, table_init)
+# last: offline_opt imports the simulator, which imports the modules above.
+# Unlike the reference, the function offline_opt is not re-exported: it
+# would shadow the module of the same name (repro_torch.core.policies.
+# offline_opt), which callers import from this package.
+from repro_torch.core.policies.offline_opt import (BatchOfflineResult,
+                                                   OfflineResult,
+                                                   brute_force_opt,
+                                                   offline_opt_batch,
+                                                   offline_opt_no_partial)
 
 __all__ = [
     "AlphaRR", "RetroRenting", "alpha_rr_grid_params", "alpha_rr_hosting",
@@ -24,4 +33,6 @@ __all__ = [
     "SlotObs", "as_policy_lanes", "freeze_invalid", "StaticPolicy",
     "MDPPolicy", "ABCPolicy", "solve_mdp", "solve_abc", "static_init",
     "static_step", "table_init", "mdp_step", "abc_step",
+    "offline_opt_batch", "offline_opt_no_partial",
+    "brute_force_opt", "OfflineResult", "BatchOfflineResult",
 ]

@@ -44,7 +44,15 @@ def alpha_rr_params(costs: HostingCosts, device=None) -> dict:
 
 
 def alpha_rr_grid_params(grid: HostingGrid) -> dict:
-    """[R]-leading params: fetch cost ``M``, ``levels`` and level ``mask``."""
+    """[R]-leading params: fetch cost ``M``, ``levels`` and level ``mask``.
+    A joint multi-service grid (matrix ``M``) is refused: the policy needs
+    the scalar rank-one fetch cost."""
+    if grid.matrix_m:
+        raise ValueError(
+            "online policies need a scalar per-instance fetch cost; joint "
+            "multi-service grids (matrix-valued M) are for the offline DP "
+            "and schedule evaluation only — run each service as its own "
+            "fleet lane instead (core.services.run_fleet_services)")
     return {"M": grid.M.to(torch.float32),
             "levels": grid.levels.to(torch.float32),
             "mask": grid.mask}

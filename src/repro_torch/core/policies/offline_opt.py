@@ -18,6 +18,10 @@ The per-instance and batched OPT (``offline_opt``, ``offline_opt_batch``,
 (rent, then the add), as the reference's eager ops do -- unlike the fleet
 DP, whose ``c * lv + svc`` is one FMA -- run it through D on a finished
 ``w`` (K <= 32), backtrack with B and price the schedule with kernel E.
+
+``offline_opt_joint`` is the same DP over a ``ServiceSet``'s feasible
+joint states with its explicit fetch matrix (``brute_force_joint_opt``
+its exhaustive oracle, for the tests).
 """
 from __future__ import annotations
 
@@ -27,11 +31,11 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.core.costs import (HostingCosts, HostingGrid,
+from repro_torch.core.costs import (HostingCosts, HostingGrid, ServiceSet,
                                     per_slot_cost_matrix)
-from repro_torch.core.simulator import (BatchSimResult, SimResult, _batch_obs,
-                                        evaluate_schedule,
-                                        evaluate_schedule_batch)
+# the module, not its names: the simulator imports the policies package,
+# whose __init__ imports this module
+from repro_torch.core import simulator as _sim
 from repro_torch.kernels import hosting, ops
 from repro_torch.kernels.hosting import fma32
 
@@ -40,18 +44,18 @@ from repro_torch.kernels.hosting import fma32
 class OfflineResult:
     cost: float
     r_hist: np.ndarray        # [T] int64
-    sim: SimResult
+    sim: _sim.SimResult
 
 
 @dataclasses.dataclass
 class BatchOfflineResult:
     cost: np.ndarray          # [B]
     r_hist: np.ndarray        # [B, T]
-    sim: BatchSimResult
+    sim: _sim.BatchSimResult
 
 
-def _eval(costs, r_hist, x, c, svc=None, device=None) -> SimResult:
-    return evaluate_schedule(costs, r_hist, x, c, svc, device=device)
+def _eval(costs, r_hist, x, c, svc=None, device=None) -> _sim.SimResult:
+    return _sim.evaluate_schedule(costs, r_hist, x, c, svc, device=device)
 
 
 def dp_frontier0(R: int, K: int, device) -> torch.Tensor:
@@ -63,12 +67,11 @@ def dp_frontier0(R: int, K: int, device) -> torch.Tensor:
 
 def dp_fetch_matrix(M32, lv32) -> torch.Tensor:
     """[R, K, K] ``fetch[r, k_prev, k_next] = M * (lv_next - lv_prev)^+``
-    for scalar per-row ``M`` [R]; explicit fetch matrices (joint
-    multi-service grids) come with the service-axis slice."""
-    if M32.dim() != 1:
-        raise NotImplementedError(
-            "matrix-valued M (joint multi-service grids) comes with the "
-            "service-axis slice (ROADMAP.md, Queue 1 item 11)")
+    for scalar per-row ``M`` [R]; an explicit [R, K, K] fetch matrix (the
+    joint multi-service grids of ``ServiceSet``) passes through untouched
+    (at N = 1 it is bitwise this rank-one product)."""
+    if M32.dim() > 1:
+        return M32
     diff = lv32[:, None, :] - lv32[:, :, None]
     return M32[:, None, None] * torch.clamp_min(diff, 0.0)
 
@@ -126,7 +129,7 @@ def offline_opt_batch(grid: HostingGrid, x, c, svc=None) -> BatchOfflineResult:
     on the grid's device: the whole-horizon DP, the backtracked schedule
     and its cost (``evaluate_schedule_batch``).  Padded levels are priced
     ``+inf``.  Bitwise the reference's ``offline_opt_batch``."""
-    x, c, svc_t, _ = _batch_obs(grid, x, c, svc, None)
+    x, c, svc_t, _ = _sim._batch_obs(grid, x, c, svc, None)
     lv32 = grid.levels.to(torch.float32)
     s = (x[:, :, None].to(torch.float32) * grid.g[:, None, :]
          if svc_t is None else svc_t)
@@ -135,7 +138,7 @@ def offline_opt_batch(grid: HostingGrid, x, c, svc=None) -> BatchOfflineResult:
     w = c[:, :, None] * lv32[:, None, :] + s
     w = torch.where(grid.mask[:, None, :], w, float("inf"))
     cost, r_hist = _dp_whole(grid.M.to(torch.float32), lv32, w)
-    sim = evaluate_schedule_batch(grid, r_hist, x, c, svc_t)
+    sim = _sim.evaluate_schedule_batch(grid, r_hist, x, c, svc_t)
     return BatchOfflineResult(cost=cost.cpu().numpy().astype(np.float64),
                               r_hist=r_hist.cpu().numpy().astype(np.int64),
                               sim=sim)
@@ -180,7 +183,7 @@ def brute_force_opt(costs: HostingCosts, x, c, svc=None,
     grid = HostingGrid.from_costs([costs] * len(seqs), device=device)
     rep = lambda a: None if a is None else np.broadcast_to(
         np.asarray(a)[None], (len(seqs),) + np.shape(a))
-    res = evaluate_schedule_batch(grid, seqs, rep(x), rep(c), rep(svc))
+    res = _sim.evaluate_schedule_batch(grid, seqs, rep(x), rep(c), rep(svc))
     best, best_i = np.inf, None
     for i in range(len(seqs)):
         # the one-instance total, summed as evaluate_schedule sums it
@@ -191,3 +194,92 @@ def brute_force_opt(costs: HostingCosts, x, c, svc=None,
     seq = seqs[best_i]
     return OfflineResult(cost=best, r_hist=seq,
                          sim=_eval(costs, seq, x, c, svc, device))
+
+
+# ----------------------------------------------------------------------
+# The joint multi-service OPT: the same DP over a ServiceSet's feasible
+# joint states, fetches priced by its explicit joint matrix.
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass
+class JointOfflineResult:
+    """The joint capacity-respecting optimum of one ``ServiceSet``:
+    ``states`` [T] indices into ``sset.joint_states()``, ``r_hist`` [N, T]
+    each service's level indices (every slot feasible by construction)."""
+
+    cost: float
+    states: np.ndarray
+    r_hist: np.ndarray
+
+
+def _joint_slot_costs(sset: ServiceSet, xs, c, svcs):
+    """``([T, J] float32 holding costs, [N, T] arrivals)`` of the joint DP,
+    in numpy: the rent product first, then one service add a service in
+    ascending n (Model 1 ``float32(x_n) * g_n``, or the given [T, K_n]
+    ``svcs[n]``), so at N = 1 it is bitwise ``per_slot_cost_matrix``."""
+    idx = sset.joint_states()
+    xs = np.asarray(xs)
+    if xs.ndim == 1:
+        xs = np.broadcast_to(xs[None], (sset.N,) + xs.shape)
+    if xs.shape[0] != sset.N:
+        raise ValueError(f"xs has {xs.shape[0]} arrival rows for "
+                         f"{sset.N} services")
+    c32 = np.asarray(c, np.float32)
+    w = c32[:, None] * sset.joint_levels()[None, :]
+    for n, cc in enumerate(sset.services):
+        if svcs is not None and svcs[n] is not None:
+            svc_n = np.asarray(svcs[n], np.float32)
+        else:
+            svc_n = (xs[n][:, None].astype(np.float32)
+                     * np.asarray(cc.g, np.float32)[None, :])
+        w = w + svc_n[:, idx[:, n]]
+    return w, xs
+
+
+def _joint_result(sset: ServiceSet, cost: float, states) -> JointOfflineResult:
+    states = np.asarray(states).astype(np.int64)
+    return JointOfflineResult(cost=cost, states=states,
+                              r_hist=sset.joint_states()[states].T
+                              .astype(np.int64))
+
+
+def offline_opt_joint(sset: ServiceSet, xs, c, svcs=None,
+                      device=None) -> JointOfflineResult:
+    """The exact joint OPT of N services sharing one edge: the one-horizon
+    DP (kernel D on a finished ``w``, J <= 32, then B) over the feasible
+    joint states, the capacity enforced by the state enumeration and the
+    fetches priced by the explicit joint matrix.  ``xs`` [T] (common
+    arrivals) or [N, T]; ``c`` [T] the edge's rents; ``svcs`` an optional
+    list of per-service [T, K_n] Model-2 costs (None entries: Model 1).
+    At N = 1 it is bitwise ``offline_opt``; bitwise the reference's
+    ``offline_opt_joint``.  ``device`` None is the card."""
+    dev = resolve_device(device)
+    w, _ = _joint_slot_costs(sset, xs, c, svcs)
+    fm = torch.from_numpy(sset.joint_fetch_matrix()).to(dev)[None]
+    lv = torch.from_numpy(sset.joint_levels()).to(dev)[None]
+    cost, states = _dp_whole(fm, lv, torch.from_numpy(w).to(dev)[None])
+    return _joint_result(sset, float(cost[0]), states[0].cpu().numpy())
+
+
+def brute_force_joint_opt(sset: ServiceSet, xs, c,
+                          svcs=None) -> JointOfflineResult:
+    """The exhaustive joint oracle (tests only; tiny J**T), in numpy: every
+    joint-state sequence from all-off, each slot ``(cost + fetch) + w`` in
+    float32 -- the DP's own association, so its minimum equals
+    ``offline_opt_joint``'s cost exactly."""
+    w, _ = _joint_slot_costs(sset, xs, c, svcs)
+    fm = sset.joint_fetch_matrix()
+    T, J = w.shape[0], fm.shape[0]
+    best, best_seq = np.inf, None
+    for code in range(J ** T):
+        cost = np.float32(0.0)
+        prev = 0
+        seq = np.empty((T,), np.int64)
+        for t in range(T):
+            k = (code // (J ** t)) % J
+            cost = (cost + fm[prev, k]) + w[t, k]
+            prev = k
+            seq[t] = k
+        if cost < best:
+            best, best_seq = cost, seq
+    return _joint_result(sset, float(best), best_seq)

@@ -88,6 +88,13 @@ class BatchSimResult:
                          r_hist=self.r_hist[i], level_slots=self.level_slots[i])
 
 
+# a policy stepping joint states: alpha-RR refuses a matrix grid as the
+# reference does; the table policies' S on one waits for its item
+_MATRIX_S = ("a static / MDP / ABC policy on a joint multi-service grid "
+             "(matrix-valued M) is not ported yet: ROADMAP.md, Queue 1 item "
+             "19 (S on matrix grids)")
+
+
 def sim_acc0(R: int, K: int, device) -> dict:
     """Zero accumulator: [R, 3] rent/service/fetch sums and the [R, K]
     level-occupancy histogram."""
@@ -106,16 +113,21 @@ def _select(onehot, a):
     return torch.where(onehot, a, 0.0).sum(dim=1)
 
 
-def _fetch_between(M, lv_from, lv_to):
-    """Fetch cost of a transition under scalar ``M``: ``M * (lv_to -
-    lv_from)^+``.  Matrix-valued ``M`` (joint multi-service grids) comes
-    with the service-axis slice."""
+def _fetch_between(M, lv_from, lv_to, on_from=None, on_to=None):
+    """Fetch cost of a transition: ``M * (lv_to - lv_from)^+`` under a
+    scalar ``M`` [R]; under a matrix ``M`` [R, K, K] (joint multi-service
+    grids) the entry ``M[r_from, r_to]`` picked by the one-hot rows
+    ``on_from`` / ``on_to`` [R, K], as the reference's masked sum of ``M``
+    picks it (exact: one term; an index out of range picks 0)."""
+    if M.dim() > 1:
+        sel = on_from[:, :, None] & on_to[:, None, :]
+        return torch.where(sel, M, 0.0).sum(dim=(1, 2))
     return M * torch.clamp_min(lv_to - lv_from, 0.0)
 
 
 def xla_acc_fma(step_fn, R: int, K: int,
                 include_final_fetch: bool = True,
-                fleet: bool = False) -> bool:
+                fleet: bool = False, matrix: bool = False) -> bool:
     """Whether the reference's vmapped scan over R rows of K levels fuses
     a sum's product into its add, ``sum = fma(a, b, sum)``, instead of a
     rounded product and a rounded add.  XLA:CPU contracts them on small
@@ -128,6 +140,8 @@ def xla_acc_fma(step_fn, R: int, K: int,
       (``evaluate_schedule_batch``), or while R * (K + 4) <= 40 in the
       fleet drivers' pricing core (``fleet``: ``evaluate_schedule_fleet``
       and ``offline_opt_fleet``'s schedule, scenario-fused or obs-backed);
+      on a matrix-``M`` grid (``matrix``: a joint multi-service grid, its
+      fetch a masked sum of the matrix) nothing, in either;
     * the static policy: the rent, while R * (K + 3) <= 40;
     * MDP and ABC: the rent (and the fetch, ``xla_fetch_fma``), while R *
       (K + 3) <= 30;
@@ -139,7 +153,7 @@ def xla_acc_fma(step_fn, R: int, K: int,
     One instance run outside a vmap (``run_policy``,
     ``evaluate_schedule``) never contracts."""
     if step_fn is None:
-        return R * (K + (4 if fleet else 3)) <= 40
+        return not matrix and R * (K + (4 if fleet else 3)) <= 40
     if not include_final_fetch:
         return False
     if step_fn is static_step:
@@ -227,6 +241,8 @@ def sim_chunk(policy: PolicyFns, include_final_fetch: bool, lv, g, M, T_len,
     (``xla_acc_fma``); ``fetch_fma``: the fetch too (``xla_fetch_fma``:
     MDP and ABC on small batches)."""
     step = policy.step_fn
+    if M.dim() > 1:
+        raise NotImplementedError(_MATRIX_S)
     if slab.side is None and step is not alpha_rr_step:
         # the reference's engines read a zero side channel when none is given
         slab = slab._replace(side=torch.zeros_like(slab.c, dtype=torch.int32))
@@ -291,7 +307,7 @@ def sim_chunk_lanes(step_fns, include_final_fetch: bool, lane_params,
 # ----------------------------------------------------------------------
 
 _ROUTE = ("route= (the routing-cost term) is not ported yet: ROADMAP.md, "
-          "Queue 1 item 11 (core/services.py)")
+          "Queue 1 item 18 (the route channel)")
 
 
 def _batch_obs(grid: HostingGrid, x, c, svc, side):
@@ -394,7 +410,8 @@ def _price_rows(grid: HostingGrid, r_hist, x, c, svc,
     _, acc = schedule_chunk(grid.levels, grid.M, T_len, 0, carry, r, c,
                             x=None if svc is not None else x,
                             g=None if svc is not None else grid.g, svc=svc,
-                            acc_fma=vmapped and xla_acc_fma(None, B, grid.K))
+                            acc_fma=vmapped and xla_acc_fma(
+                                None, B, grid.K, matrix=grid.matrix_m))
     return _batch_result(acc, r)
 
 

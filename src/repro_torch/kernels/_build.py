@@ -5,9 +5,13 @@ PyTorch headers, so a build takes seconds), compiled by ``nvcc`` into
 ``build/kernels/`` at the root of the checkout under a name keyed by a
 hash of the source and its flags: a changed source builds anew, an
 unchanged one loads the library already there.  Every library has its own
-flags and its own table of entry points (``LIBRARIES``).  Nothing here runs
-at import time; the CPU tests never build.  The checks every wrapper runs
-before a launch (``check_tensor``, ``raise_on``, ``stream``) live here too.
+flags and its own table of entry points (``LIBRARIES``).  A library with
+``PARTS`` is compiled as that many translation units of its one source
+(``-DREPRO_PART=n``, each holding some of the entry points and so
+instantiating only their kernels), all at once, then linked into one
+library.  Nothing here runs at import time; the CPU tests never build.
+The checks every wrapper runs before a launch (``check_tensor``,
+``raise_on``, ``stream``) live here too.
 
 Flags per library:
 
@@ -42,6 +46,12 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 _COMMON = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC")
+#: translation units per library, compiled in parallel (hosting.cu's
+#: REPRO_IN_PART groups: P's light streams and the layout queries, ARMA,
+#: Poisson and Model-2 service, the fused D under Model 1, alpha-RR's S,
+#: S's table variant, B, E and G, then the fused D's Model-2 instances
+#: and D on a finished w)
+PARTS = {"hosting": 8}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # per library: its nvcc flags and the argtypes of every C entry point
@@ -81,10 +91,15 @@ LIBRARIES = {
         "launch_model2_service": (_P,) * 5 + (_I,) * 5 + (_P,),
         # k_in, args, k_out, r, R, chunk, K, stream
         "launch_dp_backtrack": (_P,) * 4 + (_I,) * 3 + (_P,),
-        # lv, g, M, T_len, prev, sums, counts, r, c, x, svc, cols (g / x or
-        # svc / cols NULL), prev_out, sums_out, counts_out, R, chunk, K,
-        # Kf, t0, fma (bit 0 the rent, bit 1 the fetch), stream
-        "launch_schedule": (_P,) * 15 + (_I,) * 6 + (_P,),
+        # lv, g, M ([R], or [R, K, K] with mat), T_len, prev, sums,
+        # counts, r, c, x, svc, cols (g / x or svc / cols NULL), prev_out,
+        # sums_out, counts_out, R, chunk, K, Kf, t0, fma (bit 0 the rent,
+        # bit 1 the fetch), mat, stream
+        "launch_schedule": (_P,) * 15 + (_I,) * 7 + (_P,),
+        # x, c, side, svc, g_lane, idx, lv, kmask (x / side / svc / g_lane
+        # / lv / kmask NULL where unused), x_out, c_out, side_out, svc_out,
+        # w_out (NULL: not written), B, N, chunk, K, J, stream
+        "launch_joint_slab": (_P,) * 13 + (_I,) * 5 + (_P,),
         # B's and E's layout: words a slot, chunk, box; none; words
         "be_tile_slots": (_I,) * 3, "be_ring_stages": (),
         "be_row_stride": (_I,),
@@ -111,8 +126,11 @@ LIBRARIES = {
 }
 
 _LIBS: dict = {}
-#: seconds each library's ``nvcc`` call took (None when it was cached)
+#: seconds each library's build took, its parts' nvcc and the link (None
+#: when it was cached)
 BUILD_SECONDS: dict = {}
+#: seconds each part's nvcc took, by library (the libraries with PARTS)
+BUILD_PART_SECONDS: dict = {}
 
 
 def _nvcc() -> str:
@@ -129,16 +147,42 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     flags = LIBRARIES[name][0]
     src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(flags).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
+                            + str(PARTS.get(name, 1)).encode()
+                            ).hexdigest()[:16]
     return _BUILD_DIR / f"{name}_{digest}.so"
+
+
+def library_objects(name: str) -> list:
+    """The files that hold a built library's device code, a cubin each: a
+    parted library's objects (kept beside it), else the library itself
+    (``cuobjdump -xelf`` names a library's cubins alike, so the parts'
+    are read from their own objects)."""
+    out = library_path(name)
+    n = PARTS.get(name, 1)
+    return [out] if n == 1 else [out.with_suffix(f".part{i}.o")
+                                 for i in range(n)]
+
+
+def _units(name: str, tmp: Path):
+    """The nvcc commands of a library: one that builds it, or one a part
+    (``-c``, objects beside ``tmp``); and the objects to link."""
+    flags, src = LIBRARIES[name][0], str(_CSRC / f"{name}.cu")
+    n = PARTS.get(name, 1)
+    if n == 1:
+        return [[_nvcc(), *flags, "-o", str(tmp), src]], []
+    objs = [tmp.with_suffix(f".part{i}.o") for i in range(n)]
+    compile_flags = [f for f in flags if f != "-shared"]
+    return [[_nvcc(), *compile_flags, "-c", f"-DREPRO_PART={i}", "-o",
+             str(o), src] for i, o in enumerate(objs)], objs
 
 
 def build_all(names=None) -> dict:
     """Compile every named library (all by default) whose hashed file is
-    missing, one ``nvcc`` each, all started together; returns their paths."""
+    missing: every nvcc call (one a library, or one a part) started
+    together, then each parted library linked; returns their paths."""
     names = list(LIBRARIES) if names is None else list(names)
-    procs = {}
+    jobs = {}
     for name in names:
         out = library_path(name)
         if out.exists():
@@ -146,19 +190,54 @@ def build_all(names=None) -> dict:
             continue
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *LIBRARIES[name][0], "-o", str(tmp),
-               str(_CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.PIPE, text=True),
-                       tmp, out, time.perf_counter())
+        cmds, objs = _units(name, tmp)
+        t0 = time.perf_counter()
+        procs = []
+        for i, cmd in enumerate(cmds):
+            log = tmp.with_suffix(f".{i}.log")     # nvcc's output
+            with open(log, "w") as f:
+                procs.append([subprocess.Popen(cmd, stdout=f,
+                                               stderr=subprocess.STDOUT),
+                              log, t0, None])
+        jobs[name] = (procs, objs, tmp, out, t0)
+    # each nvcc's own seconds: poll them all until every one has ended
+    while any(p[3] is None for job in jobs.values() for p in job[0]):
+        for job in jobs.values():
+            for p in job[0]:
+                if p[3] is None and p[0].poll() is not None:
+                    p[3] = time.perf_counter() - p[2]
+        time.sleep(0.05)
     failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{err}")
-            continue
-        os.replace(tmp, out)             # atomic: no half-written library
-        BUILD_SECONDS[name] = time.perf_counter() - t0
+    for name, (procs, objs, tmp, out, t0) in jobs.items():
+        secs, ok = [], True
+        for proc, log, _, sec in procs:
+            secs.append(sec)
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc failed ({proc.returncode}):"
+                              f"\n{log.read_text()}")
+                ok = False
+            log.unlink(missing_ok=True)
+        if objs:
+            BUILD_PART_SECONDS[name] = secs
+            if ok:
+                link = subprocess.run(
+                    [_nvcc(), "-shared", "-o", str(tmp),
+                     *(str(o) for o in objs)],
+                    capture_output=True, text=True)
+                if link.returncode != 0:
+                    failed.append(f"{name}: link failed "
+                                  f"({link.returncode}):\n{link.stderr}")
+                    ok = False
+            # the parts' objects stay beside the library, moved before it
+            # (library_objects: their cubins, one a part, for the SASS)
+            for o, kept in zip(objs, library_objects(name)):
+                if ok:
+                    os.replace(o, kept)
+                else:
+                    o.unlink(missing_ok=True)
+        if ok:
+            os.replace(tmp, out)         # atomic: no half-written library
+            BUILD_SECONDS[name] = time.perf_counter() - t0
     if failed:
         raise RuntimeError("\n".join(failed))
     return {name: library_path(name) for name in names}

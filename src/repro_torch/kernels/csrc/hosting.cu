@@ -25,8 +25,15 @@
 //      dp_minplus_kernel   the same recursion on a finished w (K <= 32)
 //   B  dp_backtrack_kernel  one chunk's argmin table walked back to the
 //                          schedule (the backtracked OPT, K <= 32)
-//   E  schedule_kernel<SVC, FMA>  given schedules priced over one chunk, fetches
-//                          charged on entry (Model 1 or a Model-2 slab)
+//   E  schedule_kernel<SVC, FMA, BULK, MAT>  given schedules priced over
+//                          one chunk, fetches charged on entry (Model 1 or
+//                          a Model-2 slab; a scalar M or, MAT, a joint
+//                          grid's explicit fetch matrix)
+//   G  joint_slab_kernel<SVC>  the N per-service sub-slabs of a
+//                          multi-service instance reduced to its joint
+//                          slab (the joint OPT's chunk), and a DP's
+//                          w = fma(c, lv, svc) on a slab of more than 16
+//                          levels
 //   S  sim_kernel<K, SVC, TABLE>  one chunk of the per-slot simulation,
 //                          alpha-RR (sim_chunk_alpha_rr) or a table policy
 //                          (static, MDP, ABC: sim_chunk_table), under
@@ -51,6 +58,16 @@
 
 #include <cuda.h>
 #include <cuda_runtime.h>
+
+// The library builds as one translation unit, or (kernels/_build.py) as
+// parts that nvcc compiles in parallel, each with -DREPRO_PART=n, linked
+// into one library: part n holds the entry points marked REPRO_IN_PART(n)
+// and so instantiates only their kernels.  Without REPRO_PART every entry
+// point is compiled.
+#ifndef REPRO_PART
+#define REPRO_PART -1
+#endif
+#define REPRO_IN_PART(n) (REPRO_PART < 0 || REPRO_PART == (n))
 #include <stdint.h>
 
 #include <algorithm>
@@ -3980,7 +3997,12 @@ __global__ void __launch_bounds__(kBtThreads<BULK>) dp_backtrack_kernel(
 // (simulator.xla_acc_fma); FMA = 1 over S's trace gives S's rent so fused.
 // FMA is a template argument: as a run-time flag its branches cost the
 // walk 28% at the fleet's shape (a 4,096 x 4,096 chunk, H100 80GB HBM3,
-// 700 W).
+// 700 W).  MAT (the joint multi-service grids): M is the row's [K, K]
+// fetch matrix, and the fetch on entry its entry (prev, r_t), 0 when
+// either index is out of range -- the reference's one-hot masked sum of
+// M, exact since one term is left -- read through L1 (a 32-row block's
+// matrices at K = 32 are 128 KB, more than the ring leaves in shared
+// memory); a matrix entry has no product, so only the rent fuses.
 //
 // Bound: bytes -- it reads r, c and x (12 bytes a slot) or r, c and the
 // slab (8 + 4 Kf).  Design: the producer stages a tile of r, c and x (or
@@ -4032,7 +4054,7 @@ inline size_t sc_smem_bytes(int ts, int K, int Kf, bool svc) {
 }
 
 
-template <bool SVC, int FMA, bool BULK>
+template <bool SVC, int FMA, bool BULK, bool MAT>
 __global__ void __launch_bounds__(kScThreads<BULK>) schedule_kernel(
     const float* __restrict__ lv_g, const float* __restrict__ g_g,
     const float* __restrict__ M_g, const int* __restrict__ Tlen_g,
@@ -4171,13 +4193,15 @@ __global__ void __launch_bounds__(kScThreads<BULK>) schedule_kernel(
   const float* lvr = lv + lane * ks;
   const float* gkr = gk + lane * ks;
   const int* clr = cl + lane * ks;
+  // MAT: the row's [K, K] fetch matrix, read through L1
+  const float* fmr = MAT ? M_g + (long long)row * K * K : nullptr;
   int prev = 0, T_len = 0;
   float M = 0.0f, s_rent = 0.0f, s_svc = 0.0f, s_fetch = 0.0f;
   float lv_prev = 0.0f;           // pin ? lv[prev] : 0, carried slot to slot
   if (live) {
     prev = prev_in[row];
     T_len = Tlen_g[row];
-    M = M_g[row];
+    if constexpr (!MAT) M = M_g[row];
     s_rent = sums_in[row * 3 + 0];
     s_svc = sums_in[row * 3 + 1];
     s_fetch = sums_in[row * 3 + 2];
@@ -4206,10 +4230,16 @@ __global__ void __launch_bounds__(kScThreads<BULK>) schedule_kernel(
           s_rent = __fmaf_rn(c_t, lv_t, s_rent);
         else
           s_rent = s_rent + c_t * lv_t;
-        if constexpr ((FMA & 2) != 0)
+        if constexpr (MAT) {
+          // the matrix's entry (prev, r_t), 0 when either is out of range,
+          // as the reference's masked sum of M picks it; no product
+          const bool pin = (unsigned)prev < (unsigned)K;
+          s_fetch = s_fetch + (in && pin ? __ldg(fmr + prev * K + r_t) : 0.0f);
+        } else if constexpr ((FMA & 2) != 0) {
           s_fetch = __fmaf_rn(M, d, s_fetch);
-        else
+        } else {
           s_fetch = s_fetch + M * d;
+        }
         s_svc = s_svc + (in ? sv : 0.0f);
         lv_prev = lv_t;
         prev = r_t;
@@ -4285,6 +4315,88 @@ __global__ void __launch_bounds__(kScThreads<BULK>) schedule_kernel(
 
 inline unsigned n_blocks(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
+}
+
+// ---------------------------------------------------------------------
+// G: joint_slab_kernel<SVC>.  No TPU counterpart: the reference reduces
+// the joint multi-service slab with XLA ops in services._joint_fns
+// (src/repro/core/services.py:251-270).
+//
+// Instance b's N services are sub-slab rows b * N + n.  Per slot t and
+// joint state j, with the state's level idx[b][n][j] of service n:
+//   svc[b][t][j] = 0 + term_0 + term_1 + ... (ascending n, each add
+//   rounded), term_n = svc_sub[b*N+n][t][idx] on a Model-2 sub-slab
+//   (SVC), and under Model 1 the chain acc = fma(float(x_n), g_lane[b][n]
+//   [j], acc) that XLA:CPU makes of the reduce of a product;
+//   x[b][t] the int32 sum over n, c and side those of service lane 0;
+//   at N = 1 only (the DP's w route: a Model-2 slab, its column map as
+//   idx), w[b][t][j] = mask[b][j] ? fma(c, lv[b][j], svc) : +inf, the
+//   fused D's assembly, for D on a finished w past 16 levels.
+// Any output pointer may be NULL (not written).
+//
+// Design: the simplest that is right (a first kernel): a thread a (b, t,
+// j), j fastest, so the svc / w stores and a slot's K-word sub-slab rows
+// are read and written in whole lines; the j == 0 thread writes x, c and
+// side.  Bound: bytes (the sub-slabs read once, the joint slab written
+// once).
+// ---------------------------------------------------------------------
+
+struct JointArgs {
+  const int* x;              // [B*N, chunk] (NULL: x_out not written)
+  const float* c;            // [B*N, chunk]
+  const int* side;           // [B*N, chunk] or NULL
+  const float* svc;          // [B*N, chunk, K] (SVC)
+  const float* g_lane;       // [B, N, J] (Model 1)
+  const int* idx;            // [B, N, J]
+  const float* lv;           // [B, J] (w only, N = 1)
+  const bool* kmask;         // [B, J] (w only, N = 1)
+  int* x_out;                // [B, chunk]
+  float* c_out;              // [B, chunk]
+  int* side_out;             // [B, chunk]
+  float* svc_out;            // [B, chunk, J]
+  float* w_out;              // [B, chunk, J] (N = 1)
+  int B, N, chunk, K, J;
+};
+
+constexpr int kJointThreads = 256;
+
+template <bool SVC>
+__global__ void __launch_bounds__(kJointThreads)
+    joint_slab_kernel(const JointArgs a) {
+  const long long i = (long long)blockIdx.x * kJointThreads + threadIdx.x;
+  const long long n_out = (long long)a.B * a.chunk * a.J;
+  if (i >= n_out) return;
+  const int j = (int)(i % a.J);
+  const long long bt = i / a.J;                  // b * chunk + t
+  const int t = (int)(bt % a.chunk);
+  const int b = (int)(bt / a.chunk);
+  const long long row0 = (long long)b * a.N;     // service lane 0
+  float acc = 0.0f;
+  for (int n = 0; n < a.N; ++n) {
+    const long long rt = (row0 + n) * a.chunk + t;
+    const long long s = (row0 + n) * a.J + j;   // [b][n][j]
+    if constexpr (SVC)
+      acc = acc + a.svc[rt * a.K + a.idx[s]];
+    else
+      acc = __fmaf_rn((float)a.x[rt], a.g_lane[s], acc);
+  }
+  const long long o = bt * a.J + j;
+  if (a.svc_out) a.svc_out[o] = acc;
+  if (a.w_out) {                                 // N = 1: row0 == b
+    const long long bj = (long long)b * a.J + j;
+    a.w_out[o] = a.kmask[bj] ? __fmaf_rn(a.c[bt], a.lv[bj], acc)
+                             : __int_as_float(0x7f800000);
+  }
+  if (j == 0) {
+    const long long r0 = row0 * a.chunk + t;
+    if (a.x_out) {
+      int xs = 0;
+      for (int n = 0; n < a.N; ++n) xs += a.x[r0 + (long long)n * a.chunk];
+      a.x_out[bt] = xs;
+    }
+    if (a.c_out) a.c_out[bt] = a.c[r0];
+    if (a.side_out) a.side_out[bt] = a.side[r0];
+  }
 }
 
 constexpr int kMaxDevices = 64;
@@ -4603,14 +4715,15 @@ struct ScheduleArgs {
   int R, chunk, K, Kf, t0, ts;
 };
 
-template <bool SVC, int FMA, bool BULK>
+template <bool SVC, int FMA, bool BULK, bool MAT>
 int launch_sched(const ScheduleArgs& a, const CUtensorMap (&maps)[3],
                  cudaStream_t st) {
   const size_t bytes = sc_smem_bytes(a.ts, a.K, a.Kf, SVC);
-  const cudaError_t e = allow_smem(schedule_kernel<SVC, FMA, BULK>, bytes);
+  const cudaError_t e =
+      allow_smem(schedule_kernel<SVC, FMA, BULK, MAT>, bytes);
   if (e != cudaSuccess) return (int)e;
   constexpr int threads = kScThreads<BULK>;
-  schedule_kernel<SVC, FMA, BULK>
+  schedule_kernel<SVC, FMA, BULK, MAT>
       <<<n_blocks(a.R, kRows), threads, bytes, st>>>(
           a.lv, a.g, a.M, a.T_len, a.prev_in, a.sums_in, a.counts_in, a.r,
           a.c, a.x, a.svc, a.cols, a.prev_out, a.sums_out, a.counts_out, a.R,
@@ -4620,19 +4733,19 @@ int launch_sched(const ScheduleArgs& a, const CUtensorMap (&maps)[3],
 
 // E's route: tensor copies when every row of r, c and x (or the slab) is
 // 16-byte aligned, else 4-byte cp.async
-template <bool SVC, int FMA>
+template <bool SVC, int FMA, bool MAT>
 int launch_sched_route(const ScheduleArgs& a, cudaStream_t st) {
   const void* xs = SVC ? (const void*)a.svc : (const void*)a.x;
   const int xw = SVC ? a.Kf : 1;
   CUtensorMap maps[3] = {};                      // unused on the 4-byte route
   if (!bulk_ok(a.r, a.c, a.chunk) || (uintptr_t)xs % 16 != 0)
-    return launch_sched<SVC, FMA, false>(a, maps, st);
+    return launch_sched<SVC, FMA, false, MAT>(a, maps, st);
   cudaError_t e = row_map(&maps[0], a.r, a.R, a.chunk, a.ts);
   if (e == cudaSuccess) e = row_map(&maps[1], a.c, a.R, a.chunk, a.ts);
   if (e == cudaSuccess)
     e = row_map(&maps[2], xs, a.R, (long long)a.chunk * xw, a.ts * xw);
   if (e != cudaSuccess) return (int)e;
-  return launch_sched<SVC, FMA, true>(a, maps, st);
+  return launch_sched<SVC, FMA, true, MAT>(a, maps, st);
 }
 
 // f(std::integral_constant<int, K>) at a run-time K of 1..kDpfMaxK
@@ -4664,8 +4777,31 @@ int sim_table_shape(int K, int what) {
 
 }  // namespace
 
+// The fused D's Model-2 instances, in a translation unit of their own
+// (part 7, beside D on a finished w) when the library builds in parts, so
+// that no part holds every instance of the fused D: launch_dp_fwd (part
+// 3) hands its Model-2 calls here.  Outside the anonymous namespace, and
+// of plain argument types, so that the parts link.
+int dp_fwd_model2_part(const void* J, const void* c, const void* x,
+                       const void* g, const void* svc, const void* cols,
+                       const void* lv, const void* kmask, const void* fetch,
+                       const void* T_len, void* Jout, void* args, int R,
+                       int chunk, int K, int Kf, int t0, cudaStream_t st);
+#if REPRO_IN_PART(7)
+int dp_fwd_model2_part(const void* J, const void* c, const void* x,
+                       const void* g, const void* svc, const void* cols,
+                       const void* lv, const void* kmask, const void* fetch,
+                       const void* T_len, void* Jout, void* args, int R,
+                       int chunk, int K, int Kf, int t0, cudaStream_t st) {
+  const DpfArgs a{J, c, x, g, svc, cols, Kf, lv, kmask, fetch,
+                  T_len, Jout, args, R, chunk, t0};
+  return launch_dpf_any<true>(a, K, st);
+}
+#endif
+
 extern "C" {
 
+#if REPRO_IN_PART(0)
 // kind: a StreamKind; a / b / flip as StreamArgs (NULL where the kind
 // reads none); salt < 0: no salt fold (kUniform only)
 int launch_counter_stream(int kind, const void* keys, const void* tids,
@@ -4687,7 +4823,9 @@ int launch_counter_stream(int kind, const void* keys, const void* tids,
     default: return (int)cudaErrorInvalidValue;
   }
 }
+#endif
 
+#if REPRO_IN_PART(0)
 // uniform(key, (n,)) of one [2] key in the given layout (n < 2**31)
 int launch_shaped_uniform(const void* key, void* out, int n,
                           int partitionable, void* stream) {
@@ -4700,7 +4838,9 @@ int launch_shaped_uniform(const void* key, void* out, int n,
                             (cudaStream_t)stream>>>(args);
   return (int)cudaGetLastError();
 }
+#endif
 
+#if REPRO_IN_PART(0)
 int launch_ge_chain(const void* keys, const void* tids, const void* s_in,
                     const void* p_hl, const void* p_lh, const void* rate_h,
                     const void* rate_l, void* s_out, void* states, void* x,
@@ -4719,7 +4859,9 @@ int launch_ge_chain(const void* keys, const void* tids, const void* s_in,
                              (cudaStream_t)stream>>>(args);
   return (int)cudaGetLastError();
 }
+#endif
 
+#if REPRO_IN_PART(1)
 // the ARMA rents of one chunk (1 <= P <= 8, 1 <= Q <= 8)
 int launch_arma_rents(const void* keys, const void* tids, const void* hist_in,
                       const void* eps_in, const void* phi, const void* th,
@@ -4780,7 +4922,9 @@ int launch_arma_rents(const void* keys, const void* tids, const void* hist_in,
 #undef REPRO_ARMA_ROWS
   return (int)cudaGetLastError();
 }
+#endif
 
+#if REPRO_IN_PART(7)
 int launch_dp_minplus(const void* J, const void* wck, const void* fetch,
                       const void* valid, void* Jout, void* args, int R,
                       int chunk, int K, void* stream) {
@@ -4805,10 +4949,14 @@ int launch_dp_minplus(const void* J, const void* wck, const void* fetch,
     default: return launch_dpm<32, 8>(a, st);
   }
 }
+#endif
 
+#if REPRO_IN_PART(0)
 // D on a finished w at K levels: its tile in slots (-1 past 1..32)
 int dp_minplus_tile_slots(int K) { return K < 1 || K > 32 ? -1 : dpm_tile(K); }
+#endif
 
+#if REPRO_IN_PART(6)
 // B: one chunk's argmin table [R, chunk, K] (1 <= K <= 32) walked back
 // from k_in [R]; k_out [R] the level at the chunk's entry, r [R, chunk]
 int launch_dp_backtrack(const void* k_in, const void* args, void* k_out,
@@ -4828,20 +4976,23 @@ int launch_dp_backtrack(const void* k_in, const void* args, void* k_out,
       ts);
   return (int)cudaGetLastError();
 }
+#endif
 
+#if REPRO_IN_PART(6)
 // E: given schedules r [R, chunk] priced over one chunk (1 <= K <= 32),
 // under Model 1 (x, g; svc and cols NULL) or on a Model-2 slab svc [R,
 // chunk, Kf] (1 <= Kf <= 32; x and g NULL) with cols [R, K] (NULL: the
 // identity, Kf == K); fma: bit 0 fuses the rent's multiply-add, bit 1
-// the fetch's
+// the fetch's; mat: M is [R, K, K] explicit fetch matrices (the joint
+// multi-service grids; the fetch has no product, so fma <= 1)
 int launch_schedule(const void* lv, const void* g, const void* M,
                     const void* T_len, const void* prev_in,
                     const void* sums_in, const void* counts_in,
                     const void* r, const void* c, const void* x,
                     const void* svc, const void* cols, void* prev_out,
                     void* sums_out, void* counts_out, int R, int chunk,
-                    int K, int Kf, int t0, int fma, void* stream) {
-  if (K < 1 || K > 32 || chunk < 1 || fma < 0 || fma > 3
+                    int K, int Kf, int t0, int fma, int mat, void* stream) {
+  if (K < 1 || K > 32 || chunk < 1 || fma < 0 || fma > (mat ? 1 : 3)
       || (svc && (Kf < 1 || Kf > 32)) || (!svc && (!x || !g)))
     return (int)cudaErrorInvalidValue;
   if (R <= 0) return (int)cudaGetLastError();
@@ -4855,27 +5006,68 @@ int launch_schedule(const void* lv, const void* g, const void* M,
                        svc ? be_tile(2 + Kf, chunk, Kf)
                            : be_tile(3, chunk, 1)};
   cudaStream_t st = (cudaStream_t)stream;
-#define REPRO_SCHED_CASE(FF)                                                \
-  case FF:                                                                  \
-    return svc ? launch_sched_route<true, FF>(a, st)                        \
-               : launch_sched_route<false, FF>(a, st);
-  switch (fma) {
-    REPRO_SCHED_CASE(0) REPRO_SCHED_CASE(1) REPRO_SCHED_CASE(2)
-    REPRO_SCHED_CASE(3)
+#define REPRO_SCHED_CASE(FF, MM)                                            \
+  case 4 * MM + FF:                                                         \
+    return svc ? launch_sched_route<true, FF, MM>(a, st)                    \
+               : launch_sched_route<false, FF, MM>(a, st);
+  switch (4 * (mat != 0) + fma) {
+    REPRO_SCHED_CASE(0, false) REPRO_SCHED_CASE(1, false)
+    REPRO_SCHED_CASE(2, false) REPRO_SCHED_CASE(3, false)
+    REPRO_SCHED_CASE(0, true) REPRO_SCHED_CASE(1, true)
   }
 #undef REPRO_SCHED_CASE
   return (int)cudaErrorInvalidValue;
 }
+#endif
 
+#if REPRO_IN_PART(6)
+// G: the joint slab of B instances' N sub-slab rows each (svc [B*N,
+// chunk, K], 1 <= K <= kM2MaxK; or, svc NULL, Model 1's x and g_lane [B,
+// N, J]), 1 <= J <= 32; an output NULL is not written (w needs N = 1,
+// a Model-2 slab, lv and kmask)
+int launch_joint_slab(const void* x, const void* c, const void* side,
+                      const void* svc, const void* g_lane, const void* idx,
+                      const void* lv, const void* kmask, void* x_out,
+                      void* c_out, void* side_out, void* svc_out,
+                      void* w_out, int B, int N, int chunk, int K, int J,
+                      void* stream) {
+  if (J < 1 || J > 32 || N < 1 || chunk < 1 || !c || !idx
+      || (svc && (K < 1 || K > kM2MaxK)) || (!svc && (!x || !g_lane))
+      || (x_out && !x) || (side_out && !side)
+      || (w_out && (N != 1 || !svc || !lv || !kmask)))
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0) return (int)cudaGetLastError();
+  const JointArgs a{(const int*)x,    (const float*)c,     (const int*)side,
+                    (const float*)svc, (const float*)g_lane,
+                    (const int*)idx,  (const float*)lv,    (const bool*)kmask,
+                    (int*)x_out,      (float*)c_out,       (int*)side_out,
+                    (float*)svc_out,  (float*)w_out,       B, N, chunk, K, J};
+  const unsigned blocks = n_blocks((long long)B * chunk * J, kJointThreads);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (svc)
+    joint_slab_kernel<true><<<blocks, kJointThreads, 0, st>>>(a);
+  else
+    joint_slab_kernel<false><<<blocks, kJointThreads, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+#endif
+
+#if REPRO_IN_PART(0)
 // B's and E's layout, for the checks that pick their edge shapes: the
 // slots of a tile (be_tile's words and box), the tiles in the ring, and
 // a stage row's words for `words` words of payload (B's rows)
 int be_tile_slots(int words, int chunk, int box) {
   return be_tile(words, chunk, box);
 }
+#endif
+#if REPRO_IN_PART(0)
 int be_ring_stages() { return kBeStages; }
+#endif
+#if REPRO_IN_PART(0)
 int be_row_stride(int words) { return be_stride(words); }
+#endif
 
+#if REPRO_IN_PART(0)
 // S's table variant's and D's layout at K levels (1..16; -1 past them),
 // for the checks that pick their edge shapes: the table variant's tile in
 // slots and its cooked stages (under Model 1 or on a Model-2 slab), D's
@@ -4883,21 +5075,29 @@ int be_row_stride(int words) { return be_stride(words); }
 int sim_tile_slots(int K, int svc) {
   return svc ? sim_table_shape<true>(K, 0) : sim_table_shape<false>(K, 0);
 }
+#endif
+#if REPRO_IN_PART(0)
 int sim_ring_stages(int K, int svc) {
   return svc ? sim_table_shape<true>(K, 1) : sim_table_shape<false>(K, 1);
 }
+#endif
+#if REPRO_IN_PART(0)
 int dp_tile_slots(int K) {
   return with_k(K, [](auto k) {
     return DpSmem<decltype(k)::value, true, false>::TILE;
   });
 }
+#endif
+#if REPRO_IN_PART(0)
 int dp_args_stages(int K, int svc) {
   return with_k(K, [=](auto k) {
     constexpr int KK = decltype(k)::value;
     return svc ? DpSmem<KK, true, true>::NA : DpSmem<KK, true, false>::NA;
   });
 }
+#endif
 
+#if REPRO_IN_PART(3)
 // the fused D under Model 1 (x, g; svc and cols NULL) or on a Model-2
 // service slab svc [R, chunk, Kf] (x and g NULL) with cols [R, K] (NULL:
 // the identity, Kf == K); args may be NULL: the argmin table is then not
@@ -4908,12 +5108,17 @@ int launch_dp_fwd(const void* J, const void* c, const void* x, const void* g,
                   void* Jout, void* args, int R, int chunk, int K, int Kf,
                   int t0, void* stream) {
   if (Kf < 1 || Kf > kDpfMaxK) return (int)cudaErrorInvalidValue;
+  if (svc)
+    return dp_fwd_model2_part(J, c, x, g, svc, cols, lv, kmask, fetch, T_len,
+                              Jout, args, R, chunk, K, Kf, t0,
+                              (cudaStream_t)stream);
   const DpfArgs a{J, c, x, g, svc, cols, Kf, lv, kmask, fetch,
                   T_len, Jout, args, R, chunk, t0};
-  return svc ? launch_dpf_any<true>(a, K, (cudaStream_t)stream)
-             : launch_dpf_any<false>(a, K, (cudaStream_t)stream);
+  return launch_dpf_any<false>(a, K, (cudaStream_t)stream);
 }
+#endif
 
+#if REPRO_IN_PART(4)
 // S under Model 1 (x, g; svc and cols NULL) or on a Model-2 service slab
 // svc [R, chunk, Kf] (x and g NULL) with cols [R, K] (NULL: the identity,
 // Kf == K); r_hist may be NULL
@@ -4937,7 +5142,9 @@ int launch_sim_alpha_rr(const void* plv, const void* mask, const void* pM,
   return svc ? launch_sim_any<true, false>(a, K, (cudaStream_t)stream)
              : launch_sim_any<false, false>(a, K, (cudaStream_t)stream);
 }
+#endif
 
+#if REPRO_IN_PART(5)
 // S's table variant: pi [R, S, K] int32 (1 <= S <= 2), thr [R] (ABC,
 // else NULL), obs the observation kind (kObsNone / kObsSide / kObsX);
 // under Model 1 (x, g; svc and cols NULL) or on a Model-2 slab svc [R,
@@ -4965,7 +5172,9 @@ int launch_sim_table(const void* pi, const void* thr, const void* lv,
   return svc ? launch_sim_any<true, true>(a, K, (cudaStream_t)stream)
              : launch_sim_any<false, true>(a, K, (cudaStream_t)stream);
 }
+#endif
 
+#if REPRO_IN_PART(2)
 // jax.random.poisson (Knuth below rate 10, Hormann at and above) a (row,
 // slot); salt < 0: no salt fold; states / lam_h NULL: the per-row rate
 // lam; work: three words of device memory, the ticket counter and the
@@ -5020,7 +5229,9 @@ int launch_poisson(const void* keys, const void* tids, const void* lam,
   kern<<<(unsigned)blocks, 32 * kPoisWarps, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
+#endif
 
+#if REPRO_IN_PART(2)
 // the Model-2 service costs of one chunk (1 <= K <= kM2MaxK, 0 <= n_max
 // <= 2^23)
 int launch_model2_service(const void* keys, const void* tids, const void* x,
@@ -5094,5 +5305,6 @@ int launch_model2_service(const void* keys, const void* tids, const void* x,
 #undef REPRO_M2_CASE
   return (int)cudaGetLastError();
 }
+#endif
 
 }  // extern "C"

@@ -1137,8 +1137,7 @@ def _dp_fwd(name, J, c, lv, kmask, fetch, T_len, t0, with_args, x=None,
     for arg in ins:
         _build.check_tensor(*arg, dev)
     Kf = K if svc is None else _check_svc(
-        name, svc, svc_cols, R, chunk, K, dev, DPF_MAX_K,
-        ": wider slabs wait for the joint DP (ROADMAP.md, Queue 1 item 11)")
+        name, svc, svc_cols, R, chunk, K, dev, DPF_MAX_K)
     Jout = torch.empty((R, K), dtype=f32, device=dev)
     args = (torch.empty((R, chunk, K), dtype=torch.int32, device=dev)
             if with_args else None)
@@ -1224,10 +1223,15 @@ def dp_fwd_model2(J, c, svc, lv, kmask, fetch, T_len, t0: int, svc_cols=None,
     """Kernel D on a Model-2 service slab, the cost assembly fused in
     (arguments as ``dp_fwd_model2_plain``; 1 <= K <= 16 levels, and the
     slab too), bitwise ``dp_fwd_model2_plain``; ``args_launches`` as in
-    ``dp_fwd_model1``."""
+    ``dp_fwd_model1``.  Past 16 levels (the lane's or the slab's; up to
+    ``DP_MAX_K``) the chunk runs as G's ``w`` and D on a finished w
+    (``_dp_fwd_wide``), bitwise the same plain version."""
     if J.device.type == "cpu":
         return dp_fwd_model2_plain(J, c, svc, lv, kmask, fetch, T_len, t0,
                                    svc_cols, with_args)
+    if max(J.shape[1], svc.shape[-1]) > DPF_MAX_K:
+        return _dp_fwd_wide(J, c, svc, lv, kmask, fetch, T_len, t0,
+                            svc_cols, with_args)
     out = _dp_fwd("dp_fwd_model2", J, c, lv, kmask, fetch, T_len, t0,
                   with_args, svc=svc, svc_cols=svc_cols)
     dp_fwd_model2.launches += 1
@@ -1237,6 +1241,154 @@ def dp_fwd_model2(J, c, svc, lv, kmask, fetch, T_len, t0: int, svc_cols=None,
 
 dp_fwd_model2.launches = 0
 dp_fwd_model2.args_launches = 0
+
+
+def _dp_fwd_wide(J, c, svc, lv, kmask, fetch, T_len, t0, svc_cols,
+                 with_args):
+    """The DP chunk on a Model-2 slab past the fused D's ``DPF_MAX_K``
+    levels (a joint grid of 17 to 32 states): G's ``w`` route, then D on
+    the finished w, each counted in its own launcher
+    (``joint_slab.w_launches``, ``dp_minplus.launches``).  More than
+    ``DP_MAX_K`` levels raise (ROADMAP.md, Queue 1 item 20)."""
+    R, K = J.shape
+    if K > DP_MAX_K:
+        raise ValueError(f"dp_fwd_model2 takes 1 <= K <= {DP_MAX_K} levels "
+                         f"on the card, got {K}: D, B and E past {DP_MAX_K} "
+                         "states wait for ROADMAP.md, Queue 1 item 20")
+    if not 0 <= int(t0) < 2 ** 31:
+        raise ValueError(f"t0 must lie in [0, 2**31), got {t0}")
+    _build.check_tensor("T_len", T_len, torch.int32, (R,), J.device)
+    w = slab_w(c, svc, lv, kmask, svc_cols)
+    tids = torch.arange(int(t0), int(t0) + c.shape[1], dtype=torch.int32,
+                        device=c.device)
+    Jout, args = dp_minplus(J, w, fetch, tids[None, :] < T_len[:, None])
+    return Jout, (args if with_args else None)
+
+
+# ----------------------------------------------------------------------
+# G: joint_slab.
+# ----------------------------------------------------------------------
+
+def joint_slab_plain(x, c, side, svc, g_lane, idx):
+    """Plain version of kernel G: the N per-service sub-slabs of each of B
+    instances (rows ``b * N + n``) reduced to one joint slab, the
+    reference's ``services._joint_fns`` chunk.  ``x`` [B*N, chunk] int32,
+    ``c`` [B*N, chunk] float32, ``side`` [B*N, chunk] int32 or None,
+    ``idx`` [B, N, J] int32 each joint state's level per service; Model
+    2: ``svc`` [B*N, chunk, K] float32 (``g_lane`` None), Model 1:
+    ``g_lane`` [B, N, J] float32 each state's per-service g (``svc``
+    None).  Returns ``(x [B, chunk] summed over n, c and side [B, chunk]
+    of lane 0, svc [B, chunk, J])``: ``svc[b, t, j]`` sums over n in
+    ascending order from 0 the gathered ``svc[b*N+n, t, idx[b, n, j]]``
+    (rounded adds), or under Model 1 ``fma(float(x_n), g_lane[b, n, j],
+    acc)``, the FMA chain XLA:CPU makes of the reduce of a product."""
+    B, N, J = idx.shape
+    chunk = c.shape[1]
+    xs = x.reshape(B, N, chunk)
+    acc = torch.zeros((B, chunk, J), dtype=torch.float32, device=c.device)
+    for n in range(N):
+        if svc is not None:
+            sv = svc.reshape(B, N, chunk, -1)[:, n]
+            gi = idx[:, n, None, :].to(torch.int64).expand(B, chunk, J)
+            acc = acc + torch.gather(sv, 2, gi)
+        else:
+            acc = fma32(xs[:, n, :, None].to(torch.float32),
+                        g_lane[:, n, None, :], acc)
+    side_j = None if side is None else side.reshape(B, N, chunk)[:, 0]
+    return (xs.sum(dim=1, dtype=torch.int32),
+            c.reshape(B, N, chunk)[:, 0].contiguous(),
+            None if side_j is None else side_j.contiguous(), acc)
+
+
+def slab_w_plain(c, svc, lv, kmask, svc_cols=None):
+    """Plain version of G's ``w`` route: ``w = kmask ? fma(c, lv, svc) :
+    +inf`` [R, chunk, K] of a Model-2 slab ``svc`` [R, chunk, Kf] (its
+    ``svc_cols`` [R, K] columns when given), ``c`` [R, chunk], ``lv`` /
+    ``kmask`` [R, K]: the fused D's cost assembly, for D on a finished w
+    on slabs of more than ``DPF_MAX_K`` levels."""
+    s = gather_svc(svc, svc_cols)
+    return torch.where(kmask[:, None, :],
+                       fma32(c[:, :, None], lv[:, None, :], s), float("inf"))
+
+
+def _launch_joint(x, c, side, svc, g_lane, idx, lv, kmask, outs, B, N,
+                  chunk, K, J, dev):
+    err = _build.library("hosting").launch_joint_slab(
+        _ptr(x), c.data_ptr(), _ptr(side), _ptr(svc), _ptr(g_lane),
+        idx.data_ptr(), _ptr(lv), _ptr(kmask), *(_ptr(o) for o in outs),
+        B, N, chunk, K, J, _build.stream(dev))
+    _build.raise_on(err, "joint_slab")
+
+
+def joint_slab(x, c, side, svc, g_lane, idx):
+    """Kernel G (arguments as ``joint_slab_plain``; N * B rows, J <=
+    ``DP_MAX_K`` states, a sub-slab of up to ``M2_MAX_K`` levels), bitwise
+    ``joint_slab_plain``."""
+    if c.device.type == "cpu":
+        return joint_slab_plain(x, c, side, svc, g_lane, idx)
+    dev = c.device
+    B, N, J = idx.shape
+    chunk = c.shape[1]
+    if not 1 <= J <= DP_MAX_K:
+        raise ValueError(f"joint_slab takes 1 <= J <= {DP_MAX_K} joint "
+                         f"states, got {J}")
+    i32, f32 = torch.int32, torch.float32
+    ins = [("x", x, i32, (B * N, chunk)), ("c", c, f32, (B * N, chunk)),
+           ("idx", idx, i32, (B, N, J))]
+    if side is not None:
+        ins.append(("side", side, i32, (B * N, chunk)))
+    K = 0
+    if svc is not None:
+        K = svc.shape[2] if svc.dim() == 3 else -1
+        ins.append(("svc", svc, f32, (B * N, chunk, K)))
+        if not 1 <= K <= M2_MAX_K:
+            raise ValueError(f"joint_slab takes a sub-slab of 1 <= K <= "
+                             f"{M2_MAX_K} levels, got {K}")
+    else:
+        ins.append(("g_lane", g_lane, f32, (B, N, J)))
+    for arg in ins:
+        _build.check_tensor(*arg, dev)
+    outs = (torch.empty((B, chunk), dtype=i32, device=dev),
+            torch.empty((B, chunk), dtype=f32, device=dev),
+            None if side is None else torch.empty((B, chunk), dtype=i32,
+                                                  device=dev),
+            torch.empty((B, chunk, J), dtype=f32, device=dev), None)
+    _launch_joint(x, c, side, svc, None if svc is not None else g_lane, idx,
+                  None, None, outs, B, N, chunk, K, J, dev)
+    joint_slab.launches += 1
+    return outs[:4]
+
+
+joint_slab.launches = 0
+joint_slab.w_launches = 0
+
+
+def slab_w(c, svc, lv, kmask, svc_cols=None):
+    """G's ``w`` route (arguments as ``slab_w_plain``; K <= ``DP_MAX_K``,
+    a slab of up to ``M2_MAX_K`` levels): kernel G at N = 1, its column
+    map ``svc_cols`` (or the identity) as the states' levels, writing only
+    ``w``; bitwise ``slab_w_plain``.  Counted in ``joint_slab.launches``
+    and ``joint_slab.w_launches``."""
+    if c.device.type == "cpu":
+        return slab_w_plain(c, svc, lv, kmask, svc_cols)
+    dev = c.device
+    R, K = lv.shape
+    chunk = c.shape[1]
+    if not 1 <= K <= DP_MAX_K:
+        raise ValueError(f"slab_w takes 1 <= K <= {DP_MAX_K} levels, "
+                         f"got {K}")
+    _build.check_tensor("c", c, torch.float32, (R, chunk), dev)
+    _build.check_tensor("lv", lv, torch.float32, (R, K), dev)
+    _build.check_tensor("kmask", kmask, torch.bool, (R, K), dev)
+    Kf = _check_svc("slab_w", svc, svc_cols, R, chunk, K, dev, M2_MAX_K)
+    idx = (svc_cols if svc_cols is not None else torch.arange(
+        K, dtype=torch.int32, device=dev).expand(R, K).contiguous())
+    w = torch.empty((R, chunk, K), dtype=torch.float32, device=dev)
+    _launch_joint(None, c, None, svc, None, idx, lv, kmask,
+                  (None, None, None, None, w), R, 1, chunk, Kf, K, dev)
+    joint_slab.launches += 1
+    joint_slab.w_launches += 1
+    return w
 
 
 # ----------------------------------------------------------------------
@@ -1614,12 +1766,14 @@ def schedule_chunk_plain(lv, M, T_len, t0: int, carry, r, c, x=None, g=None,
     chunk] int32 over slots ``[t0, t0 + chunk)``, entered from ``carry[0]``
     [R] int32 (the level held before the chunk) with ``carry[1] = {"sums":
     [R, 3], "counts": [R, K]}``.  Per slot: the fetch ``M * (lv[r_t] -
-    lv[prev])^+`` charged on entry, rent ``c_t * lv[r_t]`` and the service
+    lv[prev])^+`` (a matrix ``M`` [R, K, K]: its entry ``M[prev, r_t]``,
+    0 when either index is out of range) charged on entry, rent ``c_t *
+    lv[r_t]`` and the service
     of ``r_t`` (Model 1: ``x`` [R, chunk] int32 times ``g`` [R, K]; Model
     2: ``svc`` [R, chunk, K_svc] through ``svc_cols`` [R, K]) added to the
     sums slot by slot, zero past the row's horizon ``T_len`` (``acc_fma``:
     the rent's and the fetch's products fused into their adds,
-    ``simulator.xla_acc_fma``).
+    ``simulator.xla_acc_fma``; a matrix entry has no product to fuse).
     Returns the carry'.  ``card_calls`` counts its calls on the card."""
     if c.is_cuda:
         schedule_chunk_plain.card_calls += 1
@@ -1634,9 +1788,10 @@ def schedule_chunk_plain(lv, M, T_len, t0: int, carry, r, c, x=None, g=None,
         valid = T_len > t0 + j
         r_t = r[:, j]
         onehot_t = levels == r_t[:, None]
+        onehot_prev = levels == prev[:, None]
         lv_t = _select(onehot_t, lv)
-        lv_prev = _select(levels == prev[:, None], lv)
-        fetch_t = _fetch_between(M, lv_prev, lv_t)
+        lv_prev = _select(onehot_prev, lv)
+        fetch_t = _fetch_between(M, lv_prev, lv_t, onehot_prev, onehot_t)
         rent_t = c[:, j] * lv_t
         svc_cost_t = _select(onehot_t, s[:, j])
         vec = torch.stack([rent_t, svc_cost_t, fetch_t], dim=1)
@@ -1644,9 +1799,10 @@ def schedule_chunk_plain(lv, M, T_len, t0: int, carry, r, c, x=None, g=None,
         if acc_fma:
             new[:, 0] = torch.where(valid, fma32(c[:, j], lv_t, sums[:, 0]),
                                     sums[:, 0])
-            new[:, 2] = torch.where(valid, fma32(
-                M, torch.clamp_min(lv_t - lv_prev, 0.0), sums[:, 2]),
-                sums[:, 2])
+            if M.dim() == 1:            # a matrix entry has no product
+                new[:, 2] = torch.where(valid, fma32(
+                    M, torch.clamp_min(lv_t - lv_prev, 0.0), sums[:, 2]),
+                    sums[:, 2])
         sums = new
         counts = counts + torch.where(valid[:, None], onehot_t.to(torch.int32),
                                       0)
@@ -1660,7 +1816,9 @@ schedule_chunk_plain.card_calls = 0
 def schedule_chunk(lv, M, T_len, t0: int, carry, r, c, x=None, g=None,
                    svc=None, svc_cols=None, acc_fma: bool = False):
     """Kernel E (arguments as ``schedule_chunk_plain``; K <= 32 levels, a
-    Model-2 slab of up to 32), bitwise ``schedule_chunk_plain``."""
+    Model-2 slab of up to 32), bitwise ``schedule_chunk_plain``.  A matrix
+    ``M`` [R, K, K] takes E's matrix route (the fetch read from the row's
+    matrix; ``matrix_launches`` counts those launches)."""
     if c.device.type == "cpu":
         return schedule_chunk_plain(lv, M, T_len, t0, carry, r, c, x, g, svc,
                                     svc_cols, acc_fma)
@@ -1681,7 +1839,8 @@ def _schedule(lv, M, T_len, t0, carry, r, c, x, g, svc, svc_cols, fma):
     if not 0 <= int(t0) < 2 ** 31:
         raise ValueError(f"t0 must lie in [0, 2**31), got {t0}")
     f32, i32 = torch.float32, torch.int32
-    ins = [("lv", lv, f32, (R, K)), ("M", M, f32, (R,)),
+    mat = M.dim() > 1
+    ins = [("lv", lv, f32, (R, K)), ("M", M, f32, (R, K, K) if mat else (R,)),
            ("T_len", T_len, i32, (R,)), ("prev", prev, i32, (R,)),
            ("sums", acc["sums"], f32, (R, 3)),
            ("counts", acc["counts"], i32, (R, K)),
@@ -1700,14 +1859,16 @@ def _schedule(lv, M, T_len, t0, carry, r, c, x, g, svc, svc_cols, fma):
         acc["counts"].data_ptr(), r.data_ptr(), c.data_ptr(),
         _ptr(None if svc is not None else x), _ptr(svc), _ptr(svc_cols),
         prev_out.data_ptr(), new_acc["sums"].data_ptr(),
-        new_acc["counts"].data_ptr(), R, chunk, K, Kf, int(t0), fma,
-        _build.stream(dev))
+        new_acc["counts"].data_ptr(), R, chunk, K, Kf, int(t0),
+        fma & 1 if mat else fma, int(mat), _build.stream(dev))
     _build.raise_on(err, "schedule_chunk")
     schedule_chunk.launches += 1
+    schedule_chunk.matrix_launches += mat
     return (prev_out, new_acc)
 
 
 schedule_chunk.launches = 0
+schedule_chunk.matrix_launches = 0
 
 
 def _fused_rent(out, rent_fma, collect_trace, lv, M, T_len, t0, acc_in, c,

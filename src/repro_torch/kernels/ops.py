@@ -14,7 +14,9 @@ counters a run reads; ``DISPATCHERS`` the wrappers that pick one of two
 kernels (F, M) and count the launches of both; ``WIDE`` those that count
 their launches on a Model-2 slab of more than 16 levels too; ``ARGS``
 those that count the launches writing D's argmin table too; ``MA1`` those
-that count their launches at an MA order of 1 too; ``PLAIN_ON_CARD`` the
+that count their launches at an MA order of 1 too; ``MATRIX`` those that
+count their launches on a matrix-``M`` grid too (E); ``W`` those that
+count the launches writing only a DP's ``w`` (G); ``PLAIN_ON_CARD`` the
 plain code whose calls on the card a run counts.  ``reset_launches`` sets
 every counter to 0.
 """
@@ -57,10 +59,11 @@ def ssd_scan(x, dt, A, B, C, h0=None, chunk: int = 128):
 
 #: every kernel's launcher: P (uniforms, Bernoulli arrivals, uniform
 #: rents, NA rents, normals, the GE chunk, the ARMA chunk, Poisson draws,
-#: Model-2 service, the shaped uniform of one key), D (fused under Model 1 and Model 2, and on a finished
-#: w), B (the DP's backtrack), S (alpha-RR and the table variant, each
-#: under Model 1 and Model 2), E (schedule pricing), F (tensor-core and
-#: fma), M (tensor-core and fma)
+#: Model-2 service, the shaped uniform of one key), D (fused under Model
+#: 1 and Model 2, and on a finished w), B (the DP's backtrack), S
+#: (alpha-RR and the table variant, each under Model 1 and Model 2), E
+#: (schedule pricing), G (the joint multi-service slab), F (tensor-core
+#: and fma), M (tensor-core and fma)
 KERNELS = (hosting.slot_uniform, hosting.bernoulli_arrivals_chunk,
            hosting.uniform_rents_chunk, hosting.na_rents_chunk,
            hosting.normal_chunk, hosting.ge_bernoulli_chunk,
@@ -70,12 +73,14 @@ KERNELS = (hosting.slot_uniform, hosting.bernoulli_arrivals_chunk,
            hosting.dp_fwd_model2, hosting.dp_minplus, hosting.dp_backtrack,
            hosting.sim_chunk_alpha_rr, hosting.sim_chunk_alpha_rr_svc,
            hosting.sim_chunk_table, hosting.sim_chunk_table_svc,
-           hosting.schedule_chunk,
+           hosting.schedule_chunk, hosting.joint_slab,
            _fa.flash_attention_wgmma, _fa.flash_attention_fma,
            _ssd.ssd_scan_mma, _ssd.ssd_scan_fma)
 DISPATCHERS = (_fa.flash_attention, _ssd.ssd_scan)
 #: the launchers that also count their launches on a wide Model-2 slab
-#: (``wide_launches``: more than ``hosting.DPF_MAX_K`` levels)
+#: (``wide_launches``: more than ``hosting.DPF_MAX_K`` levels; the fused
+#: D on such a slab runs as G's ``w`` and D on a finished w, counted in
+#: ``joint_slab.w_launches`` and ``dp_minplus.launches``)
 WIDE = (hosting.model2_service_chunk, hosting.sim_chunk_alpha_rr_svc,
         hosting.sim_chunk_table_svc)
 #: the launchers that also count their launches that write D's argmin
@@ -84,6 +89,12 @@ ARGS = (hosting.dp_fwd_model1, hosting.dp_fwd_model2)
 #: the launchers that also count their launches at an MA order of 1
 #: (``ma1_launches``)
 MA1 = (hosting.arma_rents_chunk,)
+#: the launchers that also count their launches on a matrix-M grid
+#: (``matrix_launches``: E's matrix route)
+MATRIX = (hosting.schedule_chunk,)
+#: the launchers that also count their launches writing only a DP's w
+#: (``w_launches``: G's w route)
+W = (hosting.joint_slab,)
 #: plain code that counts its calls on the card (``card_calls``): the
 #: float64 FMA emulation (every plain D and alpha-RR S calls it), the
 #: per-slot GE and ARMA loops, the Poisson rounds, the Model-2 counts,
@@ -109,6 +120,10 @@ def reset_launches():
         k.args_launches = 0
     for k in MA1:
         k.ma1_launches = 0
+    for k in MATRIX:
+        k.matrix_launches = 0
+    for k in W:
+        k.w_launches = 0
     hosting.reset_poisson_rejection_launches()
     for f in PLAIN_ON_CARD:
         f.card_calls = 0

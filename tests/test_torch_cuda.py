@@ -31,6 +31,7 @@ from repro_torch.kernels import hosting as H
 from repro_torch.kernels import ssd_scan as SSD
 
 import _be_tiles as T
+import _joint_cases as JC
 import _table_tiles as TT
 
 TOL_F32, TOL_STATE, RTOL_BF16 = 1e-5, 1e-4, 2.0 ** -7
@@ -980,8 +981,8 @@ def test_wide_model2_service_kernel_matches_plain(case, K, part):
 def test_wide_svc_sim_kernels_match_plain(case):
     """alpha-RR's S (with and without the trace and the final fetch) and
     the table variant (MDP) on a slab of Kf > 16 levels through a column
-    map, each == its plain version; D refuses the slab, naming the
-    ROADMAP item that widens it."""
+    map, each == its plain version; D on the slab runs as G's ``w`` and D
+    on a finished w (the wide route), == its plain version too."""
     from repro_torch.core.policies.alpha_rr import alpha_rr_init
     from repro_torch.core.policies.offline_opt import dp_fetch_matrix
     from repro_torch.core.simulator import sim_acc0
@@ -1026,8 +1027,16 @@ def test_wide_svc_sim_kernels_match_plain(case):
     dargs = (torch.zeros((R, K), device=dev), h["c"], d["svc"], h["lv"],
              h["kmask"], dp_fetch_matrix(h["M"], h["lv"]), h["T_len"],
              h["t0"], d["cols"])
-    with pytest.raises(ValueError, match="Queue 1 item 11"):
-        H.dp_fwd_model2(*dargs)
+    wide0 = (H.dp_fwd_model2.launches, H.joint_slab.w_launches,
+             H.dp_minplus.launches)
+    for with_args in (False, True):
+        Jk, ak = H.dp_fwd_model2(*dargs, with_args=with_args)
+        torch.cuda.synchronize()
+        Jp, ap = H.dp_fwd_model2_plain(*dargs, with_args=with_args)
+        assert torch.equal(Jk, Jp) and ((ak is None and ap is None)
+                                        or torch.equal(ak, ap)), with_args
+    assert (H.dp_fwd_model2.launches, H.joint_slab.w_launches,
+            H.dp_minplus.launches) == (wide0[0], wide0[1] + 2, wide0[2] + 2)
 
 
 @pytest.mark.cuda
@@ -1784,3 +1793,230 @@ def test_gather_route_on_few_rows_matches_plain(R, K):
                 for key in a:
                     assert torch.equal(a[key], b[key]), (RR, chunk, key)
             assert (rk is None and rp is None) or torch.equal(rk, rp)
+
+
+# ----------------------------------------------------------------------
+# The service axis: kernel G (the joint slab, and the DP's w past 16
+# levels), E's matrix route, D on joint grids (the fused D up to 16
+# states, G's w and D on a finished w up to 32), the joint OPT card ==
+# CPU.
+# ----------------------------------------------------------------------
+
+def test_every_hosting_entry_point_is_in_one_build_part():
+    """The hosting library's parts (``_build.PARTS``) together hold every
+    entry point once: each ``int name(`` of the C block sits under one
+    ``REPRO_IN_PART(n)`` with n below the part count."""
+    import re
+    src = (_build._CSRC / "hosting.cu").read_text()
+    block = src[src.index('extern "C" {'):]
+    found = re.findall(r"#if REPRO_IN_PART\((\d+)\)\n(?://[^\n]*\n)*int "
+                       r"(\w+)\(", block)
+    names = [n for _, n in found]
+    assert sorted(names) == sorted(_build.LIBRARIES["hosting"][1])
+    parts = {int(p) for p, _ in found}
+    assert parts == set(range(_build.PARTS["hosting"]))
+
+
+def _joint_tensors(dev, *case):
+    t = lambda a: None if a is None else torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to(dev)
+    return [t(a) for a in JC.joint_slab_case(*case)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model2", [True, False])
+@pytest.mark.parametrize("case", [
+    # (instances, N, chunk, sub-slab levels, J, side): the joint state
+    # counts of the service sets, ragged rows and chunks, one slot
+    (1, 1, 1, 2, 1, True), (2048, 2, 4096, 3, 6, True),
+    (255, 2, 1001, 4, 16, False), (253, 2, 999, 5, 17, True),
+    (1024, 4, 1024, 3, 19, True), (31, 3, 333, 3, 27, False),
+    (33, 4, 97, 3, 32, True), (7, 1, 4097, 32, 32, True)])
+def test_joint_slab_kernel_matches_plain(case, model2):
+    """G == its plain version, bit for bit: x summed, c and side of lane
+    0, each state's service summed over the services (Model 2: gathered
+    columns; Model 1: the FMA chain of x_n * g)."""
+    dev = _card()
+    B, N, chunk, K, J, side = case
+    x, c, sd, svc, g_lane, idx = _joint_tensors(dev, B, N, chunk, K, J,
+                                                model2, B + chunk + J, side)
+    before = (H.joint_slab.launches, H.joint_slab.w_launches)
+    got = H.joint_slab(x, c, sd, svc, g_lane, idx)
+    torch.cuda.synchronize()
+    want = H.joint_slab_plain(x, c, sd, svc, g_lane, idx)
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert (H.joint_slab.launches, H.joint_slab.w_launches) == (
+        before[0] + 1, before[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (R, chunk, K lane levels, Kf slab levels, column map)
+    (4096, 1024, 17, 17, False), (1021, 1001, 19, 19, False),
+    (300, 333, 32, 32, False), (257, 97, 17, 31, True),
+    (5, 4097, 24, 32, True), (1, 1, 32, 32, False)])
+def test_slab_w_kernel_matches_plain(case):
+    """G's w route (N = 1, the column map as the states' levels, only w
+    written) == ``slab_w_plain``: fma(c, lv, svc), +inf on masked levels."""
+    dev = _card()
+    R, chunk, K, Kf, cols = case
+    h = _hosting_case(dev, R, chunk, K, True, True, seed=R + K)
+    d = _svc_inputs(dev, R, chunk, K, Kf, seed=R + Kf)
+    args = (h["c"], d["svc"], h["lv"], h["kmask"],
+            d["cols"] if cols else None)
+    before = H.joint_slab.w_launches
+    w = H.slab_w(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(w, H.slab_w_plain(*args))
+    assert H.joint_slab.w_launches == before + 1
+
+
+def _matrix_m(dev, rng, R, K, ties):
+    """[R, K, K] fetch matrices >= 0 (zeros on the diagonal and below it in
+    a third of the rows), on a half-integer grid with ``ties``."""
+    m = (rng.integers(0, 9, (R, K, K)) / 2 if ties
+         else rng.random((R, K, K)) * 10).astype(np.float32)
+    m[::3] = np.triu(m[::3], 1)
+    return torch.from_numpy(m).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acc_fma", [False, True])
+@pytest.mark.parametrize("case", [
+    # (R, chunk, K, service[, schedule[, route]]): a joint grid's J at the
+    # fleet's width, its tile and ring edges (the 4-byte and the bulk
+    # route), a Model-2 slab of the grid's own levels, J = 16, 17 and 32
+    (4096, 4096, 6, "model2"), (4093, _ET - 1, 3, "model1"),
+    (4093, _ET + 1, 3, "model1"), (300, _ET_RING - 1, 3, "model1"),
+    (300, _ET_RING + 1, 3, "model1"), (33, _ET_RING - 4, 3, "model1"),
+    (33, _ET_RING + 4, 3, "model1"), (1021, 1001, 16, "model2"),
+    (253, 999, 17, "model2"), (300, 4 * T.E_TILE_SLAB32 + 4, 32, "model2"),
+    (300, 4 * T.E_TILE_SLAB32 + 1, 32, "model2"),
+    (1021, 1000, 19, "model2", "every"), (1024, 1024, 6, "model2", "never"),
+    (4096, 4096, 6, "model2", "random", "4-byte")])
+def test_schedule_kernel_matrix_route_matches_plain(case, acc_fma):
+    """E's matrix route == its plain version: the fetch on entry the
+    row's matrix entry (prev, r_t), 0 for a level out of range, with and
+    without the rent's product fused (the fetch has none)."""
+    dev = _card()
+    R, chunk, K, kind = case[:4]
+    sched = case[4] if len(case) > 4 else "random"
+    a, kw = _schedule_args(dev, R, chunk, K, kind, seed=R + chunk + K,
+                           sched=sched)
+    rng = np.random.default_rng(R + K)
+    a = (a[0], _matrix_m(dev, rng, R, K, K % 2 == 0)) + a[2:]
+    if case[5:] == ("4-byte",):
+        a = a[:5] + (H.misaligned(a[5]),) + a[6:]
+    before = (H.schedule_chunk.launches, H.schedule_chunk.matrix_launches)
+    pk, ak = H.schedule_chunk(*a, **kw, acc_fma=acc_fma)
+    torch.cuda.synchronize()
+    assert (H.schedule_chunk.launches, H.schedule_chunk.matrix_launches) == (
+        before[0] + 1, before[1] + 1)
+    pp, ap = H.schedule_chunk_plain(*a, **kw, acc_fma=acc_fma)
+    assert torch.equal(pk, pp)
+    for key in ap:
+        assert torch.equal(ak[key], ap[key]), key
+
+
+def _joint_dp_args(dev, J, R, chunk, seed):
+    """The DP chunk's inputs on R rows of the joint grid with J states
+    (``_joint_cases``): rents and a joint Model-2 slab on a half-integer
+    grid (ties between the states that share a total level), horizons
+    inside the chunk."""
+    from repro_torch.core.costs import HostingCosts, ServiceSet
+    from repro_torch.core.costs import joint_hosting_grid
+    grid = joint_hosting_grid([JC.joint_set(HostingCosts, ServiceSet, J)]
+                              * R, device=dev)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    c = t((rng.integers(0, 5, (R, chunk)) / 2).astype(np.float32))
+    svc = t((rng.integers(0, 9, (R, chunk, J)) / 2).astype(np.float32))
+    t0 = 4096
+    T_len = t(rng.integers(t0 - 3, t0 + chunk + 3, R).astype(np.int32))
+    J0 = torch.zeros((R, J), dtype=torch.float32, device=dev)
+    J0[1::2, 1:] = float("inf")
+    return (J0, c, svc, grid.levels, grid.mask, grid.M, T_len, t0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_args", [False, True])
+@pytest.mark.parametrize("J,R,chunk", [(6, 4096, 1024), (16, 1021, 1001),
+                                       (17, 253, 999), (19, 1024, 4096),
+                                       (32, 33, 97), (1, 5, 3)])
+def test_dp_on_joint_grids_matches_plain(J, R, chunk, with_args):
+    """D on a joint grid's slab == its plain version, bit for bit: the
+    fused D up to 16 states (joint fetch matrices are not monotone in the
+    level and tie), G's w and D on a finished w from 17 to 32."""
+    dev = _card()
+    args = _joint_dp_args(dev, J, R, chunk, seed=J + R)
+    wide = J > H.DPF_MAX_K
+    before = (H.dp_fwd_model2.launches, H.joint_slab.w_launches,
+              H.dp_minplus.launches)
+    Jk, ak = H.dp_fwd_model2(*args, with_args=with_args)
+    torch.cuda.synchronize()
+    Jp, ap = H.dp_fwd_model2_plain(*args, with_args=with_args)
+    assert torch.equal(Jk, Jp)
+    assert (ak is None and ap is None) or torch.equal(ak, ap)
+    assert (H.dp_fwd_model2.launches, H.joint_slab.w_launches,
+            H.dp_minplus.launches) == (before[0] + (not wide),
+                                       before[1] + wide, before[2] + wide)
+
+
+@pytest.mark.cuda
+def test_dp_past_32_states_raises_on_the_card():
+    """J = 36 > DP_MAX_K: a ValueError naming the limit and its ROADMAP
+    item, on the card (no CPU path)."""
+    dev = _card()
+    args = _joint_dp_args(dev, 36, 4, 8, seed=0)
+    with pytest.raises(ValueError, match="Queue 1 item 20"):
+        H.dp_fwd_model2(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model2", [True, False])
+@pytest.mark.parametrize("J", [6, 19])
+def test_joint_opt_on_the_card_matches_the_cpu(J, model2):
+    """``offline_opt_services`` (materialised with its schedule, then
+    checkpointed cost only) on the card == on the CPU, and the kernels
+    ran: G, D (the fused one at J = 6, the wide route at 19), B, E's
+    matrix route; no plain code on the card."""
+    from repro_torch.core import scenarios as ps
+    from repro_torch.core import services as SV
+    from repro_torch.core.costs import HostingCosts, ServiceSet
+    from repro_torch.kernels import ops
+    dev = _card()
+    B, T, chunk = 6, 300, 128
+    ss = JC.joint_set(HostingCosts, ServiceSet, J)
+    out = {}
+    for d in ("cpu", dev):
+        sf = SV.service_fleet([ss] * B, T)
+        N = sf.N
+        keys = ps.split_keys(ps.prng_key(5, d), B * N)
+        arr = ps.ge_arrivals(keys, 0.3, 0.2, 5.0, 1.5, B * N, device=d)
+        rent = ps.spot_rents(ps.prng_key(6, d), 0.5, B * N, device=d)
+        svc = (ps.model2_service(ps.prng_key(7, d), sf.lane_grid(d).g,
+                                 B * N, 6, device=d) if model2 else None)
+        sc = ps.combine(arr, rent, svc=svc)
+        ops.reset_launches()
+        res = SV.offline_opt_services(sf, scenario=sc, chunk_size=chunk,
+                                      device=d)
+        ck = SV.offline_opt_services(sf, scenario=sc, chunk_size=chunk,
+                                     checkpointed=True,
+                                     collect_schedule=False, device=d)
+        if d == dev:
+            torch.cuda.synchronize()
+            assert H.joint_slab.launches > 0 and H.dp_backtrack.launches > 0
+            assert H.schedule_chunk.matrix_launches > 0
+            assert (H.joint_slab.w_launches > 0) == (J > 16)
+            assert not any(f.card_calls for f in ops.PLAIN_ON_CARD)
+        assert np.array_equal(ck.cost, res.cost)
+        assert np.all(SV.capacity_overflow(
+            sf, res.service_schedules()[:, :, :]) == 0.0)
+        out[d] = res
+    a, b = out["cpu"], out[dev]
+    assert np.array_equal(a.cost, b.cost)
+    assert np.array_equal(a.joint.r_hist, b.joint.r_hist)
+    for f in ("total", "rent", "service", "fetch", "level_slots"):
+        assert np.array_equal(getattr(a.joint.sim, f),
+                              getattr(b.joint.sim, f)), f

@@ -133,9 +133,10 @@ def test_static_and_chunking_match():
 def test_unported_arguments_raise():
     """What the port does not take yet raises ``NotImplementedError``
     naming its ROADMAP.md item: ``async_ingest`` (item 10), ``gather`` and
-    a mesh (item 15) on every fleet driver, matrix-valued ``M`` (item 11);
-    a column map without a service channel and ``antithetic`` without
-    seeds are the reference's ``ValueError``s."""
+    a mesh (item 15) on every fleet driver; a column map without a service
+    channel and ``antithetic`` without seeds are the reference's
+    ``ValueError``s.  Matrix-valued ``M`` (the joint multi-service grids)
+    is ported: ``dp_fetch_matrix`` passes it through untouched."""
     import torch
     from repro_torch.core.fleet import evaluate_schedule_fleet
     from repro_torch.core.policies.offline_opt import dp_fetch_matrix
@@ -162,8 +163,8 @@ def test_unported_arguments_raise():
                       svc_cols=np.zeros((pf.B, pf.K), np.int32))
     with pytest.raises(ValueError, match="no Model-2 service channel"):
         run_fleet([lane], pf, scenario=psc, device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        dp_fetch_matrix(torch.zeros((pf.B, 3, 3)), pf.grid.levels)
+    fm = torch.rand((pf.B, 3, 3))
+    assert dp_fetch_matrix(fm, pf.grid.levels) is fm
     with pytest.raises(ValueError, match="antithetic"):
         run_fleet(pol, pf, scenario=psc, antithetic=True, device=CPU)
 

@@ -450,7 +450,7 @@ def test_run_policy_and_evaluate_schedule_match_the_reference(with_svc):
             np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
         assert a.r_hist.dtype == b.r_hist.dtype
         np.testing.assert_array_equal(a.per_slot, b.per_slot)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 18"):
         psim.run_policy(AlphaRR(pc), pc, x, c, route=np.zeros((len(x), 3)),
                         device=CPU)
 
